@@ -27,6 +27,10 @@ from turbo_metrics_tpu_torch.ops import gaussian as t_g
 from turbo_metrics_tpu_torch.ops import ssim_maps as t_maps
 from turbo_metrics_tpu_torch.ops import xyb as t_xyb
 
+# The suite runs in several worker processes at once: one intra-op thread per
+# worker keeps torch from oversubscribing the cores that the JAX tests share.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-5, 2e-6
 
 

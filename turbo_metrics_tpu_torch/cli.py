@@ -3,7 +3,8 @@
 The same flags and output shapes as the JAX package's CLI (itself mirroring
 turbo-metrics-cli/src/main.rs:31-102), plus ``--device``: ``cuda`` (the
 default, an error when CUDA is absent) or ``cpu`` (the plain torch path).
-Ported so far: ``-m ssimulacra2`` on Y4M 4:2:0 input; other metrics and
+Ported so far: ``-m ssimulacra2``, ``-m psnr``, ``-m ssim`` and
+``-m msssim`` on Y4M 4:2:0 input, alone or together; XPSNR, VMAF and other
 inputs exit with a "not ported yet" error.
 """
 
@@ -47,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
         action="append",
         default=[],
         choices=["psnr", "ssim", "msssim", "ssimulacra2", "xpsnr", "vmaf"],
-        help="Metrics to compute (repeatable); only ssimulacra2 is ported yet.",
+        help="Metrics to compute (repeatable); xpsnr and vmaf are not ported yet.",
     )
     p.add_argument("--every", type=int, default=0, help="Only compute every Nth frame.")
     p.add_argument("--skip", type=int, default=0, help="Skip the first N frame pairs.")
@@ -177,7 +178,7 @@ def main(argv: list[str] | None = None) -> int:
         batch = args.batch or None
         total_hint = max(source_ref.frame_count(), source_dis.frame_count())
         if batch is None and total_hint:
-            batch = min(default_batch(source_ref.width, source_ref.height), total_hint)
+            batch = min(default_batch(source_ref.width, source_ref.height, metrics), total_hint)
         return TurboMetrics(
             source_ref.width,
             source_ref.height,

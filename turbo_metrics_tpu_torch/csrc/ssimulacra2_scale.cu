@@ -1,22 +1,27 @@
 // SSIMULACRA2 pyramid levels on Hopper (sm_90a): conversion, XYB, the
 // 11-tap separable blur of four quantities, the error maps and their sums.
 //
-// Built by ops/kernels/_build.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
-// into a shared library with a plain C interface, loaded with ctypes.  Every
-// entry point launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() so that a refused launch is reported where it happened.
+// Built by ops/kernels/_build.py (nvcc -gencode arch=compute_90a,code=sm_90a,
+// one object per source, linked into one shared library with a plain C
+// interface, loaded with ctypes).  Every entry point launches on the caller's
+// stream, allocates nothing, and returns cudaGetLastError() so that a refused
+// launch is reported where it happened.
 //
-// Replaces two TPU kernels of the JAX package:
+// Replaces three TPU kernels of the JAX package:
 //   * turbo_metrics_tpu/ops/pallas/scale_stats.py fused_scale0_yuv_pallas
 //     (scale 0 straight from YUV 4:2:0) = tm_yuv420_to_xyb + tm_level_sums;
+//   * turbo_metrics_tpu/ops/pallas/scale_stats.py fused_scale_pallas_v4
+//     (one level from linear RGB, next level emitted) = tm_rgb_to_xyb +
+//     tm_level_sums, once;
 //   * turbo_metrics_tpu/ops/pallas/scale_tail.py fused_pyramid_tail_pallas
 //     (levels 1..5) = tm_rgb_to_xyb + tm_level_sums, once per level.
 //
-// What bounds them on this card: device-memory traffic.  Per level each pixel
-// pair costs a few dozen flops but ~10 f32 planes read or written (XYB x2,
-// four row-blurred planes written then read back, the next level), far below
-// the card's flop/byte balance.  What the design does about it: nothing yet.
+// What bounds them on this card: the algorithm's floor is its f32 work (about
+// 730 operations per pixel pair and level: XYB, two 11-tap passes over four
+// planes per channel, the maps) rather than its few bytes in and out, but this
+// design's own device-memory traffic is larger still: ~10 f32 planes read or
+// written per pixel pair (XYB x2, four row-blurred planes written then read
+// back, the next level).  What the design does about it: nothing yet.
 // Each pass is a plain thread-per-pixel loop over global memory; shared-memory
 // row tiles, fusing the row and column passes so the blurred planes never
 // reach device memory, TMA loads and CUDA graphs are for later work.
@@ -33,65 +38,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "colorspace.cuh"
+#include "level.cuh"
+
 namespace {
 
 constexpr int kRadius = 5;
 constexpr int kTaps = 2 * kRadius + 1;
-constexpr int kBx = 32;  // block width (pixels along a row)
-constexpr int kBy = 8;   // block height (rows)
-constexpr int kThreads = kBx * kBy;
-constexpr int kReduceThreads = 256;
-
-enum Transfer { kBt709 = 0, kSrgb = 1, kPq = 2, kHlg = 3, kLinear = 4 };
-
-struct ConvParams {
-  float y_coeff, r_coeff, b_coeff, g_coeff1, g_coeff2;
-  float minimum, neutral;
-  int transfer;
-};
-
-// Transfer functions to linear light, in the pow form of the JAX package's
-// ops/colorspace.py (f32 constants rounded from the same f64 expressions).
-__device__ __forceinline__ float eotf(float v, int transfer) {
-  switch (transfer) {
-    case kBt709: {
-      const float alpha = (float)(1.0 + 5.5 * 0.018053968510807);
-      const float threshold = (float)0.08124285829863521;
-      const float lo = v / 4.5f;
-      const float hi = powf(fmaxf((v + (alpha - 1.0f)) / alpha, 0.0f), (float)(1.0 / 0.45));
-      return v >= threshold ? hi : lo;
-    }
-    case kSrgb: {
-      const float alpha = 1.0550107f;
-      const float beta = 0.0030412825f;
-      const float lo = v / 12.92f;
-      const float hi = powf(fmaxf((v + (alpha - 1.0f)) / alpha, 0.0f), 2.4f);
-      return v < 12.92f * beta ? lo : hi;
-    }
-    case kPq: {
-      const float m1 = (float)(2610.0 / 16384.0);
-      const float m2 = (float)(2523.0 / 4096.0 * 128.0);
-      const float c1 = (float)(3424.0 / 4096.0);
-      const float c2 = (float)(2413.0 / 4096.0 * 32.0);
-      const float c3 = (float)(2392.0 / 4096.0 * 32.0);
-      v = fminf(fmaxf(v, 0.0f), 1.0f);
-      const float p = powf(v, 1.0f / m2);
-      const float num = fmaxf(p - c1, 0.0f);
-      const float den = fmaxf(c2 - c3 * p, 1e-6f);
-      return powf(num / den, 1.0f / m1);
-    }
-    case kHlg: {
-      const float a = 0.17883277f;
-      const float b = (float)(1.0 - 4.0 * 0.17883277);
-      const float c = (float)0.559910729529562;  // 0.5 - a * ln(4a)
-      return v <= 0.5f ? (v * v) / 3.0f : (expf((v - c) / a) + b) / 12.0f;
-    }
-    default:
-      return v;
-  }
-}
-
-__device__ __forceinline__ float clamp01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
 
 // Newton-refined cube root of max(v, 0) (ops/xyb.py _cbrt).
 __device__ __forceinline__ float cbrt_nr(float v) {
@@ -142,11 +95,7 @@ yuv420_to_xyb_kernel(const T* __restrict__ luma, const T* __restrict__ chroma,
   for (int k = 0; k < 11; ++k) o[k] = __ldg(opsin + k);
 
   const T* cp = chroma + (img * nq + (size_t)qi * wq + qj) * 2;
-  const float cb = (float)cp[0] - p.neutral;
-  const float cr = (float)cp[1] - p.neutral;
-  const float r_ = p.r_coeff * cr;
-  const float g_ = p.g_coeff1 * cb + p.g_coeff2 * cr;
-  const float b_ = p.b_coeff * cb;
+  const ChromaTerms t = chroma_terms((float)cp[0], (float)cp[1], p);
 
   const T* yp = luma + img * npx;
   float* xp = xyb + img * 3 * npx;
@@ -157,9 +106,8 @@ yuv420_to_xyb_kernel(const T* __restrict__ luma, const T* __restrict__ chroma,
     for (int dx = 0; dx < 2; ++dx) {
       const int r = min(2 * qi + dy, h - 1);
       const int c = min(2 * qj + dx, w - 1);
-      const float l = (fmaxf((float)yp[(size_t)r * w + c], p.minimum) - p.minimum) * p.y_coeff;
-      const float rgb[3] = {clamp01(eotf(l + r_, p.transfer)), clamp01(eotf(l + g_, p.transfer)),
-                            clamp01(eotf(l + b_, p.transfer))};
+      float rgb[3];
+      pixel_rgb((float)yp[(size_t)r * w + c], t, p, rgb);
       acc[0] += rgb[0];
       acc[1] += rgb[1];
       acc[2] += rgb[2];
@@ -260,7 +208,8 @@ blur_rows_kernel(const float* __restrict__ xyb, int planes, int h, int w,
 // ---------------------------------------------------------------------------
 // Launch 3: vertical 11-tap pass (zero outside [0, h)), the SSIM, artifact
 // and detail-loss maps, and per-block f32 partial sums of the six reduced
-// quantities, combined in a fixed tree order (deterministic).
+// quantities (level.cuh block_partials; launch 4 is level.cuh's
+// reduce_parts_kernel<6>).
 // grid: (ceil(w/kBx), ceil(h/kBy), B*3)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
@@ -269,7 +218,6 @@ blur_cols_maps_kernel(const float* __restrict__ xyb, const float* __restrict__ t
   __shared__ float red[6][kThreads];
   const int c = blockIdx.x * kBx + threadIdx.x;
   const int r = blockIdx.y * kBy + threadIdx.y;
-  const int tid = threadIdx.y * kBx + threadIdx.x;
   const size_t npx = (size_t)h * w;
   const size_t plane = blockIdx.z;
   float v[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -313,67 +261,7 @@ blur_cols_maps_kernel(const float* __restrict__ xyb, const float* __restrict__ t
     v[4] = det;
     v[5] = det2 * det2;
   }
-#pragma unroll
-  for (int k = 0; k < 6; ++k) red[k][tid] = v[k];
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-#pragma unroll
-      for (int k = 0; k < 6; ++k) red[k][tid] += red[k][tid + stride];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    const size_t nblk = (size_t)gridDim.x * gridDim.y;
-    const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-    float* out = parts + (plane * nblk + blk) * 6;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) out[k] = red[k][0];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Launch 4: per-(batch, channel) reduction of the block partials in f64, in
-// a fixed order (no atomics), written as f32 sums.
-// grid: (B*3), block: kReduceThreads
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kReduceThreads)
-reduce_parts_kernel(const float* __restrict__ parts, int nblk, float* __restrict__ sums,
-                    int sums_bstride) {
-  __shared__ double red[6][kReduceThreads];
-  const int plane = blockIdx.x;
-  const int tid = threadIdx.x;
-  double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  const float* src = parts + (size_t)plane * nblk * 6;
-  for (int i = tid; i < nblk; i += kReduceThreads) {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) acc[k] += (double)src[(size_t)i * 6 + k];
-  }
-#pragma unroll
-  for (int k = 0; k < 6; ++k) red[k][tid] = acc[k];
-  __syncthreads();
-  for (int stride = kReduceThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-#pragma unroll
-      for (int k = 0; k < 6; ++k) red[k][tid] += red[k][tid + stride];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    const int b = plane / 3, ch = plane % 3;
-    float* out = sums + (size_t)b * sums_bstride + ch * 6;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) out[k] = (float)red[k][0];
-  }
-}
-
-inline dim3 quad_grid(int h, int w, int images) {
-  const int hq = (h + 1) / 2, wq = (w + 1) / 2;
-  return dim3((wq + kBx - 1) / kBx, (hq + kBy - 1) / kBy, images);
-}
-
-inline dim3 pixel_grid(int h, int w, int planes) {
-  return dim3((w + kBx - 1) / kBx, (h + kBy - 1) / kBy, planes);
+  block_partials<6>(v, red, parts, plane);
 }
 
 }  // namespace
@@ -415,7 +303,8 @@ int tm_yuv420_to_xyb(const void* luma, const void* chroma, int is16, int batch, 
 }
 
 // Level conversion pass: with tm_level_sums, once per level, the replacement
-// of fused_pyramid_tail_pallas (turbo_metrics_tpu/ops/pallas/scale_tail.py:243).
+// of fused_pyramid_tail_pallas (turbo_metrics_tpu/ops/pallas/scale_tail.py:243),
+// and once, the replacement of fused_scale_pallas_v4 (scale_stats.py:2552).
 // rgb (2,B,3,h,w) linear RGB.  Bound by device memory like the scale-0 pass.
 int tm_rgb_to_xyb(const float* rgb, int batch, int h, int w, const float* opsin, float* xyb,
                   float* next, void* stream) {
@@ -442,8 +331,8 @@ int tm_level_sums(const float* xyb, int batch, int h, int w, const float* taps, 
   blur_cols_maps_kernel<<<grid, block, 0, s>>>(xyb, tmp, planes, h, w, taps, parts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_parts_kernel<<<planes, kReduceThreads, 0, s>>>(parts, (int)(grid.x * grid.y), sums,
-                                                         sums_bstride);
+  reduce_parts_kernel<6><<<planes, kReduceThreads, 0, s>>>(parts, (int)(grid.x * grid.y), sums,
+                                                            sums_bstride);
   return (int)cudaGetLastError();
 }
 

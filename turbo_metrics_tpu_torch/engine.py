@@ -1,11 +1,19 @@
 """The pipeline engine: batches frame pairs and scores them on one device.
 
 Counterpart of the JAX package's ``TurboMetrics`` (itself modelled on
-turbo-metrics/src/lib.rs:188-434) for the SSIMULACRA2 main path: the host
-stacks each batch of decoded YUV 4:2:0 planes, uploads them, and the device
-runs the kernel path (models/ssimulacra2.ssimulacra2_subscores_from_yuv);
-only the (B, 3, S, 2, 3) sub-scores come back, and the 108-weight score runs
-on the host in f64.  Other metrics are not ported yet and raise.
+turbo-metrics/src/lib.rs:188-434) for SSIMULACRA2, PSNR, SSIM and MS-SSIM on
+YUV 4:2:0 input.  The host stacks each batch of decoded planes and uploads
+them; the device runs one of two routes (the JAX engine's ``_get_step``):
+  * SSIMULACRA2 alone, both inputs of one conversion spec: scale 0 straight
+    from YUV (models/ssimulacra2.ssimulacra2_subscores_from_yuv);
+  * otherwise, the multi-metric route: one conversion
+    (ops/kernels/convert.py) fills a (2, B, 3, h, w) linear-RGB pair buffer,
+    one launch for a shared spec or one per image when the specs differ, and
+    every requested family reads it (ops/quality.quality_from_rgb,
+    models/ssimulacra2.ssimulacra2_subscores_from_rgb).
+Only per-frame values and the (B, 3, S, 2, 3) sub-scores come back; the
+108-weight score runs on the host in f64.  XPSNR and VMAF are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ from turbo_metrics_tpu_torch.color.characteristics import (
     transfer_name,
 )
 from turbo_metrics_tpu_torch.io.frame_source import FrameSource, RawFrame
-from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
+from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2, resolve_device
+from turbo_metrics_tpu_torch.ops.kernels.convert import yuv420_to_linear_rgb_pair
+from turbo_metrics_tpu_torch.ops.quality import Quality
 from turbo_metrics_tpu_torch.utils.stats import Stats
 
 
@@ -209,15 +219,22 @@ class TurboMetrics:
     ):
         if not metrics.any():
             raise ValueError("at least one metric must be selected")
-        others = [n for n in ("psnr", "ssim", "msssim", "xpsnr", "vmaf") if getattr(metrics, n)]
+        others = [n for n in ("xpsnr", "vmaf") if getattr(metrics, n)]
         if others:
-            raise not_ported(f"metric(s) {', '.join(others)}", "Queue 1 items 5-8")
+            raise not_ported(f"metric(s) {', '.join(others)}", "Queue 1 items 6-8")
+        if (metrics.ssim or metrics.msssim) and min(width, height) < 11:
+            raise ValueError("SSIM and MS-SSIM need frames of at least 11x11")
         self.width = int(width)
         self.height = int(height)
         self.metrics = metrics
-        self.model = Ssimulacra2(self.width, self.height, device=device)
-        self.device = self.model.device
-        self.batch = batch if batch is not None else default_batch(width, height)
+        self.device = resolve_device(device)
+        self.model = (
+            Ssimulacra2(self.width, self.height, device=self.device) if metrics.ssimulacra2 else None
+        )
+        self.quality = (
+            Quality(device=self.device) if metrics.psnr or metrics.ssim or metrics.msssim else None
+        )
+        self.batch = batch if batch is not None else default_batch(width, height, metrics)
 
     # -- host batching -----------------------------------------------------
 
@@ -240,28 +257,69 @@ class TurboMetrics:
             dis_frames = dis_frames + [dis_frames[-1]] * pad
         spec = ConvertSpec.for_frame(ref_frames[0], *cc_ref)
         spec_dis = ConvertSpec.for_frame(dis_frames[0], *cc_dis)
-        if spec.kind != "yuv420" or spec.chroma != 420 or spec_dis.chroma != 420:
+        if any(s.kind != "yuv420" or s.chroma != 420 for s in (spec, spec_dis)):
             raise not_ported(
                 f"input format {spec.kind}/{spec.chroma} -> {spec_dis.kind}/{spec_dis.chroma}",
                 "Queue 1 item 4",
             )
-        if spec_dis != spec:
-            raise not_ported(
-                "scoring a pair whose two inputs differ in depth, range or colour",
-                "Queue 1 item 4",
+        m = self.metrics
+        scores = [FrameScores() for _ in range(n)]
+        if self.quality is None and spec_dis == spec:
+            # SSIMULACRA2 alone: scale 0 conversion-fused, no RGB pair buffer.
+            sub = self.model.subscores_from_yuv(
+                *self._planes(ref_frames, dis_frames),
+                depth=spec.depth,
+                matrix=spec.matrix,
+                transfer=spec.transfer,
+                full_range=spec.full_range,
             )
-        y2 = np.stack([np.stack([f.y for f in fr]) for fr in (ref_frames, dis_frames)])
-        uv2 = np.stack([np.stack([f.uv for f in fr]) for fr in (ref_frames, dis_frames)])
-        sub = self.model.subscores_from_yuv(
-            torch.from_numpy(y2).to(self.device),
-            torch.from_numpy(uv2).to(self.device),
-            depth=spec.depth,
-            matrix=spec.matrix,
-            transfer=spec.transfer,
-            full_range=spec.full_range,
+            s2 = self.model.score(sub)
+            for i in range(n):
+                scores[i].ssimulacra2 = float(s2[i])
+            return scores
+        p12 = self._linear_rgb_pair(ref_frames, spec, dis_frames, spec_dis)
+        if self.quality is not None:
+            out = self.quality.from_rgb(p12, psnr=m.psnr, ssim=m.ssim, msssim=m.msssim)
+            for name, vals in out.items():
+                vals = vals.cpu().numpy().astype(np.float64)
+                for i in range(n):
+                    setattr(scores[i], name, float(vals[i]))
+        if self.model is not None:
+            s2 = self.model.score(self.model.subscores_from_rgb(p12))
+            for i in range(n):
+                scores[i].ssimulacra2 = float(s2[i])
+        return scores
+
+    def _planes(self, *inputs: list[RawFrame]) -> tuple[torch.Tensor, torch.Tensor]:
+        """Luma and chroma of one input's frames on the device, (B, h, w) and
+        (B, ch, cw, 2), or of two inputs' stacked, (2, B, ...)."""
+        y = np.stack([np.stack([f.y for f in frames]) for frames in inputs])
+        uv = np.stack([np.stack([f.uv for f in frames]) for frames in inputs])
+        if len(inputs) == 1:
+            y, uv = y[0], uv[0]
+        return torch.from_numpy(y).to(self.device), torch.from_numpy(uv).to(self.device)
+
+    def _linear_rgb_pair(
+        self, ref_frames: list[RawFrame], spec_ref: ConvertSpec,
+        dis_frames: list[RawFrame], spec_dis: ConvertSpec,
+    ) -> torch.Tensor:
+        """The (2, B, 3, h, w) linear-RGB pair buffer of a batch: one
+        conversion launch for a shared spec, one per image into its slot
+        when the specs differ (engine.py:600-629 of the JAX package)."""
+
+        def kw(spec):
+            kr_kb = self.model.kr_kb[spec.matrix] if self.model is not None else None
+            return dict(depth=spec.depth, matrix=spec.matrix, transfer=spec.transfer,
+                        full_range=spec.full_range, kr_kb=kr_kb)
+
+        if spec_ref == spec_dis:
+            return yuv420_to_linear_rgb_pair(*self._planes(ref_frames, dis_frames), **kw(spec_ref))
+        p12 = torch.empty(
+            (2, len(ref_frames), 3, self.height, self.width), dtype=torch.float32, device=self.device
         )
-        s2 = self.model.score(sub)
-        return [FrameScores(ssimulacra2=float(s2[i])) for i in range(n)]
+        for slot, (frames, spec) in enumerate(((ref_frames, spec_ref), (dis_frames, spec_dis))):
+            yuv420_to_linear_rgb_pair(*self._planes(frames), p12, slot, **kw(spec))
+        return p12
 
     def compute_one(
         self,
@@ -375,15 +433,24 @@ class TurboMetrics:
         )
 
 
-def default_batch(width: int, height: int) -> int:
+def default_batch(width: int, height: int, metrics: Optional[Metrics] = None) -> int:
     """Frame pairs per device step: 8 at 1080p, provisional.
 
-    The kernel path holds about 80 bytes of device scratch per pixel pair
-    (XYB 24, four row-blurred planes 48, level 1 6, planes 3); 8 pairs at
-    1080p are ~1.3 GB.  No batch ladder has been measured on the H100 yet,
+    Device bytes per pixel pair.  SSIMULACRA2 alone: about 80 (XYB 24, four
+    row-blurred planes 48, level 1 6, planes 3); 8 pairs at 1080p are ~1.3
+    GB.  The multi-metric route: the linear-RGB pair buffer 24 and the
+    planes 3 (6 at 16 bits), plus SSIMULACRA2 78 (XYB, row planes, level 1),
+    the SSIM family 54 (four row-correlated planes, the emitted level) and
+    PSNR 48 (quantized pair and its difference); all four at 1080p are
+    ~0.43 GB per pair.  No batch ladder has been measured on the H100 yet,
     so the cap is a guess to revisit (the JAX package's TPU ladders do not
     transfer).
     """
-    per_pair = 80 * width * height
+    m = metrics or Metrics(ssimulacra2=True)
+    if not (m.psnr or m.ssim or m.msssim):
+        per_px = 80
+    else:
+        per_px = 30 + 78 * m.ssimulacra2 + 54 * (m.ssim or m.msssim) + 48 * m.psnr
+    per_pair = per_px * width * height
     budget = 4 << 30
     return int(np.clip(budget // max(per_pair, 1), 1, 8))

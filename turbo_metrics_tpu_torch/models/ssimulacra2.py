@@ -1,12 +1,16 @@
 """SSIMULACRA2 in PyTorch: the plain chain, the kernel path and the module.
 
-Two routes to the (B, 3, S, 2, 3) sub-scores (channel, scale, norm, map):
+Three routes to the (B, 3, S, 2, 3) sub-scores (channel, scale, norm, map):
   * ``ssimulacra2_subscores``: the plain torch chain (downscale, XYB, five
     blurs, maps, means), the counterpart of the JAX package's jnp path and
     the reference the kernels are held against;
-  * ``ssimulacra2_subscores_from_yuv``: the kernel path of the main path —
-    scale 0 from YUV 4:2:0 (ops/kernels/scale_stats.py), then the remaining
-    levels from its emitted level 1 (ops/kernels/scale_tail.py).
+  * ``ssimulacra2_subscores_from_yuv``: the kernel path of the
+    SSIMULACRA2-only route — scale 0 from YUV 4:2:0 (kernel 1,
+    ops/kernels/scale_stats.py), then the remaining levels from its emitted
+    level 1 (kernel 2, ops/kernels/scale_tail.py);
+  * ``ssimulacra2_subscores_from_rgb``: the kernel path from a linear-RGB
+    pair buffer (the multi-metric route, and ``Ssimulacra2.forward``) —
+    scale 0 through kernel #3 (``fused_scale_rgb``), then kernel 2.
 The final 108-weight score runs on the host in f64
 (models/ssimulacra2_score.py).  Layout: (B, 3, H, W) planar f32.
 """
@@ -27,6 +31,7 @@ from turbo_metrics_tpu_torch.ops.downscale import downscale_by_2, scale_dims
 from turbo_metrics_tpu_torch.ops.gaussian import blur_2d, gaussian_taps
 from turbo_metrics_tpu_torch.ops.kernels.scale_stats import (
     fused_scale0_yuv,
+    fused_scale_rgb,
     norms_from_sums,
 )
 from turbo_metrics_tpu_torch.ops.kernels.scale_tail import fused_pyramid_tail
@@ -121,6 +126,22 @@ def ssimulacra2_subscores_from_yuv(
     return subscores_from_sums(levels, scale_dims(h, w, num_scales))
 
 
+def ssimulacra2_subscores_from_rgb(
+    p12: torch.Tensor, taps: torch.Tensor, opsin: torch.Tensor, *, num_scales: int
+) -> torch.Tensor:
+    """Sub-scores from a contiguous (2, B, 3, h, w) f32 linear-RGB pair
+    buffer (the counterpart of the JAX package's
+    ``ssimulacra2_subscores_from_padded``): scale 0 through kernel #3 with
+    level 1 emitted, the remaining ``num_scales - 1`` levels through kernel
+    2.  Returns (B, 3, num_scales, 2, 3) f32."""
+    h, w = p12.shape[-2], p12.shape[-1]
+    sums0, level1 = fused_scale_rgb(p12, taps, opsin, emit_ds=num_scales > 1)
+    levels = [sums0]
+    if num_scales > 1:
+        levels += list(fused_pyramid_tail(level1, num_scales - 1, taps, opsin).unbind(1))
+    return subscores_from_sums(levels, scale_dims(h, w, num_scales))
+
+
 def builtin_constants() -> dict:
     """The constants that stand in for weights, as numpy arrays: the 108
     score weights, the 11 blur taps (f64), the opsin matrix, bias and bias
@@ -197,11 +218,15 @@ class Ssimulacra2(nn.Module):
 
     @torch.no_grad()
     def forward(self, lin_ref: torch.Tensor, lin_dis: torch.Tensor) -> torch.Tensor:
-        """Kernel-path sub-scores of (B, 3, H, W) linear-RGB pairs: the whole
-        pyramid through kernel 2, starting at full resolution."""
+        """Kernel-path sub-scores of (B, 3, H, W) linear-RGB pairs."""
         p12 = torch.stack([lin_ref, lin_dis]).to(self.device, torch.float32).contiguous()
-        sums = fused_pyramid_tail(p12, self.num_scales, self.taps, self.opsin)
-        return subscores_from_sums(list(sums.unbind(1)), self.dims)
+        return self.subscores_from_rgb(p12)
+
+    @torch.no_grad()
+    def subscores_from_rgb(self, p12: torch.Tensor) -> torch.Tensor:
+        return ssimulacra2_subscores_from_rgb(
+            p12, self.taps, self.opsin, num_scales=self.num_scales
+        )
 
     @torch.no_grad()
     def subscores_from_yuv(

@@ -199,3 +199,14 @@ def yuv420_to_linear_rgb(
 
     rgb = torch.stack([luma + up(c) for c in chans], dim=-3)
     return torch.clamp(TRANSFERS[transfer](rgb), 0.0, 1.0)
+
+
+def f32_to_uint8(x: torch.Tensor, dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """Quantize [0, 1] f32 to 8-bit code values, clip(round(x * 255), 0, 255).
+
+    The reference's f32_to_8bit (cuda-colorspace-kernel/src/sample_conv.rs:
+    5-35) with round half to even, as ``jnp.round`` and ``torch.round`` do.
+    ``dtype=torch.float32`` keeps the code values in f32, where PSNR and the
+    SSIM family compute on them.
+    """
+    return torch.clamp(torch.round(x * 255.0), 0.0, 255.0).to(dtype)

@@ -88,3 +88,14 @@ def blur_2d(x: torch.Tensor, *, taps=None) -> torch.Tensor:
     for k in range(1, 2 * RADIUS + 1):
         acc = acc + t[k] * xp[..., k : k + h_dim, :]
     return acc
+
+
+def gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
+    """Sampled (true) Gaussian window, normalised to sum 1 (f64).
+
+    The window of the classic SSIM / MS-SSIM metrics (Wang et al.), *not*
+    SSIMULACRA2's blur (:func:`gaussian_taps`).
+    """
+    half = (size - 1) / 2.0
+    g = np.exp(-((np.arange(size) - half) ** 2) / (2.0 * sigma**2))
+    return g / g.sum()

@@ -1,11 +1,13 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into a shared library with a
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into an object, all
+sources at once in parallel, and links them into one shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds).  The
 library lands in the package's git-ignored ``_build/`` directory under a name
-keyed on a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing here runs at import time: the CPU tests
-import every module on a machine without ``nvcc``.
+keyed on a hash of every file under ``csrc/`` (headers included) and the
+flags, so an edited source or header rebuilds and an unchanged tree is
+reused.  Nothing here runs at import time: the CPU tests import every module
+on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,10 +24,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("ssimulacra2_scale.cu",)
+SOURCES = ("ssimulacra2_scale.cu", "convert.cu", "windowed.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -37,6 +39,9 @@ _SIGNATURES = {
     "tm_yuv420_to_xyb": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P],
     "tm_rgb_to_xyb": [_P, _I, _I, _I, _P, _P, _P, _P],
     "tm_level_sums": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    "tm_yuv420_to_rgb": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
+    "tm_ssim_blocks": [_I, _I],
+    "tm_ssim_level": [_P, _I, _I, _I, _I, _P, _F, _F, _P, _P, _P, _I, _P, _P],
 }
 
 
@@ -56,11 +61,12 @@ def _nvcc() -> str:
     )
 
 
-def _source_key() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+def source_key(csrc: Path = CSRC) -> str:
+    """Hash of the flags, the source list and every file under ``csrc``."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + SOURCES).encode())
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(path.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -80,25 +86,52 @@ class KernelLibrary:
             return self._lib
 
     def _load(self) -> ctypes.CDLL:
-        path = BUILD_DIR / f"libtm_kernels_{_source_key()}.so"
+        path = BUILD_DIR / f"libtm_kernels_{source_key()}.so"
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = BUILD_DIR / f"{path.stem}.{os.getpid()}.tmp.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-            cmd += [str(CSRC / s) for s in SOURCES]
             t0 = time.monotonic()
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            self._build(path)
             self.build_seconds = time.monotonic() - t0
-            self.build_log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{self.build_log}")
-            os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         return lib
+
+    def _build(self, path: Path) -> None:
+        """One nvcc per source, all started together, then one link."""
+        nvcc = _nvcc()
+        tag = f"{path.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s, o in zip(SOURCES, objs)
+        ]
+        logs, failed = [], []
+        for s, p in zip(SOURCES, procs):
+            logs.append(f"== {s}\n{p.communicate()[0]}")
+            if p.returncode != 0:
+                failed.append(f"{s} ({p.returncode})")
+        tmp = BUILD_DIR / f"{tag}.tmp.so"
+        if not failed:
+            res = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            logs.append(f"== link\n{res.stdout}{res.stderr}")
+            if res.returncode != 0:
+                failed.append(f"link ({res.returncode})")
+        for o in objs:
+            o.unlink(missing_ok=True)
+        self.build_log = "\n".join(logs)
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{self.build_log}")
+        os.replace(tmp, path)
 
 
 LIBRARY = KernelLibrary()

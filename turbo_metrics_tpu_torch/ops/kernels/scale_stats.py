@@ -1,11 +1,18 @@
-"""Kernel 1: scale 0 of the SSIMULACRA2 pyramid straight from YUV 4:2:0.
+"""Kernels 1 and #3: one SSIMULACRA2 pyramid level, from YUV or linear RGB.
 
-``fused_scale0_yuv`` launches the CUDA kernels of csrc/ssimulacra2_scale.cu
-(``tm_yuv420_to_xyb`` + ``tm_level_sums``) on a CUDA tensor, and runs its
-plain twin ``fused_scale0_yuv_ref`` on a CPU tensor.  It replaces the JAX
-package's ``fused_scale0_yuv_pallas``
-(turbo_metrics_tpu/ops/pallas/scale_stats.py:1985).  The level helpers
-(``level_sums_ref``, ``norms_from_sums``) are shared with kernel 2.
+``fused_scale0_yuv`` (kernel 1) launches the CUDA kernels of
+csrc/ssimulacra2_scale.cu (``tm_yuv420_to_xyb`` + ``tm_level_sums``) on a
+CUDA tensor, and runs its plain twin ``fused_scale0_yuv_ref`` on a CPU
+tensor.  It replaces the JAX package's ``fused_scale0_yuv_pallas``
+(turbo_metrics_tpu/ops/pallas/scale_stats.py:1985).
+
+``fused_scale_rgb`` (kernel #3) is one level from a linear-RGB pair buffer
+with the next level emitted (``tm_rgb_to_xyb`` + ``tm_level_sums``, twin
+``fused_scale_rgb_ref``): scale 0 of the multi-metric path, replacing
+``fused_scale_pallas_v4`` (turbo_metrics_tpu/ops/pallas/scale_stats.py:2552).
+
+The level helpers (``level_sums_ref``, ``norms_from_sums``) are shared with
+kernel 2.
 """
 
 from __future__ import annotations
@@ -61,11 +68,17 @@ def check_level_consts(taps: torch.Tensor, opsin: torch.Tensor, device) -> None:
             raise ValueError(f"{name} must be a contiguous (11,) float32 tensor on {device}")
 
 
-def _check_yuv(y2: torch.Tensor, uv2: torch.Tensor, depth: int, transfer: str) -> None:
-    if y2.ndim != 4 or y2.shape[0] != 2:
+def check_yuv(
+    y2: torch.Tensor, uv2: torch.Tensor, depth: int, transfer: str, *, pair: bool = True
+) -> None:
+    """Planes of a pair, (2, B, h, w) + (2, B, ch, cw, 2), or with ``pair``
+    false of one image per frame, (B, h, w) + (B, ch, cw, 2)."""
+    if pair and (y2.ndim != 4 or y2.shape[0] != 2):
         raise ValueError(f"y2 must be (2, B, h, w), got {tuple(y2.shape)}")
-    _, bsz, h, w = y2.shape
-    want_uv = (2, bsz, (h + 1) // 2, (w + 1) // 2, 2)
+    if not pair and y2.ndim != 3:
+        raise ValueError(f"y must be (B, h, w), got {tuple(y2.shape)}")
+    h, w = y2.shape[-2], y2.shape[-1]
+    want_uv = (*y2.shape[:-2], (h + 1) // 2, (w + 1) // 2, 2)
     if tuple(uv2.shape) != want_uv:
         raise ValueError(f"uv2 must be {want_uv} for 4:2:0, got {tuple(uv2.shape)}")
     want_dt = torch.uint8 if depth == 8 else torch.uint16
@@ -79,6 +92,23 @@ def _check_yuv(y2: torch.Tensor, uv2: torch.Tensor, depth: int, transfer: str) -
         raise ValueError("y2 and uv2 must be contiguous")
     if transfer not in TRANSFER_CODES:
         raise ValueError(f"unknown transfer {transfer!r}")
+
+
+def check_level(p12: torch.Tensor) -> None:
+    if p12.ndim != 5 or p12.shape[0] != 2 or p12.shape[2] != 3:
+        raise ValueError(f"p12 must be (2, B, 3, h, w), got {tuple(p12.shape)}")
+    if p12.dtype != torch.float32 or not p12.is_contiguous():
+        raise ValueError("p12 must be contiguous float32")
+
+
+def s2_level_scratch(lib, bsz: int, h: int, w: int, dev):
+    """XYB, row-blurred planes and block partials of an h x w level."""
+    n = bsz * 3 * h * w
+    return (
+        torch.empty(2 * n, dtype=torch.float32, device=dev),
+        torch.empty(4 * n, dtype=torch.float32, device=dev),
+        torch.empty(bsz * 3 * lib.tm_level_blocks(h, w) * 6, dtype=torch.float32, device=dev),
+    )
 
 
 def fused_scale0_yuv_ref(
@@ -117,7 +147,7 @@ def fused_scale0_yuv(
     (2, B, 3, ceil(h/2), ceil(w/2)) f32 linear RGB, or None without
     ``emit_ds``).  Full-resolution linear RGB is never stored.
     """
-    _check_yuv(y2, uv2, depth, transfer)
+    check_yuv(y2, uv2, depth, transfer)
     check_level_consts(taps, opsin, y2.device)
     if y2.device.type == "cpu":
         return fused_scale0_yuv_ref(
@@ -131,14 +161,10 @@ def fused_scale0_yuv(
     dev = y2.device
     rng = colorspace.sample_range(depth, full_range)
     coeffs = colorspace.conversion_coeffs(depth, matrix, full_range, kr_kb)
-    xyb = torch.empty((2, bsz, 3, h, w), dtype=torch.float32, device=dev)
+    xyb, tmp, parts = s2_level_scratch(lib, bsz, h, w, dev)
     ds = (
         torch.empty((2, bsz, 3, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=dev)
         if emit_ds else None
-    )
-    tmp = torch.empty((4, bsz * 3, h, w), dtype=torch.float32, device=dev)
-    parts = torch.empty(
-        (bsz * 3, lib.tm_level_blocks(h, w), 6), dtype=torch.float32, device=dev
     )
     sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -163,3 +189,66 @@ def fused_scale0_yuv(
 
 
 fused_scale0_yuv.launches = 0
+
+
+def fused_scale_rgb_ref(p12, taps, opsin, *, emit_ds=True):
+    """Plain twin of ``fused_scale_rgb`` (same arguments and results)."""
+    xyb = linear_rgb_to_xyb(p12, opsin=opsin)
+    sums = level_sums_ref(xyb[0], xyb[1], taps)
+    return sums, (downscale_by_2(p12) if emit_ds else None)
+
+
+def launch_rgb_level(lib, p12, taps, opsin, scratch, sums, sums_bstride, nxt) -> None:
+    """``tm_rgb_to_xyb`` + ``tm_level_sums`` on one level ``p12`` (2, B, 3,
+    h, w): sums into ``sums[b * sums_bstride + ch * 6 + k]``, the next level
+    into ``nxt`` unless it is None.  ``scratch``: ``s2_level_scratch`` of a
+    level at least this large."""
+    _, bsz, _, h, w = p12.shape
+    xyb, tmp, parts = scratch
+    stream = torch.cuda.current_stream(p12.device).cuda_stream
+    check(
+        lib.tm_rgb_to_xyb(
+            p12.data_ptr(), bsz, h, w, opsin.data_ptr(), xyb.data_ptr(),
+            nxt.data_ptr() if nxt is not None else None, stream,
+        ),
+        "tm_rgb_to_xyb",
+    )
+    check(
+        lib.tm_level_sums(
+            xyb.data_ptr(), bsz, h, w, taps.data_ptr(), tmp.data_ptr(),
+            parts.data_ptr(), sums.data_ptr(), sums_bstride, stream,
+        ),
+        "tm_level_sums",
+    )
+
+
+def fused_scale_rgb(
+    p12: torch.Tensor, taps: torch.Tensor, opsin: torch.Tensor, *, emit_ds: bool = True
+):
+    """One pyramid level from linear RGB, the next level emitted.
+
+    ``p12``: contiguous (2, B, 3, h, w) f32 linear RGB (reference,
+    distorted), e.g. the conversion kernel's pair buffer.  Returns (sums (B,
+    3, 6) f32, the edge-replicated 2x2 mean as (2, B, 3, ceil(h/2),
+    ceil(w/2)) f32, or None without ``emit_ds``).
+    """
+    check_level(p12)
+    check_level_consts(taps, opsin, p12.device)
+    if p12.device.type == "cpu":
+        return fused_scale_rgb_ref(p12, taps, opsin, emit_ds=emit_ds)
+    if p12.device.type != "cuda":
+        raise ValueError(f"fused_scale_rgb runs on cuda or cpu, not {p12.device}")
+    lib = LIBRARY.get()
+    _, bsz, _, h, w = p12.shape
+    dev = p12.device
+    ds = (
+        torch.empty((2, bsz, 3, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=dev)
+        if emit_ds else None
+    )
+    sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
+    launch_rgb_level(lib, p12, taps, opsin, s2_level_scratch(lib, bsz, h, w, dev), sums, 18, ds)
+    fused_scale_rgb.launches += 1
+    return sums, ds
+
+
+fused_scale_rgb.launches = 0

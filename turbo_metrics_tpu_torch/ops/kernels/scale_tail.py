@@ -13,33 +13,28 @@ from __future__ import annotations
 
 import torch
 
-from turbo_metrics_tpu_torch.ops.downscale import downscale_by_2
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY
 from turbo_metrics_tpu_torch.ops.kernels.scale_stats import (
+    check_level,
     check_level_consts,
-    level_sums_ref,
+    fused_scale_rgb_ref,
+    launch_rgb_level,
+    s2_level_scratch,
 )
-from turbo_metrics_tpu_torch.ops.xyb import linear_rgb_to_xyb
 
 
 def _check_level(p12: torch.Tensor, num_levels: int) -> None:
-    if p12.ndim != 5 or p12.shape[0] != 2 or p12.shape[2] != 3:
-        raise ValueError(f"p12 must be (2, B, 3, h, w), got {tuple(p12.shape)}")
-    if p12.dtype != torch.float32 or not p12.is_contiguous():
-        raise ValueError("p12 must be contiguous float32")
+    check_level(p12)
     if not 1 <= num_levels <= 6:
         raise ValueError(f"num_levels must be in [1, 6], got {num_levels}")
 
 
 def fused_pyramid_tail_ref(p12, num_levels, taps, opsin):
     """Plain twin of ``fused_pyramid_tail`` (same arguments and result)."""
-    cur = p12
     out = []
     for li in range(num_levels):
-        if li:
-            cur = downscale_by_2(cur)
-        xyb = linear_rgb_to_xyb(cur, opsin=opsin)
-        out.append(level_sums_ref(xyb[0], xyb[1], taps))
+        sums, p12 = fused_scale_rgb_ref(p12, taps, opsin, emit_ds=li + 1 < num_levels)
+        out.append(sums)
     return torch.stack(out, dim=1)
 
 
@@ -62,14 +57,8 @@ def fused_pyramid_tail(
     lib = LIBRARY.get()
     _, bsz, _, h, w = p12.shape
     dev = p12.device
-    # Scratch sized for the first (largest) level, reused by the others.
-    xyb = torch.empty(2 * bsz * 3 * h * w, dtype=torch.float32, device=dev)
-    tmp = torch.empty(4 * bsz * 3 * h * w, dtype=torch.float32, device=dev)
-    parts = torch.empty(
-        bsz * 3 * lib.tm_level_blocks(h, w) * 6, dtype=torch.float32, device=dev
-    )
+    scratch = s2_level_scratch(lib, bsz, h, w, dev)  # the first level is the largest
     sums = torch.empty((bsz, num_levels, 3, 6), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     cur = p12
     for li in range(num_levels):
         nxt = None
@@ -77,20 +66,7 @@ def fused_pyramid_tail(
             nxt = torch.empty(
                 (2, bsz, 3, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=dev
             )
-        check(
-            lib.tm_rgb_to_xyb(
-                cur.data_ptr(), bsz, h, w, opsin.data_ptr(), xyb.data_ptr(),
-                nxt.data_ptr() if nxt is not None else None, stream,
-            ),
-            "tm_rgb_to_xyb",
-        )
-        check(
-            lib.tm_level_sums(
-                xyb.data_ptr(), bsz, h, w, taps.data_ptr(), tmp.data_ptr(),
-                parts.data_ptr(), sums[:, li].data_ptr(), num_levels * 18, stream,
-            ),
-            "tm_level_sums",
-        )
+        launch_rgb_level(lib, cur, taps, opsin, scratch, sums[:, li], num_levels * 18, nxt)
         if nxt is not None:
             cur, h, w = nxt, (h + 1) // 2, (w + 1) // 2
     fused_pyramid_tail.launches += 1
