@@ -17,6 +17,14 @@ Phases, each fatal on failure (exit code 1):
      -m msssim), counters reset just before and read just after: 16 finite
      values of each metric, kernels #6, #3, #11, #12 and 2 launched,
      SSIMULACRA2 within 1e-3 of phase 4's scores;
+  4b. score the same pair with XPSNR, (a) alone (-m xpsnr) and (b) beside the
+     four RGB families, counters reset just before and read just after each
+     run: 16 finite XPSNR values, kernel #13 launched once per batch, the
+     XPSNR of (a) and (b) equal, the RGB families of (b) as in phase 4a;
+  4c. write a seeded 16-frame 1080p pair of a 10-bit 4:2:2 BT.709
+     limited-range reference and an 8-bit 4:2:0 distorted stream, and score
+     it (c) with all five metrics: kernel #5 launched at least once per batch
+     (the 4:2:2 slot), #6 for the 4:2:0 slot, #13, 16 finite values of each;
   5. hold each kernel against its plain PyTorch twin on the card at the main
      path's shapes (batch 8): sub-scores rtol 1e-4 / atol 1e-5, the emitted
      level 1 atol 1e-5, frame scores within 0.01 (also against the CLI's),
@@ -29,13 +37,26 @@ Phases, each fatal on failure (exit code 1):
      SSIMULACRA2 0.01; then a small odd-sized pair with an 8-bit reference
      and a 10-bit distorted stream, engine on the card against engine on
      the CPU;
+  5b. kernel #13 against its twin, all three grids equal, on both 1080p
+     batches (frame 8 takes its previous frame across the batch boundary),
+     the XPSNR from the twin's grids within 1e-9 of the CLI's; #13 on small
+     odd sizes at 10 and 16 bits (wrapping SSE), with a shifted distorted
+     stream and int32 luma codes; kernel #5 against its twin at 1080p 4:2:2
+     10-bit B=8 (atol 1e-6) and on 67x99 at 4:2:0, 4:2:2 and 4:4:4 for
+     every transfer (atol 1e-6, 1e-4 for PQ); path (c)'s engine on the card
+     against the same engine on the CPU on a small odd-sized pair of the
+     same formats (PSNR 1e-4, SSIM and MS-SSIM 1e-5, SSIMULACRA2 0.01,
+     XPSNR 1e-9);
   6. score the frozen golden pair through the kernel route: 80.486135 +- 0.05;
   7. time each kernel and its twin, the whole kernel and plain steps of both
-     routes, with CUDA events after warm-up, and both CLI runs again warm.
+     routes, with CUDA events after warm-up, and the CLI runs of phases 4,
+     4a, 4b (a) and 4c again warm, three times each in turn.
 Prints the card, then one JSON line of per-kernel results (with each
-kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
-operations over 67 TFLOP/s, the H100 SXM data-sheet peaks), then as the
-last line {"ok": true, "device": {...}}.  Without CUDA, or outside the
+kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
+over the peak of their type, the H100 SXM data sheet's 67 TFLOP/s for f32
+and, for the integer work of XPSNR, 33.5 TOP/s of int32: 64 of the SM's
+128 lanes take int32, Hopper architecture white paper), then as the last
+line {"ok": true, "device": {...}}.  Without CUDA, or outside the
 repository, it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 
@@ -60,10 +81,14 @@ WIDTH, HEIGHT = 1920, 1080
 GOLDEN = 80.486135
 CSRC = "turbo_metrics_tpu_torch/csrc/"
 MULTI = ("ssimulacra2", "psnr", "ssim", "msssim")
+ALL5 = MULTI + ("xpsnr",)
+TOL = {"psnr": 1e-4, "ssim": 1e-5, "msssim": 1e-5, "ssimulacra2": 0.01, "xpsnr": 1e-9}
 MS_LEVELS = 5
-# H100 SXM data-sheet peaks: device memory, and f32 outside the tensor cores.
+# H100 SXM data-sheet peaks: device memory, and f32 outside the tensor cores;
+# int32 at half the f32 rate (64 of the SM's 128 lanes, Hopper white paper).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_I32_PER_S = 33.5e12
 # f32 operations per pixel (an FMA counts 2, a pow, cube root or rounding 1):
 F_CONVERT = 30  # one image: luma 3, per channel add, pow-form EOTF ~6, clamp 2
 F_XYB = 59  # one image: opsin mix 24, three refined cube roots 21, XYB 10, 2x2 mean 4
@@ -72,6 +97,9 @@ F_QUANT = 8  # per channel of the pair: x*255, round, two clamps, both images
 F_SSIM_ROW = 92  # per channel of the pair: a^2+b^2 and a*b 4, 11 taps over 4 planes 88
 F_SSIM_COL = 104  # per valid pixel and channel: 11 taps over 4 planes 88, the map 16
 F_HALFPOOL = 8  # per emitted pixel and channel: 3 adds and a scale, both images
+# int32 operations per XPSNR pixel: highpass 12 (9 taps as adds, two scales,
+# abs), err and err^2 2, |ref - prev| 2, the shift 1, three sums 3.
+I_XPSNR = 20
 
 
 class SmokeFailure(RuntimeError):
@@ -108,6 +136,36 @@ def write_y4m_pair(directory: str):
                 f.write(b"FRAME\n")
                 for p in planes:
                     f.write(np.clip(np.round(p), 0, 255).astype(np.uint8).tobytes())
+    finally:
+        for f in files:
+            f.close()
+    return paths
+
+
+def write_mezzanine_pair(directory: str):
+    """Seeded frames of path (c): a 10-bit 4:2:2 reference (a smooth moving
+    base plus noise) and an 8-bit 4:2:0 distorted stream (the reference
+    shifted to 8 bits, every other chroma row, plus noise)."""
+    rng = np.random.default_rng(20261017)
+    yy, xx = np.mgrid[0:HEIGHT, 0:WIDTH].astype(np.float32)
+    cy, cx = yy[:, ::2], xx[:, ::2] / 2
+    paths = [os.path.join(directory, n) for n in ("ref422p10.y4m", "dis420.y4m")]
+    files = [open(p, "wb") for p in paths]
+    try:
+        files[0].write(f"YUV4MPEG2 W{WIDTH} H{HEIGHT} F25:1 Ip A1:1 C422p10\n".encode())
+        files[1].write(f"YUV4MPEG2 W{WIDTH} H{HEIGHT} F25:1 Ip A1:1 C420\n".encode())
+        for i in range(FRAMES):
+            y = 504 + 320 * np.sin(xx / 37.0 + i * 0.1) * np.cos(yy / 23.0)
+            u = 512 + 160 * np.sin(cx / 29.0 + i * 0.05)
+            v = 512 + 160 * np.cos(cy / 17.0)
+            ref = [np.clip(np.round(p + rng.integers(-12, 13, p.shape)), 0, 1023).astype(np.int64)
+                   for p in (y, u, v)]
+            dis = [np.clip(p // 4 + rng.integers(-5, 6, p.shape), 0, 255)
+                   for p in (ref[0], ref[1][::2], ref[2][::2])]
+            for f, planes, dt in ((files[0], ref, np.uint16), (files[1], dis, np.uint8)):
+                f.write(b"FRAME\n")
+                for p in planes:
+                    f.write(p.astype(dt).tobytes())
     finally:
         for f in files:
             f.close()
@@ -153,6 +211,22 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, kernel: str, iters: int = 20):
+    """Mean device time per call of fn's CUDA kernels whose names contain
+    ``kernel``, by torch.profiler: the kernel alone, without the wrapper's
+    host time.  None where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
+    return total_us / 1e3 / iters if total_us > 0 else None
+
+
 def counted_kernels() -> dict:
     """Every kernel wrapper, by name: each counts its own launches."""
     from turbo_metrics_tpu_torch.ops.kernels import (
@@ -161,6 +235,7 @@ def counted_kernels() -> dict:
         scale_tail,
         windowed,
         windowed_tail,
+        xpsnr,
     )
 
     return {
@@ -170,6 +245,8 @@ def counted_kernels() -> dict:
         "yuv420_to_linear_rgb_pair": convert.yuv420_to_linear_rgb_pair,
         "ssim_sums": windowed.ssim_sums,
         "msssim_tail": windowed_tail.msssim_tail,
+        "yuv_to_linear_rgb": convert.yuv_to_linear_rgb,
+        "xpsnr_block_stats": xpsnr.xpsnr_block_stats,
     }
 
 
@@ -232,18 +309,59 @@ def run_multi_path(ref_path: str, dis_path: str, dev, card: str, s2_scores):
     return scores, launches
 
 
-def load_batch(ref_path: str, dis_path: str, dev):
-    """The first BATCH frame pairs as (2, B, h, w) / (2, B, ch, cw, 2) tensors."""
+def run_xpsnr_paths(ref_path: str, dis_path: str, dev, card: str, multi_scores):
+    """Phase 4b: XPSNR (a) alone and (b) beside the four RGB families through
+    the CLI; kernel #13 once per batch in each, the XPSNR of the two equal,
+    the RGB families of (b) those of phase 4a."""
+    per_batch = FRAMES // BATCH
+    runs = {}
+    for tag, metrics in (("a", ("xpsnr",)), ("b", ALL5)):
+        scores, launches, seconds = run_cli(ref_path, dis_path, dev, metrics)
+        log(f"CLI ({tag}) {' '.join('-m ' + m for m in metrics)}: {FRAMES} frames in {seconds:.2f} s "
+            f"(first call and decode included), launches {launches} [{card}]")
+        log(f"CLI ({tag}) xpsnr: {scores['xpsnr'].tolist()}")
+        need(launches["xpsnr_block_stats"] == per_batch,
+             f"({tag}): xpsnr_block_stats launched {launches['xpsnr_block_stats']} times, want {per_batch}")
+        runs[tag] = (scores, launches)
+    (sa, _), (sb, lb) = runs["a"], runs["b"]
+    need(np.array_equal(sa["xpsnr"], sb["xpsnr"]), "XPSNR of (a) and (b) differ")
+    for m in MULTI:
+        d = float(np.abs(sb[m] - multi_scores[m]).max())
+        need(d <= TOL[m], f"(b) {m} apart from phase 4a's by {d}")
+    return sa["xpsnr"], lb
+
+
+def run_mezzanine_path(ref_path: str, dis_path: str, dev, card: str):
+    """Phase 4c: path (c), a 10-bit 4:2:2 reference against an 8-bit 4:2:0
+    distorted stream, all five metrics through the CLI."""
+    scores, launches, seconds = run_cli(ref_path, dis_path, dev, ALL5)
+    log(f"CLI (c) 4:2:2 10-bit vs 4:2:0 8-bit, all five metrics: {FRAMES} frames in {seconds:.2f} s "
+        f"(first call and decode included), launches {launches} [{card}]")
+    for m in ALL5:
+        log(f"CLI (c) {m}: {scores[m].tolist()}")
+    per_batch = FRAMES // BATCH
+    for name in ("yuv_to_linear_rgb", "yuv420_to_linear_rgb_pair", "xpsnr_block_stats"):
+        need(launches[name] >= per_batch, f"(c): {name} launched {launches[name]} times, want >= {per_batch}")
+    for name in ("fused_scale_rgb", "fused_pyramid_tail", "ssim_sums", "msssim_tail"):
+        need(launches[name] > 0, f"(c): {name} was not launched: {launches}")
+    return scores, launches
+
+
+def load_frames(path: str, dev, n: int = BATCH):
+    """The first n frames of a Y4M file as (n, h, w) / (n, ch, cw, 2) tensors."""
     from turbo_metrics_tpu_torch.io.y4m import Y4MFrameSource
 
-    stacks = []
-    for path in (ref_path, dis_path):
-        src = Y4MFrameSource(open(path, "rb"), path=path)
-        stacks.append([src.get_frame() for _ in range(BATCH)])
-        src.close()
-    y2 = np.stack([np.stack([f.y for f in fs]) for fs in stacks])
-    uv2 = np.stack([np.stack([f.uv for f in fs]) for fs in stacks])
-    return torch.from_numpy(y2).to(dev), torch.from_numpy(uv2).to(dev)
+    src = Y4MFrameSource(open(path, "rb"), path=path)
+    frames = [src.get_frame() for _ in range(n)]
+    src.close()
+    return (torch.from_numpy(np.stack([f.y for f in frames])).to(dev),
+            torch.from_numpy(np.stack([f.uv for f in frames])).to(dev))
+
+
+def load_pair(ref_path: str, dis_path: str, dev, n: int = BATCH):
+    """The first n frame pairs as (2, n, h, w) / (2, n, ch, cw, 2) tensors."""
+    (y_r, uv_r), (y_d, uv_d) = load_frames(ref_path, dev, n), load_frames(dis_path, dev, n)
+    return torch.stack([y_r, y_d]), torch.stack([uv_r, uv_d])
 
 
 def check_close(name, got, want, rtol, atol) -> float:
@@ -406,6 +524,117 @@ def check_mixed_spec(dev) -> None:
         need(np.isfinite(g).all() and d <= tol, f"mixed specs {name}: card {g} vs CPU {wv}")
 
 
+def check_xpsnr_kernel(y16, cli_xpsnr) -> float:
+    """Phase 5b, kernel #13: both 1080p batches of the CLI's pair against the
+    twin (every grid equal; frame 8's previous frame is frame 7, carried
+    across the batch boundary), the twin route's XPSNR against the CLI's;
+    then small odd sizes at 10 and 16 bits, a shifted distorted stream and
+    int32 luma codes.  Returns the 1080p grids' max abs difference."""
+    from turbo_metrics_tpu_torch.ops.kernels import xpsnr
+    from turbo_metrics_tpu_torch.ops.xpsnr_ops import frames_db
+
+    ref, dis = y16[0], y16[1]
+    _, n, h, w = y16.shape
+    twin_db, err = [], 0
+    for b0 in range(0, n, BATCH):
+        prev0 = ref[max(b0 - 1, 0)]
+        args = (ref[b0 : b0 + BATCH], dis[b0 : b0 + BATCH], prev0)
+        got, want = xpsnr.xpsnr_block_stats(*args), xpsnr.xpsnr_block_stats_ref(*args)
+        for k in want:
+            need(torch.equal(got[k], want[k]), f"#13 {k} grid differs from the twin's (frames {b0}+)")
+            err = max(err, int((got[k] - want[k]).abs().max()))
+        twin_db += frames_db(want, width=w, height=h)
+    d = float(np.abs(np.asarray(twin_db) - cli_xpsnr).max())
+    log(f"#13 vs twin at {w}x{h}, frames 0-{n - 1}: all grids equal; XPSNR of the twin route vs "
+        f"the CLI's: max |diff| {d:.3g} dB")
+    need(d <= TOL["xpsnr"], f"XPSNR of the twin route vs the CLI's: {d}")
+    rng = np.random.default_rng(13)
+    hs, ws = 67, 99
+    for ref_depth, dis_depth, ref_dtype in (
+        (10, 10, np.uint16), (16, 16, np.uint16), (10, 8, np.uint16), (8, 10, np.int32),
+    ):
+        r = rng.integers(0, 1 << ref_depth, (3, hs, ws))
+        # 16 bits: the complement, so that block SSEs pass 2^32 and wrap.
+        dd = 65535 - r if ref_depth == 16 else rng.integers(0, 1 << dis_depth, (3, hs, ws))
+        prev0 = rng.integers(0, 1 << ref_depth, (hs, ws))
+        dis_dtype = np.uint8 if dis_depth == 8 else np.uint16
+        r, dd, prev0 = (torch.from_numpy(a.astype(dt)).to(y16.device)
+                        for a, dt in ((r, ref_dtype), (dd, dis_dtype), (prev0, ref_dtype)))
+        args = (r, dd, prev0)
+        kw = dict(dis_shift=ref_depth - dis_depth)
+        got, want = xpsnr.xpsnr_block_stats(*args, **kw), xpsnr.xpsnr_block_stats_ref(*args, **kw)
+        for k in want:
+            need(torch.equal(got[k], want[k]),
+                 f"#13 {k} differs from the twin's at {hs}x{ws}, {ref_depth}/{dis_depth} bits")
+        log(f"#13 vs twin at {hs}x{ws}, reference {ref_depth}-bit {r.dtype}, distorted "
+            f"{dis_depth}-bit {dd.dtype}: all grids equal (max SSE {int(want['sse'].max())})")
+    return float(err)
+
+
+def check_convert_kernel(y422, uv422) -> float:
+    """Phase 5b, kernel #5: the 4:2:2 10-bit reference batch of path (c)
+    against the twin (atol 1e-6), then 67x99 at every subsampling and
+    transfer (1e-4 for PQ).  Returns the 1080p max abs error."""
+    from turbo_metrics_tpu_torch.ops import colorspace
+    from turbo_metrics_tpu_torch.ops.kernels import convert
+
+    kw = dict(depth=10, chroma=422)
+    err = check_close("#5 at 1080p 4:2:2 10-bit", convert.yuv_to_linear_rgb(y422, uv422, **kw),
+                      convert.yuv_to_linear_rgb_ref(y422, uv422, **kw), 0.0, 1e-6)
+    log(f"#5 vs twin at {WIDTH}x{HEIGHT} 4:2:2 10-bit B={BATCH}: max abs err {err:.3g}")
+    rng = np.random.default_rng(5)
+    h, w = 67, 99
+    for chroma in (420, 422, 444):
+        ch, cw = colorspace.chroma_dims(chroma, h, w)
+        y = torch.from_numpy(rng.integers(0, 1024, (2, h, w)).astype(np.uint16)).to(y422.device)
+        uv = torch.from_numpy(rng.integers(0, 1024, (2, ch, cw, 2)).astype(np.uint16)).to(y422.device)
+        for transfer in ("bt709", "srgb", "pq", "hlg", "linear"):
+            kw = dict(depth=10, chroma=chroma, transfer=transfer, full_range=transfer == "hlg")
+            e = check_close(f"#5 {chroma} {transfer}", convert.yuv_to_linear_rgb(y, uv, **kw),
+                            convert.yuv_to_linear_rgb_ref(y, uv, **kw), 0.0,
+                            1e-4 if transfer == "pq" else 1e-6)
+            log(f"#5 vs twin at {h}x{w} {chroma} 10-bit {transfer}: max abs err {e:.3g}")
+    return err
+
+
+def check_mezzanine_engine(dev) -> None:
+    """Phase 5b: path (c)'s engine (10-bit 4:2:2 reference, 8-bit 4:2:0
+    distorted) on the card against the same engine on the CPU, on a small
+    odd-sized pair, 3 frames in batches of 2 (XPSNR state chained, the last
+    batch padded)."""
+    from turbo_metrics_tpu_torch.color.characteristics import height_fallback
+    from turbo_metrics_tpu_torch.engine import Metrics, TurboMetrics
+    from turbo_metrics_tpu_torch.io.frame_source import RawFrame
+
+    rng = np.random.default_rng(17)
+    h, w, n = 67, 99, 3
+    ref, dis = [], []
+    for _ in range(n):
+        y = rng.integers(64, 941, (h, w))
+        uv = rng.integers(64, 961, (h, (w + 1) // 2, 2))
+        ref.append(RawFrame(y=y.astype(np.uint16), uv=uv.astype(np.uint16), depth=10, chroma=422))
+        dis.append(RawFrame(
+            y=np.clip(y // 4 + rng.integers(-6, 7, y.shape), 0, 255).astype(np.uint8),
+            uv=np.clip(uv[::2] // 4 + rng.integers(-6, 7, uv[::2].shape), 0, 255).astype(np.uint8),
+            depth=8,
+        ))
+    cc = (height_fallback(h), "limited")
+    metrics = Metrics(**{m: True for m in ALL5})
+    conv = counted_kernels()["yuv_to_linear_rgb"]
+    before = conv.launches
+    res = {}
+    for where in (dev, "cpu"):
+        eng = TurboMetrics(w, h, metrics, batch=2, device=where)
+        scores = eng.compute_frames(ref[:2], cc, dis[:2], cc) + eng.compute_frames(ref[2:], cc, dis[2:], cc)
+        res[str(where)] = {m: np.array([getattr(s, m) for s in scores]) for m in ALL5}
+    need(conv.launches - before == 2, f"path (c) engine: {conv.launches - before} #5 launches, want 2")
+    got, want = res[str(dev)], res["cpu"]
+    for m in ALL5:
+        d = float(np.abs(got[m] - want[m]).max())
+        log(f"path (c) engine {h}x{w} {m}: card {got[m].tolist()}, max |diff| vs CPU {d:.3g}")
+        need(np.isfinite(got[m]).all() and d <= TOL[m], f"path (c) engine {m}: card {got[m]} vs CPU {want[m]}")
+
+
 def s2_level_flops(bsz: int, h: int, w: int) -> float:
     return bsz * h * w * (2 * F_XYB + 3 * F_S2)
 
@@ -422,10 +651,10 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(nb: float, flops: float):
-    """(least ms, what bounds it): bytes over the memory rate or f32
-    operations over the f32 rate, whichever takes longer."""
-    t_bytes, t_ops = nb / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_PER_S * 1e3
+def bound(nb: float, flops: float, peak_ops: float = PEAK_F32_PER_S):
+    """(least ms, what bounds it): bytes over the memory rate or operations
+    over the rate of their type (f32 unless given), whichever takes longer."""
+    t_bytes, t_ops = nb / PEAK_BYTES_PER_S * 1e3, flops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -487,6 +716,7 @@ def main() -> int:
             scale_tail,
             windowed,
             windowed_tail,
+            xpsnr,
         )
         from turbo_metrics_tpu_torch.ops.quality import Quality
     except ImportError as e:
@@ -525,10 +755,27 @@ def main() -> int:
         log(f"wrote {FRAMES}-frame {WIDTH}x{HEIGHT} Y4M pair in {time.monotonic() - t0:.1f} s")
         cli_scores, launches = run_main_path(ref_path, dis_path, dev, card)
         multi_scores, multi_launches = run_multi_path(ref_path, dis_path, dev, card, cli_scores)
-        y2, uv2 = load_batch(ref_path, dis_path, dev)
-        # Phase 7, CLI part: both routes again, warm.
-        cli_warm_s = run_cli(ref_path, dis_path, dev, ["ssimulacra2"])[2]
-        multi_warm_s = run_cli(ref_path, dis_path, dev, MULTI)[2]
+        xpsnr_scores, xpsnr_launches = run_xpsnr_paths(ref_path, dis_path, dev, card, multi_scores)
+        t0 = time.monotonic()
+        mref_path, mdis_path = write_mezzanine_pair(tmp)
+        log(f"wrote {FRAMES}-frame {WIDTH}x{HEIGHT} 4:2:2 10-bit / 4:2:0 8-bit Y4M pair in "
+            f"{time.monotonic() - t0:.1f} s")
+        _, mezz_launches = run_mezzanine_path(mref_path, mdis_path, dev, card)
+        y16 = load_pair(ref_path, dis_path, dev, FRAMES)[0]
+        y2, uv2 = load_pair(ref_path, dis_path, dev)
+        y422, uv422 = load_frames(mref_path, dev)
+        # Phase 7, CLI part: each route again, warm, three times in turn
+        # (host-clock times spread widely on a shared host).
+        warm_runs = {
+            "-m ssimulacra2": (ref_path, dis_path, ["ssimulacra2"]),
+            "multi-metric": (ref_path, dis_path, MULTI),
+            "(a) -m xpsnr": (ref_path, dis_path, ["xpsnr"]),
+            "(c) 4:2:2 10-bit vs 4:2:0, all five": (mref_path, mdis_path, ALL5),
+        }
+        warm_s = {k: [] for k in warm_runs}
+        for _ in range(3):
+            for k, (r, d, ms) in warm_runs.items():
+                warm_s[k].append(run_cli(r, d, dev, ms)[2])
 
     model = Ssimulacra2(WIDTH, HEIGHT, device=dev)
     qmod = Quality(device=dev)
@@ -538,6 +785,9 @@ def main() -> int:
         check_other_formats(model)
         multi_err, p12, ms_l1 = check_multi_parity(y2, uv2, model, qmod, multi_scores)
         check_mixed_spec(dev)
+        e13 = check_xpsnr_kernel(y16, xpsnr_scores)
+        e5 = check_convert_kernel(y422, uv422)
+        check_mezzanine_engine(dev)
         check_golden(dev)
 
         # Phase 7: timing (device time by CUDA events, after warm-up).
@@ -570,6 +820,15 @@ def main() -> int:
         multi_ms = [time_ms(lambda: multi_step_kernel(y2, uv2, model, qmod), 10)]
         multi_plain_ms = [time_ms(lambda: multi_step_plain(y2, uv2, model), 3) for _ in range(2)]
         multi_ms.append(time_ms(lambda: multi_step_kernel(y2, uv2, model, qmod), 10))
+        xp_args = (y16[0, :BATCH], y16[1, :BATCH], y16[0, 0])
+        k13_ms = time_ms(lambda: xpsnr.xpsnr_block_stats(*xp_args), 20)
+        k13_plain_ms = time_ms(lambda: xpsnr.xpsnr_block_stats_ref(*xp_args), 5)
+        k5_kw = dict(depth=10, chroma=422)
+        k5_ms = time_ms(lambda: convert.yuv_to_linear_rgb(y422, uv422, **k5_kw), 20)
+        k5_plain_ms = time_ms(lambda: convert.yuv_to_linear_rgb_ref(y422, uv422, **k5_kw), 5)
+        k13_dev_ms = kernel_device_ms(lambda: xpsnr.xpsnr_block_stats(*xp_args), "xpsnr_kernel")
+        k5_dev_ms = kernel_device_ms(
+            lambda: convert.yuv_to_linear_rgb(y422, uv422, **k5_kw), "yuv_to_rgb_kernel")
 
     mpx = WIDTH * HEIGHT / 1e6
     for name, runs in (
@@ -582,12 +841,18 @@ def main() -> int:
             + f" [{card}]"
         )
     log(f"PSNR (plain torch expression on the pair buffer) {psnr_ms:.3f} ms [{card}]")
-    log(f"CLI warm, {FRAMES} frames: -m ssimulacra2 {cli_warm_s * 1e3:.1f} ms, "
-        f"multi-metric {multi_warm_s * 1e3:.1f} ms (host clock) [{card}]")
+    for name, t in (("xpsnr_block_stats", k13_dev_ms), ("yuv_to_linear_rgb", k5_dev_ms)):
+        log(f"{name}: kernel device time {'not measured' if t is None else f'{t:.4f} ms'} "
+            f"(torch.profiler, wrapper host time excluded) [{card}]")
+    for k, runs in warm_s.items():
+        log(f"CLI warm, {FRAMES} frames, {k}: " + " / ".join(f"{t * 1e3:.1f}" for t in runs)
+            + f" ms, median {float(np.median(runs)) * 1e3:.1f} ms (host clock) [{card}]")
 
     # Bounds from this run's shapes: bytes each input read once and each
-    # output written once, f32 operations of the algorithm (F_* above).
+    # output written once, f32 operations of the algorithm (F_* above), or
+    # int32 operations for XPSNR (I_XPSNR).
     _, bsz, h, w = y2.shape
+    xp_out = bsz * 3 * 4 * -(-h // 16) * -(-w // 16)
     mh1, mw1 = ms_l1.shape[-2:]
     dims_s2 = model.dims
     s0_out = torch.empty(bsz, 3, 6)
@@ -610,13 +875,18 @@ def main() -> int:
         ("msssim_tail", "windowed.cu", "windowed_tail.py:376", multi_launches,
          multi_err["msssim_tail"], k12_ms, k12_plain_ms, nbytes(ms_l1) + bsz * (lv - 1) * 3 * 2 * 4,
          sum(ssim_level_flops(bsz, mh1 >> i, mw1 >> i, False, i + 2 < lv) for i in range(lv - 1))),
+        ("yuv_to_linear_rgb", "convert.cu", "convert.py:125", mezz_launches, e5, k5_ms, k5_plain_ms,
+         nbytes(y422, uv422) + bsz * 3 * h * w * 4, bsz * h * w * F_CONVERT),
+        ("xpsnr_block_stats", "xpsnr.cu", "xpsnr.py:197", xpsnr_launches, e13, k13_ms, k13_plain_ms,
+         nbytes(*xp_args) + xp_out, bsz * h * w * I_XPSNR),
     ]
     kernels = []
-    for name, src_file, replaces, counts, err, ms, pms, nb, flops in rows:
-        bound_ms, bound_by = bound(nb, flops)
+    for name, src_file, replaces, counts, err, ms, pms, nb, ops in rows:
+        is_int = name == "xpsnr_block_stats"
+        bound_ms, bound_by = bound(nb, ops, PEAK_I32_PER_S if is_int else PEAK_F32_PER_S)
         log(f"{name}: {ms:.3f} ms vs plain {pms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-            f"({nb / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), launches {counts[name]}, "
-            f"max abs err {err:.3g} [{card}]")
+            f"({nb / 1e6:.1f} MB, {ops / 1e9:.2f} G{'int32 ops' if is_int else 'FLOP'}), "
+            f"launches {counts[name]}, max abs err {err:.3g} [{card}]")
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -249,6 +249,7 @@ def test_launches_stay_zero_on_cpu(rng):
     counted = (
         scale_stats.fused_scale0_yuv, scale_stats.fused_scale_rgb, scale_tail.fused_pyramid_tail,
         convert.yuv420_to_linear_rgb_pair, windowed.ssim_sums, windowed_tail.msssim_tail,
+        convert.yuv_to_linear_rgb,
     )
     for fn in counted:
         fn.launches = 0
@@ -257,6 +258,7 @@ def test_launches_stay_zero_on_cpu(rng):
     ssimulacra2_subscores_from_yuv(
         torch.from_numpy(y2), torch.from_numpy(uv2), taps, opsin, num_scales=3
     )
+    convert.yuv_to_linear_rgb(torch.from_numpy(y2), torch.from_numpy(uv2))
     p12 = convert.yuv420_to_linear_rgb_pair(torch.from_numpy(y2), torch.from_numpy(uv2))
     ssimulacra2_subscores_from_rgb(p12, taps, opsin, num_scales=3)
     tq.quality_from_rgb(p12, _ssim_window(), want_psnr=True, want_ssim=True, want_msssim=True)
@@ -292,6 +294,8 @@ def test_wrappers_reject_bad_inputs(rng, bad):
         scale_stats.fused_scale_rgb(p12, taps, opsin)
     with pytest.raises(ValueError):
         convert.yuv420_to_linear_rgb_pair(y2, uv2)
+    with pytest.raises(ValueError):
+        convert.yuv_to_linear_rgb(y2, uv2)
     with pytest.raises(ValueError):
         windowed.ssim_sums(p12, win)
     with pytest.raises(ValueError):

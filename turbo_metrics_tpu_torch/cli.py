@@ -3,9 +3,10 @@
 The same flags and output shapes as the JAX package's CLI (itself mirroring
 turbo-metrics-cli/src/main.rs:31-102), plus ``--device``: ``cuda`` (the
 default, an error when CUDA is absent) or ``cpu`` (the plain torch path).
-Ported so far: ``-m ssimulacra2``, ``-m psnr``, ``-m ssim`` and
-``-m msssim`` on Y4M 4:2:0 input, alone or together; XPSNR, VMAF and other
-inputs exit with a "not ported yet" error.
+Ported so far: ``-m ssimulacra2``, ``-m psnr``, ``-m ssim``, ``-m msssim``
+and ``-m xpsnr`` on Y4M input (4:2:0, 4:2:2, 4:4:4 and monochrome, 8 to 16
+bits), alone or together; VMAF and other containers exit with a "not ported
+yet" error.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
         action="append",
         default=[],
         choices=["psnr", "ssim", "msssim", "ssimulacra2", "xpsnr", "vmaf"],
-        help="Metrics to compute (repeatable); xpsnr and vmaf are not ported yet.",
+        help="Metrics to compute (repeatable); vmaf is not ported yet.",
     )
     p.add_argument("--every", type=int, default=0, help="Only compute every Nth frame.")
     p.add_argument("--skip", type=int, default=0, help="Skip the first N frame pairs.")

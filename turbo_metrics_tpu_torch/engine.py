@@ -1,19 +1,25 @@
 """The pipeline engine: batches frame pairs and scores them on one device.
 
 Counterpart of the JAX package's ``TurboMetrics`` (itself modelled on
-turbo-metrics/src/lib.rs:188-434) for SSIMULACRA2, PSNR, SSIM and MS-SSIM on
-YUV 4:2:0 input.  The host stacks each batch of decoded planes and uploads
-them; the device runs one of two routes (the JAX engine's ``_get_step``):
-  * SSIMULACRA2 alone, both inputs of one conversion spec: scale 0 straight
-    from YUV (models/ssimulacra2.ssimulacra2_subscores_from_yuv);
-  * otherwise, the multi-metric route: one conversion
-    (ops/kernels/convert.py) fills a (2, B, 3, h, w) linear-RGB pair buffer,
-    one launch for a shared spec or one per image when the specs differ, and
-    every requested family reads it (ops/quality.quality_from_rgb,
-    models/ssimulacra2.ssimulacra2_subscores_from_rgb).
-Only per-frame values and the (B, 3, S, 2, 3) sub-scores come back; the
-108-weight score runs on the host in f64.  XPSNR and VMAF are not ported yet
-and raise.
+turbo-metrics/src/lib.rs:188-434) for SSIMULACRA2, PSNR, SSIM, MS-SSIM and
+XPSNR on planar YUV (4:2:0, 4:2:2, 4:4:4) and packed RGB input.  The host
+stacks each batch of decoded frames and uploads them; the device runs (the
+JAX engine's ``_get_step``):
+  * for the RGB families, one of two routes.  SSIMULACRA2 as the only one,
+    both inputs of one 4:2:0 conversion spec: scale 0 straight from YUV
+    (models/ssimulacra2.ssimulacra2_subscores_from_yuv).  Otherwise the
+    multi-metric route: a (2, B, 3, h, w) linear-RGB pair buffer, filled by
+    one conversion launch for a shared YUV spec or one per image when the
+    specs differ (ops/kernels/convert.py: #6 for 4:2:0, #5 for 4:2:2 and
+    4:4:4; the plain sRGB conversion for RGB sources), which every requested
+    family reads (ops/quality.quality_from_rgb,
+    models/ssimulacra2.ssimulacra2_subscores_from_rgb);
+  * for XPSNR, the block statistics of the luma code values
+    (ops/kernels/xpsnr.py), the distorted luma aligned to the reference's
+    depth, with the previous reference frame carried from batch to batch.
+Only per-frame values, the (B, 3, S, 2, 3) sub-scores and the XPSNR block
+grids come back; the SSIMULACRA2 score and the XPSNR weighting run on the
+host in f64.  VMAF is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -31,8 +37,14 @@ from turbo_metrics_tpu_torch.color.characteristics import (
 )
 from turbo_metrics_tpu_torch.io.frame_source import FrameSource, RawFrame
 from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2, resolve_device
-from turbo_metrics_tpu_torch.ops.kernels.convert import yuv420_to_linear_rgb_pair
+from turbo_metrics_tpu_torch.ops import colorspace
+from turbo_metrics_tpu_torch.ops.kernels.convert import (
+    yuv420_to_linear_rgb_pair,
+    yuv_to_linear_rgb,
+)
+from turbo_metrics_tpu_torch.ops.kernels.xpsnr import xpsnr_block_stats
 from turbo_metrics_tpu_torch.ops.quality import Quality
+from turbo_metrics_tpu_torch.ops.xpsnr_ops import frames_db
 from turbo_metrics_tpu_torch.utils.stats import Stats
 
 
@@ -204,6 +216,23 @@ class ConvertSpec:
         )
 
 
+def _luma_code(spec: ConvertSpec, arrays: tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """Integer luma code values (B, H, W) for XPSNR.
+
+    YUV sources use the decoded Y plane directly (as the reference does);
+    RGB sources derive gamma-domain luma with BT.709 weights, in f32, rounded
+    half to even (the JAX engine's ``_luma_code``).
+    """
+    if spec.kind == "yuv420":
+        return arrays[0]
+    rgb = arrays[0].to(torch.float32)
+    kr, kb = colorspace.MATRIX_KR_KB["bt709"]
+    kg = 1.0 - kr - kb
+    f32 = colorspace._f32
+    y = f32(kr) * rgb[..., 0] + f32(kg) * rgb[..., 1] + f32(kb) * rgb[..., 2]
+    return torch.round(y).to(torch.int32).contiguous()
+
+
 class TurboMetrics:
     """Per-resolution metric engine on an explicit ``device`` ('cuda' or
     'cpu'; 'cuda' raises when CUDA is absent — never a silent fallback)."""
@@ -219,9 +248,8 @@ class TurboMetrics:
     ):
         if not metrics.any():
             raise ValueError("at least one metric must be selected")
-        others = [n for n in ("xpsnr", "vmaf") if getattr(metrics, n)]
-        if others:
-            raise not_ported(f"metric(s) {', '.join(others)}", "Queue 1 items 6-8")
+        if metrics.vmaf:
+            raise not_ported("metric vmaf", "Queue 1 items 7-8")
         if (metrics.ssim or metrics.msssim) and min(width, height) < 11:
             raise ValueError("SSIM and MS-SSIM need frames of at least 11x11")
         self.width = int(width)
@@ -235,6 +263,12 @@ class TurboMetrics:
             Quality(device=self.device) if metrics.psnr or metrics.ssim or metrics.msssim else None
         )
         self.batch = batch if batch is not None else default_batch(width, height, metrics)
+        # XPSNR temporal state: the last reference luma of the previous batch.
+        self._prev_ref: Optional[torch.Tensor] = None
+
+    def reset_stream_state(self) -> None:
+        """Clear temporal state before scoring a new clip with this engine."""
+        self._prev_ref = None
 
     # -- host batching -----------------------------------------------------
 
@@ -250,24 +284,30 @@ class TurboMetrics:
             raise ValueError("need equal, non-zero numbers of ref and dis frames")
         n = len(ref_frames)
         # Pad a partial batch to the full batch by repeating its last frame,
-        # so every step sees one shape; padded scores are dropped below.
+        # so every step sees one shape; padded scores are dropped below.  The
+        # XPSNR state stays right because the padding is the last real frame.
         if n < self.batch:
             pad = self.batch - n
             ref_frames = ref_frames + [ref_frames[-1]] * pad
             dis_frames = dis_frames + [dis_frames[-1]] * pad
         spec = ConvertSpec.for_frame(ref_frames[0], *cc_ref)
         spec_dis = ConvertSpec.for_frame(dis_frames[0], *cc_dis)
-        if any(s.kind != "yuv420" or s.chroma != 420 for s in (spec, spec_dis)):
-            raise not_ported(
-                f"input format {spec.kind}/{spec.chroma} -> {spec_dis.kind}/{spec_dis.chroma}",
-                "Queue 1 item 4",
-            )
         m = self.metrics
         scores = [FrameScores() for _ in range(n)]
-        if self.quality is None and spec_dis == spec:
-            # SSIMULACRA2 alone: scale 0 conversion-fused, no RGB pair buffer.
+        # Planar YUV of one spec for both inputs is uploaded as one (2, B, ...)
+        # stack, so that one conversion launch covers the pair.
+        pair = None
+        if spec == spec_dis and spec.kind == "yuv420":
+            pair = self._planes(ref_frames, dis_frames)
+            arr_ref, arr_dis = tuple(a[0] for a in pair), tuple(a[1] for a in pair)
+        else:
+            arr_ref, arr_dis = self._planes(ref_frames), self._planes(dis_frames)
+        s2_from_yuv = pair is not None and spec.chroma == 420 and self.quality is None
+        if s2_from_yuv and self.model is not None:
+            # SSIMULACRA2 the only RGB family: scale 0 conversion-fused, no
+            # RGB pair buffer.
             sub = self.model.subscores_from_yuv(
-                *self._planes(ref_frames, dis_frames),
+                *pair,
                 depth=spec.depth,
                 matrix=spec.matrix,
                 transfer=spec.transfer,
@@ -276,50 +316,96 @@ class TurboMetrics:
             s2 = self.model.score(sub)
             for i in range(n):
                 scores[i].ssimulacra2 = float(s2[i])
-            return scores
-        p12 = self._linear_rgb_pair(ref_frames, spec, dis_frames, spec_dis)
-        if self.quality is not None:
-            out = self.quality.from_rgb(p12, psnr=m.psnr, ssim=m.ssim, msssim=m.msssim)
-            for name, vals in out.items():
-                vals = vals.cpu().numpy().astype(np.float64)
+        elif self.model is not None or self.quality is not None:
+            p12 = self._linear_rgb_pair(spec, arr_ref, spec_dis, arr_dis, pair)
+            if self.quality is not None:
+                out = self.quality.from_rgb(p12, psnr=m.psnr, ssim=m.ssim, msssim=m.msssim)
+                for name, vals in out.items():
+                    vals = vals.cpu().numpy().astype(np.float64)
+                    for i in range(n):
+                        setattr(scores[i], name, float(vals[i]))
+            if self.model is not None:
+                s2 = self.model.score(self.model.subscores_from_rgb(p12))
                 for i in range(n):
-                    setattr(scores[i], name, float(vals[i]))
-        if self.model is not None:
-            s2 = self.model.score(self.model.subscores_from_rgb(p12))
-            for i in range(n):
-                scores[i].ssimulacra2 = float(s2[i])
+                    scores[i].ssimulacra2 = float(s2[i])
+        if m.xpsnr:
+            self._xpsnr(spec, arr_ref, spec_dis, arr_dis, scores)
         return scores
 
-    def _planes(self, *inputs: list[RawFrame]) -> tuple[torch.Tensor, torch.Tensor]:
-        """Luma and chroma of one input's frames on the device, (B, h, w) and
-        (B, ch, cw, 2), or of two inputs' stacked, (2, B, ...)."""
-        y = np.stack([np.stack([f.y for f in frames]) for frames in inputs])
-        uv = np.stack([np.stack([f.uv for f in frames]) for frames in inputs])
-        if len(inputs) == 1:
-            y, uv = y[0], uv[0]
-        return torch.from_numpy(y).to(self.device), torch.from_numpy(uv).to(self.device)
+    def _planes(self, *inputs: list[RawFrame]) -> tuple[torch.Tensor, ...]:
+        """One input's frames on the device, or two inputs' stacked on a
+        leading axis of 2: (luma (B, h, w), chroma (B, ch, cw, 2)) for planar
+        YUV, (rgb (B, h, w, 3),) for packed RGB."""
+        fields = ("rgb",) if inputs[0][0].kind == "rgb" else ("y", "uv")
+        out = []
+        for field in fields:
+            a = np.stack([np.stack([getattr(f, field) for f in frames]) for frames in inputs])
+            out.append(torch.from_numpy(a[0] if len(inputs) == 1 else a).to(self.device))
+        return tuple(out)
 
     def _linear_rgb_pair(
-        self, ref_frames: list[RawFrame], spec_ref: ConvertSpec,
-        dis_frames: list[RawFrame], spec_dis: ConvertSpec,
+        self, spec_ref: ConvertSpec, arr_ref: tuple, spec_dis: ConvertSpec, arr_dis: tuple,
+        pair: Optional[tuple] = None,
     ) -> torch.Tensor:
         """The (2, B, 3, h, w) linear-RGB pair buffer of a batch: one
-        conversion launch for a shared spec, one per image into its slot
-        when the specs differ (engine.py:600-629 of the JAX package)."""
-
-        def kw(spec):
-            kr_kb = self.model.kr_kb[spec.matrix] if self.model is not None else None
-            return dict(depth=spec.depth, matrix=spec.matrix, transfer=spec.transfer,
-                        full_range=spec.full_range, kr_kb=kr_kb)
-
-        if spec_ref == spec_dis:
-            return yuv420_to_linear_rgb_pair(*self._planes(ref_frames, dis_frames), **kw(spec_ref))
+        conversion launch for the stacked ``pair`` planes of a shared YUV
+        spec, else one conversion per image into its slot (engine.py:600-629
+        and :214-252 of the JAX package)."""
+        if pair is not None:
+            return self._convert(spec_ref, pair)
         p12 = torch.empty(
-            (2, len(ref_frames), 3, self.height, self.width), dtype=torch.float32, device=self.device
+            (2, arr_ref[0].shape[0], 3, self.height, self.width),
+            dtype=torch.float32, device=self.device,
         )
-        for slot, (frames, spec) in enumerate(((ref_frames, spec_ref), (dis_frames, spec_dis))):
-            yuv420_to_linear_rgb_pair(*self._planes(frames), p12, slot, **kw(spec))
+        for slot, (spec, arrays) in enumerate(((spec_ref, arr_ref), (spec_dis, arr_dis))):
+            self._convert(spec, arrays, p12, slot)
         return p12
+
+    def _convert(self, spec: ConvertSpec, arrays: tuple, p12=None, slot=None) -> torch.Tensor:
+        """Linear RGB of one input's ``arrays`` into ``p12[slot]`` (then
+        ``p12`` is returned), or of a stacked pair into a new buffer."""
+        if spec.kind == "rgb":
+            # Plain torch, as in the JAX package (no TPU kernel either).
+            rgb = arrays[0].permute(0, 3, 1, 2)
+            lin = (
+                rgb.to(torch.float32) if spec.transfer == "linear"
+                else colorspace.srgb_to_linear(rgb, depth=spec.depth)
+            )
+            p12[slot].copy_(lin)
+            return p12
+        kw = dict(
+            depth=spec.depth, matrix=spec.matrix, transfer=spec.transfer,
+            full_range=spec.full_range,
+            kr_kb=self.model.kr_kb[spec.matrix] if self.model is not None else None,
+        )
+        if spec.chroma == 420:
+            return yuv420_to_linear_rgb_pair(*arrays, p12, slot, **kw)
+        if p12 is None:
+            return yuv_to_linear_rgb(*arrays, chroma=spec.chroma, **kw)
+        yuv_to_linear_rgb(*arrays, p12[slot], chroma=spec.chroma, **kw)
+        return p12
+
+    def _xpsnr(
+        self, spec_ref: ConvertSpec, arr_ref: tuple, spec_dis: ConvertSpec, arr_dis: tuple,
+        scores: list[FrameScores],
+    ) -> None:
+        """XPSNR of the batch's frames into ``scores`` (engine.py:302-314,
+        :913-919 and :980-992 of the JAX package)."""
+        y_ref = _luma_code(spec_ref, arr_ref)
+        y_dis = _luma_code(spec_dis, arr_dis)
+        # The stream's first frame is its own previous frame (tact 0).
+        prev0 = y_ref[0] if self._prev_ref is None else self._prev_ref.to(y_ref.dtype)
+        # The JAX engine's _align_luma_depth, as a shift the kernel applies
+        # while it reads: XPSNR compares raw code values, so a pair whose
+        # inputs differ in depth is compared at the reference's depth.
+        stats = xpsnr_block_stats(y_ref, y_dis, prev0, dis_shift=spec_ref.depth - spec_dis.depth)
+        self._prev_ref = y_ref[-1].clone()
+        # As in the JAX engine: an RGB reference is weighted at 8 bits,
+        # whatever its depth.
+        depth = spec_ref.depth if spec_ref.kind == "yuv420" else 8
+        db = frames_db(stats, width=self.width, height=self.height, depth=depth)
+        for s, v in zip(scores, db):
+            s.xpsnr = v
 
     def compute_one(
         self,
@@ -436,21 +522,20 @@ class TurboMetrics:
 def default_batch(width: int, height: int, metrics: Optional[Metrics] = None) -> int:
     """Frame pairs per device step: 8 at 1080p, provisional.
 
-    Device bytes per pixel pair.  SSIMULACRA2 alone: about 80 (XYB 24, four
-    row-blurred planes 48, level 1 6, planes 3); 8 pairs at 1080p are ~1.3
-    GB.  The multi-metric route: the linear-RGB pair buffer 24 and the
-    planes 3 (6 at 16 bits), plus SSIMULACRA2 78 (XYB, row planes, level 1),
-    the SSIM family 54 (four row-correlated planes, the emitted level) and
-    PSNR 48 (quantized pair and its difference); all four at 1080p are
-    ~0.43 GB per pair.  No batch ladder has been measured on the H100 yet,
-    so the cap is a guess to revisit (the JAX package's TPU ladders do not
-    transfer).
+    Device bytes per pixel pair, at most (the formats are not known yet):
+    the uploaded planes 12 (16-bit 4:4:4 or 16-bit RGB; 3 at 8-bit 4:2:0);
+    XPSNR 8 (int32 luma codes of RGB sources; its grids are 3/32); the
+    linear-RGB pair buffer 24 with any RGB family, plus SSIMULACRA2 78 (XYB,
+    four row-blurred planes, level 1), the SSIM family 54 (four
+    row-correlated planes, the emitted level) and PSNR 48 (quantized pair
+    and its difference).  All five at 1080p are ~0.46 GB per pair.  No
+    batch ladder has been measured on the H100 yet, so the cap is a guess to
+    revisit (the JAX package's TPU ladders do not transfer).
     """
     m = metrics or Metrics(ssimulacra2=True)
-    if not (m.psnr or m.ssim or m.msssim):
-        per_px = 80
-    else:
-        per_px = 30 + 78 * m.ssimulacra2 + 54 * (m.ssim or m.msssim) + 48 * m.psnr
+    per_px = 12 + 8 * m.xpsnr
+    if m.ssimulacra2 or m.psnr or m.ssim or m.msssim:
+        per_px += 24 + 78 * m.ssimulacra2 + 54 * (m.ssim or m.msssim) + 48 * m.psnr
     per_pair = per_px * width * height
     budget = 4 << 30
     return int(np.clip(budget // max(per_pair, 1), 1, 8))

@@ -1,8 +1,9 @@
 """YUV4MPEG2 (Y4M) raw video source — pure NumPy, zero-decode.
 
 The fastest input path: planar YUV frames read straight off disk and shipped
-to the device.  Supports 8/10/12/16-bit 4:2:0 (and monochrome), limited or
-full range via the non-standard XCOLORRANGE extension used by ffmpeg.
+to the device.  Supports 8/10/12/16-bit 4:2:0, 4:2:2 and 4:4:4 (and
+monochrome), limited or full range via the non-standard XCOLORRANGE
+extension used by ffmpeg.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
-"""Colorspace conversion: planar YUV 4:2:0 -> linear RGB, in plain torch.
+"""Colorspace conversion: planar YUV or gamma sRGB -> linear RGB, in plain torch.
 
-The plain counterpart of the conversion that the scale-0 CUDA kernel
-(ops/kernels/scale_stats.py) fuses.  Conventions carried over from the
+The plain counterpart of the conversions of the CUDA kernels
+(ops/kernels/scale_stats.py, ops/kernels/convert.py).  Conventions carried over from the
 reference (cuda-colorspace-kernel/src/{lib.rs,biplanar.rs}):
   * YCbCr -> R'G'B' coefficients are derived from the colour primaries
     (kr/kb via the XYZ route, lib.rs:203-218), not the rounded constants.
@@ -168,6 +168,17 @@ def conversion_coeffs(
 # Conversion
 # --------------------------------------------------------------------------
 
+def chroma_dims(chroma: int, h: int, w: int) -> tuple[int, int]:
+    """(ch, cw) of the chroma grid of an h x w image at a subsampling."""
+    if chroma == 444:
+        return h, w
+    if chroma == 422:
+        return h, (w + 1) // 2
+    if chroma == 420:
+        return (h + 1) // 2, (w + 1) // 2
+    raise ValueError(f"chroma must be 420, 422 or 444, got {chroma!r}")
+
+
 def yuv420_to_linear_rgb(
     y: torch.Tensor,
     uv: torch.Tensor,
@@ -177,11 +188,15 @@ def yuv420_to_linear_rgb(
     transfer: str = "bt709",
     full_range: bool = False,
     kr_kb=None,
+    chroma: int = 420,
 ) -> torch.Tensor:
-    """Planar YCbCr 4:2:0 -> linear RGB f32 in [0, 1].
+    """Planar YCbCr -> linear RGB f32 in [0, 1].
 
-    ``y``: (..., H, W) integer luma; ``uv``: (..., ceil(H/2), ceil(W/2), 2)
-    chroma (Cb, Cr).  Output: (..., 3, H, W) f32.
+    ``y``: (..., H, W) integer luma; ``uv``: (..., ch, cw, 2) chroma (Cb,
+    Cr) at the ``chroma`` subsampling's grid: 420 (ceil(H/2), ceil(W/2)),
+    422 (H, ceil(W/2)), 444 (H, W).  Output: (..., 3, H, W) f32.  The
+    reference decimates every input to NVDEC's 4:2:0 surfaces; 4:2:2 and
+    4:4:4 keep their real chroma grid here, as in the JAX package.
     """
     y_c, r_c, b_c, g1_c, g2_c = conversion_coeffs(depth, matrix, full_range, kr_kb)
     rng = sample_range(depth, full_range)
@@ -194,11 +209,31 @@ def yuv420_to_linear_rgb(
     chans = (r_c * cr, g1_c * cb + g2_c * cr, b_c * cb)
 
     def up(c):
-        c = c.repeat_interleave(2, dim=-1).repeat_interleave(2, dim=-2)
+        # Nearest neighbour onto the luma grid: 420 one pair per 2x2 luma
+        # block, 422 per 1x2 block, 444 already co-sited.
+        if chroma != 444:
+            c = c.repeat_interleave(2, dim=-1)
+        if chroma == 420:
+            c = c.repeat_interleave(2, dim=-2)
         return c[..., :h, :w]
 
     rgb = torch.stack([luma + up(c) for c in chans], dim=-3)
     return torch.clamp(TRANSFERS[transfer](rgb), 0.0, 1.0)
+
+
+def srgb_to_linear(x: torch.Tensor, *, depth: int | None = None) -> torch.Tensor:
+    """Gamma sRGB -> linear f32.
+
+    Integer inputs are normalised by (2^depth - 1) first (depth from the
+    dtype when not given).  Matches srgb_to_linear_{u8,u16,f32}
+    (cuda-colorspace-kernel/src/srgb.rs:50-127); the reference's u8 LUT is
+    the formula tabulated, so the formula is used directly.
+    """
+    if not x.is_floating_point():
+        if depth is None:
+            depth = 8 if x.dtype == torch.uint8 else 16
+        x = x.to(torch.float32) / _f32((1 << depth) - 1)
+    return srgb_eotf(x)
 
 
 def f32_to_uint8(x: torch.Tensor, dtype: torch.dtype = torch.uint8) -> torch.Tensor:

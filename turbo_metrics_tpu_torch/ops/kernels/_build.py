@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("ssimulacra2_scale.cu", "convert.cu", "windowed.cu")
+SOURCES = ("ssimulacra2_scale.cu", "convert.cu", "windowed.cu", "xpsnr.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,8 +40,10 @@ _SIGNATURES = {
     "tm_rgb_to_xyb": [_P, _I, _I, _I, _P, _P, _P, _P],
     "tm_level_sums": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "tm_yuv420_to_rgb": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
+    "tm_yuv_to_rgb": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
     "tm_ssim_blocks": [_I, _I],
     "tm_ssim_level": [_P, _I, _I, _I, _I, _P, _F, _F, _P, _P, _P, _I, _P, _P],
+    "tm_xpsnr_block_stats": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
 }
 
 

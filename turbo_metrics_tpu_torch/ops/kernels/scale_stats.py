@@ -69,18 +69,20 @@ def check_level_consts(taps: torch.Tensor, opsin: torch.Tensor, device) -> None:
 
 
 def check_yuv(
-    y2: torch.Tensor, uv2: torch.Tensor, depth: int, transfer: str, *, pair: bool = True
+    y2: torch.Tensor, uv2: torch.Tensor, depth: int, transfer: str, *, pair: bool = True,
+    chroma: int = 420,
 ) -> None:
     """Planes of a pair, (2, B, h, w) + (2, B, ch, cw, 2), or with ``pair``
-    false of one image per frame, (B, h, w) + (B, ch, cw, 2)."""
+    false of one image per frame, (B, h, w) + (B, ch, cw, 2); (ch, cw) the
+    ``chroma`` subsampling's grid."""
     if pair and (y2.ndim != 4 or y2.shape[0] != 2):
         raise ValueError(f"y2 must be (2, B, h, w), got {tuple(y2.shape)}")
     if not pair and y2.ndim != 3:
         raise ValueError(f"y must be (B, h, w), got {tuple(y2.shape)}")
     h, w = y2.shape[-2], y2.shape[-1]
-    want_uv = (*y2.shape[:-2], (h + 1) // 2, (w + 1) // 2, 2)
+    want_uv = (*y2.shape[:-2], *colorspace.chroma_dims(chroma, h, w), 2)
     if tuple(uv2.shape) != want_uv:
-        raise ValueError(f"uv2 must be {want_uv} for 4:2:0, got {tuple(uv2.shape)}")
+        raise ValueError(f"uv2 must be {want_uv} for {chroma}, got {tuple(uv2.shape)}")
     want_dt = torch.uint8 if depth == 8 else torch.uint16
     if not 8 <= depth <= 16 or y2.dtype != want_dt or uv2.dtype != want_dt:
         raise ValueError(

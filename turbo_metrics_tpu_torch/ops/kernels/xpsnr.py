@@ -1,0 +1,97 @@
+"""Kernel #13: XPSNR block statistics of a batch of luma planes.
+
+``xpsnr_block_stats`` launches ``tm_xpsnr_block_stats`` (csrc/xpsnr.cu) on a
+CUDA tensor and runs its plain twin ``xpsnr_block_stats_ref`` on a CPU
+tensor.  It replaces the JAX package's ``xpsnr_block_stats_pallas``
+(turbo_metrics_tpu/ops/pallas/xpsnr.py:197), reached there through
+``ops/xpsnr_ops.xpsnr_block_stats``.
+
+The previous reference frame of frame b is reference frame b - 1 of the same
+batch; frame 0's is ``prev0``, the last reference luma of the previous batch
+(or frame 0 itself at the start of a stream, so its temporal activity is 0).
+The JAX engine uploads the same frames as a third batch of planes.  The
+distorted luma is brought to the reference's depth by ``dis_shift`` bits
+(``xpsnr_ops.align_luma_depth``) inside the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from turbo_metrics_tpu_torch.ops import xpsnr_ops
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+
+# Luma types the kernel takes: u8 / u16 decoded planes, int32 luma codes of
+# RGB sources.
+DTYPE_CODES = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
+QUANTITIES = ("sse", "sact", "tact")
+
+
+def _check(y_ref, y_dis, prev0, dis_shift):
+    if y_ref.ndim != 3 or y_dis.shape != y_ref.shape:
+        raise ValueError(
+            f"y_ref and y_dis must be one (B, h, w) shape, got {tuple(y_ref.shape)} "
+            f"and {tuple(y_dis.shape)}"
+        )
+    if prev0.shape != y_ref.shape[1:] or prev0.dtype != y_ref.dtype:
+        raise ValueError(
+            f"prev0 must be a {tuple(y_ref.shape[1:])} plane of {y_ref.dtype}, got "
+            f"{tuple(prev0.shape)} {prev0.dtype}"
+        )
+    for name, t in (("y_ref", y_ref), ("y_dis", y_dis)):
+        if t.dtype not in DTYPE_CODES:
+            raise ValueError(f"{name} must be uint8, uint16 or int32, got {t.dtype}")
+    if not y_ref.device == y_dis.device == prev0.device:
+        raise ValueError("y_ref, y_dis and prev0 must be on one device")
+    if not (y_ref.is_contiguous() and y_dis.is_contiguous() and prev0.is_contiguous()):
+        raise ValueError("y_ref, y_dis and prev0 must be contiguous")
+    if not -16 <= dis_shift <= 16:
+        raise ValueError(f"dis_shift must be within 16 bits, got {dis_shift}")
+
+
+def xpsnr_block_stats_ref(y_ref, y_dis, prev0, *, dis_shift=0):
+    """Plain twin of ``xpsnr_block_stats`` (same arguments and results)."""
+    _check(y_ref, y_dis, prev0, dis_shift)
+    # In int64: torch's uint16 tensors take few operations on CUDA.
+    y_prev = torch.cat([prev0[None].to(torch.int64), y_ref[:-1].to(torch.int64)])
+    # A shift of s bits is the alignment from depth 0 to depth s.
+    y_dis = xpsnr_ops.align_luma_depth(y_dis, 0, dis_shift)
+    return xpsnr_ops.xpsnr_block_stats(y_ref, y_dis, y_prev)
+
+
+def xpsnr_block_stats(
+    y_ref: torch.Tensor,
+    y_dis: torch.Tensor,
+    prev0: torch.Tensor,
+    *,
+    dis_shift: int = 0,
+) -> dict[str, torch.Tensor]:
+    """Per 16x16 block of each frame: the SSE, spatial and temporal activity.
+
+    ``y_ref``, ``y_dis``: (B, h, w) luma, uint8, uint16 or int32 (the two
+    may differ); ``prev0``: (h, w) the previous reference luma of frame 0,
+    of ``y_ref``'s type.  Returns {"sse", "sact", "tact"}: (B, ceil(h/16),
+    ceil(w/16)) int64 tensors holding the uint32 grids (mod 2^32).
+    """
+    _check(y_ref, y_dis, prev0, dis_shift)
+    if y_ref.device.type == "cpu":
+        return xpsnr_block_stats_ref(y_ref, y_dis, prev0, dis_shift=dis_shift)
+    if y_ref.device.type != "cuda":
+        raise ValueError(f"xpsnr_block_stats runs on cuda or cpu, not {y_ref.device}")
+    lib = LIBRARY.get()
+    bsz, h, w = y_ref.shape
+    hb, wb = -(-h // xpsnr_ops.BLOCK), -(-w // xpsnr_ops.BLOCK)
+    out = torch.empty((3, bsz, hb, wb), dtype=torch.int64, device=y_ref.device)
+    check(
+        lib.tm_xpsnr_block_stats(
+            y_ref.data_ptr(), DTYPE_CODES[y_ref.dtype], y_dis.data_ptr(),
+            DTYPE_CODES[y_dis.dtype], prev0.data_ptr(), bsz, h, w, int(dis_shift),
+            out.data_ptr(), torch.cuda.current_stream(y_ref.device).cuda_stream,
+        ),
+        "tm_xpsnr_block_stats",
+    )
+    xpsnr_block_stats.launches += 1
+    return dict(zip(QUANTITIES, out.unbind(0)))
+
+
+xpsnr_block_stats.launches = 0
