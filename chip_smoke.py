@@ -25,6 +25,15 @@ Phases, each fatal on failure (exit code 1):
      limited-range reference and an 8-bit 4:2:0 distorted stream, and score
      it (c) with all five metrics: kernel #5 launched at least once per batch
      (the 4:2:2 slot), #6 for the 4:2:0 slot, #13, 16 finite values of each;
+  4d. score the 1080p pair of phase 3 with VMAF alone (-m vmaf), counters
+     reset just before and read just after: 16 finite values of each
+     elementary feature, frame 0's motion 0.0, kernels #14, #15, #16 and #18
+     launched once per batch and #17 once (the stream's first frame); then
+     the same run with --vmaf-model on a fixture model written to the
+     temporary directory: 16 finite fused scores;
+  4e. score the pair of phase 4c with all six metrics: the VMAF kernels
+     launched, 16 finite values of each, the five other metrics within TOL of
+     phase 4c's;
   5. hold each kernel against its plain PyTorch twin on the card at the main
      path's shapes (batch 8): sub-scores rtol 1e-4 / atol 1e-5, the emitted
      level 1 atol 1e-5, frame scores within 0.01 (also against the CLI's),
@@ -46,16 +55,23 @@ Phases, each fatal on failure (exit code 1):
      every transfer (atol 1e-6, 1e-4 for PQ); path (c)'s engine on the card
      against the same engine on the CPU on a small odd-sized pair of the
      same formats (PSNR 1e-4, SSIM and MS-SSIM 1e-5, SSIMULACRA2 0.01,
-     XPSNR 1e-9);
+     XPSNR 1e-9, and VMAF's features: motion equal, VIF 1e-5, ADM 1e-4);
+  5c. kernels #16 and #17 against their twins, blurred planes and row SADs
+     equal, on both 1080p batches (frame 8 takes frame 7's blur across the
+     batch boundary) and on small odd sizes at 10 and 16 bits; #14 + #15
+     sums rtol 1e-4 / atol 1e-5 per scale, scores 1e-5; #18 sums rtol 1e-4,
+     scores 1e-4; the VMAF features of the twins' route against the CLI's;
   6. score the frozen golden pair through the kernel route: 80.486135 +- 0.05;
   7. time each kernel and its twin, the whole kernel and plain steps of both
-     routes, with CUDA events after warm-up, and the CLI runs of phases 4,
-     4a, 4b (a) and 4c again warm, three times each in turn.
+     routes and of VMAF, with CUDA events after warm-up, and the CLI runs of
+     phases 4, 4a, 4b (a), 4c, 4d and 4e again warm, three times each in
+     turn.
 Prints the card, then one JSON line of per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
 over the peak of their type, the H100 SXM data sheet's 67 TFLOP/s for f32
-and, for the integer work of XPSNR, 33.5 TOP/s of int32: 64 of the SM's
-128 lanes take int32, Hopper architecture white paper), then as the last
+and, for the integer work of XPSNR and of VMAF's motion, 33.5 TOP/s of
+int32: 64 of the SM's 128 lanes take int32, Hopper architecture white
+paper), then as the last
 line {"ok": true, "device": {...}}.  Without CUDA, or outside the
 repository, it exits non-zero and prints no result.  Imports nothing of JAX.
 """
@@ -82,7 +98,13 @@ GOLDEN = 80.486135
 CSRC = "turbo_metrics_tpu_torch/csrc/"
 MULTI = ("ssimulacra2", "psnr", "ssim", "msssim")
 ALL5 = MULTI + ("xpsnr",)
-TOL = {"psnr": 1e-4, "ssim": 1e-5, "msssim": 1e-5, "ssimulacra2": 0.01, "xpsnr": 1e-9}
+ALL6 = ALL5 + ("vmaf",)
+VIF = ("vmaf_vif",) + tuple(f"vmaf_vif_scale{k}" for k in range(4))
+ADM = ("vmaf_adm",) + tuple(f"vmaf_adm_scale{k}" for k in range(4))
+VMAF_FEATURES = ("vmaf_motion",) + VIF + ADM
+TOL = {"psnr": 1e-4, "ssim": 1e-5, "msssim": 1e-5, "ssimulacra2": 0.01, "xpsnr": 1e-9,
+       "vmaf_motion": 0.0, **{k: 1e-5 for k in VIF}, **{k: 1e-4 for k in ADM}}
+VMAF_KERNELS = ("motion_stats", "integer_blur", "vif_scale0", "vif_tail", "adm_stats")
 MS_LEVELS = 5
 # H100 SXM data-sheet peaks: device memory, and f32 outside the tensor cores;
 # int32 at half the f32 rate (64 of the SM's 128 lanes, Hopper white paper).
@@ -100,6 +122,62 @@ F_HALFPOOL = 8  # per emitted pixel and channel: 3 adds and a scale, both images
 # int32 operations per XPSNR pixel: highpass 12 (9 taps as adds, two scales,
 # abs), err and err^2 2, |ref - prev| 2, the shift 1, three sums 3.
 I_XPSNR = 20
+# int32 operations per pixel of VMAF's motion blur: two 5-tap passes of 5
+# multiplies and 4 adds, each with its rounding add and shift; the SAD adds
+# |blurred - previous| and the row sum (3).
+I_BLUR = 22
+I_MOTION = I_BLUR + 3
+# f32 operations per pixel of the pair at one VIF scale: ref^2, dis^2,
+# ref*dis 3 and the guarded map with two log2 ~25, plus per tap of the
+# window 20 (five quantities, two passes, a multiply and an add) and per
+# tap of the next window 3 (ref and dis: the row pass at half the columns,
+# the column pass at a quarter of the pixels).
+F_VIF_MAP = 28
+F_VIF_TAP = 20
+F_VIF_EMIT_TAP = 3
+# f32 operations per input pixel of the pair at one ADM level: the row pass
+# 16 (lo and hi, 4 taps, both images, at half the columns), the column pass
+# 16 (A, H, V, D, 4 taps, both images, at a quarter of the pixels), the
+# angle gate and decoupling ~12 and the 3x3 masks and cubes ~19 (both at a
+# quarter of the pixels).
+F_ADM_LEVEL = 63
+
+
+def vif_flops(bsz: int, h: int, w: int, scales) -> float:
+    """f32 operations of VIF scales ``scales`` from an h x w scale 0."""
+    total = 0.0
+    for k in range(4):
+        if k in scales:
+            taps, emit = (1 << (4 - k)) + 1, (1 << (3 - k)) + 1 if k < 3 else 0
+            total += bsz * h * w * (F_VIF_MAP + F_VIF_TAP * taps + F_VIF_EMIT_TAP * emit)
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return total
+
+
+def adm_flops(bsz: int, h: int, w: int) -> float:
+    total = 0.0
+    for _ in range(4):
+        total += bsz * h * w * F_ADM_LEVEL
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return total
+
+
+# A hand-built VMAF fusion model (the fixture of tests/test_vmaf_model.py):
+# no libvmaf model file is in the repository.
+FIXTURE_MODEL = {"model_dict": {
+    "model_type": "LIBSVMNUSVR",
+    "feature_names": ["VMAF_feature_adm2_score", "VMAF_feature_motion2_score"]
+    + [f"VMAF_feature_vif_scale{k}_score" for k in range(4)],
+    "norm_type": "linear_rescale",
+    "slopes": [0.01, 1.0, 0.5, 1.0, 1.0, 1.0, 1.0],
+    "intercepts": [-0.1, 0.0, 0.05, 0.0, 0.0, 0.0, 0.0],
+    # Wider than libvmaf's [0, 100], so that the fixture's scores are not all
+    # clipped to one value.
+    "score_clip": [0.0, 1000.0],
+    "model": "svm_type nu_svr\nkernel_type rbf\ngamma 0.05\nnr_class 2\ntotal_sv 2\n"
+    "rho -1.25\nSV\n0.75 1:0.9 2:0.1 3:0.8 4:0.85 5:0.9 6:0.95\n"
+    "-0.25 1:0.4 2:0.6 3:0.3 4:0.35 5:0.4 6:0.45\n",
+}}
 
 
 class SmokeFailure(RuntimeError):
@@ -230,9 +308,12 @@ def kernel_device_ms(fn, kernel: str, iters: int = 20):
 def counted_kernels() -> dict:
     """Every kernel wrapper, by name: each counts its own launches."""
     from turbo_metrics_tpu_torch.ops.kernels import (
+        adm,
         convert,
+        motion,
         scale_stats,
         scale_tail,
+        vif,
         windowed,
         windowed_tail,
         xpsnr,
@@ -247,13 +328,24 @@ def counted_kernels() -> dict:
         "msssim_tail": windowed_tail.msssim_tail,
         "yuv_to_linear_rgb": convert.yuv_to_linear_rgb,
         "xpsnr_block_stats": xpsnr.xpsnr_block_stats,
+        "motion_stats": motion.motion_stats,
+        "integer_blur": motion.integer_blur,
+        "vif_scale0": vif.vif_scale0,
+        "vif_tail": vif.vif_tail,
+        "adm_stats": adm.adm_stats,
     }
 
 
-def run_cli(ref_path: str, dis_path: str, dev, metrics):
+def output_keys(metrics) -> tuple:
+    """The JSON keys that ``-m`` flags give (vmaf: its elementary features;
+    the fused score only with a model)."""
+    return tuple(k for m in metrics for k in (VMAF_FEATURES if m == "vmaf" else (m,)))
+
+
+def run_cli(ref_path: str, dis_path: str, dev, metrics, extra=(), keys=None):
     """The port's CLI on the Y4M pair (--output json), every launch counter
-    set to 0 just before and read just after.  Returns (per-metric scores,
-    launches, host seconds)."""
+    set to 0 just before and read just after.  Returns (scores of each
+    output key, launches, host seconds)."""
     from turbo_metrics_tpu_torch import cli
 
     kernels = counted_kernels()
@@ -262,6 +354,7 @@ def run_cli(ref_path: str, dis_path: str, dev, metrics):
     args = [ref_path, dis_path, "--output", "json", "--no-progress", "--device", str(dev)]
     for m in metrics:
         args += ["-m", m]
+    args += list(extra)
     out = io.StringIO()
     t0 = time.monotonic()
     with contextlib.redirect_stdout(out):
@@ -273,7 +366,7 @@ def run_cli(ref_path: str, dis_path: str, dev, metrics):
     result = json.loads(out.getvalue())
     need(result["frame_count"] == FRAMES, f"CLI did not score {FRAMES} frames")
     scores = {}
-    for m in metrics:
+    for m in keys or output_keys(metrics):
         vals = result[m]["scores"]
         need(len(vals) == FRAMES and all(math.isfinite(v) for v in vals),
              f"CLI {m}: want {FRAMES} finite values, got {vals}")
@@ -344,6 +437,54 @@ def run_mezzanine_path(ref_path: str, dis_path: str, dev, card: str):
         need(launches[name] >= per_batch, f"(c): {name} launched {launches[name]} times, want >= {per_batch}")
     for name in ("fused_scale_rgb", "fused_pyramid_tail", "ssim_sums", "msssim_tail"):
         need(launches[name] > 0, f"(c): {name} was not launched: {launches}")
+    return scores, launches
+
+
+def run_vmaf_paths(ref_path: str, dis_path: str, dev, card: str, tmp: str):
+    """Phase 4d: path (d), VMAF alone through the CLI on the 1080p pair,
+    without and with a fusion model (the fixture, written to ``tmp``).
+    Returns (the elementary features, the fused scores, the launches of the
+    run without a model)."""
+    per_batch = FRAMES // BATCH
+    scores, launches, seconds = run_cli(ref_path, dis_path, dev, ["vmaf"])
+    log(f"CLI (d) -m vmaf: {FRAMES} frames in {seconds:.2f} s (first call and decode included), "
+        f"launches {launches} [{card}]")
+    for k in VMAF_FEATURES:
+        log(f"CLI (d) {k}: {scores[k].tolist()}")
+    need(scores["vmaf_motion"][0] == 0.0, f"(d): frame 0's motion is {scores['vmaf_motion'][0]}, want 0.0")
+    for name in ("motion_stats", "vif_scale0", "vif_tail", "adm_stats"):
+        need(launches[name] == per_batch, f"(d): {name} launched {launches[name]} times, want {per_batch}")
+    need(launches["integer_blur"] == 1, f"(d): integer_blur launched {launches['integer_blur']} times, want 1")
+    model = os.path.join(tmp, "vmaf_fixture_model.json")
+    with open(model, "w") as f:
+        json.dump(FIXTURE_MODEL, f)
+    fused, fused_launches, seconds = run_cli(
+        ref_path, dis_path, dev, ["vmaf"], extra=["--vmaf-model", model], keys=VMAF_FEATURES + ("vmaf",)
+    )
+    log(f"CLI (d) -m vmaf --vmaf-model (fixture): {FRAMES} frames in {seconds:.2f} s, "
+        f"launches {fused_launches}; fused scores {fused['vmaf'].tolist()} [{card}]")
+    for k in VMAF_FEATURES:
+        need(np.array_equal(fused[k], scores[k]), f"(d): {k} differs between the runs with and without a model")
+    return scores, fused["vmaf"], launches
+
+
+def run_all6_path(ref_path: str, dis_path: str, dev, card: str, mezz_scores):
+    """Phase 4e: path (e), all six metrics on the pair of phase 4c."""
+    scores, launches, seconds = run_cli(ref_path, dis_path, dev, ALL6)
+    log(f"CLI (e) 4:2:2 10-bit vs 4:2:0 8-bit, all six metrics: {FRAMES} frames in {seconds:.2f} s "
+        f"(first call and decode included), launches {launches} [{card}]")
+    for k in VMAF_FEATURES:
+        log(f"CLI (e) {k}: {scores[k].tolist()}")
+    # All six take more device memory per pair: default_batch gives fewer
+    # frames per batch than B=8, so the count of batches is #13's.
+    batches = launches["xpsnr_block_stats"]
+    need(batches >= FRAMES // BATCH, f"(e): {batches} batches, want >= {FRAMES // BATCH}")
+    for name in ("motion_stats", "vif_scale0", "vif_tail", "adm_stats"):
+        need(launches[name] == batches, f"(e): {name} launched {launches[name]} times, want {batches}")
+    need(launches["integer_blur"] == 1, f"(e): integer_blur launched {launches['integer_blur']} times")
+    for m in ALL5:
+        d = float(np.abs(scores[m] - mezz_scores[m]).max())
+        need(d <= TOL[m], f"(e) {m} apart from phase 4c's by {d}")
     return scores, launches
 
 
@@ -598,10 +739,10 @@ def check_convert_kernel(y422, uv422) -> float:
 
 
 def check_mezzanine_engine(dev) -> None:
-    """Phase 5b: path (c)'s engine (10-bit 4:2:2 reference, 8-bit 4:2:0
-    distorted) on the card against the same engine on the CPU, on a small
-    odd-sized pair, 3 frames in batches of 2 (XPSNR state chained, the last
-    batch padded)."""
+    """Phases 5b and 5c: path (e)'s engine (10-bit 4:2:2 reference, 8-bit
+    4:2:0 distorted, all six metrics) on the card against the same engine on
+    the CPU, on a small odd-sized pair, 3 frames in batches of 2 (XPSNR and
+    motion state chained, the last batch padded)."""
     from turbo_metrics_tpu_torch.color.characteristics import height_fallback
     from turbo_metrics_tpu_torch.engine import Metrics, TurboMetrics
     from turbo_metrics_tpu_torch.io.frame_source import RawFrame
@@ -619,20 +760,112 @@ def check_mezzanine_engine(dev) -> None:
             depth=8,
         ))
     cc = (height_fallback(h), "limited")
-    metrics = Metrics(**{m: True for m in ALL5})
+    metrics = Metrics(**{m: True for m in ALL6})
+    keys = output_keys(ALL6)
     conv = counted_kernels()["yuv_to_linear_rgb"]
     before = conv.launches
     res = {}
     for where in (dev, "cpu"):
         eng = TurboMetrics(w, h, metrics, batch=2, device=where)
         scores = eng.compute_frames(ref[:2], cc, dis[:2], cc) + eng.compute_frames(ref[2:], cc, dis[2:], cc)
-        res[str(where)] = {m: np.array([getattr(s, m) for s in scores]) for m in ALL5}
-    need(conv.launches - before == 2, f"path (c) engine: {conv.launches - before} #5 launches, want 2")
+        res[str(where)] = {m: np.array([getattr(s, m) for s in scores]) for m in keys}
+    need(conv.launches - before == 2, f"path (e) engine: {conv.launches - before} #5 launches, want 2")
     got, want = res[str(dev)], res["cpu"]
-    for m in ALL5:
+    for m in keys:
         d = float(np.abs(got[m] - want[m]).max())
-        log(f"path (c) engine {h}x{w} {m}: card {got[m].tolist()}, max |diff| vs CPU {d:.3g}")
-        need(np.isfinite(got[m]).all() and d <= TOL[m], f"path (c) engine {m}: card {got[m]} vs CPU {want[m]}")
+        log(f"path (e) engine {h}x{w} {m}: card {got[m].tolist()}, max |diff| vs CPU {d:.3g}")
+        need(np.isfinite(got[m]).all() and d <= TOL[m], f"path (e) engine {m}: card {got[m]} vs CPU {want[m]}")
+
+
+def vmaf_step(y_ref, y_dis, prev0, kernels: bool) -> dict:
+    """VMAF's device step on one 8-bit batch through the kernels (or their
+    twins): the motion blur and row SADs, VIF's four scales, ADM's four
+    levels."""
+    from turbo_metrics_tpu_torch.engine import vmaf_pair
+    from turbo_metrics_tpu_torch.ops.kernels import adm, motion, vif
+
+    pair = vmaf_pair(y_ref, y_dis, 8, 8)
+    if kernels:
+        return {"motion": motion.motion_stats(y_ref, prev0), "vif": vif.vif_scale_stats(pair),
+                "adm": adm.adm_stats(pair)}
+    sums0, level1 = vif.vif_scale0_ref(pair)
+    return {"motion": motion.motion_stats_ref(y_ref, prev0),
+            "vif": torch.cat([sums0[:, None], vif.vif_tail_ref(level1)], dim=1),
+            "adm": adm.adm_stats_ref(pair)}
+
+
+def check_vmaf_kernels(y16, cli_vmaf) -> dict:
+    """Phase 5c: kernels #16 and #17 against their twins on both 1080p
+    batches of the CLI's pair (frame 8's previous frame is frame 7's blur,
+    across the batch boundary) and at 10 and 16 bits on small odd sizes;
+    #14, #15 and #18 against their twins on the first batch; the features of
+    the twins' route against the CLI's.  Returns the max abs errors by
+    kernel and the first batch's VIF/ADM pair."""
+    from turbo_metrics_tpu_torch.engine import vmaf_pair
+    from turbo_metrics_tpu_torch.ops import adm as adm_ops
+    from turbo_metrics_tpu_torch.ops import vif as vif_ops
+    from turbo_metrics_tpu_torch.ops.kernels import adm, motion, vif
+    from turbo_metrics_tpu_torch.ops.vmaf_motion import motion_score
+
+    ref, dis = y16[0], y16[1]
+    _, n, h, w = y16.shape
+    err = {}
+    first = motion.integer_blur(ref[:1])
+    first_p = motion.integer_blur_ref(ref[:1])
+    need(torch.equal(first.to(torch.int32), first_p.to(torch.int32)), "#17 blurred plane differs from the twin's")
+    err["integer_blur"] = 0.0
+    prev0, motion_scores = first_p[0], []
+    for b0 in range(0, n, BATCH):
+        got = motion.motion_stats(ref[b0 : b0 + BATCH], prev0)
+        want = motion.motion_stats_ref(ref[b0 : b0 + BATCH], prev0)
+        need(torch.equal(got["blurred"].to(torch.int32), want["blurred"].to(torch.int32)),
+             f"#16 blurred planes differ from the twin's (frames {b0}+)")
+        need(torch.equal(got["sad_rows"], want["sad_rows"]), f"#16 row SADs differ from the twin's (frames {b0}+)")
+        motion_scores += [motion_score(int(v), w, h) for v in want["sad_rows"].sum(dim=-1).cpu()]
+        prev0 = want["blurred"][-1].contiguous()
+    motion_scores[0] = 0.0
+    err["motion_stats"] = 0.0
+    need(np.array_equal(np.asarray(motion_scores), cli_vmaf["vmaf_motion"]),
+         "motion of the twins' route differs from the CLI's")
+    log(f"#16/#17 vs twins at {w}x{h}, frames 0-{n - 1}: blurred planes and row SADs equal; "
+        "motion equal to the CLI's")
+    rng = np.random.default_rng(16)
+    for depth, hs, ws in ((10, 67, 99), (16, 35, 131)):
+        y = torch.from_numpy(rng.integers(0, 1 << depth, (3, hs, ws)).astype(np.uint16)).to(y16.device)
+        p0 = torch.from_numpy(rng.integers(0, 1 << 16, (hs, ws)).astype(np.uint16)).to(y16.device)
+        got, want = motion.motion_stats(y, p0, depth=depth), motion.motion_stats_ref(y, p0, depth=depth)
+        need(torch.equal(got["blurred"].to(torch.int32), want["blurred"].to(torch.int32))
+             and torch.equal(got["sad_rows"], want["sad_rows"]), f"#16 differs from the twin at {depth} bits")
+        need(torch.equal(motion.integer_blur(y, depth=depth).to(torch.int32), want["blurred"].to(torch.int32)),
+             f"#17 differs from the twin at {depth} bits")
+        log(f"#16/#17 vs twins at {hs}x{ws} {depth}-bit: equal")
+
+    pair = vmaf_pair(ref[:BATCH], dis[:BATCH], 8, 8)
+    s0_k, l1_k = vif.vif_scale0(pair)
+    s0_p, l1_p = vif.vif_scale0_ref(pair)
+    err["vif_scale0"] = max(check_close("#14 sums", s0_k, s0_p, 1e-4, 1e-5),
+                            check_close("#14 level 1", l1_k, l1_p, 1e-5, 1e-4))
+    t_k, t_p = vif.vif_tail(l1_p), vif.vif_tail_ref(l1_p)
+    err["vif_tail"] = check_close("#15 sums", t_k, t_p, 1e-4, 1e-5)
+    sc_k = vif_ops.vif_scores(torch.cat([s0_k[:, None], t_k], dim=1).cpu().numpy())
+    sc_p = vif_ops.vif_scores(torch.cat([s0_p[:, None], t_p], dim=1).cpu().numpy())
+    for k in sc_p:
+        d = float(np.abs(sc_k[k] - sc_p[k]).max())
+        d_cli = float(np.abs(sc_p[k] - cli_vmaf["vmaf_" + k][:BATCH]).max())
+        log(f"#14/#15 {k}: max |diff| vs twins {d:.3g}, twins vs CLI {d_cli:.3g}")
+        need(d <= 1e-5 and d_cli <= 1e-5, f"VIF {k}: kernels vs twins {d}, twins vs CLI {d_cli}")
+    a_k, a_p = adm.adm_stats(pair), adm.adm_stats_ref(pair)
+    err["adm_stats"] = check_close("#18 sums", a_k, a_p, 1e-4, 0.0)
+    log(f"#18 sums: max rel diff vs twin {float(((a_k - a_p).abs() / a_p.abs().clamp_min(1e-30)).max()):.3g} "
+        "(angle gate evaluated in the twin's order: no flip possible unless a band differs)")
+    ad_k, ad_p = (adm_ops.adm_score(a.cpu().numpy(), h, w) for a in (a_k, a_p))
+    for k in ad_p:
+        d = float(np.abs(ad_k[k] - ad_p[k]).max())
+        key = "vmaf_adm" if k == "adm2" else "vmaf_" + k
+        d_cli = float(np.abs(ad_p[k] - cli_vmaf[key][:BATCH]).max())
+        log(f"#18 {k}: max |diff| vs twin {d:.3g}, twin vs CLI {d_cli:.3g}")
+        need(d <= 1e-4 and d_cli <= 1e-4, f"ADM {k}: kernel vs twin {d}, twin vs CLI {d_cli}")
+    return err, pair, l1_p
 
 
 def s2_level_flops(bsz: int, h: int, w: int) -> float:
@@ -711,9 +944,12 @@ def main() -> int:
         from turbo_metrics_tpu_torch.ops import quality
         from turbo_metrics_tpu_torch.ops.kernels import (
             _build,
+            adm,
             convert,
+            motion,
             scale_stats,
             scale_tail,
+            vif,
             windowed,
             windowed_tail,
             xpsnr,
@@ -760,7 +996,9 @@ def main() -> int:
         mref_path, mdis_path = write_mezzanine_pair(tmp)
         log(f"wrote {FRAMES}-frame {WIDTH}x{HEIGHT} 4:2:2 10-bit / 4:2:0 8-bit Y4M pair in "
             f"{time.monotonic() - t0:.1f} s")
-        _, mezz_launches = run_mezzanine_path(mref_path, mdis_path, dev, card)
+        mezz_scores, mezz_launches = run_mezzanine_path(mref_path, mdis_path, dev, card)
+        vmaf_scores, _, vmaf_launches = run_vmaf_paths(ref_path, dis_path, dev, card, tmp)
+        run_all6_path(mref_path, mdis_path, dev, card, mezz_scores)
         y16 = load_pair(ref_path, dis_path, dev, FRAMES)[0]
         y2, uv2 = load_pair(ref_path, dis_path, dev)
         y422, uv422 = load_frames(mref_path, dev)
@@ -771,6 +1009,8 @@ def main() -> int:
             "multi-metric": (ref_path, dis_path, MULTI),
             "(a) -m xpsnr": (ref_path, dis_path, ["xpsnr"]),
             "(c) 4:2:2 10-bit vs 4:2:0, all five": (mref_path, mdis_path, ALL5),
+            "(d) -m vmaf": (ref_path, dis_path, ["vmaf"]),
+            "(e) 4:2:2 10-bit vs 4:2:0, all six": (mref_path, mdis_path, ALL6),
         }
         warm_s = {k: [] for k in warm_runs}
         for _ in range(3):
@@ -787,6 +1027,7 @@ def main() -> int:
         check_mixed_spec(dev)
         e13 = check_xpsnr_kernel(y16, xpsnr_scores)
         e5 = check_convert_kernel(y422, uv422)
+        vmaf_err, vpair, vlevel1 = check_vmaf_kernels(y16, vmaf_scores)
         check_mezzanine_engine(dev)
         check_golden(dev)
 
@@ -826,6 +1067,21 @@ def main() -> int:
         k5_kw = dict(depth=10, chroma=422)
         k5_ms = time_ms(lambda: convert.yuv_to_linear_rgb(y422, uv422, **k5_kw), 20)
         k5_plain_ms = time_ms(lambda: convert.yuv_to_linear_rgb_ref(y422, uv422, **k5_kw), 5)
+        vy, vd = y16[0, :BATCH], y16[1, :BATCH]
+        prev0 = motion.integer_blur(vy[:1])[0]
+        k16_ms = time_ms(lambda: motion.motion_stats(vy, prev0), 20)
+        k16_plain_ms = time_ms(lambda: motion.motion_stats_ref(vy, prev0), 3)
+        k17_ms = time_ms(lambda: motion.integer_blur(vy[:1]), 20)
+        k17_plain_ms = time_ms(lambda: motion.integer_blur_ref(vy[:1]), 3)
+        k14_ms = time_ms(lambda: vif.vif_scale0(vpair), 20)
+        k14_plain_ms = time_ms(lambda: vif.vif_scale0_ref(vpair), 3)
+        k15_ms = time_ms(lambda: vif.vif_tail(vlevel1), 20)
+        k15_plain_ms = time_ms(lambda: vif.vif_tail_ref(vlevel1), 3)
+        k18_ms = time_ms(lambda: adm.adm_stats(vpair), 20)
+        k18_plain_ms = time_ms(lambda: adm.adm_stats_ref(vpair), 3)
+        vmaf_ms = [time_ms(lambda: vmaf_step(vy, vd, prev0, True), 10)]
+        vmaf_plain_ms = [time_ms(lambda: vmaf_step(vy, vd, prev0, False), 3) for _ in range(2)]
+        vmaf_ms.append(time_ms(lambda: vmaf_step(vy, vd, prev0, True), 10))
         k13_dev_ms = kernel_device_ms(lambda: xpsnr.xpsnr_block_stats(*xp_args), "xpsnr_kernel")
         k5_dev_ms = kernel_device_ms(
             lambda: convert.yuv_to_linear_rgb(y422, uv422, **k5_kw), "yuv_to_rgb_kernel")
@@ -834,6 +1090,7 @@ def main() -> int:
     for name, runs in (
         ("kernel step", step_ms), ("plain step", plain_ms),
         ("multi-metric kernel step", multi_ms), ("multi-metric plain step", multi_plain_ms),
+        ("VMAF kernel step", vmaf_ms), ("VMAF plain step", vmaf_plain_ms),
     ):
         log(
             f"{name} B={BATCH} {WIDTH}x{HEIGHT}: "
@@ -879,10 +1136,20 @@ def main() -> int:
          nbytes(y422, uv422) + bsz * 3 * h * w * 4, bsz * h * w * F_CONVERT),
         ("xpsnr_block_stats", "xpsnr.cu", "xpsnr.py:197", xpsnr_launches, e13, k13_ms, k13_plain_ms,
          nbytes(*xp_args) + xp_out, bsz * h * w * I_XPSNR),
+        ("vif_scale0", "vif.cu", "vif.py:540", vmaf_launches, vmaf_err["vif_scale0"], k14_ms, k14_plain_ms,
+         nbytes(vpair, vlevel1) + bsz * 2 * 4, vif_flops(bsz, h, w, (0,))),
+        ("vif_tail", "vif.cu", "vif_tail.py:331", vmaf_launches, vmaf_err["vif_tail"], k15_ms, k15_plain_ms,
+         nbytes(vlevel1) + bsz * 3 * 2 * 4, vif_flops(bsz, h, w, (1, 2, 3))),
+        ("motion_stats", "motion.cu", "motion.py:180", vmaf_launches, vmaf_err["motion_stats"], k16_ms,
+         k16_plain_ms, nbytes(vy, prev0) + bsz * h * w * 2 + bsz * h * 8, bsz * h * w * I_MOTION),
+        ("integer_blur", "motion.cu", "motion.py:236", vmaf_launches, vmaf_err["integer_blur"], k17_ms,
+         k17_plain_ms, nbytes(vy[:1]) + h * w * 2, h * w * I_BLUR),
+        ("adm_stats", "adm.cu", "adm.py:442", vmaf_launches, vmaf_err["adm_stats"], k18_ms, k18_plain_ms,
+         nbytes(vpair) + bsz * 4 * 3 * 2 * 4, adm_flops(bsz, h, w)),
     ]
     kernels = []
     for name, src_file, replaces, counts, err, ms, pms, nb, ops in rows:
-        is_int = name == "xpsnr_block_stats"
+        is_int = name in ("xpsnr_block_stats", "motion_stats", "integer_blur")
         bound_ms, bound_by = bound(nb, ops, PEAK_I32_PER_S if is_int else PEAK_F32_PER_S)
         log(f"{name}: {ms:.3f} ms vs plain {pms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
             f"({nb / 1e6:.1f} MB, {ops / 1e9:.2f} G{'int32 ops' if is_int else 'FLOP'}), "

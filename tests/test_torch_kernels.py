@@ -37,9 +37,12 @@ from turbo_metrics_tpu_torch.ops import quality as tq
 from turbo_metrics_tpu_torch.ops.downscale import scale_dims
 from turbo_metrics_tpu_torch.ops.kernels import (
     _build,
+    adm,
     convert,
+    motion,
     scale_stats,
     scale_tail,
+    vif,
     windowed,
     windowed_tail,
 )
@@ -249,7 +252,8 @@ def test_launches_stay_zero_on_cpu(rng):
     counted = (
         scale_stats.fused_scale0_yuv, scale_stats.fused_scale_rgb, scale_tail.fused_pyramid_tail,
         convert.yuv420_to_linear_rgb_pair, windowed.ssim_sums, windowed_tail.msssim_tail,
-        convert.yuv_to_linear_rgb,
+        convert.yuv_to_linear_rgb, motion.integer_blur, motion.motion_stats, vif.vif_scale0,
+        vif.vif_tail, adm.adm_stats,
     )
     for fn in counted:
         fn.launches = 0
@@ -262,6 +266,11 @@ def test_launches_stay_zero_on_cpu(rng):
     p12 = convert.yuv420_to_linear_rgb_pair(torch.from_numpy(y2), torch.from_numpy(uv2))
     ssimulacra2_subscores_from_rgb(p12, taps, opsin, num_scales=3)
     tq.quality_from_rgb(p12, _ssim_window(), want_psnr=True, want_ssim=True, want_msssim=True)
+    y = torch.from_numpy(y2[0])
+    motion.motion_stats(y, motion.integer_blur(y)[0])
+    luma = torch.from_numpy(y2[:, :, :, :].astype(np.float32))
+    vif.vif_scale_stats(luma)
+    adm.adm_stats(luma)
     assert [fn.launches for fn in counted] == [0] * len(counted)
 
 
@@ -286,6 +295,26 @@ def test_wrappers_reject_bad_inputs(rng, bad):
     else:
         y2, p12 = y2.transpose(-1, -2), p12.transpose(-1, -2)
     win = _ssim_window().to(p12.device)
+    # The VMAF kernels: (B, h, w) luma, (2, B, h, w) f32 pairs.
+    luma = y2[0]
+    pair = p12[:, :, 0].contiguous()
+    prev0 = torch.zeros(tuple(luma.shape[1:]), dtype=torch.uint16, device=luma.device)
+    if bad == "dtype":
+        luma, prev0 = luma.to(torch.int16), prev0.to(torch.int32)
+    elif bad == "shape":
+        luma, prev0 = luma[:, :2].contiguous(), prev0[:, :-1].contiguous()
+        pair = pair[:1].contiguous()
+    elif bad == "layout":
+        pair = pair.transpose(-1, -2)
+    for fn, args in (
+        (motion.integer_blur, (luma,)),
+        (motion.motion_stats, (luma, prev0)),
+        (vif.vif_scale0, (pair,)),
+        (vif.vif_tail, (pair,)),
+        (adm.adm_stats, (pair,)),
+    ):
+        with pytest.raises(ValueError):
+            fn(*args)
     with pytest.raises(ValueError):
         scale_stats.fused_scale0_yuv(y2, uv2, taps, opsin)
     with pytest.raises(ValueError):

@@ -280,8 +280,10 @@ def test_mixed_depth_pair_matches_jax(tmp_path, rng, capsys):
 def test_not_ported_yet_raises(y4m_pair, tmp_path):
     ref, dis = y4m_pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_engine.TurboMetrics(W, H, port_engine.Metrics(vmaf=True), device="cpu")
-    assert port_cli.main([ref, dis, "-m", "vmaf", "--device", "cpu", "--no-progress"]) == 1
+        port_engine.TurboMetrics(W, H, port_engine.Metrics(vmaf=True), device="cpu", vmaf_integer=True)
+    assert port_cli.main(
+        [ref, dis, "-m", "vmaf", "--vmaf-integer", "--device", "cpu", "--no-progress"]
+    ) == 1
     png = tmp_path / "x.png"
     png.write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(64))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -3,10 +3,11 @@
 The same flags and output shapes as the JAX package's CLI (itself mirroring
 turbo-metrics-cli/src/main.rs:31-102), plus ``--device``: ``cuda`` (the
 default, an error when CUDA is absent) or ``cpu`` (the plain torch path).
-Ported so far: ``-m ssimulacra2``, ``-m psnr``, ``-m ssim``, ``-m msssim``
-and ``-m xpsnr`` on Y4M input (4:2:0, 4:2:2, 4:4:4 and monochrome, 8 to 16
-bits), alone or together; VMAF and other containers exit with a "not ported
-yet" error.
+Ported so far: ``-m ssimulacra2``, ``-m psnr``, ``-m ssim``, ``-m msssim``,
+``-m xpsnr`` and ``-m vmaf`` (the float features, and the fused score with
+``--vmaf-model``) on Y4M input (4:2:0, 4:2:2, 4:4:4 and monochrome, 8 to 16
+bits), alone or together; ``--vmaf-integer`` and other containers exit with
+a "not ported yet" error.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
         action="append",
         default=[],
         choices=["psnr", "ssim", "msssim", "ssimulacra2", "xpsnr", "vmaf"],
-        help="Metrics to compute (repeatable); vmaf is not ported yet.",
+        help="Metrics to compute (repeatable); the video is only decoded once.",
     )
     p.add_argument("--every", type=int, default=0, help="Only compute every Nth frame.")
     p.add_argument("--skip", type=int, default=0, help="Skip the first N frame pairs.")
@@ -87,9 +88,19 @@ def build_parser() -> argparse.ArgumentParser:
         help="Parallel decoders per input (seekable compressed files only; "
         "Y4M input ignores it).",
     )
-    p.add_argument("--vmaf-model", metavar="FILE", help="libvmaf JSON model (VMAF is not ported yet).")
     p.add_argument(
-        "--vmaf-integer", action="store_true", help="Fixed-point VMAF features (not ported yet)."
+        "--vmaf-model",
+        metavar="FILE",
+        help=(
+            "libvmaf JSON model for the fused VMAF score (e.g. vmaf_v0.6.1.json). "
+            "Defaults to $TM_VMAF_MODEL or the standard libvmaf install paths; "
+            "without a model, -m vmaf emits the elementary features only."
+        ),
+    )
+    p.add_argument(
+        "--vmaf-integer",
+        action="store_true",
+        help="Fixed-point VMAF VIF/ADM features (not ported yet: exits with an error).",
     )
     p.add_argument(
         "--device",
@@ -126,6 +137,24 @@ def main(argv: list[str] | None = None) -> int:
     from turbo_metrics_tpu_torch.output import Output
 
     metrics = Metrics(**{m: True for m in args.metrics})
+
+    vmaf_model = None
+    if metrics.vmaf:
+        from turbo_metrics_tpu_torch.models.vmaf_model import VmafModel, find_default_model
+
+        model_path = args.vmaf_model or find_default_model()
+        if model_path:
+            try:
+                vmaf_model = VmafModel.load(model_path)
+                log.info("vmaf model: %s (%s)", vmaf_model.name, model_path)
+            except Exception as e:
+                log.error("Could not load VMAF model %s : %s", model_path, e)
+                return 1
+        else:
+            log.warning(
+                "no VMAF model found (use --vmaf-model or TM_VMAF_MODEL); "
+                "emitting elementary features only"
+            )
     opts = Options(
         every=args.every,
         skip=args.skip,
@@ -186,6 +215,8 @@ def main(argv: list[str] | None = None) -> int:
             metrics,
             batch=batch,
             device=args.device,
+            vmaf_model=vmaf_model,
+            vmaf_integer=args.vmaf_integer,
         )
 
     try:

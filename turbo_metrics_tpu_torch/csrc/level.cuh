@@ -1,5 +1,6 @@
-// Block geometry and the deterministic cross-block reduction shared by the
-// per-level kernels (ssimulacra2_scale.cu, windowed.cu).
+// Block geometry, the deterministic cross-block reduction and the
+// reflect-101 border rule shared by the per-level kernels
+// (ssimulacra2_scale.cu, windowed.cu, vif.cu, adm.cu).
 //
 // A level kernel reduces K quantities per block in a fixed tree in f32 and
 // writes them as parts (planes, nblk, K); reduce_parts_kernel then sums each
@@ -51,13 +52,11 @@ __device__ __forceinline__ void block_partials(const float (&v)[K], float (*red)
   }
 }
 
-// Per-(batch, channel) plane: the f64 sum of its nblk block partials, written
-// as f32 to sums[b * sums_bstride + ch * K + k] (plane = b * 3 + ch).
-// grid: (planes), block: kReduceThreads
+// One block: the f64 sum of the nblk block partials of plane blockIdx.x,
+// written as f32 to out[k] (out: the caller's address for the plane).
 template <int K>
-__global__ void __launch_bounds__(kReduceThreads)
-reduce_parts_kernel(const float* __restrict__ parts, int nblk, float* __restrict__ sums,
-                    int sums_bstride) {
+__device__ __forceinline__ void reduce_plane(const float* __restrict__ parts, int nblk,
+                                             float* __restrict__ out) {
   __shared__ double red[K][kReduceThreads];
   const int plane = blockIdx.x;
   const int tid = threadIdx.x;
@@ -80,11 +79,41 @@ reduce_parts_kernel(const float* __restrict__ parts, int nblk, float* __restrict
     __syncthreads();
   }
   if (tid == 0) {
-    const int b = plane / 3, ch = plane % 3;
-    float* out = sums + (size_t)b * sums_bstride + ch * K;
 #pragma unroll
     for (int k = 0; k < K; ++k) out[k] = (float)red[k][0];
   }
+}
+
+// Per-(batch, channel) plane: the f64 sum of its nblk block partials, written
+// as f32 to sums[b * sums_bstride + ch * K + k] (plane = b * 3 + ch).
+// grid: (planes), block: kReduceThreads
+template <int K>
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_parts_kernel(const float* __restrict__ parts, int nblk, float* __restrict__ sums,
+                    int sums_bstride) {
+  const int b = blockIdx.x / 3, ch = blockIdx.x % 3;
+  reduce_plane<K>(parts, nblk, sums + (size_t)b * sums_bstride + ch * K);
+}
+
+// One plane per frame: its K sums to sums[plane * sums_pstride + k].
+// grid: (planes), block: kReduceThreads
+template <int K>
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_frames_kernel(const float* __restrict__ parts, int nblk, float* __restrict__ sums,
+                     int sums_pstride) {
+  reduce_plane<K>(parts, nblk, sums + (size_t)blockIdx.x * sums_pstride);
+}
+
+// Reflect-101 index of i on an axis of n (ind < 0 -> -ind, ind >= n ->
+// 2n-ind-2), repeated with period 2(n-1) where a window is wider than the
+// axis, as jnp.pad(mode="reflect") extends.
+__device__ __forceinline__ int reflect101(int i, int n) {
+  if (i >= 0 && i < n) return i;
+  if (n == 1) return 0;
+  const int p = 2 * (n - 1);
+  int m = i % p;
+  if (m < 0) m += p;
+  return m < n ? m : p - m;
 }
 
 }  // namespace

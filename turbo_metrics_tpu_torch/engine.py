@@ -1,8 +1,9 @@
 """The pipeline engine: batches frame pairs and scores them on one device.
 
 Counterpart of the JAX package's ``TurboMetrics`` (itself modelled on
-turbo-metrics/src/lib.rs:188-434) for SSIMULACRA2, PSNR, SSIM, MS-SSIM and
-XPSNR on planar YUV (4:2:0, 4:2:2, 4:4:4) and packed RGB input.  The host
+turbo-metrics/src/lib.rs:188-434) for SSIMULACRA2, PSNR, SSIM, MS-SSIM,
+XPSNR and VMAF's float features on planar YUV (4:2:0, 4:2:2, 4:4:4) and
+packed RGB input.  The host
 stacks each batch of decoded frames and uploads them; the device runs (the
 JAX engine's ``_get_step``):
   * for the RGB families, one of two routes.  SSIMULACRA2 as the only one,
@@ -16,10 +17,16 @@ JAX engine's ``_get_step``):
     models/ssimulacra2.ssimulacra2_subscores_from_rgb);
   * for XPSNR, the block statistics of the luma code values
     (ops/kernels/xpsnr.py), the distorted luma aligned to the reference's
-    depth, with the previous reference frame carried from batch to batch.
-Only per-frame values, the (B, 3, S, 2, 3) sub-scores and the XPSNR block
-grids come back; the SSIMULACRA2 score and the XPSNR weighting run on the
-host in f64.  VMAF is not ported yet and raises.
+    depth, with the previous reference frame carried from batch to batch;
+  * for VMAF (the JAX engine's ``_luma_metric_outs``), on the same luma
+    codes: the motion blur and row SADs (ops/kernels/motion.py), with the
+    previous blurred frame carried from batch to batch, and VIF and ADM
+    (ops/kernels/vif.py, ops/kernels/adm.py) on the pair in 8-bit units.
+Only per-frame values, the (B, 3, S, 2, 3) sub-scores, the XPSNR block
+grids and VMAF's sums come back; the SSIMULACRA2 score, the XPSNR
+weighting, VMAF's feature scores and its fusion model run on the host in
+f64.  VMAF's fixed-point features (``vmaf_integer``) are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -42,9 +49,15 @@ from turbo_metrics_tpu_torch.ops.kernels.convert import (
     yuv420_to_linear_rgb_pair,
     yuv_to_linear_rgb,
 )
+from turbo_metrics_tpu_torch.ops.adm import adm_score
+from turbo_metrics_tpu_torch.ops.kernels.adm import adm_stats
+from turbo_metrics_tpu_torch.ops.kernels.motion import integer_blur, motion_stats
+from turbo_metrics_tpu_torch.ops.kernels.vif import vif_scale_stats
 from turbo_metrics_tpu_torch.ops.kernels.xpsnr import xpsnr_block_stats
 from turbo_metrics_tpu_torch.ops.quality import Quality
-from turbo_metrics_tpu_torch.ops.xpsnr_ops import frames_db
+from turbo_metrics_tpu_torch.ops.vif import vif_scores
+from turbo_metrics_tpu_torch.ops.vmaf_motion import motion_score
+from turbo_metrics_tpu_torch.ops.xpsnr_ops import align_luma_depth, frames_db
 from turbo_metrics_tpu_torch.utils.stats import Stats
 
 
@@ -217,7 +230,7 @@ class ConvertSpec:
 
 
 def _luma_code(spec: ConvertSpec, arrays: tuple[torch.Tensor, ...]) -> torch.Tensor:
-    """Integer luma code values (B, H, W) for XPSNR.
+    """Integer luma code values (B, H, W) for XPSNR and VMAF.
 
     YUV sources use the decoded Y plane directly (as the reference does);
     RGB sources derive gamma-domain luma with BT.709 weights, in f32, rounded
@@ -233,9 +246,60 @@ def _luma_code(spec: ConvertSpec, arrays: tuple[torch.Tensor, ...]) -> torch.Ten
     return torch.round(y).to(torch.int32).contiguous()
 
 
+def vmaf_pair(y_ref: torch.Tensor, y_dis: torch.Tensor, depth_ref: int, depth_dis: int) -> torch.Tensor:
+    """VIF's and ADM's input: the (2, B, H, W) f32 luma pair in 8-bit units,
+    the distorted luma aligned to the reference's depth first."""
+    y_dis = align_luma_depth(y_dis, depth_dis, depth_ref)
+    scale8 = torch.tensor(np.float32(255.0 / ((1 << depth_ref) - 1)), device=y_ref.device)
+    return torch.stack([y_ref.to(torch.float32), y_dis.to(torch.float32)]) * scale8
+
+
+class _VmafFuser:
+    """Streams FrameScores through the fusion model with one frame of
+    holdback: libvmaf's 'motion2' feature for frame i is
+    min(motion[i], motion[i+1]), so a frame's fused score is only final once
+    the next frame's motion is known (the last frame keeps its own motion,
+    matching libvmaf's end-of-stream behaviour)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.pending: Optional[FrameScores] = None
+
+    def push(self, s: FrameScores) -> Optional[FrameScores]:
+        ready = None
+        if self.pending is not None:
+            self._fuse(self.pending, next_motion=s.vmaf_motion)
+            ready = self.pending
+        self.pending = s
+        return ready
+
+    def flush(self) -> Optional[FrameScores]:
+        if self.pending is not None:
+            self._fuse(self.pending, next_motion=None)
+        ready, self.pending = self.pending, None
+        return ready
+
+    def _fuse(self, s: FrameScores, next_motion: Optional[float]) -> None:
+        m = s.vmaf_motion
+        m2 = m if next_motion is None else min(m, next_motion)
+        feats = {
+            "adm2": s.vmaf_adm,
+            "motion": m,
+            "motion2": m2,
+            "vif": s.vmaf_vif,
+            **{f"vif_scale{k}": getattr(s, f"vmaf_vif_scale{k}") for k in range(4)},
+            **{f"adm_scale{k}": getattr(s, f"vmaf_adm_scale{k}") for k in range(4)},
+        }
+        s.vmaf = self.model.predict_one(feats)
+
+
 class TurboMetrics:
     """Per-resolution metric engine on an explicit ``device`` ('cuda' or
-    'cpu'; 'cuda' raises when CUDA is absent — never a silent fallback)."""
+    'cpu'; 'cuda' raises when CUDA is absent — never a silent fallback).
+
+    ``vmaf_model`` (models.vmaf_model.VmafModel): the fusion model of the
+    ``vmaf`` score; without one, ``Metrics(vmaf=True)`` gives the elementary
+    features only."""
 
     def __init__(
         self,
@@ -245,11 +309,13 @@ class TurboMetrics:
         *,
         batch: int | None = None,
         device="cuda",
+        vmaf_model=None,
+        vmaf_integer: bool = False,
     ):
         if not metrics.any():
             raise ValueError("at least one metric must be selected")
-        if metrics.vmaf:
-            raise not_ported("metric vmaf", "Queue 1 items 7-8")
+        if vmaf_integer:
+            raise not_ported("VMAF's fixed-point features (vmaf_integer)", "Queue 1 item 8")
         if (metrics.ssim or metrics.msssim) and min(width, height) < 11:
             raise ValueError("SSIM and MS-SSIM need frames of at least 11x11")
         self.width = int(width)
@@ -265,10 +331,16 @@ class TurboMetrics:
         self.batch = batch if batch is not None else default_batch(width, height, metrics)
         # XPSNR temporal state: the last reference luma of the previous batch.
         self._prev_ref: Optional[torch.Tensor] = None
+        # VMAF motion state: the previous batch's last blurred reference luma.
+        self._vmaf_prev_blur: Optional[torch.Tensor] = None
+        self.vmaf_model = vmaf_model
+        if vmaf_model is not None:
+            metrics.vmaf_fused = True
 
     def reset_stream_state(self) -> None:
         """Clear temporal state before scoring a new clip with this engine."""
         self._prev_ref = None
+        self._vmaf_prev_blur = None
 
     # -- host batching -----------------------------------------------------
 
@@ -330,6 +402,8 @@ class TurboMetrics:
                     scores[i].ssimulacra2 = float(s2[i])
         if m.xpsnr:
             self._xpsnr(spec, arr_ref, spec_dis, arr_dis, scores)
+        if m.vmaf:
+            self._vmaf(spec, arr_ref, spec_dis, arr_dis, scores)
         return scores
 
     def _planes(self, *inputs: list[RawFrame]) -> tuple[torch.Tensor, ...]:
@@ -407,6 +481,35 @@ class TurboMetrics:
         for s, v in zip(scores, db):
             s.xpsnr = v
 
+    def _vmaf(
+        self, spec_ref: ConvertSpec, arr_ref: tuple, spec_dis: ConvertSpec, arr_dis: tuple,
+        scores: list[FrameScores],
+    ) -> None:
+        """VMAF's elementary features of the batch's frames into ``scores``
+        (engine.py:315-374 and :920-979 of the JAX package)."""
+        depth = spec_ref.depth
+        y_ref = _luma_code(spec_ref, arr_ref)
+        first = self._vmaf_prev_blur is None
+        if first:
+            # The stream's first frame is its own previous frame (motion 0).
+            self._vmaf_prev_blur = integer_blur(y_ref[:1], depth=depth)[0]
+        mot = motion_stats(y_ref, self._vmaf_prev_blur, depth=depth)
+        # The padding repeats the last real frame, so the last plane is its.
+        self._vmaf_prev_blur = mot["blurred"][-1].clone()
+        pair = vmaf_pair(y_ref, _luma_code(spec_dis, arr_dis), depth, spec_dis.depth)
+        vs = vif_scores(vif_scale_stats(pair).cpu().numpy())
+        adm = adm_score(adm_stats(pair).cpu().numpy(), self.height, self.width)
+        sads = mot["sad_rows"].sum(dim=-1).cpu().numpy()
+        for i, s in enumerate(scores):
+            s.vmaf_vif = float(vs["vif"][i])
+            s.vmaf_adm = float(adm["adm2"][i])
+            for k in range(4):
+                setattr(s, f"vmaf_vif_scale{k}", float(vs[f"vif_scale{k}"][i]))
+                setattr(s, f"vmaf_adm_scale{k}", float(adm[f"adm_scale{k}"][i]))
+            s.vmaf_motion = motion_score(int(sads[i]), self.width, self.height, depth=depth)
+        if first:
+            scores[0].vmaf_motion = 0.0
+
     def compute_one(
         self,
         ref_frame: RawFrame,
@@ -414,8 +517,14 @@ class TurboMetrics:
         dis_frame: RawFrame,
         cc_dis: tuple[ColorCharacteristics, str],
     ) -> FrameScores:
-        """Single frame-pair API (turbo-metrics/src/lib.rs:268-360)."""
-        return self.compute_frames([ref_frame], cc_ref, [dis_frame], cc_dis)[0]
+        """Single frame-pair API (turbo-metrics/src/lib.rs:268-360).
+
+        With a fusion model loaded the score uses motion2 == motion (no
+        lookahead exists for a single pair)."""
+        s = self.compute_frames([ref_frame], cc_ref, [dis_frame], cc_dis)[0]
+        if self.vmaf_model is not None and s.vmaf_motion is not None:
+            _VmafFuser(self.vmaf_model)._fuse(s, next_motion=None)
+        return s
 
     # -- full drive loop ----------------------------------------------------
 
@@ -450,16 +559,22 @@ class TurboMetrics:
         frames_dis.skip_frames(opts.skip_dis + opts.skip)
 
         compute_count = 0
+        fuser = _VmafFuser(self.vmaf_model) if m.vmaf and self.vmaf_model is not None else None
+
+        def emit(s: FrameScores) -> None:
+            for name, lst in acc.items():
+                v = getattr(s, name)
+                if lst is not None and v is not None:
+                    lst.append(v)
+            if on_frame is not None:
+                on_frame(s)
 
         def consume(batch_ref: list[RawFrame], batch_dis: list[RawFrame]):
             nonlocal compute_count
             for s in self.compute_frames(batch_ref, cc_ref, batch_dis, cc_dis):
-                for name, lst in acc.items():
-                    v = getattr(s, name)
-                    if lst is not None and v is not None:
-                        lst.append(v)
-                if on_frame is not None:
-                    on_frame(s)
+                ready = fuser.push(s) if fuser is not None else s
+                if ready is not None:
+                    emit(ready)
                 compute_count += 1
 
         from turbo_metrics_tpu_torch.io.frame_source import ResolutionChanged
@@ -512,6 +627,11 @@ class TurboMetrics:
             if pend_ref:
                 consume(pend_ref, pend_dis)
 
+        if fuser is not None:
+            ready = fuser.flush()
+            if ready is not None:
+                emit(ready)
+
         return MetricsResults(
             frame_count=compute_count,
             resolution_changed=res_change,
@@ -528,12 +648,15 @@ def default_batch(width: int, height: int, metrics: Optional[Metrics] = None) ->
     linear-RGB pair buffer 24 with any RGB family, plus SSIMULACRA2 78 (XYB,
     four row-blurred planes, level 1), the SSIM family 54 (four
     row-correlated planes, the emitted level) and PSNR 48 (quantized pair
-    and its difference).  All five at 1080p are ~0.46 GB per pair.  No
+    and its difference); VMAF 62 (the aligned distorted luma 8, the f32 pair
+    8, VIF's five row-blurred planes and emission 24 and level 1 2, ADM's
+    row-filtered planes 8, band planes 9 and approximation 2, the blurred
+    luma 2).  All six at 1080p are ~0.6 GB per pair.  No
     batch ladder has been measured on the H100 yet, so the cap is a guess to
     revisit (the JAX package's TPU ladders do not transfer).
     """
     m = metrics or Metrics(ssimulacra2=True)
-    per_px = 12 + 8 * m.xpsnr
+    per_px = 12 + 8 * m.xpsnr + 62 * m.vmaf
     if m.ssimulacra2 or m.psnr or m.ssim or m.msssim:
         per_px += 24 + 78 * m.ssimulacra2 + 54 * (m.ssim or m.msssim) + 48 * m.psnr
     per_pair = per_px * width * height

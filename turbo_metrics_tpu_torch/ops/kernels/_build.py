@@ -24,7 +24,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("ssimulacra2_scale.cu", "convert.cu", "windowed.cu", "xpsnr.cu")
+SOURCES = (
+    "ssimulacra2_scale.cu", "convert.cu", "windowed.cu", "xpsnr.cu", "motion.cu", "vif.cu",
+    "adm.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,6 +36,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_PF = ctypes.POINTER(ctypes.c_float)  # host floats
 # (name, argtypes): every entry point returns a cudaError_t as int.
 _SIGNATURES = {
     "tm_level_blocks": [_I, _I],
@@ -44,6 +48,14 @@ _SIGNATURES = {
     "tm_ssim_blocks": [_I, _I],
     "tm_ssim_level": [_P, _I, _I, _I, _I, _P, _F, _F, _P, _P, _P, _I, _P, _P],
     "tm_xpsnr_block_stats": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
+    "tm_motion_stats": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
+    "tm_integer_blur": [_P, _I, _I, _I, _I, _I, _P, _P],
+    "tm_vif_blocks": [_I, _I],
+    "tm_vif_level": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
+    "tm_adm_blocks": [_I, _I, _I, _I],
+    "tm_adm_level": [
+        _P, _I, _I, _I, _PF, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+    ],
 }
 
 

@@ -1,0 +1,76 @@
+"""VMAF motion feature: the exact integer 5-tap blur and the SAD against the
+previous blurred frame.
+
+The port's copy of the JAX package's ops/vmaf_motion.py (the equivalent of
+vmaf-cuda-kernel/src/integer_motion.rs:28-92), bit-exact integer math:
+
+    blurred_y(col)  = sum_k F[k] * sample                 (u32)
+    tmp             = (blurred_y + 2^(N-1)) >> N
+    blurred         = (sum_k F[k] * tmp + 32768) >> 16     (u16)
+    sad             = sum |blurred - prev_blurred|
+
+with the reference's asymmetric mirror (reflect on the low edge, symmetric
+on the high edge).  These are the plain torch versions: every step runs in
+int64 and is masked to 32 bits where the JAX package's uint32 arithmetic
+would wrap, so the results are its bit for bit.  The CUDA kernels
+(ops/kernels/motion.py) compute the same planes and row sums.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+FILTER = np.array([3571, 16004, 26386, 16004, 3571], dtype=np.uint32)
+RADIUS = 2
+U32 = 0xFFFFFFFF
+
+
+def mirror_index(n: int, device=None) -> torch.Tensor:
+    """Source indices of the padded axis, -RADIUS .. n+RADIUS-1: 'reflect'
+    below 0 (x[-1] = x[1]), 'symmetric' from n on (x[n] = x[n-1])."""
+    idx = torch.arange(-RADIUS, n + RADIUS, device=device).abs()
+    return torch.where(idx >= n, 2 * n - 1 - idx, idx)
+
+
+def integer_blur(y: torch.Tensor, *, depth: int = 8) -> torch.Tensor:
+    """Exact-integer separable 5-tap blur of (..., H, W) luma -> uint16."""
+    h, w = y.shape[-2], y.shape[-1]
+    x = y.to(torch.int64)
+    xp = x.index_select(-2, mirror_index(h, x.device))
+    acc = torch.zeros_like(x)
+    for k in range(5):
+        acc = (acc + int(FILTER[k]) * xp[..., k : k + h, :]) & U32
+    tmp = ((acc + (1 << (depth - 1))) & U32) >> depth
+    tp = tmp.index_select(-1, mirror_index(w, x.device))
+    acc2 = torch.zeros_like(tmp)
+    for k in range(5):
+        acc2 = (acc2 + int(FILTER[k]) * tp[..., k : k + w]) & U32
+    return (((acc2 + 32768) & U32) >> 16).to(torch.uint16)
+
+
+def motion_stats(y: torch.Tensor, prev_blurred: torch.Tensor, *, depth: int = 8) -> dict:
+    """Blur the current luma and SAD it against the previous blurred frame.
+
+    Returns {'blurred': (..., H, W) uint16, 'sad_rows': (..., H) int64
+    holding the uint32 row sums} (the host finishes the sums in int64).
+    """
+    blurred = integer_blur(y, depth=depth)
+    return {"blurred": blurred, "sad_rows": sad_rows(blurred, prev_blurred)}
+
+
+def sad_rows(blurred: torch.Tensor, prev_blurred: torch.Tensor) -> torch.Tensor:
+    """Per-row sums of |blurred - prev_blurred| (uint32 values in int64)."""
+    diff = (blurred.to(torch.int64) - prev_blurred.to(torch.int64)).abs()
+    return diff.sum(dim=-1) & U32
+
+
+def motion_score(sad: int, width: int, height: int, *, depth: int = 8) -> float:
+    """SAD -> libvmaf 'motion' score: mean abs diff in 8-bit units.
+
+    The integer blur outputs samples scaled to the 16-bit range regardless of
+    source depth (the >>N / >>16 shifts normalise exactly), so the SAD is
+    divided by 2^(16-8) = 256 to express motion in 8-bit code values.
+    """
+    del depth  # blur output scale is depth-independent
+    return float(sad) / (width * height) / 256.0
