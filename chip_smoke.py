@@ -33,7 +33,11 @@ Phases, each fatal on failure (exit code 1):
      temporary directory: 16 finite fused scores;
   4e. score the pair of phase 4c with all six metrics: the VMAF kernels
      launched, 16 finite values of each, the five other metrics within TOL of
-     phase 4c's;
+     phase 4c's; every 1080p run of phases 4-4e launches kernel #4 no time;
+  4f. write a seeded 8-frame 3840x2160 8-bit 4:2:0 BT.709 limited-range Y4M
+     pair and score it with -m ssimulacra2 (B=4 by default_batch), counters
+     reset just before and read just after: 8 finite scores, kernel 1 twice,
+     #3 four times (levels 1 and 2), #4 twice (levels 3-5), kernel 2 never;
   5. hold each kernel against its plain PyTorch twin on the card at the main
      path's shapes (batch 8): sub-scores rtol 1e-4 / atol 1e-5, the emitted
      level 1 atol 1e-5, frame scores within 0.01 (also against the CLI's),
@@ -61,11 +65,24 @@ Phases, each fatal on failure (exit code 1):
      batch boundary) and on small odd sizes at 10 and 16 bits; #14 + #15
      sums rtol 1e-4 / atol 1e-5 per scale, scores 1e-5; #18 sums rtol 1e-4,
      scores 1e-4; the VMAF features of the twins' route against the CLI's;
+  5d. kernel #4 against its twin and against kernel 2 on the 4K pair's
+     level 3 (B=4; sums rtol 1e-4 / atol 1e-5), on a 67x99 pair from level 0
+     and on the 2560x1440 route (kernel 1, #3, #4 on four levels); the 4K
+     kernel step against the twins (sub-scores rtol 1e-4 / atol 1e-5) and
+     against the five-blur plain chain and the CLI (scores 0.01);
+  5e. Ssimulacra2(1920, 1080, backend=b) for pallas (#8 per level), pallas2
+     (#10 per level, #7 between) and pallas3 on the 1080p B=8 pair, counters
+     reset around each, against the plain chain (same limits); #7 equal to
+     its twin bit for bit (avg_pool2d's largest difference logged); #8 and
+     #10 against their twins; the jnp_iir backend on the golden pair;
   6. score the frozen golden pair through the kernel route: 80.486135 +- 0.05;
-  7. time each kernel and its twin, the whole kernel and plain steps of both
-     routes and of VMAF, with CUDA events after warm-up, and the CLI runs of
-     phases 4, 4a, 4b (a), 4c, 4d and 4e again warm, three times each in
-     turn.
+  7. time each kernel and its twin (#7 also against avg_pool2d), the whole
+     kernel and plain steps of both 1080p routes, of VMAF and of the 4K
+     route, with CUDA events after warm-up; the 4K step beside the route
+     it replaced (kernel 1, then kernel 2 on levels 1-5) on the same
+     inputs, by CUDA events and by torch.profiler device time; and the CLI
+     runs of phases 4, 4a, 4b (a), 4c, 4d, 4e and 4f again warm, three
+     times each in turn.
 Prints the card, then one JSON line of per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
 over the peak of their type, the H100 SXM data sheet's 67 TFLOP/s for f32
@@ -94,6 +111,8 @@ import torch
 BATCH = 8
 FRAMES = 16
 WIDTH, HEIGHT = 1920, 1080
+# Path (f): UHD encodes, B=4 by the engine's default_batch.
+UHD_WIDTH, UHD_HEIGHT, UHD_FRAMES, UHD_BATCH = 3840, 2160, 8, 4
 GOLDEN = 80.486135
 CSRC = "turbo_metrics_tpu_torch/csrc/"
 MULTI = ("ssimulacra2", "psnr", "ssim", "msssim")
@@ -193,18 +212,19 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def write_y4m_pair(directory: str):
+def write_y4m_pair(directory: str, width: int = WIDTH, height: int = HEIGHT,
+                   frames: int = FRAMES, tag: str = ""):
     """Seeded 4:2:0 frames: a smooth moving base plus noise as the reference,
     the reference plus more noise as the distorted stream."""
     rng = np.random.default_rng(20261016)
-    yy, xx = np.mgrid[0:HEIGHT, 0:WIDTH].astype(np.float32)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
     cy, cx = yy[::2, ::2] / 2, xx[::2, ::2] / 2
-    paths = [os.path.join(directory, n) for n in ("ref.y4m", "dis.y4m")]
+    paths = [os.path.join(directory, n) for n in (f"ref{tag}.y4m", f"dis{tag}.y4m")]
     files = [open(p, "wb") for p in paths]
     try:
         for f in files:
-            f.write(f"YUV4MPEG2 W{WIDTH} H{HEIGHT} F25:1 Ip A1:1 C420\n".encode())
-        for i in range(FRAMES):
+            f.write(f"YUV4MPEG2 W{width} H{height} F25:1 Ip A1:1 C420\n".encode())
+        for i in range(frames):
             y = 126 + 80 * np.sin(xx / 37.0 + i * 0.1) * np.cos(yy / 23.0)
             u = 128 + 40 * np.sin(cx / 29.0 + i * 0.05)
             v = 128 + 40 * np.cos(cy / 17.0)
@@ -289,10 +309,11 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, kernel: str, iters: int = 20):
+def kernel_device_ms(fn, kernel, iters: int = 20):
     """Mean device time per call of fn's CUDA kernels whose names contain
-    ``kernel``, by torch.profiler: the kernel alone, without the wrapper's
-    host time.  None where the profiler records no device time."""
+    ``kernel`` (a name, or a tuple of names), by torch.profiler: the kernels
+    alone, without the wrapper's host time or the gaps between launches.
+    None where the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -301,7 +322,8 @@ def kernel_device_ms(fn, kernel: str, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    total_us = sum(e.device_time_total for e in prof.key_averages() if any(k in e.key for k in names))
     return total_us / 1e3 / iters if total_us > 0 else None
 
 
@@ -310,6 +332,8 @@ def counted_kernels() -> dict:
     from turbo_metrics_tpu_torch.ops.kernels import (
         adm,
         convert,
+        downscale,
+        fused_tail,
         motion,
         scale_stats,
         scale_tail,
@@ -333,7 +357,21 @@ def counted_kernels() -> dict:
         "vif_scale0": vif.vif_scale0,
         "vif_tail": vif.vif_tail,
         "adm_stats": adm.adm_stats,
+        "fused_tail": fused_tail.fused_tail,
+        "downscale_by_2": downscale.downscale_by_2,
+        "scale_sums": scale_stats.scale_sums,
+        "fused_scale_pair": scale_stats.fused_scale_pair,
     }
+
+
+def reset_counts() -> None:
+    for fn in counted_kernels().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counted_kernels().items()}
 
 
 def output_keys(metrics) -> tuple:
@@ -342,15 +380,14 @@ def output_keys(metrics) -> tuple:
     return tuple(k for m in metrics for k in (VMAF_FEATURES if m == "vmaf" else (m,)))
 
 
-def run_cli(ref_path: str, dis_path: str, dev, metrics, extra=(), keys=None):
+def run_cli(ref_path: str, dis_path: str, dev, metrics, extra=(), keys=None, frames=FRAMES):
     """The port's CLI on the Y4M pair (--output json), every launch counter
-    set to 0 just before and read just after.  Returns (scores of each
-    output key, launches, host seconds)."""
+    set to 0 just before and read just after.  A 1080p pair (``frames`` ==
+    FRAMES) must launch kernel #4 no time.  Returns (scores of each output
+    key, launches, host seconds)."""
     from turbo_metrics_tpu_torch import cli
 
-    kernels = counted_kernels()
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts()
     args = [ref_path, dis_path, "--output", "json", "--no-progress", "--device", str(dev)]
     for m in metrics:
         args += ["-m", m]
@@ -359,17 +396,18 @@ def run_cli(ref_path: str, dis_path: str, dev, metrics, extra=(), keys=None):
     t0 = time.monotonic()
     with contextlib.redirect_stdout(out):
         rc = cli.main(args)
-    torch.cuda.synchronize()
+    launches = read_counts()
     seconds = time.monotonic() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
     need(rc == 0, f"CLI ({' '.join(metrics)}) exited {rc}")
     result = json.loads(out.getvalue())
-    need(result["frame_count"] == FRAMES, f"CLI did not score {FRAMES} frames")
+    need(result["frame_count"] == frames, f"CLI did not score {frames} frames")
+    if frames == FRAMES:
+        need(launches["fused_tail"] == 0, f"a 1080p route launched kernel #4: {launches}")
     scores = {}
     for m in keys or output_keys(metrics):
         vals = result[m]["scores"]
-        need(len(vals) == FRAMES and all(math.isfinite(v) for v in vals),
-             f"CLI {m}: want {FRAMES} finite values, got {vals}")
+        need(len(vals) == frames and all(math.isfinite(v) for v in vals),
+             f"CLI {m}: want {frames} finite values, got {vals}")
         scores[m] = np.asarray(vals, dtype=np.float64)
     return scores, launches, seconds
 
@@ -935,6 +973,210 @@ def check_golden(dev) -> float:
     return golden
 
 
+def run_uhd_path(ref_path: str, dis_path: str, dev, card: str):
+    """Phase 4f: the 3840x2160 pair with -m ssimulacra2 through the CLI: two
+    batches of 4, each kernel 1, #3 on levels 1 and 2, #4 on levels 3-5."""
+    scores, launches, seconds = run_cli(ref_path, dis_path, dev, ["ssimulacra2"], frames=UHD_FRAMES)
+    log(f"CLI (f) {UHD_WIDTH}x{UHD_HEIGHT} -m ssimulacra2: {UHD_FRAMES} frames in {seconds:.2f} s "
+        f"(first call and decode included), launches {launches} [{card}]")
+    log(f"CLI (f) scores: {scores['ssimulacra2'].tolist()}")
+    batches = UHD_FRAMES // UHD_BATCH
+    want = {"fused_scale0_yuv": batches, "fused_scale_rgb": 2 * batches, "fused_tail": batches,
+            "fused_pyramid_tail": 0}
+    got = {k: launches[k] for k in want}
+    need(got == want, f"(f): launches {got}, want {want}")
+    return scores["ssimulacra2"], launches
+
+
+def plain_level(lin, levels: int):
+    """The plain 2x2-mean chain: level ``levels`` of a (2, B, 3, h, w) pair."""
+    from turbo_metrics_tpu_torch.ops.downscale import downscale_by_2
+
+    for _ in range(levels):
+        lin = downscale_by_2(lin)
+    return lin.contiguous()
+
+
+def uhd_step_kernel(y2, uv2, model):
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import ssimulacra2_subscores_from_yuv
+
+    return ssimulacra2_subscores_from_yuv(y2, uv2, model.taps, model.opsin, num_scales=model.num_scales)
+
+
+def uhd_step_kernel2(y2, uv2, model):
+    """The 4K step by the route the port ran before the level chain:
+    kernel 1, then kernel 2 on levels 1-5 (timed beside ``uhd_step_kernel``)."""
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import subscores_from_sums
+    from turbo_metrics_tpu_torch.ops.kernels import scale_stats, scale_tail
+
+    taps, opsin = model.taps, model.opsin
+    sums0, l1 = scale_stats.fused_scale0_yuv(y2, uv2, taps, opsin)
+    rest = scale_tail.fused_pyramid_tail(l1, model.num_scales - 1, taps, opsin)
+    return subscores_from_sums([sums0] + list(rest.unbind(1)), model.dims)
+
+
+def uhd_step_plain(y2, uv2, model):
+    """The 4K step through the twins in the kernels' route: kernel 1's, #3's
+    on levels 1 and 2, #4's on levels 3-5."""
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import subscores_from_sums
+    from turbo_metrics_tpu_torch.ops.kernels import fused_tail, scale_stats
+
+    taps, opsin = model.taps, model.opsin
+    sums = []
+    s, lvl = scale_stats.fused_scale0_yuv_ref(y2, uv2, taps, opsin)
+    sums.append(s)
+    for _ in range(2):
+        s, lvl = scale_stats.fused_scale_rgb_ref(lvl, taps, opsin)
+        sums.append(s)
+    sums += list(fused_tail.fused_tail_ref(lvl, model.num_scales - 3, taps, opsin).unbind(1))
+    return subscores_from_sums(sums, model.dims)
+
+
+def check_uhd(y2, uv2, model, cli_scores, dev):
+    """Phase 5d: kernel #4 against its twin and kernel 2 on the 4K pair's
+    level 3, on a 67x99 pair from level 0 and on the 2560x1440 route; the 4K
+    kernel step against the twins, the five-blur plain chain and the CLI.
+    Returns (#4's max abs error, the level-3 plane)."""
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import (
+        Ssimulacra2,
+        level_route,
+        ssimulacra2_subscores,
+        ssimulacra2_subscores_from_yuv,
+        subscores_from_sums,
+    )
+    from turbo_metrics_tpu_torch.ops import colorspace
+    from turbo_metrics_tpu_torch.ops.downscale import scale_dims
+    from turbo_metrics_tpu_torch.ops.kernels import fused_tail, scale_stats, scale_tail
+
+    taps, opsin, dims = model.taps, model.opsin, model.dims
+    norms = scale_stats.norms_from_sums
+    lin = colorspace.yuv420_to_linear_rgb(y2, uv2)
+    lvl3 = plain_level(lin, 3)
+    k4 = fused_tail.fused_tail(lvl3, 3, taps, opsin)
+    p4 = fused_tail.fused_tail_ref(lvl3, 3, taps, opsin)
+    k2 = scale_tail.fused_pyramid_tail(lvl3, 3, taps, opsin)
+    e4 = max(check_close(f"#4 level {i + 3} norms", norms(k4[:, i], h * w), norms(p4[:, i], h * w), 1e-4, 1e-5)
+             for i, (h, w) in enumerate(dims[3:]))
+    check_close("#4 vs its twin, sums", k4, p4, 1e-4, 1e-5)
+    check_close("#4 vs kernel 2, sums", k4, k2, 1e-4, 1e-5)
+    need(torch.equal(k4, fused_tail.fused_tail(lvl3, 3, taps, opsin)), "#4 differs between two runs")
+    log(f"#4 vs twin at {tuple(lvl3.shape)}: max abs err {e4:.3g} (norms); sums equal to kernel 2's: "
+        f"{torch.equal(k4, k2)}")
+
+    reset_counts()
+    sub_k = uhd_step_kernel(y2, uv2, model)
+    got = {k: v for k, v in read_counts().items() if v}
+    want = {"fused_scale0_yuv": 1, "fused_scale_rgb": 2, "fused_tail": 1}
+    need(got == want, f"4K kernel step launches {got}, want {want}")
+    sub_p = uhd_step_plain(y2, uv2, model)
+    e_step = check_close("4K kernel step sub-scores", sub_k, sub_p, 1e-4, 1e-5)
+    sub_chain = ssimulacra2_subscores(lin[0], lin[1], num_scales=model.num_scales)
+    sc_k, sc_p, sc_c = (model.score(s) for s in (sub_k, sub_p, sub_chain))
+    d_plain, d_chain = float(np.abs(sc_k - sc_p).max()), float(np.abs(sc_k - sc_c).max())
+    d_cli = float(np.abs(sc_k - np.asarray(cli_scores[:UHD_BATCH])).max())
+    log(f"4K kernel step scores {sc_k.tolist()}; sub-scores vs twins max abs err {e_step:.3g}; max |score "
+        f"diff| vs twins {d_plain:.3g}, vs five-blur plain chain {d_chain:.3g}, vs CLI {d_cli:.3g}")
+    need(d_plain <= 0.01 and d_chain <= 0.01 and d_cli <= 0.01,
+         f"4K scores apart: vs twins {d_plain}, vs five-blur chain {d_chain}, vs CLI {d_cli}")
+    del lin, sub_chain
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    small = torch.rand((2, 2, 3, 67, 99), generator=g, device=dev)
+    ks, ps = fused_tail.fused_tail(small, 5, taps, opsin), fused_tail.fused_tail_ref(small, 5, taps, opsin)
+    e_small = max(check_close(f"#4 67x99 level {i} norms", norms(ks[:, i], h * w), norms(ps[:, i], h * w),
+                              1e-4, 1e-5)
+                  for i, (h, w) in enumerate(scale_dims(67, 99)))
+    need(torch.equal(ks, scale_tail.fused_pyramid_tail(small, 5, taps, opsin)),
+         "#4 and kernel 2 differ on the 67x99 pair")
+    log(f"#4 vs twin on 67x99 from level 0, five levels: max abs err {e_small:.3g}; sums equal to kernel 2's")
+
+    h, w, n = 1440, 2560, 2
+    m1440 = Ssimulacra2(w, h, device=dev)
+    need(level_route((h + 1) // 2, (w + 1) // 2, m1440.num_scales, 1)
+         == [("fused_scale_rgb", (1,)), ("fused_tail", (2, 3, 4, 5))], "the 1440p route changed")
+    rng = np.random.default_rng(1440)
+    yq = torch.from_numpy(rng.integers(16, 236, (2, n, h, w)).astype(np.uint8)).to(dev)
+    uvq = torch.from_numpy(rng.integers(16, 241, (2, n, h // 2, w // 2, 2)).astype(np.uint8)).to(dev)
+    reset_counts()
+    sub_k = ssimulacra2_subscores_from_yuv(yq, uvq, taps, opsin, num_scales=m1440.num_scales)
+    got = {k: v for k, v in read_counts().items() if v}
+    want = {"fused_scale0_yuv": 1, "fused_scale_rgb": 1, "fused_tail": 1}
+    need(got == want, f"1440p route launches {got}, want {want}")
+    s0, l1 = scale_stats.fused_scale0_yuv_ref(yq, uvq, taps, opsin)
+    s1, l2 = scale_stats.fused_scale_rgb_ref(l1, taps, opsin)
+    rest = fused_tail.fused_tail_ref(l2, 4, taps, opsin)
+    e1440 = check_close("1440p route sub-scores", sub_k,
+                        subscores_from_sums([s0, s1] + list(rest.unbind(1)), m1440.dims), 1e-4, 1e-5)
+    log(f"1440p route (kernel 1, #3, #4 on levels 2-5) vs twins: sub-scores max abs err {e1440:.3g}")
+    return e4, lvl3
+
+
+def check_backends(y2, uv2, model, dev):
+    """Phase 5e: the legacy backends at 1080p B=8, counters reset around each
+    run, against the plain chain; #7, #8 and #10 against their twins; the
+    jnp_iir backend on the golden pair.  Returns (launches by backend, max
+    abs errors by kernel, the linear-RGB pair, its XYB pair)."""
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import (
+        Ssimulacra2,
+        ssimulacra2_subscores,
+        subscores_from_sums,
+    )
+    from turbo_metrics_tpu_torch.ops import colorspace
+    from turbo_metrics_tpu_torch.ops.kernels import downscale, scale_stats, scale_tail
+    from turbo_metrics_tpu_torch.ops.xyb import linear_rgb_to_xyb
+
+    taps, opsin, dims, ns = model.taps, model.opsin, model.dims, model.num_scales
+    lin = colorspace.yuv420_to_linear_rgb(y2, uv2).contiguous()
+    sums_p = scale_tail.fused_pyramid_tail_ref(lin, ns, taps, opsin)
+    sub_p = subscores_from_sums(list(sums_p.unbind(1)), dims)
+    sc_p = model.score(sub_p)
+    sc_c = model.score(ssimulacra2_subscores(lin[0], lin[1], num_scales=ns))
+    launches, err = {}, {}
+    want = {"pallas": {"scale_sums": ns},
+            "pallas2": {"fused_scale_pair": ns, "downscale_by_2": 2 * (ns - 1)},
+            "pallas3": {"fused_scale_rgb": 1, "fused_pyramid_tail": 1}}
+    for b, want_b in want.items():
+        mb = Ssimulacra2(WIDTH, HEIGHT, backend=b, device=dev)
+        reset_counts()
+        sub = mb(lin[0], lin[1])
+        launches[b] = read_counts()
+        got = {k: v for k, v in launches[b].items() if v}
+        need(got == want_b, f"backend {b}: launches {got}, want {want_b}")
+        e = check_close(f"backend {b} sub-scores", sub, sub_p, 1e-4, 1e-5)
+        sc = mb.score(sub)
+        d_p, d_c = float(np.abs(sc - sc_p).max()), float(np.abs(sc - sc_c).max())
+        log(f"Ssimulacra2(backend={b!r}) at {WIDTH}x{HEIGHT} B={BATCH}: launches {got}; sub-scores vs the "
+            f"plain chain max abs err {e:.3g}; max |score diff| vs plain {d_p:.3g}, vs five-blur {d_c:.3g}")
+        need(d_p <= 0.01 and d_c <= 0.01, f"backend {b}: scores apart by {d_p} / {d_c}")
+
+    ds_k, ds_p = downscale.downscale_by_2(lin[0]), downscale.downscale_by_2_ref(lin[0])
+    need(torch.equal(ds_k, ds_p), "#7 differs from its twin")
+    odd = lin[0, :, :, :67, :99].contiguous()
+    need(torch.equal(downscale.downscale_by_2(odd), downscale.downscale_by_2_ref(odd)),
+         "#7 differs from its twin at 67x99")
+    pool = torch.nn.functional.avg_pool2d(lin[0], 2, ceil_mode=True)
+    pool_odd = torch.nn.functional.avg_pool2d(odd, 2, ceil_mode=True)
+    log(f"#7 equal to its twin at {WIDTH}x{HEIGHT} B={BATCH} and at 67x99; avg_pool2d(2, ceil_mode) max abs "
+        f"diff {float((pool - ds_p).abs().max()):.3g} (67x99: "
+        f"{float((pool_odd - downscale.downscale_by_2_ref(odd)).abs().max()):.3g})")
+    err["downscale_by_2"] = 0.0
+    h, w = dims[0]
+    norms = scale_stats.norms_from_sums
+    xyb = [linear_rgb_to_xyb(lin[i], opsin=opsin).contiguous() for i in (0, 1)]
+    err["scale_sums"] = check_close("#8 norms", norms(scale_stats.scale_sums(*xyb, taps), h * w),
+                                    norms(scale_stats.level_sums_ref(*xyb, taps), h * w), 1e-4, 1e-5)
+    err["fused_scale_pair"] = check_close(
+        "#10 norms", norms(scale_stats.fused_scale_pair(lin[0], lin[1], taps, opsin), h * w),
+        norms(scale_stats.fused_scale_pair_ref(lin[0], lin[1], taps, opsin), h * w), 1e-4, 1e-5)
+    log(f"#8 vs twin: max abs err {err['scale_sums']:.3g}; #10 vs twin: {err['fused_scale_pair']:.3g} (norms)")
+
+    g_ref, g_dis = golden_pair()
+    iir = Ssimulacra2(160, 120, backend="jnp_iir", device=dev).score_pair(g_ref, g_dis)
+    log(f"golden pair through jnp_iir: {iir:.6f} (frozen {GOLDEN}, budget 0.05)")
+    need(abs(iir - GOLDEN) <= 0.05, f"jnp_iir golden pair {iir} vs {GOLDEN}")
+    return launches, err, lin, xyb
+
+
 def main() -> int:
     try:
         from turbo_metrics_tpu_torch.models.ssimulacra2 import (
@@ -946,6 +1188,8 @@ def main() -> int:
             _build,
             adm,
             convert,
+            downscale,
+            fused_tail,
             motion,
             scale_stats,
             scale_tail,
@@ -999,23 +1243,30 @@ def main() -> int:
         mezz_scores, mezz_launches = run_mezzanine_path(mref_path, mdis_path, dev, card)
         vmaf_scores, _, vmaf_launches = run_vmaf_paths(ref_path, dis_path, dev, card, tmp)
         run_all6_path(mref_path, mdis_path, dev, card, mezz_scores)
+        t0 = time.monotonic()
+        uref_path, udis_path = write_y4m_pair(tmp, UHD_WIDTH, UHD_HEIGHT, UHD_FRAMES, "_uhd")
+        log(f"wrote {UHD_FRAMES}-frame {UHD_WIDTH}x{UHD_HEIGHT} Y4M pair in {time.monotonic() - t0:.1f} s")
+        uhd_scores, uhd_launches = run_uhd_path(uref_path, udis_path, dev, card)
         y16 = load_pair(ref_path, dis_path, dev, FRAMES)[0]
         y2, uv2 = load_pair(ref_path, dis_path, dev)
         y422, uv422 = load_frames(mref_path, dev)
+        y4k, uv4k = load_pair(uref_path, udis_path, dev, UHD_BATCH)
         # Phase 7, CLI part: each route again, warm, three times in turn
         # (host-clock times spread widely on a shared host).
         warm_runs = {
-            "-m ssimulacra2": (ref_path, dis_path, ["ssimulacra2"]),
-            "multi-metric": (ref_path, dis_path, MULTI),
-            "(a) -m xpsnr": (ref_path, dis_path, ["xpsnr"]),
-            "(c) 4:2:2 10-bit vs 4:2:0, all five": (mref_path, mdis_path, ALL5),
-            "(d) -m vmaf": (ref_path, dis_path, ["vmaf"]),
-            "(e) 4:2:2 10-bit vs 4:2:0, all six": (mref_path, mdis_path, ALL6),
+            "-m ssimulacra2": (ref_path, dis_path, ["ssimulacra2"], FRAMES),
+            "multi-metric": (ref_path, dis_path, MULTI, FRAMES),
+            "(a) -m xpsnr": (ref_path, dis_path, ["xpsnr"], FRAMES),
+            "(c) 4:2:2 10-bit vs 4:2:0, all five": (mref_path, mdis_path, ALL5, FRAMES),
+            "(d) -m vmaf": (ref_path, dis_path, ["vmaf"], FRAMES),
+            "(e) 4:2:2 10-bit vs 4:2:0, all six": (mref_path, mdis_path, ALL6, FRAMES),
+            f"(f) {UHD_WIDTH}x{UHD_HEIGHT} -m ssimulacra2, {UHD_FRAMES} frames":
+                (uref_path, udis_path, ["ssimulacra2"], UHD_FRAMES),
         }
         warm_s = {k: [] for k in warm_runs}
         for _ in range(3):
-            for k, (r, d, ms) in warm_runs.items():
-                warm_s[k].append(run_cli(r, d, dev, ms)[2])
+            for k, (r, d, ms, n) in warm_runs.items():
+                warm_s[k].append(run_cli(r, d, dev, ms, frames=n)[2])
 
     model = Ssimulacra2(WIDTH, HEIGHT, device=dev)
     qmod = Quality(device=dev)
@@ -1029,6 +1280,9 @@ def main() -> int:
         e5 = check_convert_kernel(y422, uv422)
         vmaf_err, vpair, vlevel1 = check_vmaf_kernels(y16, vmaf_scores)
         check_mezzanine_engine(dev)
+        model4k = Ssimulacra2(UHD_WIDTH, UHD_HEIGHT, device=dev)
+        e4, lvl3 = check_uhd(y4k, uv4k, model4k, uhd_scores, dev)
+        backend_launches, legacy_err, lin, xyb = check_backends(y2, uv2, model, dev)
         check_golden(dev)
 
         # Phase 7: timing (device time by CUDA events, after warm-up).
@@ -1082,9 +1336,32 @@ def main() -> int:
         vmaf_ms = [time_ms(lambda: vmaf_step(vy, vd, prev0, True), 10)]
         vmaf_plain_ms = [time_ms(lambda: vmaf_step(vy, vd, prev0, False), 3) for _ in range(2)]
         vmaf_ms.append(time_ms(lambda: vmaf_step(vy, vd, prev0, True), 10))
+        k4_ms = time_ms(lambda: fused_tail.fused_tail(lvl3, 3, taps, opsin), 20)
+        k4_plain_ms = time_ms(lambda: fused_tail.fused_tail_ref(lvl3, 3, taps, opsin), 5)
+        k2_lvl3_ms = time_ms(lambda: scale_tail.fused_pyramid_tail(lvl3, 3, taps, opsin), 20)
+        # The chain's 4K step and the route it replaced, on the same inputs:
+        # chain, kernel 2, plain, plain, kernel 2, chain.
+        uhd_ms = [time_ms(lambda: uhd_step_kernel(y4k, uv4k, model4k), 10)]
+        uhd_k2_ms = [time_ms(lambda: uhd_step_kernel2(y4k, uv4k, model4k), 10)]
+        uhd_plain_ms = [time_ms(lambda: uhd_step_plain(y4k, uv4k, model4k), 3) for _ in range(2)]
+        uhd_k2_ms.append(time_ms(lambda: uhd_step_kernel2(y4k, uv4k, model4k), 10))
+        uhd_ms.append(time_ms(lambda: uhd_step_kernel(y4k, uv4k, model4k), 10))
+        uhd_dev_ms = kernel_device_ms(lambda: uhd_step_kernel(y4k, uv4k, model4k), "", 10)
+        uhd_k2_dev_ms = kernel_device_ms(lambda: uhd_step_kernel2(y4k, uv4k, model4k), "", 10)
+        k7_ms = time_ms(lambda: downscale.downscale_by_2(lin[0]), 20)
+        k7_plain_ms = time_ms(lambda: downscale.downscale_by_2_ref(lin[0]), 5)
+        k7_lib_ms = time_ms(lambda: torch.nn.functional.avg_pool2d(lin[0], 2, ceil_mode=True), 20)
+        k8_ms = time_ms(lambda: scale_stats.scale_sums(*xyb, taps), 20)
+        k8_plain_ms = time_ms(lambda: scale_stats.level_sums_ref(*xyb, taps), 5)
+        k10_ms = time_ms(lambda: scale_stats.fused_scale_pair(lin[0], lin[1], taps, opsin), 20)
+        k10_plain_ms = time_ms(lambda: scale_stats.fused_scale_pair_ref(lin[0], lin[1], taps, opsin), 5)
         k13_dev_ms = kernel_device_ms(lambda: xpsnr.xpsnr_block_stats(*xp_args), "xpsnr_kernel")
         k5_dev_ms = kernel_device_ms(
             lambda: convert.yuv_to_linear_rgb(y422, uv422, **k5_kw), "yuv_to_rgb_kernel")
+        k4_dev_ms = kernel_device_ms(lambda: fused_tail.fused_tail(lvl3, 3, taps, opsin), "fused_tail_kernel")
+        k2_lvl3_dev_ms = kernel_device_ms(
+            lambda: scale_tail.fused_pyramid_tail(lvl3, 3, taps, opsin),
+            ("rgb_to_xyb_kernel", "blur_rows_kernel", "blur_cols_maps_kernel", "reduce_parts_kernel"))
 
     mpx = WIDTH * HEIGHT / 1e6
     for name, runs in (
@@ -1097,8 +1374,23 @@ def main() -> int:
             + " / ".join(f"{t:.3f} ms = {BATCH * 1e3 / t:.1f} fps = {BATCH * mpx * 1e3 / t:.1f} Mpx/s" for t in runs)
             + f" [{card}]"
         )
+    umpx = UHD_WIDTH * UHD_HEIGHT / 1e6
+    for name, runs in (("4K kernel step", uhd_ms), ("4K plain step", uhd_plain_ms),
+                       ("4K step by kernel 1 + kernel 2 (the route before the level chain)", uhd_k2_ms)):
+        log(
+            f"{name} B={UHD_BATCH} {UHD_WIDTH}x{UHD_HEIGHT}: "
+            + " / ".join(f"{t:.3f} ms = {UHD_BATCH * 1e3 / t:.1f} fps = {UHD_BATCH * umpx * 1e3 / t:.1f} Mpx/s"
+                         for t in runs)
+            + f" [{card}]"
+        )
+    log(f"kernel 2 on the same 4K level-3 plane as #4: {k2_lvl3_ms:.3f} ms (#4 {k4_ms:.3f} ms) [{card}]")
+    log(f"avg_pool2d(2, ceil_mode=True) on #7's input: {k7_lib_ms:.3f} ms (#7 {k7_ms:.3f} ms) [{card}]")
     log(f"PSNR (plain torch expression on the pair buffer) {psnr_ms:.3f} ms [{card}]")
-    for name, t in (("xpsnr_block_stats", k13_dev_ms), ("yuv_to_linear_rgb", k5_dev_ms)):
+    for name, t in (("xpsnr_block_stats", k13_dev_ms), ("yuv_to_linear_rgb", k5_dev_ms),
+                    ("fused_tail (4K level 3)", k4_dev_ms),
+                    ("fused_pyramid_tail on the same plane (its 12 kernels)", k2_lvl3_dev_ms),
+                    ("4K kernel step, every kernel (kernel 1, #3 x2, #4)", uhd_dev_ms),
+                    ("4K step by kernel 1 + kernel 2, every kernel", uhd_k2_dev_ms)):
         log(f"{name}: kernel device time {'not measured' if t is None else f'{t:.4f} ms'} "
             f"(torch.profiler, wrapper host time excluded) [{card}]")
     for k, runs in warm_s.items():
@@ -1146,9 +1438,24 @@ def main() -> int:
          k17_plain_ms, nbytes(vy[:1]) + h * w * 2, h * w * I_BLUR),
         ("adm_stats", "adm.cu", "adm.py:442", vmaf_launches, vmaf_err["adm_stats"], k18_ms, k18_plain_ms,
          nbytes(vpair) + bsz * 4 * 3 * 2 * 4, adm_flops(bsz, h, w)),
+        ("fused_tail", "ssimulacra2_tail.cu", "scale_stats.py:2494", uhd_launches, e4, k4_ms, k4_plain_ms,
+         nbytes(lvl3) + UHD_BATCH * 3 * 3 * 6 * 4,
+         sum(s2_level_flops(UHD_BATCH, lh, lw) for lh, lw in model4k.dims[3:])),
+        ("downscale_by_2", "downscale.cu", "convert.py:500", backend_launches["pallas2"],
+         legacy_err["downscale_by_2"], k7_ms, k7_plain_ms, nbytes(lin[0]) + nbytes(lin[0]) // 4,
+         bsz * 3 * (h // 2) * (w // 2) * 4, k7_lib_ms),
+        ("scale_sums", "ssimulacra2_scale.cu", "scale_stats_legacy.py:172", backend_launches["pallas"],
+         legacy_err["scale_sums"], k8_ms, k8_plain_ms, nbytes(*xyb) + nbytes(s0_out), bsz * h * w * 3 * F_S2),
+        # #9 (v2) computes #10's function: one entry, measured once, two rows.
+        ("fused_scale_pair", "ssimulacra2_scale.cu", "scale_stats_legacy.py:367", backend_launches["pallas2"],
+         legacy_err["fused_scale_pair"], k10_ms, k10_plain_ms, nbytes(lin) + nbytes(s0_out),
+         bsz * h * w * (2 * (F_XYB - 4) + 3 * F_S2)),
+        ("fused_scale_pair", "ssimulacra2_scale.cu", "scale_stats_legacy.py:644", backend_launches["pallas2"],
+         legacy_err["fused_scale_pair"], k10_ms, k10_plain_ms, nbytes(lin) + nbytes(s0_out),
+         bsz * h * w * (2 * (F_XYB - 4) + 3 * F_S2)),
     ]
     kernels = []
-    for name, src_file, replaces, counts, err, ms, pms, nb, ops in rows:
+    for name, src_file, replaces, counts, err, ms, pms, nb, ops, *lib in rows:
         is_int = name in ("xpsnr_block_stats", "motion_stats", "integer_blur")
         bound_ms, bound_by = bound(nb, ops, PEAK_I32_PER_S if is_int else PEAK_F32_PER_S)
         log(f"{name}: {ms:.3f} ms vs plain {pms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
@@ -1165,8 +1472,9 @@ def main() -> int:
             "plain_ms": pms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # No single PyTorch call computes any of these functions.
-            "library_ms": None,
+            # Only #7's function is one PyTorch call (avg_pool2d), timed
+            # above as a yardstick; the port never calls it.
+            "library_ms": lib[0] if lib else None,
         })
     log(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{card}]")
 

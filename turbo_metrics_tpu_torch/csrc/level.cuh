@@ -1,6 +1,7 @@
 // Block geometry, the deterministic cross-block reduction and the
 // reflect-101 border rule shared by the per-level kernels
-// (ssimulacra2_scale.cu, windowed.cu, vif.cu, adm.cu).
+// (ssimulacra2_scale.cu, ssimulacra2_tail.cu, downscale.cu, windowed.cu,
+// vif.cu, adm.cu).
 //
 // A level kernel reduces K quantities per block in a fixed tree in f32 and
 // writes them as parts (planes, nblk, K); reduce_parts_kernel then sums each
@@ -27,11 +28,11 @@ inline dim3 quad_grid(int h, int w, int images) {
 }
 
 // Tree-reduce v[K] over the block's kThreads threads (red: K*kThreads floats
-// of shared memory) and write the block's K sums to
-// parts[(plane * nblk + blk) * K + k].
+// of shared memory) in a fixed order and write the K sums to out[k] (thread
+// 0).  The caller syncs the block before it reuses red.
 template <int K>
-__device__ __forceinline__ void block_partials(const float (&v)[K], float (*red)[kThreads],
-                                               float* __restrict__ parts, size_t plane) {
+__device__ __forceinline__ void tile_partials(const float (&v)[K], float (*red)[kThreads],
+                                              float* __restrict__ out) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
 #pragma unroll
   for (int k = 0; k < K; ++k) red[k][tid] = v[k];
@@ -44,26 +45,33 @@ __device__ __forceinline__ void block_partials(const float (&v)[K], float (*red)
     __syncthreads();
   }
   if (tid == 0) {
-    const size_t nblk = (size_t)gridDim.x * gridDim.y;
-    const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-    float* out = parts + (plane * nblk + blk) * K;
 #pragma unroll
     for (int k = 0; k < K; ++k) out[k] = red[k][0];
   }
 }
 
-// One block: the f64 sum of the nblk block partials of plane blockIdx.x,
-// written as f32 to out[k] (out: the caller's address for the plane).
+// tile_partials of block (blockIdx.x, blockIdx.y), written to
+// parts[(plane * nblk + blk) * K + k].
 template <int K>
-__device__ __forceinline__ void reduce_plane(const float* __restrict__ parts, int nblk,
+__device__ __forceinline__ void block_partials(const float (&v)[K], float (*red)[kThreads],
+                                               float* __restrict__ parts, size_t plane) {
+  const size_t nblk = (size_t)gridDim.x * gridDim.y;
+  const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  tile_partials<K>(v, red, parts + (plane * nblk + blk) * K);
+}
+
+// One block of kReduceThreads threads: the f64 sum of a plane's nblk block
+// partials src[(i * K + k)], in a fixed order, written as f32 to out[k] (out:
+// the caller's address for the plane).  The caller syncs the block before it
+// calls again.
+template <int K>
+__device__ __forceinline__ void reduce_plane(const float* __restrict__ src, int nblk,
                                              float* __restrict__ out) {
   __shared__ double red[K][kReduceThreads];
-  const int plane = blockIdx.x;
   const int tid = threadIdx.x;
   double acc[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) acc[k] = 0.0;
-  const float* src = parts + (size_t)plane * nblk * K;
   for (int i = tid; i < nblk; i += kReduceThreads) {
 #pragma unroll
     for (int k = 0; k < K; ++k) acc[k] += (double)src[(size_t)i * K + k];
@@ -92,7 +100,8 @@ __global__ void __launch_bounds__(kReduceThreads)
 reduce_parts_kernel(const float* __restrict__ parts, int nblk, float* __restrict__ sums,
                     int sums_bstride) {
   const int b = blockIdx.x / 3, ch = blockIdx.x % 3;
-  reduce_plane<K>(parts, nblk, sums + (size_t)b * sums_bstride + ch * K);
+  reduce_plane<K>(parts + (size_t)blockIdx.x * nblk * K, nblk,
+                  sums + (size_t)b * sums_bstride + ch * K);
 }
 
 // One plane per frame: its K sums to sums[plane * sums_pstride + k].
@@ -101,7 +110,8 @@ template <int K>
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_frames_kernel(const float* __restrict__ parts, int nblk, float* __restrict__ sums,
                      int sums_pstride) {
-  reduce_plane<K>(parts, nblk, sums + (size_t)blockIdx.x * sums_pstride);
+  reduce_plane<K>(parts + (size_t)blockIdx.x * nblk * K, nblk,
+                  sums + (size_t)blockIdx.x * sums_pstride);
 }
 
 // Reflect-101 index of i on an axis of n (ind < 0 -> -ind, ind >= n ->

@@ -7,14 +7,22 @@
 // stream, allocates nothing, and returns cudaGetLastError() so that a refused
 // launch is reported where it happened.
 //
-// Replaces three TPU kernels of the JAX package:
+// Replaces five TPU kernels of the JAX package:
 //   * turbo_metrics_tpu/ops/pallas/scale_stats.py fused_scale0_yuv_pallas
 //     (scale 0 straight from YUV 4:2:0) = tm_yuv420_to_xyb + tm_level_sums;
 //   * turbo_metrics_tpu/ops/pallas/scale_stats.py fused_scale_pallas_v4
 //     (one level from linear RGB, next level emitted) = tm_rgb_to_xyb +
 //     tm_level_sums, once;
 //   * turbo_metrics_tpu/ops/pallas/scale_tail.py fused_pyramid_tail_pallas
-//     (levels 1..5) = tm_rgb_to_xyb + tm_level_sums, once per level.
+//     (levels 1..5) = tm_rgb_to_xyb + tm_level_sums, once per level;
+//   * turbo_metrics_tpu/ops/pallas/scale_stats_legacy.py scale_sums_pallas
+//     (one level's sums from two XYB tensors) = tm_level_sums_pair;
+//   * turbo_metrics_tpu/ops/pallas/scale_stats_legacy.py fused_scale_pallas_v3
+//     (one level's sums from two linear-RGB tensors, no emission; also the
+//     function of fused_scale_pallas, v2) = tm_rgb_pair_to_xyb +
+//     tm_level_sums.
+// The per-pixel arithmetic lives in ssimulacra2_level.cuh, shared with the
+// persistent tail kernel of ssimulacra2_tail.cu.
 //
 // What bounds them on this card: the algorithm's floor is its f32 work (about
 // 730 operations per pixel pair and level: XYB, two 11-tap passes over four
@@ -40,35 +48,9 @@
 
 #include "colorspace.cuh"
 #include "level.cuh"
+#include "ssimulacra2_level.cuh"
 
 namespace {
-
-constexpr int kRadius = 5;
-constexpr int kTaps = 2 * kRadius + 1;
-
-// Newton-refined cube root of max(v, 0) (ops/xyb.py _cbrt).
-__device__ __forceinline__ float cbrt_nr(float v) {
-  v = fmaxf(v, 0.0f);
-  const float y0 = cbrtf(v);
-  const float refined = (2.0f * y0 + v / fmaxf(y0 * y0, 1e-30f)) * (float)(1.0 / 3.0);
-  return v > 0.0f ? refined : 0.0f;
-}
-
-// o: 9 opsin matrix entries (row-major), bias, bias root.
-__device__ __forceinline__ void to_xyb(float r, float g, float b, const float* o,
-                                       float* x_out, float* y_out, float* b_out) {
-  const float rmix = o[0] * r + o[1] * g + o[2] * b + o[9];
-  const float gmix = o[3] * r + o[4] * g + o[5] * b + o[9];
-  const float bmix = o[6] * r + o[7] * g + o[8] * b + o[9];
-  const float rg = cbrt_nr(rmix) - o[10];
-  const float gr = cbrt_nr(gmix) - o[10];
-  const float bb = cbrt_nr(bmix) - o[10];
-  const float x = 0.5f * (rg - gr);
-  const float y = 0.5f * (rg + gr);
-  *x_out = x * 14.0f + 0.42f;
-  *y_out = y + 0.01f;
-  *b_out = bb - y + 0.55f;
-}
 
 // ---------------------------------------------------------------------------
 // Launch 1 of scale 0: one thread per 2x2 luma quad.  Converts YUV 4:2:0 to
@@ -125,96 +107,63 @@ yuv420_to_xyb_kernel(const T* __restrict__ luma, const T* __restrict__ chroma,
 }
 
 // ---------------------------------------------------------------------------
-// Launch 1 of levels 1..5: the same quad pass from a linear-RGB level.
+// Launch 1 of levels 1..5: the same quad pass from a linear-RGB level, the
+// reference's B images at ref and the distorted one's at dis (two tensors, or
+// the two halves of one pair buffer).
 // grid: (ceil(wq/kBx), ceil(hq/kBy), 2*B)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
-rgb_to_xyb_kernel(const float* __restrict__ rgb, int h, int w, const float* __restrict__ opsin,
-                  float* __restrict__ xyb, float* __restrict__ next) {
+rgb_to_xyb_kernel(const float* __restrict__ ref, const float* __restrict__ dis, int batch, int h,
+                  int w, const float* __restrict__ opsin, float* __restrict__ xyb,
+                  float* __restrict__ next) {
   const int hq = (h + 1) / 2, wq = (w + 1) / 2;
   const int qj = blockIdx.x * kBx + threadIdx.x;
   const int qi = blockIdx.y * kBy + threadIdx.y;
   if (qi >= hq || qj >= wq) return;
-  const size_t img = blockIdx.z;
+  const int img = blockIdx.z;  // image * B + batch
   const size_t npx = (size_t)h * w;
   const size_t nq = (size_t)hq * wq;
   float o[11];
 #pragma unroll
   for (int k = 0; k < 11; ++k) o[k] = __ldg(opsin + k);
-
-  const float* src = rgb + img * 3 * npx;
-  float* xp = xyb + img * 3 * npx;
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int dy = 0; dy < 2; ++dy) {
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const int r = min(2 * qi + dy, h - 1);
-      const int c = min(2 * qj + dx, w - 1);
-      const size_t at = (size_t)r * w + c;
-      const float v[3] = {src[at], src[npx + at], src[2 * npx + at]};
-      acc[0] += v[0];
-      acc[1] += v[1];
-      acc[2] += v[2];
-      if (2 * qi + dy < h && 2 * qj + dx < w) {
-        to_xyb(v[0], v[1], v[2], o, xp + at, xp + npx + at, xp + 2 * npx + at);
-      }
-    }
-  }
-  if (next != nullptr) {
-    float* np_ = next + img * 3 * nq + (size_t)qi * wq + qj;
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) np_[ch * nq] = acc[ch] * 0.25f;
-  }
+  const float* src = img < batch ? ref + (size_t)img * 3 * npx : dis + (size_t)(img - batch) * 3 * npx;
+  rgb_quad(src, h, w, qi, qj, o, xyb + (size_t)img * 3 * npx,
+           next != nullptr ? next + (size_t)img * 3 * nq + (size_t)qi * wq + qj : nullptr, nq);
 }
 
 // ---------------------------------------------------------------------------
 // Launch 2: horizontal 11-tap pass of x1, x2, (x1-x2)^2 and x1*x2 for every
-// (batch, channel) plane; samples outside [0, w) count as zero.  The SSIM
-// map needs s11 and s22 only through s11 + s22 - 2 s12 = blur((x1-x2)^2), so
-// four blurred planes suffice (ops/ssim_maps.py ssim_map).
+// (batch, channel) plane (ssimulacra2_level.cuh blur_row_px); xa / xb: the
+// reference's and the distorted image's XYB, B*3 planes each.
 // grid: (ceil(w/kBx), ceil(h/kBy), B*3)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
-blur_rows_kernel(const float* __restrict__ xyb, int planes, int h, int w,
-                 const float* __restrict__ taps, float* __restrict__ tmp) {
+blur_rows_kernel(const float* __restrict__ xa, const float* __restrict__ xb, int planes, int h,
+                 int w, const float* __restrict__ taps, float* __restrict__ tmp) {
   const int c = blockIdx.x * kBx + threadIdx.x;
   const int r = blockIdx.y * kBy + threadIdx.y;
   if (r >= h || c >= w) return;
   const size_t npx = (size_t)h * w;
   const size_t plane = blockIdx.z;
-  const float* a = xyb + plane * npx + (size_t)r * w;                  // reference
-  const float* b = xyb + ((size_t)planes + plane) * npx + (size_t)r * w;  // distorted
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int k = 0; k < kTaps; ++k) {
-    const int cc = c + k - kRadius;
-    if (cc >= 0 && cc < w) {
-      const float t = __ldg(taps + k);
-      const float av = a[cc], bv = b[cc];
-      s[0] += t * av;
-      s[1] += t * bv;
-      const float dv = av - bv;
-      s[2] += t * (dv * dv);
-      s[3] += t * (av * bv);
-    }
-  }
-  const size_t at = plane * npx + (size_t)r * w + c;
+  const size_t row = plane * npx + (size_t)r * w;
+  float s[4];
+  blur_row_px(xa + row, xb + row, c, w, taps, s);
   const size_t qstride = (size_t)planes * npx;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) tmp[q * qstride + at] = s[q];
+  for (int q = 0; q < 4; ++q) tmp[q * qstride + row + c] = s[q];
 }
 
 // ---------------------------------------------------------------------------
-// Launch 3: vertical 11-tap pass (zero outside [0, h)), the SSIM, artifact
-// and detail-loss maps, and per-block f32 partial sums of the six reduced
-// quantities (level.cuh block_partials; launch 4 is level.cuh's
-// reduce_parts_kernel<6>).
+// Launch 3: vertical 11-tap pass, the SSIM, artifact and detail-loss maps
+// (ssimulacra2_level.cuh blur_col_maps_px), and per-block f32 partial sums of
+// the six reduced quantities (level.cuh block_partials; launch 4 is
+// level.cuh's reduce_parts_kernel<6>).
 // grid: (ceil(w/kBx), ceil(h/kBy), B*3)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
-blur_cols_maps_kernel(const float* __restrict__ xyb, const float* __restrict__ tmp, int planes,
-                      int h, int w, const float* __restrict__ taps, float* __restrict__ parts) {
+blur_cols_maps_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
+                      const float* __restrict__ tmp, int planes, int h, int w,
+                      const float* __restrict__ taps, float* __restrict__ parts) {
   __shared__ float red[6][kThreads];
   const int c = blockIdx.x * kBx + threadIdx.x;
   const int r = blockIdx.y * kBy + threadIdx.y;
@@ -222,46 +171,29 @@ blur_cols_maps_kernel(const float* __restrict__ xyb, const float* __restrict__ t
   const size_t plane = blockIdx.z;
   float v[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (r < h && c < w) {
-    const size_t qstride = (size_t)planes * npx;
-    const float* base = tmp + plane * npx + c;
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int k = 0; k < kTaps; ++k) {
-      const int rr = r + k - kRadius;
-      if (rr >= 0 && rr < h) {
-        const float t = __ldg(taps + k);
-        const float* row = base + (size_t)rr * w;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) s[q] += t * row[q * qstride];
-      }
-    }
-    const float mu1 = s[0], mu2 = s[1], sdd = s[2], s12 = s[3];
-    const size_t at = (size_t)r * w + c;
-    const float i1 = xyb[plane * npx + at];
-    const float i2 = xyb[((size_t)planes + plane) * npx + at];
-
-    // 1 - (1 - md^2) num_s / denom_s with denom_s = num_s + var_d, written
-    // from the variance of x1 - x2 (well conditioned for close images).
-    const float c2 = 0.0009f;
-    const float md = mu1 - mu2;
-    const float num_s = 2.0f * (s12 - mu1 * mu2) + c2;
-    const float var_d = sdd - md * md;
-    const float d = fmaxf((var_d + md * md * num_s) / (num_s + var_d), 0.0f);
-
-    const float ea = fabsf(i2 - mu2);
-    const float eb = fabsf(i1 - mu1);
-    const float d1 = (ea - eb) / (1.0f + eb);
-    const float art = fmaxf(d1, 0.0f);
-    const float det = fmaxf(-d1, 0.0f);
-    const float d2 = d * d, art2 = art * art, det2 = det * det;
-    v[0] = d;
-    v[1] = d2 * d2;
-    v[2] = art;
-    v[3] = art2 * art2;
-    v[4] = det;
-    v[5] = det2 * det2;
+    const size_t at = plane * npx + (size_t)r * w + c;
+    blur_col_maps_px(tmp + plane * npx + c, (size_t)planes * npx, r, h, w, taps, xa[at], xb[at],
+                     v);
   }
   block_partials<6>(v, red, parts, plane);
+}
+
+// Blur, maps and sums of one level from the reference's XYB xa and the
+// distorted one's xb, B*3 planes each.
+int level_sums(const float* xa, const float* xb, int batch, int h, int w, const float* taps,
+               float* tmp, float* parts, float* sums, int sums_bstride, cudaStream_t s) {
+  const int planes = 3 * batch;
+  const dim3 grid = pixel_grid(h, w, planes);
+  const dim3 block(kBx, kBy);
+  blur_rows_kernel<<<grid, block, 0, s>>>(xa, xb, planes, h, w, taps, tmp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  blur_cols_maps_kernel<<<grid, block, 0, s>>>(xa, xb, tmp, planes, h, w, taps, parts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_parts_kernel<6><<<planes, kReduceThreads, 0, s>>>(parts, (int)(grid.x * grid.y), sums,
+                                                            sums_bstride);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -302,18 +234,30 @@ int tm_yuv420_to_xyb(const void* luma, const void* chroma, int is16, int batch, 
   return (int)cudaGetLastError();
 }
 
-// Level conversion pass: with tm_level_sums, once per level, the replacement
-// of fused_pyramid_tail_pallas (turbo_metrics_tpu/ops/pallas/scale_tail.py:243),
-// and once, the replacement of fused_scale_pallas_v4 (scale_stats.py:2552).
-// rgb (2,B,3,h,w) linear RGB.  Bound by device memory like the scale-0 pass.
-int tm_rgb_to_xyb(const float* rgb, int batch, int h, int w, const float* opsin, float* xyb,
-                  float* next, void* stream) {
+// The level conversion pass from two (B,3,h,w) tensors, ref and dis, into the pair
+// buffers xyb (2,B,3,h,w) and next (or null): with tm_level_sums, the
+// replacement of fused_scale_pallas_v3 (turbo_metrics_tpu/ops/pallas/
+// scale_stats_legacy.py:644) and of fused_scale_pallas (v2, :367).
+int tm_rgb_pair_to_xyb(const float* ref, const float* dis, int batch, int h, int w,
+                       const float* opsin, float* xyb, float* next, void* stream) {
   rgb_to_xyb_kernel<<<quad_grid(h, w, 2 * batch), dim3(kBx, kBy), 0,
-                      static_cast<cudaStream_t>(stream)>>>(rgb, h, w, opsin, xyb, next);
+                      static_cast<cudaStream_t>(stream)>>>(ref, dis, batch, h, w, opsin, xyb,
+                                                           next);
   return (int)cudaGetLastError();
 }
 
-// Blur, maps and sums of one level (shared by both replacements): xyb
+// Level conversion pass: with tm_level_sums, once per level, the replacement
+// of fused_pyramid_tail_pallas (turbo_metrics_tpu/ops/pallas/scale_tail.py:243),
+// and once, the replacement of fused_scale_pallas_v4 (scale_stats.py:2552).
+// rgb (2,B,3,h,w) linear RGB: tm_rgb_pair_to_xyb on its two halves.  Bound
+// by device memory like the scale-0 pass.
+int tm_rgb_to_xyb(const float* rgb, int batch, int h, int w, const float* opsin, float* xyb,
+                  float* next, void* stream) {
+  return tm_rgb_pair_to_xyb(rgb, rgb + (size_t)batch * 3 * h * w, batch, h, w, opsin, xyb, next,
+                            stream);
+}
+
+// Blur, maps and sums of one level (shared by the replacements above): xyb
 // (2,B,3,h,w) -> sums[b*sums_bstride + ch*6 + k].  tmp holds 4*B*3*h*w
 // floats, parts B*3*tm_level_blocks(h,w)*6.  Bound by device memory: the four
 // row-blurred planes make a round trip through it (32 bytes written and read
@@ -321,19 +265,18 @@ int tm_rgb_to_xyb(const float* rgb, int batch, int h, int w, const float* opsin,
 // is the first later optimisation.
 int tm_level_sums(const float* xyb, int batch, int h, int w, const float* taps, float* tmp,
                   float* parts, float* sums, int sums_bstride, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int planes = 3 * batch;
-  const dim3 grid = pixel_grid(h, w, planes);
-  const dim3 block(kBx, kBy);
-  blur_rows_kernel<<<grid, block, 0, s>>>(xyb, planes, h, w, taps, tmp);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  blur_cols_maps_kernel<<<grid, block, 0, s>>>(xyb, tmp, planes, h, w, taps, parts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_parts_kernel<6><<<planes, kReduceThreads, 0, s>>>(parts, (int)(grid.x * grid.y), sums,
-                                                            sums_bstride);
-  return (int)cudaGetLastError();
+  return level_sums(xyb, xyb + (size_t)batch * 3 * h * w, batch, h, w, taps, tmp, parts, sums,
+                    sums_bstride, static_cast<cudaStream_t>(stream));
+}
+
+// The same from two (B,3,h,w) XYB tensors, xyb1 (reference) and xyb2
+// (distorted), without stacking them: the replacement of scale_sums_pallas
+// (turbo_metrics_tpu/ops/pallas/scale_stats_legacy.py:172).
+int tm_level_sums_pair(const float* xyb1, const float* xyb2, int batch, int h, int w,
+                       const float* taps, float* tmp, float* parts, float* sums,
+                       int sums_bstride, void* stream) {
+  return level_sums(xyb1, xyb2, batch, h, w, taps, tmp, parts, sums, sums_bstride,
+                    static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,21 +1,31 @@
-"""SSIMULACRA2 in PyTorch: the plain chain, the kernel path and the module.
+"""SSIMULACRA2 in PyTorch: the plain chain, the kernel paths and the module.
 
-Three routes to the (B, 3, S, 2, 3) sub-scores (channel, scale, norm, map):
-  * ``ssimulacra2_subscores``: the plain torch chain (downscale, XYB, five
-    blurs, maps, means), the counterpart of the JAX package's jnp path and
-    the reference the kernels are held against;
+Routes to the (B, 3, S, 2, 3) sub-scores (channel, scale, norm, map):
+  * ``ssimulacra2_subscores``: the JAX package's backend switch.  ``jnp`` is
+    the plain torch chain (downscale, XYB, five blurs, maps, means), the
+    counterpart of the JAX jnp path and the reference the kernels are held
+    against; ``jnp_iir`` the same with the recursive blur; ``pallas`` plain
+    downscale and XYB, then kernel #8 per level; ``pallas2`` kernel #10 per
+    level and kernel #7 between levels; ``pallas3`` the level chain from
+    level 0; ``auto`` the level chain on cuda, ``jnp`` on the CPU;
   * ``ssimulacra2_subscores_from_yuv``: the kernel path of the
-    SSIMULACRA2-only route — scale 0 from YUV 4:2:0 (kernel 1,
-    ops/kernels/scale_stats.py), then the remaining levels from its emitted
-    level 1 (kernel 2, ops/kernels/scale_tail.py);
+    SSIMULACRA2-only route, scale 0 from YUV 4:2:0 (kernel 1,
+    ops/kernels/scale_stats.py), then the level chain from its emitted
+    level 1;
   * ``ssimulacra2_subscores_from_rgb``: the kernel path from a linear-RGB
-    pair buffer (the multi-metric route, and ``Ssimulacra2.forward``) —
-    scale 0 through kernel #3 (``fused_scale_rgb``), then kernel 2.
-The final 108-weight score runs on the host in f64
+    pair buffer (the multi-metric route, and ``Ssimulacra2.forward``), scale
+    0 through kernel #3 (``fused_scale_rgb``), then the level chain.
+The level chain (``level_sums_chain``, the JAX package's
+``ssimulacra2_subscores_from_padded`` loop) picks per level, by
+``level_route``: kernel 2 for five levels that fit its geometry, kernel #4
+for every remaining level once a level is small, else kernel #3 with the next
+level emitted.  The final 108-weight score runs on the host in f64
 (models/ssimulacra2_score.py).  Layout: (B, 3, H, W) planar f32.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -28,11 +38,15 @@ from turbo_metrics_tpu_torch.models.ssimulacra2_score import (
 )
 from turbo_metrics_tpu_torch.ops import colorspace
 from turbo_metrics_tpu_torch.ops.downscale import downscale_by_2, scale_dims
-from turbo_metrics_tpu_torch.ops.gaussian import blur_2d, gaussian_taps
+from turbo_metrics_tpu_torch.ops.gaussian import blur_2d, blur_2d_iir, gaussian_taps, taps_f32
+from turbo_metrics_tpu_torch.ops.kernels import downscale as downscale_kernel
+from turbo_metrics_tpu_torch.ops.kernels.fused_tail import fused_tail
 from turbo_metrics_tpu_torch.ops.kernels.scale_stats import (
     fused_scale0_yuv,
+    fused_scale_pair,
     fused_scale_rgb,
     norms_from_sums,
+    scale_sums,
 )
 from turbo_metrics_tpu_torch.ops.kernels.scale_tail import fused_pyramid_tail
 from turbo_metrics_tpu_torch.ops.ssim_maps import scale_norms
@@ -46,6 +60,75 @@ from turbo_metrics_tpu_torch.ops.xyb import (
 
 NUM_SCALES = 6
 MATRIX_NAMES = ("bt709", "bt601_525", "bt601_625", "bt2020")
+BACKENDS = ("jnp", "jnp_iir", "pallas", "pallas2", "pallas3")
+
+# The level chain's rule, copied from the JAX package
+# (turbo_metrics_tpu/models/ssimulacra2.py:39, ops/pallas/scale_tail.py
+# tail2_ok, ops/pallas/scale_stats.py tail_plane_bytes) so that each kernel
+# runs on the levels its TPU counterpart runs on: kernel #4 takes every
+# remaining level once a level's padded TPU plane would fit in this many
+# bytes.  A routing choice, not math; a rule tuned for the H100 is
+# ROADMAP work.
+TAIL_MAX_BYTES = 8 * 1024 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def tail_plane_bytes(h: int, w: int) -> int:
+    """Bytes of one batch element's (2, 3, ph, pw) padded level plane in the
+    TPU kernel's layout (the JAX package's ``tail_plane_bytes``)."""
+    return 2 * 3 * (16 + _round_up(h, 8)) * (256 + _round_up(w, 128)) * 4
+
+
+def tail2_engages(remaining: int, h: int, w: int) -> bool:
+    """Whether kernel 2 takes the five remaining levels from an h x w level:
+    the JAX package's ``tail2_ok`` geometry gate without its padded-buffer
+    clause, which the port's unpadded planes always meet."""
+    return remaining == 5 and min(h, w) >= 48 and w <= 1024
+
+
+def level_route(h: int, w: int, num_scales: int, first_level: int = 0) -> list:
+    """The kernels the level chain runs from an h x w level ``first_level``
+    of a ``num_scales`` pyramid: a list of (kernel, levels), the kernel named
+    by its wrapper (``fused_pyramid_tail``, kernel 2; ``fused_tail``, #4;
+    ``fused_scale_rgb``, #3 with the next level emitted)."""
+    route = []
+    s = first_level
+    while s < num_scales:
+        rest = tuple(range(s, num_scales))
+        if tail2_engages(len(rest), h, w):
+            return route + [("fused_pyramid_tail", rest)]
+        if len(rest) >= 2 and tail_plane_bytes(h, w) <= TAIL_MAX_BYTES:
+            return route + [("fused_tail", rest)]
+        route.append(("fused_scale_rgb", (s,)))
+        h, w = (h + 1) // 2, (w + 1) // 2
+        s += 1
+    return route
+
+
+def level_sums_chain(p12, first_level: int, taps, opsin, *, num_scales: int) -> list:
+    """(B, 3, 6) sums of levels ``first_level`` .. ``num_scales - 1`` from
+    the contiguous (2, B, 3, h, w) f32 linear-RGB plane of level
+    ``first_level``, through the kernels ``level_route`` picks (the JAX
+    package's ``ssimulacra2_subscores_from_padded`` loop on the unpadded
+    layout)."""
+    out = []
+    for kernel, levels in level_route(p12.shape[-2], p12.shape[-1], num_scales, first_level):
+        if kernel == "fused_scale_rgb":
+            sums, p12 = fused_scale_rgb(p12, taps, opsin, emit_ds=levels[0] + 1 < num_scales)
+            out.append(sums)
+        else:
+            run = fused_pyramid_tail if kernel == "fused_pyramid_tail" else fused_tail
+            out += list(run(p12, len(levels), taps, opsin).unbind(1))
+    return out
+
+
+def default_backend(device) -> str:
+    """The level chain on cuda, the plain chain on the CPU (the JAX
+    package's ``default_backend``: Pallas on the TPU, jnp elsewhere)."""
+    return "pallas3" if torch.device(device).type == "cuda" else "jnp"
 
 
 def _apply_needs_mask(out: torch.Tensor, needs) -> torch.Tensor:
@@ -61,31 +144,80 @@ def _apply_needs_mask(out: torch.Tensor, needs) -> torch.Tensor:
     return out * torch.from_numpy(m).to(out.device)
 
 
+def _on(t, device) -> bool:
+    return isinstance(t, torch.Tensor) and t.dtype == torch.float32 and t.device == device
+
+
+def _level_consts(taps, opsin, device):
+    """The kernels' (11,) f32 taps and opsin vector on ``device``: f32
+    tensors already there pass through, None takes the built-in constants."""
+    if not _on(taps, device):
+        taps = torch.tensor(taps_f32(taps), dtype=torch.float32, device=device)
+    if not _on(opsin, device):
+        opsin = torch.as_tensor(opsin_vector() if opsin is None else opsin, dtype=torch.float32).to(device)
+    return taps.contiguous(), opsin.contiguous()
+
+
 def ssimulacra2_subscores(
     lin_ref: torch.Tensor,
     lin_dis: torch.Tensor,
     *,
     num_scales: int,
+    backend: str = "jnp",
     taps=None,
     opsin=None,
 ) -> torch.Tensor:
-    """Plain sub-scores for (B, 3, H, W) f32 linear-RGB frame pairs.
+    """Sub-scores for (B, 3, H, W) f32 linear-RGB frame pairs.
 
-    Output: (B, 3, num_scales, 2, 3) f32.  Blurs five quantities per level
-    (mu1, mu2, sigma11, sigma22, sigma12), like the reference's fused blur
-    launch (ssimulacra2-cuda/src/kernel.rs:219-277).
+    Output: (B, 3, num_scales, 2, 3) f32.  ``backend`` takes the JAX
+    package's names for its routes (module docstring; ``auto`` is
+    ``default_backend`` of the inputs' device); on a CPU tensor every kernel
+    runs its plain twin, as the JAX package's ``interpret*`` routes run
+    theirs.  The plain chains blur
+    five quantities per level (mu1, mu2, sigma11, sigma22, sigma12), like
+    the reference's fused blur launch (ssimulacra2-cuda/src/kernel.rs:219-277).
     """
-    per_scale = []
+    if backend == "auto":
+        backend = default_backend(lin_ref.device)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {('auto',) + BACKENDS}")
+    dims = scale_dims(lin_ref.shape[-2], lin_ref.shape[-1], num_scales)
+    if backend in ("jnp", "jnp_iir"):
+        blur = blur_2d_iir if backend == "jnp_iir" else functools.partial(blur_2d, taps=taps)
+        per_scale = []
+        for s in range(num_scales):
+            if s:
+                lin_ref = downscale_by_2(lin_ref)
+                lin_dis = downscale_by_2(lin_dis)
+            xyb1 = linear_rgb_to_xyb(lin_ref, opsin=opsin)
+            xyb2 = linear_rgb_to_xyb(lin_dis, opsin=opsin)
+            stacked = torch.cat([xyb1, xyb2, xyb1 * xyb1, xyb2 * xyb2, xyb1 * xyb2], dim=1)
+            mu1, mu2, s11, s22, s12 = torch.chunk(blur(stacked), 5, dim=1)
+            per_scale.append(scale_norms(xyb1, xyb2, mu1, mu2, s11, s22, s12))
+        return _apply_needs_mask(torch.stack(per_scale, dim=2), weight_needs(num_scales))
+
+    taps, opsin = _level_consts(taps, opsin, lin_ref.device)
+    lin_ref = lin_ref.to(torch.float32).contiguous()
+    lin_dis = lin_dis.to(torch.float32).contiguous()
+    if backend == "pallas3":
+        p12 = torch.stack([lin_ref, lin_dis])
+        return subscores_from_sums(level_sums_chain(p12, 0, taps, opsin, num_scales=num_scales), dims)
+    sums = []
     for s in range(num_scales):
-        if s:
-            lin_ref = downscale_by_2(lin_ref)
-            lin_dis = downscale_by_2(lin_dis)
-        xyb1 = linear_rgb_to_xyb(lin_ref, opsin=opsin)
-        xyb2 = linear_rgb_to_xyb(lin_dis, opsin=opsin)
-        stacked = torch.cat([xyb1, xyb2, xyb1 * xyb1, xyb2 * xyb2, xyb1 * xyb2], dim=1)
-        mu1, mu2, s11, s22, s12 = torch.chunk(blur_2d(stacked, taps=taps), 5, dim=1)
-        per_scale.append(scale_norms(xyb1, xyb2, mu1, mu2, s11, s22, s12))
-    return _apply_needs_mask(torch.stack(per_scale, dim=2), weight_needs(num_scales))
+        if backend == "pallas":
+            # Plain downscale and XYB (the JAX route's jnp), then kernel #8.
+            if s:
+                lin_ref, lin_dis = downscale_by_2(lin_ref), downscale_by_2(lin_dis)
+            sums.append(scale_sums(
+                linear_rgb_to_xyb(lin_ref, opsin=opsin), linear_rgb_to_xyb(lin_dis, opsin=opsin), taps
+            ))
+        else:
+            # Kernel #10 per level, kernel #7 on each image between levels.
+            if s:
+                lin_ref = downscale_kernel.downscale_by_2(lin_ref)
+                lin_dis = downscale_kernel.downscale_by_2(lin_dis)
+            sums.append(fused_scale_pair(lin_ref, lin_dis, taps, opsin))
+    return subscores_from_sums(sums, dims)
 
 
 def subscores_from_sums(sums_per_level: list, dims) -> torch.Tensor:
@@ -112,7 +244,8 @@ def ssimulacra2_subscores_from_yuv(
 
     Scale 0 runs conversion-fused (kernel 1, full-resolution linear RGB never
     stored); the remaining ``num_scales - 1`` levels run from its emitted
-    level 1 (kernel 2).  Returns (B, 3, num_scales, 2, 3) f32.
+    level 1 through the level chain (kernel 2 at 1080p and 720p; #3 twice,
+    then #4, at 3840x2160).  Returns (B, 3, num_scales, 2, 3) f32.
     """
     h, w = y2.shape[-2], y2.shape[-1]
     sums0, level1 = fused_scale0_yuv(
@@ -121,8 +254,7 @@ def ssimulacra2_subscores_from_yuv(
     )
     levels = [sums0]
     if num_scales > 1:
-        tail = fused_pyramid_tail(level1, num_scales - 1, taps, opsin)
-        levels += list(tail.unbind(1))
+        levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales)
     return subscores_from_sums(levels, scale_dims(h, w, num_scales))
 
 
@@ -132,13 +264,13 @@ def ssimulacra2_subscores_from_rgb(
     """Sub-scores from a contiguous (2, B, 3, h, w) f32 linear-RGB pair
     buffer (the counterpart of the JAX package's
     ``ssimulacra2_subscores_from_padded``): scale 0 through kernel #3 with
-    level 1 emitted, the remaining ``num_scales - 1`` levels through kernel
-    2.  Returns (B, 3, num_scales, 2, 3) f32."""
+    level 1 emitted, the remaining ``num_scales - 1`` levels through the
+    level chain.  Returns (B, 3, num_scales, 2, 3) f32."""
     h, w = p12.shape[-2], p12.shape[-1]
     sums0, level1 = fused_scale_rgb(p12, taps, opsin, emit_ds=num_scales > 1)
     levels = [sums0]
     if num_scales > 1:
-        levels += list(fused_pyramid_tail(level1, num_scales - 1, taps, opsin).unbind(1))
+        levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales)
     return subscores_from_sums(levels, scale_dims(h, w, num_scales))
 
 
@@ -185,17 +317,25 @@ class Ssimulacra2(nn.Module):
     (9 entries, bias, bias root) as f32 on the device, where the kernels read
     them; the f64 score weights and the YCbCr (kr, kb) pairs stay on the host,
     where they are used.  ``constants_from_numpy`` installs replacements.
+
+    ``backend`` (``auto`` or a name of ``BACKENDS``), resolved once here
+    (``auto``: ``default_backend`` of the device): ``pallas3`` keeps
+    ``forward`` on the kernel path of ``subscores_from_rgb``; any other name
+    routes it through ``ssimulacra2_subscores``.
     """
 
-    def __init__(self, width: int, height: int, *, device="cuda"):
+    def __init__(self, width: int, height: int, *, backend: str = "auto", device="cuda"):
         super().__init__()
+        if backend != "auto" and backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; one of {('auto',) + BACKENDS}")
+        dev = resolve_device(device)
+        self.backend = default_backend(dev) if backend == "auto" else backend
         self.width = int(width)
         self.height = int(height)
         self.dims = scale_dims(self.height, self.width, NUM_SCALES)
         self.num_scales = len(self.dims)
         if self.num_scales == 0:
             raise ValueError("image must be at least 8x8")
-        dev = resolve_device(device)
         self.register_buffer("taps", torch.empty(11, dtype=torch.float32, device=dev))
         self.register_buffer("opsin", torch.empty(11, dtype=torch.float32, device=dev))
         self.constants_from_numpy(builtin_constants())
@@ -218,9 +358,15 @@ class Ssimulacra2(nn.Module):
 
     @torch.no_grad()
     def forward(self, lin_ref: torch.Tensor, lin_dis: torch.Tensor) -> torch.Tensor:
-        """Kernel-path sub-scores of (B, 3, H, W) linear-RGB pairs."""
-        p12 = torch.stack([lin_ref, lin_dis]).to(self.device, torch.float32).contiguous()
-        return self.subscores_from_rgb(p12)
+        """Sub-scores of (B, 3, H, W) linear-RGB pairs by the module's
+        backend."""
+        if self.backend == "pallas3":
+            p12 = torch.stack([lin_ref, lin_dis]).to(self.device, torch.float32).contiguous()
+            return self.subscores_from_rgb(p12)
+        return ssimulacra2_subscores(
+            lin_ref.to(self.device, torch.float32), lin_dis.to(self.device, torch.float32),
+            num_scales=self.num_scales, backend=self.backend, taps=self.taps, opsin=self.opsin,
+        )
 
     @torch.no_grad()
     def subscores_from_rgb(self, p12: torch.Tensor) -> torch.Tensor:

@@ -90,6 +90,56 @@ def blur_2d(x: torch.Tensor, *, taps=None) -> torch.Tensor:
     return acc
 
 
+def _iir_pass(x: torch.Tensor) -> torch.Tensor:
+    """One faithful f32 recursive-Gaussian pass along axis 0 of (L, N).
+
+    The reference recurrence (the JAX package's ``_iir_pass``;
+    ssimulacra2-cuda/examples/cpu.rs:950-1116):
+
+        cur = (x[n-R-1] + x[n+R-1]) * MUL_IN + MUL_PREV * prev - prev2
+        out[n] = cur.sum()  (3 cosine components, f32 throughout)
+
+    evaluated as the JAX package's compiled scan evaluates it: the input
+    kick's multiply and the add of MUL_PREV * prev are one fused multiply-add
+    (XLA contracts them; the product of two f32 values is exact in f64, so
+    rounding the f64 sum to f32 gives the fused result), then - prev2, and
+    the three components summed left to right.  Sequential along the filter
+    axis: a Python loop of vector operations across the N lanes, a parity
+    mode, not a throughput path.
+    """
+    mul_in = torch.from_numpy(_MUL_IN[:, None].copy()).to(x.device)  # f32 values, as f64
+    mul_prev = torch.from_numpy(_MUL_PREV.astype(np.float32)[:, None]).to(x.device)
+    length, lanes = x.shape
+    r = RADIUS
+    # Input kicks for n in [-R+1, length): s[k] = x[k-2R] + x[k], zero outside.
+    s_seq = F.pad(x, (0, 0, 2 * r, 0))[: length + r - 1] + F.pad(x, (0, 0, 0, r - 1))
+    prev = torch.zeros((3, lanes), dtype=torch.float32, device=x.device)
+    prev2 = prev
+    out = []
+    for s in s_seq:
+        cur = (s.double()[None, :] * mul_in + (mul_prev * prev).double()).float() - prev2
+        prev2, prev = prev, cur
+        out.append((cur[0] + cur[1]) + cur[2])
+    return torch.stack(out[r - 1 :])
+
+
+def blur_2d_iir(x: torch.Tensor) -> torch.Tensor:
+    """Faithful f32 recursive-Gaussian blur over the last two axes (the JAX
+    package's ``blur_2d_iir``, backend ``jnp_iir``): horizontal pass then
+    vertical, like the reference (examples/cpu.rs:913-928).  It tracks the
+    canonical CPU implementations' rounding drift where ``blur_2d`` applies
+    the exact 11-tap FIR; for score parity checks."""
+    x = x.to(torch.float32)
+    shape = x.shape
+    h_dim, w_dim = shape[-2], shape[-1]
+    x = x.reshape(-1, h_dim, w_dim)
+    # Horizontal: along W, the (lead * H) rows as lanes.
+    x = _iir_pass(x.permute(2, 0, 1).reshape(w_dim, -1)).reshape(w_dim, -1, h_dim).permute(1, 2, 0)
+    # Vertical: along H.
+    x = _iir_pass(x.permute(1, 0, 2).reshape(h_dim, -1)).reshape(h_dim, -1, w_dim).permute(1, 0, 2)
+    return x.reshape(shape)
+
+
 def gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     """Sampled (true) Gaussian window, normalised to sum 1 (f64).
 

@@ -25,8 +25,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = (
-    "ssimulacra2_scale.cu", "convert.cu", "windowed.cu", "xpsnr.cu", "motion.cu", "vif.cu",
-    "adm.cu",
+    "ssimulacra2_scale.cu", "ssimulacra2_tail.cu", "downscale.cu", "convert.cu", "windowed.cu",
+    "xpsnr.cu", "motion.cu", "vif.cu", "adm.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -42,7 +42,11 @@ _SIGNATURES = {
     "tm_level_blocks": [_I, _I],
     "tm_yuv420_to_xyb": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P],
     "tm_rgb_to_xyb": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "tm_rgb_pair_to_xyb": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
     "tm_level_sums": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    "tm_level_sums_pair": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    "tm_fused_tail": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "tm_downscale2": [_P, _I, _I, _I, _P, _P],
     "tm_yuv420_to_rgb": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
     "tm_yuv_to_rgb": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
     "tm_ssim_blocks": [_I, _I],

@@ -1,0 +1,73 @@
+"""Kernel #4: every remaining small SSIMULACRA2 level in one launch.
+
+``fused_tail`` launches the persistent cooperative kernel of
+csrc/ssimulacra2_tail.cu (``tm_fused_tail``) on a CUDA tensor, and runs its
+plain twin ``fused_tail_ref`` on a CPU tensor.  It replaces the JAX package's
+``fused_tail_pallas`` (turbo_metrics_tpu/ops/pallas/scale_stats.py:2494),
+which the level chain (models/ssimulacra2.level_sums_chain) runs once the
+level plane is small (``tail_plane_bytes`` within ``TAIL_MAX_BYTES``): at
+3840x2160 on levels 3-5.  Its sums equal kernel 2's on the same plane (the
+same per-pixel code and reduction trees).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels.scale_stats import check_level, check_level_consts
+from turbo_metrics_tpu_torch.ops.kernels.scale_tail import fused_pyramid_tail_ref
+
+# The twin: a loop of fused_scale_rgb_ref over the levels, each level's 2x2
+# mean feeding the next (the same arithmetic as kernel 2's twin).
+fused_tail_ref = fused_pyramid_tail_ref
+
+
+def fused_tail(
+    p12: torch.Tensor, num_levels: int, taps: torch.Tensor, opsin: torch.Tensor
+) -> torch.Tensor:
+    """Sums of ``num_levels`` pyramid levels, the first being ``p12``, in one
+    launch.
+
+    ``p12``: contiguous (2, B, 3, h, w) f32 linear RGB (reference,
+    distorted).  Each further level is the edge-replicated 2x2 mean of the one
+    before.  Returns (B, num_levels, 3, 6) f32 sums in ``norms_from_sums``
+    order.  A launch that the card refuses raises; nothing falls back.
+    """
+    check_level(p12)
+    if not 1 <= num_levels <= 6:
+        raise ValueError(f"num_levels must be in [1, 6], got {num_levels}")
+    check_level_consts(taps, opsin, p12.device)
+    if p12.device.type == "cpu":
+        return fused_tail_ref(p12, num_levels, taps, opsin)
+    if p12.device.type != "cuda":
+        raise ValueError(f"fused_tail runs on cuda or cpu, not {p12.device}")
+    lib = LIBRARY.get()
+    _, bsz, _, h, w = p12.shape
+    n = bsz * 3 * h * w
+    n_next = 2 * bsz * 3 * ((h + 1) // 2) * ((w + 1) // 2) if num_levels > 1 else 0
+    n_parts, lh, lw = 0, h, w
+    for _ in range(num_levels):
+        n_parts += bsz * 3 * lib.tm_level_blocks(lh, lw) * 6
+        lh, lw = (lh + 1) // 2, (lw + 1) // 2
+    # One allocation: xyb, the four row-blurred planes, two level planes, the
+    # partials of every level.
+    scratch = torch.empty(6 * n + 2 * n_next + n_parts, dtype=torch.float32, device=p12.device)
+    base, f32 = scratch.data_ptr(), scratch.element_size()
+    xyb, tmp = base, base + 2 * n * f32
+    lvl_a = tmp + 4 * n * f32
+    lvl_b = lvl_a + n_next * f32
+    parts = lvl_b + n_next * f32
+    sums = torch.empty((bsz, num_levels, 3, 6), dtype=torch.float32, device=p12.device)
+    check(
+        lib.tm_fused_tail(
+            p12.data_ptr(), bsz, h, w, num_levels, taps.data_ptr(), opsin.data_ptr(), xyb, tmp,
+            lvl_a, lvl_b, parts, sums.data_ptr(), torch.cuda.current_stream(p12.device).cuda_stream,
+        ),
+        "tm_fused_tail",
+    )
+    fused_tail.launches += 1
+    return sums
+
+
+fused_tail.launches = 0

@@ -11,8 +11,18 @@ with the next level emitted (``tm_rgb_to_xyb`` + ``tm_level_sums``, twin
 ``fused_scale_rgb_ref``): scale 0 of the multi-metric path, replacing
 ``fused_scale_pallas_v4`` (turbo_metrics_tpu/ops/pallas/scale_stats.py:2552).
 
+``scale_sums`` (kernel #8) is one level's sums from two XYB tensors
+(``tm_level_sums_pair``, twin ``level_sums_ref``), replacing
+``scale_sums_pallas`` (turbo_metrics_tpu/ops/pallas/scale_stats_legacy.py:172);
+``fused_scale_pair`` (kernel #10) one level's sums from two linear-RGB
+tensors (``tm_rgb_pair_to_xyb`` + ``tm_level_sums``, twin
+``fused_scale_pair_ref``), replacing ``fused_scale_pallas_v3``
+(scale_stats_legacy.py:644) and, computing the same function,
+``fused_scale_pallas`` (v2, scale_stats_legacy.py:367).  Both serve the
+legacy backends of models/ssimulacra2.ssimulacra2_subscores.
+
 The level helpers (``level_sums_ref``, ``norms_from_sums``) are shared with
-kernel 2.
+kernels 2 and #4.
 """
 
 from __future__ import annotations
@@ -254,3 +264,88 @@ def fused_scale_rgb(
 
 
 fused_scale_rgb.launches = 0
+
+
+def check_image_pair(a: torch.Tensor, b: torch.Tensor) -> None:
+    """Two (B, 3, h, w) contiguous f32 tensors of one shape on one device."""
+    if a.ndim != 4 or a.shape[1] != 3 or a.shape != b.shape:
+        raise ValueError(f"want two (B, 3, h, w) tensors, got {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"want float32 tensors, got {a.dtype} and {b.dtype}")
+    if not (a.is_contiguous() and b.is_contiguous()) or a.device != b.device:
+        raise ValueError("the two tensors must be contiguous and on one device")
+
+
+def scale_sums(xyb1: torch.Tensor, xyb2: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """One level's sums from the reference's and the distorted image's
+    positive-shifted XYB, (B, 3, h, w) f32 each, without stacking them.
+    Returns (B, 3, 6) f32 in ``norms_from_sums`` order."""
+    check_image_pair(xyb1, xyb2)
+    if taps.shape != (11,) or taps.dtype != torch.float32 or taps.device != xyb1.device:
+        raise ValueError(f"taps must be an (11,) float32 tensor on {xyb1.device}")
+    if xyb1.device.type == "cpu":
+        return level_sums_ref(xyb1, xyb2, taps)
+    if xyb1.device.type != "cuda":
+        raise ValueError(f"scale_sums runs on cuda or cpu, not {xyb1.device}")
+    lib = LIBRARY.get()
+    bsz, _, h, w = xyb1.shape
+    dev = xyb1.device
+    tmp = torch.empty(4 * bsz * 3 * h * w, dtype=torch.float32, device=dev)
+    parts = torch.empty(bsz * 3 * lib.tm_level_blocks(h, w) * 6, dtype=torch.float32, device=dev)
+    sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
+    check(
+        lib.tm_level_sums_pair(
+            xyb1.data_ptr(), xyb2.data_ptr(), bsz, h, w, taps.data_ptr(), tmp.data_ptr(),
+            parts.data_ptr(), sums.data_ptr(), 18, torch.cuda.current_stream(dev).cuda_stream,
+        ),
+        "tm_level_sums_pair",
+    )
+    scale_sums.launches += 1
+    return sums
+
+
+scale_sums.launches = 0
+
+
+def fused_scale_pair_ref(lin_ref, lin_dis, taps, opsin):
+    """Plain twin of ``fused_scale_pair`` (same arguments and result)."""
+    return fused_scale_rgb_ref(torch.stack([lin_ref, lin_dis]), taps, opsin, emit_ds=False)[0]
+
+
+def fused_scale_pair(
+    lin_ref: torch.Tensor, lin_dis: torch.Tensor, taps: torch.Tensor, opsin: torch.Tensor
+) -> torch.Tensor:
+    """One level's sums from the reference's and the distorted image's
+    linear RGB, (B, 3, h, w) f32 each, no next level.  Returns (B, 3, 6) f32
+    in ``norms_from_sums`` order."""
+    check_image_pair(lin_ref, lin_dis)
+    check_level_consts(taps, opsin, lin_ref.device)
+    if lin_ref.device.type == "cpu":
+        return fused_scale_pair_ref(lin_ref, lin_dis, taps, opsin)
+    if lin_ref.device.type != "cuda":
+        raise ValueError(f"fused_scale_pair runs on cuda or cpu, not {lin_ref.device}")
+    lib = LIBRARY.get()
+    bsz, _, h, w = lin_ref.shape
+    dev = lin_ref.device
+    xyb, tmp, parts = s2_level_scratch(lib, bsz, h, w, dev)
+    sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(
+        lib.tm_rgb_pair_to_xyb(
+            lin_ref.data_ptr(), lin_dis.data_ptr(), bsz, h, w, opsin.data_ptr(), xyb.data_ptr(),
+            None, stream,
+        ),
+        "tm_rgb_pair_to_xyb",
+    )
+    check(
+        lib.tm_level_sums(
+            xyb.data_ptr(), bsz, h, w, taps.data_ptr(), tmp.data_ptr(), parts.data_ptr(),
+            sums.data_ptr(), 18, stream,
+        ),
+        "tm_level_sums",
+    )
+    fused_scale_pair.launches += 1
+    return sums
+
+
+fused_scale_pair.launches = 0
