@@ -75,15 +75,26 @@ Phases, each fatal on failure (exit code 1):
      reset around each, against the plain chain (same limits); #7 equal to
      its twin bit for bit (avg_pool2d's largest difference logged); #8 and
      #10 against their twins; the jnp_iir backend on the golden pair;
+  5f. kernel #19, the blur-only probe of the dissect tool, against its twin
+     at the tool's shape (B=4, 1080p) and on a 67x99 and a 300x700 plane
+     (inside one 128x512 region tile and across six): per-plane totals rtol
+     1e-5, every other entry exactly 0;
   6. score the frozen golden pair through the kernel route: 80.486135 +- 0.05;
-  7. time each kernel and its twin (#7 also against avg_pool2d), the whole
-     kernel and plain steps of both 1080p routes, of VMAF and of the 4K
-     route, with CUDA events after warm-up; the 4K step beside the route
-     it replaced (kernel 1, then kernel 2 on levels 1-5) on the same
+  7. time each kernel and its twin (#7 also against avg_pool2d, #19 against
+     five F.conv2d blurs with TF32 off, separable and as one 11x11 kernel,
+     and with passes=1 against passes=5),
+     the whole kernel and plain steps of both 1080p routes, of VMAF and of
+     the 4K route, with CUDA events after warm-up; the 4K step beside the
+     route it replaced (kernel 1, then kernel 2 on levels 1-5) on the same
      inputs, by CUDA events and by torch.profiler device time; and the CLI
      runs of phases 4, 4a, 4b (a), 4c, 4d, 4e and 4f again warm, three
-     times each in turn.
-Prints the card, then one JSON line of per-kernel results (with each
+     times each in turn;
+  8. the dissect path: turbo_metrics_tpu_torch.tools.kernel_dissect at its
+     default shape, counters reset just before and read just after: every
+     wrapper it times launched (#19 among them), a device time for every
+     CUDA kernel of every entry.
+Prints the card, the dissect tool's JSON line, then one JSON line of
+per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
 over the peak of their type, the H100 SXM data sheet's 67 TFLOP/s for f32
 and, for the integer work of XPSNR and of VMAF's motion, 33.5 TOP/s of
@@ -115,6 +126,7 @@ WIDTH, HEIGHT = 1920, 1080
 UHD_WIDTH, UHD_HEIGHT, UHD_FRAMES, UHD_BATCH = 3840, 2160, 8, 4
 GOLDEN = 80.486135
 CSRC = "turbo_metrics_tpu_torch/csrc/"
+PALLAS = "turbo_metrics_tpu/ops/pallas/"
 MULTI = ("ssimulacra2", "psnr", "ssim", "msssim")
 ALL5 = MULTI + ("xpsnr",)
 ALL6 = ALL5 + ("vmaf",)
@@ -160,6 +172,12 @@ F_VIF_EMIT_TAP = 3
 # angle gate and decoupling ~12 and the 3x3 masks and cubes ~19 (both at a
 # quarter of the pixels).
 F_ADM_LEVEL = 63
+# f32 operations per summed pixel of the blur-only probe (#19): 5 repetitions
+# x 2 directions x 11 multiply-adds of 2 operations.
+F_PROBE = 220
+# The wrappers the dissect path times (phase 8), each launched there.
+DISSECT_KERNELS = ("fused_scale_rgb", "scale_sums", "blur_only", "fused_scale0_yuv", "fused_pyramid_tail",
+                   "fused_scale_pair", "ssim_sums", "msssim_tail", "vif_scale0", "vif_tail", "adm_stats")
 
 
 def vif_flops(bsz: int, h: int, w: int, scales) -> float:
@@ -295,42 +313,23 @@ def golden_pair():
     return srgb8_to_linear(ref8), srgb8_to_linear(dis8)
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over iters launches, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def device_ms(fn, names=None, iters: int = 20) -> float:
+    """Device ms per call of fn's CUDA kernels whose base names are in
+    ``names`` (every kernel where None), by the dissect tool's per-launch
+    torch.profiler reading: the kernels alone, without the wrapper's host
+    time or the gaps between launches."""
+    from turbo_metrics_tpu_torch.tools.kernel_dissect import base_name, kernel_device_ms
 
-
-def kernel_device_ms(fn, kernel, iters: int = 20):
-    """Mean device time per call of fn's CUDA kernels whose names contain
-    ``kernel`` (a name, or a tuple of names), by torch.profiler: the kernels
-    alone, without the wrapper's host time or the gaps between launches.
-    None where the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    names = (kernel,) if isinstance(kernel, str) else kernel
-    total_us = sum(e.device_time_total for e in prof.key_averages() if any(k in e.key for k in names))
-    return total_us / 1e3 / iters if total_us > 0 else None
+    hits = [t for n, t in kernel_device_ms(fn, iters) if names is None or base_name(n) in names]
+    need(bool(hits), f"the profiler recorded none of the kernels {names}")
+    return sum(hits)
 
 
 def counted_kernels() -> dict:
     """Every kernel wrapper, by name: each counts its own launches."""
     from turbo_metrics_tpu_torch.ops.kernels import (
         adm,
+        blur_probe,
         convert,
         downscale,
         fused_tail,
@@ -361,6 +360,7 @@ def counted_kernels() -> dict:
         "downscale_by_2": downscale.downscale_by_2,
         "scale_sums": scale_stats.scale_sums,
         "fused_scale_pair": scale_stats.fused_scale_pair,
+        "blur_only": blur_probe.blur_only,
     }
 
 
@@ -1177,6 +1177,78 @@ def check_backends(y2, uv2, model, dev):
     return launches, err, lin, xyb
 
 
+def probe_input(dev):
+    """The dissect tool's lin1: (4, 3, 1080, 1920) f32 uniform in [0, 1)
+    from default_rng(0), as the JAX package's tools/kernel_dissect.py makes it."""
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.random((4, 3, HEIGHT, WIDTH), dtype=np.float64).astype(np.float32)).to(dev)
+
+
+def check_blur_probe(lin1, taps) -> float:
+    """Phase 5f: kernel #19 against its twin at the dissect tool's shape, on
+    a plane inside one region tile and on planes across several (the bottom
+    and right spill in both): totals rtol 1e-5, every other entry exactly 0.
+    Returns the max abs error at the tool's shape."""
+    from turbo_metrics_tpu_torch.ops.kernels import blur_probe
+
+    g = torch.Generator(device=lin1.device).manual_seed(19)
+    errs = []
+    for name, x in (
+        (f"B=4 {WIDTH}x{HEIGHT}", lin1),
+        ("67x99", torch.rand((1, 3, 67, 99), generator=g, device=lin1.device)),
+        ("300x700", torch.rand((2, 300, 700), generator=g, device=lin1.device)),
+    ):
+        got, want = blur_probe.blur_only(x, taps), blur_probe.blur_only_ref(x, taps)
+        e = check_close(f"#19 totals at {name}", got[:, 0, 0], want[:, 0, 0], 1e-5, 0.0)
+        rest = got.clone()
+        rest[:, 0, 0] = 0
+        need(not bool(rest.any()), f"#19 at {name}: an entry other than [p, 0, 0] is not 0")
+        log(f"#19 vs twin at {name}: totals max abs err {e:.3g} (totals ~{float(want[:, 0, 0].mean()):.6g}), "
+            "other entries 0")
+        errs.append(e)
+    return errs[0]
+
+
+def conv_blur_sums(xp, taps, separable: bool, passes: int = 5):
+    """#19's function by F.conv2d: ``passes`` blurs of the padded planes xp
+    (P, 1, R, C), summed per plane; each blur one 11x11 convolution with the
+    outer product of the taps, or (``separable``) a 1x11 then an 11x1 one,
+    #19's own 22 multiply-adds per pixel.  Yardsticks only."""
+    conv = torch.nn.functional.conv2d
+    kr, kc = taps.reshape(1, 1, 1, 11), taps.reshape(1, 1, 11, 1)
+    k2d = torch.outer(taps, taps).reshape(1, 1, 11, 11)
+
+    def blur():
+        if separable:
+            return conv(conv(xp, kr, padding=(0, 5)), kc, padding=(5, 0))
+        return conv(xp, k2d, padding=5)
+
+    return sum(blur().sum(dim=(-2, -1)) for _ in range(passes))
+
+
+def run_dissect_path(card: str):
+    """Phase 8: the dissect tool at its default shape, every launch counter
+    set to 0 just before and read just after.  Returns (its JSON object,
+    launches)."""
+    from turbo_metrics_tpu_torch.tools import kernel_dissect
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        result = kernel_dissect.main([])
+    launches = read_counts()
+    for ln in out.getvalue().splitlines()[:-1]:
+        log(f"dissect: {ln}")
+    log(f"dissect path in {time.monotonic() - t0:.1f} s, launches {launches} [{card}]")
+    need(all(launches[k] > 0 for k in DISSECT_KERNELS),
+         f"a kernel of the dissect path was not launched: {launches}")
+    rows = result["dissect"]
+    need(rows and all(r["device_ms"] is not None and r["device_ms"] > 0 for r in rows),
+         "the dissect tool recorded no device time for a kernel")
+    return result, launches
+
+
 def main() -> int:
     try:
         from turbo_metrics_tpu_torch.models.ssimulacra2 import (
@@ -1187,6 +1259,7 @@ def main() -> int:
         from turbo_metrics_tpu_torch.ops.kernels import (
             _build,
             adm,
+            blur_probe,
             convert,
             downscale,
             fused_tail,
@@ -1199,6 +1272,7 @@ def main() -> int:
             xpsnr,
         )
         from turbo_metrics_tpu_torch.ops.quality import Quality
+        from turbo_metrics_tpu_torch.tools.kernel_dissect import time_ms
     except ImportError as e:
         log(f"chip_smoke: cannot import the port ({e}); run it from the repository root")
         return 2
@@ -1283,6 +1357,8 @@ def main() -> int:
         model4k = Ssimulacra2(UHD_WIDTH, UHD_HEIGHT, device=dev)
         e4, lvl3 = check_uhd(y4k, uv4k, model4k, uhd_scores, dev)
         backend_launches, legacy_err, lin, xyb = check_backends(y2, uv2, model, dev)
+        lin1 = probe_input(dev)
+        e19 = check_blur_probe(lin1, taps)
         check_golden(dev)
 
         # Phase 7: timing (device time by CUDA events, after warm-up).
@@ -1346,8 +1422,8 @@ def main() -> int:
         uhd_plain_ms = [time_ms(lambda: uhd_step_plain(y4k, uv4k, model4k), 3) for _ in range(2)]
         uhd_k2_ms.append(time_ms(lambda: uhd_step_kernel2(y4k, uv4k, model4k), 10))
         uhd_ms.append(time_ms(lambda: uhd_step_kernel(y4k, uv4k, model4k), 10))
-        uhd_dev_ms = kernel_device_ms(lambda: uhd_step_kernel(y4k, uv4k, model4k), "", 10)
-        uhd_k2_dev_ms = kernel_device_ms(lambda: uhd_step_kernel2(y4k, uv4k, model4k), "", 10)
+        uhd_dev_ms = device_ms(lambda: uhd_step_kernel(y4k, uv4k, model4k), iters=10)
+        uhd_k2_dev_ms = device_ms(lambda: uhd_step_kernel2(y4k, uv4k, model4k), iters=10)
         k7_ms = time_ms(lambda: downscale.downscale_by_2(lin[0]), 20)
         k7_plain_ms = time_ms(lambda: downscale.downscale_by_2_ref(lin[0]), 5)
         k7_lib_ms = time_ms(lambda: torch.nn.functional.avg_pool2d(lin[0], 2, ceil_mode=True), 20)
@@ -1355,13 +1431,35 @@ def main() -> int:
         k8_plain_ms = time_ms(lambda: scale_stats.level_sums_ref(*xyb, taps), 5)
         k10_ms = time_ms(lambda: scale_stats.fused_scale_pair(lin[0], lin[1], taps, opsin), 20)
         k10_plain_ms = time_ms(lambda: scale_stats.fused_scale_pair_ref(lin[0], lin[1], taps, opsin), 5)
-        k13_dev_ms = kernel_device_ms(lambda: xpsnr.xpsnr_block_stats(*xp_args), "xpsnr_kernel")
-        k5_dev_ms = kernel_device_ms(
-            lambda: convert.yuv_to_linear_rgb(y422, uv422, **k5_kw), "yuv_to_rgb_kernel")
-        k4_dev_ms = kernel_device_ms(lambda: fused_tail.fused_tail(lvl3, 3, taps, opsin), "fused_tail_kernel")
-        k2_lvl3_dev_ms = kernel_device_ms(
+        k13_dev_ms = device_ms(lambda: xpsnr.xpsnr_block_stats(*xp_args), ("xpsnr_kernel",))
+        k5_dev_ms = device_ms(
+            lambda: convert.yuv_to_linear_rgb(y422, uv422, **k5_kw), ("yuv_to_rgb_kernel",))
+        k4_dev_ms = device_ms(lambda: fused_tail.fused_tail(lvl3, 3, taps, opsin), ("fused_tail_kernel",))
+        k2_lvl3_dev_ms = device_ms(
             lambda: scale_tail.fused_pyramid_tail(lvl3, 3, taps, opsin),
             ("rgb_to_xyb_kernel", "blur_rows_kernel", "blur_cols_maps_kernel", "reduce_parts_kernel"))
+        # #19 on the dissect tool's input; its yardsticks, five F.conv2d
+        # blurs of the padded planes in full f32 (TF32 off for the call),
+        # separable (the row's library_ms) and as one 11x11 kernel, are timed
+        # here only.
+        k19_ms = time_ms(lambda: blur_probe.blur_only(lin1, taps), 20)
+        k19_one_ms = time_ms(lambda: blur_probe.blur_only(lin1, taps, passes=1), 20)
+        k19_plain_ms = time_ms(lambda: blur_probe.blur_only_ref(lin1, taps), 5)
+        rh, rw = blur_probe.region(HEIGHT, WIDTH)
+        xp = torch.nn.functional.pad(lin1.reshape(-1, 1, HEIGHT, WIDTH), (0, rw - WIDTH, 0, rh - HEIGHT))
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            k19_lib_ms = time_ms(lambda: conv_blur_sums(xp, taps, True), 5)
+            k19_dense_ms = time_ms(lambda: conv_blur_sums(xp, taps, False), 5)
+            conv_sums = [conv_blur_sums(xp, taps, sep).reshape(-1) for sep in (True, False)]
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        probe_sums = blur_probe.blur_only(lin1, taps)[:, 0, 0]
+        need(k19_ms >= 2 * k19_one_ms, f"#19 passes=5 {k19_ms:.4f} ms vs passes=1 {k19_one_ms:.4f} ms: "
+             "the repetitions were not all run")
+        del xp
+        dissect, dissect_launches = run_dissect_path(card)
 
     mpx = WIDTH * HEIGHT / 1e6
     for name, runs in (
@@ -1385,13 +1483,17 @@ def main() -> int:
         )
     log(f"kernel 2 on the same 4K level-3 plane as #4: {k2_lvl3_ms:.3f} ms (#4 {k4_ms:.3f} ms) [{card}]")
     log(f"avg_pool2d(2, ceil_mode=True) on #7's input: {k7_lib_ms:.3f} ms (#7 {k7_ms:.3f} ms) [{card}]")
+    rel = [float(((c - probe_sums) / probe_sums).abs().max()) for c in conv_sums]
+    log(f"#19 passes=1 {k19_one_ms:.4f} ms, passes=5 {k19_ms:.4f} ms (ratio {k19_ms / k19_one_ms:.2f}); "
+        f"five F.conv2d blurs (TF32 off): separable {k19_lib_ms:.3f} ms, one 11x11 kernel "
+        f"{k19_dense_ms:.3f} ms, their sums vs #19's max rel diff {rel[0]:.3g} / {rel[1]:.3g} [{card}]")
     log(f"PSNR (plain torch expression on the pair buffer) {psnr_ms:.3f} ms [{card}]")
     for name, t in (("xpsnr_block_stats", k13_dev_ms), ("yuv_to_linear_rgb", k5_dev_ms),
                     ("fused_tail (4K level 3)", k4_dev_ms),
                     ("fused_pyramid_tail on the same plane (its 12 kernels)", k2_lvl3_dev_ms),
                     ("4K kernel step, every kernel (kernel 1, #3 x2, #4)", uhd_dev_ms),
                     ("4K step by kernel 1 + kernel 2, every kernel", uhd_k2_dev_ms)):
-        log(f"{name}: kernel device time {'not measured' if t is None else f'{t:.4f} ms'} "
+        log(f"{name}: kernel device time {t:.4f} ms "
             f"(torch.profiler, wrapper host time excluded) [{card}]")
     for k, runs in warm_s.items():
         log(f"CLI warm, {FRAMES} frames, {k}: " + " / ".join(f"{t * 1e3:.1f}" for t in runs)
@@ -1406,53 +1508,62 @@ def main() -> int:
     dims_s2 = model.dims
     s0_out = torch.empty(bsz, 3, 6)
     rows = [
-        ("fused_scale0_yuv", "ssimulacra2_scale.cu", "scale_stats.py:1985", launches, e1, k1_ms,
+        ("fused_scale0_yuv", "ssimulacra2_scale.cu", PALLAS + "scale_stats.py:1985", launches, e1, k1_ms,
          k1_plain_ms, nbytes(y2, uv2, lvl1, s0_out),
          bsz * h * w * 2 * F_CONVERT + s2_level_flops(bsz, h, w)),
-        ("fused_pyramid_tail", "ssimulacra2_scale.cu", "scale_tail.py:243", launches, e2, k2_ms,
+        ("fused_pyramid_tail", "ssimulacra2_scale.cu", PALLAS + "scale_tail.py:243", launches, e2, k2_ms,
          k2_plain_ms, nbytes(lvl1) + (ns - 1) * nbytes(s0_out),
          sum(s2_level_flops(bsz, lh, lw) for lh, lw in dims_s2[1:])),
-        ("fused_scale_rgb", "ssimulacra2_scale.cu", "scale_stats.py:2552", multi_launches,
+        ("fused_scale_rgb", "ssimulacra2_scale.cu", PALLAS + "scale_stats.py:2552", multi_launches,
          multi_err["fused_scale_rgb"], k3_ms, k3_plain_ms, nbytes(p12, lvl1, s0_out),
          s2_level_flops(bsz, h, w)),
-        ("yuv420_to_linear_rgb_pair", "convert.cu", "convert.py:404", multi_launches,
+        ("yuv420_to_linear_rgb_pair", "convert.cu", PALLAS + "convert.py:404", multi_launches,
          multi_err["yuv420_to_linear_rgb_pair"], k6_ms, k6_plain_ms, nbytes(y2, uv2, p12),
          bsz * h * w * 2 * F_CONVERT),
-        ("ssim_sums", "windowed.cu", "windowed.py:400", multi_launches, multi_err["ssim_sums"],
+        ("ssim_sums", "windowed.cu", PALLAS + "windowed.py:400", multi_launches, multi_err["ssim_sums"],
          k11_ms, k11_plain_ms, nbytes(p12, ms_l1) + bsz * 3 * 2 * 4,
          ssim_level_flops(bsz, h, w, True, True)),
-        ("msssim_tail", "windowed.cu", "windowed_tail.py:376", multi_launches,
+        ("msssim_tail", "windowed.cu", PALLAS + "windowed_tail.py:376", multi_launches,
          multi_err["msssim_tail"], k12_ms, k12_plain_ms, nbytes(ms_l1) + bsz * (lv - 1) * 3 * 2 * 4,
          sum(ssim_level_flops(bsz, mh1 >> i, mw1 >> i, False, i + 2 < lv) for i in range(lv - 1))),
-        ("yuv_to_linear_rgb", "convert.cu", "convert.py:125", mezz_launches, e5, k5_ms, k5_plain_ms,
+        ("yuv_to_linear_rgb", "convert.cu", PALLAS + "convert.py:125", mezz_launches, e5, k5_ms, k5_plain_ms,
          nbytes(y422, uv422) + bsz * 3 * h * w * 4, bsz * h * w * F_CONVERT),
-        ("xpsnr_block_stats", "xpsnr.cu", "xpsnr.py:197", xpsnr_launches, e13, k13_ms, k13_plain_ms,
+        ("xpsnr_block_stats", "xpsnr.cu", PALLAS + "xpsnr.py:197", xpsnr_launches, e13, k13_ms, k13_plain_ms,
          nbytes(*xp_args) + xp_out, bsz * h * w * I_XPSNR),
-        ("vif_scale0", "vif.cu", "vif.py:540", vmaf_launches, vmaf_err["vif_scale0"], k14_ms, k14_plain_ms,
+        ("vif_scale0", "vif.cu", PALLAS + "vif.py:540", vmaf_launches, vmaf_err["vif_scale0"], k14_ms,
+         k14_plain_ms,
          nbytes(vpair, vlevel1) + bsz * 2 * 4, vif_flops(bsz, h, w, (0,))),
-        ("vif_tail", "vif.cu", "vif_tail.py:331", vmaf_launches, vmaf_err["vif_tail"], k15_ms, k15_plain_ms,
+        ("vif_tail", "vif.cu", PALLAS + "vif_tail.py:331", vmaf_launches, vmaf_err["vif_tail"], k15_ms,
+         k15_plain_ms,
          nbytes(vlevel1) + bsz * 3 * 2 * 4, vif_flops(bsz, h, w, (1, 2, 3))),
-        ("motion_stats", "motion.cu", "motion.py:180", vmaf_launches, vmaf_err["motion_stats"], k16_ms,
+        ("motion_stats", "motion.cu", PALLAS + "motion.py:180", vmaf_launches, vmaf_err["motion_stats"], k16_ms,
          k16_plain_ms, nbytes(vy, prev0) + bsz * h * w * 2 + bsz * h * 8, bsz * h * w * I_MOTION),
-        ("integer_blur", "motion.cu", "motion.py:236", vmaf_launches, vmaf_err["integer_blur"], k17_ms,
+        ("integer_blur", "motion.cu", PALLAS + "motion.py:236", vmaf_launches, vmaf_err["integer_blur"], k17_ms,
          k17_plain_ms, nbytes(vy[:1]) + h * w * 2, h * w * I_BLUR),
-        ("adm_stats", "adm.cu", "adm.py:442", vmaf_launches, vmaf_err["adm_stats"], k18_ms, k18_plain_ms,
+        ("adm_stats", "adm.cu", PALLAS + "adm.py:442", vmaf_launches, vmaf_err["adm_stats"], k18_ms,
+         k18_plain_ms,
          nbytes(vpair) + bsz * 4 * 3 * 2 * 4, adm_flops(bsz, h, w)),
-        ("fused_tail", "ssimulacra2_tail.cu", "scale_stats.py:2494", uhd_launches, e4, k4_ms, k4_plain_ms,
+        ("fused_tail", "ssimulacra2_tail.cu", PALLAS + "scale_stats.py:2494", uhd_launches, e4, k4_ms,
+         k4_plain_ms,
          nbytes(lvl3) + UHD_BATCH * 3 * 3 * 6 * 4,
          sum(s2_level_flops(UHD_BATCH, lh, lw) for lh, lw in model4k.dims[3:])),
-        ("downscale_by_2", "downscale.cu", "convert.py:500", backend_launches["pallas2"],
+        ("downscale_by_2", "downscale.cu", PALLAS + "convert.py:500", backend_launches["pallas2"],
          legacy_err["downscale_by_2"], k7_ms, k7_plain_ms, nbytes(lin[0]) + nbytes(lin[0]) // 4,
          bsz * 3 * (h // 2) * (w // 2) * 4, k7_lib_ms),
-        ("scale_sums", "ssimulacra2_scale.cu", "scale_stats_legacy.py:172", backend_launches["pallas"],
+        ("scale_sums", "ssimulacra2_scale.cu", PALLAS + "scale_stats_legacy.py:172", backend_launches["pallas"],
          legacy_err["scale_sums"], k8_ms, k8_plain_ms, nbytes(*xyb) + nbytes(s0_out), bsz * h * w * 3 * F_S2),
         # #9 (v2) computes #10's function: one entry, measured once, two rows.
-        ("fused_scale_pair", "ssimulacra2_scale.cu", "scale_stats_legacy.py:367", backend_launches["pallas2"],
+        ("fused_scale_pair", "ssimulacra2_scale.cu", PALLAS + "scale_stats_legacy.py:367",
+         backend_launches["pallas2"],
          legacy_err["fused_scale_pair"], k10_ms, k10_plain_ms, nbytes(lin) + nbytes(s0_out),
          bsz * h * w * (2 * (F_XYB - 4) + 3 * F_S2)),
-        ("fused_scale_pair", "ssimulacra2_scale.cu", "scale_stats_legacy.py:644", backend_launches["pallas2"],
+        ("fused_scale_pair", "ssimulacra2_scale.cu", PALLAS + "scale_stats_legacy.py:644",
+         backend_launches["pallas2"],
          legacy_err["fused_scale_pair"], k10_ms, k10_plain_ms, nbytes(lin) + nbytes(s0_out),
          bsz * h * w * (2 * (F_XYB - 4) + 3 * F_S2)),
+        ("blur_only", "blur_probe.cu", "tools/kernel_dissect.py:106", dissect_launches, e19, k19_ms,
+         k19_plain_ms, nbytes(lin1) + lin1.shape[0] * 3 * 64 * 4, lin1.shape[0] * 3 * rh * rw * F_PROBE,
+         k19_lib_ms),
     ]
     kernels = []
     for name, src_file, replaces, counts, err, ms, pms, nb, ops, *lib in rows:
@@ -1465,20 +1576,22 @@ def main() -> int:
             "name": name,
             "route": "cuda",
             "source": CSRC + src_file,
-            "replaces": "turbo_metrics_tpu/ops/pallas/" + replaces,
+            "replaces": replaces,
             "launches": counts[name],
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": pms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # Only #7's function is one PyTorch call (avg_pool2d), timed
-            # above as a yardstick; the port never calls it.
+            # #7's function is one PyTorch call (avg_pool2d), #19's five
+            # separable F.conv2d blurs, timed above as yardsticks; the port
+            # never calls them.
             "library_ms": lib[0] if lib else None,
         })
     log(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{card}]")
 
     print(card)
+    print(json.dumps(dissect))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

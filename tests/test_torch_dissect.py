@@ -1,0 +1,209 @@
+"""The port's blur-only probe (kernel #19) and kernel dissect tool, on the CPU.
+
+The JAX package's probe is defined inside tools/kernel_dissect.py ``main()``
+and has no interpret mode, so the reference here rebuilds its tiling in jnp
+from the same blur passes (``scale_stats._blur_w`` / ``_blur_h``): the same
+zero pads, (144, 640) tiles of 128x512 outputs, five adds of each tile's
+sum and tile order.  The port's twin (``blur_only_ref``) blurs the whole padded
+plane once and sums in f64, so the totals are compared at rtol 1e-5 (f32
+sums of up to ~1e4 values in another order); every other entry is exactly 0.
+On the CPU the wrapper runs the twin; the CUDA kernel is held against the
+twin on the card by chip_smoke.py (phase 5f).
+"""
+
+import contextlib
+import io
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from turbo_metrics_tpu.ops.gaussian import RADIUS, gaussian_taps
+from turbo_metrics_tpu.ops.pallas.scale_stats import _blur_h, _blur_w
+
+from turbo_metrics_tpu_torch.ops.gaussian import taps_f32
+from turbo_metrics_tpu_torch.ops.kernels import _build, blur_probe
+from turbo_metrics_tpu_torch.tools import kernel_dissect
+
+# The suite runs in several worker processes at once: one intra-op thread per
+# worker keeps torch from oversubscribing the cores that the JAX tests share.
+torch.set_num_threads(1)
+
+# The TPU probe's output tile (tools/kernel_dissect.py).
+TH, TW = 128, 512
+# Inside one tile; across 3 x 2 tiles; two frames.  Each spills past the
+# bottom and right edges into the region.
+SHAPES = [(1, 3, 67, 99), (1, 3, 300, 700), (2, 3, 48, 64)]
+REST = np.ones((8, 8), dtype=bool)
+REST[0, 0] = False
+
+
+def _probe_jnp(img):
+    """The TPU probe's computation in jnp: (P, H, W) -> (P, 8, 8)."""
+    p, h, w = img.shape
+    nth, ntw = -(-h // TH), -(-w // TW)
+    hp, wp = 8 + nth * TH + 8, 64 + ntw * TW + 64
+    x = jnp.pad(img, ((0, 0), (8, hp - h - 8), (64, wp - w - 64)))
+    tp = [jnp.float32(v) for v in gaussian_taps()]
+    out = jnp.zeros((p, 8, 8), jnp.float32)
+    for th in range(nth):
+        for tw in range(ntw):
+            a = x[:, th * TH : th * TH + TH + 16, tw * TW : tw * TW + TW + 128]
+            acc = jnp.zeros((p,), jnp.float32)
+            for _ in range(5):
+                qw = _blur_w(a, tp, 64 - RADIUS, TW)
+                qb = _blur_h(qw, tp, 8 - RADIUS, TH)
+                acc = acc + jnp.sum(qb, axis=(-2, -1))
+            out = out.at[:, 0, 0].add(acc)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_probe():
+    return jax.jit(_probe_jnp)
+
+
+def _image(shape, seed=19):
+    return np.random.default_rng(seed).random(shape, dtype=np.float64).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_blur_only_twin_matches_jax_probe(jax_probe, shape):
+    img = _image(shape)
+    want = np.asarray(jax_probe(jnp.asarray(img.reshape(-1, *shape[-2:]))))
+    got = blur_probe.blur_only_ref(torch.from_numpy(img), taps_f32()).numpy()
+    assert got.shape == want.shape == (shape[0] * 3, 8, 8)
+    np.testing.assert_allclose(got[:, 0, 0], want[:, 0, 0], rtol=1e-5, atol=0)
+    assert not got[:, REST].any() and not want[:, REST].any()
+
+
+def test_blur_only_region_counts_bottom_right_spill_only():
+    """An impulse at the top-left corner keeps the half of the blur's mass
+    that lands inside; one at the bottom-right corner keeps all of it when
+    the region reaches past the edge (67x99), half of it when the region
+    ends there (a plane of one whole tile)."""
+    t = np.asarray(taps_f32(), dtype=np.float64)
+    # The top-left impulse reaches the region through taps 0..5, the
+    # bottom-right one through taps 5..10.
+    full, top_left, bottom_right = t.sum() ** 2, t[: RADIUS + 1].sum() ** 2, t[RADIUS:].sum() ** 2
+    for (h, w), corner in (((67, 99), full), ((TH, TW), bottom_right)):
+        img = np.zeros((2, h, w), dtype=np.float32)
+        img[0, 0, 0] = img[1, h - 1, w - 1] = 1.0
+        got = blur_probe.blur_only(torch.from_numpy(img), taps_f32(), passes=3)[:, 0, 0].double().numpy()
+        np.testing.assert_allclose(got, [3 * top_left, 3 * corner], rtol=1e-6)
+
+
+def test_blur_only_region_is_whole_tpu_tiles():
+    """The summed region rounds each side up to the TPU probe's tile: 9 x 4
+    tiles at 1080p."""
+    assert blur_probe.region(1080, 1920) == (9 * TH, 4 * TW)
+    assert blur_probe.region(TH, TW) == (TH, TW)
+    assert blur_probe.region(1, TW + 1) == (TH, 2 * TW)
+
+
+def test_blur_only_runs_twin_on_cpu():
+    """On a CPU tensor the wrapper returns the twin's result, counts no
+    launch, and takes the taps as the model's buffer or as a list; the sums
+    scale with ``passes``."""
+    img = torch.from_numpy(_image((2, 3, 37, 70)))
+    taps = torch.tensor(taps_f32(), dtype=torch.float32)
+    blur_probe.blur_only.launches = 0
+    got = blur_probe.blur_only(img, taps)
+    assert torch.equal(got, blur_probe.blur_only_ref(img, taps))
+    assert torch.equal(got, blur_probe.blur_only(img.reshape(6, 37, 70), taps_f32()))
+    one = blur_probe.blur_only(img, taps, passes=1)
+    torch.testing.assert_close(got[:, 0, 0], 5 * one[:, 0, 0], rtol=1e-6, atol=0)
+    assert blur_probe.blur_only.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "layout", "device", "taps", "passes"])
+def test_blur_only_rejects_bad_inputs(bad):
+    """Type, shape, contiguity, device, taps and pass count are checked
+    before any launch; a tensor on neither the CPU nor CUDA raises instead
+    of falling back."""
+    img = torch.zeros((1, 3, 16, 20))
+    taps, kw = torch.tensor(taps_f32(), dtype=torch.float32), {}
+    if bad == "dtype":
+        img = img.double()
+    elif bad == "shape":
+        img = torch.zeros((1, 4, 16, 20))
+    elif bad == "layout":
+        img = img.transpose(-1, -2)
+    elif bad == "device":
+        img, taps = img.to("meta"), taps.to("meta")
+    elif bad == "taps":
+        taps = taps[:10]
+    else:
+        kw = {"passes": 0}
+    with pytest.raises(ValueError):
+        blur_probe.blur_only(img, taps, **kw)
+
+
+def test_blur_probe_is_built():
+    """blur_probe.cu is one of the library's sources, its entry points bound."""
+    assert "blur_probe.cu" in _build.SOURCES
+    assert (_build.CSRC / "blur_probe.cu").is_file()
+    assert {"tm_blur_probe", "tm_blur_probe_blocks"} <= set(_build._SIGNATURES)
+
+
+def test_kernel_dissect_on_cpu():
+    """The tool on the CPU, at a small shape: an entry for every timed call
+    and a row for every kernel it launches, host times and no device times;
+    its last line is the JSON object it returns."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = kernel_dissect.main(
+            ["--device", "cpu", "--batch", "1", "--height", "48", "--width", "64", "--iters", "1"]
+        )
+    assert json.loads(out.getvalue().splitlines()[-1]) == result
+    rows = result["dissect"]
+    kernels = {}
+    for r in rows:
+        kernels.setdefault(r["entry"], {})[r["kernel"]] = r["launches_per_call"]
+        assert r["device_ms"] is None and r["call_ms"] > 0
+    level = {"blur_rows_kernel": 1, "blur_cols_maps_kernel": 1, "reduce_parts_kernel": 1}
+    rgb_level = {"rgb_to_xyb_kernel": 1, **level}
+    want = {
+        "scale0 full (with ds)": rgb_level,
+        "scale0 no-ds": rgb_level,
+        "scale0 v1 (xyb outside)": level,
+        "blur-only (15 planes x 2 passes)": {"blur_probe_kernel": 1, "probe_reduce_kernel": 1},
+        "kernel 1 (4:2:0 pair)": {"yuv420_to_xyb_kernel": 1, **level},
+        # 48x64 has four SSIMULACRA2 levels and three MS-SSIM levels.
+        **{f"kernel 2 level {i}": rgb_level for i in (1, 2, 3)},
+        "#10 pair sums": rgb_level,
+        "#11 SSIM level 0": {"ssim_rows_kernel": 1, "ssim_cols_kernel": 1, "reduce_parts_kernel": 1,
+                             "halfpool_kernel": 1},
+        "#12 MS-SSIM levels 1+": {"ssim_rows_kernel": 2, "ssim_cols_kernel": 2, "reduce_parts_kernel": 2,
+                                  "halfpool_kernel": 1},
+        "#14 VIF scale 0": {"vif_rows_kernel": 1, "vif_cols_kernel": 1, "reduce_frames_kernel": 1,
+                            "vif_emit_kernel": 1},
+        "#15 VIF scales 1-3": {"vif_rows_kernel": 3, "vif_cols_kernel": 3, "reduce_frames_kernel": 3,
+                               "vif_emit_kernel": 2},
+        "#18 ADM": {"adm_rows_kernel": 4, "adm_cols_kernel": 4, "adm_mask_kernel": 4,
+                    "reduce_frames_kernel": 4},
+    }
+    assert kernels == want
+
+
+def test_kernel_dissect_needs_the_card_on_cuda():
+    """``--device cuda`` (the default) without a card is an error, not a
+    fallback to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the tool runs there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kernel_dissect.main(["--batch", "1", "--height", "48", "--width", "64", "--iters", "1"])
+
+
+def test_kernel_names_from_the_profiler():
+    """Profiler names lose their return type, namespace and arguments; the
+    base name drops template arguments."""
+    raw = "void (anonymous namespace)::reduce_parts_kernel<6>(float const*, int, float*, int)"
+    assert kernel_dissect.kernel_name(raw) == "reduce_parts_kernel<6>"
+    assert kernel_dissect.base_name(raw) == "reduce_parts_kernel"
+    assert kernel_dissect.base_name("(anonymous namespace)::blur_probe_kernel(float const*)") == (
+        "blur_probe_kernel")

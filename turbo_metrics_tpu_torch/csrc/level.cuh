@@ -1,7 +1,7 @@
 // Block geometry, the deterministic cross-block reduction and the
 // reflect-101 border rule shared by the per-level kernels
 // (ssimulacra2_scale.cu, ssimulacra2_tail.cu, downscale.cu, windowed.cu,
-// vif.cu, adm.cu).
+// vif.cu, adm.cu, blur_probe.cu).
 //
 // A level kernel reduces K quantities per block in a fixed tree in f32 and
 // writes them as parts (planes, nblk, K); reduce_parts_kernel then sums each

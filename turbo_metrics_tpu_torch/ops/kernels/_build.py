@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "ssimulacra2_scale.cu", "ssimulacra2_tail.cu", "downscale.cu", "convert.cu", "windowed.cu",
-    "xpsnr.cu", "motion.cu", "vif.cu", "adm.cu",
+    "xpsnr.cu", "motion.cu", "vif.cu", "adm.cu", "blur_probe.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -60,6 +60,8 @@ _SIGNATURES = {
     "tm_adm_level": [
         _P, _I, _I, _I, _PF, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _I, _P,
     ],
+    "tm_blur_probe_blocks": [_I, _I],
+    "tm_blur_probe": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 

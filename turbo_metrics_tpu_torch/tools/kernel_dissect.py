@@ -1,0 +1,291 @@
+"""Dissect the cost of the level kernels: each CUDA kernel's device time.
+
+The port's counterpart of the JAX package's tools/kernel_dissect.py, which
+times the fused-scale kernel against stripped-down variants to find where
+the time goes.  On the card it times, at that tool's shape (B=4, 1080x1920,
+``lin1`` uniform in [0, 1) from ``default_rng(0)``, ``lin2 = lin1 * 0.99``),
+the same four lines:
+
+  * "scale0 full (with ds)": #3 ``fused_scale_rgb`` on the pair, the next
+    level emitted;
+  * "scale0 no-ds": the same without emission;
+  * "scale0 v1 (xyb outside)": #8 ``scale_sums`` on XYB computed beforehand;
+  * "blur-only (15 planes x 2 passes)": #19 ``blur_only`` on ``lin1``;
+
+and beside them kernel 1 (``fused_scale0_yuv`` on a seeded 8-bit 4:2:0
+pair), kernel 2 (``fused_pyramid_tail`` from #3's emitted level, one entry
+per level), #10, #11, #12, #14, #15 and #18 on the same inputs.  Each call
+is timed by CUDA events after warm-up (the median of ``REPEATS`` runs of
+``--iters`` calls: a call's host time swings with the load on the host), and
+every CUDA kernel it launches by torch.profiler, in launch order: the device
+time of each pass without the wrapper's host time or the gaps between
+launches.  On the CPU the wrappers
+run their plain twins: the tool reports host-clock times and no device
+times.  Run:
+
+    python -m turbo_metrics_tpu_torch.tools.kernel_dissect                # on the card
+    python -m turbo_metrics_tpu_torch.tools.kernel_dissect --device cpu \\
+        --batch 1 --height 48 --width 64 --iters 1                        # the twins
+
+It prints a readable line per entry and, last, one JSON object
+``{"dissect": [{"entry", "wrapper", "kernel", "device_ms",
+"launches_per_call", "call_ms"}, ...]}``, one row per kernel of an entry
+(``device_ms``: the sum over that kernel's launches in one call), which
+``main`` also returns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+from collections import Counter
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+# The kernels of one SSIMULACRA2 level after its quad pass (csrc/ssimulacra2_scale.cu).
+LEVEL = ("blur_rows_kernel", "blur_cols_maps_kernel", "reduce_parts_kernel")
+# Timed runs of ``--iters`` calls per entry; the call time is their median.
+REPEATS = 5
+
+
+@dataclass(frozen=True)
+class Probe:
+    """One timed call.  ``entry`` names it; with ``parts`` > 1 the call's
+    launches split, in launch order, into that many equal parts (levels
+    1, 2, ...), each an entry of its own named ``entry.format(level)``.
+    ``kernels``: (name, launches) of one part."""
+
+    entry: str
+    wrapper: str
+    fn: Callable
+    kernels: tuple
+    parts: int = 1
+
+
+def once(*names) -> tuple:
+    return tuple((n, 1) for n in names)
+
+
+def levels(count: int, names, emit) -> tuple:
+    """The kernels of ``count`` levels that each launch ``names`` and, but
+    the last, ``emit`` (unless None)."""
+    return tuple((n, count) for n in names) + ((emit, count - 1),) * (emit is not None and count > 1)
+
+
+def kernel_name(raw: str) -> str:
+    """A profiler kernel name without its return type, namespace and
+    arguments: 'reduce_parts_kernel<6>'."""
+    name = raw.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[len("void "):]
+    return name.split("(", 1)[0]
+
+
+def base_name(raw: str) -> str:
+    return kernel_name(raw).split("<", 1)[0]
+
+
+def time_ms(fn, iters: int, device: torch.device = torch.device("cuda"), warmup: int = 2) -> float:
+    """Mean time of fn() over ``iters`` calls after warm-up: CUDA events on
+    the card, the host clock on the CPU."""
+    for _ in range(warmup):
+        fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, iters: int) -> list:
+    """Device time of each CUDA kernel that one fn() call launches, in launch
+    order, as [(kernel name, ms)]: the mean over ``iters`` calls, by
+    torch.profiler.  Raises where the profiler records no kernels or the
+    calls launch different ones."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted(
+        (e for e in prof.events()
+         if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset"))),
+        key=lambda e: e.time_range.start,
+    )
+    if not events or len(events) % iters:
+        raise RuntimeError(f"the profiler recorded {len(events)} kernels over {iters} calls")
+    per_call = len(events) // iters
+    names = [kernel_name(e.name) for e in events[:per_call]]
+    ms = [0.0] * per_call
+    for i, e in enumerate(events):
+        if kernel_name(e.name) != names[i % per_call]:
+            raise RuntimeError(f"the calls launched different kernels: {kernel_name(e.name)} "
+                               f"where the first launched {names[i % per_call]}")
+        ms[i % per_call] += e.time_range.elapsed_us() / 1e3 / iters
+    return list(zip(names, ms))
+
+
+def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
+    """The timed calls, on inputs made from seed 0 on ``dev``."""
+    from turbo_metrics_tpu_torch.engine import vmaf_pair
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
+    from turbo_metrics_tpu_torch.ops import adm as adm_ops
+    from turbo_metrics_tpu_torch.ops import quality
+    from turbo_metrics_tpu_torch.ops import vif as vif_ops
+    from turbo_metrics_tpu_torch.ops.kernels import (
+        adm,
+        blur_probe,
+        scale_stats,
+        scale_tail,
+        vif,
+        windowed,
+        windowed_tail,
+    )
+    from turbo_metrics_tpu_torch.ops.xyb import linear_rgb_to_xyb
+
+    b, h, w = batch, height, width
+    rng = np.random.default_rng(0)
+    lin1 = torch.from_numpy(rng.random((b, 3, h, w), dtype=np.float64).astype(np.float32)).to(dev)
+    lin2 = lin1 * 0.99
+    y2 = torch.from_numpy(rng.integers(16, 236, (2, b, h, w)).astype(np.uint8)).to(dev)
+    uv2 = torch.from_numpy(
+        rng.integers(16, 241, (2, b, (h + 1) // 2, (w + 1) // 2, 2)).astype(np.uint8)
+    ).to(dev)
+    model = Ssimulacra2(w, h, device=dev)
+    qmod = quality.Quality(device=dev)
+    taps, opsin, win = model.taps, model.opsin, qmod.window
+    p12 = torch.stack([lin1, lin2])
+    x1, x2 = (linear_rgb_to_xyb(x, opsin=opsin).contiguous() for x in (lin1, lin2))
+    s2_lvl1 = scale_stats.fused_scale_rgb(p12, taps, opsin)[1]
+    ms_lvl1 = windowed.ssim_sums(p12, win, quantize=True, emit_ds=True)[1]
+    ms_levels = quality._clamp_levels(h, w, 5)[0] - 1
+    pair = vmaf_pair(y2[0], y2[1], 8, 8)
+    vif_lvl1 = vif.vif_scale0(pair)[1]
+    tail_levels = model.num_scales - 1
+    rgb_level = once("rgb_to_xyb_kernel", *LEVEL)
+    return [
+        Probe("scale0 full (with ds)", "fused_scale_rgb",
+              lambda: scale_stats.fused_scale_rgb(p12, taps, opsin, emit_ds=True), rgb_level),
+        Probe("scale0 no-ds", "fused_scale_rgb",
+              lambda: scale_stats.fused_scale_rgb(p12, taps, opsin, emit_ds=False), rgb_level),
+        Probe("scale0 v1 (xyb outside)", "scale_sums",
+              lambda: scale_stats.scale_sums(x1, x2, taps), once(*LEVEL)),
+        Probe("blur-only (15 planes x 2 passes)", "blur_only",
+              lambda: blur_probe.blur_only(lin1, taps), once("blur_probe_kernel", "probe_reduce_kernel")),
+        Probe("kernel 1 (4:2:0 pair)", "fused_scale0_yuv",
+              lambda: scale_stats.fused_scale0_yuv(y2, uv2, taps, opsin),
+              once("yuv420_to_xyb_kernel", *LEVEL)),
+        Probe("kernel 2 level {}", "fused_pyramid_tail",
+              lambda: scale_tail.fused_pyramid_tail(s2_lvl1, tail_levels, taps, opsin), rgb_level,
+              parts=tail_levels),
+        Probe("#10 pair sums", "fused_scale_pair",
+              lambda: scale_stats.fused_scale_pair(lin1, lin2, taps, opsin), rgb_level),
+        Probe("#11 SSIM level 0", "ssim_sums",
+              lambda: windowed.ssim_sums(p12, win, quantize=True, emit_ds=True),
+              once("ssim_rows_kernel", "ssim_cols_kernel", "reduce_parts_kernel", "halfpool_kernel")),
+        Probe("#12 MS-SSIM levels 1+", "msssim_tail",
+              lambda: windowed_tail.msssim_tail(ms_lvl1, ms_levels, win),
+              levels(ms_levels, ("ssim_rows_kernel", "ssim_cols_kernel", "reduce_parts_kernel"),
+                     "halfpool_kernel")),
+        Probe("#14 VIF scale 0", "vif_scale0", lambda: vif.vif_scale0(pair),
+              once("vif_rows_kernel", "vif_cols_kernel", "reduce_frames_kernel", "vif_emit_kernel")),
+        Probe("#15 VIF scales 1-3", "vif_tail", lambda: vif.vif_tail(vif_lvl1),
+              levels(vif_ops.NUM_SCALES - 1,
+                     ("vif_rows_kernel", "vif_cols_kernel", "reduce_frames_kernel"), "vif_emit_kernel")),
+        Probe("#18 ADM", "adm_stats", lambda: adm.adm_stats(pair),
+              levels(adm_ops.NUM_LEVELS,
+                     ("adm_rows_kernel", "adm_cols_kernel", "adm_mask_kernel", "reduce_frames_kernel"), None)),
+    ]
+
+
+def dissect(probe: Probe, iters: int, dev: torch.device) -> list:
+    """The rows of one probe: on the card each kernel's device time, checked
+    against the kernels the probe expects; on the CPU none."""
+    call_ms = statistics.median(time_ms(probe.fn, iters, dev) for _ in range(REPEATS))
+    seq = kernel_device_ms(probe.fn, iters) if dev.type == "cuda" else None
+    if seq is not None and len(seq) % probe.parts:
+        raise RuntimeError(f"{probe.entry}: {len(seq)} kernels in {probe.parts} equal parts")
+    rows = []
+    for part in range(probe.parts):
+        entry = probe.entry.format(part + 1)
+        chunk = None
+        if seq is not None:
+            size = len(seq) // probe.parts
+            chunk = seq[part * size : (part + 1) * size]
+            got = Counter(base_name(n) for n, _ in chunk)
+            if got != Counter(dict(probe.kernels)):
+                raise RuntimeError(f"{entry}: launched {dict(got)}, want {dict(probe.kernels)}")
+        for name, count in probe.kernels:
+            kernel, device_ms = name, None
+            if chunk is not None:
+                hits = [(n, t) for n, t in chunk if base_name(n) == name]
+                instances = {n for n, _ in hits}
+                kernel = instances.pop() if len(instances) == 1 else name
+                device_ms = sum(t for _, t in hits)
+            rows.append({"entry": entry, "wrapper": probe.wrapper, "kernel": kernel,
+                         "device_ms": device_ms, "launches_per_call": count, "call_ms": call_ms})
+    return rows
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m turbo_metrics_tpu_torch.tools.kernel_dissect",
+        description="Time the port's level kernels and each CUDA kernel they launch.",
+    )
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (the plain twins)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--iters", type=int, default=20, help=f"timed calls per run ({REPEATS} runs per entry)")
+    return ap
+
+
+def main(argv=None) -> dict:
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import resolve_device
+
+    args = build_parser().parse_args(argv)
+    dev = resolve_device(args.device)
+    where = (f"{torch.cuda.get_device_name(dev)} (CUDA events; device times by torch.profiler)"
+             if dev.type == "cuda" else "the CPU (the plain twins, host clock; no device times)")
+    print(f"kernel dissect at B={args.batch} {args.width}x{args.height} on {where}", flush=True)
+    rows = []
+    with torch.no_grad():
+        for probe in probes(args.batch, args.height, args.width, dev):
+            new = dissect(probe, args.iters, dev)
+            for entry in dict.fromkeys(r["entry"] for r in new):
+                mine = [r for r in new if r["entry"] == entry]
+                total = sum(r["device_ms"] or 0.0 for r in mine)
+                passes = ", ".join(
+                    f"{r['kernel']} x{r['launches_per_call']} "
+                    + ("n/a" if r["device_ms"] is None
+                       else f"{r['device_ms']:.4f} ms ({100 * r['device_ms'] / total:.1f}%)")
+                    for r in mine
+                )
+                device = "" if dev.type != "cuda" else f", {total:.4f} ms on the device"
+                print(f"{entry} [{probe.wrapper}]: {mine[0]['call_ms']:.3f} ms per call{device}; {passes}",
+                      flush=True)
+            rows += new
+    result = {"dissect": rows}
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()
