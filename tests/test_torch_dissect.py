@@ -165,7 +165,7 @@ def test_kernel_dissect_on_cpu():
     for r in rows:
         kernels.setdefault(r["entry"], {})[r["kernel"]] = r["launches_per_call"]
         assert r["device_ms"] is None and r["call_ms"] > 0
-    level = {"blur_rows_kernel": 1, "blur_cols_maps_kernel": 1, "reduce_parts_kernel": 1}
+    level = {"level_tile_kernel": 1, "reduce_parts_kernel": 1}
     rgb_level = {"rgb_to_xyb_kernel": 1, **level}
     want = {
         "scale0 full (with ds)": rgb_level,
@@ -197,6 +197,47 @@ def test_kernel_dissect_needs_the_card_on_cuda():
         pytest.skip("a CUDA card is present: the tool runs there")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         kernel_dissect.main(["--batch", "1", "--height", "48", "--width", "64", "--iters", "1"])
+
+
+MARK = "at::cuda::spin_kernel"
+
+
+def _reading(calls, drop=(), drop_marks=()):
+    """Profiler records of ``calls`` calls of kernels a (0.5 ms) and b (0.25
+    ms), each after a mark; ``drop``: calls that lose b's record,
+    ``drop_marks``: calls that lose their mark."""
+    recs = []
+    for i in range(calls):
+        recs += [(MARK, 0.001)] * (i not in drop_marks) + [("a<6>", 0.5)] + [("b", 0.25)] * (i not in drop)
+    return recs, {MARK}
+
+
+def test_kernel_device_ms_reads_again_after_a_dropped_record(monkeypatch):
+    """The profiler now and then drops a kernel record.  A call that lost
+    one is left out of the mean; a reading that keeps fewer than half its
+    calls is taken again; after ``PROFILE_ATTEMPTS`` such readings the tool
+    raises instead of reporting them."""
+    readings = [_reading(20, drop=range(11)), _reading(20, drop=(3,))]
+    monkeypatch.setattr(kernel_dissect, "_profile_calls", lambda fn, iters: readings.pop(0))
+    assert kernel_dissect.kernel_device_ms(None, 20, 2) == [("a<6>", 0.5), ("b", 0.25)]
+    assert not readings
+    readings[:] = [_reading(20, drop=range(11))] * kernel_dissect.PROFILE_ATTEMPTS
+    with pytest.raises(kernel_dissect.ProfileMismatch):
+        kernel_dissect.kernel_device_ms(None, 20, 2)
+    assert not readings
+
+
+def test_split_calls_leaves_out_calls_around_a_lost_mark():
+    """A lost mark joins two calls into one of twice the records: both are
+    left out, as is a call that lost a record; the rest are kept whole, in
+    launch order.  Without the count of launches, the most common count
+    stands in for it."""
+    whole = [("a<6>", 0.5), ("b", 0.25)]
+    reading = _reading(6, drop=(0,), drop_marks=(3,))
+    assert kernel_dissect.split_calls(*reading, 2) == [whole] * 3
+    assert kernel_dissect.split_calls(*reading) == [whole] * 3
+    recs, marks = _reading(2)
+    assert kernel_dissect.split_calls(recs[1:], marks, 2) == [whole] * 2
 
 
 def test_kernel_names_from_the_profiler():

@@ -11,6 +11,8 @@ against the Pallas kernels they replace in interpret mode (over the padded
 layout's interior), the MS-SSIM tail against the jnp levels.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -245,6 +247,23 @@ def test_build_key_covers_every_csrc_file(tmp_path):
     (csrc / "extra.cuh").write_text("#pragma once\n")
     seen.add(_build.source_key(csrc))
     assert len(seen) == len(files) + 2
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (33, 65), (67, 99), (1080, 1920)])
+def test_level_scratch_holds_xyb_and_partials_only(hw):
+    """The SSIMULACRA2 level pass keeps its four row-blurred planes in shared
+    memory: a level's device scratch is the XYB pair and six f32 partials per
+    32x8 tile of each (batch, channel) plane, ceil(w/32) * ceil(h/8) tiles
+    (the library's tm_level_blocks; chip_smoke.py holds the two equal), and
+    sizing it needs no library.  Sizes cross the 32x32 tile's edges."""
+    h, w = hw
+    bsz = 2
+    nblk = math.ceil(w / 32) * math.ceil(h / 8)
+    assert scale_stats.level_blocks(h, w) == nblk
+    scratch = scale_stats.s2_level_scratch(bsz, h, w, "meta")
+    assert [t.numel() for t in scratch] == [2 * bsz * 3 * h * w, bsz * 3 * nblk * 6]
+    assert all(t.dtype == torch.float32 for t in scratch)
+    assert scale_stats.level_parts(bsz, h, w, "meta").numel() == bsz * 3 * nblk * 6
 
 
 def test_launches_stay_zero_on_cpu(rng):

@@ -5,9 +5,16 @@
 //   * cbrt_nr / to_xyb: linear RGB -> positive-shifted XYB (ops/xyb.py);
 //   * rgb_quad: one 2x2 quad of a linear-RGB level -> XYB of its pixels and
 //     the quad's mean, the next level's pixel;
-//   * blur_row_px: the horizontal 11-tap pass of x1, x2, (x1-x2)^2, x1*x2;
-//   * blur_col_maps_px: the vertical pass, the SSIM, artifact and
-//     detail-loss maps, and the six reduced quantities of one pixel.
+//   * row_tap: one tap of the horizontal 11-tap pass of x1, x2, (x1-x2)^2,
+//     x1*x2;
+//   * col_tap: one tap of the vertical pass of those four row sums;
+//   * ssim_maps: the SSIM, artifact and detail-loss maps of one pixel from
+//     its four blurred quantities, and the six reduced quantities.
+// The callers differ only in where the taps' samples come from (device
+// memory in #4, a shared-memory tile in the fused level kernel) and in how
+// they skip the taps outside the plane: #4 skips them, the fused kernel adds
+// zero-filled samples.  A zero sample adds t * 0 = +0 to a sum that is never
+// -0, so both give the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -74,50 +81,30 @@ __device__ __forceinline__ void rgb_quad(const float* __restrict__ src, int h, i
   }
 }
 
-// Horizontal 11-tap pass at column c of one row: a and b point at the row of
-// the reference's and the distorted image's XYB plane; samples outside
-// [0, w) count as zero.  s: blurred x1, x2, (x1-x2)^2, x1*x2.  The SSIM map
-// needs s11 and s22 only through s11 + s22 - 2 s12 = blur((x1-x2)^2), so four
-// blurred planes suffice (ops/ssim_maps.py ssim_map).
-__device__ __forceinline__ void blur_row_px(const float* __restrict__ a,
-                                            const float* __restrict__ b, int c, int w,
-                                            const float* __restrict__ taps, float (&s)[4]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) s[q] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < kTaps; ++k) {
-    const int cc = c + k - kRadius;
-    if (cc >= 0 && cc < w) {
-      const float t = __ldg(taps + k);
-      const float av = a[cc], bv = b[cc];
-      s[0] += t * av;
-      s[1] += t * bv;
-      const float dv = av - bv;
-      s[2] += t * (dv * dv);
-      s[3] += t * (av * bv);
-    }
-  }
+// One tap t of the horizontal pass on the reference's sample av and the
+// distorted image's bv: s accumulates blurred x1, x2, (x1-x2)^2, x1*x2.  The
+// SSIM map needs s11 and s22 only through s11 + s22 - 2 s12 =
+// blur((x1-x2)^2), so four blurred planes suffice (ops/ssim_maps.py
+// ssim_map).  Callers run k = 0..10 in order from s = 0.
+__device__ __forceinline__ void row_tap(float (&s)[4], float t, float av, float bv) {
+  s[0] += t * av;
+  s[1] += t * bv;
+  const float dv = av - bv;
+  s[2] += t * (dv * dv);
+  s[3] += t * (av * bv);
 }
 
-// Vertical 11-tap pass at row r (zero outside [0, h)) of the four row-blurred
-// quantities, base pointing at (row 0, this column) of the first and qstride
-// apart; then the maps from the XYB samples i1 (reference) and i2
-// (distorted) at the pixel.  v: d, d^4, art, art^4, det, det^4.
-__device__ __forceinline__ void blur_col_maps_px(const float* __restrict__ base, size_t qstride,
-                                                 int r, int h, int w,
-                                                 const float* __restrict__ taps, float i1,
-                                                 float i2, float (&v)[6]) {
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+// One tap t of the vertical pass on the four row sums x of one row.
+__device__ __forceinline__ void col_tap(float (&s)[4], float t, const float (&x)[4]) {
 #pragma unroll
-  for (int k = 0; k < kTaps; ++k) {
-    const int rr = r + k - kRadius;
-    if (rr >= 0 && rr < h) {
-      const float t = __ldg(taps + k);
-      const float* row = base + (size_t)rr * w;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[q] += t * row[q * qstride];
-    }
-  }
+  for (int q = 0; q < 4; ++q) s[q] += t * x[q];
+}
+
+// The maps of one pixel from its blurred quantities s (mu1, mu2, blurred
+// (x1-x2)^2, blurred x1*x2) and its XYB samples i1 (reference) and i2
+// (distorted).  v: d, d^4, art, art^4, det, det^4.
+__device__ __forceinline__ void ssim_maps(const float (&s)[4], float i1, float i2,
+                                          float (&v)[6]) {
   const float mu1 = s[0], mu2 = s[1], sdd = s[2], s12 = s[3];
 
   // 1 - (1 - md^2) num_s / denom_s with denom_s = num_s + var_d, written

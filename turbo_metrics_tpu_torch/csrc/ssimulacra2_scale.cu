@@ -24,23 +24,54 @@
 // The per-pixel arithmetic lives in ssimulacra2_level.cuh, shared with the
 // persistent tail kernel of ssimulacra2_tail.cu.
 //
-// What bounds them on this card: the algorithm's floor is its f32 work (about
-// 730 operations per pixel pair and level: XYB, two 11-tap passes over four
-// planes per channel, the maps) rather than its few bytes in and out, but this
-// design's own device-memory traffic is larger still: ~10 f32 planes read or
-// written per pixel pair (XYB x2, four row-blurred planes written then read
-// back, the next level).  What the design does about it: nothing yet.
-// Each pass is a plain thread-per-pixel loop over global memory; shared-memory
-// row tiles, fusing the row and column passes so the blurred planes never
-// reach device memory, TMA loads and CUDA graphs are for later work.
+// A level is two passes: the conversion pass (YUV or linear RGB -> XYB, and
+// the next level's 2x2 mean) and the fused level pass (level_tile_kernel:
+// both blur passes, the maps and the per-tile partials), then the f64
+// reduction of the partials.
+//
+// What bounds the fused level pass on this card: its f32 work (per pixel
+// pair and channel 11 row taps of 7 operations over 1.31x the rows, for the
+// halo, 44 column multiply-adds, ~25 for the maps) and the shared-memory
+// loads that feed it (22 per row-pass output), about evenly; device memory
+// is no longer in the way: it reads the 24 bytes of XYB per pixel pair once
+// (plus halo rows and columns, mostly from L2) and writes only partials.
+// What its design does about it:
+//   * one block per 32x32 output tile of one (batch, channel) plane; the
+//     four row-blurred planes of the tile live in shared memory
+//     (4 x 42 x 32 f32) and never reach device memory;
+//   * the input tiles of both images (42 rows x 48 columns) are read with
+//     16-byte loads, eight per thread, all issued before the first is
+//     stored; a chunk that is not aligned or hangs over the plane's edge
+//     (widths such as 99 or 683) is read one float at a time, zeros
+//     outside the plane (the zero-extended border).  On an H100, 4-byte
+//     loads throughout made the kernel 23% slower;
+//   * no load stage overlaps the compute within a block: at 37.6 KB of
+//     static shared memory and 128 threads, five blocks share an SM, so one
+//     block's loads overlap the others' compute (a two-stage cp.async ring
+//     over the three channels of one image was 6% slower on an H100 at
+//     1080p and up to 2x slower on levels of a few dozen tiles);
+//   * register blocking in the column pass: each thread computes one column
+//     of one 32x8 sub-tile, eight outputs from an 18-row window (2.25 shared
+//     loads per output and quantity instead of 11);
+//   * each warp owns one 32x8 sub-tile, so level.cuh's fixed partial tree
+//     runs in registers (the three row strides inside a thread) and warp
+//     shuffles (the five column strides): the same pairs in the same order
+//     as tile_partials, so the sums equal the two-pass design's bit for bit
+//     and #4's (ssimulacra2_tail.cu).
+// The row pass reads 11 shared values per output: its loads are the next
+// limit.
+//
+// The conversion stays a pass of its own: fusing it into the tile would save
+// writing and reading XYB (24 bytes per pixel pair each way), but the tile's
+// 1.72x halo area would recompute the cube roots and, for kernel 1, the
+// EOTF, and that conversion is bound by operations already.
 //
 // Layouts (all contiguous):
 //   luma   (2, B, h, w)            u8 or u16, image 0 = reference, 1 = distorted
 //   chroma (2, B, ch, cw, 2)        same type, (Cb, Cr) pairs, ch = ceil(h/2)
 //   level  (2, B, 3, h, w)          f32 linear RGB
 //   xyb    (2, B, 3, h, w)          f32 positive-shifted XYB (scratch)
-//   tmp    (4, B*3, h, w)           f32 row-blurred x1, x2, (x1-x2)^2, x1*x2
-//   parts  (B*3, nblk, 6)           f32 per-block partial sums
+//   parts  (B*3, nblk, 6)           f32 per-32x8-tile partial sums
 //   sums   (B, [levels,] 3, 6)      f32 (d, d^4, art, art^4, det, det^4)
 
 #include <cuda_runtime.h>
@@ -53,11 +84,12 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// Launch 1 of scale 0: one thread per 2x2 luma quad.  Converts YUV 4:2:0 to
-// clamped linear RGB, writes XYB for the quad's pixels that lie inside the
-// image, and writes the quad's mean of linear RGB as the next level's pixel.
-// A quad that hangs over an odd edge replicates the last row/column
-// (ops/downscale.py), so the mean of the replicated samples is exact.
+// Conversion pass of scale 0: one thread per 2x2 luma quad.  Converts YUV
+// 4:2:0 to clamped linear RGB, writes XYB for the quad's pixels that lie
+// inside the image, and writes the quad's mean of linear RGB as the next
+// level's pixel.  A quad that hangs over an odd edge replicates the last
+// row/column (ops/downscale.py), so the mean of the replicated samples is
+// exact.
 // grid: (ceil(wq/kBx), ceil(hq/kBy), 2*B)
 // ---------------------------------------------------------------------------
 template <typename T>
@@ -107,9 +139,9 @@ yuv420_to_xyb_kernel(const T* __restrict__ luma, const T* __restrict__ chroma,
 }
 
 // ---------------------------------------------------------------------------
-// Launch 1 of levels 1..5: the same quad pass from a linear-RGB level, the
-// reference's B images at ref and the distorted one's at dis (two tensors, or
-// the two halves of one pair buffer).
+// Conversion pass of levels 1..5: the same quad pass from a linear-RGB
+// level, the reference's B images at ref and the distorted one's at dis (two
+// tensors, or the two halves of one pair buffer).
 // grid: (ceil(wq/kBx), ceil(hq/kBy), 2*B)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
@@ -132,67 +164,175 @@ rgb_to_xyb_kernel(const float* __restrict__ ref, const float* __restrict__ dis, 
 }
 
 // ---------------------------------------------------------------------------
-// Launch 2: horizontal 11-tap pass of x1, x2, (x1-x2)^2 and x1*x2 for every
-// (batch, channel) plane (ssimulacra2_level.cuh blur_row_px); xa / xb: the
-// reference's and the distorted image's XYB, B*3 planes each.
-// grid: (ceil(w/kBx), ceil(h/kBy), B*3)
+// The fused level pass.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-blur_rows_kernel(const float* __restrict__ xa, const float* __restrict__ xb, int planes, int h,
-                 int w, const float* __restrict__ taps, float* __restrict__ tmp) {
-  const int c = blockIdx.x * kBx + threadIdx.x;
-  const int r = blockIdx.y * kBy + threadIdx.y;
-  if (r >= h || c >= w) return;
-  const size_t npx = (size_t)h * w;
-  const size_t plane = blockIdx.z;
-  const size_t row = plane * npx + (size_t)r * w;
-  float s[4];
-  blur_row_px(xa + row, xb + row, c, w, taps, s);
-  const size_t qstride = (size_t)planes * npx;
+constexpr int kSubTiles = 4;                   // 32x8 partial tiles per block, one per warp
+constexpr int kTileW = kBx;                    // output columns of a block
+constexpr int kTileH = kSubTiles * kBy;        // output rows of a block
+constexpr int kTileThreads = 32 * kSubTiles;
+constexpr int kHaloH = kTileH + 2 * kRadius;   // input rows of a tile
+constexpr int kInOff = 8;                      // input column 0 = output column -8
+constexpr int kInW = kTileW + 2 * kInOff;      // input columns held (-8 .. 39; -5 .. 36 used)
+constexpr int kInFloats = kHaloH * kInW;       // one image's input tile
+constexpr int kRowFloats = kHaloH * kTileW;    // one row-blurred quantity
+constexpr int kColWin = kBy + 2 * kRadius;     // rows of a thread's column window
+// Four-float loads per thread: all issued before the first is stored.
+constexpr int kChunks = 2 * kInFloats / 4;
+constexpr int kLoadsPerThread = (kChunks + kTileThreads - 1) / kTileThreads;
+
+// Samples gc .. gc+3 of row gr of plane p, zeros outside the plane: one
+// 16-byte load where the four lie inside and are 16-byte aligned (every
+// chunk of a plane whose width is a multiple of 4, as at 1080p and 4K),
+// else one load each.
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, int h, int w, int gr, int gc) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (gr < 0 || gr >= h) return v;
+  const float* q = p + (size_t)gr * w;
+  if (gc >= 0 && gc + 3 < w && reinterpret_cast<uintptr_t>(q + gc) % 16 == 0) {
+    return __ldg(reinterpret_cast<const float4*>(q + gc));
+  }
+  if (gc >= 0 && gc < w) v.x = __ldg(q + gc);
+  if (gc + 1 >= 0 && gc + 1 < w) v.y = __ldg(q + gc + 1);
+  if (gc + 2 >= 0 && gc + 2 < w) v.z = __ldg(q + gc + 2);
+  if (gc + 3 >= 0 && gc + 3 < w) v.w = __ldg(q + gc + 3);
+  return v;
+}
+
+// The maps of output row o of this thread's column (zeros outside the
+// plane); p: the reference's XYB sample of the pixel in the input tile.
+__device__ __forceinline__ void tile_maps(const float (&s)[4], const float* p, bool inside,
+                                          float (&v)[6]) {
+  if (inside) {
+    ssim_maps(s, p[0], p[kInFloats], v);
+  } else {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) tmp[q * qstride + row + c] = s[q];
+    for (int k = 0; k < 6; ++k) v[k] = 0.0f;
+  }
 }
 
 // ---------------------------------------------------------------------------
-// Launch 3: vertical 11-tap pass, the SSIM, artifact and detail-loss maps
-// (ssimulacra2_level.cuh blur_col_maps_px), and per-block f32 partial sums of
-// the six reduced quantities (level.cuh block_partials; launch 4 is
-// level.cuh's reduce_parts_kernel<6>).
-// grid: (ceil(w/kBx), ceil(h/kBy), B*3)
+// One block per 32x32 output tile of plane blockIdx.z (b*3 + ch): the tile's
+// 42x48 input samples of both images into shared memory (zeros outside the
+// plane), the row pass of x1, x2, (x1-x2)^2, x1*x2 over the 42 input rows
+// into shared memory, the column pass and the maps, and each 32x8 sub-tile's
+// six partials into parts[((b*3 + ch) * nblk + blk) * 6 + k], blk = its index
+// in the level's (ceil(h/8), ceil(w/32)) grid of 32x8 tiles (level.cuh
+// pixel_grid; reduce_parts_kernel<6> then sums them in f64).
+// grid: (ceil(w/32), ceil(h/32), B*3), block: kTileThreads (1-D).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-blur_cols_maps_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
-                      const float* __restrict__ tmp, int planes, int h, int w,
-                      const float* __restrict__ taps, float* __restrict__ parts) {
-  __shared__ float red[6][kThreads];
-  const int c = blockIdx.x * kBx + threadIdx.x;
-  const int r = blockIdx.y * kBy + threadIdx.y;
-  const size_t npx = (size_t)h * w;
+__global__ void __launch_bounds__(kTileThreads)
+level_tile_kernel(const float* __restrict__ xa, const float* __restrict__ xb, int h, int w,
+                  const float* __restrict__ taps, float* __restrict__ parts) {
+  __shared__ __align__(16) float in[2 * kInFloats];  // [2 images][kHaloH][kInW]
+  __shared__ float rows[4 * kRowFloats];  // [4 quantities][kHaloH][kTileW]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
   const size_t plane = blockIdx.z;
-  float v[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (r < h && c < w) {
-    const size_t at = plane * npx + (size_t)r * w + c;
-    blur_col_maps_px(tmp + plane * npx + c, (size_t)planes * npx, r, h, w, taps, xa[at], xb[at],
-                     v);
+  const size_t npx = (size_t)h * w;
+  const int nbx = (w + kBx - 1) / kBx, nby = (h + kBy - 1) / kBy;
+  const int by = blockIdx.y * kSubTiles + warp;  // this warp's sub-tile row in that grid
+  const int c = x0 + lane;                       // this thread's output column
+
+  // Input tiles: rows y0-5 .. y0+36, columns x0-8 .. x0+39 of both planes.
+  {
+    const float* a = xa + plane * npx;
+    const float* b = xb + plane * npx;
+    float4 ld[kLoadsPerThread];
+#pragma unroll
+    for (int n = 0; n < kLoadsPerThread; ++n) {
+      const int i = threadIdx.x + n * kTileThreads;  // chunk: 4 floats of the two tiles
+      const int img = i / (kInFloats / 4), rem = 4 * i - img * kInFloats;
+      const int r = rem / kInW;
+      ld[n] = i < kChunks ? load4(img ? b : a, h, w, y0 - kRadius + r, x0 - kInOff + rem - r * kInW)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int n = 0; n < kLoadsPerThread; ++n) {
+      const int i = threadIdx.x + n * kTileThreads;
+      if (i < kChunks) reinterpret_cast<float4*>(in)[i] = ld[n];
+    }
   }
-  block_partials<6>(v, red, parts, plane);
+  float t[kTaps];
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) t[k] = __ldg(taps + k);
+  __syncthreads();
+
+  // Row pass: every input row of the tile, one output column per lane.
+  for (int r = warp; r < kHaloH; r += kSubTiles) {
+    const float* p = in + r * kInW + lane + (kInOff - kRadius);
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < kTaps; ++k) row_tap(s, t[k], p[k], p[k + kInFloats]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) rows[(q * kHaloH + r) * kTileW + lane] = s[q];
+  }
+  __syncthreads();
+
+  // Column pass: column `lane` of the warp's sub-tile, eight outputs from
+  // one window of kColWin rows, each summed over k = 0..10 in order.
+  float s[kBy][4];
+#pragma unroll
+  for (int o = 0; o < kBy; ++o) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) s[o][q] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kColWin; ++i) {
+    const float* rp = rows + (warp * kBy + i) * kTileW + lane;
+    const float x[4] = {rp[0], rp[kRowFloats], rp[2 * kRowFloats], rp[3 * kRowFloats]};
+#pragma unroll
+    for (int o = 0; o < kBy; ++o) {
+      if (i - o >= 0 && i - o < kTaps) col_tap(s[o], t[i - o], x);
+    }
+  }
+
+  // The maps and the sub-tile's tree (level.cuh tile_partials over position
+  // tid = row * 32 + column): stride 128 adds row o + 4 to row o, 64 row
+  // o + 2, 32 row 1 (in this thread), then 16 .. 1 the columns (across the
+  // warp; a lane at or past the stride adds a value no lane reads).
+  // __fadd_rn: tile_partials adds values read back from shared memory, so
+  // no add may fuse with the maps' last multiplies (d^4 ...).
+  float v[kBy / 2][6];
+#pragma unroll
+  for (int o = 0; o < kBy / 2; ++o) {
+    float va[6], vb[6];
+    const int ra = warp * kBy + o, rb = ra + kBy / 2;
+    const float* p = in + (ra + kRadius) * kInW + lane + kInOff;
+    tile_maps(s[o], p, y0 + ra < h && c < w, va);
+    tile_maps(s[o + kBy / 2], p + (kBy / 2) * kInW, y0 + rb < h && c < w, vb);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) v[o][k] = __fadd_rn(va[k], vb[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    v[0][k] = __fadd_rn(v[0][k], v[2][k]);
+    v[1][k] = __fadd_rn(v[1][k], v[3][k]);
+    v[0][k] = __fadd_rn(v[0][k], v[1][k]);
+#pragma unroll
+    for (int stride = 16; stride > 0; stride >>= 1) {
+      v[0][k] = __fadd_rn(v[0][k], __shfl_down_sync(0xffffffffu, v[0][k], stride));
+    }
+  }
+  if (lane == 0 && by < nby) {
+    float* out = parts + (plane * nbx * nby + (size_t)by * nbx + blockIdx.x) * 6;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) out[k] = v[0][k];
+  }
+}
+
+int level_blocks(int h, int w) {
+  const dim3 g = pixel_grid(h, w, 1);
+  return (int)(g.x * g.y);
 }
 
 // Blur, maps and sums of one level from the reference's XYB xa and the
 // distorted one's xb, B*3 planes each.
 int level_sums(const float* xa, const float* xb, int batch, int h, int w, const float* taps,
-               float* tmp, float* parts, float* sums, int sums_bstride, cudaStream_t s) {
-  const int planes = 3 * batch;
-  const dim3 grid = pixel_grid(h, w, planes);
-  const dim3 block(kBx, kBy);
-  blur_rows_kernel<<<grid, block, 0, s>>>(xa, xb, planes, h, w, taps, tmp);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  blur_cols_maps_kernel<<<grid, block, 0, s>>>(xa, xb, tmp, planes, h, w, taps, parts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_parts_kernel<6><<<planes, kReduceThreads, 0, s>>>(parts, (int)(grid.x * grid.y), sums,
-                                                            sums_bstride);
+               float* parts, float* sums, int sums_bstride, cudaStream_t s) {
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, 3 * batch);
+  level_tile_kernel<<<grid, kTileThreads, 0, s>>>(xa, xb, h, w, taps, parts);
+  reduce_parts_kernel<6><<<3 * batch, kReduceThreads, 0, s>>>(parts, level_blocks(h, w), sums,
+                                                               sums_bstride);
   return (int)cudaGetLastError();
 }
 
@@ -200,20 +340,34 @@ int level_sums(const float* xa, const float* xb, int batch, int h, int w, const 
 
 extern "C" {
 
-// Number of per-block partials tm_level_sums writes for each (batch, channel)
-// plane of an h x w level: the caller sizes `parts` as B*3*nblk*6 floats.
-int tm_level_blocks(int h, int w) {
-  const dim3 g = pixel_grid(h, w, 1);
-  return (int)(g.x * g.y);
+// Number of 32x8-tile partials tm_level_sums writes for each (batch,
+// channel) plane of an h x w level: the caller sizes `parts` as
+// B*3*nblk*6 floats.
+int tm_level_blocks(int h, int w) { return level_blocks(h, w); }
+
+// What the fused level kernel takes on this card: out[0] registers per
+// thread, out[1] shared memory per block in bytes, out[2] resident blocks
+// per SM.
+int tm_level_tile_attrs(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, level_tile_kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, level_tile_kernel, kTileThreads, 0);
+  }
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = per_sm;
+  return 0;
 }
 
 // Scale-0 conversion pass: with tm_level_sums, the replacement of
 // fused_scale0_yuv_pallas (turbo_metrics_tpu/ops/pallas/scale_stats.py:1985).
 // luma (2,B,h,w), chroma (2,B,ceil(h/2),ceil(w/2),2), u16 when is16 else u8;
 // xyb (2,B,3,h,w); next (2,B,3,ceil(h/2),ceil(w/2)) or null when no further
-// level is needed.  Bound by device memory: 3 bytes in, 24 + 6 bytes out per
-// pixel pair; nothing done about it yet (the XYB planes could stay on chip if
-// this pass were fused with the row blur).
+// level is needed.  Bound by operations (the EOTF and three cube roots per
+// pixel), not by its 3 bytes in and 24 + 6 bytes out per pixel pair.
 int tm_yuv420_to_xyb(const void* luma, const void* chroma, int is16, int batch, int h, int w,
                      float y_coeff, float r_coeff, float b_coeff, float g_coeff1,
                      float g_coeff2, float minimum, float neutral, int transfer,
@@ -249,23 +403,19 @@ int tm_rgb_pair_to_xyb(const float* ref, const float* dis, int batch, int h, int
 // Level conversion pass: with tm_level_sums, once per level, the replacement
 // of fused_pyramid_tail_pallas (turbo_metrics_tpu/ops/pallas/scale_tail.py:243),
 // and once, the replacement of fused_scale_pallas_v4 (scale_stats.py:2552).
-// rgb (2,B,3,h,w) linear RGB: tm_rgb_pair_to_xyb on its two halves.  Bound
-// by device memory like the scale-0 pass.
+// rgb (2,B,3,h,w) linear RGB: tm_rgb_pair_to_xyb on its two halves.
 int tm_rgb_to_xyb(const float* rgb, int batch, int h, int w, const float* opsin, float* xyb,
                   float* next, void* stream) {
   return tm_rgb_pair_to_xyb(rgb, rgb + (size_t)batch * 3 * h * w, batch, h, w, opsin, xyb, next,
                             stream);
 }
 
-// Blur, maps and sums of one level (shared by the replacements above): xyb
-// (2,B,3,h,w) -> sums[b*sums_bstride + ch*6 + k].  tmp holds 4*B*3*h*w
-// floats, parts B*3*tm_level_blocks(h,w)*6.  Bound by device memory: the four
-// row-blurred planes make a round trip through it (32 bytes written and read
-// per pixel and channel); fusing the two passes over shared-memory row tiles
-// is the first later optimisation.
-int tm_level_sums(const float* xyb, int batch, int h, int w, const float* taps, float* tmp,
-                  float* parts, float* sums, int sums_bstride, void* stream) {
-  return level_sums(xyb, xyb + (size_t)batch * 3 * h * w, batch, h, w, taps, tmp, parts, sums,
+// The fused level pass and the reduction (shared by the replacements
+// above): xyb (2,B,3,h,w) -> sums[b*sums_bstride + ch*6 + k].  parts holds
+// B*3*tm_level_blocks(h,w)*6 floats; no other scratch.
+int tm_level_sums(const float* xyb, int batch, int h, int w, const float* taps, float* parts,
+                  float* sums, int sums_bstride, void* stream) {
+  return level_sums(xyb, xyb + (size_t)batch * 3 * h * w, batch, h, w, taps, parts, sums,
                     sums_bstride, static_cast<cudaStream_t>(stream));
 }
 
@@ -273,9 +423,9 @@ int tm_level_sums(const float* xyb, int batch, int h, int w, const float* taps, 
 // (distorted), without stacking them: the replacement of scale_sums_pallas
 // (turbo_metrics_tpu/ops/pallas/scale_stats_legacy.py:172).
 int tm_level_sums_pair(const float* xyb1, const float* xyb2, int batch, int h, int w,
-                       const float* taps, float* tmp, float* parts, float* sums,
-                       int sums_bstride, void* stream) {
-  return level_sums(xyb1, xyb2, batch, h, w, taps, tmp, parts, sums, sums_bstride,
+                       const float* taps, float* parts, float* sums, int sums_bstride,
+                       void* stream) {
+  return level_sums(xyb1, xyb2, batch, h, w, taps, parts, sums, sums_bstride,
                     static_cast<cudaStream_t>(stream));
 }
 

@@ -19,16 +19,17 @@
 //     column pass, the maps and per-tile f32 partials into that level's
 //     slot; then one last phase reduces every level's partials in f64.  Three
 //     syncs per level.  Between phases the planes stay in the 50 MB L2.
-//   * partials belong to fixed 32x8 tiles of the level (as pixel_grid's
-//     blocks in ssimulacra2_scale.cu), never to block indices, and every sum
-//     is taken in a fixed order: the sums depend neither on the occupancy nor
-//     on the run, and equal the per-level route's (the same per-pixel code,
-//     ssimulacra2_level.cuh, and the same trees, level.cuh).
+//   * partials belong to fixed 32x8 tiles of the level (the sub-tiles of
+//     ssimulacra2_scale.cu's fused level kernel), never to block indices, and
+//     every sum is taken in a fixed order: the sums depend neither on the
+//     occupancy nor on the run, and equal the per-level route's (the same
+//     per-pixel code, ssimulacra2_level.cuh, and the same trees, level.cuh).
 //   * one scratch allocation sized from the first level (the caller's).
 // A refused cooperative launch (a grid that cannot be co-resident) is
 // returned as the CUDA error; nothing falls back.  Thread-block clusters with
 // distributed shared memory for the smallest levels, and the row and column
-// passes fused over shared-memory tiles, are later work.
+// passes fused over shared-memory tiles as the per-level route does, are
+// later work.
 //
 // Layouts (all contiguous, f32):
 //   p12   (2, B, 3, h0, w0)         linear RGB of the first level
@@ -62,6 +63,42 @@ struct TailArgs {
 
 __device__ __forceinline__ int level_tiles_x(int w) { return (w + kBx - 1) / kBx; }
 __device__ __forceinline__ int level_tiles_y(int h) { return (h + kBy - 1) / kBy; }
+
+// Horizontal pass at column c of one row: a and b point at the row of the
+// reference's and the distorted image's XYB plane; taps outside [0, w) are
+// skipped.  s: blurred x1, x2, (x1-x2)^2, x1*x2.
+__device__ __forceinline__ void blur_row_px(const float* __restrict__ a,
+                                            const float* __restrict__ b, int c, int w,
+                                            const float* __restrict__ taps, float (&s)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) s[q] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) {
+    const int cc = c + k - kRadius;
+    if (cc >= 0 && cc < w) row_tap(s, __ldg(taps + k), a[cc], b[cc]);
+  }
+}
+
+// Vertical pass at row r (taps outside [0, h) skipped) of the four
+// row-blurred quantities, base pointing at (row 0, this column) of the first
+// and qstride apart; then the maps from the XYB samples i1 (reference) and i2
+// (distorted) at the pixel.  v: d, d^4, art, art^4, det, det^4.
+__device__ __forceinline__ void blur_col_maps_px(const float* __restrict__ base, size_t qstride,
+                                                 int r, int h, int w,
+                                                 const float* __restrict__ taps, float i1,
+                                                 float i2, float (&v)[6]) {
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) {
+    const int rr = r + k - kRadius;
+    if (rr >= 0 && rr < h) {
+      const float* row = base + (size_t)rr * w;
+      const float x[4] = {row[0], row[qstride], row[2 * qstride], row[3 * qstride]};
+      col_tap(s, __ldg(taps + k), x);
+    }
+  }
+  ssim_maps(s, i1, i2, v);
+}
 
 // block: kThreads threads (1-D); grid: co-resident blocks, cooperative.
 __global__ void __launch_bounds__(kThreads) fused_tail_kernel(TailArgs a) {

@@ -645,8 +645,10 @@ def default_batch(width: int, height: int, metrics: Optional[Metrics] = None) ->
     Device bytes per pixel pair, at most (the formats are not known yet):
     the uploaded planes 12 (16-bit 4:4:4 or 16-bit RGB; 3 at 8-bit 4:2:0);
     XPSNR 8 (int32 luma codes of RGB sources; its grids are 3/32); the
-    linear-RGB pair buffer 24 with any RGB family, plus SSIMULACRA2 78 (XYB,
-    four row-blurred planes, level 1), the SSIM family 54 (four
+    linear-RGB pair buffer 24 with any RGB family, plus SSIMULACRA2 78 (XYB
+    24, level 1 6, and 48 for four row-blurred planes that the fused level
+    pass now keeps in shared memory: this term overstates by 48 bytes per
+    pixel pair until the batch ladder retunes it), the SSIM family 54 (four
     row-correlated planes, the emitted level) and PSNR 48 (quantized pair
     and its difference); VMAF 62 (the aligned distorted luma 8, the f32 pair
     8, VIF's five row-blurred planes and emission 24 and level 1 2, ADM's

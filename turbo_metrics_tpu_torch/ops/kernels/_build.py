@@ -37,14 +37,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _PF = ctypes.POINTER(ctypes.c_float)  # host floats
+_PI = ctypes.POINTER(ctypes.c_int)  # host ints
 # (name, argtypes): every entry point returns a cudaError_t as int.
 _SIGNATURES = {
     "tm_level_blocks": [_I, _I],
+    "tm_level_tile_attrs": [_PI],
     "tm_yuv420_to_xyb": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P],
     "tm_rgb_to_xyb": [_P, _I, _I, _I, _P, _P, _P, _P],
     "tm_rgb_pair_to_xyb": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "tm_level_sums": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    "tm_level_sums_pair": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    "tm_level_sums": [_P, _I, _I, _I, _P, _P, _P, _I, _P],
+    "tm_level_sums_pair": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "tm_fused_tail": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tm_downscale2": [_P, _I, _I, _I, _P, _P],
     "tm_yuv420_to_rgb": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],

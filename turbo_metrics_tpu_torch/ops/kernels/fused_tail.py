@@ -15,7 +15,11 @@ from __future__ import annotations
 import torch
 
 from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
-from turbo_metrics_tpu_torch.ops.kernels.scale_stats import check_level, check_level_consts
+from turbo_metrics_tpu_torch.ops.kernels.scale_stats import (
+    check_level,
+    check_level_consts,
+    level_blocks,
+)
 from turbo_metrics_tpu_torch.ops.kernels.scale_tail import fused_pyramid_tail_ref
 
 # The twin: a loop of fused_scale_rgb_ref over the levels, each level's 2x2
@@ -48,7 +52,7 @@ def fused_tail(
     n_next = 2 * bsz * 3 * ((h + 1) // 2) * ((w + 1) // 2) if num_levels > 1 else 0
     n_parts, lh, lw = 0, h, w
     for _ in range(num_levels):
-        n_parts += bsz * 3 * lib.tm_level_blocks(lh, lw) * 6
+        n_parts += bsz * 3 * level_blocks(lh, lw) * 6
         lh, lw = (lh + 1) // 2, (lw + 1) // 2
     # One allocation: xyb, the four row-blurred planes, two level planes, the
     # partials of every level.

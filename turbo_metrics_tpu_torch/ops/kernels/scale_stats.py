@@ -113,13 +113,28 @@ def check_level(p12: torch.Tensor) -> None:
         raise ValueError("p12 must be contiguous float32")
 
 
-def s2_level_scratch(lib, bsz: int, h: int, w: int, dev):
-    """XYB, row-blurred planes and block partials of an h x w level."""
-    n = bsz * 3 * h * w
+# The partials' tile: the level kernels reduce each 32x8 tile of a plane to
+# six f32 partials (csrc/level.cuh pixel_grid, tile_partials).
+PART_W, PART_H = 32, 8
+
+
+def level_blocks(h: int, w: int) -> int:
+    """Partial tiles per (batch, channel) plane of an h x w level: the count
+    of ``tm_level_blocks`` (csrc/ssimulacra2_scale.cu)."""
+    return -(-w // PART_W) * -(-h // PART_H)
+
+
+def level_parts(bsz: int, h: int, w: int, dev) -> torch.Tensor:
+    """The six partials of every 32x8 tile of B*3 planes of an h x w level."""
+    return torch.empty(bsz * 3 * level_blocks(h, w) * 6, dtype=torch.float32, device=dev)
+
+
+def s2_level_scratch(bsz: int, h: int, w: int, dev):
+    """(XYB pair, partials) of an h x w level: the level pass keeps its
+    row-blurred planes in shared memory, so they take no device memory."""
     return (
-        torch.empty(2 * n, dtype=torch.float32, device=dev),
-        torch.empty(4 * n, dtype=torch.float32, device=dev),
-        torch.empty(bsz * 3 * lib.tm_level_blocks(h, w) * 6, dtype=torch.float32, device=dev),
+        torch.empty(2 * bsz * 3 * h * w, dtype=torch.float32, device=dev),
+        level_parts(bsz, h, w, dev),
     )
 
 
@@ -173,7 +188,7 @@ def fused_scale0_yuv(
     dev = y2.device
     rng = colorspace.sample_range(depth, full_range)
     coeffs = colorspace.conversion_coeffs(depth, matrix, full_range, kr_kb)
-    xyb, tmp, parts = s2_level_scratch(lib, bsz, h, w, dev)
+    xyb, parts = s2_level_scratch(bsz, h, w, dev)
     ds = (
         torch.empty((2, bsz, 3, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=dev)
         if emit_ds else None
@@ -191,8 +206,8 @@ def fused_scale0_yuv(
     )
     check(
         lib.tm_level_sums(
-            xyb.data_ptr(), bsz, h, w, taps.data_ptr(), tmp.data_ptr(),
-            parts.data_ptr(), sums.data_ptr(), 18, stream,
+            xyb.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(), 18,
+            stream,
         ),
         "tm_level_sums",
     )
@@ -216,7 +231,7 @@ def launch_rgb_level(lib, p12, taps, opsin, scratch, sums, sums_bstride, nxt) ->
     into ``nxt`` unless it is None.  ``scratch``: ``s2_level_scratch`` of a
     level at least this large."""
     _, bsz, _, h, w = p12.shape
-    xyb, tmp, parts = scratch
+    xyb, parts = scratch
     stream = torch.cuda.current_stream(p12.device).cuda_stream
     check(
         lib.tm_rgb_to_xyb(
@@ -227,8 +242,8 @@ def launch_rgb_level(lib, p12, taps, opsin, scratch, sums, sums_bstride, nxt) ->
     )
     check(
         lib.tm_level_sums(
-            xyb.data_ptr(), bsz, h, w, taps.data_ptr(), tmp.data_ptr(),
-            parts.data_ptr(), sums.data_ptr(), sums_bstride, stream,
+            xyb.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(),
+            sums_bstride, stream,
         ),
         "tm_level_sums",
     )
@@ -258,7 +273,7 @@ def fused_scale_rgb(
         if emit_ds else None
     )
     sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
-    launch_rgb_level(lib, p12, taps, opsin, s2_level_scratch(lib, bsz, h, w, dev), sums, 18, ds)
+    launch_rgb_level(lib, p12, taps, opsin, s2_level_scratch(bsz, h, w, dev), sums, 18, ds)
     fused_scale_rgb.launches += 1
     return sums, ds
 
@@ -290,13 +305,12 @@ def scale_sums(xyb1: torch.Tensor, xyb2: torch.Tensor, taps: torch.Tensor) -> to
     lib = LIBRARY.get()
     bsz, _, h, w = xyb1.shape
     dev = xyb1.device
-    tmp = torch.empty(4 * bsz * 3 * h * w, dtype=torch.float32, device=dev)
-    parts = torch.empty(bsz * 3 * lib.tm_level_blocks(h, w) * 6, dtype=torch.float32, device=dev)
+    parts = level_parts(bsz, h, w, dev)
     sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
     check(
         lib.tm_level_sums_pair(
-            xyb1.data_ptr(), xyb2.data_ptr(), bsz, h, w, taps.data_ptr(), tmp.data_ptr(),
-            parts.data_ptr(), sums.data_ptr(), 18, torch.cuda.current_stream(dev).cuda_stream,
+            xyb1.data_ptr(), xyb2.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(),
+            sums.data_ptr(), 18, torch.cuda.current_stream(dev).cuda_stream,
         ),
         "tm_level_sums_pair",
     )
@@ -327,7 +341,7 @@ def fused_scale_pair(
     lib = LIBRARY.get()
     bsz, _, h, w = lin_ref.shape
     dev = lin_ref.device
-    xyb, tmp, parts = s2_level_scratch(lib, bsz, h, w, dev)
+    xyb, parts = s2_level_scratch(bsz, h, w, dev)
     sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(
@@ -339,8 +353,8 @@ def fused_scale_pair(
     )
     check(
         lib.tm_level_sums(
-            xyb.data_ptr(), bsz, h, w, taps.data_ptr(), tmp.data_ptr(), parts.data_ptr(),
-            sums.data_ptr(), 18, stream,
+            xyb.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(), 18,
+            stream,
         ),
         "tm_level_sums",
     )

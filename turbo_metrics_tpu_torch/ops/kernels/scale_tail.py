@@ -57,7 +57,7 @@ def fused_pyramid_tail(
     lib = LIBRARY.get()
     _, bsz, _, h, w = p12.shape
     dev = p12.device
-    scratch = s2_level_scratch(lib, bsz, h, w, dev)  # the first level is the largest
+    scratch = s2_level_scratch(bsz, h, w, dev)  # the first level is the largest
     sums = torch.empty((bsz, num_levels, 3, 6), dtype=torch.float32, device=dev)
     cur = p12
     for li in range(num_levels):

@@ -47,11 +47,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-# The kernels of one SSIMULACRA2 level after its quad pass (csrc/ssimulacra2_scale.cu).
-LEVEL = ("blur_rows_kernel", "blur_cols_maps_kernel", "reduce_parts_kernel")
+# The kernels of one SSIMULACRA2 level after its conversion pass
+# (csrc/ssimulacra2_scale.cu): the fused level pass, the f64 reduction.
+LEVEL = ("level_tile_kernel", "reduce_parts_kernel")
 # Timed runs of ``--iters`` calls per entry; the call time is their median.
 REPEATS = 5
-
+# Profiler readings of one entry that keep fewer than half their calls whole
+# before that is an error.
+PROFILE_ATTEMPTS = 3
 
 @dataclass(frozen=True)
 class Probe:
@@ -110,36 +113,83 @@ def time_ms(fn, iters: int, device: torch.device = torch.device("cuda"), warmup:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, iters: int) -> list:
+class ProfileMismatch(RuntimeError):
+    """The profiler's kernel records of an entry's calls do not repeat."""
+
+
+def split_calls(records: list, marks: set, expect: int | None = None) -> list:
+    """The records [(kernel name, ms)] of one profiler reading, in launch
+    order, split into calls at the marks (the records named in ``marks``):
+    the calls that kept all ``expect`` records (where None, the most common
+    count).  The profiler now and then drops a kernel record: a call that
+    lost one is left out, and so are the two calls around a lost mark."""
+    calls, call = [], []
+    for rec in records + [None]:
+        if rec is None or rec[0] in marks:
+            calls.append(call)
+            call = []
+        else:
+            call.append(rec)
+    calls = [c for c in calls if c]
+    if expect is None and calls:
+        expect = Counter(len(c) for c in calls).most_common(1)[0][0]
+    return [c for c in calls if len(c) == expect]
+
+
+def kernel_device_ms(fn, iters: int, expect: int | None = None) -> list:
     """Device time of each CUDA kernel that one fn() call launches, in launch
-    order, as [(kernel name, ms)]: the mean over ``iters`` calls, by
-    torch.profiler.  Raises where the profiler records no kernels or the
-    calls launch different ones."""
+    order, as [(kernel name, ms)]: the mean over the whole calls of a
+    torch.profiler reading of ``iters`` calls (``split_calls``; ``expect``:
+    the launches of one call, where known).  A reading that keeps fewer
+    than half its calls is taken again, up to ``PROFILE_ATTEMPTS`` readings;
+    then it raises, as where the calls launch different kernels."""
+    for _ in range(PROFILE_ATTEMPTS):
+        calls = split_calls(*_profile_calls(fn, iters), expect)
+        if 2 * len(calls) >= iters:
+            break
+    else:
+        raise ProfileMismatch(f"{len(calls)} of {iters} calls kept all their kernel records")
+    first = [n for n, _ in calls[0]]
+    for call in calls[1:]:
+        if [n for n, _ in call] != first:
+            raise ProfileMismatch(f"the calls launched different kernels: {[n for n, _ in call]} "
+                                  f"where the first launched {first}")
+    return [(n, sum(call[i][1] for call in calls) / len(calls)) for i, n in enumerate(first)]
+
+
+def _cuda_records(run) -> list:
+    """[(kernel name, ms)] of the CUDA kernels that run() launches, by
+    torch.profiler, in launch order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+        run()
         torch.cuda.synchronize()
     events = sorted(
         (e for e in prof.events()
          if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset"))),
         key=lambda e: e.time_range.start,
     )
-    if not events or len(events) % iters:
-        raise RuntimeError(f"the profiler recorded {len(events)} kernels over {iters} calls")
-    per_call = len(events) // iters
-    names = [kernel_name(e.name) for e in events[:per_call]]
-    ms = [0.0] * per_call
-    for i, e in enumerate(events):
-        if kernel_name(e.name) != names[i % per_call]:
-            raise RuntimeError(f"the calls launched different kernels: {kernel_name(e.name)} "
-                               f"where the first launched {names[i % per_call]}")
-        ms[i % per_call] += e.time_range.elapsed_us() / 1e3 / iters
-    return list(zip(names, ms))
+    return [(kernel_name(e.name), e.time_range.elapsed_us() / 1e3) for e in events]
+
+
+def _profile_calls(fn, iters: int) -> tuple:
+    """(the records of ``iters`` fn() calls, each after a mark: a spin
+    kernel of a few cycles; the marks' kernel names, read alone first)."""
+    def mark():
+        torch.cuda._sleep(1)
+
+    fn()
+    torch.cuda.synchronize()
+    marks = {n for n, _ in _cuda_records(lambda: [mark() for _ in range(4)])}
+
+    def calls():
+        for _ in range(iters):
+            mark()
+            fn()
+
+    return _cuda_records(calls), marks
 
 
 def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
@@ -219,7 +269,9 @@ def dissect(probe: Probe, iters: int, dev: torch.device) -> list:
     """The rows of one probe: on the card each kernel's device time, checked
     against the kernels the probe expects; on the CPU none."""
     call_ms = statistics.median(time_ms(probe.fn, iters, dev) for _ in range(REPEATS))
-    seq = kernel_device_ms(probe.fn, iters) if dev.type == "cuda" else None
+    seq = None
+    if dev.type == "cuda":
+        seq = kernel_device_ms(probe.fn, iters, probe.parts * sum(c for _, c in probe.kernels))
     if seq is not None and len(seq) % probe.parts:
         raise RuntimeError(f"{probe.entry}: {len(seq)} kernels in {probe.parts} equal parts")
     rows = []
