@@ -8,10 +8,11 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 Phases, each fatal on failure (exit code 1):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from turbo_metrics_tpu_torch/csrc with nvcc;
-     the Python count of 32x8 partial tiles that sizes the SSIMULACRA2 level
-     scratch equal to the library's (tm_level_blocks) on sizes that cross
-     tile edges and on every 1080p and 4K level; the fused level kernel's
-     registers, shared memory and blocks per SM;
+     the Python counts of 32x8 partial tiles that size the SSIMULACRA2,
+     SSIM and VIF level scratch equal to the library's (tm_level_blocks,
+     tm_ssim_blocks, tm_vif_blocks) on sizes that cross tile edges and on
+     every level of the 1080p (and 4K) pyramids; the registers, shared
+     memory, blocks per SM and spills of every fused level kernel instance;
   3. write a seeded 1080p 8-bit 4:2:0 BT.709 limited-range Y4M pair
      (16 frames, noise on a smooth base) to a temporary directory;
   4. score it through the port's CLI (-m ssimulacra2 --output json), every
@@ -50,7 +51,9 @@ Phases, each fatal on failure (exit code 1):
   5a. the same for the multi-metric kernels: conversion atol 1e-6, kernel #3
      as kernel 2 and its sums equal bit for bit to #4's on the same level
      run as one level, SSIM sums rtol 1e-5 with the emitted level 1 exactly equal,
-     the MS-SSIM tail rtol 1e-5; per frame, the kernel route against the
+     the MS-SSIM tail rtol 1e-5; the same for #11 (quantize, emit) on
+     11x11, 42x43 and 67x99 and #12 from 67x99, sizes that cross the 32x32
+     tiles' edges; per frame, the kernel route against the
      plain route and the CLI: PSNR 1e-4 dB, SSIM and MS-SSIM 1e-5,
      SSIMULACRA2 0.01; then a small odd-sized pair with an 8-bit reference
      and a 10-bit distorted stream, engine on the card against engine on
@@ -68,8 +71,9 @@ Phases, each fatal on failure (exit code 1):
   5c. kernels #16 and #17 against their twins, blurred planes and row SADs
      equal, on both 1080p batches (frame 8 takes frame 7's blur across the
      batch boundary) and on small odd sizes at 10 and 16 bits; #14 + #15
-     sums rtol 1e-4 / atol 1e-5 per scale, scores 1e-5; #18 sums rtol 1e-4,
-     scores 1e-4; the VMAF features of the twins' route against the CLI's;
+     sums rtol 1e-4 / atol 1e-5 per scale, scores 1e-5, also on 13x21 (the
+     17-tap window wider than the plane), 67x99 and 35x131; #18 sums rtol
+     1e-4, scores 1e-4; the VMAF features of the twins' route against the CLI's;
   5d. kernel #4 against its twin (sums rtol 1e-4 / atol 1e-5) and against
      kernel 2 (bit for bit) on the 4K pair's level 3 (B=4), on a 67x99 pair
      from level 0 (five levels, kernel 2 bit for bit)
@@ -93,7 +97,8 @@ Phases, each fatal on failure (exit code 1):
      the 4K route, with CUDA events after warm-up; the 4K step beside the
      route it replaced (kernel 1, then kernel 2 on levels 1-5) on the same
      inputs, by CUDA events and by torch.profiler device time; the peak
-     device memory of one 1080p and one 4K kernel step; and the CLI
+     device memory of one kernel step above its inputs (1080p SSIMULACRA2,
+     multi-metric and VMAF, 4K SSIMULACRA2); and the CLI
      runs of phases 4, 4a, 4b (a), 4c, 4d, 4e and 4f again warm, three
      times each in turn;
   8. the dissect path: turbo_metrics_tpu_torch.tools.kernel_dissect at its
@@ -182,6 +187,9 @@ F_ADM_LEVEL = 63
 # f32 operations per summed pixel of the blur-only probe (#19): 5 repetitions
 # x 2 directions x 11 multiply-adds of 2 operations.
 F_PROBE = 220
+# The kernels whose passes were fused into one tile kernel per level.
+REDESIGNED = {"fused_scale0_yuv": "fused level pass", "fused_scale_rgb": "fused level pass",
+              "ssim_sums": "fused tile pass", "vif_scale0": "fused tile pass"}
 # The wrappers the dissect path times (phase 8), each launched there.
 DISSECT_KERNELS = ("fused_scale_rgb", "scale_sums", "blur_only", "fused_scale0_yuv", "fused_pyramid_tail",
                    "fused_scale_pair", "ssim_sums", "msssim_tail", "vif_scale0", "vif_tail", "adm_stats")
@@ -994,24 +1002,106 @@ def check_other_formats(model) -> None:
 
 
 def check_level_blocks(lib, card: str) -> None:
-    """Phase 2: the Python count of 32x8 partial tiles that sizes the level
-    scratch (scale_stats.level_blocks) against the library's, on sizes that
-    cross tile edges and on every level of the 1080p and 4K pyramids; then
-    what the fused level kernel takes on this card."""
+    """Phase 2: the Python counts of 32x8 partial tiles that size the level
+    scratch (scale_stats.level_blocks, windowed.ssim_blocks,
+    vif.vif_blocks) against the library's, on sizes that cross tile edges
+    and on every level of the 1080p (and, for SSIMULACRA2, 4K) pyramids;
+    then what each fused level kernel instance takes on this card."""
     import ctypes
 
+    from turbo_metrics_tpu_torch.ops import quality
     from turbo_metrics_tpu_torch.ops.downscale import scale_dims
-    from turbo_metrics_tpu_torch.ops.kernels import _build, scale_stats
+    from turbo_metrics_tpu_torch.ops.kernels import _build, scale_stats, vif, windowed
 
     sizes = [(1, 1), (33, 65), (67, 99)] + scale_dims(HEIGHT, WIDTH) + scale_dims(UHD_HEIGHT, UHD_WIDTH)
     for h, w in sizes:
         got, want = lib.tm_level_blocks(h, w), scale_stats.level_blocks(h, w)
         need(got == want, f"tm_level_blocks({h}, {w}) = {got}, level_blocks = {want}")
-    log(f"tm_level_blocks equals level_blocks on {len(sizes)} sizes")
-    a = (ctypes.c_int * 3)()
+    lv, _ = quality._clamp_levels(HEIGHT, WIDTH, MS_LEVELS)
+    ssim_sizes = [(11, 11), (42, 43), (67, 99)] + [(HEIGHT >> i, WIDTH >> i) for i in range(lv)]
+    for h, w in ssim_sizes:
+        got, want = lib.tm_ssim_blocks(h, w), windowed.ssim_blocks(h, w)
+        need(got == want, f"tm_ssim_blocks({h}, {w}) = {got}, ssim_blocks = {want}")
+    vif_sizes = [(13, 21), (67, 99), (35, 131)]
+    h, w = HEIGHT, WIDTH
+    for _ in range(4):
+        vif_sizes.append((h, w))
+        h, w = (h + 1) // 2, (w + 1) // 2
+    for h, w in vif_sizes:
+        got, want = lib.tm_vif_blocks(h, w), vif.vif_blocks(h, w)
+        need(got == want, f"tm_vif_blocks({h}, {w}) = {got}, vif_blocks = {want}")
+    log(f"tm_level_blocks equals level_blocks on {len(sizes)} sizes, tm_ssim_blocks ssim_blocks on "
+        f"{len(ssim_sizes)}, tm_vif_blocks vif_blocks on {len(vif_sizes)}")
+    a = (ctypes.c_int * 4)()
     _build.check(lib.tm_level_tile_attrs(a), "tm_level_tile_attrs")
     log(f"level_tile_kernel: {a[0]} registers, {a[1]} B of shared memory per block, "
         f"{a[2]} blocks per SM [{card}]")
+    for q in (1, 0):
+        _build.check(lib.tm_ssim_tile_attrs(q, a), "tm_ssim_tile_attrs")
+        log(f"ssim_tile_kernel<{'true' if q else 'false'}>: {a[0]} registers, {a[1]} B of static shared "
+            f"memory per block, {a[2]} blocks per SM, {a[3]} B of local memory (spills) [{card}]")
+    for scale, inst in enumerate(("8, 4", "4, 2", "2, 1", "1, 0")):
+        _build.check(lib.tm_vif_tile_attrs(scale, a), "tm_vif_tile_attrs")
+        log(f"vif_tile_kernel<{inst}> (scale {scale}): {a[0]} registers, {a[1]} B of dynamic shared "
+            f"memory per block, {a[2]} blocks per SM, {a[3]} B of local memory (spills) [{card}]")
+
+
+def check_ssim_edges(dev, win) -> float:
+    """Phase 5a, sizes that cross the 32x32 tile's edges: #11 with
+    quantization and emission on 11x11 (one valid pixel), 42x43 and 67x99
+    (sums rtol 1e-5, the emitted level equal), and #12 from 67x99 down to
+    its last level (rtol 1e-5), each on a seeded pair whose distorted image
+    is the reference plus noise.  Returns the largest relative error."""
+    from turbo_metrics_tpu_torch.ops.kernels import windowed, windowed_tail
+
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def pair(h, w, scale):
+        ref = torch.rand((2, 3, h, w), generator=g, device=dev) * scale
+        noise = torch.randn((2, 3, h, w), generator=g, device=dev) * (0.05 * scale)
+        return torch.stack([ref, (ref + noise).clamp(0, scale)]).contiguous()
+
+    worst = 0.0
+    for h, w in ((11, 11), (42, 43), (67, 99)):
+        p12 = pair(h, w, 1.0)
+        s_k, d_k = windowed.ssim_sums(p12, win, quantize=True, emit_ds=True)
+        s_p, d_p = windowed.ssim_sums_ref(p12, win, quantize=True, emit_ds=True)
+        e = check_close(f"#11 sums at {h}x{w}", s_k, s_p, 1e-5, 0.0)
+        need(torch.equal(d_k, d_p), f"#11 emitted level at {h}x{w} differs from the twin's")
+        rel = float(((s_k - s_p).abs() / s_p.abs()).max())
+        worst = max(worst, rel)
+        log(f"#11 vs twin at {h}x{w} B=2 (quantize, emit): sums max abs err {e:.3g}, max rel {rel:.3g}; "
+            "emitted level equal")
+    q = torch.round(pair(67, 99, 255.0))
+    n = 1
+    while min(67, 99) >> n >= 11:
+        n += 1
+    t_k, t_p = windowed_tail.msssim_tail(q, n, win), windowed_tail.msssim_tail_ref(q, n, win)
+    e = check_close(f"#12 sums from 67x99, {n} levels", t_k, t_p, 1e-5, 0.0)
+    rel = float(((t_k - t_p).abs() / t_p.abs()).max())
+    log(f"#12 vs twin from 67x99 B=2, {n} levels: sums max abs err {e:.3g}, max rel {rel:.3g}")
+    return max(worst, rel)
+
+
+def check_vif_edges(dev) -> None:
+    """Phase 5c, sizes that cross the 32x32 tile's edges: #14 and #15 on
+    13x21 (the 17-tap window wider than the plane), 67x99 and 35x131, on a
+    seeded 8-bit pair whose distorted image is the reference plus noise:
+    sums rtol 1e-4 / atol 1e-5 per scale, #14's emitted level rtol 1e-5 /
+    atol 1e-4."""
+    from turbo_metrics_tpu_torch.ops.kernels import vif
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    for h, w in ((13, 21), (67, 99), (35, 131)):
+        ref = torch.randint(0, 256, (2, h, w), generator=g, device=dev).float()
+        dis = (ref + torch.randint(-12, 13, (2, h, w), generator=g, device=dev)).clamp(0, 255)
+        p = torch.stack([ref, dis]).contiguous()
+        s0_k, l1_k = vif.vif_scale0(p)
+        s0_p, l1_p = vif.vif_scale0_ref(p)
+        e0 = max(check_close(f"#14 sums at {h}x{w}", s0_k, s0_p, 1e-4, 1e-5),
+                 check_close(f"#14 level 1 at {h}x{w}", l1_k, l1_p, 1e-5, 1e-4))
+        e1 = check_close(f"#15 sums from {h}x{w}", vif.vif_tail(l1_p), vif.vif_tail_ref(l1_p), 1e-4, 1e-5)
+        log(f"#14 vs twin at {h}x{w} B=2: max abs err {e0:.3g}; #15 from its level 1: {e1:.3g}")
 
 
 def check_golden(dev) -> float:
@@ -1402,10 +1492,12 @@ def main() -> int:
         e1, e2, lvl1 = check_parity(y2, uv2, model, cli_scores)
         check_other_formats(model)
         multi_err, p12, ms_l1 = check_multi_parity(y2, uv2, model, qmod, multi_scores)
+        check_ssim_edges(dev, win)
         check_mixed_spec(dev)
         e13 = check_xpsnr_kernel(y16, xpsnr_scores)
         e5 = check_convert_kernel(y422, uv422)
         vmaf_err, vpair, vlevel1 = check_vmaf_kernels(y16, vmaf_scores)
+        check_vif_edges(dev)
         check_mezzanine_engine(dev)
         model4k = Ssimulacra2(UHD_WIDTH, UHD_HEIGHT, device=dev)
         e4, lvl3 = check_uhd(y4k, uv4k, model4k, uhd_scores, dev)
@@ -1445,6 +1537,7 @@ def main() -> int:
         multi_ms = [time_ms(lambda: multi_step_kernel(y2, uv2, model, qmod), 10)]
         multi_plain_ms = [time_ms(lambda: multi_step_plain(y2, uv2, model), 3) for _ in range(2)]
         multi_ms.append(time_ms(lambda: multi_step_kernel(y2, uv2, model, qmod), 10))
+        multi_mib = step_peak_mib(lambda: multi_step_kernel(y2, uv2, model, qmod), dev)
         xp_args = (y16[0, :BATCH], y16[1, :BATCH], y16[0, 0])
         k13_ms = time_ms(lambda: xpsnr.xpsnr_block_stats(*xp_args), 20)
         k13_plain_ms = time_ms(lambda: xpsnr.xpsnr_block_stats_ref(*xp_args), 5)
@@ -1466,6 +1559,7 @@ def main() -> int:
         vmaf_ms = [time_ms(lambda: vmaf_step(vy, vd, prev0, True), 10)]
         vmaf_plain_ms = [time_ms(lambda: vmaf_step(vy, vd, prev0, False), 3) for _ in range(2)]
         vmaf_ms.append(time_ms(lambda: vmaf_step(vy, vd, prev0, True), 10))
+        vmaf_mib = step_peak_mib(lambda: vmaf_step(vy, vd, prev0, True), dev)
         k4_ms = time_ms(lambda: fused_tail.fused_tail(lvl3, 3, taps, opsin), 20)
         k4_plain_ms = time_ms(lambda: fused_tail.fused_tail_ref(lvl3, 3, taps, opsin), 5)
         k2_lvl3_ms = time_ms(lambda: scale_tail.fused_pyramid_tail(lvl3, 3, taps, opsin), 20)
@@ -1536,8 +1630,9 @@ def main() -> int:
                          for t in runs)
             + f" [{card}]"
         )
-    log(f"peak device memory of one kernel step above its inputs: {WIDTH}x{HEIGHT} B={BATCH} "
-        f"{step_mib:.1f} MiB, {UHD_WIDTH}x{UHD_HEIGHT} B={UHD_BATCH} {uhd_mib:.1f} MiB [{card}]")
+    log(f"peak device memory of one kernel step above its inputs: SSIMULACRA2 {WIDTH}x{HEIGHT} B={BATCH} "
+        f"{step_mib:.1f} MiB, multi-metric {multi_mib:.1f} MiB, VMAF {vmaf_mib:.1f} MiB, SSIMULACRA2 "
+        f"{UHD_WIDTH}x{UHD_HEIGHT} B={UHD_BATCH} {uhd_mib:.1f} MiB [{card}]")
     log(f"kernel 2 on the same 4K level-3 plane as #4: {k2_lvl3_ms:.3f} ms (#4 {k4_ms:.3f} ms) [{card}]")
     log(f"avg_pool2d(2, ceil_mode=True) on #7's input: {k7_lib_ms:.3f} ms (#7 {k7_ms:.3f} ms) [{card}]")
     rel = [float(((c - probe_sums) / probe_sums).abs().max()) for c in conv_sums]
@@ -1644,10 +1739,10 @@ def main() -> int:
             # separable F.conv2d blurs, timed above as yardsticks; the port
             # never calls them.
             "library_ms": lib[0] if lib else None,
-            # Kernels 1 and #3 were redesigned around the fused level pass
-            # (one tile kernel per level instead of a row and a column pass).
-            "redesigned": ("fused level pass" if name in ("fused_scale0_yuv", "fused_scale_rgb")
-                           else None),
+            # Kernels 1 and #3 were redesigned around the fused level pass,
+            # #11 and #14 around a fused tile pass (one tile kernel per level
+            # instead of a row and a column pass and an emission pass).
+            "redesigned": REDESIGNED.get(name),
         })
     peak = max(RUN_PEAK[0], torch.cuda.max_memory_allocated(dev))
     log(f"peak device memory {peak / 2**30:.2f} GiB [{card}]")

@@ -176,14 +176,11 @@ def test_kernel_dissect_on_cpu():
         # 48x64 has four SSIMULACRA2 levels and three MS-SSIM levels.
         **{f"kernel 2 level {i}": rgb_level for i in (1, 2, 3)},
         "#10 pair sums": rgb_level,
-        "#11 SSIM level 0": {"ssim_rows_kernel": 1, "ssim_cols_kernel": 1, "reduce_parts_kernel": 1,
-                             "halfpool_kernel": 1},
-        "#12 MS-SSIM levels 1+": {"ssim_rows_kernel": 2, "ssim_cols_kernel": 2, "reduce_parts_kernel": 2,
-                                  "halfpool_kernel": 1},
-        "#14 VIF scale 0": {"vif_rows_kernel": 1, "vif_cols_kernel": 1, "reduce_frames_kernel": 1,
-                            "vif_emit_kernel": 1},
-        "#15 VIF scales 1-3": {"vif_rows_kernel": 3, "vif_cols_kernel": 3, "reduce_frames_kernel": 3,
-                               "vif_emit_kernel": 2},
+        "#11 SSIM level 0": {"ssim_tile_kernel": 1, "reduce_parts_kernel": 1},
+        "#11 SSIM level 0 no-ds": {"ssim_tile_kernel": 1, "reduce_parts_kernel": 1},
+        "#12 MS-SSIM levels 1+": {"ssim_tile_kernel": 2, "reduce_parts_kernel": 2},
+        "#14 VIF scale 0": {"vif_tile_kernel": 1, "reduce_frames_kernel": 1},
+        "#15 VIF scales 1-3": {"vif_tile_kernel": 3, "reduce_frames_kernel": 3},
         "#18 ADM": {"adm_rows_kernel": 4, "adm_cols_kernel": 4, "adm_mask_kernel": 4,
                     "reduce_frames_kernel": 4},
     }
@@ -248,3 +245,44 @@ def test_kernel_names_from_the_profiler():
     assert kernel_dissect.base_name(raw) == "reduce_parts_kernel"
     assert kernel_dissect.base_name("(anonymous namespace)::blur_probe_kernel(float const*)") == (
         "blur_probe_kernel")
+
+
+def test_level_outputs_compare(tmp_path):
+    """The A/B tool's ``compare``: each result that both files hold equal
+    bit for bit or not, with its largest difference; a result that only one
+    holds listed apart; one JSON line last; exit status 1 where a compared
+    result differs or none is compared."""
+    from turbo_metrics_tpu_torch.tools import level_outputs
+
+    a = {"x [0]": torch.tensor([1.0, 2.0]), "y [0]": torch.zeros(3), "z [1]": torch.ones(1)}
+    b = {"x [0]": torch.tensor([1.0, 2.0]), "y [0]": torch.tensor([0.0, 0.5, 0.0])}
+    paths = {}
+    for name, results in (("a", a), ("b", b), ("x", {"x [0]": a["x [0]"]}), ("z", {"z [1]": a["z [1]"]})):
+        paths[name] = str(tmp_path / f"{name}.pt")
+        torch.save({"results": results, "peak_mib": {}}, paths[name])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert level_outputs.main(["compare", paths["a"], paths["b"]]) == 1
+        first = out.getvalue().splitlines()[-1]
+        assert level_outputs.main(["compare", paths["a"], paths["x"]]) == 0
+        assert level_outputs.main(["compare", paths["x"], paths["z"]]) == 1
+    assert json.loads(first) == {
+        "compare": [
+            {"result": "x [0]", "shape": [2], "equal": True, "max_abs_diff": 0.0},
+            {"result": "y [0]", "shape": [3], "equal": False, "max_abs_diff": 0.5},
+        ],
+        "only_in_a": ["z [1]"],
+        "only_in_b": [],
+    }
+
+
+def test_level_outputs_save_needs_the_card(tmp_path):
+    """``save`` records the card's results: without a card it raises before
+    it imports any package."""
+    from turbo_metrics_tpu_torch.tools import level_outputs
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the tool runs there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        level_outputs.save(str(tmp_path), str(tmp_path / "out.pt"))
+    assert not (tmp_path / "out.pt").exists()

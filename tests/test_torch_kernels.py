@@ -266,6 +266,24 @@ def test_level_scratch_holds_xyb_and_partials_only(hw):
     assert scale_stats.level_parts(bsz, h, w, "meta").numel() == bsz * 3 * nblk * 6
 
 
+@pytest.mark.parametrize("hw", [(11, 11), (42, 43), (67, 99), (1080, 1920)])
+def test_ssim_level_scratch_holds_partials_only(hw):
+    """The SSIM tile kernel keeps its four row-correlated planes in shared
+    memory and emits the next level from its input tile: a level's device
+    scratch is two f32 partials per 32x8 tile of the (h-10) x (w-10) valid
+    grid of each (batch, channel) plane, ceil((w-10)/32) * ceil((h-10)/8)
+    tiles (the library's tm_ssim_blocks; chip_smoke.py holds the two equal),
+    and sizing it needs no library.  Sizes cross the 32x32 tile's edges;
+    11x11 has one valid pixel."""
+    h, w = hw
+    bsz = 2
+    nblk = math.ceil((w - 10) / 32) * math.ceil((h - 10) / 8)
+    assert windowed.ssim_blocks(h, w) == nblk
+    parts = windowed.level_scratch(bsz, h, w, "meta")
+    assert parts.numel() == bsz * 3 * nblk * 2
+    assert parts.dtype == torch.float32
+
+
 def test_launches_stay_zero_on_cpu(rng):
     """On CPU tensors the wrappers run their plain twins: no launch counted."""
     counted = (

@@ -17,6 +17,7 @@ at 1e-5 where the contraction leaves the value within it (vif, scale 0).
 """
 
 import json
+import math
 
 import numpy as np
 import pytest
@@ -493,3 +494,20 @@ def test_vmaf_mixed_formats_cli_matches_jax(tmp_path, capsys):
         np.testing.assert_allclose(got[k]["scores"], want[k]["scores"], rtol=0, atol=1e-4, err_msg=k)
     for k in ("vmaf_vif", "vmaf_vif_scale0"):
         np.testing.assert_allclose(got[k]["scores"], want[k]["scores"], rtol=0, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("hw", [(13, 21), (67, 99), (35, 131), (1080, 1920)])
+def test_vif_level_scratch_holds_partials_only(hw):
+    """The VIF tile kernel keeps its five row-blurred planes and the next
+    scale's rows in shared memory: a scale's device scratch is two f32
+    partials per 32x8 tile of each frame, ceil(w/32) * ceil(h/8) tiles (the
+    library's tm_vif_blocks; chip_smoke.py holds the two equal), and sizing
+    it needs no library.  Sizes cross the 32x32 tile's edges; at 13x21 the
+    17-tap window is wider than the plane."""
+    h, w = hw
+    bsz = 3
+    nblk = math.ceil(w / 32) * math.ceil(h / 8)
+    assert kvif.vif_blocks(h, w) == nblk
+    parts = kvif.level_scratch(bsz, h, w, "meta")
+    assert parts.numel() == bsz * nblk * 2
+    assert parts.dtype == torch.float32

@@ -1,7 +1,9 @@
 // Block geometry, the deterministic cross-block reduction and the
 // reflect-101 border rule shared by the per-level kernels
 // (ssimulacra2_scale.cu, ssimulacra2_tail.cu, downscale.cu, windowed.cu,
-// vif.cu, adm.cu, blur_probe.cu).
+// vif.cu, adm.cu, blur_probe.cu), and the tile geometry, loads and
+// sub-tile tree of the fused level kernels (ssimulacra2_scale.cu,
+// windowed.cu, vif.cu).
 //
 // A level kernel reduces K quantities per block in a fixed tree in f32 and
 // writes them as parts (planes, nblk, K); reduce_parts_kernel then sums each
@@ -10,6 +12,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -26,6 +29,14 @@ inline dim3 quad_grid(int h, int w, int images) {
   const int hq = (h + 1) / 2, wq = (w + 1) / 2;
   return dim3((wq + kBx - 1) / kBx, (hq + kBy - 1) / kBy, images);
 }
+
+// A fused level kernel runs one block of kTileThreads threads per kTileW x
+// kTileH output tile of one plane; each warp owns one kBx x kBy tile of
+// pixel_grid (its partials' tile), one column per lane.
+constexpr int kSubTiles = 4;             // 32x8 partial tiles per block, one per warp
+constexpr int kTileW = kBx;              // output columns of a block
+constexpr int kTileH = kSubTiles * kBy;  // output rows of a block
+constexpr int kTileThreads = 32 * kSubTiles;
 
 // Tree-reduce v[K] over the block's kThreads threads (red: K*kThreads floats
 // of shared memory) in a fixed order and write the K sums to out[k] (thread
@@ -58,6 +69,56 @@ __device__ __forceinline__ void block_partials(const float (&v)[K], float (*red)
   const size_t nblk = (size_t)gridDim.x * gridDim.y;
   const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
   tile_partials<K>(v, red, parts + (plane * nblk + blk) * K);
+}
+
+// The rest of tile_partials' tree for the warp's sub-tile of a fused level
+// kernel, where v[o][k] holds quantity k of rows o and o + 4 of this lane's
+// column, already added (stride 128 of the tree over position tid = row *
+// 32 + column): stride 64 adds row o + 2 to row o, 32 row 1 (in this
+// thread), then 16 .. 1 the columns (across the warp; a lane at or past the
+// stride adds a value no lane reads) -- the same pairs in the same order as
+// tile_partials over a (kBx, kBy) block, so the sums equal a two-pass
+// design's bit for bit.  __fadd_rn: tile_partials adds values read back
+// from shared memory, so no add may fuse with the caller's last multiplies.
+// Lane 0 writes the K sums to parts[((plane * nby + by) * nbx + blockIdx.x) *
+// K + k] (nbx x nby: the plane's pixel_grid) when the sub-tile row by lies
+// inside it.
+template <int K>
+__device__ __forceinline__ void subtile_partials(float (&v)[kBy / 2][K], float* __restrict__ parts,
+                                                 size_t plane, int by, int nbx, int nby) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[0][k] = __fadd_rn(v[0][k], v[2][k]);
+    v[1][k] = __fadd_rn(v[1][k], v[3][k]);
+    v[0][k] = __fadd_rn(v[0][k], v[1][k]);
+#pragma unroll
+    for (int stride = 16; stride > 0; stride >>= 1) {
+      v[0][k] = __fadd_rn(v[0][k], __shfl_down_sync(0xffffffffu, v[0][k], stride));
+    }
+  }
+  if (threadIdx.x % 32 == 0 && by < nby) {
+    float* out = parts + (plane * nbx * nby + (size_t)by * nbx + blockIdx.x) * K;
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = v[0][k];
+  }
+}
+
+// Samples gc .. gc+3 of row gr of plane p (h x w), zeros outside the plane:
+// one 16-byte load where the four lie inside and are 16-byte aligned (every
+// chunk of a plane whose width is a multiple of 4, as at 1080p and 4K), else
+// one load each.
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, int h, int w, int gr, int gc) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (gr < 0 || gr >= h) return v;
+  const float* q = p + (size_t)gr * w;
+  if (gc >= 0 && gc + 3 < w && reinterpret_cast<uintptr_t>(q + gc) % 16 == 0) {
+    return __ldg(reinterpret_cast<const float4*>(q + gc));
+  }
+  if (gc >= 0 && gc < w) v.x = __ldg(q + gc);
+  if (gc + 1 >= 0 && gc + 1 < w) v.y = __ldg(q + gc + 1);
+  if (gc + 2 >= 0 && gc + 2 < w) v.z = __ldg(q + gc + 2);
+  if (gc + 3 >= 0 && gc + 3 < w) v.w = __ldg(q + gc + 3);
+  return v;
 }
 
 // One block of kReduceThreads threads: the f64 sum of a plane's nblk block

@@ -166,10 +166,6 @@ rgb_to_xyb_kernel(const float* __restrict__ ref, const float* __restrict__ dis, 
 // ---------------------------------------------------------------------------
 // The fused level pass.
 // ---------------------------------------------------------------------------
-constexpr int kSubTiles = 4;                   // 32x8 partial tiles per block, one per warp
-constexpr int kTileW = kBx;                    // output columns of a block
-constexpr int kTileH = kSubTiles * kBy;        // output rows of a block
-constexpr int kTileThreads = 32 * kSubTiles;
 constexpr int kHaloH = kTileH + 2 * kRadius;   // input rows of a tile
 constexpr int kInOff = 8;                      // input column 0 = output column -8
 constexpr int kInW = kTileW + 2 * kInOff;      // input columns held (-8 .. 39; -5 .. 36 used)
@@ -179,24 +175,6 @@ constexpr int kColWin = kBy + 2 * kRadius;     // rows of a thread's column wind
 // Four-float loads per thread: all issued before the first is stored.
 constexpr int kChunks = 2 * kInFloats / 4;
 constexpr int kLoadsPerThread = (kChunks + kTileThreads - 1) / kTileThreads;
-
-// Samples gc .. gc+3 of row gr of plane p, zeros outside the plane: one
-// 16-byte load where the four lie inside and are 16-byte aligned (every
-// chunk of a plane whose width is a multiple of 4, as at 1080p and 4K),
-// else one load each.
-__device__ __forceinline__ float4 load4(const float* __restrict__ p, int h, int w, int gr, int gc) {
-  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (gr < 0 || gr >= h) return v;
-  const float* q = p + (size_t)gr * w;
-  if (gc >= 0 && gc + 3 < w && reinterpret_cast<uintptr_t>(q + gc) % 16 == 0) {
-    return __ldg(reinterpret_cast<const float4*>(q + gc));
-  }
-  if (gc >= 0 && gc < w) v.x = __ldg(q + gc);
-  if (gc + 1 >= 0 && gc + 1 < w) v.y = __ldg(q + gc + 1);
-  if (gc + 2 >= 0 && gc + 2 < w) v.z = __ldg(q + gc + 2);
-  if (gc + 3 >= 0 && gc + 3 < w) v.w = __ldg(q + gc + 3);
-  return v;
-}
 
 // The maps of output row o of this thread's column (zeros outside the
 // plane); p: the reference's XYB sample of the pixel in the input tile.
@@ -286,12 +264,8 @@ level_tile_kernel(const float* __restrict__ xa, const float* __restrict__ xb, in
     }
   }
 
-  // The maps and the sub-tile's tree (level.cuh tile_partials over position
-  // tid = row * 32 + column): stride 128 adds row o + 4 to row o, 64 row
-  // o + 2, 32 row 1 (in this thread), then 16 .. 1 the columns (across the
-  // warp; a lane at or past the stride adds a value no lane reads).
-  // __fadd_rn: tile_partials adds values read back from shared memory, so
-  // no add may fuse with the maps' last multiplies (d^4 ...).
+  // The maps, rows o and o + 4 added (the first stride of level.cuh's tree),
+  // then the rest of the sub-tile's tree.
   float v[kBy / 2][6];
 #pragma unroll
   for (int o = 0; o < kBy / 2; ++o) {
@@ -303,21 +277,7 @@ level_tile_kernel(const float* __restrict__ xa, const float* __restrict__ xb, in
 #pragma unroll
     for (int k = 0; k < 6; ++k) v[o][k] = __fadd_rn(va[k], vb[k]);
   }
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    v[0][k] = __fadd_rn(v[0][k], v[2][k]);
-    v[1][k] = __fadd_rn(v[1][k], v[3][k]);
-    v[0][k] = __fadd_rn(v[0][k], v[1][k]);
-#pragma unroll
-    for (int stride = 16; stride > 0; stride >>= 1) {
-      v[0][k] = __fadd_rn(v[0][k], __shfl_down_sync(0xffffffffu, v[0][k], stride));
-    }
-  }
-  if (lane == 0 && by < nby) {
-    float* out = parts + (plane * nbx * nby + (size_t)by * nbx + blockIdx.x) * 6;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) out[k] = v[0][k];
-  }
+  subtile_partials<6>(v, parts, plane, by, nbx, nby);
 }
 
 int level_blocks(int h, int w) {

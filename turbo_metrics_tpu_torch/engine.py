@@ -646,16 +646,19 @@ def default_batch(width: int, height: int, metrics: Optional[Metrics] = None) ->
     the uploaded planes 12 (16-bit 4:4:4 or 16-bit RGB; 3 at 8-bit 4:2:0);
     XPSNR 8 (int32 luma codes of RGB sources; its grids are 3/32); the
     linear-RGB pair buffer 24 with any RGB family, plus SSIMULACRA2 78 (XYB
-    24, level 1 6, and 48 for four row-blurred planes that the fused level
-    pass now keeps in shared memory: this term overstates by 48 bytes per
-    pixel pair until the batch ladder retunes it), the SSIM family 54 (four
-    row-correlated planes, the emitted level) and PSNR 48 (quantized pair
-    and its difference); VMAF 62 (the aligned distorted luma 8, the f32 pair
-    8, VIF's five row-blurred planes and emission 24 and level 1 2, ADM's
-    row-filtered planes 8, band planes 9 and approximation 2, the blurred
-    luma 2).  All six at 1080p are ~0.6 GB per pair.  No
-    batch ladder has been measured on the H100 yet, so the cap is a guess to
-    revisit (the JAX package's TPU ladders do not transfer).
+    24, level 1 6, and 48 for four row-blurred planes), the SSIM family 54
+    (four row-correlated planes 48, the emitted level) and PSNR 48
+    (quantized pair and its difference); VMAF 62 (the aligned distorted luma
+    8, the f32 pair 8, VIF's five row-blurred planes and emission 24 and
+    level 1 2, ADM's row-filtered planes 8, band planes 9 and approximation
+    2, the blurred luma 2).  All six at 1080p are ~0.6 GB per pair.  The
+    fused tile kernels keep SSIMULACRA2's and the SSIM family's four
+    row-filtered planes and VIF's row-blurred planes and emission rows in
+    shared memory: none of those planes exists in device memory any more,
+    so these terms overstate by 48 + 48 + 24 bytes per pixel pair.  The
+    numbers stay until a batch ladder measured on the H100 replaces them
+    (the JAX package's TPU ladders do not transfer), since they set the
+    batch of every route.
     """
     m = metrics or Metrics(ssimulacra2=True)
     per_px = 12 + 8 * m.xpsnr + 62 * m.vmaf

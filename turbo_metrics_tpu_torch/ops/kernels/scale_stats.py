@@ -114,7 +114,8 @@ def check_level(p12: torch.Tensor) -> None:
 
 
 # The partials' tile: the level kernels reduce each 32x8 tile of a plane to
-# six f32 partials (csrc/level.cuh pixel_grid, tile_partials).
+# f32 partials, six in SSIMULACRA2's, two in SSIM's and VIF's
+# (csrc/level.cuh pixel_grid, tile_partials).
 PART_W, PART_H = 32, 8
 
 

@@ -17,6 +17,7 @@ import torch
 
 from turbo_metrics_tpu_torch.ops import vif
 from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels.scale_stats import PART_H, PART_W
 
 _WINDOWS: dict = {}
 
@@ -59,21 +60,28 @@ def vif_tail_ref(level1):
     return torch.stack(out, dim=1)
 
 
+def vif_blocks(h: int, w: int) -> int:
+    """Partial tiles per frame of an h x w scale: its 32x8 tiles (PART_W x
+    PART_H), the count of ``tm_vif_blocks`` (csrc/vif.cu)."""
+    return -(-w // PART_W) * -(-h // PART_H)
+
+
+def level_scratch(bsz: int, h: int, w: int, dev) -> torch.Tensor:
+    """The two f32 partials of every 32x8 tile of B frames of an h x w
+    scale: a scale's only scratch, since the tile kernel keeps its
+    row-blurred planes (and the next scale's rows) in shared memory."""
+    return torch.empty(bsz * vif_blocks(h, w) * 2, dtype=torch.float32, device=dev)
+
+
 def _launch(lib, x, scale, sums, sums_pstride, nxt):
     """One ``tm_vif_level`` call on the current stream."""
     _, bsz, h, w = x.shape
     dev = x.device
-    tmp = torch.empty(5 * bsz * h * w, dtype=torch.float32, device=dev)
-    parts = torch.empty(bsz * lib.tm_vif_blocks(h, w) * 2, dtype=torch.float32, device=dev)
-    # The next window and the row pass at its even columns, when emitting.
-    win_e = tmp_e = None
-    if nxt is not None:
-        win_e = _window(scale + 1, dev).data_ptr()
-        tmp_e = torch.empty(2 * bsz * h * ((w + 1) // 2), dtype=torch.float32, device=dev)
+    parts = level_scratch(bsz, h, w, dev)
+    win_e = None if nxt is None else _window(scale + 1, dev).data_ptr()
     check(
         lib.tm_vif_level(
-            x.data_ptr(), bsz, h, w, scale, _window(scale, dev).data_ptr(), win_e,
-            tmp.data_ptr(), None if tmp_e is None else tmp_e.data_ptr(), parts.data_ptr(),
+            x.data_ptr(), bsz, h, w, scale, _window(scale, dev).data_ptr(), win_e, parts.data_ptr(),
             sums.data_ptr(), sums_pstride, None if nxt is None else nxt.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         ),

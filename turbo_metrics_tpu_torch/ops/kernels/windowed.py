@@ -17,7 +17,7 @@ import torch
 from turbo_metrics_tpu_torch.ops import quality
 from turbo_metrics_tpu_torch.ops.colorspace import f32_to_uint8
 from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
-from turbo_metrics_tpu_torch.ops.kernels.scale_stats import check_level
+from turbo_metrics_tpu_torch.ops.kernels.scale_stats import PART_H, PART_W, check_level
 
 WINDOW = 2 * quality.RADIUS + 1
 
@@ -83,18 +83,17 @@ def ssim_sums(
 ssim_sums.launches = 0
 
 
-def launch_level(lib, q12, window, quantize, c1, c2, sums, sums_bstride, ds, scratch=None):
-    """One ``tm_ssim_level`` call on the current stream.  ``scratch``: a
-    (tmp, parts) pair sized for a level at least this large (allocated here
-    when None)."""
+def launch_level(lib, q12, window, quantize, c1, c2, sums, sums_bstride, ds, parts=None):
+    """One ``tm_ssim_level`` call on the current stream.  ``parts``: the
+    partials of a level at least this large (``level_scratch``; allocated
+    here when None)."""
     _, bsz, _, h, w = q12.shape
-    if scratch is None:
-        scratch = level_scratch(lib, bsz, h, w, q12.device)
-    tmp, parts = scratch
+    if parts is None:
+        parts = level_scratch(bsz, h, w, q12.device)
     check(
         lib.tm_ssim_level(
             q12.data_ptr(), bsz, h, w, int(quantize), window.data_ptr(), float(c1), float(c2),
-            tmp.data_ptr(), parts.data_ptr(), sums.data_ptr(), sums_bstride,
+            parts.data_ptr(), sums.data_ptr(), sums_bstride,
             ds.data_ptr() if ds is not None else None,
             torch.cuda.current_stream(q12.device).cuda_stream,
         ),
@@ -102,8 +101,15 @@ def launch_level(lib, q12, window, quantize, c1, c2, sums, sums_bstride, ds, scr
     )
 
 
-def level_scratch(lib, bsz, h, w, dev):
-    """Row-pass planes and block partials of an h x w level."""
-    tmp = torch.empty(4 * bsz * 3 * h * (w - WINDOW + 1), dtype=torch.float32, device=dev)
-    parts = torch.empty(bsz * 3 * lib.tm_ssim_blocks(h, w) * 2, dtype=torch.float32, device=dev)
-    return tmp, parts
+def ssim_blocks(h: int, w: int) -> int:
+    """Partial tiles per (batch, channel) plane of an h x w level: the 32x8
+    tiles (PART_W x PART_H) of its (h-10) x (w-10) valid grid, the count of
+    ``tm_ssim_blocks`` (csrc/windowed.cu)."""
+    return -(-(w - WINDOW + 1) // PART_W) * -(-(h - WINDOW + 1) // PART_H)
+
+
+def level_scratch(bsz: int, h: int, w: int, dev) -> torch.Tensor:
+    """The two f32 partials of every 32x8 tile of B*3 planes of an h x w
+    level: the level's only scratch, since the tile kernel keeps its
+    row-correlated planes in shared memory."""
+    return torch.empty(bsz * 3 * ssim_blocks(h, w) * 2, dtype=torch.float32, device=dev)

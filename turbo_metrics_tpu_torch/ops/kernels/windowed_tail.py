@@ -64,14 +64,14 @@ def msssim_tail(
     lib = LIBRARY.get()
     _, bsz, _, h, w = q12.shape
     dev = q12.device
-    scratch = level_scratch(lib, bsz, h, w, dev)  # the first level is the largest
+    parts = level_scratch(bsz, h, w, dev)  # the first level is the largest
     sums = torch.empty((bsz, num_levels, 3, 2), dtype=torch.float32, device=dev)
     cur = q12
     for li in range(num_levels):
         nxt = None
         if li + 1 < num_levels:
             nxt = torch.empty((2, bsz, 3, h // 2, w // 2), dtype=torch.float32, device=dev)
-        launch_level(lib, cur, window, False, c1, c2, sums[:, li], num_levels * 6, nxt, scratch)
+        launch_level(lib, cur, window, False, c1, c2, sums[:, li], num_levels * 6, nxt, parts)
         if nxt is not None:
             cur, h, w = nxt, h // 2, w // 2
     msssim_tail.launches += 1

@@ -14,7 +14,8 @@ the same four lines:
 
 and beside them kernel 1 (``fused_scale0_yuv`` on a seeded 8-bit 4:2:0
 pair), kernel 2 (``fused_pyramid_tail`` from #3's emitted level, one entry
-per level), #10, #11, #12, #14, #15 and #18 on the same inputs.  Each call
+per level), #10, #11 (with and without the next level), #12, #14, #15 and
+#18 on the same inputs.  Each call
 is timed by CUDA events after warm-up (the median of ``REPEATS`` runs of
 ``--iters`` calls: a call's host time swings with the load on the host), and
 every CUDA kernel it launches by torch.profiler, in launch order: the device
@@ -50,6 +51,10 @@ import torch
 # The kernels of one SSIMULACRA2 level after its conversion pass
 # (csrc/ssimulacra2_scale.cu): the fused level pass, the f64 reduction.
 LEVEL = ("level_tile_kernel", "reduce_parts_kernel")
+# One SSIM level (csrc/windowed.cu) and one VIF scale (csrc/vif.cu): the
+# fused tile kernel (both passes, the map, the next level), the reduction.
+SSIM_LEVEL = ("ssim_tile_kernel", "reduce_parts_kernel")
+VIF_LEVEL = ("vif_tile_kernel", "reduce_frames_kernel")
 # Timed runs of ``--iters`` calls per entry; the call time is their median.
 REPEATS = 5
 # Profiler readings of one entry that keep fewer than half their calls whole
@@ -74,10 +79,9 @@ def once(*names) -> tuple:
     return tuple((n, 1) for n in names)
 
 
-def levels(count: int, names, emit) -> tuple:
-    """The kernels of ``count`` levels that each launch ``names`` and, but
-    the last, ``emit`` (unless None)."""
-    return tuple((n, count) for n in names) + ((emit, count - 1),) * (emit is not None and count > 1)
+def levels(count: int, names) -> tuple:
+    """The kernels of ``count`` levels that each launch ``names``."""
+    return tuple((n, count) for n in names)
 
 
 def kernel_name(raw: str) -> str:
@@ -248,20 +252,18 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
         Probe("#10 pair sums", "fused_scale_pair",
               lambda: scale_stats.fused_scale_pair(lin1, lin2, taps, opsin), rgb_level),
         Probe("#11 SSIM level 0", "ssim_sums",
-              lambda: windowed.ssim_sums(p12, win, quantize=True, emit_ds=True),
-              once("ssim_rows_kernel", "ssim_cols_kernel", "reduce_parts_kernel", "halfpool_kernel")),
+              lambda: windowed.ssim_sums(p12, win, quantize=True, emit_ds=True), once(*SSIM_LEVEL)),
+        Probe("#11 SSIM level 0 no-ds", "ssim_sums",
+              lambda: windowed.ssim_sums(p12, win, quantize=True, emit_ds=False), once(*SSIM_LEVEL)),
         Probe("#12 MS-SSIM levels 1+", "msssim_tail",
               lambda: windowed_tail.msssim_tail(ms_lvl1, ms_levels, win),
-              levels(ms_levels, ("ssim_rows_kernel", "ssim_cols_kernel", "reduce_parts_kernel"),
-                     "halfpool_kernel")),
-        Probe("#14 VIF scale 0", "vif_scale0", lambda: vif.vif_scale0(pair),
-              once("vif_rows_kernel", "vif_cols_kernel", "reduce_frames_kernel", "vif_emit_kernel")),
+              levels(ms_levels, SSIM_LEVEL)),
+        Probe("#14 VIF scale 0", "vif_scale0", lambda: vif.vif_scale0(pair), once(*VIF_LEVEL)),
         Probe("#15 VIF scales 1-3", "vif_tail", lambda: vif.vif_tail(vif_lvl1),
-              levels(vif_ops.NUM_SCALES - 1,
-                     ("vif_rows_kernel", "vif_cols_kernel", "reduce_frames_kernel"), "vif_emit_kernel")),
+              levels(vif_ops.NUM_SCALES - 1, VIF_LEVEL)),
         Probe("#18 ADM", "adm_stats", lambda: adm.adm_stats(pair),
               levels(adm_ops.NUM_LEVELS,
-                     ("adm_rows_kernel", "adm_cols_kernel", "adm_mask_kernel", "reduce_frames_kernel"), None)),
+                     ("adm_rows_kernel", "adm_cols_kernel", "adm_mask_kernel", "reduce_frames_kernel"))),
     ]
 
 
