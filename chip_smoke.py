@@ -9,10 +9,11 @@ Phases, each fatal on failure (exit code 1):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from turbo_metrics_tpu_torch/csrc with nvcc;
      the Python counts of 32x8 partial tiles that size the SSIMULACRA2,
-     SSIM and VIF level scratch equal to the library's (tm_level_blocks,
-     tm_ssim_blocks, tm_vif_blocks) on sizes that cross tile edges and on
-     every level of the 1080p (and 4K) pyramids; the registers, shared
-     memory, blocks per SM and spills of every fused level kernel instance;
+     SSIM, VIF and ADM level scratch equal to the library's
+     (tm_level_blocks, tm_ssim_blocks, tm_vif_blocks, tm_adm_blocks) on
+     sizes that cross tile edges and on every level of the 1080p (and 4K)
+     pyramids; the registers, shared memory, blocks per SM and spills of
+     every fused level kernel instance (adm_tile_kernel among them);
   3. write a seeded 1080p 8-bit 4:2:0 BT.709 limited-range Y4M pair
      (16 frames, noise on a smooth base) to a temporary directory;
   4. score it through the port's CLI (-m ssimulacra2 --output json), every
@@ -89,6 +90,12 @@ Phases, each fatal on failure (exit code 1):
      at the tool's shape (B=4, 1080p) and on a 67x99 and a 300x700 plane
      (inside one 128x512 region tile and across six): per-plane totals rtol
      1e-5, every other entry exactly 0;
+  5g. kernel #18 against its twin (sums rtol 1e-4) on 5x7, 13x21, 67x99 and
+     1080p pairs (the mask's halo leaves the band plane on some level of
+     the first three); #6 and #5 against their twins on 67x99, 35x131, 9x30
+     and 1x1 planes, 8- and 16-bit, at 4:2:0 (#6 too), 4:2:2 and 4:4:4,
+     BT.709 and PQ (atol 1e-6, 1e-4 for PQ): the ragged ends of rows and
+     the unaligned chunks;
   6. score the frozen golden pair through the kernel route: 80.486135 +- 0.05;
   7. time each kernel and its twin (#7 also against avg_pool2d, #19 against
      five F.conv2d blurs with TF32 off, separable and as one 11x11 kernel,
@@ -103,8 +110,8 @@ Phases, each fatal on failure (exit code 1):
      times each in turn;
   8. the dissect path: turbo_metrics_tpu_torch.tools.kernel_dissect at its
      default shape, counters reset just before and read just after: every
-     wrapper it times launched (#19 among them), a device time for every
-     CUDA kernel of every entry.
+     wrapper it times launched (#19 and #6 among them), a device time for
+     every CUDA kernel of every entry.
 Prints the card, the dissect tool's JSON line, then one JSON line of
 per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -148,6 +155,10 @@ VMAF_FEATURES = ("vmaf_motion",) + VIF + ADM
 TOL = {"psnr": 1e-4, "ssim": 1e-5, "msssim": 1e-5, "ssimulacra2": 0.01, "xpsnr": 1e-9,
        "vmaf_motion": 0.0, **{k: 1e-5 for k in VIF}, **{k: 1e-4 for k in ADM}}
 VMAF_KERNELS = ("motion_stats", "integer_blur", "vif_scale0", "vif_tail", "adm_stats")
+# ADM's edge sizes (phases 2 and 5g): the centre region starts at the band
+# plane's first row or column on some level of the first three, so the
+# mask's halo leaves the plane there.
+ADM_EDGE_SIZES = ((5, 7), (13, 21), (67, 99), (HEIGHT, WIDTH))
 MS_LEVELS = 5
 # H100 SXM data-sheet peaks: device memory, and f32 outside the tensor cores;
 # int32 at half the f32 rate (64 of the SM's 128 lanes, Hopper white paper).
@@ -189,10 +200,11 @@ F_ADM_LEVEL = 63
 F_PROBE = 220
 # The kernels whose passes were fused into one tile kernel per level.
 REDESIGNED = {"fused_scale0_yuv": "fused level pass", "fused_scale_rgb": "fused level pass",
-              "ssim_sums": "fused tile pass", "vif_scale0": "fused tile pass"}
+              "ssim_sums": "fused tile pass", "vif_scale0": "fused tile pass", "adm_stats": "fused tile pass"}
 # The wrappers the dissect path times (phase 8), each launched there.
 DISSECT_KERNELS = ("fused_scale_rgb", "scale_sums", "blur_only", "fused_scale0_yuv", "fused_pyramid_tail",
-                   "fused_scale_pair", "ssim_sums", "msssim_tail", "vif_scale0", "vif_tail", "adm_stats")
+                   "fused_scale_pair", "ssim_sums", "msssim_tail", "vif_scale0", "vif_tail", "adm_stats",
+                   "yuv420_to_linear_rgb_pair")
 
 
 def vif_flops(bsz: int, h: int, w: int, scales) -> float:
@@ -1004,14 +1016,16 @@ def check_other_formats(model) -> None:
 def check_level_blocks(lib, card: str) -> None:
     """Phase 2: the Python counts of 32x8 partial tiles that size the level
     scratch (scale_stats.level_blocks, windowed.ssim_blocks,
-    vif.vif_blocks) against the library's, on sizes that cross tile edges
-    and on every level of the 1080p (and, for SSIMULACRA2, 4K) pyramids;
-    then what each fused level kernel instance takes on this card."""
+    vif.vif_blocks, adm.adm_blocks) against the library's, on sizes that
+    cross tile edges and on every level of the 1080p (and, for SSIMULACRA2,
+    4K) pyramids; then what each fused level kernel instance takes on this
+    card."""
     import ctypes
 
+    from turbo_metrics_tpu_torch.ops import adm as adm_ops
     from turbo_metrics_tpu_torch.ops import quality
     from turbo_metrics_tpu_torch.ops.downscale import scale_dims
-    from turbo_metrics_tpu_torch.ops.kernels import _build, scale_stats, vif, windowed
+    from turbo_metrics_tpu_torch.ops.kernels import _build, adm, scale_stats, vif, windowed
 
     sizes = [(1, 1), (33, 65), (67, 99)] + scale_dims(HEIGHT, WIDTH) + scale_dims(UHD_HEIGHT, UHD_WIDTH)
     for h, w in sizes:
@@ -1030,8 +1044,16 @@ def check_level_blocks(lib, card: str) -> None:
     for h, w in vif_sizes:
         got, want = lib.tm_vif_blocks(h, w), vif.vif_blocks(h, w)
         need(got == want, f"tm_vif_blocks({h}, {w}) = {got}, vif_blocks = {want}")
+    adm_levels = []
+    for h, w in ADM_EDGE_SIZES:
+        adm_levels += adm_ops.band_sizes(h, w)
+    for ch, cw in adm_levels:
+        top, _, left, _ = adm_ops.center_region(ch, cw)
+        got, want = lib.tm_adm_blocks(ch, cw, top, left), adm.adm_blocks(ch, cw, top, left)
+        need(got == want, f"tm_adm_blocks({ch}, {cw}, {top}, {left}) = {got}, adm_blocks = {want}")
     log(f"tm_level_blocks equals level_blocks on {len(sizes)} sizes, tm_ssim_blocks ssim_blocks on "
-        f"{len(ssim_sizes)}, tm_vif_blocks vif_blocks on {len(vif_sizes)}")
+        f"{len(ssim_sizes)}, tm_vif_blocks vif_blocks on {len(vif_sizes)}, tm_adm_blocks adm_blocks on "
+        f"{len(adm_levels)} band planes")
     a = (ctypes.c_int * 4)()
     _build.check(lib.tm_level_tile_attrs(a), "tm_level_tile_attrs")
     log(f"level_tile_kernel: {a[0]} registers, {a[1]} B of shared memory per block, "
@@ -1044,6 +1066,9 @@ def check_level_blocks(lib, card: str) -> None:
         _build.check(lib.tm_vif_tile_attrs(scale, a), "tm_vif_tile_attrs")
         log(f"vif_tile_kernel<{inst}> (scale {scale}): {a[0]} registers, {a[1]} B of dynamic shared "
             f"memory per block, {a[2]} blocks per SM, {a[3]} B of local memory (spills) [{card}]")
+    _build.check(lib.tm_adm_tile_attrs(a), "tm_adm_tile_attrs")
+    log(f"adm_tile_kernel: {a[0]} registers, {a[1]} B of dynamic shared memory per block, {a[2]} blocks "
+        f"per SM, {a[3]} B of local memory (spills) [{card}]")
 
 
 def check_ssim_edges(dev, win) -> float:
@@ -1102,6 +1127,47 @@ def check_vif_edges(dev) -> None:
                  check_close(f"#14 level 1 at {h}x{w}", l1_k, l1_p, 1e-5, 1e-4))
         e1 = check_close(f"#15 sums from {h}x{w}", vif.vif_tail(l1_p), vif.vif_tail_ref(l1_p), 1e-4, 1e-5)
         log(f"#14 vs twin at {h}x{w} B=2: max abs err {e0:.3g}; #15 from its level 1: {e1:.3g}")
+
+
+def check_adm_convert_edges(dev) -> None:
+    """Phase 5g: #18 against its twin at ADM_EDGE_SIZES (sums rtol 1e-4), on
+    a seeded 8-bit pair whose distorted image is the reference plus noise;
+    #6 and #5 against their twins at widths that are not a multiple of 8 or
+    4 and odd heights, 8- and 16-bit, at 4:2:0, 4:2:2 and 4:4:4 (atol 1e-6,
+    1e-4 for PQ): the ragged ends of rows and the unaligned chunks."""
+    from turbo_metrics_tpu_torch.ops import colorspace
+    from turbo_metrics_tpu_torch.ops.kernels import adm, convert
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    for h, w in ADM_EDGE_SIZES:
+        ref = torch.randint(0, 256, (2, h, w), generator=g, device=dev).float()
+        dis = (ref + torch.randint(-12, 13, (2, h, w), generator=g, device=dev)).clamp(0, 255)
+        p = torch.stack([ref, dis]).contiguous()
+        got, want = adm.adm_stats(p), adm.adm_stats_ref(p)
+        check_close(f"#18 sums at {h}x{w}", got, want, 1e-4, 0.0)
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        log(f"#18 vs twin at {h}x{w} B=2: sums max rel diff {rel:.3g}")
+    rng = np.random.default_rng(6)
+    for h, w in ((67, 99), (35, 131), (9, 30), (1, 1)):
+        for depth in (8, 16):
+            dt = np.uint8 if depth == 8 else np.uint16
+            for chroma in (420, 422, 444):
+                ch, cw = colorspace.chroma_dims(chroma, h, w)
+                y = torch.from_numpy(rng.integers(0, 1 << depth, (2, 2, h, w)).astype(dt)).to(dev)
+                uv = torch.from_numpy(rng.integers(0, 1 << depth, (2, 2, ch, cw, 2)).astype(dt)).to(dev)
+                for transfer in ("bt709", "pq"):
+                    tol = 1e-4 if transfer == "pq" else 1e-6
+                    kw = dict(depth=depth, transfer=transfer)
+                    e5 = check_close(f"#5 {chroma} {depth}-bit {transfer} at {h}x{w}",
+                                     convert.yuv_to_linear_rgb(y, uv, chroma=chroma, **kw),
+                                     convert.yuv_to_linear_rgb_ref(y, uv, chroma=chroma, **kw), 0.0, tol)
+                    msg = f"#5 {chroma} {depth}-bit {transfer} at {h}x{w}: max abs err {e5:.3g}"
+                    if chroma == 420:
+                        e6 = check_close(f"#6 {depth}-bit {transfer} at {h}x{w}",
+                                         convert.yuv420_to_linear_rgb_pair(y, uv, **kw),
+                                         convert.yuv420_to_linear_rgb_pair_ref(y, uv, **kw), 0.0, tol)
+                        msg += f"; #6 {e6:.3g}"
+                    log(msg)
 
 
 def check_golden(dev) -> float:
@@ -1498,6 +1564,7 @@ def main() -> int:
         e5 = check_convert_kernel(y422, uv422)
         vmaf_err, vpair, vlevel1 = check_vmaf_kernels(y16, vmaf_scores)
         check_vif_edges(dev)
+        check_adm_convert_edges(dev)
         check_mezzanine_engine(dev)
         model4k = Ssimulacra2(UHD_WIDTH, UHD_HEIGHT, device=dev)
         e4, lvl3 = check_uhd(y4k, uv4k, model4k, uhd_scores, dev)
@@ -1740,8 +1807,9 @@ def main() -> int:
             # never calls them.
             "library_ms": lib[0] if lib else None,
             # Kernels 1 and #3 were redesigned around the fused level pass,
-            # #11 and #14 around a fused tile pass (one tile kernel per level
-            # instead of a row and a column pass and an emission pass).
+            # #11, #14 and #18 around a fused tile pass (one tile kernel per
+            # level instead of a row and a column pass and an emission or
+            # mask pass).
             "redesigned": REDESIGNED.get(name),
         })
     peak = max(RUN_PEAK[0], torch.cuda.max_memory_allocated(dev))

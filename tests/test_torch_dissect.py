@@ -181,8 +181,8 @@ def test_kernel_dissect_on_cpu():
         "#12 MS-SSIM levels 1+": {"ssim_tile_kernel": 2, "reduce_parts_kernel": 2},
         "#14 VIF scale 0": {"vif_tile_kernel": 1, "reduce_frames_kernel": 1},
         "#15 VIF scales 1-3": {"vif_tile_kernel": 3, "reduce_frames_kernel": 3},
-        "#18 ADM": {"adm_rows_kernel": 4, "adm_cols_kernel": 4, "adm_mask_kernel": 4,
-                    "reduce_frames_kernel": 4},
+        "#18 ADM": {"adm_tile_kernel": 4, "reduce_frames_kernel": 4},
+        "#6 conversion (4:2:0 pair)": {"yuv_to_rgb_kernel": 1},
     }
     assert kernels == want
 
@@ -286,3 +286,24 @@ def test_level_outputs_save_needs_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         level_outputs.save(str(tmp_path), str(tmp_path / "out.pt"))
     assert not (tmp_path / "out.pt").exists()
+
+
+def test_level_outputs_own_calls_run_on_cpu():
+    """The calls ``save`` makes beside the dissect probes (ADM at sizes whose
+    mask halo leaves the band plane, #6 at 8 bits and an odd size, #5 at
+    4:2:2 10-bit and 4:4:4 12-bit PQ) build their inputs from a seed and run
+    through the wrappers, here their twins: each entry names its wrapper
+    and returns the wrapper's shape."""
+    from turbo_metrics_tpu_torch.tools import level_outputs
+
+    calls = level_outputs.own_calls(1, 48, 64, torch.device("cpu"))
+    shapes = {entry: tuple(fn().shape) for entry, _, fn in calls}
+    assert {w for _, w, _ in calls} == {"adm_stats", "yuv420_to_linear_rgb_pair", "yuv_to_linear_rgb"}
+    assert shapes == {
+        "#18 ADM 13x21": (1, 4, 3, 2),
+        "#18 ADM 67x99": (1, 4, 3, 2),
+        "#6 conversion 64x48": (2, 1, 3, 48, 64),
+        "#6 conversion 99x67": (2, 2, 3, 67, 99),
+        "#5 4:2:2 10-bit 64x48": (1, 3, 48, 64),
+        "#5 4:4:4 12-bit PQ 131x35": (3, 3, 35, 131),
+    }

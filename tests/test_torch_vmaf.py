@@ -511,3 +511,28 @@ def test_vif_level_scratch_holds_partials_only(hw):
     parts = kvif.level_scratch(bsz, h, w, "meta")
     assert parts.numel() == bsz * nblk * 2
     assert parts.dtype == torch.float32
+
+
+@pytest.mark.parametrize("hw, halo", [((5, 7), True), ((13, 21), True), ((67, 99), True),
+                                      ((1080, 1920), False)])
+def test_adm_level_scratch_holds_partials_only(hw, halo):
+    """The ADM tile kernel keeps its row-filtered and band planes in shared
+    memory: a level's device scratch is six f32 partials per 32x8 block of
+    the centre region of each frame, ceil((cw - 2 left)/32) * ceil((ch -
+    2 top)/8) blocks on every level (the library's tm_adm_blocks;
+    chip_smoke.py holds the two equal), and sizing it needs no library.
+    Where the centre region starts at the plane's first row or column on
+    some level (``halo``), the mask's halo leaves the band plane there and
+    the tile reads it reflected."""
+    h, w = hw
+    bsz = 3
+    edge = False
+    for ch, cw in jadm.band_sizes(h, w):
+        top, _, left, _ = jadm.center_region(ch, cw)
+        nblk = math.ceil((cw - 2 * left) / 32) * math.ceil((ch - 2 * top) / 8)
+        assert kadm.adm_blocks(ch, cw, top, left) == nblk
+        parts = kadm.level_scratch(bsz, 2 * ch, 2 * cw, "meta")
+        assert parts.numel() == bsz * nblk * 6
+        assert parts.dtype == torch.float32
+        edge |= top == 0 or left == 0
+    assert edge == halo

@@ -20,25 +20,54 @@
 // is the f32 value of the plain version's expression order (ops/adm.py).
 // The angle gate (dot >= 0 and dot^2 >= cos^2(1 deg) |o|^2 |t|^2) is
 // discontinuous; evaluated in the same order it flips no pixel against the
-// plain version.  The cube sums span many magnitudes: f32 per block, then
-// f64 (level.cuh).
+// plain version.  The cube sums span many magnitudes: f32 per 32x8 block in
+// level.cuh's fixed tree, then f64 (reduce_frames_kernel).
 //
-// What bounds it on this card: device-memory traffic.  Per pixel of the pair
-// at level 0 the algorithm needs 8 bytes in (and 2 bytes out, the next
-// level's approximation bands) against ~40 f32 operations.  This first
-// design adds the round trips of the row-filtered planes and of nine
-// band planes (|csf*a|, |csf*r|, |csf*o| per band) between its launches;
-// fusing the DWT's two passes and the mask over shared-memory tiles is the
-// first later optimisation.
+// What bounds it on this card: device-memory traffic by the algorithm (per
+// pixel of the pair at level 0, 8 bytes in and 2 out against ~63 f32
+// operations), in practice the latency of each tile's dependent chains.  A
+// level is one launch of adm_tile_kernel, then the f64 reduction of its
+// partials:
+//   * a persistent block of 8 warps (2 per SM) walks 32x32 tiles of band
+//     pixels of one frame, both images (the angle gate needs o and t
+//     together); the tile grid is anchored at the centre region's origin
+//     (top, left) and extended by whole tiles until it covers the ch x cw
+//     band plane, so each 32x8 sub-tile is one block of the centre region's
+//     pixel_grid and its partials are the ones a per-pixel design writes,
+//     bit for bit;
+//   * a tile reads 70 input rows x 76 columns of each image (band pixels
+//     -1 .. 32 of the tile: the mask's one-pixel halo).  Thread 0 starts
+//     the next tile's two boxes with the Tensor Memory Accelerator (one
+//     tensor copy per image, completing on an mbarrier) as soon as the
+//     current tile's row pass has read its own, so the copy runs under the
+//     column pass and the mask; samples that fall outside the input are
+//     then set from their symmetric index inside the box.  Copies issued
+//     by the compute warps themselves (16-byte cp.async) stalled them for
+//     as long as the copy took;
+//   * the row pass (lo and hi at the tile's 34 band columns) goes to shared
+//     memory; the column pass runs over four consecutive band rows per
+//     thread, reading each of their 10 row-filtered rows once; the gate,
+//     decoupling and CSF follow; the mask's products |csf*a|/30 and
+//     |csf*a|/15 go to shared memory once per band pixel, |csf*r| and
+//     |csf*o| of the interior stay in registers, and the A bands (the next
+//     level's input) are written from the interior only;
+//   * the mask reads its neighbours at their reflect-101 index in the plane,
+//     which lies inside the tile's 34x34 band pixels wherever a mask halo
+//     leaves the plane, so no band pixel is computed twice; a thread's four
+//     rows share their neighbour rows.
+// 108,592 B of dynamic shared memory per block (raw boxes 42,752, row
+// passes 38,080, mask products 27,744, the mbarrier), set once per
+// process.  Neither the row-filtered nor the band planes reach device
+// memory.  An input whose rows are not whole 16-byte chunks, or smaller
+// than 8 x 4, is read one sample at a time instead of by tensor copies.
 //
 // Layouts (all contiguous; ch = ceil(h/2), cw = ceil(w/2)):
 //   in     (2, B, h, w)      f32 luma in 8-bit units, or the previous level's A bands
-//   rows   (2, 2, B, h, cw)  f32 row-filtered lo, hi of ref and dis
 //   approx (2, B, ch, cw)    f32 the A bands of ref and dis (the next level's input)
-//   bands  (9, B, ch, cw)    f32 |csf*a|, |csf*r|, |csf*o| of bands H, V, D
-//   parts  (B, nblk, 6)      f32 per-block partial cube sums
+//   parts  (B, nblk, 6)      f32 per-32x8-block partial cube sums of the centre region
 //   sums   (B, ...)          f32 at sums[b * sums_pstride + band * 2 + {0 num, 1 den}]
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,6 +84,26 @@ struct AdmConsts {
   float m_centre, m_edge;      // mask filter weights 1/15, 1/30
 };
 
+// The shared-memory tile: band pixels (li, lj) in [0, kBand)^2 are band
+// (by0 - 1 + li, bx0 - 1 + lj) of a tile at (by0, bx0); input row lr in [0,
+// kInRows) is input row symmetric(2 by0 - 3 + lr), and raw column k of it
+// input column symmetric(A + k), A = 2 bx0 - 4 - 2 (bx0 & 1) (a multiple of
+// 4, so that a raw row is whole 16-byte chunks).
+constexpr int kThreadsAdm = 2 * kTileThreads;  // 8 warps, two per 32x8 sub-tile
+constexpr int kBand = kTileW + 2;            // band pixels per side: the tile and the mask halo
+constexpr int kInRows = 2 * kBand + 2;       // input rows a tile reads (band i reads 2i-1 .. 2i+2)
+constexpr int kRawChunks = kBand / 2 + 2;    // 16-byte chunks of a raw row (19)
+constexpr int kRawW = 4 * kRawChunks;        // raw samples of a row (76)
+constexpr int kPairs = (kBand + 2) / 2;      // band-column pairs of the row pass (one spare)
+constexpr int kRawStride = (kInRows * kRawW + 31) / 32 * 32;  // one image's raw rows, 128-byte aligned
+constexpr int kRawFloats = 2 * kRawStride;     // both images' raw rows
+constexpr int kRowFloats = kInRows * kBand;  // one row-filtered plane (lo or hi of one image)
+constexpr int kBandFloats = kBand * kBand;   // one plane of band pixels
+constexpr int kHalo = 4 * kBand - 4;         // band pixels of the halo ring
+constexpr int kRowsPerWarp = kBy / 2;        // interior band rows of a warp
+constexpr int kRowLanes = kPairs * (kThreadsAdm / kPairs);        // row-pass threads (252)
+constexpr size_t kSmemBytes = sizeof(float) * (kRawFloats + 4 * kRowFloats + 6 * kBandFloats) + 16;
+
 __device__ __forceinline__ int symmetric(int i, int n) {
   if (i >= 0 && i < n) return i;
   int m = i % (2 * n);
@@ -62,135 +111,493 @@ __device__ __forceinline__ int symmetric(int i, int n) {
   return m < n ? m : 2 * n - 1 - m;
 }
 
-// taps . x[sym(2i - 1 + k)], as acc = x0*t0; acc = acc + xk*tk.
+// taps . x[k], as acc = x0*t0; acc = acc + xk*tk (the plain version's order).
 template <typename Load>
-__device__ __forceinline__ float dec(const float (&taps)[kTaps], int i, int n, Load load) {
+__device__ __forceinline__ float dec(const float (&taps)[kTaps], Load load) {
   float acc = 0.0f;
 #pragma unroll
   for (int k = 0; k < kTaps; ++k) {
-    const float x = __fmul_rn(load(symmetric(2 * i - 1 + k, n)), taps[k]);
+    const float x = __fmul_rn(load(k), taps[k]);
     acc = k == 0 ? x : __fadd_rn(acc, x);
   }
   return acc;
 }
 
-// Launch 1: the row pass (lo and hi) of both images.  grid: pixel_grid(h, cw, 2B)
-__global__ void __launch_bounds__(kThreads)
-adm_rows_kernel(const float* __restrict__ in, int h, int w, AdmConsts c, float* __restrict__ rows) {
-  const int cw = (w + 1) / 2;
-  const int i = blockIdx.x * kBx + threadIdx.x;
-  const int r = blockIdx.y * kBy + threadIdx.y;
-  if (r >= h || i >= cw) return;
-  const size_t img = blockIdx.z;
-  const float* x = in + (img * h + r) * w;
-  auto load = [x](int k) { return x[k]; };
-  const size_t at = (img * h + r) * cw + i;
-  const size_t plane = (size_t)gridDim.z * h * cw;
-  rows[at] = dec(c.lo, i, w, load);
-  rows[plane + at] = dec(c.hi, i, w, load);
+// The Tensor Memory Accelerator's copy of one image's raw rows: the box of
+// kRawW x kInRows samples at column c0, row c1 of plane c2 of the input
+// (tmap), zeros outside the input, completing on the mbarrier at bar.
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap& tmap, int c0, int c1, int c2,
+                                         unsigned bar) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(d),
+      "l"(reinterpret_cast<uint64_t>(&tmap)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
 }
 
-// Launch 2: the column pass (A, H, V, D of both images), the angle gate,
-// decoupling and CSF (ops/adm.py decouple, in its order).
-// grid: pixel_grid(ch, cw, B)
-__global__ void __launch_bounds__(kThreads)
-adm_cols_kernel(const float* __restrict__ rows, int bsz, int h, int w, AdmConsts c,
-                float* __restrict__ approx, float* __restrict__ bands) {
-  const int ch = (h + 1) / 2, cw = (w + 1) / 2;
-  const int j = blockIdx.x * kBx + threadIdx.x;
-  const int i = blockIdx.y * kBy + threadIdx.y;
-  const int b = blockIdx.z;
-  if (i >= ch || j >= cw) return;
-  const size_t rplane = (size_t)2 * bsz * h * cw;
-  const size_t nb = (size_t)ch * cw;
-  float det[2][3];  // (o, t) x (H, V, D)
+// Waits until the mbarrier at bar has completed the phase of this parity.
+__device__ __forceinline__ void wait_parity(unsigned bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Raw column 0 of the tile at bx0: input column 2 bx0 - 4 - 2 (bx0 & 1), a
+// multiple of 4.
+__device__ __forceinline__ int raw_col0(int bx0) { return 2 * bx0 - 4 - 2 * (bx0 & 1); }
+
+// Thread 0 starts the copy of both images' raw rows of the tile at (b, by0,
+// bx0) into raw[image][lr][kRawW]; the block waits for the mbarrier's phase
+// (wait_parity), then fills the samples outside the input (fix_edges).
+__device__ __forceinline__ void start_raw(float* __restrict__ raw, const CUtensorMap& tmap, int bsz,
+                                          int b, int by0, int bx0, unsigned bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"((int)(2 * kInRows * kRawW * sizeof(float)))
+               : "memory");
 #pragma unroll
   for (int im = 0; im < 2; ++im) {
-    const size_t img = (size_t)im * bsz + b;
-    const float* lo = rows + img * h * cw + j;
-    const float* hi = rows + rplane + img * h * cw + j;
-    auto load_lo = [lo, cw](int k) { return lo[(size_t)k * cw]; };
-    auto load_hi = [hi, cw](int k) { return hi[(size_t)k * cw]; };
-    if (approx != nullptr) approx[img * nb + (size_t)i * cw + j] = dec(c.lo, i, h, load_lo);
-    det[im][0] = dec(c.lo, i, h, load_hi);  // horizontal detail
-    det[im][1] = dec(c.hi, i, h, load_lo);  // vertical detail
-    det[im][2] = dec(c.hi, i, h, load_hi);  // diagonal detail
+    tma_load(raw + im * kRawStride, tmap, raw_col0(bx0), 2 * by0 - 3, im * bsz + b, bar);
   }
-  const float o_h = det[0][0], o_v = det[0][1], t_h = det[1][0], t_v = det[1][1];
+}
+
+// Where the box left the h x w input, the samples that a band pixel of the
+// plane reads get the value at their symmetric index, which the box holds
+// (h >= 4, w >= 8): input rows -1, h and h+1 (every column of the box that
+// is read, -1 .. w+2), then columns -1, w, w+1 and w+2 of the other rows.
+__device__ __forceinline__ void fix_edges(float* __restrict__ raw, int h, int w, int by0, int bx0) {
+  const int r0 = 2 * by0 - 3, a0 = raw_col0(bx0);
+  if (r0 >= 0 && r0 + kInRows <= h && a0 >= 0 && a0 + kRawW <= w) return;
+  constexpr int kRowFix = 3 * kRawW, kColFix = 4 * kInRows;
+  for (int i = threadIdx.x; i < 2 * (kRowFix + kColFix); i += kThreadsAdm) {
+    const int im = i / (kRowFix + kColFix), n = i % (kRowFix + kColFix);
+    int r, col;
+    if (n < kRowFix) {
+      const int e = n / kRawW;
+      r = e == 0 ? -1 : h - 1 + e;
+      col = a0 + n % kRawW;
+    } else {
+      const int e = (n - kRowFix) / kInRows;
+      r = r0 + (n - kRowFix) % kInRows;
+      col = e == 0 ? -1 : w - 1 + e;
+      if (r < 0 || r >= h) continue;
+    }
+    const int lr = r - r0, k = col - a0;
+    if (lr < 0 || lr >= kInRows || k < 0 || k >= kRawW || col < -1 || col > w + 2) continue;
+    float* p = raw + im * kRawStride;
+    p[lr * kRawW + k] = p[(symmetric(r, h) - r0) * kRawW + symmetric(col, w) - a0];
+  }
+}
+
+// The raw rows of the tile at (b, by0, bx0), one load per sample at its
+// symmetric index, by the whole block: for inputs that the tensor copy does
+// not take (rows not a multiple of 16 bytes, or smaller than 8 x 4).
+__device__ __forceinline__ void load_raw(float* __restrict__ raw, const float* __restrict__ in,
+                                         int bsz, int b, int h, int w, int by0, int bx0) {
+  const int r0 = 2 * by0 - 3, a0 = raw_col0(bx0);
+  const size_t npx = (size_t)h * w;
+  for (int i = threadIdx.x; i < 2 * kInRows * kRawW; i += kThreadsAdm) {
+    const int k = i % kRawW, lr = i / kRawW % kInRows, im = i / (kRawW * kInRows);
+    const float* q = in + ((size_t)im * bsz + b) * npx + (size_t)symmetric(r0 + lr, h) * w;
+    raw[im * kRawStride + lr * kRawW + k] = __ldg(q + symmetric(a0 + k, w));
+  }
+}
+
+// One tap of the column pass: acc = x*t at k = 0, else acc + x*t (the
+// plain version's order).
+__device__ __forceinline__ void col_tap(float& acc, int k, float t, float x) {
+  const float m = __fmul_rn(x, t);
+  acc = k == 0 ? m : __fadd_rn(acc, m);
+}
+
+// What a band pixel gives: the A bands of both images, and |csf*a|, |csf*r|,
+// |csf*o| of bands H, V, D.
+struct BandPixel {
+  float a[2];                 // A of ref, dis
+  float ca[3], cr[3], co[3];  // |csf*a|, |csf*r|, |csf*o| of H, V, D
+};
+
+// The angle gate, decoupling and CSF of one band pixel from its A, H, V, D
+// of both images, dwt[image][A, H, V, D] (ops/adm.py decouple, in its
+// order).
+__device__ __forceinline__ BandPixel gate_csf(const float (&dwt)[2][4], const AdmConsts& c) {
+  BandPixel p;
+  p.a[0] = dwt[0][0];
+  p.a[1] = dwt[1][0];
+  const float o_h = dwt[0][1], o_v = dwt[0][2], t_h = dwt[1][1], t_v = dwt[1][2];
   const float ot_dp = __fadd_rn(__fmul_rn(o_h, t_h), __fmul_rn(o_v, t_v));
   const float o_mag_sq = __fadd_rn(__fmul_rn(o_h, o_h), __fmul_rn(o_v, o_v));
   const float t_mag_sq = __fadd_rn(__fmul_rn(t_h, t_h), __fmul_rn(t_v, t_v));
   const bool angle_ok =
       ot_dp >= 0.0f && __fmul_rn(ot_dp, ot_dp) >= __fmul_rn(__fmul_rn(c.cos1, o_mag_sq), t_mag_sq);
-  const size_t at = (size_t)b * nb + (size_t)i * cw + j;
-  const size_t bstride = (size_t)bsz * nb;
 #pragma unroll
   for (int q = 0; q < 3; ++q) {
-    const float o = det[0][q], t = det[1][q];
+    const float o = dwt[0][q + 1], t = dwt[1][q + 1];
     const float rf = q == 2 ? c.rf_d : c.rf_hv;
     const float k = fminf(fmaxf(__fdiv_rn(t, __fadd_rn(o, c.eps)), 0.0f), 1.0f);
     const float r = angle_ok ? t : __fmul_rn(k, o);
-    bands[(0 + q) * bstride + at] = fabsf(__fmul_rn(rf, __fsub_rn(t, r)));
-    bands[(3 + q) * bstride + at] = fabsf(__fmul_rn(rf, r));
-    bands[(6 + q) * bstride + at] = fabsf(__fmul_rn(rf, o));
+    p.ca[q] = fabsf(__fmul_rn(rf, __fsub_rn(t, r)));
+    p.cr[q] = fabsf(__fmul_rn(rf, r));
+    p.co[q] = fabsf(__fmul_rn(rf, o));
+  }
+  return p;
+}
+
+// The column pass at kOut band pixels li0 .. li0+kOut-1 of column lj from
+// the row-filtered planes rows[image][lo, hi][lr][lj] (A = lo taps on lo
+// rows, H = lo on hi, V = hi on lo, D = hi on hi; ops/adm.py dwt_level):
+// input rows 2 li0 .. 2 li0 + 2 kOut + 1 are read once each, every output
+// summing its four taps in order.
+template <int kOut>
+__device__ __forceinline__ void column_pass(const float* __restrict__ rows, int li0, int lj,
+                                            const AdmConsts& c, float (&dwt)[kOut][2][4]) {
+  const float* base = rows + 2 * li0 * kBand + lj;
+#pragma unroll
+  for (int r = 0; r < 2 * kOut + 2; ++r) {
+    float x[2][2];  // [image][lo, hi]
+#pragma unroll
+    for (int im = 0; im < 2; ++im) {
+      x[im][0] = base[(2 * im) * kRowFloats + r * kBand];
+      x[im][1] = base[(2 * im + 1) * kRowFloats + r * kBand];
+    }
+#pragma unroll
+    for (int o = 0; o < kOut; ++o) {
+      const int k = r - 2 * o;
+      if (k >= 0 && k < kTaps) {
+#pragma unroll
+        for (int im = 0; im < 2; ++im) {
+          col_tap(dwt[o][im][0], k, c.lo[k], x[im][0]);
+          col_tap(dwt[o][im][1], k, c.lo[k], x[im][1]);
+          col_tap(dwt[o][im][2], k, c.hi[k], x[im][0]);
+          col_tap(dwt[o][im][3], k, c.hi[k], x[im][1]);
+        }
+      }
+    }
   }
 }
 
-// Launch 3: the masking threshold (three 3x3 filters over |csf*a|, reflect
-// 101, summed) and the cube sums of the masked |csf*r| and of |csf*o| over
-// the centre region [top, ch-top) x [left, cw-left), per-block partials.
-// grid: pixel_grid(ch - 2 top, cw - 2 left, B)
-__global__ void __launch_bounds__(kThreads)
-adm_mask_kernel(const float* __restrict__ bands, int bsz, int ch, int cw, int top, int left,
-                AdmConsts c, float* __restrict__ parts) {
-  __shared__ float red[6][kThreads];
-  const int j = left + blockIdx.x * kBx + threadIdx.x;
-  const int i = top + blockIdx.y * kBy + threadIdx.y;
-  const int b = blockIdx.z;
-  float v[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (i < ch - top && j < cw - left) {
-    const size_t nb = (size_t)ch * cw;
-    const size_t bstride = (size_t)bsz * nb;
-    const float* plane0 = bands + (size_t)b * nb;
-    float thr = 0.0f;
+// ---------------------------------------------------------------------------
+// A persistent block of 8 warps walks the 32x32 tiles of band pixels t =
+// blockIdx.x, blockIdx.x + gridDim.x, ... (tile (tx, ty) of frame b, t = (b
+// ny + ty) nx + tx); the tile grid is anchored at (top, left) and starts at
+// (gy0, gx0) = (top - 32 ky, left - 32 kx), ky = ceil(top/32), kx =
+// ceil(left/32).  Per tile: the raw rows (tensor copies when use_tma, tmap
+// the input's map, else loads), the row pass into shared memory, the copy
+// of the next tile's raw rows started, the column pass, gate, decoupling and
+// CSF at the tile and its halo, the mask and the cubes at the centre-region
+// pixels, and each 32x8 sub-tile's six partials into parts[(b * nblk + blk)
+// * 6 + k], blk its index in the centre region's pixel_grid
+// (reduce_frames_kernel<6> then sums them in f64); with approx non-null also
+// the tile's A bands.  Warps 2s and 2s + 1 hold rows 0-3 and 4-7 of sub-tile
+// s, one column per lane.
+// grid: (min(tiles, resident blocks)), block: kThreadsAdm (1-D), dynamic
+// shared memory: kSmemBytes.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreadsAdm, 2)
+adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMap tmap, int use_tma,
+                int bsz, int h, int w, int top, int left, AdmConsts c, float* __restrict__ approx,
+                float* __restrict__ parts) {
+  extern __shared__ __align__(128) float smem[];
+  float* raw = smem;                   // [2 images][kRawStride]: kInRows x kRawW each
+  float* rows = raw + kRawFloats;      // [2 images][lo, hi][kInRows][kBand]
+  float* me = rows + 4 * kRowFloats;   // [H, V, D][kBand][kBand] |csf*a| * (1/30)
+  float* mc = me + 3 * kBandFloats;    // [H, V, D][kBand][kBand] |csf*a| * (1/15)
+  float* xch = rows;                   // rows 4-7 of each sub-tile's cubes, once rows is dead
+  const unsigned bar = static_cast<unsigned>(__cvta_generic_to_shared(mc + 3 * kBandFloats));
+  const int ch = (h + 1) / 2, cw = (w + 1) / 2;
+  const int ky = (top + kTileH - 1) / kTileH, kx = (left + kTileW - 1) / kTileW;
+  const int gy0 = top - ky * kTileH, gx0 = left - kx * kTileW;
+  const int nx = (cw - gx0 + kTileW - 1) / kTileW, ny = (ch - gy0 + kTileH - 1) / kTileH;
+  const int ntiles = nx * ny * bsz;
+  const int nbx = (cw - 2 * left + kBx - 1) / kBx, nby = (ch - 2 * top + kBy - 1) / kBy;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int sub = warp / 2, half = warp % 2;  // sub-tile, rows 0-3 or 4-7 of it
+  auto origin = [&](int t, int& b, int& by0, int& bx0) {
+    b = t / (nx * ny);
+    by0 = gy0 + (t / nx % ny) * kTileH;
+    bx0 = gx0 + t % nx * kTileW;
+  };
+
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (use_tma && threadIdx.x == 0 && (int)blockIdx.x < ntiles) {
+    int b, by0, bx0;
+    origin(blockIdx.x, b, by0, bx0);
+    start_raw(raw, tmap, bsz, b, by0, bx0, bar);
+  }
+  int parity = 0;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    int b, by0, bx0;
+    origin(t, b, by0, bx0);
+    if (use_tma) {
+      wait_parity(bar, parity);
+      parity ^= 1;
+      fix_edges(raw, h, w, by0, bx0);
+    } else {
+      load_raw(raw, in, bsz, b, h, w, by0, bx0);
+    }
+    __syncthreads();
+
+    // Row pass: thread i filters pair m = i % 18 of raw rows i / 18, + 14,
+    // ...: band columns lj0 and lj0 + 1, lj0 = 2m - (bx0 & 1), from raw
+    // samples 4m+1 .. 4m+6 (input columns s .. s+5, s = 2 bx0 - 3 + 2 lj0).
+    if (threadIdx.x < kRowLanes) {
+      const int m = threadIdx.x % kPairs;
+      for (int rr = threadIdx.x / kPairs; rr < 2 * kInRows; rr += kRowLanes / kPairs) {
+        const int im = rr >= kInRows, lr = rr - im * kInRows;
+        const float* r = raw + im * kRawStride + lr * kRawW + 4 * m;
+        const float4 p0 = *reinterpret_cast<const float4*>(r);
+        const float4 p1 = *reinterpret_cast<const float4*>(r + 4);
+        const float x[6] = {p0.y, p0.z, p0.w, p1.x, p1.y, p1.z};
+        float* lo = rows + (2 * im) * kRowFloats + lr * kBand;
+        float* hi = lo + kRowFloats;
 #pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const float* a = plane0 + q * bstride;
-      float m = 0.0f;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        const float* row = a + (size_t)reflect101(i - 1 + dy, ch) * cw;
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float f = (dy == 1 && dx == 1) ? c.m_centre : c.m_edge;
-          const float x = __fmul_rn(row[reflect101(j - 1 + dx, cw)], f);
-          m = (dy == 0 && dx == 0) ? x : __fadd_rn(m, x);
+        for (int e = 0; e < 2; ++e) {
+          const int lj = 2 * m - (bx0 & 1) + e;
+          if (lj >= 0 && lj < kBand) {
+            auto load = [&x, e](int k) { return x[2 * e + k]; };
+            lo[lj] = dec(c.lo, load);
+            hi[lj] = dec(c.hi, load);
+          }
         }
       }
-      thr = q == 0 ? m : __fadd_rn(thr, m);
     }
-    const size_t at = (size_t)i * cw + j;
+    __syncthreads();
+    // The next tile's raw rows come in while this one computes.
+    if (use_tma && threadIdx.x == 0 && t + (int)gridDim.x < ntiles) {
+      int nb, nby0, nbx0;
+      origin(t + gridDim.x, nb, nby0, nbx0);
+      start_raw(raw, tmap, bsz, nb, nby0, nbx0, bar);
+    }
+
+    // Column pass, gate, decoupling and CSF.  The mask's products
+    // |csf*a| * (1/30) and |csf*a| * (1/15) of each band pixel go to shared
+    // memory, once each: first at the halo ring, ...
+    auto put_mask = [&](int li, int lj, const BandPixel& p) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        me[q * kBandFloats + li * kBand + lj] = __fmul_rn(p.ca[q], c.m_edge);
+        mc[q * kBandFloats + li * kBand + lj] = __fmul_rn(p.ca[q], c.m_centre);
+      }
+    };
+    for (int i = threadIdx.x; i < kHalo; i += kThreadsAdm) {
+      int li, lj;
+      if (i < kBand) {
+        li = 0, lj = i;
+      } else if (i < 2 * kBand) {
+        li = kBand - 1, lj = i - kBand;
+      } else if (i < 2 * kBand + kTileH) {
+        li = i - 2 * kBand + 1, lj = 0;
+      } else {
+        li = i - 2 * kBand - kTileH + 1, lj = kBand - 1;
+      }
+      float dwt[1][2][4];
+      column_pass<1>(rows, li, lj, c, dwt);
+      put_mask(li, lj, gate_csf(dwt[0], c));
+    }
+    // ... then at the interior: column lane, the warp's four rows; |csf*r|
+    // and |csf*o| stay in registers.
+    const int gj = bx0 + lane;
+    const int row0 = sub * kBy + half * kRowsPerWarp;  // the warp's first row in the tile
+    float cr[kRowsPerWarp][3], co[kRowsPerWarp][3];
+    {
+      float dwt[kRowsPerWarp][2][4];
+      column_pass<kRowsPerWarp>(rows, 1 + row0, lane + 1, c, dwt);
+#pragma unroll
+      for (int o = 0; o < kRowsPerWarp; ++o) {
+        const int gi = by0 + row0 + o;
+        const BandPixel p = gate_csf(dwt[o], c);
+        put_mask(1 + row0 + o, lane + 1, p);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          cr[o][q] = p.cr[q];
+          co[o][q] = p.co[q];
+        }
+        if (approx != nullptr && gi >= 0 && gi < ch && gj >= 0 && gj < cw) {
+          const size_t nb = (size_t)ch * cw, at = (size_t)gi * cw + gj;
+          approx[(size_t)b * nb + at] = p.a[0];
+          approx[((size_t)bsz + b) * nb + at] = p.a[1];
+        }
+      }
+    }
+    __syncthreads();
+
+    // The mask (three 3x3 filters over |csf*a|, neighbours at their
+    // reflect-101 index in the plane, summed in the plain version's order)
+    // and the cubes at the centre region [top, ch-top) x [left, cw-left).
+    // The four rows of a thread share their neighbours: rows row0 - 1 ..
+    // row0 + 4 (reflected) of columns lane - 1 .. lane + 1 are read once.
+    // A pixel of the plane finds them inside the tile's band pixels; one
+    // outside it (whose cubes are not summed) reads clamped indices.
+    int nrow[kRowsPerWarp + 2], ncol[3];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp + 2; ++r) {
+      nrow[r] = min(max(reflect101(by0 + row0 - 1 + r, ch) - by0 + 1, 0), kBand - 1) * kBand;
+    }
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) ncol[dx] = min(max(reflect101(gj - 1 + dx, cw) - bx0 + 1, 0), kBand - 1);
+    float thr[kRowsPerWarp];
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
-      const float rm = fmaxf(__fsub_rn(plane0[(3 + q) * bstride + at], thr), 0.0f);
-      const float oc = plane0[(6 + q) * bstride + at];
-      v[2 * q] = __fmul_rn(__fmul_rn(rm, rm), rm);
-      v[2 * q + 1] = __fmul_rn(__fmul_rn(oc, oc), oc);
+      float e[kRowsPerWarp + 2][3], cen[kRowsPerWarp];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp + 2; ++r) {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) e[r][dx] = me[q * kBandFloats + nrow[r] + ncol[dx]];
+      }
+#pragma unroll
+      for (int o = 0; o < kRowsPerWarp; ++o) cen[o] = mc[q * kBandFloats + nrow[o + 1] + ncol[1]];
+#pragma unroll
+      for (int o = 0; o < kRowsPerWarp; ++o) {
+        float m = 0.0f;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const float x = (dy == 1 && dx == 1) ? cen[o] : e[o + dy][dx];
+            m = (dy == 0 && dx == 0) ? x : __fadd_rn(m, x);
+          }
+        }
+        thr[o] = q == 0 ? m : __fadd_rn(thr[o], m);
+      }
+    }
+    const bool col_in = gj >= left && gj < cw - left;
+    float v[kRowsPerWarp][6];
+#pragma unroll
+    for (int o = 0; o < kRowsPerWarp; ++o) {
+      const int gi = by0 + row0 + o;
+      const bool in_region = col_in && gi >= top && gi < ch - top;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float rm = fmaxf(__fsub_rn(cr[o][q], thr[o]), 0.0f);
+        const float oc = co[o][q];
+        v[o][2 * q] = in_region ? __fmul_rn(__fmul_rn(rm, rm), rm) : 0.0f;
+        v[o][2 * q + 1] = in_region ? __fmul_rn(__fmul_rn(oc, oc), oc) : 0.0f;
+      }
+    }
+    // Rows o and o + 4 of each sub-tile added (the first stride of level.cuh's
+    // tree) in the warp that holds rows 0-3, then the rest of the tree.
+    float* x4 = xch + sub * (kRowsPerWarp * 6 * 32) + lane;
+    if (half == 1) {
+#pragma unroll
+      for (int o = 0; o < kRowsPerWarp; ++o) {
+#pragma unroll
+        for (int k = 0; k < 6; ++k) x4[(o * 6 + k) * 32] = v[o][k];
+      }
+    }
+    __syncthreads();
+    if (half == 0) {
+#pragma unroll
+      for (int o = 0; o < kRowsPerWarp; ++o) {
+#pragma unroll
+        for (int k = 0; k < 6; ++k) v[o][k] = __fadd_rn(v[o][k], x4[(o * 6 + k) * 32]);
+      }
+      subtile_partials<6>(v, parts, b, (bx0 - left) / kBx, (by0 - top) / kBy + sub, nbx, nby);
     }
   }
-  block_partials<6>(v, red, parts, b);
+}
+
+// Allows the kernel its dynamic shared memory and reads how many of its
+// blocks the card holds at once: once per process (the function-local
+// static), before its first launch or occupancy query.
+struct TileSetup {
+  cudaError_t err;
+  int per_sm, sms;
+};
+
+const TileSetup& tile_setup() {
+  static const TileSetup setup = [] {
+    TileSetup t = {cudaFuncSetAttribute(adm_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)kSmemBytes),
+                   0, 0};
+    int dev = 0;
+    if (t.err == cudaSuccess) t.err = cudaGetDevice(&dev);
+    if (t.err == cudaSuccess) t.err = cudaDeviceGetAttribute(&t.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (t.err == cudaSuccess) {
+      t.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&t.per_sm, adm_tile_kernel, kThreadsAdm,
+                                                            kSmemBytes);
+    }
+    if (t.err == cudaSuccess && t.per_sm == 0) t.err = cudaErrorInvalidConfiguration;
+    return t;
+  }();
+  return setup;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// libcuda): once per process.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of the (2B, h, w) input whose boxes are a tile's raw rows
+// of one image; false where the tensor copy does not take the input (rows
+// not a multiple of 16 bytes, an unaligned base, a plane smaller than 8 x
+// 4): the kernel then loads the samples one by one.
+bool raw_tensor_map(CUtensorMap* map, const float* in, int bsz, int h, int w) {
+  if (w % 4 != 0 || w < 8 || h < 4 || reinterpret_cast<uintptr_t>(in) % 16 != 0) return false;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)2 * bsz};
+  const cuuint64_t strides[2] = {(cuuint64_t)w * sizeof(float), (cuuint64_t)h * w * sizeof(float)};
+  const cuuint32_t box[3] = {kRawW, kInRows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(in), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int adm_blocks(int ch, int cw, int top, int left) {
+  const dim3 g = pixel_grid(ch - 2 * top, cw - 2 * left, 1);
+  return (int)(g.x * g.y);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of per-block partials tm_adm_level writes per frame for an h x w
-// input (its bands' centre region): the caller sizes `parts` as
-// B*nblk*6 floats.
-int tm_adm_blocks(int ch, int cw, int top, int left) {
-  const dim3 g = pixel_grid(ch - 2 * top, cw - 2 * left, 1);
-  return (int)(g.x * g.y);
+// Number of per-block partials tm_adm_level writes per frame for a ch x cw
+// band plane with centre region [top, ch-top) x [left, cw-left): the caller
+// sizes `parts` as B*nblk*6 floats.
+int tm_adm_blocks(int ch, int cw, int top, int left) { return adm_blocks(ch, cw, top, left); }
+
+// What adm_tile_kernel takes on this card: out[0] registers per thread,
+// out[1] dynamic shared memory per block in bytes, out[2] resident blocks
+// per SM, out[3] local memory per thread in bytes (spills).
+int tm_adm_tile_attrs(int* out) {
+  const TileSetup& t = tile_setup();
+  cudaFuncAttributes a;
+  cudaError_t err = t.err;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, adm_tile_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)kSmemBytes;
+  out[2] = t.per_sm;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
 }
 
 // One ADM level of the pair `in` (2, B, h, w): sums[b * sums_pstride + band *
@@ -198,13 +605,15 @@ int tm_adm_blocks(int ch, int cw, int top, int left) {
 // region (top, left: its crop per side); with approx non-null also the A
 // bands (2, B, ch, cw).  taps: db2 lo[4] then hi[4]; rf_hv, rf_d: the CSF
 // factors; cos1: cos^2(1 deg); eps: the decoupling epsilon; m_centre,
-// m_edge: the mask weights.  Scratch: rows 4*B*h*cw floats, bands 9*B*ch*cw,
-// parts B*tm_adm_blocks(...)*6.
+// m_edge: the mask weights.  parts holds B*tm_adm_blocks(...)*6 floats, the
+// only scratch.
 int tm_adm_level(const float* in, int bsz, int h, int w, const float* taps, float rf_hv,
                  float rf_d, float cos1, float eps, float m_centre, float m_edge, int top,
-                 int left, float* rows, float* approx, float* bands, float* parts, float* sums,
-                 int sums_pstride, void* stream) {
+                 int left, float* approx, float* parts, float* sums, int sums_pstride,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TileSetup& setup = tile_setup();
+  if (setup.err != cudaSuccess) return (int)setup.err;
   AdmConsts c;
   for (int k = 0; k < kTaps; ++k) {
     c.lo[k] = taps[k];
@@ -217,18 +626,17 @@ int tm_adm_level(const float* in, int bsz, int h, int w, const float* taps, floa
   c.m_centre = m_centre;
   c.m_edge = m_edge;
   const int ch = (h + 1) / 2, cw = (w + 1) / 2;
-  const dim3 block(kBx, kBy);
-  adm_rows_kernel<<<pixel_grid(h, cw, 2 * bsz), block, 0, s>>>(in, h, w, c, rows);
+  const int ky = (top + kTileH - 1) / kTileH, kx = (left + kTileW - 1) / kTileW;
+  const int gy0 = top - ky * kTileH, gx0 = left - kx * kTileW;
+  const int tiles = (cw - gx0 + kTileW - 1) / kTileW * ((ch - gy0 + kTileH - 1) / kTileH) * bsz;
+  const int grid = tiles < setup.per_sm * setup.sms ? tiles : setup.per_sm * setup.sms;
+  CUtensorMap tmap = {};
+  const int use_tma = raw_tensor_map(&tmap, in, bsz, h, w);
+  adm_tile_kernel<<<grid, kThreadsAdm, kSmemBytes, s>>>(in, tmap, use_tma, bsz, h, w, top, left, c, approx,
+                                                        parts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  adm_cols_kernel<<<pixel_grid(ch, cw, bsz), block, 0, s>>>(rows, bsz, h, w, c, approx, bands);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 g = pixel_grid(ch - 2 * top, cw - 2 * left, bsz);
-  adm_mask_kernel<<<g, block, 0, s>>>(bands, bsz, ch, cw, top, left, c, parts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_frames_kernel<6><<<bsz, kReduceThreads, 0, s>>>(parts, (int)(g.x * g.y), sums,
+  reduce_frames_kernel<6><<<bsz, kReduceThreads, 0, s>>>(parts, adm_blocks(ch, cw, top, left), sums,
                                                          sums_pstride);
   return (int)cudaGetLastError();
 }

@@ -16,15 +16,21 @@
 // with 0/1 replication matrices on the MXU; here each thread reads its one
 // chroma pair and writes the luma pixels that share it.
 //
-// What bounds both on this card: device-memory traffic.  Per pixel they read
+// What bounds both on this card: f32 instruction issue.  Per pixel they read
 // one luma sample and 0.5 (4:2:0) to 2 (4:4:4) chroma samples (u8 or u16)
-// and write 12 bytes of f32 RGB; the arithmetic (three transfer functions)
-// is a few dozen operations.  What the design does about it: one thread per
-// chroma sample reads its (Cb, Cr) pair once for the 2x2, 1x2 or 1x1 luma
-// pixels that share it, and the conversion is the same code as the
-// SSIMULACRA2 scale-0 pass (colorspace.cuh), so every route sees
-// bit-identical RGB.  Subsampled writes are stride-2 within a row; wider
-// per-thread stores are for later work.
+// and write 12 bytes of f32 RGB, but the three transfer functions in their
+// pow form (colorspace.cuh: a powf and two IEEE divisions per channel) take
+// more issue slots than the bytes take at the card's memory rate.  What the
+// design does about it: one thread per chroma sample reads its (Cb, Cr)
+// pair once for the 2x2, 1x2 or 1x1 luma pixels that share it, with few
+// registers, so that the SM holds its most warps to hide the latency of the
+// transfer functions; the conversion is the same code as the SSIMULACRA2
+// scale-0 pass (colorspace.cuh), so every route sees bit-identical RGB.
+// Wider per-thread accesses (a float2 store per row and channel; four luma
+// columns per thread with float4 stores; four chroma samples per thread
+// with 8-byte loads) measured slower on an H100: they cost registers, warps
+// and instructions, and the stride-2 stores of a warp already fill the
+// sectors they write.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

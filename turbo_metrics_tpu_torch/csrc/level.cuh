@@ -3,7 +3,7 @@
 // (ssimulacra2_scale.cu, ssimulacra2_tail.cu, downscale.cu, windowed.cu,
 // vif.cu, adm.cu, blur_probe.cu), and the tile geometry, loads and
 // sub-tile tree of the fused level kernels (ssimulacra2_scale.cu,
-// windowed.cu, vif.cu).
+// windowed.cu, vif.cu, adm.cu).
 //
 // A level kernel reduces K quantities per block in a fixed tree in f32 and
 // writes them as parts (planes, nblk, K); reduce_parts_kernel then sums each
@@ -80,12 +80,12 @@ __device__ __forceinline__ void block_partials(const float (&v)[K], float (*red)
 // tile_partials over a (kBx, kBy) block, so the sums equal a two-pass
 // design's bit for bit.  __fadd_rn: tile_partials adds values read back
 // from shared memory, so no add may fuse with the caller's last multiplies.
-// Lane 0 writes the K sums to parts[((plane * nby + by) * nbx + blockIdx.x) *
-// K + k] (nbx x nby: the plane's pixel_grid) when the sub-tile row by lies
-// inside it.
+// Lane 0 writes the K sums to parts[((plane * nby + by) * nbx + bx) * K + k]
+// (nbx x nby: the plane's pixel_grid) when the sub-tile (bx, by) lies inside
+// it.
 template <int K>
 __device__ __forceinline__ void subtile_partials(float (&v)[kBy / 2][K], float* __restrict__ parts,
-                                                 size_t plane, int by, int nbx, int nby) {
+                                                 size_t plane, int bx, int by, int nbx, int nby) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     v[0][k] = __fadd_rn(v[0][k], v[2][k]);
@@ -96,8 +96,8 @@ __device__ __forceinline__ void subtile_partials(float (&v)[kBy / 2][K], float* 
       v[0][k] = __fadd_rn(v[0][k], __shfl_down_sync(0xffffffffu, v[0][k], stride));
     }
   }
-  if (threadIdx.x % 32 == 0 && by < nby) {
-    float* out = parts + (plane * nbx * nby + (size_t)by * nbx + blockIdx.x) * K;
+  if (threadIdx.x % 32 == 0 && bx >= 0 && bx < nbx && by >= 0 && by < nby) {
+    float* out = parts + (plane * nbx * nby + (size_t)by * nbx + bx) * K;
 #pragma unroll
     for (int k = 0; k < K; ++k) out[k] = v[0][k];
   }

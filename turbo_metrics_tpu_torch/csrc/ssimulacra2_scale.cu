@@ -277,7 +277,7 @@ level_tile_kernel(const float* __restrict__ xa, const float* __restrict__ xb, in
 #pragma unroll
     for (int k = 0; k < 6; ++k) v[o][k] = __fadd_rn(va[k], vb[k]);
   }
-  subtile_partials<6>(v, parts, plane, by, nbx, nby);
+  subtile_partials<6>(v, parts, plane, blockIdx.x, by, nbx, nby);
 }
 
 int level_blocks(int h, int w) {

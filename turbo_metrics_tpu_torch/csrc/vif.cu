@@ -258,7 +258,7 @@ vif_tile_kernel(const float* __restrict__ src, int bsz, int h, int w, const floa
 #pragma unroll
     for (int k = 0; k < 2; ++k) v[o][k] = __fadd_rn(va[k], vb[k]);
   }
-  subtile_partials<2>(v, parts, b, by, nbx, nby);
+  subtile_partials<2>(v, parts, b, blockIdx.x, by, nbx, nby);
 
   // The next window's column pass at the tile's even rows (y0 + 2i: emission
   // row 2i + k is input row y0 + 2i - RE + k): next scale pixel

@@ -233,7 +233,7 @@ ssim_tile_kernel(const float* __restrict__ level, int planes, int h, int w,
 #pragma unroll
     for (int k = 0; k < 2; ++k) v[o][k] = __fadd_rn(va[k], vb[k]);
   }
-  subtile_partials<2>(v, parts, plane, by, nbx, nby);
+  subtile_partials<2>(v, parts, plane, blockIdx.x, by, nbx, nby);
 }
 
 int ssim_blocks(int h, int w) {

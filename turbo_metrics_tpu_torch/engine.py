@@ -653,9 +653,10 @@ def default_batch(width: int, height: int, metrics: Optional[Metrics] = None) ->
     level 1 2, ADM's row-filtered planes 8, band planes 9 and approximation
     2, the blurred luma 2).  All six at 1080p are ~0.6 GB per pair.  The
     fused tile kernels keep SSIMULACRA2's and the SSIM family's four
-    row-filtered planes and VIF's row-blurred planes and emission rows in
-    shared memory: none of those planes exists in device memory any more,
-    so these terms overstate by 48 + 48 + 24 bytes per pixel pair.  The
+    row-filtered planes, VIF's row-blurred planes and emission rows, and
+    ADM's row-filtered and band planes in shared memory: none of those
+    planes exists in device memory any more, so these terms overstate by
+    48 + 48 + 24 + 8 + 9 bytes per pixel pair.  The
     numbers stay until a batch ladder measured on the H100 replaces them
     (the JAX package's TPU ladders do not transfer), since they set the
     batch of every route.

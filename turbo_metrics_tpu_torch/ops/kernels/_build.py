@@ -61,9 +61,8 @@ _SIGNATURES = {
     "tm_vif_tile_attrs": [_I, _PI],
     "tm_vif_level": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "tm_adm_blocks": [_I, _I, _I, _I],
-    "tm_adm_level": [
-        _P, _I, _I, _I, _PF, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _I, _P,
-    ],
+    "tm_adm_tile_attrs": [_PI],
+    "tm_adm_level": [_P, _I, _I, _I, _PF, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _I, _P],
     "tm_blur_probe_blocks": [_I, _I],
     "tm_blur_probe": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }

@@ -15,7 +15,8 @@ the same four lines:
 and beside them kernel 1 (``fused_scale0_yuv`` on a seeded 8-bit 4:2:0
 pair), kernel 2 (``fused_pyramid_tail`` from #3's emitted level, one entry
 per level), #10, #11 (with and without the next level), #12, #14, #15 and
-#18 on the same inputs.  Each call
+#18 on the same inputs, and #6 (``yuv420_to_linear_rgb_pair``) on kernel 1's
+8-bit 4:2:0 pair.  Each call
 is timed by CUDA events after warm-up (the median of ``REPEATS`` runs of
 ``--iters`` calls: a call's host time swings with the load on the host), and
 every CUDA kernel it launches by torch.profiler, in launch order: the device
@@ -55,6 +56,9 @@ LEVEL = ("level_tile_kernel", "reduce_parts_kernel")
 # fused tile kernel (both passes, the map, the next level), the reduction.
 SSIM_LEVEL = ("ssim_tile_kernel", "reduce_parts_kernel")
 VIF_LEVEL = ("vif_tile_kernel", "reduce_frames_kernel")
+# One ADM level (csrc/adm.cu): the fused tile kernel (DWT, gate, CSF, mask,
+# cubes, the next level's A bands), the reduction.
+ADM_LEVEL = ("adm_tile_kernel", "reduce_frames_kernel")
 # Timed runs of ``--iters`` calls per entry; the call time is their median.
 REPEATS = 5
 # Profiler readings of one entry that keep fewer than half their calls whole
@@ -206,6 +210,7 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
     from turbo_metrics_tpu_torch.ops.kernels import (
         adm,
         blur_probe,
+        convert,
         scale_stats,
         scale_tail,
         vif,
@@ -261,9 +266,9 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
         Probe("#14 VIF scale 0", "vif_scale0", lambda: vif.vif_scale0(pair), once(*VIF_LEVEL)),
         Probe("#15 VIF scales 1-3", "vif_tail", lambda: vif.vif_tail(vif_lvl1),
               levels(vif_ops.NUM_SCALES - 1, VIF_LEVEL)),
-        Probe("#18 ADM", "adm_stats", lambda: adm.adm_stats(pair),
-              levels(adm_ops.NUM_LEVELS,
-                     ("adm_rows_kernel", "adm_cols_kernel", "adm_mask_kernel", "reduce_frames_kernel"))),
+        Probe("#18 ADM", "adm_stats", lambda: adm.adm_stats(pair), levels(adm_ops.NUM_LEVELS, ADM_LEVEL)),
+        Probe("#6 conversion (4:2:0 pair)", "yuv420_to_linear_rgb_pair",
+              lambda: convert.yuv420_to_linear_rgb_pair(y2, uv2), once("yuv_to_rgb_kernel")),
     ]
 
 

@@ -6,7 +6,9 @@ given checkout of the repository (the working tree, or an older commit
 unpacked beside it with ``git archive``), runs the probes of that
 checkout's dissect tool (``kernel_dissect.probes`` at the tool's default
 shape, B=4 1080x1920, inputs from seed 0) whose wrapper is one of
-``WRAPPERS``, on the card, and saves every tensor
+``WRAPPERS``, and the calls of ``own_calls`` (ADM and the two conversions
+on seeded inputs built here, so that a checkout whose tool lacks a probe is
+compared all the same), on the card, and saves every tensor
 they return, with the peak device memory of each call above its inputs;
 ``compare`` reports for each result that both files hold whether they
 hold the same bits, and the largest difference where they do not:
@@ -29,16 +31,56 @@ import json
 import os
 import sys
 
+import numpy as np
 import torch
 
-# The wrappers whose results are saved: SSIM's and VIF's levels.
-WRAPPERS = ("ssim_sums", "msssim_tail", "vif_scale0", "vif_tail")
+# The dissect probes whose results are saved: SSIM's, VIF's and ADM's levels.
+WRAPPERS = ("ssim_sums", "msssim_tail", "vif_scale0", "vif_tail", "adm_stats")
+
+
+def own_calls(batch: int, height: int, width: int, dev) -> list:
+    """(entry, wrapper, call) of the kernels whose inputs are built here from
+    seed 9: ADM on luma pairs at sizes whose mask halo leaves the band plane
+    (13x21, 67x99), #6 on an 8-bit 4:2:0 pair at the given shape and at an
+    odd size, #5 on 10-bit 4:2:2 at the given shape and on 12-bit 4:4:4 at
+    an odd size."""
+    from turbo_metrics_tpu_torch.ops.kernels import adm, convert
+
+    rng = np.random.default_rng(9)
+
+    def planes(shape, depth):
+        dt = np.uint8 if depth == 8 else np.uint16
+        return torch.from_numpy(rng.integers(0, 1 << depth, shape).astype(dt)).to(dev)
+
+    def luma_pair(h, w):
+        ref = rng.integers(0, 256, (batch, h, w))
+        dis = np.clip(ref + rng.integers(-12, 13, ref.shape), 0, 255)
+        return torch.from_numpy(np.stack([ref, dis]).astype(np.float32)).to(dev)
+
+    h2, w2 = (height + 1) // 2, (width + 1) // 2
+    y8, uv8 = planes((2, batch, height, width), 8), planes((2, batch, h2, w2, 2), 8)
+    y8o, uv8o = planes((2, 2, 67, 99), 8), planes((2, 2, 34, 50, 2), 8)
+    y10, uv10 = planes((batch, height, width), 10), planes((batch, height, w2, 2), 10)
+    y12, uv12 = planes((3, 35, 131), 12), planes((3, 35, 131, 2), 12)
+    calls = [(f"#18 ADM {h}x{w}", "adm_stats", lambda p=luma_pair(h, w): adm.adm_stats(p))
+             for h, w in ((13, 21), (67, 99))]
+    return calls + [
+        (f"#6 conversion {width}x{height}", "yuv420_to_linear_rgb_pair",
+         lambda: convert.yuv420_to_linear_rgb_pair(y8, uv8)),
+        ("#6 conversion 99x67", "yuv420_to_linear_rgb_pair",
+         lambda: convert.yuv420_to_linear_rgb_pair(y8o, uv8o)),
+        (f"#5 4:2:2 10-bit {width}x{height}", "yuv_to_linear_rgb",
+         lambda: convert.yuv_to_linear_rgb(y10, uv10, depth=10, chroma=422)),
+        ("#5 4:4:4 12-bit PQ 131x35", "yuv_to_linear_rgb",
+         lambda: convert.yuv_to_linear_rgb(y12, uv12, depth=12, chroma=444, matrix="bt2020",
+                                           transfer="pq")),
+    ]
 
 
 def save(root: str, out: str) -> dict:
     """Run the probes of the checkout at ``root`` whose wrapper is in
-    ``WRAPPERS`` once each on the card, at its dissect tool's default shape;
-    save {"results": {"<entry> [i]": the
+    ``WRAPPERS`` and the calls of ``own_calls`` once each on the card, at its
+    dissect tool's default shape; save {"results": {"<entry> [i]": the
     i-th tensor the call returns}, "peak_mib": {entry: the call's peak
     device memory above what was allocated before it, MiB}} to ``out`` and
     return it."""
@@ -51,25 +93,27 @@ def save(root: str, out: str) -> dict:
     if not os.path.abspath(kernel_dissect.__file__).startswith(root + os.sep):
         raise RuntimeError(f"imported {kernel_dissect.__file__}, not the package under {root}")
     shape = kernel_dissect.build_parser().parse_args([])
+    dev = torch.device("cuda")
     results, peak_mib = {}, {}
     with torch.no_grad():
-        for probe in kernel_dissect.probes(shape.batch, shape.height, shape.width, torch.device("cuda")):
-            if probe.wrapper not in WRAPPERS:
-                continue
+        calls = [(p.entry, p.wrapper, p.fn)
+                 for p in kernel_dissect.probes(shape.batch, shape.height, shape.width, dev)
+                 if p.wrapper in WRAPPERS]
+        for entry, wrapper, fn in calls + own_calls(shape.batch, shape.height, shape.width, dev):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            got = probe.fn()
+            got = fn()
             torch.cuda.synchronize()
-            peak_mib[probe.entry] = (torch.cuda.max_memory_allocated() - base) / 2**20
-            print(f"{probe.entry} [{probe.wrapper}]: peak device memory above its inputs "
-                  f"{peak_mib[probe.entry]:.1f} MiB ({torch.cuda.get_device_name()})", flush=True)
+            peak_mib[entry] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            print(f"{entry} [{wrapper}]: peak device memory above its inputs "
+                  f"{peak_mib[entry]:.1f} MiB ({torch.cuda.get_device_name()})", flush=True)
             for i, t in enumerate(got if isinstance(got, tuple) else (got,)):
                 if t is not None:
-                    results[f"{probe.entry} [{i}]"] = t.cpu()
+                    results[f"{entry} [{i}]"] = t.cpu()
     saved = {"results": results, "peak_mib": peak_mib}
     torch.save(saved, out)
-    print(f"saved {len(results)} results of {', '.join(WRAPPERS)} from {root} to {out}", flush=True)
+    print(f"saved {len(results)} results from {root} to {out}", flush=True)
     return saved
 
 
