@@ -13,7 +13,9 @@ Phases, each fatal on failure (exit code 1):
      (tm_level_blocks, tm_ssim_blocks, tm_vif_blocks, tm_adm_blocks) on
      sizes that cross tile edges and on every level of the 1080p (and 4K)
      pyramids; the registers, shared memory, blocks per SM and spills of
-     every fused level kernel instance (adm_tile_kernel among them);
+     every fused level kernel instance (adm_tile_kernel among them), of the
+     motion kernel (#16, #17) per luma type and of #4's fused_tail_kernel;
+     the Python motion_geometry equal to the library's tm_motion_geometry;
   3. write a seeded 1080p 8-bit 4:2:0 BT.709 limited-range Y4M pair
      (16 frames, noise on a smooth base) to a temporary directory;
   4. score it through the port's CLI (-m ssimulacra2 --output json), every
@@ -96,6 +98,12 @@ Phases, each fatal on failure (exit code 1):
      and 1x1 planes, 8- and 16-bit, at 4:2:0 (#6 too), 4:2:2 and 4:4:4,
      BT.709 and PQ (atol 1e-6, 1e-4 for PQ): the ragged ends of rows and
      the unaligned chunks;
+  5h. #16 and #17 against their twins bit for bit at the sizes where the
+     motion kernel branches (3x3, 5x17, widths on either side of a 16-byte
+     chunk and of a warp's row segment, u8, u16 and int32 luma at 8-16
+     bits), on two batches across the batch boundary; #4 against its twin
+     and bit for bit against kernel 2 on the 4K level 3, the 1440p level 2,
+     67x99 and odd chains whose levels fall below one 32x32 tile;
   6. score the frozen golden pair through the kernel route: 80.486135 +- 0.05;
   7. time each kernel and its twin (#7 also against avg_pool2d, #19 against
      five F.conv2d blurs with TF32 off, separable and as one 11x11 kernel,
@@ -103,7 +111,9 @@ Phases, each fatal on failure (exit code 1):
      the whole kernel and plain steps of both 1080p routes, of VMAF and of
      the 4K route, with CUDA events after warm-up; the 4K step beside the
      route it replaced (kernel 1, then kernel 2 on levels 1-5) on the same
-     inputs, by CUDA events and by torch.profiler device time; the peak
+     inputs, by CUDA events and by torch.profiler device time; #4 and
+     kernel 2 on the 4K levels s-5 from each first level s (device and call
+     times); #16 and #17 by device time too; the peak
      device memory of one kernel step above its inputs (1080p SSIMULACRA2,
      multi-metric and VMAF, 4K SSIMULACRA2); and the CLI
      runs of phases 4, 4a, 4b (a), 4c, 4d, 4e and 4f again warm, three
@@ -200,7 +210,10 @@ F_ADM_LEVEL = 63
 F_PROBE = 220
 # The kernels whose passes were fused into one tile kernel per level.
 REDESIGNED = {"fused_scale0_yuv": "fused level pass", "fused_scale_rgb": "fused level pass",
-              "ssim_sums": "fused tile pass", "vif_scale0": "fused tile pass", "adm_stats": "fused tile pass"}
+              "ssim_sums": "fused tile pass", "vif_scale0": "fused tile pass", "adm_stats": "fused tile pass",
+              "motion_stats": "register-window blur, frames walked in order",
+              "integer_blur": "register-window blur, frames walked in order",
+              "fused_tail": "fused tile passes in one cooperative launch"}
 # The wrappers the dissect path times (phase 8), each launched there.
 DISSECT_KERNELS = ("fused_scale_rgb", "scale_sums", "blur_only", "fused_scale0_yuv", "fused_pyramid_tail",
                    "fused_scale_pair", "ssim_sums", "msssim_tail", "vif_scale0", "vif_tail", "adm_stats",
@@ -1025,7 +1038,7 @@ def check_level_blocks(lib, card: str) -> None:
     from turbo_metrics_tpu_torch.ops import adm as adm_ops
     from turbo_metrics_tpu_torch.ops import quality
     from turbo_metrics_tpu_torch.ops.downscale import scale_dims
-    from turbo_metrics_tpu_torch.ops.kernels import _build, adm, scale_stats, vif, windowed
+    from turbo_metrics_tpu_torch.ops.kernels import _build, adm, motion, scale_stats, vif, windowed
 
     sizes = [(1, 1), (33, 65), (67, 99)] + scale_dims(HEIGHT, WIDTH) + scale_dims(UHD_HEIGHT, UHD_WIDTH)
     for h, w in sizes:
@@ -1069,6 +1082,24 @@ def check_level_blocks(lib, card: str) -> None:
     _build.check(lib.tm_adm_tile_attrs(a), "tm_adm_tile_attrs")
     log(f"adm_tile_kernel: {a[0]} registers, {a[1]} B of dynamic shared memory per block, {a[2]} blocks "
         f"per SM, {a[3]} B of local memory (spills) [{card}]")
+    g = (ctypes.c_int * 3)()
+    motion_sizes = [(3, 3), (5, 17), (67, 99), (35, 131), (HEIGHT, WIDTH), (UHD_HEIGHT, UHD_WIDTH)]
+    for code, (dtype, name) in enumerate(((torch.uint8, "unsigned char"), (torch.uint16, "unsigned short"),
+                                          (torch.int32, "int"))):
+        for h, w in motion_sizes:
+            _build.check(lib.tm_motion_geometry(h, w, code, g), "tm_motion_geometry")
+            want = motion.motion_geometry(h, w, dtype)
+            need(tuple(g) == want,
+                 f"tm_motion_geometry({h}, {w}, {code}) = {tuple(g)}, motion_geometry = {want}")
+        _build.check(lib.tm_motion_attrs(code, a), "tm_motion_attrs")
+        log(f"motion_kernel<{name}>: {a[0]} registers, {a[1]} B of static shared memory per block, {a[2]} "
+            f"blocks per SM, {a[3]} B of local memory (spills) [{card}]")
+    log(f"tm_motion_geometry equals motion_geometry on {len(motion_sizes)} sizes x 3 luma types; "
+        f"{WIDTH}x{HEIGHT} u8: {motion.motion_geometry(HEIGHT, WIDTH, torch.uint8)} (rows, threads, blocks)")
+    t = (ctypes.c_int * 5)()
+    _build.check(lib.tm_fused_tail_attrs(t), "tm_fused_tail_attrs")
+    log(f"fused_tail_kernel: {t[0]} registers, {t[1]} B of static shared memory per block, {t[2]} blocks per "
+        f"SM, {t[3]} B of local memory (spills), {t[4]} blocks per launch [{card}]")
 
 
 def check_ssim_edges(dev, win) -> float:
@@ -1168,6 +1199,61 @@ def check_adm_convert_edges(dev) -> None:
                                          convert.yuv420_to_linear_rgb_pair_ref(y, uv, **kw), 0.0, tol)
                         msg += f"; #6 {e6:.3g}"
                     log(msg)
+
+
+# Phase 5h: sizes where the motion kernel (#16, #17) branches -- the smallest
+# frames, widths on either side of a 16-byte chunk (16 u8, 8 u16, 4 int32
+# samples) and of a warp's row segment (30 chunks), int32 luma codes at
+# unaligned widths -- as (h, w, depth, luma type); and #4's chains: the 4K
+# level 3, the 1440p level 2, 67x99 from level 0, and odd chains whose last
+# (or every) level is below one 32x32 tile, as (h, w, levels, B).
+MOTION_EDGE_SIZES = (
+    (3, 3, 8, np.uint8), (5, 17, 8, np.uint8), (4, 15, 8, np.uint8), (4, 16, 8, np.uint8),
+    (4, 17, 8, np.uint8), (6, 479, 8, np.uint8), (6, 481, 8, np.uint8), (67, 99, 8, np.uint8),
+    (5, 7, 10, np.uint16), (5, 9, 10, np.uint16), (5, 239, 10, np.uint16), (5, 241, 10, np.uint16),
+    (9, 31, 16, np.uint16), (7, 33, 10, np.int32), (7, 121, 16, np.int32), (35, 131, 12, np.int32),
+)
+TAIL_CHAINS = ((270, 480, 3, 4), (360, 640, 4, 2), (67, 99, 5, 2), (40, 50, 3, 2), (23, 29, 3, 3),
+               (17, 45, 3, 2))
+
+
+def check_motion_tail_edges(dev, taps, opsin) -> None:
+    """Phase 5h: #16 and #17 against their twins bit for bit at
+    MOTION_EDGE_SIZES on two batches of three frames, the second batch's
+    frame 0 taking the first's last blurred frame across the batch boundary
+    (u16 and int32 luma at 10 and 16 bits too); #4 on TAIL_CHAINS against its
+    twin (sums rtol 1e-4 / atol 1e-5) and bit for bit against kernel 2 on
+    the same plane."""
+    from turbo_metrics_tpu_torch.ops.kernels import fused_tail, motion, scale_tail
+
+    rng = np.random.default_rng(1617)
+    for h, w, depth, dt in MOTION_EDGE_SIZES:
+        y = torch.from_numpy(rng.integers(0, 1 << depth, (6, h, w)).astype(dt)).to(dev)
+        prev0 = torch.from_numpy(rng.integers(0, 1 << 16, (h, w)).astype(np.uint16)).to(dev)
+        for b0 in (0, 3):
+            batch = y[b0:b0 + 3]
+            got = motion.motion_stats(batch, prev0, depth=depth)
+            want = motion.motion_stats_ref(batch, prev0, depth=depth)
+            blur = motion.integer_blur(batch, depth=depth)
+            need(torch.equal(got["blurred"].to(torch.int32), want["blurred"].to(torch.int32))
+                 and torch.equal(got["sad_rows"], want["sad_rows"]),
+                 f"#16 differs from its twin at {h}x{w} {np.dtype(dt).name} {depth}-bit, frames {b0}+")
+            need(torch.equal(blur.to(torch.int32), want["blurred"].to(torch.int32)),
+                 f"#17 differs from the twin at {h}x{w} {np.dtype(dt).name} {depth}-bit")
+            prev0 = want["blurred"][-1].contiguous()
+    log(f"#16/#17 vs twins bit for bit at {len(MOTION_EDGE_SIZES)} edge sizes (u8, u16, int32; 8-16 bits), "
+        "across the batch boundary")
+    g = torch.Generator(device=dev).manual_seed(4)
+    for h, w, levels, bsz in TAIL_CHAINS:
+        p = torch.rand((2, bsz, 3, h, w), generator=g, device=dev)
+        k4 = fused_tail.fused_tail(p, levels, taps, opsin)
+        err = check_close(f"#4 vs twin, {levels} levels from {h}x{w}", k4,
+                          fused_tail.fused_tail_ref(p, levels, taps, opsin), 1e-4, 1e-5)
+        k2 = scale_tail.fused_pyramid_tail(p, levels, taps, opsin)
+        need(torch.equal(k4, k2), f"#4 and kernel 2 differ on {levels} levels from {h}x{w}: max abs diff "
+             f"{float((k4 - k2).abs().max()):.3g}")
+        log(f"#4 on {levels} levels from {h}x{w} B={bsz}: max abs err vs twin {err:.3g}; sums equal to "
+            "kernel 2's")
 
 
 def check_golden(dev) -> float:
@@ -1565,6 +1651,7 @@ def main() -> int:
         vmaf_err, vpair, vlevel1 = check_vmaf_kernels(y16, vmaf_scores)
         check_vif_edges(dev)
         check_adm_convert_edges(dev)
+        check_motion_tail_edges(dev, taps, opsin)
         check_mezzanine_engine(dev)
         model4k = Ssimulacra2(UHD_WIDTH, UHD_HEIGHT, device=dev)
         e4, lvl3 = check_uhd(y4k, uv4k, model4k, uhd_scores, dev)
@@ -1654,6 +1741,21 @@ def main() -> int:
         k2_lvl3_dev_ms = device_ms(
             lambda: scale_tail.fused_pyramid_tail(lvl3, 3, taps, opsin),
             ("rgb_to_xyb_kernel", "level_tile_kernel", "reduce_parts_kernel"))
+        k16_dev_ms = device_ms(lambda: motion.motion_stats(vy, prev0), ("motion_kernel",))
+        k17_dev_ms = device_ms(lambda: motion.integer_blur(vy[:1]), ("motion_kernel",))
+        # Which 4K levels #4 and kernel 2 should take: each on levels s..5
+        # from each first level s (kernel 1's emitted level 1, then 2x2 means).
+        uhd_levels, lvl = [], scale_stats.fused_scale0_yuv(y4k, uv4k, taps, opsin)[1]
+        for first in range(1, model4k.num_scales):
+            n = model4k.num_scales - first
+            k4_call = lambda: fused_tail.fused_tail(lvl, n, taps, opsin)  # noqa: E731
+            k2_call = lambda: scale_tail.fused_pyramid_tail(lvl, n, taps, opsin)  # noqa: E731
+            uhd_levels.append((first, tuple(lvl.shape[-2:]), device_ms(k4_call, ("fused_tail_kernel",)),
+                               device_ms(k2_call, ("rgb_to_xyb_kernel", "level_tile_kernel",
+                                                   "reduce_parts_kernel")),
+                               time_ms(k4_call, 20), time_ms(k2_call, 20)))
+            lvl = plain_level(lvl, 1)
+        del lvl
         # #19 on the dissect tool's input; its yardsticks, five F.conv2d
         # blurs of the padded planes in full f32 (TF32 off for the call),
         # separable (the row's library_ms) and as one 11x11 kernel, are timed
@@ -1707,7 +1809,12 @@ def main() -> int:
         f"five F.conv2d blurs (TF32 off): separable {k19_lib_ms:.3f} ms, one 11x11 kernel "
         f"{k19_dense_ms:.3f} ms, their sums vs #19's max rel diff {rel[0]:.3g} / {rel[1]:.3g} [{card}]")
     log(f"PSNR (plain torch expression on the pair buffer) {psnr_ms:.3f} ms [{card}]")
+    for first, hw, d4, d2, c4, c2 in uhd_levels:
+        log(f"4K B={UHD_BATCH} levels {first}-{model4k.num_scales - 1} from {hw[1]}x{hw[0]}: #4 device "
+            f"{d4:.4f} ms (call {c4:.3f}), kernel 2 device {d2:.4f} ms (its kernels only; call {c2:.3f}) "
+            f"[{card}]")
     for name, t in (("xpsnr_block_stats", k13_dev_ms), ("yuv_to_linear_rgb", k5_dev_ms),
+                    ("motion_stats (B=8 u8)", k16_dev_ms), ("integer_blur (one u8 frame)", k17_dev_ms),
                     ("fused_tail (4K level 3)", k4_dev_ms),
                     ("fused_pyramid_tail on the same plane (its 12 kernels)", k2_lvl3_dev_ms),
                     ("4K kernel step, every kernel (kernel 1, #3 x2, #4)", uhd_dev_ms),
@@ -1809,7 +1916,8 @@ def main() -> int:
             # Kernels 1 and #3 were redesigned around the fused level pass,
             # #11, #14 and #18 around a fused tile pass (one tile kernel per
             # level instead of a row and a column pass and an emission or
-            # mask pass).
+            # mask pass), #4 around the same level pass, #16 and #17 around
+            # a blur in registers.
             "redesigned": REDESIGNED.get(name),
         })
     peak = max(RUN_PEAK[0], torch.cuda.max_memory_allocated(dev))

@@ -49,6 +49,9 @@ from turbo_metrics_tpu_torch.ops.kernels import fused_tail
 torch.set_num_threads(1)
 
 SHAPES = [(48, 64), (35, 61)]  # (h, w)
+# Kernel #4 from level 0 on odd sizes whose levels all fall below one 32x32
+# tile (23x29) or whose first level crosses a tile's width only (17x45).
+TAIL_SHAPES = [(23, 29), (17, 45)]
 # Port name -> (the JAX backend it is held against, rtol, atol).
 AGAINST = {
     "auto": ("auto", 2e-5, 2e-6),  # jnp on the CPU in both packages
@@ -73,6 +76,19 @@ def jax_modules():
             mods[jb, (h, w)] = m
     for hw in SHAPES:
         mods["auto", hw] = mods["jnp", hw]
+    return mods
+
+
+@pytest.fixture(scope="module")
+def tail_modules(jax_modules):
+    """The JAX package's pallas3 route in interpret mode (B=2) for SHAPES and
+    TAIL_SHAPES, the latter compiled here once for the module."""
+    mods = {hw: jax_modules["interpret3", hw] for hw in SHAPES}
+    for h, w in TAIL_SHAPES:
+        m = JaxSsimulacra2(w, h, batch=2, backend="interpret3")
+        zeros = np.zeros((2, 3, h, w), np.float32)
+        m.subscores_device(zeros, zeros).block_until_ready()
+        mods[h, w] = m
     return mods
 
 
@@ -132,16 +148,17 @@ def _tail_pair(rng, h, w, close):
 
 
 @pytest.mark.parametrize("close", [False, True])
-@pytest.mark.parametrize("hw", SHAPES)
-def test_fused_tail_twin_matches_jax(rng, jax_modules, hw, close):
+@pytest.mark.parametrize("hw", SHAPES + TAIL_SHAPES)
+def test_fused_tail_twin_matches_jax(rng, tail_modules, hw, close):
     """Kernel #4's twin from level 0 against fused_tail_pallas, reached
     through the JAX pallas3 route in interpret mode: sub-scores of
-    independent images, scores of close pairs."""
+    independent images, scores of close pairs; also on odd sizes whose
+    levels fall below one 32x32 tile of the CUDA kernel."""
     h, w = hw
     ns = len(scale_dims(h, w))
     assert s2.level_route(h, w, ns) == [("fused_tail", tuple(range(ns)))]
     a, b = _tail_pair(rng, h, w, close)
-    want = np.asarray(jax_modules["interpret3", hw].subscores_device(a, b))
+    want = np.asarray(tail_modules[hw].subscores_device(a, b))
     m = s2.Ssimulacra2(w, h, device="cpu")
     sums = fused_tail.fused_tail(torch.from_numpy(np.stack([a, b])), ns, m.taps, m.opsin)
     assert sums.shape == (2, ns, 3, 6) and sums.dtype == torch.float32

@@ -183,6 +183,9 @@ def test_kernel_dissect_on_cpu():
         "#15 VIF scales 1-3": {"vif_tile_kernel": 3, "reduce_frames_kernel": 3},
         "#18 ADM": {"adm_tile_kernel": 4, "reduce_frames_kernel": 4},
         "#6 conversion (4:2:0 pair)": {"yuv_to_rgb_kernel": 1},
+        "#16 motion (u8)": {"motion_kernel": 1},
+        "#17 motion blur (one frame)": {"motion_kernel": 1},
+        "#4 tail, 3 levels from level 2": {"fused_tail_kernel": 1},
     }
     assert kernels == want
 
@@ -291,15 +294,26 @@ def test_level_outputs_save_needs_the_card(tmp_path):
 def test_level_outputs_own_calls_run_on_cpu():
     """The calls ``save`` makes beside the dissect probes (ADM at sizes whose
     mask halo leaves the band plane, #6 at 8 bits and an odd size, #5 at
-    4:2:2 10-bit and 4:4:4 12-bit PQ) build their inputs from a seed and run
-    through the wrappers, here their twins: each entry names its wrapper
-    and returns the wrapper's shape."""
+    4:2:2 10-bit and 4:4:4 12-bit PQ, #16 on 8-bit, 10-bit and int32 luma,
+    #17 on one frame, #4 on three and five levels) build their inputs from
+    a seed and run through the wrappers, here their twins: each entry names
+    its wrapper and returns the wrapper's shapes."""
     from turbo_metrics_tpu_torch.tools import level_outputs
 
     calls = level_outputs.own_calls(1, 48, 64, torch.device("cpu"))
-    shapes = {entry: tuple(fn().shape) for entry, _, fn in calls}
-    assert {w for _, w, _ in calls} == {"adm_stats", "yuv420_to_linear_rgb_pair", "yuv_to_linear_rgb"}
+    shapes = {}
+    for entry, _, fn in calls:
+        got = fn()
+        shapes[entry] = tuple(got.shape) if torch.is_tensor(got) else tuple(tuple(t.shape) for t in got)
+    assert {w for _, w, _ in calls} == {"adm_stats", "yuv420_to_linear_rgb_pair", "yuv_to_linear_rgb",
+                                        "motion_stats", "integer_blur", "fused_tail"}
     assert shapes == {
+        "#16 motion u8 64x48": ((1, 48, 64), (1, 48)),
+        "#16 motion 10-bit 131x35": ((3, 35, 131), (3, 35)),
+        "#16 motion int32 codes 131x35": ((3, 35, 131), (3, 35)),
+        "#17 motion blur u8 64x48": (1, 48, 64),
+        "#4 tail 3 levels from 16x12": (1, 3, 3, 6),
+        "#4 tail 5 levels from 99x67": (2, 5, 3, 6),
         "#18 ADM 13x21": (1, 4, 3, 2),
         "#18 ADM 67x99": (1, 4, 3, 2),
         "#6 conversion 64x48": (2, 1, 3, 48, 64),

@@ -232,3 +232,30 @@ def test_new_wrappers_count_no_launch_on_cpu(rng):
         scale_stats.scale_sums(a, b[:, :, :-1].contiguous(), taps)
     with pytest.raises(ValueError):
         scale_stats.fused_scale_pair(a, b.transpose(-1, -2), taps, opsin)
+
+
+@pytest.mark.parametrize("levels", [1, 3, 6])
+@pytest.mark.parametrize("hw", [(270, 480), (360, 640), (67, 99), (23, 29)])
+def test_fused_tail_scratch_has_no_row_planes(hw, levels):
+    """Kernel #4's one scratch allocation: the XYB pair of the even levels,
+    the next level's size for the odd ones and for two linear-RGB planes,
+    and six f32 partials per 32x8 tile of every level, each part whole
+    16-byte chunks; the four row-blurred planes the two-pass design kept
+    (4 * B * 3 * h * w floats, 25 MB at the 4K level 3) are gone.  Sizing
+    it needs no library."""
+    h, w = hw
+    bsz = 4
+    sizes = fused_tail.scratch_floats(bsz, h, w, levels)
+    assert list(sizes) == ["xyb_even", "xyb_odd", "lvl_a", "lvl_b", "parts"]
+    n = 2 * bsz * 3 * h * w
+    n_next = 2 * bsz * 3 * -(-h // 2) * -(-w // 2) if levels > 1 else 0
+    parts, lh, lw = 0, h, w
+    for _ in range(levels):
+        parts += bsz * 3 * -(-lw // 32) * -(-lh // 8) * 6
+        lh, lw = -(-lh // 2), -(-lw // 2)
+    up = lambda v: -(-v // 4) * 4  # noqa: E731
+    assert sizes == {"xyb_even": up(n), "xyb_odd": up(n_next), "lvl_a": up(n_next),
+                     "lvl_b": up(n_next), "parts": up(parts)}
+    if (hw, levels) == ((270, 480), 3):
+        assert sum(sizes.values()) == 5492304
+

@@ -78,14 +78,33 @@ def test_motion_constants_match_jax():
     assert tmot.FILTER.dtype == jmot.FILTER.dtype and tmot.RADIUS == jmot.RADIUS
 
 
-@pytest.mark.parametrize("h,w,depth", [(96, 128, 8), (161, 300, 8), (64, 80, 10), (40, 56, 16)])
-def test_motion_matches_jax(rng, h, w, depth):
+def _motion_case(h, w, depth, dt=None):
+    """A case of test_motion_matches_jax: luma of type dt (u8 at 8 bits,
+    else u16, where None), named h-w-depth[-type]."""
+    name = f"{h}-{w}-{depth}" + ("" if dt is None else f"-{np.dtype(dt).name}")
+    return pytest.param(h, w, depth, dt, id=name)
+
+
+# Sizes where csrc/motion.cu branches: the smallest frames, widths on either
+# side of a 16-byte chunk (16 u8, 8 u16, 4 int32 samples) and of a warp's
+# row segment (30 chunks: 480 u8, 240 u16, 120 int32 samples), and int32
+# luma codes at unaligned widths.
+MOTION_EDGES = [(3, 3, 8), (5, 17, 8), (4, 15, 8), (4, 16, 8), (4, 17, 8), (6, 479, 8), (6, 481, 8),
+                (5, 7, 10), (5, 9, 10), (5, 239, 10), (5, 241, 10), (9, 31, 16),
+                (7, 33, 10, np.int32), (7, 121, 16, np.int32)]
+
+
+@pytest.mark.parametrize(
+    "h,w,depth,dt",
+    [_motion_case(*c) for c in [(96, 128, 8), (161, 300, 8), (64, 80, 10), (40, 56, 16)] + MOTION_EDGES],
+)
+def test_motion_matches_jax(rng, h, w, depth, dt):
     """The blur and the row SADs bit for bit against the jnp path and the
     Pallas kernels in interpret mode; kernel #16's twin takes frame b - 1's
     blur as frame b's previous frame, ``prev0`` for frame 0.  At 16 bits the
     Pallas kernel is not exact (ROADMAP Queue 3): there the scalar oracle
     stands in for it."""
-    dt = np.uint8 if depth == 8 else np.uint16
+    dt = dt or (np.uint8 if depth == 8 else np.uint16)
     y = rng.integers(0, 1 << depth, (2, h, w)).astype(dt)
     prev0 = rng.integers(0, 1 << 16, (h, w)).astype(np.uint16)
     backends = ("jnp", "interpret") if depth < 16 else ("jnp",)
@@ -107,6 +126,21 @@ def test_motion_matches_jax(rng, h, w, depth):
         np.testing.assert_array_equal(got["sad_rows"].numpy(), np.asarray(want["sad_rows"]), err_msg=backend)
         np.testing.assert_array_equal(plain["sad_rows"].numpy(), np.asarray(want["sad_rows"]), err_msg=backend)
     assert got["sad_rows"].dtype == torch.int64
+
+
+@pytest.mark.parametrize("hw", [(1080, 1920), (2160, 3840), (3, 3), (67, 99), (9, 481)])
+def test_motion_geometry_is_the_launch(hw):
+    """The Python mirror of the library's tm_motion_geometry (chip_smoke.py
+    holds the two equal on the card): blocks of four warps, each warp two
+    rows of a segment of 30 sixteen-byte chunks, whatever the frame count;
+    one 1080p u8 frame or batch puts 540 blocks on the card."""
+    h, w = hw
+    for dtype, itemsize in ((torch.uint8, 1), (torch.uint16, 2), (torch.int32, 4)):
+        per_seg = 30 * 16 // itemsize
+        want = (8, 128, math.ceil(w / per_seg) * math.ceil(h / 8))
+        assert kmot.motion_geometry(h, w, dtype) == want
+    if hw == (1080, 1920):
+        assert kmot.motion_geometry(h, w, torch.uint8)[2] == 540
 
 
 def test_motion_stream_matches_oracle(rng):

@@ -103,21 +103,37 @@ __device__ __forceinline__ void subtile_partials(float (&v)[kBy / 2][K], float* 
   }
 }
 
+// How a kernel reads a plane: through the read-only data cache (__ldg)
+// where no block of the same launch writes it, from L2 (__ldcg) where other
+// blocks of the same launch wrote it before a grid sync (the persistent
+// ssimulacra2_tail.cu: the read-only path is not coherent with such writes).
+enum class Src { kReadOnly, kWritten };
+
+template <Src S, typename V>
+__device__ __forceinline__ V load_as(const V* p) {
+  if constexpr (S == Src::kReadOnly) {
+    return __ldg(p);
+  } else {
+    return __ldcg(p);
+  }
+}
+
 // Samples gc .. gc+3 of row gr of plane p (h x w), zeros outside the plane:
 // one 16-byte load where the four lie inside and are 16-byte aligned (every
 // chunk of a plane whose width is a multiple of 4, as at 1080p and 4K), else
 // one load each.
+template <Src S = Src::kReadOnly>
 __device__ __forceinline__ float4 load4(const float* __restrict__ p, int h, int w, int gr, int gc) {
   float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (gr < 0 || gr >= h) return v;
   const float* q = p + (size_t)gr * w;
   if (gc >= 0 && gc + 3 < w && reinterpret_cast<uintptr_t>(q + gc) % 16 == 0) {
-    return __ldg(reinterpret_cast<const float4*>(q + gc));
+    return load_as<S>(reinterpret_cast<const float4*>(q + gc));
   }
-  if (gc >= 0 && gc < w) v.x = __ldg(q + gc);
-  if (gc + 1 >= 0 && gc + 1 < w) v.y = __ldg(q + gc + 1);
-  if (gc + 2 >= 0 && gc + 2 < w) v.z = __ldg(q + gc + 2);
-  if (gc + 3 >= 0 && gc + 3 < w) v.w = __ldg(q + gc + 3);
+  if (gc >= 0 && gc < w) v.x = load_as<S>(q + gc);
+  if (gc + 1 >= 0 && gc + 1 < w) v.y = load_as<S>(q + gc + 1);
+  if (gc + 2 >= 0 && gc + 2 < w) v.z = load_as<S>(q + gc + 2);
+  if (gc + 3 >= 0 && gc + 3 < w) v.w = load_as<S>(q + gc + 3);
   return v;
 }
 

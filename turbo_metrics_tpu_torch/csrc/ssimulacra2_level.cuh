@@ -1,7 +1,7 @@
-// The per-pixel arithmetic of one SSIMULACRA2 pyramid level, shared by the
-// per-level launches of ssimulacra2_scale.cu (kernels 1, 2, #3, #8, #10) and
-// the persistent tail kernel of ssimulacra2_tail.cu (#4), so that every
-// route computes the same values in the same order:
+// The arithmetic of one SSIMULACRA2 pyramid level, shared by the per-level
+// launches of ssimulacra2_scale.cu (kernels 1, 2, #3, #8, #10) and the
+// persistent tail kernel of ssimulacra2_tail.cu (#4), so that every route
+// computes the same values in the same order:
 //   * cbrt_nr / to_xyb: linear RGB -> positive-shifted XYB (ops/xyb.py);
 //   * rgb_quad: one 2x2 quad of a linear-RGB level -> XYB of its pixels and
 //     the quad's mean, the next level's pixel;
@@ -9,15 +9,16 @@
 //     x1*x2;
 //   * col_tap: one tap of the vertical pass of those four row sums;
 //   * ssim_maps: the SSIM, artifact and detail-loss maps of one pixel from
-//     its four blurred quantities, and the six reduced quantities.
-// The callers differ only in where the taps' samples come from (device
-// memory in #4, a shared-memory tile in the fused level kernel) and in how
-// they skip the taps outside the plane: #4 skips them, the fused kernel adds
-// zero-filled samples.  A zero sample adds t * 0 = +0 to a sum that is never
-// -0, so both give the same bits.
+//     its four blurred quantities, and the six reduced quantities;
+//   * level_tile: the fused level pass of one 32x32 output tile (both blur
+//     passes over a shared-memory tile, the maps, the 32x8 partials), which
+//     level_tile_kernel runs once per block and #4's blocks run tile after
+//     tile.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "level.cuh"
 
 namespace {
 
@@ -53,7 +54,8 @@ __device__ __forceinline__ void to_xyb(float r, float g, float b, const float* o
 // npx), and unless next is null the quad's mean into next[ch * nq] (the
 // pixel's address in the next level's first plane).  A quad that hangs over
 // an odd edge replicates the last row/column, summed ((a+b)+c)+d as
-// ops/downscale.py does.
+// ops/downscale.py does.  S: how src is read (level.cuh Src).
+template <Src S>
 __device__ __forceinline__ void rgb_quad(const float* __restrict__ src, int h, int w, int qi,
                                          int qj, const float* o, float* __restrict__ xp,
                                          float* __restrict__ next, size_t nq) {
@@ -66,7 +68,7 @@ __device__ __forceinline__ void rgb_quad(const float* __restrict__ src, int h, i
       const int r = min(2 * qi + dy, h - 1);
       const int c = min(2 * qj + dx, w - 1);
       const size_t at = (size_t)r * w + c;
-      const float v[3] = {src[at], src[npx + at], src[2 * npx + at]};
+      const float v[3] = {load_as<S>(src + at), load_as<S>(src + npx + at), load_as<S>(src + 2 * npx + at)};
       acc[0] += v[0];
       acc[1] += v[1];
       acc[2] += v[2];
@@ -128,5 +130,129 @@ __device__ __forceinline__ void ssim_maps(const float (&s)[4], float i1, float i
   v[4] = det;
   v[5] = det2 * det2;
 }
+
+// ---------------------------------------------------------------------------
+// The fused level pass of one tile.
+// ---------------------------------------------------------------------------
+constexpr int kHaloH = kTileH + 2 * kRadius;   // input rows of a tile
+constexpr int kInOff = 8;                      // input column 0 = output column -8
+constexpr int kInW = kTileW + 2 * kInOff;      // input columns held (-8 .. 39; -5 .. 36 used)
+constexpr int kInFloats = kHaloH * kInW;       // one image's input tile
+constexpr int kRowFloats = kHaloH * kTileW;    // one row-blurred quantity
+constexpr int kColWin = kBy + 2 * kRadius;     // rows of a thread's column window
+// Four-float loads per thread: all issued before the first is stored.
+constexpr int kChunks = 2 * kInFloats / 4;
+constexpr int kLoadsPerThread = (kChunks + kTileThreads - 1) / kTileThreads;
+
+// The maps of output row o of this thread's column (zeros outside the
+// plane); p: the reference's XYB sample of the pixel in the input tile.
+__device__ __forceinline__ void tile_maps(const float (&s)[4], const float* p, bool inside,
+                                          float (&v)[6]) {
+  if (inside) {
+    ssim_maps(s, p[0], p[kInFloats], v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) v[k] = 0.0f;
+  }
+}
+
+// The shared memory of one tile: both images' input tiles, then the four
+// row-blurred quantities.
+constexpr int kTileSmemFloats = 2 * kInFloats + 4 * kRowFloats;
+
+// The fused level pass of the 32x32 output tile (tx, ty) of plane `plane`
+// (b*3 + ch), run by a block of kTileThreads threads (1-D) with smem: the
+// tile's 42x48 input samples of both images into shared memory (zeros
+// outside the plane), the row pass of x1, x2, (x1-x2)^2, x1*x2 over the 42
+// input rows into shared memory, the column pass and the maps, and each 32x8
+// sub-tile's six partials into parts[((b*3 + ch) * nblk + blk) * 6 + k], blk
+// = its index in the level's (ceil(h/8), ceil(w/32)) grid of 32x8 tiles
+// (level.cuh pixel_grid; reduce_plane<6> then sums them in f64).  S: how
+// the XYB planes are read (level.cuh Src).  A caller that runs another tile
+// in the same block syncs the block first.
+template <Src S>
+__device__ __forceinline__ void level_tile(const float* __restrict__ xa,
+                                           const float* __restrict__ xb, int h, int w,
+                                           const float* __restrict__ taps,
+                                           float* __restrict__ parts, int tx, int ty,
+                                           size_t plane, float* __restrict__ smem) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  float* in = smem;                     // [2 images][kHaloH][kInW]
+  float* rows = smem + 2 * kInFloats;  // [4 quantities][kHaloH][kTileW]
+  const int x0 = tx * kTileW, y0 = ty * kTileH;
+  const size_t npx = (size_t)h * w;
+  const int nbx = (w + kBx - 1) / kBx, nby = (h + kBy - 1) / kBy;
+  const int by = ty * kSubTiles + warp;  // this warp's sub-tile row in that grid
+  const int c = x0 + lane;                       // this thread's output column
+
+  // Input tiles: rows y0-5 .. y0+36, columns x0-8 .. x0+39 of both planes.
+  {
+    const float* a = xa + plane * npx;
+    const float* b = xb + plane * npx;
+    float4 ld[kLoadsPerThread];
+#pragma unroll
+    for (int n = 0; n < kLoadsPerThread; ++n) {
+      const int i = threadIdx.x + n * kTileThreads;  // chunk: 4 floats of the two tiles
+      const int img = i / (kInFloats / 4), rem = 4 * i - img * kInFloats;
+      const int r = rem / kInW;
+      ld[n] = i < kChunks ? load4<S>(img ? b : a, h, w, y0 - kRadius + r, x0 - kInOff + rem - r * kInW)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int n = 0; n < kLoadsPerThread; ++n) {
+      const int i = threadIdx.x + n * kTileThreads;
+      if (i < kChunks) reinterpret_cast<float4*>(in)[i] = ld[n];
+    }
+  }
+  float t[kTaps];
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) t[k] = __ldg(taps + k);
+  __syncthreads();
+
+  // Row pass: every input row of the tile, one output column per lane.
+  for (int r = warp; r < kHaloH; r += kSubTiles) {
+    const float* p = in + r * kInW + lane + (kInOff - kRadius);
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < kTaps; ++k) row_tap(s, t[k], p[k], p[k + kInFloats]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) rows[(q * kHaloH + r) * kTileW + lane] = s[q];
+  }
+  __syncthreads();
+
+  // Column pass: column `lane` of the warp's sub-tile, eight outputs from
+  // one window of kColWin rows, each summed over k = 0..10 in order.
+  float s[kBy][4];
+#pragma unroll
+  for (int o = 0; o < kBy; ++o) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) s[o][q] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kColWin; ++i) {
+    const float* rp = rows + (warp * kBy + i) * kTileW + lane;
+    const float x[4] = {rp[0], rp[kRowFloats], rp[2 * kRowFloats], rp[3 * kRowFloats]};
+#pragma unroll
+    for (int o = 0; o < kBy; ++o) {
+      if (i - o >= 0 && i - o < kTaps) col_tap(s[o], t[i - o], x);
+    }
+  }
+
+  // The maps, rows o and o + 4 added (the first stride of level.cuh's tree),
+  // then the rest of the sub-tile's tree.
+  float v[kBy / 2][6];
+#pragma unroll
+  for (int o = 0; o < kBy / 2; ++o) {
+    float va[6], vb[6];
+    const int ra = warp * kBy + o, rb = ra + kBy / 2;
+    const float* p = in + (ra + kRadius) * kInW + lane + kInOff;
+    tile_maps(s[o], p, y0 + ra < h && c < w, va);
+    tile_maps(s[o + kBy / 2], p + (kBy / 2) * kInW, y0 + rb < h && c < w, vb);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) v[o][k] = __fadd_rn(va[k], vb[k]);
+  }
+  subtile_partials<6>(v, parts, plane, tx, by, nbx, nby);
+}
+
 
 }  // namespace

@@ -21,8 +21,9 @@
 //     (one level's sums from two linear-RGB tensors, no emission; also the
 //     function of fused_scale_pallas, v2) = tm_rgb_pair_to_xyb +
 //     tm_level_sums.
-// The per-pixel arithmetic lives in ssimulacra2_level.cuh, shared with the
-// persistent tail kernel of ssimulacra2_tail.cu.
+// The per-pixel arithmetic and the fused level pass of one tile (level_tile)
+// live in ssimulacra2_level.cuh, shared with the persistent tail kernel of
+// ssimulacra2_tail.cu (#4), which runs the same tiles in one launch.
 //
 // A level is two passes: the conversion pass (YUV or linear RGB -> XYB, and
 // the next level's 2x2 mean) and the fused level pass (level_tile_kernel:
@@ -159,125 +160,21 @@ rgb_to_xyb_kernel(const float* __restrict__ ref, const float* __restrict__ dis, 
 #pragma unroll
   for (int k = 0; k < 11; ++k) o[k] = __ldg(opsin + k);
   const float* src = img < batch ? ref + (size_t)img * 3 * npx : dis + (size_t)(img - batch) * 3 * npx;
-  rgb_quad(src, h, w, qi, qj, o, xyb + (size_t)img * 3 * npx,
-           next != nullptr ? next + (size_t)img * 3 * nq + (size_t)qi * wq + qj : nullptr, nq);
+  rgb_quad<Src::kReadOnly>(
+      src, h, w, qi, qj, o, xyb + (size_t)img * 3 * npx,
+      next != nullptr ? next + (size_t)img * 3 * nq + (size_t)qi * wq + qj : nullptr, nq);
 }
 
 // ---------------------------------------------------------------------------
-// The fused level pass.
-// ---------------------------------------------------------------------------
-constexpr int kHaloH = kTileH + 2 * kRadius;   // input rows of a tile
-constexpr int kInOff = 8;                      // input column 0 = output column -8
-constexpr int kInW = kTileW + 2 * kInOff;      // input columns held (-8 .. 39; -5 .. 36 used)
-constexpr int kInFloats = kHaloH * kInW;       // one image's input tile
-constexpr int kRowFloats = kHaloH * kTileW;    // one row-blurred quantity
-constexpr int kColWin = kBy + 2 * kRadius;     // rows of a thread's column window
-// Four-float loads per thread: all issued before the first is stored.
-constexpr int kChunks = 2 * kInFloats / 4;
-constexpr int kLoadsPerThread = (kChunks + kTileThreads - 1) / kTileThreads;
-
-// The maps of output row o of this thread's column (zeros outside the
-// plane); p: the reference's XYB sample of the pixel in the input tile.
-__device__ __forceinline__ void tile_maps(const float (&s)[4], const float* p, bool inside,
-                                          float (&v)[6]) {
-  if (inside) {
-    ssim_maps(s, p[0], p[kInFloats], v);
-  } else {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) v[k] = 0.0f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// One block per 32x32 output tile of plane blockIdx.z (b*3 + ch): the tile's
-// 42x48 input samples of both images into shared memory (zeros outside the
-// plane), the row pass of x1, x2, (x1-x2)^2, x1*x2 over the 42 input rows
-// into shared memory, the column pass and the maps, and each 32x8 sub-tile's
-// six partials into parts[((b*3 + ch) * nblk + blk) * 6 + k], blk = its index
-// in the level's (ceil(h/8), ceil(w/32)) grid of 32x8 tiles (level.cuh
-// pixel_grid; reduce_parts_kernel<6> then sums them in f64).
+// The fused level pass (level_tile in ssimulacra2_level.cuh): one block per
+// 32x32 output tile of plane blockIdx.z (b*3 + ch).
 // grid: (ceil(w/32), ceil(h/32), B*3), block: kTileThreads (1-D).
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kTileThreads)
 level_tile_kernel(const float* __restrict__ xa, const float* __restrict__ xb, int h, int w,
                   const float* __restrict__ taps, float* __restrict__ parts) {
-  __shared__ __align__(16) float in[2 * kInFloats];  // [2 images][kHaloH][kInW]
-  __shared__ float rows[4 * kRowFloats];  // [4 quantities][kHaloH][kTileW]
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
-  const size_t plane = blockIdx.z;
-  const size_t npx = (size_t)h * w;
-  const int nbx = (w + kBx - 1) / kBx, nby = (h + kBy - 1) / kBy;
-  const int by = blockIdx.y * kSubTiles + warp;  // this warp's sub-tile row in that grid
-  const int c = x0 + lane;                       // this thread's output column
-
-  // Input tiles: rows y0-5 .. y0+36, columns x0-8 .. x0+39 of both planes.
-  {
-    const float* a = xa + plane * npx;
-    const float* b = xb + plane * npx;
-    float4 ld[kLoadsPerThread];
-#pragma unroll
-    for (int n = 0; n < kLoadsPerThread; ++n) {
-      const int i = threadIdx.x + n * kTileThreads;  // chunk: 4 floats of the two tiles
-      const int img = i / (kInFloats / 4), rem = 4 * i - img * kInFloats;
-      const int r = rem / kInW;
-      ld[n] = i < kChunks ? load4(img ? b : a, h, w, y0 - kRadius + r, x0 - kInOff + rem - r * kInW)
-                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-#pragma unroll
-    for (int n = 0; n < kLoadsPerThread; ++n) {
-      const int i = threadIdx.x + n * kTileThreads;
-      if (i < kChunks) reinterpret_cast<float4*>(in)[i] = ld[n];
-    }
-  }
-  float t[kTaps];
-#pragma unroll
-  for (int k = 0; k < kTaps; ++k) t[k] = __ldg(taps + k);
-  __syncthreads();
-
-  // Row pass: every input row of the tile, one output column per lane.
-  for (int r = warp; r < kHaloH; r += kSubTiles) {
-    const float* p = in + r * kInW + lane + (kInOff - kRadius);
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int k = 0; k < kTaps; ++k) row_tap(s, t[k], p[k], p[k + kInFloats]);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) rows[(q * kHaloH + r) * kTileW + lane] = s[q];
-  }
-  __syncthreads();
-
-  // Column pass: column `lane` of the warp's sub-tile, eight outputs from
-  // one window of kColWin rows, each summed over k = 0..10 in order.
-  float s[kBy][4];
-#pragma unroll
-  for (int o = 0; o < kBy; ++o) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) s[o][q] = 0.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < kColWin; ++i) {
-    const float* rp = rows + (warp * kBy + i) * kTileW + lane;
-    const float x[4] = {rp[0], rp[kRowFloats], rp[2 * kRowFloats], rp[3 * kRowFloats]};
-#pragma unroll
-    for (int o = 0; o < kBy; ++o) {
-      if (i - o >= 0 && i - o < kTaps) col_tap(s[o], t[i - o], x);
-    }
-  }
-
-  // The maps, rows o and o + 4 added (the first stride of level.cuh's tree),
-  // then the rest of the sub-tile's tree.
-  float v[kBy / 2][6];
-#pragma unroll
-  for (int o = 0; o < kBy / 2; ++o) {
-    float va[6], vb[6];
-    const int ra = warp * kBy + o, rb = ra + kBy / 2;
-    const float* p = in + (ra + kRadius) * kInW + lane + kInOff;
-    tile_maps(s[o], p, y0 + ra < h && c < w, va);
-    tile_maps(s[o + kBy / 2], p + (kBy / 2) * kInW, y0 + rb < h && c < w, vb);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) v[o][k] = __fadd_rn(va[k], vb[k]);
-  }
-  subtile_partials<6>(v, parts, plane, blockIdx.x, by, nbx, nby);
+  __shared__ __align__(16) float smem[kTileSmemFloats];
+  level_tile<Src::kReadOnly>(xa, xb, h, w, taps, parts, blockIdx.x, blockIdx.y, blockIdx.z, smem);
 }
 
 int level_blocks(int h, int w) {

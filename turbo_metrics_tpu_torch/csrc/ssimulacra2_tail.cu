@@ -8,33 +8,52 @@
 // VMEM, written so that the ~0.8 ms fixed cost per level of the per-level
 // kernels went away.  On this card the small levels' cost is likewise not
 // their work (at 3840x2160, B=4, levels 3-5 hold 12.4 + 3.1 + 0.8 MB of
-// linear RGB and ~0.5 GFLOP, a few microseconds of the card) but the launches
-// and the host between them: the per-level route (kernel 2) issues four
-// launches and an allocation per level.  The design:
+// linear RGB and ~0.5 GFLOP, a few microseconds of the card) but latency:
+// the per-level route (kernel 2) issues three launches and an allocation per
+// level, and a level of a few hundred tiles leaves most of the card idle
+// while its last tiles finish.  The design:
 //   * one cooperative launch (cudaLaunchCooperativeKernel) of as many blocks
-//     as are co-resident (occupancy x SMs); grid-stride loops over the work
-//     of each phase, phases separated by cooperative_groups grid syncs.  Per
-//     level: (a) the quad pass, XYB and the next level's mean into one of
-//     two ping-pong planes; (b) the row pass of the four quantities; (c) the
-//     column pass, the maps and per-tile f32 partials into that level's
-//     slot; then one last phase reduces every level's partials in f64.  Three
-//     syncs per level.  Between phases the planes stay in the 50 MB L2.
-//   * partials belong to fixed 32x8 tiles of the level (the sub-tiles of
-//     ssimulacra2_scale.cu's fused level kernel), never to block indices, and
-//     every sum is taken in a fixed order: the sums depend neither on the
-//     occupancy nor on the run, and equal the per-level route's (the same
-//     per-pixel code, ssimulacra2_level.cuh, and the same trees, level.cuh).
+//     of kTileThreads threads as are co-resident (occupancy x SMs); each
+//     block walks work items in grid-stride order, and grid syncs separate
+//     the steps;
+//   * per level two passes: the quad pass (rgb_quad: XYB of the level and
+//     the next level's 2x2 mean) and the tile pass (level_tile, the fused
+//     level pass of ssimulacra2_scale.cu: the tile's XYB and halo in shared
+//     memory, both blur passes and the maps there, the 32x8 partials in
+//     registers and shuffles).  XYB alternates between two planes by level,
+//     so the quad pass of level l+1 runs in the same step as the tile pass
+//     of level l, and each level's f64 reduction of its partials in the step
+//     after its tile pass (or the last step): levels + 1 grid syncs in all
+//     (4 for three levels, where the two-pass design took 9).  The tiles of
+//     a step come first in its item order, so that blocks start the longest
+//     items first; the quad items (128 quads each) and the reductions (one
+//     (level, plane) each) fill the remaining blocks.  The four row-blurred
+//     planes never reach device memory.
+//   * the sums equal the per-level route's (kernel 2) bit for bit: the same
+//     per-pixel code and tile pass (ssimulacra2_level.cuh), partials per
+//     fixed 32x8 tile of the level, never per block, and level.cuh's f64
+//     reduction order (reduce_plane's 256 slots, taken two per thread by
+//     these 128-thread blocks).  The sums depend neither on the occupancy
+//     nor on the run.
+//   * the planes and partials that blocks of this launch wrote before a grid
+//     sync are read from L2 (__ldcg), never through the read-only data
+//     cache, which is not coherent with writes of the same launch;
 //   * one scratch allocation sized from the first level (the caller's).
 // A refused cooperative launch (a grid that cannot be co-resident) is
-// returned as the CUDA error; nothing falls back.  Thread-block clusters with
-// distributed shared memory for the smallest levels, and the row and column
-// passes fused over shared-memory tiles as the per-level route does, are
-// later work.
+// returned as the CUDA error; nothing falls back.
+// On an H100 (4K B=4, levels 3-5) the steps take about 18, 33, 14, 8 and 2
+// us: the first level's quad pass and tile pass, then the latency of one
+// tile per block on the small levels.  Measured and not kept: registers
+// capped for 4 or 5 blocks per SM (3 now), four quads per thread: no
+// faster; two quads per thread, loaded before either is computed: 4%
+// faster at 4K, 8% slower on the 1440p levels 2-5.
+// Not tried: thread-block clusters with distributed shared memory holding
+// the smallest levels.
 //
 // Layouts (all contiguous, f32):
 //   p12   (2, B, 3, h0, w0)         linear RGB of the first level
-//   xyb   (2, B, 3, h0, w0)         XYB of the current level (scratch)
-//   tmp   (4, B*3, h0, w0)          row-blurred x1, x2, (x1-x2)^2, x1*x2
+//   xyb_even, xyb_odd                XYB of the even and the odd levels,
+//         (2, B, 3, h_l, w_l)        (scratch; the odd one unused with 1 level)
 //   lvl_a, lvl_b (2, B, 3, ceil(h0/2), ceil(w0/2))   the next levels
 //   parts per level l: (B*3, nblk_l, 6), the levels one after another
 //   sums  (B, levels, 3, 6)         (d, d^4, art, art^4, det, det^4)
@@ -49,141 +68,141 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+constexpr int kMaxLevels = 6;
+
 struct TailArgs {
   const float* p12;
   int batch, h0, w0, levels;
   const float* taps;
   const float* opsin;
-  float* xyb;
-  float* tmp;
+  float* xyb[2];  // even, odd levels
   float* lvl[2];
   float* parts;
   float* sums;
 };
 
-__device__ __forceinline__ int level_tiles_x(int w) { return (w + kBx - 1) / kBx; }
-__device__ __forceinline__ int level_tiles_y(int h) { return (h + kBy - 1) / kBy; }
-
-// Horizontal pass at column c of one row: a and b point at the row of the
-// reference's and the distorted image's XYB plane; taps outside [0, w) are
-// skipped.  s: blurred x1, x2, (x1-x2)^2, x1*x2.
-__device__ __forceinline__ void blur_row_px(const float* __restrict__ a,
-                                            const float* __restrict__ b, int c, int w,
-                                            const float* __restrict__ taps, float (&s)[4]) {
+// reduce_plane<K> (level.cuh) on a block of kTileThreads threads, half its
+// kReduceThreads slots: thread t takes slots t and t + kTileThreads, whose
+// sums meet in the tree's first step, so every add is reduce_plane's and the
+// result its bits.  The partials come from L2 (other blocks wrote them in
+// this launch).  red: K * kTileThreads doubles of shared memory; the caller
+// syncs the block before it reuses them.
+template <int K>
+__device__ __forceinline__ void reduce_plane_half(const float* __restrict__ src, int nblk,
+                                                  float* __restrict__ out, double* red) {
+  static_assert(2 * kTileThreads == kReduceThreads, "two slots per thread");
+  const int tid = threadIdx.x;
+  double lo[K], hi[K];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) s[q] = 0.0f;
+  for (int k = 0; k < K; ++k) lo[k] = hi[k] = 0.0;
+  for (int i = tid; i < nblk; i += kReduceThreads) {
 #pragma unroll
-  for (int k = 0; k < kTaps; ++k) {
-    const int cc = c + k - kRadius;
-    if (cc >= 0 && cc < w) row_tap(s, __ldg(taps + k), a[cc], b[cc]);
+    for (int k = 0; k < K; ++k) lo[k] += (double)__ldcg(src + (size_t)i * K + k);
   }
-}
-
-// Vertical pass at row r (taps outside [0, h) skipped) of the four
-// row-blurred quantities, base pointing at (row 0, this column) of the first
-// and qstride apart; then the maps from the XYB samples i1 (reference) and i2
-// (distorted) at the pixel.  v: d, d^4, art, art^4, det, det^4.
-__device__ __forceinline__ void blur_col_maps_px(const float* __restrict__ base, size_t qstride,
-                                                 int r, int h, int w,
-                                                 const float* __restrict__ taps, float i1,
-                                                 float i2, float (&v)[6]) {
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = tid + kTileThreads; i < nblk; i += kReduceThreads) {
 #pragma unroll
-  for (int k = 0; k < kTaps; ++k) {
-    const int rr = r + k - kRadius;
-    if (rr >= 0 && rr < h) {
-      const float* row = base + (size_t)rr * w;
-      const float x[4] = {row[0], row[qstride], row[2 * qstride], row[3 * qstride]};
-      col_tap(s, __ldg(taps + k), x);
+    for (int k = 0; k < K; ++k) hi[k] += (double)__ldcg(src + (size_t)i * K + k);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) red[k * kTileThreads + tid] = lo[k] + hi[k];
+  __syncthreads();
+  for (int stride = kTileThreads / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) red[k * kTileThreads + tid] += red[k * kTileThreads + tid + stride];
     }
+    __syncthreads();
   }
-  ssim_maps(s, i1, i2, v);
+  if (tid == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = (float)red[k * kTileThreads];
+  }
 }
 
-// block: kThreads threads (1-D); grid: co-resident blocks, cooperative.
-__global__ void __launch_bounds__(kThreads) fused_tail_kernel(TailArgs a) {
+// Level l's size and the offset of its partials in a.parts (the levels'
+// partials one after another).
+struct Level {
+  int h, w;
+  size_t poff;
+};
+
+__device__ __forceinline__ Level level_at(const TailArgs& a, int l) {
+  Level v = {a.h0, a.w0, 0};
+  for (int i = 0; i < l; ++i) {
+    v.poff += (size_t)3 * a.batch * ((v.w + kBx - 1) / kBx) * ((v.h + kBy - 1) / kBy) * 6;
+    v.h = (v.h + 1) / 2;
+    v.w = (v.w + 1) / 2;
+  }
+  return v;
+}
+
+// block: kTileThreads threads (1-D); grid: co-resident blocks, cooperative.
+__global__ void __launch_bounds__(kTileThreads) fused_tail_kernel(TailArgs a) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ float red[6][kThreads];
-  const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t nthreads = (size_t)gridDim.x * blockDim.x;
+  __shared__ __align__(16) float smem[kTileSmemFloats];
   const int planes = 3 * a.batch;
-  float o[11];
+
+  // Step k: the tile pass of level k-1, the quad pass of level k, the
+  // reduction of level k-2.
+  for (int k = 0; k <= a.levels + 1; ++k) {
+    const int lt = k - 1, lq = k, lr = k - 2;
+    const Level vt = level_at(a, max(lt, 0)), vq = level_at(a, lq), vr = level_at(a, max(lr, 0));
+    int ntx = 0, ntiles = 0, nqchunks = 0, nred = 0;
+    if (lt >= 0 && lt < a.levels) {
+      ntx = (vt.w + kTileW - 1) / kTileW;
+      ntiles = planes * ntx * ((vt.h + kTileH - 1) / kTileH);
+    }
+    if (lq < a.levels) {
+      const int nquads = 2 * a.batch * ((vq.h + 1) / 2) * ((vq.w + 1) / 2);
+      nqchunks = (nquads + kTileThreads - 1) / kTileThreads;
+    }
+    if (lr >= 0) nred = planes;
+    for (int item = blockIdx.x; item < ntiles + nqchunks + nred; item += gridDim.x) {
+      if (item < ntiles) {
+        const int per_plane = ntiles / planes;
+        const int plane = item / per_plane, t = item - plane * per_plane;
+        const float* xa = lt % 2 ? a.xyb[1] : a.xyb[0];
+        level_tile<Src::kWritten>(xa, xa + (size_t)planes * vt.h * vt.w, vt.h, vt.w, a.taps,
+                                  a.parts + vt.poff, t % ntx, t / ntx, plane, smem);
+      } else if (item < ntiles + nqchunks) {
+        const int h = vq.h, w = vq.w;
+        const int hq = (h + 1) / 2, wq = (w + 1) / 2;
+        const size_t npx = (size_t)h * w, nq = (size_t)hq * wq;
+        const size_t i = (size_t)(item - ntiles) * kTileThreads + threadIdx.x;
+        if (i < 2 * (size_t)a.batch * nq) {
+          float o[11];
 #pragma unroll
-  for (int k = 0; k < 11; ++k) o[k] = __ldg(a.opsin + k);
-
-  const float* cur = a.p12;
-  float* parts = a.parts;
-  int h = a.h0, w = a.w0;
-  for (int l = 0; l < a.levels; ++l) {
-    const int hq = (h + 1) / 2, wq = (w + 1) / 2;
-    const size_t npx = (size_t)h * w, nq = (size_t)hq * wq;
-    const size_t qstride = (size_t)planes * npx;  // one quantity's planes
-    float* next = l + 1 < a.levels ? a.lvl[l % 2] : nullptr;
-
-    // (a) quads of both images: XYB and the next level.
-    const size_t nquads = 2 * (size_t)a.batch * nq;
-    for (size_t i = tid; i < nquads; i += nthreads) {
-      const size_t img = i / nq, q = i - img * nq;
-      const int qi = (int)(q / wq), qj = (int)(q - (size_t)qi * wq);
-      rgb_quad(cur + img * 3 * npx, h, w, qi, qj, o, a.xyb + img * 3 * npx,
-               next != nullptr ? next + img * 3 * nq + q : nullptr, nq);
-    }
-    grid.sync();
-
-    // (b) the row pass of every (batch, channel) plane.
-    for (size_t i = tid; i < qstride; i += nthreads) {
-      const size_t px = i % npx;
-      const int c = (int)(px % w);
-      float s[4];
-      blur_row_px(a.xyb + (i - c), a.xyb + qstride + (i - c), c, w, a.taps, s);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) a.tmp[q * qstride + i] = s[q];
-    }
-    grid.sync();
-
-    // (c) the column pass and the maps, one 32x8 tile per block at a time,
-    // each tile's partials into its slot.
-    const int ntx = level_tiles_x(w), nblk = ntx * level_tiles_y(h);
-    const size_t ntiles = (size_t)planes * nblk;
-    const int tx = threadIdx.x % kBx, ty = threadIdx.x / kBx;
-    for (size_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-      const size_t plane = t / nblk;
-      const int blk = (int)(t - plane * nblk);
-      const int c = (blk % ntx) * kBx + tx, r = (blk / ntx) * kBy + ty;
-      float v[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      if (r < h && c < w) {
-        const size_t at = plane * npx + (size_t)r * w + c;
-        blur_col_maps_px(a.tmp + plane * npx + c, qstride, r, h, w, a.taps, a.xyb[at],
-                         a.xyb[qstride + at], v);
+          for (int j = 0; j < 11; ++j) o[j] = __ldg(a.opsin + j);
+          const float* cur = lq == 0 ? a.p12 : lq % 2 ? a.lvl[0] : a.lvl[1];
+          float* next = lq + 1 == a.levels ? nullptr : lq % 2 ? a.lvl[1] : a.lvl[0];
+          float* xyb = lq % 2 ? a.xyb[1] : a.xyb[0];
+          const size_t img = i / nq, q = i - img * nq;
+          const int qi = (int)(q / wq), qj = (int)(q - (size_t)qi * wq);
+          rgb_quad<Src::kWritten>(cur + img * 3 * npx, h, w, qi, qj, o, xyb + img * 3 * npx,
+                                  next != nullptr ? next + img * 3 * nq + q : nullptr, nq);
+        }
+      } else {
+        const int p = item - ntiles - nqchunks;
+        const int nblk = ((vr.w + kBx - 1) / kBx) * ((vr.h + kBy - 1) / kBy);
+        reduce_plane_half<6>(a.parts + vr.poff + (size_t)p * nblk * 6, nblk,
+                             a.sums + ((size_t)(p / 3) * a.levels + lr) * 18 + (p % 3) * 6,
+                             reinterpret_cast<double*>(smem));
       }
-      tile_partials<6>(v, red, parts + t * 6);
-      __syncthreads();
+      __syncthreads();  // the next item reuses the shared memory
     }
-    parts += ntiles * 6;
-    grid.sync();  // the next level's passes overwrite xyb and tmp
-    cur = next;
-    h = hq;
-    w = wq;
+    if (k <= a.levels) grid.sync();
   }
+}
 
-  // Every (level, plane)'s partials in f64, in a fixed order (level.cuh).
-  const float* src = a.parts;
-  h = a.h0;
-  w = a.w0;
-  for (int l = 0; l < a.levels; ++l) {
-    const int nblk = level_tiles_x(w) * level_tiles_y(h);
-    for (int p = 0; p < planes; ++p) {
-      if ((l * planes + p) % (int)gridDim.x == (int)blockIdx.x) {
-        const int b = p / 3, ch = p % 3;
-        reduce_plane<6>(src + (size_t)p * nblk * 6, nblk,
-                        a.sums + ((size_t)b * a.levels + l) * 18 + ch * 6);
-        __syncthreads();
-      }
-    }
-    src += (size_t)planes * nblk * 6;
-    h = (h + 1) / 2;
-    w = (w + 1) / 2;
+cudaError_t co_resident_blocks(int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_tail_kernel, kTileThreads, 0);
   }
+  *blocks = per_sm * sms;
+  return err;
 }
 
 }  // namespace
@@ -192,25 +211,46 @@ extern "C" {
 
 // All `levels` levels from the first, p12 (2,B,3,h,w), in one cooperative
 // launch: the replacement of fused_tail_pallas (turbo_metrics_tpu/ops/pallas/
-// scale_stats.py:2494).  Scratch (the caller's): xyb 2*B*3*h*w floats, tmp
-// 4*B*3*h*w, lvl_a and lvl_b 2*B*3*ceil(h/2)*ceil(w/2) each, parts the sum
+// scale_stats.py:2494).  Scratch (the caller's): xyb_even 2*B*3*h*w floats,
+// xyb_odd, lvl_a and lvl_b 2*B*3*ceil(h/2)*ceil(w/2) each, parts the sum
 // over the levels of B*3*tm_level_blocks(h_l,w_l)*6.  sums (B,levels,3,6).
 int tm_fused_tail(const float* p12, int batch, int h, int w, int levels, const float* taps,
-                  const float* opsin, float* xyb, float* tmp, float* lvl_a, float* lvl_b,
-                  float* parts, float* sums, void* stream) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_tail_kernel, kThreads, 0);
+                  const float* opsin, float* xyb_even, float* xyb_odd, float* lvl_a,
+                  float* lvl_b, float* parts, float* sums, void* stream) {
+  if (levels < 1 || levels > kMaxLevels || batch < 1 || h < 1 || w < 1) {
+    return (int)cudaErrorInvalidValue;
   }
+  int blocks = 0;
+  cudaError_t err = co_resident_blocks(&blocks);
   if (err != cudaSuccess) return (int)err;
-  TailArgs a = {p12, batch, h, w, levels, taps, opsin, xyb, tmp, {lvl_a, lvl_b}, parts, sums};
+  TailArgs a = {p12, batch, h, w, levels, taps, opsin, {xyb_even, xyb_odd}, {lvl_a, lvl_b},
+                parts, sums};
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)fused_tail_kernel, dim3(per_sm * sms),
-                                    dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel((const void*)fused_tail_kernel, dim3(blocks),
+                                    dim3(kTileThreads), args, 0, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();  // clears a launch error
   return (int)(err != cudaSuccess ? err : last);
+}
+
+// What fused_tail_kernel takes on this card: out[0] registers per thread,
+// out[1] static shared memory per block in bytes, out[2] resident blocks per
+// SM, out[3] local memory per thread in bytes (spills), out[4] the blocks of
+// one launch.
+int tm_fused_tail_attrs(int* out) {
+  cudaFuncAttributes f;
+  cudaError_t err = cudaFuncGetAttributes(&f, fused_tail_kernel);
+  int per_sm = 0, blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_tail_kernel, kTileThreads, 0);
+  }
+  if (err == cudaSuccess) err = co_resident_blocks(&blocks);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = f.numRegs;
+  out[1] = (int)f.sharedSizeBytes;
+  out[2] = per_sm;
+  out[3] = (int)f.localSizeBytes;
+  out[4] = blocks;
+  return 0;
 }
 
 }  // extern "C"

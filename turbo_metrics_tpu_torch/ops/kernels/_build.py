@@ -48,6 +48,7 @@ _SIGNATURES = {
     "tm_level_sums": [_P, _I, _I, _I, _P, _P, _P, _I, _P],
     "tm_level_sums_pair": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "tm_fused_tail": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "tm_fused_tail_attrs": [_PI],
     "tm_downscale2": [_P, _I, _I, _I, _P, _P],
     "tm_yuv420_to_rgb": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
     "tm_yuv_to_rgb": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
@@ -57,6 +58,8 @@ _SIGNATURES = {
     "tm_xpsnr_block_stats": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
     "tm_motion_stats": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "tm_integer_blur": [_P, _I, _I, _I, _I, _I, _P, _P],
+    "tm_motion_geometry": [_I, _I, _I, _PI],
+    "tm_motion_attrs": [_I, _PI],
     "tm_vif_blocks": [_I, _I],
     "tm_vif_tile_attrs": [_I, _PI],
     "tm_vif_level": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],

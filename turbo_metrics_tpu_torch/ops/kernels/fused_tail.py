@@ -1,10 +1,11 @@
 """Kernel #4: every remaining small SSIMULACRA2 level in one launch.
 
 ``fused_tail`` launches the persistent cooperative kernel of
-csrc/ssimulacra2_tail.cu (``tm_fused_tail``) on a CUDA tensor, and runs its
-plain twin ``fused_tail_ref`` on a CPU tensor.  It replaces the JAX package's
-``fused_tail_pallas`` (turbo_metrics_tpu/ops/pallas/scale_stats.py:2494),
-which the level chain (models/ssimulacra2.level_sums_chain) runs once the
+csrc/ssimulacra2_tail.cu (``tm_fused_tail``: per level a quad pass and the
+fused tile pass of kernel 2's levels, levels + 1 grid syncs) on a CUDA
+tensor, and runs its plain twin ``fused_tail_ref`` on a CPU tensor.  It
+replaces the JAX package's ``fused_tail_pallas``
+(turbo_metrics_tpu/ops/pallas/scale_stats.py:2494), which the level chain (models/ssimulacra2.level_sums_chain) runs once the
 level plane is small (``tail_plane_bytes`` within ``TAIL_MAX_BYTES``): at
 3840x2160 on levels 3-5.  Its sums equal kernel 2's on the same plane (the
 same per-pixel code and reduction trees).
@@ -25,6 +26,24 @@ from turbo_metrics_tpu_torch.ops.kernels.scale_tail import fused_pyramid_tail_re
 # The twin: a loop of fused_scale_rgb_ref over the levels, each level's 2x2
 # mean feeding the next (the same arithmetic as kernel 2's twin).
 fused_tail_ref = fused_pyramid_tail_ref
+
+
+def scratch_floats(bsz: int, h: int, w: int, num_levels: int) -> dict:
+    """The f32 scratch of one launch from an h x w first level, by part, in
+    the order of one allocation: the XYB pair of the even levels (the first
+    is the largest) and of the odd ones, two planes for the next levels'
+    linear RGB in turn, and the 32x8 partials of every level, each rounded
+    up to whole 16-byte chunks so that the next starts aligned for the
+    kernel's 16-byte loads.  The tile pass keeps its row-blurred planes in
+    shared memory: they take no device memory."""
+    n = 2 * bsz * 3 * h * w
+    n_next = 2 * bsz * 3 * ((h + 1) // 2) * ((w + 1) // 2) if num_levels > 1 else 0
+    parts = 0
+    for _ in range(num_levels):
+        parts += bsz * 3 * level_blocks(h, w) * 6
+        h, w = (h + 1) // 2, (w + 1) // 2
+    sizes = {"xyb_even": n, "xyb_odd": n_next, "lvl_a": n_next, "lvl_b": n_next, "parts": parts}
+    return {k: -(-v // 4) * 4 for k, v in sizes.items()}
 
 
 def fused_tail(
@@ -48,25 +67,18 @@ def fused_tail(
         raise ValueError(f"fused_tail runs on cuda or cpu, not {p12.device}")
     lib = LIBRARY.get()
     _, bsz, _, h, w = p12.shape
-    n = bsz * 3 * h * w
-    n_next = 2 * bsz * 3 * ((h + 1) // 2) * ((w + 1) // 2) if num_levels > 1 else 0
-    n_parts, lh, lw = 0, h, w
-    for _ in range(num_levels):
-        n_parts += bsz * 3 * level_blocks(lh, lw) * 6
-        lh, lw = (lh + 1) // 2, (lw + 1) // 2
-    # One allocation: xyb, the four row-blurred planes, two level planes, the
-    # partials of every level.
-    scratch = torch.empty(6 * n + 2 * n_next + n_parts, dtype=torch.float32, device=p12.device)
-    base, f32 = scratch.data_ptr(), scratch.element_size()
-    xyb, tmp = base, base + 2 * n * f32
-    lvl_a = tmp + 4 * n * f32
-    lvl_b = lvl_a + n_next * f32
-    parts = lvl_b + n_next * f32
+    sizes = scratch_floats(bsz, h, w, num_levels)
+    scratch = torch.empty(sum(sizes.values()), dtype=torch.float32, device=p12.device)
+    at, ptr = scratch.data_ptr(), {}
+    for name, n in sizes.items():
+        ptr[name] = at
+        at += n * scratch.element_size()
     sums = torch.empty((bsz, num_levels, 3, 6), dtype=torch.float32, device=p12.device)
     check(
         lib.tm_fused_tail(
-            p12.data_ptr(), bsz, h, w, num_levels, taps.data_ptr(), opsin.data_ptr(), xyb, tmp,
-            lvl_a, lvl_b, parts, sums.data_ptr(), torch.cuda.current_stream(p12.device).cuda_stream,
+            p12.data_ptr(), bsz, h, w, num_levels, taps.data_ptr(), opsin.data_ptr(),
+            ptr["xyb_even"], ptr["xyb_odd"], ptr["lvl_a"], ptr["lvl_b"], ptr["parts"],
+            sums.data_ptr(), torch.cuda.current_stream(p12.device).cuda_stream,
         ),
         "tm_fused_tail",
     )

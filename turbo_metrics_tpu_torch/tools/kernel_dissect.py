@@ -15,8 +15,11 @@ the same four lines:
 and beside them kernel 1 (``fused_scale0_yuv`` on a seeded 8-bit 4:2:0
 pair), kernel 2 (``fused_pyramid_tail`` from #3's emitted level, one entry
 per level), #10, #11 (with and without the next level), #12, #14, #15 and
-#18 on the same inputs, and #6 (``yuv420_to_linear_rgb_pair``) on kernel 1's
-8-bit 4:2:0 pair.  Each call
+#18 on the same inputs, #6 (``yuv420_to_linear_rgb_pair``) on kernel 1's
+8-bit 4:2:0 pair, VMAF motion's #16 (``motion_stats``) on its reference
+luma and #17 (``integer_blur``) on one frame of it, and #4 (``fused_tail``)
+on three levels from the pair's level 2 (at 1080p the size of a 4K level
+3).  Each call
 is timed by CUDA events after warm-up (the median of ``REPEATS`` runs of
 ``--iters`` calls: a call's host time swings with the load on the host), and
 every CUDA kernel it launches by torch.profiler, in launch order: the device
@@ -59,6 +62,10 @@ VIF_LEVEL = ("vif_tile_kernel", "reduce_frames_kernel")
 # One ADM level (csrc/adm.cu): the fused tile kernel (DWT, gate, CSF, mask,
 # cubes, the next level's A bands), the reduction.
 ADM_LEVEL = ("adm_tile_kernel", "reduce_frames_kernel")
+# VMAF motion (csrc/motion.cu) and the small SSIMULACRA2 levels in one
+# cooperative launch (csrc/ssimulacra2_tail.cu): one kernel each.
+MOTION = ("motion_kernel",)
+TAIL = ("fused_tail_kernel",)
 # Timed runs of ``--iters`` calls per entry; the call time is their median.
 REPEATS = 5
 # Profiler readings of one entry that keep fewer than half their calls whole
@@ -207,10 +214,13 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
     from turbo_metrics_tpu_torch.ops import adm as adm_ops
     from turbo_metrics_tpu_torch.ops import quality
     from turbo_metrics_tpu_torch.ops import vif as vif_ops
+    from turbo_metrics_tpu_torch.ops.downscale import downscale_by_2
     from turbo_metrics_tpu_torch.ops.kernels import (
         adm,
         blur_probe,
         convert,
+        fused_tail,
+        motion,
         scale_stats,
         scale_tail,
         vif,
@@ -239,6 +249,9 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
     vif_lvl1 = vif.vif_scale0(pair)[1]
     tail_levels = model.num_scales - 1
     rgb_level = once("rgb_to_xyb_kernel", *LEVEL)
+    luma = y2[0]
+    prev0 = motion.integer_blur(luma[:1])[0]
+    s2_lvl2 = downscale_by_2(downscale_by_2(p12)).contiguous()
     return [
         Probe("scale0 full (with ds)", "fused_scale_rgb",
               lambda: scale_stats.fused_scale_rgb(p12, taps, opsin, emit_ds=True), rgb_level),
@@ -269,6 +282,11 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
         Probe("#18 ADM", "adm_stats", lambda: adm.adm_stats(pair), levels(adm_ops.NUM_LEVELS, ADM_LEVEL)),
         Probe("#6 conversion (4:2:0 pair)", "yuv420_to_linear_rgb_pair",
               lambda: convert.yuv420_to_linear_rgb_pair(y2, uv2), once("yuv_to_rgb_kernel")),
+        Probe("#16 motion (u8)", "motion_stats", lambda: motion.motion_stats(luma, prev0), once(*MOTION)),
+        Probe("#17 motion blur (one frame)", "integer_blur", lambda: motion.integer_blur(luma[:1]),
+              once(*MOTION)),
+        Probe("#4 tail, 3 levels from level 2", "fused_tail",
+              lambda: fused_tail.fused_tail(s2_lvl2, 3, taps, opsin), once(*TAIL)),
     ]
 
 

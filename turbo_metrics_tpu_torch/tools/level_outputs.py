@@ -6,9 +6,10 @@ given checkout of the repository (the working tree, or an older commit
 unpacked beside it with ``git archive``), runs the probes of that
 checkout's dissect tool (``kernel_dissect.probes`` at the tool's default
 shape, B=4 1080x1920, inputs from seed 0) whose wrapper is one of
-``WRAPPERS``, and the calls of ``own_calls`` (ADM and the two conversions
-on seeded inputs built here, so that a checkout whose tool lacks a probe is
-compared all the same), on the card, and saves every tensor
+``WRAPPERS``, and the calls of ``own_calls`` (ADM, the two conversions,
+VMAF motion and the SSIMULACRA2 tail on seeded inputs built here, so that a
+checkout whose tool lacks a probe is compared all the same), on the card,
+and saves every tensor
 they return, with the peak device memory of each call above its inputs;
 ``compare`` reports for each result that both files hold whether they
 hold the same bits, and the largest difference where they do not:
@@ -43,8 +44,13 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     seed 9: ADM on luma pairs at sizes whose mask halo leaves the band plane
     (13x21, 67x99), #6 on an 8-bit 4:2:0 pair at the given shape and at an
     odd size, #5 on 10-bit 4:2:2 at the given shape and on 12-bit 4:4:4 at
-    an odd size."""
-    from turbo_metrics_tpu_torch.ops.kernels import adm, convert
+    an odd size, VMAF motion's #16 on 8-bit luma at the given shape and on
+    10-bit and int32 luma codes at an odd size (blurred planes and row SADs)
+    and #17 on one frame, and #4 on three levels of a linear-RGB pair at a
+    quarter of the given shape (at 1080p the 4K level 3, 270x480) and on
+    five levels from 67x99."""
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
+    from turbo_metrics_tpu_torch.ops.kernels import adm, convert, fused_tail, motion
 
     rng = np.random.default_rng(9)
 
@@ -62,8 +68,30 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     y8o, uv8o = planes((2, 2, 67, 99), 8), planes((2, 2, 34, 50, 2), 8)
     y10, uv10 = planes((batch, height, width), 10), planes((batch, height, w2, 2), 10)
     y12, uv12 = planes((3, 35, 131), 12), planes((3, 35, 131, 2), 12)
+    def luma(shape, depth, dtype):
+        return torch.from_numpy(rng.integers(0, 1 << depth, shape).astype(dtype)).to(dev)
+
+    def motion_call(y, depth):
+        p0 = luma(y.shape[1:], 16, np.uint16)
+        return lambda: tuple(motion.motion_stats(y, p0, depth=depth).values())
+
+    def rgb_pair(b, h, w):
+        return torch.from_numpy(rng.random((2, b, 3, h, w), dtype=np.float64).astype(np.float32)).to(dev)
+
+    m = Ssimulacra2(64, 48, device=dev)
+    ym = luma((batch, height, width), 8, np.uint8)
+    p4k, p67 = rgb_pair(batch, height // 4, width // 4), rgb_pair(2, 67, 99)
     calls = [(f"#18 ADM {h}x{w}", "adm_stats", lambda p=luma_pair(h, w): adm.adm_stats(p))
              for h, w in ((13, 21), (67, 99))]
+    calls += [
+        (f"#16 motion u8 {width}x{height}", "motion_stats", motion_call(ym, 8)),
+        ("#16 motion 10-bit 131x35", "motion_stats", motion_call(luma((3, 35, 131), 10, np.uint16), 10)),
+        ("#16 motion int32 codes 131x35", "motion_stats", motion_call(luma((3, 35, 131), 10, np.int32), 10)),
+        (f"#17 motion blur u8 {width}x{height}", "integer_blur", lambda: motion.integer_blur(ym[:1])),
+        (f"#4 tail 3 levels from {width // 4}x{height // 4}", "fused_tail",
+         lambda: fused_tail.fused_tail(p4k, 3, m.taps, m.opsin)),
+        ("#4 tail 5 levels from 99x67", "fused_tail", lambda: fused_tail.fused_tail(p67, 5, m.taps, m.opsin)),
+    ]
     return calls + [
         (f"#6 conversion {width}x{height}", "yuv420_to_linear_rgb_pair",
          lambda: convert.yuv420_to_linear_rgb_pair(y8, uv8)),
