@@ -15,7 +15,6 @@ Phases, each fatal on failure (exit code 1):
      pyramids; the registers, shared memory, blocks per SM and spills of
      every fused level kernel instance (adm_tile_kernel among them), of the
      motion kernel (#16, #17) per luma type and of #4's fused_tail_kernel;
-     the Python motion_geometry equal to the library's tm_motion_geometry;
   3. write a seeded 1080p 8-bit 4:2:0 BT.709 limited-range Y4M pair
      (16 frames, noise on a smooth base) to a temporary directory;
   4. score it through the port's CLI (-m ssimulacra2 --output json), every
@@ -73,7 +72,8 @@ Phases, each fatal on failure (exit code 1):
      XPSNR 1e-9, and VMAF's features: motion equal, VIF 1e-5, ADM 1e-4);
   5c. kernels #16 and #17 against their twins, blurred planes and row SADs
      equal, on both 1080p batches (frame 8 takes frame 7's blur across the
-     batch boundary) and on small odd sizes at 10 and 16 bits; #14 + #15
+     batch boundary), on two seeded B=8 batches of 10-bit u16 luma at
+     1080p (path (e)'s) and on small odd sizes at 10 and 16 bits; #14 + #15
      sums rtol 1e-4 / atol 1e-5 per scale, scores 1e-5, also on 13x21 (the
      17-tap window wider than the plane), 67x99 and 35x131; #18 sums rtol
      1e-4, scores 1e-4; the VMAF features of the twins' route against the CLI's;
@@ -101,9 +101,11 @@ Phases, each fatal on failure (exit code 1):
   5h. #16 and #17 against their twins bit for bit at the sizes where the
      motion kernel branches (3x3, 5x17, widths on either side of a 16-byte
      chunk and of a warp's row segment, u8, u16 and int32 luma at 8-16
-     bits), on two batches across the batch boundary; #4 against its twin
-     and bit for bit against kernel 2 on the 4K level 3, the 1440p level 2,
-     67x99 and odd chains whose levels fall below one 32x32 tile;
+     bits, u16 and int32 rows of whole aligned chunks: 8, 16, 240 and 480
+     u16, 4, 120 and 124 int32 samples), on two batches across the batch
+     boundary; #4 against its twin and bit for bit against kernel 2 on the
+     4K level 3, the 1440p level 2, 67x99 and odd chains whose levels fall
+     below one 32x32 tile;
   6. score the frozen golden pair through the kernel route: 80.486135 +- 0.05;
   7. time each kernel and its twin (#7 also against avg_pool2d, #19 against
      five F.conv2d blurs with TF32 off, separable and as one 11x11 kernel,
@@ -355,12 +357,14 @@ def golden_pair():
 
 def device_ms(fn, names=None, iters: int = 20) -> float:
     """Device ms per call of fn's CUDA kernels whose base names are in
-    ``names`` (every kernel where None), by the dissect tool's per-launch
+    ``names`` (every kernel and memset where None; memsets where ``names``
+    holds the dissect tool's ``MEMSET``), by the dissect tool's per-launch
     torch.profiler reading: the kernels alone, without the wrapper's host
     time or the gaps between launches."""
-    from turbo_metrics_tpu_torch.tools.kernel_dissect import base_name, kernel_device_ms
+    from turbo_metrics_tpu_torch.tools.kernel_dissect import MEMSET, base_name, kernel_device_ms
 
-    hits = [t for n, t in kernel_device_ms(fn, iters) if names is None or base_name(n) in names]
+    seq = kernel_device_ms(fn, iters, memsets=names is None or MEMSET in names)
+    hits = [t for n, t in seq if names is None or base_name(n) in names]
     need(bool(hits), f"the profiler recorded none of the kernels {names}")
     return sum(hits)
 
@@ -882,9 +886,10 @@ def vmaf_step(y_ref, y_dis, prev0, kernels: bool) -> dict:
 def check_vmaf_kernels(y16, cli_vmaf) -> dict:
     """Phase 5c: kernels #16 and #17 against their twins on both 1080p
     batches of the CLI's pair (frame 8's previous frame is frame 7's blur,
-    across the batch boundary) and at 10 and 16 bits on small odd sizes;
-    #14, #15 and #18 against their twins on the first batch; the features of
-    the twins' route against the CLI's.  Returns the max abs errors by
+    across the batch boundary), on two seeded B=8 batches of 10-bit u16
+    luma at 1080p (path (e)'s type and width) and at 10 and 16 bits on
+    small odd sizes; #14, #15 and #18 against their twins on the first
+    batch; the features of the twins' route against the CLI's.  Returns the max abs errors by
     kernel and the first batch's VIF/ADM pair."""
     from turbo_metrics_tpu_torch.engine import vmaf_pair
     from turbo_metrics_tpu_torch.ops import adm as adm_ops
@@ -914,7 +919,21 @@ def check_vmaf_kernels(y16, cli_vmaf) -> dict:
          "motion of the twins' route differs from the CLI's")
     log(f"#16/#17 vs twins at {w}x{h}, frames 0-{n - 1}: blurred planes and row SADs equal; "
         "motion equal to the CLI's")
+    # Path (e)'s luma: 10-bit u16 at the full width (whole, aligned chunks,
+    # eight row segments), two batches of B=8 across the batch boundary.
     rng = np.random.default_rng(16)
+    y10 = torch.from_numpy(rng.integers(0, 1 << 10, (2 * BATCH, h, w)).astype(np.uint16)).to(y16.device)
+    prev0 = motion.integer_blur_ref(y10[:1], depth=10)[0]
+    need(torch.equal(motion.integer_blur(y10[:1], depth=10).to(torch.int32), prev0[None].to(torch.int32)),
+         f"#17 differs from the twin on 10-bit {w}x{h} luma")
+    for b0 in range(0, 2 * BATCH, BATCH):
+        got = motion.motion_stats(y10[b0 : b0 + BATCH], prev0, depth=10)
+        want = motion.motion_stats_ref(y10[b0 : b0 + BATCH], prev0, depth=10)
+        need(torch.equal(got["blurred"].to(torch.int32), want["blurred"].to(torch.int32))
+             and torch.equal(got["sad_rows"], want["sad_rows"]),
+             f"#16 differs from the twin on 10-bit {w}x{h} luma, frames {b0}+")
+        prev0 = want["blurred"][-1].contiguous()
+    log(f"#16/#17 vs twins at {w}x{h} 10-bit u16, B={BATCH}, frames 0-{2 * BATCH - 1}: equal")
     for depth, hs, ws in ((10, 67, 99), (16, 35, 131)):
         y = torch.from_numpy(rng.integers(0, 1 << depth, (3, hs, ws)).astype(np.uint16)).to(y16.device)
         p0 = torch.from_numpy(rng.integers(0, 1 << 16, (hs, ws)).astype(np.uint16)).to(y16.device)
@@ -1038,7 +1057,7 @@ def check_level_blocks(lib, card: str) -> None:
     from turbo_metrics_tpu_torch.ops import adm as adm_ops
     from turbo_metrics_tpu_torch.ops import quality
     from turbo_metrics_tpu_torch.ops.downscale import scale_dims
-    from turbo_metrics_tpu_torch.ops.kernels import _build, adm, motion, scale_stats, vif, windowed
+    from turbo_metrics_tpu_torch.ops.kernels import _build, adm, scale_stats, vif, windowed
 
     sizes = [(1, 1), (33, 65), (67, 99)] + scale_dims(HEIGHT, WIDTH) + scale_dims(UHD_HEIGHT, UHD_WIDTH)
     for h, w in sizes:
@@ -1082,20 +1101,10 @@ def check_level_blocks(lib, card: str) -> None:
     _build.check(lib.tm_adm_tile_attrs(a), "tm_adm_tile_attrs")
     log(f"adm_tile_kernel: {a[0]} registers, {a[1]} B of dynamic shared memory per block, {a[2]} blocks "
         f"per SM, {a[3]} B of local memory (spills) [{card}]")
-    g = (ctypes.c_int * 3)()
-    motion_sizes = [(3, 3), (5, 17), (67, 99), (35, 131), (HEIGHT, WIDTH), (UHD_HEIGHT, UHD_WIDTH)]
-    for code, (dtype, name) in enumerate(((torch.uint8, "unsigned char"), (torch.uint16, "unsigned short"),
-                                          (torch.int32, "int"))):
-        for h, w in motion_sizes:
-            _build.check(lib.tm_motion_geometry(h, w, code, g), "tm_motion_geometry")
-            want = motion.motion_geometry(h, w, dtype)
-            need(tuple(g) == want,
-                 f"tm_motion_geometry({h}, {w}, {code}) = {tuple(g)}, motion_geometry = {want}")
+    for code, name in enumerate(("unsigned char", "unsigned short", "int")):
         _build.check(lib.tm_motion_attrs(code, a), "tm_motion_attrs")
         log(f"motion_kernel<{name}>: {a[0]} registers, {a[1]} B of static shared memory per block, {a[2]} "
             f"blocks per SM, {a[3]} B of local memory (spills) [{card}]")
-    log(f"tm_motion_geometry equals motion_geometry on {len(motion_sizes)} sizes x 3 luma types; "
-        f"{WIDTH}x{HEIGHT} u8: {motion.motion_geometry(HEIGHT, WIDTH, torch.uint8)} (rows, threads, blocks)")
     t = (ctypes.c_int * 5)()
     _build.check(lib.tm_fused_tail_attrs(t), "tm_fused_tail_attrs")
     log(f"fused_tail_kernel: {t[0]} registers, {t[1]} B of static shared memory per block, {t[2]} blocks per "
@@ -1212,6 +1221,13 @@ MOTION_EDGE_SIZES = (
     (4, 17, 8, np.uint8), (6, 479, 8, np.uint8), (6, 481, 8, np.uint8), (67, 99, 8, np.uint8),
     (5, 7, 10, np.uint16), (5, 9, 10, np.uint16), (5, 239, 10, np.uint16), (5, 241, 10, np.uint16),
     (9, 31, 16, np.uint16), (7, 33, 10, np.int32), (7, 121, 16, np.int32), (35, 131, 12, np.int32),
+    # Whole, aligned 16-byte chunks of u16 and int32 rows (the wide loads
+    # and stores and the row-end mirror from the lane's own columns): one
+    # chunk, two, one segment and two segments.
+    (5, 8, 10, np.uint16), (6, 16, 16, np.uint16), (5, 240, 10, np.uint16), (9, 480, 16, np.uint16),
+    (4, 8, 16, np.uint16), (7, 16, 10, np.uint16), (6, 240, 16, np.uint16), (5, 480, 10, np.uint16),
+    (5, 4, 10, np.int32), (6, 120, 16, np.int32), (9, 124, 10, np.int32),
+    (6, 4, 16, np.int32), (5, 120, 10, np.int32), (7, 124, 16, np.int32),
 )
 TAIL_CHAINS = ((270, 480, 3, 4), (360, 640, 4, 2), (67, 99, 5, 2), (40, 50, 3, 2), (23, 29, 3, 3),
                (17, 45, 3, 2))
@@ -1741,7 +1757,9 @@ def main() -> int:
         k2_lvl3_dev_ms = device_ms(
             lambda: scale_tail.fused_pyramid_tail(lvl3, 3, taps, opsin),
             ("rgb_to_xyb_kernel", "level_tile_kernel", "reduce_parts_kernel"))
-        k16_dev_ms = device_ms(lambda: motion.motion_stats(vy, prev0), ("motion_kernel",))
+        # #16's device time holds the memset that zeroes its row sums.
+        k16_dev_ms = device_ms(lambda: motion.motion_stats(vy, prev0), ("memset", "motion_kernel"))
+        k16_memset_ms = device_ms(lambda: motion.motion_stats(vy, prev0), ("memset",))
         k17_dev_ms = device_ms(lambda: motion.integer_blur(vy[:1]), ("motion_kernel",))
         # Which 4K levels #4 and kernel 2 should take: each on levels s..5
         # from each first level s (kernel 1's emitted level 1, then 2x2 means).
@@ -1814,7 +1832,8 @@ def main() -> int:
             f"{d4:.4f} ms (call {c4:.3f}), kernel 2 device {d2:.4f} ms (its kernels only; call {c2:.3f}) "
             f"[{card}]")
     for name, t in (("xpsnr_block_stats", k13_dev_ms), ("yuv_to_linear_rgb", k5_dev_ms),
-                    ("motion_stats (B=8 u8)", k16_dev_ms), ("integer_blur (one u8 frame)", k17_dev_ms),
+                    (f"motion_stats (B=8 u8; its row sums' memset {k16_memset_ms:.4f} ms of it)", k16_dev_ms),
+                    ("integer_blur (one u8 frame)", k17_dev_ms),
                     ("fused_tail (4K level 3)", k4_dev_ms),
                     ("fused_pyramid_tail on the same plane (its 12 kernels)", k2_lvl3_dev_ms),
                     ("4K kernel step, every kernel (kernel 1, #3 x2, #4)", uhd_dev_ms),

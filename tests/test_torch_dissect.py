@@ -183,9 +183,10 @@ def test_kernel_dissect_on_cpu():
         "#15 VIF scales 1-3": {"vif_tile_kernel": 3, "reduce_frames_kernel": 3},
         "#18 ADM": {"adm_tile_kernel": 4, "reduce_frames_kernel": 4},
         "#6 conversion (4:2:0 pair)": {"yuv_to_rgb_kernel": 1},
-        "#16 motion (u8)": {"motion_kernel": 1},
+        "#16 motion (u8)": {"memset": 1, "motion_kernel": 1},
         "#17 motion blur (one frame)": {"motion_kernel": 1},
         "#4 tail, 3 levels from level 2": {"fused_tail_kernel": 1},
+        "#4 tail, 4 levels from a third of the frame (1440p levels 2-5)": {"fused_tail_kernel": 1},
     }
     assert kernels == want
 
@@ -225,6 +226,18 @@ def test_kernel_device_ms_reads_again_after_a_dropped_record(monkeypatch):
     with pytest.raises(kernel_dissect.ProfileMismatch):
         kernel_dissect.kernel_device_ms(None, 20, 2)
     assert not readings
+
+
+def test_kernel_device_ms_counts_memsets_where_asked(monkeypatch):
+    """A memset is device work of the call that issues it: read where the
+    caller asks for it (#16's probe), left out of the other readings."""
+    recs = []
+    for _ in range(4):
+        recs += [(MARK, 0.001), (kernel_dissect.MEMSET, 0.002), ("a<6>", 0.5)]
+    monkeypatch.setattr(kernel_dissect, "_profile_calls", lambda fn, iters: (recs, {MARK}))
+    assert kernel_dissect.kernel_device_ms(None, 4, 1) == [("a<6>", 0.5)]
+    assert kernel_dissect.kernel_device_ms(None, 4, 2, memsets=True) == [(kernel_dissect.MEMSET, 0.002),
+                                                                        ("a<6>", 0.5)]
 
 
 def test_split_calls_leaves_out_calls_around_a_lost_mark():
@@ -294,10 +307,11 @@ def test_level_outputs_save_needs_the_card(tmp_path):
 def test_level_outputs_own_calls_run_on_cpu():
     """The calls ``save`` makes beside the dissect probes (ADM at sizes whose
     mask halo leaves the band plane, #6 at 8 bits and an odd size, #5 at
-    4:2:2 10-bit and 4:4:4 12-bit PQ, #16 on 8-bit, 10-bit and int32 luma,
-    #17 on one frame, #4 on three and five levels) build their inputs from
-    a seed and run through the wrappers, here their twins: each entry names
-    its wrapper and returns the wrapper's shapes."""
+    4:2:2 10-bit and 4:4:4 12-bit PQ, #16 on 8-bit, 10-bit (at an odd size
+    and at the given shape) and int32 luma, #17 on one frame, #4 on three
+    and five levels) build their inputs from a seed and run through the
+    wrappers, here their twins: each entry names its wrapper and returns the
+    wrapper's shapes."""
     from turbo_metrics_tpu_torch.tools import level_outputs
 
     calls = level_outputs.own_calls(1, 48, 64, torch.device("cpu"))
@@ -311,6 +325,7 @@ def test_level_outputs_own_calls_run_on_cpu():
         "#16 motion u8 64x48": ((1, 48, 64), (1, 48)),
         "#16 motion 10-bit 131x35": ((3, 35, 131), (3, 35)),
         "#16 motion int32 codes 131x35": ((3, 35, 131), (3, 35)),
+        "#16 motion 10-bit 64x48": ((1, 48, 64), (1, 48)),
         "#17 motion blur u8 64x48": (1, 48, 64),
         "#4 tail 3 levels from 16x12": (1, 3, 3, 6),
         "#4 tail 5 levels from 99x67": (2, 5, 3, 6),

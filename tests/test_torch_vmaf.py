@@ -91,7 +91,13 @@ def _motion_case(h, w, depth, dt=None):
 # luma codes at unaligned widths.
 MOTION_EDGES = [(3, 3, 8), (5, 17, 8), (4, 15, 8), (4, 16, 8), (4, 17, 8), (6, 479, 8), (6, 481, 8),
                 (5, 7, 10), (5, 9, 10), (5, 239, 10), (5, 241, 10), (9, 31, 16),
-                (7, 33, 10, np.int32), (7, 121, 16, np.int32)]
+                (7, 33, 10, np.int32), (7, 121, 16, np.int32),
+                # u16 and int32 rows of whole 16-byte chunks: one chunk, two,
+                # one row segment and two.
+                (5, 8, 10), (6, 16, 16), (5, 240, 10), (9, 480, 16), (4, 8, 16), (7, 16, 10),
+                (6, 240, 16), (5, 480, 10),
+                (5, 4, 10, np.int32), (6, 120, 16, np.int32), (9, 124, 10, np.int32),
+                (6, 4, 16, np.int32), (5, 120, 10, np.int32), (7, 124, 16, np.int32)]
 
 
 @pytest.mark.parametrize(
@@ -126,21 +132,6 @@ def test_motion_matches_jax(rng, h, w, depth, dt):
         np.testing.assert_array_equal(got["sad_rows"].numpy(), np.asarray(want["sad_rows"]), err_msg=backend)
         np.testing.assert_array_equal(plain["sad_rows"].numpy(), np.asarray(want["sad_rows"]), err_msg=backend)
     assert got["sad_rows"].dtype == torch.int64
-
-
-@pytest.mark.parametrize("hw", [(1080, 1920), (2160, 3840), (3, 3), (67, 99), (9, 481)])
-def test_motion_geometry_is_the_launch(hw):
-    """The Python mirror of the library's tm_motion_geometry (chip_smoke.py
-    holds the two equal on the card): blocks of four warps, each warp two
-    rows of a segment of 30 sixteen-byte chunks, whatever the frame count;
-    one 1080p u8 frame or batch puts 540 blocks on the card."""
-    h, w = hw
-    for dtype, itemsize in ((torch.uint8, 1), (torch.uint16, 2), (torch.int32, 4)):
-        per_seg = 30 * 16 // itemsize
-        want = (8, 128, math.ceil(w / per_seg) * math.ceil(h / 8))
-        assert kmot.motion_geometry(h, w, dtype) == want
-    if hw == (1080, 1920):
-        assert kmot.motion_geometry(h, w, torch.uint8)[2] == 540
 
 
 def test_motion_stream_matches_oracle(rng):

@@ -316,13 +316,6 @@ motion_kernel(const T* __restrict__ y, const uint16_t* __restrict__ prev0, int i
   }
 }
 
-// The grid for h x w frames of luma type `type` (0 u8, 1 u16, 2 int32),
-// whatever their count: row segments x bands of kWarps * kRows rows.
-dim3 motion_grid(int h, int w, int type) {
-  const int per_seg = kSegChunks * 16 / (type == 0 ? 1 : type == 1 ? 2 : 4);
-  return dim3((w + per_seg - 1) / per_seg, (h + kWarps * kRows - 1) / (kWarps * kRows));
-}
-
 template <typename T>
 void launch_type(const void* y, const uint16_t* prev0, int images, int h, int w, int depth,
                  uint16_t* blurred, int64_t* sad_rows, dim3 grid, cudaStream_t s) {
@@ -340,7 +333,9 @@ int launch(const void* y, int type, const uint16_t* prev0, int images, int h, in
     const cudaError_t err = cudaMemsetAsync(sad_rows, 0, (size_t)images * h * sizeof(int64_t), s);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid = motion_grid(h, w, type);
+  // Row segments x bands of kWarps * kRows rows, whatever the frame count.
+  const int per_seg = kSegChunks * 16 / (type == 0 ? 1 : type == 1 ? 2 : 4);
+  const dim3 grid((w + per_seg - 1) / per_seg, (h + kWarps * kRows - 1) / (kWarps * kRows));
   switch (type) {
     case 0:
       launch_type<uint8_t>(y, prev0, images, h, w, depth, blurred, sad_rows, grid, s);
@@ -389,18 +384,6 @@ int tm_motion_stats(const void* y, int type, const uint16_t* prev0, int images, 
 int tm_integer_blur(const void* y, int type, int images, int h, int w, int depth,
                     uint16_t* blurred, void* stream) {
   return launch(y, type, nullptr, images, h, w, depth, blurred, nullptr, stream);
-}
-
-// The launch both entries make for h x w frames of luma type `type`
-// (whatever the count of frames): out[0] rows per block, out[1] threads per
-// block, out[2] blocks (ops/kernels/motion.py motion_geometry mirrors it).
-int tm_motion_geometry(int h, int w, int type, int* out) {
-  if (h < 3 || w < 3 || type < 0 || type > 2) return (int)cudaErrorInvalidValue;
-  const dim3 g = motion_grid(h, w, type);
-  out[0] = kWarps * kRows;
-  out[1] = kWarps * 32;
-  out[2] = (int)(g.x * g.y);
-  return 0;
 }
 
 // What motion_kernel<T> takes on this card (type 0 u8, 1 u16, 2 int32):

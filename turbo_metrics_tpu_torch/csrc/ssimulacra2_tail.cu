@@ -46,9 +46,19 @@
 // tile per block on the small levels.  Measured and not kept: registers
 // capped for 4 or 5 blocks per SM (3 now), four quads per thread: no
 // faster; two quads per thread, loaded before either is computed: 4%
-// faster at 4K, 8% slower on the 1440p levels 2-5.
-// Not tried: thread-block clusters with distributed shared memory holding
-// the smallest levels.
+// faster at 4K, 8% slower on the 1440p levels 2-5.  One phase per level
+// (XYB computed in the tile from the level's linear RGB, the next level
+// emitted from the tile's quads: no quad pass, levels grid syncs; the same
+// sums): 0.147 against 0.079 device ms at 4K levels 3-5, 0.383 against
+// 0.234 on the 1440p levels 2-5 at B=8.  Each tile recomputes the cube
+// roots of all three channels on its 42x48 input, about six times the
+// quad pass's work, and that outweighs the step it saves.
+// Not tried: the f64 reductions shared across the grid.  A level's
+// reductions fill the blocks left over in the step after its tiles; only
+// the last level's run alone, in the last step (about 2 us), and splitting
+// reduce_plane's fixed tree across blocks would take one more grid sync.
+// Nor thread-block clusters with distributed shared memory holding the
+// smallest levels.
 //
 // Layouts (all contiguous, f32):
 //   p12   (2, B, 3, h0, w0)         linear RGB of the first level

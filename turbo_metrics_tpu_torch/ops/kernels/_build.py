@@ -58,7 +58,6 @@ _SIGNATURES = {
     "tm_xpsnr_block_stats": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
     "tm_motion_stats": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "tm_integer_blur": [_P, _I, _I, _I, _I, _I, _P, _P],
-    "tm_motion_geometry": [_I, _I, _I, _PI],
     "tm_motion_attrs": [_I, _PI],
     "tm_vif_blocks": [_I, _I],
     "tm_vif_tile_attrs": [_I, _PI],

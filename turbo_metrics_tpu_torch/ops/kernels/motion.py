@@ -23,24 +23,6 @@ from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
 from turbo_metrics_tpu_torch.ops.kernels.xpsnr import DTYPE_CODES
 
 
-# csrc/motion.cu's launch: a warp writes SEG_CHUNKS 16-byte luma chunks of a
-# row segment and walks ROWS_PER_WARP rows through every frame; a block
-# stacks WARPS warps down the rows of one segment.
-SEG_CHUNKS = 30
-ROWS_PER_WARP = 2
-WARPS = 4
-
-
-def motion_geometry(h: int, w: int, dtype: torch.dtype) -> tuple:
-    """(rows per block, threads per block, blocks) of the launch that
-    ``motion_stats`` and ``integer_blur`` make for h x w frames of ``dtype``
-    luma, whatever their count: the Python mirror of the library's
-    ``tm_motion_geometry`` (chip_smoke.py holds the two equal)."""
-    per_seg = SEG_CHUNKS * 16 // torch.empty((), dtype=dtype).element_size()
-    rows = WARPS * ROWS_PER_WARP
-    return rows, 32 * WARPS, -(-w // per_seg) * -(-h // rows)
-
-
 def _check(y, depth, prev0=None):
     if y.ndim != 3 or min(y.shape[-2:]) < 3:
         raise ValueError(f"y must be (B, h, w) with h, w >= 3, got {tuple(y.shape)}")

@@ -16,17 +16,18 @@ and beside them kernel 1 (``fused_scale0_yuv`` on a seeded 8-bit 4:2:0
 pair), kernel 2 (``fused_pyramid_tail`` from #3's emitted level, one entry
 per level), #10, #11 (with and without the next level), #12, #14, #15 and
 #18 on the same inputs, #6 (``yuv420_to_linear_rgb_pair``) on kernel 1's
-8-bit 4:2:0 pair, VMAF motion's #16 (``motion_stats``) on its reference
-luma and #17 (``integer_blur``) on one frame of it, and #4 (``fused_tail``)
-on three levels from the pair's level 2 (at 1080p the size of a 4K level
-3).  Each call
-is timed by CUDA events after warm-up (the median of ``REPEATS`` runs of
-``--iters`` calls: a call's host time swings with the load on the host), and
-every CUDA kernel it launches by torch.profiler, in launch order: the device
-time of each pass without the wrapper's host time or the gaps between
-launches.  On the CPU the wrappers
-run their plain twins: the tool reports host-clock times and no device
-times.  Run:
+8-bit 4:2:0 pair, VMAF motion's #16 (``motion_stats``, with the memset
+that zeroes its row sums) on its reference luma and #17 (``integer_blur``)
+on one frame of it, and #4 (``fused_tail``) on three levels from the pair's
+level 2 (at 1080p the size of a 4K level 3) and on four levels of a seeded
+pair at twice the batch and a third of the frame (at the defaults the
+1440p chain: B=8, levels 2-5 from 360x640).  Each call is timed by CUDA
+events after warm-up (the median of ``REPEATS`` runs of ``--iters`` calls:
+a call's host time swings with the load on the host), and every CUDA
+kernel it launches by torch.profiler, in launch order: the device time of
+each pass without the wrapper's host time or the gaps between launches.
+On the CPU the wrappers run their plain twins: the tool reports
+host-clock times and no device times.  Run:
 
     python -m turbo_metrics_tpu_torch.tools.kernel_dissect                # on the card
     python -m turbo_metrics_tpu_torch.tools.kernel_dissect --device cpu \\
@@ -66,6 +67,10 @@ ADM_LEVEL = ("adm_tile_kernel", "reduce_frames_kernel")
 # cooperative launch (csrc/ssimulacra2_tail.cu): one kernel each.
 MOTION = ("motion_kernel",)
 TAIL = ("fused_tail_kernel",)
+# The name given to the profiler's records of cudaMemsetAsync: device work of
+# the probes that list it (#16 zeroes its row sums before its kernel adds
+# into them), left out of the others' readings.
+MEMSET = "memset"
 # Timed runs of ``--iters`` calls per entry; the call time is their median.
 REPEATS = 5
 # Profiler readings of one entry that keep fewer than half their calls whole
@@ -151,15 +156,17 @@ def split_calls(records: list, marks: set, expect: int | None = None) -> list:
     return [c for c in calls if len(c) == expect]
 
 
-def kernel_device_ms(fn, iters: int, expect: int | None = None) -> list:
+def kernel_device_ms(fn, iters: int, expect: int | None = None, memsets: bool = False) -> list:
     """Device time of each CUDA kernel that one fn() call launches, in launch
     order, as [(kernel name, ms)]: the mean over the whole calls of a
     torch.profiler reading of ``iters`` calls (``split_calls``; ``expect``:
-    the launches of one call, where known).  A reading that keeps fewer
-    than half its calls is taken again, up to ``PROFILE_ATTEMPTS`` readings;
-    then it raises, as where the calls launch different kernels."""
+    the launches of one call, where known), with its memsets as kernels
+    named ``MEMSET`` where ``memsets``.  A reading that keeps fewer than
+    half its calls is taken again, up to ``PROFILE_ATTEMPTS`` readings; then
+    it raises, as where the calls launch different kernels."""
     for _ in range(PROFILE_ATTEMPTS):
-        calls = split_calls(*_profile_calls(fn, iters), expect)
+        records, marks = _profile_calls(fn, iters)
+        calls = split_calls([r for r in records if memsets or r[0] != MEMSET], marks, expect)
         if 2 * len(calls) >= iters:
             break
     else:
@@ -173,8 +180,8 @@ def kernel_device_ms(fn, iters: int, expect: int | None = None) -> list:
 
 
 def _cuda_records(run) -> list:
-    """[(kernel name, ms)] of the CUDA kernels that run() launches, by
-    torch.profiler, in launch order."""
+    """[(kernel name, ms)] of the CUDA kernels and memsets (``MEMSET``) that
+    run() launches, by torch.profiler, in launch order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -182,11 +189,11 @@ def _cuda_records(run) -> list:
         run()
         torch.cuda.synchronize()
     events = sorted(
-        (e for e in prof.events()
-         if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset"))),
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy")),
         key=lambda e: e.time_range.start,
     )
-    return [(kernel_name(e.name), e.time_range.elapsed_us() / 1e3) for e in events]
+    return [(MEMSET if e.name.startswith("Memset") else kernel_name(e.name), e.time_range.elapsed_us() / 1e3)
+            for e in events]
 
 
 def _profile_calls(fn, iters: int) -> tuple:
@@ -252,6 +259,11 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
     luma = y2[0]
     prev0 = motion.integer_blur(luma[:1])[0]
     s2_lvl2 = downscale_by_2(downscale_by_2(p12)).contiguous()
+    # Twice the batch at a third of the frame: at the defaults 1440p's level
+    # 2 (360x640) at its batch of 8, from which the level route sends four
+    # levels to #4.
+    p1440 = torch.from_numpy(
+        rng.random((2, 2 * b, 3, -(-h // 3), -(-w // 3)), dtype=np.float64).astype(np.float32)).to(dev)
     return [
         Probe("scale0 full (with ds)", "fused_scale_rgb",
               lambda: scale_stats.fused_scale_rgb(p12, taps, opsin, emit_ds=True), rgb_level),
@@ -282,11 +294,14 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
         Probe("#18 ADM", "adm_stats", lambda: adm.adm_stats(pair), levels(adm_ops.NUM_LEVELS, ADM_LEVEL)),
         Probe("#6 conversion (4:2:0 pair)", "yuv420_to_linear_rgb_pair",
               lambda: convert.yuv420_to_linear_rgb_pair(y2, uv2), once("yuv_to_rgb_kernel")),
-        Probe("#16 motion (u8)", "motion_stats", lambda: motion.motion_stats(luma, prev0), once(*MOTION)),
+        Probe("#16 motion (u8)", "motion_stats", lambda: motion.motion_stats(luma, prev0),
+              once(MEMSET, *MOTION)),
         Probe("#17 motion blur (one frame)", "integer_blur", lambda: motion.integer_blur(luma[:1]),
               once(*MOTION)),
         Probe("#4 tail, 3 levels from level 2", "fused_tail",
               lambda: fused_tail.fused_tail(s2_lvl2, 3, taps, opsin), once(*TAIL)),
+        Probe("#4 tail, 4 levels from a third of the frame (1440p levels 2-5)", "fused_tail",
+              lambda: fused_tail.fused_tail(p1440, 4, taps, opsin), once(*TAIL)),
     ]
 
 
@@ -296,7 +311,8 @@ def dissect(probe: Probe, iters: int, dev: torch.device) -> list:
     call_ms = statistics.median(time_ms(probe.fn, iters, dev) for _ in range(REPEATS))
     seq = None
     if dev.type == "cuda":
-        seq = kernel_device_ms(probe.fn, iters, probe.parts * sum(c for _, c in probe.kernels))
+        seq = kernel_device_ms(probe.fn, iters, probe.parts * sum(c for _, c in probe.kernels),
+                               memsets=any(n == MEMSET for n, _ in probe.kernels))
     if seq is not None and len(seq) % probe.parts:
         raise RuntimeError(f"{probe.entry}: {len(seq)} kernels in {probe.parts} equal parts")
     rows = []

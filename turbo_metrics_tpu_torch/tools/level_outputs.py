@@ -44,9 +44,9 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     seed 9: ADM on luma pairs at sizes whose mask halo leaves the band plane
     (13x21, 67x99), #6 on an 8-bit 4:2:0 pair at the given shape and at an
     odd size, #5 on 10-bit 4:2:2 at the given shape and on 12-bit 4:4:4 at
-    an odd size, VMAF motion's #16 on 8-bit luma at the given shape and on
-    10-bit and int32 luma codes at an odd size (blurred planes and row SADs)
-    and #17 on one frame, and #4 on three levels of a linear-RGB pair at a
+    an odd size, VMAF motion's #16 on 8-bit and 10-bit luma at the given
+    shape and on 10-bit and int32 luma codes at an odd size (blurred planes
+    and row SADs) and #17 on one frame, and #4 on three levels of a linear-RGB pair at a
     quarter of the given shape (at 1080p the 4K level 3, 270x480) and on
     five levels from 67x99."""
     from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
@@ -87,6 +87,8 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
         (f"#16 motion u8 {width}x{height}", "motion_stats", motion_call(ym, 8)),
         ("#16 motion 10-bit 131x35", "motion_stats", motion_call(luma((3, 35, 131), 10, np.uint16), 10)),
         ("#16 motion int32 codes 131x35", "motion_stats", motion_call(luma((3, 35, 131), 10, np.int32), 10)),
+        (f"#16 motion 10-bit {width}x{height}", "motion_stats",
+         motion_call(luma((batch, height, width), 10, np.uint16), 10)),
         (f"#17 motion blur u8 {width}x{height}", "integer_blur", lambda: motion.integer_blur(ym[:1])),
         (f"#4 tail 3 levels from {width // 4}x{height // 4}", "fused_tail",
          lambda: fused_tail.fused_tail(p4k, 3, m.taps, m.opsin)),
