@@ -14,7 +14,11 @@ Phases, each fatal on failure (exit code 1):
      sizes that cross tile edges and on every level of the 1080p (and 4K)
      pyramids; the registers, shared memory, blocks per SM and spills of
      every fused level kernel instance (adm_tile_kernel among them), of the
-     motion kernel (#16, #17) per luma type and of #4's fused_tail_kernel;
+     motion kernel (#16, #17) per luma type, of #4's fused_tail_kernel, of
+     the conversion kernel (#5, #6; tm_convert_attributes) and of the XPSNR
+     kernel (#13; tm_xpsnr_attributes) per type pair; the SASS instructions
+     and MUFU of #5's and #6's BT.709 instances (tools/sass_count.py),
+     which set their instruction bounds;
   3. write a seeded 1080p 8-bit 4:2:0 BT.709 limited-range Y4M pair
      (16 frames, noise on a smooth base) to a temporary directory;
   4. score it through the port's CLI (-m ssimulacra2 --output json), every
@@ -106,6 +110,16 @@ Phases, each fatal on failure (exit code 1):
      boundary; #4 against its twin and bit for bit against kernel 2 on the
      4K level 3, the 1440p level 2, 67x99 and odd chains whose levels fall
      below one 32x32 tile;
+  5i. #13 against its twin bit for bit at tools/edge_cases.py's
+     XPSNR_EDGE_CASES (the branch points of tests/test_torch_xpsnr.py:
+     widths 15-17, 31-33 and either side of a warp's row segment, heights
+     1 and 15-17, u8, u16 and int32 references, and every pair of types
+     that differ in the kernel's instances), on two batches across the
+     batch boundary; #5 (4:4:4, 4:2:0) and #6 against their twins at the
+     code values on either side of the BT.709 and sRGB thresholds, 0 and
+     the range ends, 8, 10 and 16 bits, both ranges, every transfer (atol
+     1e-6, 1e-4 for PQ), and #5 (4:2:0, 4:2:2) and #6 on u8 and u16 luma
+     views one sample past their storage's start, each on its own log line;
   6. score the frozen golden pair through the kernel route: 80.486135 +- 0.05;
   7. time each kernel and its twin (#7 also against avg_pool2d, #19 against
      five F.conv2d blurs with TF32 off, separable and as one 11x11 kernel,
@@ -115,14 +129,15 @@ Phases, each fatal on failure (exit code 1):
      route it replaced (kernel 1, then kernel 2 on levels 1-5) on the same
      inputs, by CUDA events and by torch.profiler device time; #4 and
      kernel 2 on the 4K levels s-5 from each first level s (device and call
-     times); #16 and #17 by device time too; the peak
+     times); #16, #17, #13, #5, #6 and kernel 1's conversion pass by device
+     time too; the peak
      device memory of one kernel step above its inputs (1080p SSIMULACRA2,
      multi-metric and VMAF, 4K SSIMULACRA2); and the CLI
      runs of phases 4, 4a, 4b (a), 4c, 4d, 4e and 4f again warm, three
      times each in turn;
   8. the dissect path: turbo_metrics_tpu_torch.tools.kernel_dissect at its
      default shape, counters reset just before and read just after: every
-     wrapper it times launched (#19 and #6 among them), a device time for
+     wrapper it times launched (#19, #6, #5 and #13 among them), a device time for
      every CUDA kernel of every entry.
 Prints the card, the dissect tool's JSON line, then one JSON line of
 per-kernel results (with each
@@ -130,7 +145,9 @@ kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
 over the peak of their type, the H100 SXM data sheet's 67 TFLOP/s for f32
 and, for the integer work of XPSNR and of VMAF's motion, 33.5 TOP/s of
 int32: 64 of the SM's 128 lanes take int32, Hopper architecture white
-paper), then as the last
+paper; for the conversions #5 and #6, the SASS
+instructions of their kernels at 128 lanes per SM and clock, or their MUFU
+at 16, whichever takes longer, at the card's highest SM clock), then as the last
 line {"ok": true, "device": {...}}.  Without CUDA, or outside the
 repository, it exits non-zero and prints no result.  Imports nothing of JAX.
 """
@@ -177,8 +194,16 @@ MS_LEVELS = 5
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_I32_PER_S = 33.5e12
-# f32 operations per pixel (an FMA counts 2, a pow, cube root or rounding 1):
-F_CONVERT = 30  # one image: luma 3, per channel add, pow-form EOTF ~6, clamp 2
+# f32 operations per pixel (an FMA counts 2, a pow, cube root or rounding 1);
+# #5 and #6, whose work is the conversion alone, are counted in the SASS
+# instructions of their kernels instead (CONVERSION_SASS).
+# One image's BT.709 conversion: luma 3; per channel the chroma term 1, the
+# power segment's argument 3, lg2, the scale and ex2 3, the threshold's
+# select 1 and the clamp 2 (each channel counted on the power segment, as
+# most of the data falls there); the chroma terms, 6 per 2x2 quad, 1.5.
+# Its MUFU (lg2 and ex2, 6 per pixel) at 16 lanes per SM and clock take less
+# time than its f32 work at 128.
+F_CONVERT = 34.5
 F_XYB = 59  # one image: opsin mix 24, three refined cube roots 21, XYB 10, 2x2 mean 4
 F_S2 = 205  # per channel of the pair: products 3, two 11-tap passes over 4 planes 176, maps 26
 F_QUANT = 8  # per channel of the pair: x*255, round, two clamps, both images
@@ -210,16 +235,26 @@ F_ADM_LEVEL = 63
 # f32 operations per summed pixel of the blur-only probe (#19): 5 repetitions
 # x 2 directions x 11 multiply-adds of 2 operations.
 F_PROBE = 220
-# The kernels whose passes were fused into one tile kernel per level.
+# The SASS of #5's and #6's main-path instances (csrc/convert.cu; transfer
+# code 0 is BT.709), counted by tools/sass_count.py: (kernel, pixels per
+# thread); a thread of #5 (4:2:2) converts 1x2 pixels, of #6 (4:2:0) 2x2.
+CONVERSION_SASS = {
+    "yuv_to_linear_rgb": ("yuv_to_rgb_kernel<unsigned short, 1, 2, 0>", 2),
+    "yuv420_to_linear_rgb_pair": ("yuv_to_rgb_kernel<unsigned char, 2, 2, 0>", 4),
+}
+# The kernels redesigned after their first port, and how.
 REDESIGNED = {"fused_scale0_yuv": "fused level pass", "fused_scale_rgb": "fused level pass",
               "ssim_sums": "fused tile pass", "vif_scale0": "fused tile pass", "adm_stats": "fused tile pass",
               "motion_stats": "register-window blur, frames walked in order",
               "integer_blur": "register-window blur, frames walked in order",
-              "fused_tail": "fused tile passes in one cooperative launch"}
+              "fused_tail": "fused tile passes in one cooperative launch",
+              "yuv_to_linear_rgb": "transfer function as a template parameter, MUFU powers, float2 stores",
+              "yuv420_to_linear_rgb_pair": "transfer function as a template parameter, MUFU powers, float2 stores",
+              "xpsnr_block_stats": "16-byte row chunks in a register window, neighbours by shuffles, dp4a at u8"}
 # The wrappers the dissect path times (phase 8), each launched there.
 DISSECT_KERNELS = ("fused_scale_rgb", "scale_sums", "blur_only", "fused_scale0_yuv", "fused_pyramid_tail",
                    "fused_scale_pair", "ssim_sums", "msssim_tail", "vif_scale0", "vif_tail", "adm_stats",
-                   "yuv420_to_linear_rgb_pair")
+                   "yuv420_to_linear_rgb_pair", "yuv_to_linear_rgb", "xpsnr_block_stats")
 
 
 def vif_flops(bsz: int, h: int, w: int, scales) -> float:
@@ -1005,10 +1040,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(nb: float, flops: float, peak_ops: float = PEAK_F32_PER_S):
+def bound(nb: float, flops: float, peak_ops: float = PEAK_F32_PER_S, issue: float = 0.0):
     """(least ms, what bounds it): bytes over the memory rate or operations
-    over the rate of their type (f32 unless given), whichever takes longer."""
-    t_bytes, t_ops = nb / PEAK_BYTES_PER_S * 1e3, flops / peak_ops * 1e3
+    over the rate of their type (f32 unless given) plus ``issue`` ms of
+    counted instructions, whichever takes longer."""
+    t_bytes, t_ops = nb / PEAK_BYTES_PER_S * 1e3, flops / peak_ops * 1e3 + issue
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1104,6 +1140,16 @@ def check_level_blocks(lib, card: str) -> None:
     for code, name in enumerate(("unsigned char", "unsigned short", "int")):
         _build.check(lib.tm_motion_attrs(code, a), "tm_motion_attrs")
         log(f"motion_kernel<{name}>: {a[0]} registers, {a[1]} B of static shared memory per block, {a[2]} "
+            f"blocks per SM, {a[3]} B of local memory (spills) [{card}]")
+    for is16, sub, tf, what in ((1, 422, 0, "#5, 10-bit 4:2:2 BT.709"), (0, 420, 0, "#6, 8-bit 4:2:0 BT.709"),
+                                (1, 444, 2, "#5, 16-bit 4:4:4 PQ")):
+        _build.check(lib.tm_convert_attributes(is16, sub, tf, a), "tm_convert_attributes")
+        log(f"yuv_to_rgb_kernel ({what}): {a[0]} registers, {a[1]} B of static shared memory per block, {a[2]} "
+            f"blocks per SM, {a[3]} B of local memory (spills) [{card}]")
+    for ref_t, dis_t, shift, what in ((0, 0, 0, "u8 vs u8"), (1, 0, 2, "10-bit u16 vs u8"), (0, 0, 1, "u8 vs u8 shifted"),
+                                      (1, 1, 0, "u16 vs u16"), (2, 2, 0, "int32 vs int32"), (2, 0, 2, "int32 vs u8")):
+        _build.check(lib.tm_xpsnr_attributes(ref_t, dis_t, shift, a), "tm_xpsnr_attributes")
+        log(f"xpsnr_kernel ({what}): {a[0]} registers, {a[1]} B of static shared memory per block, {a[2]} "
             f"blocks per SM, {a[3]} B of local memory (spills) [{card}]")
     t = (ctypes.c_int * 5)()
     _build.check(lib.tm_fused_tail_attrs(t), "tm_fused_tail_attrs")
@@ -1270,6 +1316,122 @@ def check_motion_tail_edges(dev, taps, opsin) -> None:
              f"{float((k4 - k2).abs().max()):.3g}")
         log(f"#4 on {levels} levels from {h}x{w} B={bsz}: max abs err vs twin {err:.3g}; sums equal to "
             "kernel 2's")
+
+
+def check_xpsnr_convert_edges(dev) -> None:
+    """Phase 5i: #13 against its twin bit for bit at XPSNR_EDGE_CASES, on two
+    batches of three frames (the second batch's frame 0 taking the first's
+    last reference as its previous frame); #5 (4:4:4 and 4:2:0) and #6
+    against their twins at the threshold code values of every depth and
+    range, with neutral chroma and Cb and Cr one code off it, for every
+    transfer (atol 1e-6, 1e-4 for PQ), and on luma planes one sample past
+    their storage's start (tools/edge_cases.py holds the sizes and codes)."""
+    from turbo_metrics_tpu_torch.ops import colorspace
+    from turbo_metrics_tpu_torch.ops.kernels import convert, xpsnr
+    from turbo_metrics_tpu_torch.tools.edge_cases import XPSNR_EDGE_CASES, XPSNR_LUMA, threshold_codes
+
+    rng = np.random.default_rng(1113)
+    for h, w, ref_type, dis_type in XPSNR_EDGE_CASES:
+        (ref_dt, ref_depth), (dis_dt, dis_depth) = XPSNR_LUMA[ref_type], XPSNR_LUMA[dis_type]
+        ref = torch.from_numpy(rng.integers(0, 1 << ref_depth, (6, h, w)).astype(ref_dt)).to(dev)
+        dis = torch.from_numpy(rng.integers(0, 1 << dis_depth, (6, h, w)).astype(dis_dt)).to(dev)
+        prev0 = torch.from_numpy(rng.integers(0, 1 << ref_depth, (h, w)).astype(ref_dt)).to(dev)
+        kw = dict(dis_shift=ref_depth - dis_depth)
+        for b0 in (0, 3):
+            args = (ref[b0:b0 + 3], dis[b0:b0 + 3], prev0 if b0 == 0 else ref[b0 - 1])
+            got, want = xpsnr.xpsnr_block_stats(*args, **kw), xpsnr.xpsnr_block_stats_ref(*args, **kw)
+            for k in want:
+                need(torch.equal(got[k], want[k]),
+                     f"#13 {k} differs from the twin's at {h}x{w} {ref_type}/{dis_type}, frames {b0}+")
+        log(f"#13 vs twin at {h}x{w}, reference {ref_type}, distorted {dis_type}, two batches of 3: "
+            "all grids equal")
+    for depth in (8, 10, 16):
+        dt = np.uint8 if depth == 8 else np.uint16
+        for full in (False, True):
+            codes = threshold_codes(depth, full)
+            neutral = colorspace.sample_range(depth, full).neutral
+            cb = np.array([neutral, neutral + 1, neutral - 1])[:, None]
+            # 4:4:4: one row per chroma offset; 4:2:0: two luma rows per chroma row.
+            y444 = torch.from_numpy(np.broadcast_to(codes, (3, codes.size)).astype(dt)[None].copy()).to(dev)
+            uv444 = torch.from_numpy(np.stack([cb.repeat(codes.size, 1), cb[::-1].repeat(codes.size, 1)],
+                                              -1).astype(dt)[None]).to(dev)
+            y420 = torch.from_numpy(np.broadcast_to(codes, (2, 1, 6, codes.size)).astype(dt).copy()).to(dev)
+            cw = (codes.size + 1) // 2
+            uv420 = torch.from_numpy(np.broadcast_to(
+                np.stack([cb.repeat(cw, 1), cb[::-1].repeat(cw, 1)], -1), (2, 1, 3, cw, 2)).astype(dt).copy()).to(dev)
+            for transfer in ("bt709", "srgb", "pq", "hlg", "linear"):
+                tol = 1e-4 if transfer == "pq" else 1e-6
+                kw = dict(depth=depth, transfer=transfer, full_range=full)
+                e444 = check_close(f"#5 4:4:4 {depth}-bit full={full} {transfer} at the threshold codes",
+                                   convert.yuv_to_linear_rgb(y444, uv444, chroma=444, **kw),
+                                   convert.yuv_to_linear_rgb_ref(y444, uv444, chroma=444, **kw), 0.0, tol)
+                e420 = check_close(f"#5 4:2:0 {depth}-bit full={full} {transfer} at the threshold codes",
+                                   convert.yuv_to_linear_rgb(y420, uv420, chroma=420, **kw),
+                                   convert.yuv_to_linear_rgb_ref(y420, uv420, chroma=420, **kw), 0.0, tol)
+                e6 = check_close(f"#6 {depth}-bit full={full} {transfer} at the threshold codes",
+                                 convert.yuv420_to_linear_rgb_pair(y420, uv420, **kw),
+                                 convert.yuv420_to_linear_rgb_pair_ref(y420, uv420, **kw), 0.0, tol)
+                log(f"#5/#6 vs twins at the {codes.size} threshold codes, {depth}-bit full={full} {transfer}: "
+                    f"max abs err #5 4:4:4 {e444:.3g}, #5 4:2:0 {e420:.3g}, #6 {e6:.3g}")
+    # Luma planes one sample past their storage's start (a view): the paired
+    # luma loads and float2 stores of a row are taken only where the bases
+    # are aligned for them.
+    h, w = 6, 34
+    for depth in (8, 10):
+        dt = np.uint8 if depth == 8 else np.uint16
+        for chroma in (420, 422):
+            ch = h // 2 if chroma == 420 else h
+            y = torch.from_numpy(rng.integers(0, 1 << depth, 2 * h * w + 1).astype(dt)).to(dev)[1:].view(2, h, w)
+            uv = torch.from_numpy(rng.integers(0, 1 << depth, (2, ch, w // 2, 2)).astype(dt)).to(dev)
+            kw = dict(depth=depth, transfer="bt709")
+            errs = [check_close(f"#5 {chroma} {depth}-bit on a luma view at storage offset 1",
+                                convert.yuv_to_linear_rgb(y, uv, chroma=chroma, **kw),
+                                convert.yuv_to_linear_rgb_ref(y, uv, chroma=chroma, **kw), 0.0, 1e-6)]
+            if chroma == 420:
+                y6, uv6 = y.view(2, 1, h, w), uv.view(2, 1, ch, w // 2, 2)
+                errs.append(check_close(f"#6 {depth}-bit on a luma view at storage offset 1",
+                                        convert.yuv420_to_linear_rgb_pair(y6, uv6, **kw),
+                                        convert.yuv420_to_linear_rgb_pair_ref(y6, uv6, **kw), 0.0, 1e-6))
+            log(f"#5{'/#6' if chroma == 420 else ''} vs twin{'s' if chroma == 420 else ''} at {h}x{w} "
+                f"{chroma} {depth}-bit, luma at storage offset 1: max abs err "
+                + ", ".join(f"{e:.3g}" for e in errs))
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), MHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout.split()
+    need(bool(out), "nvidia-smi gave no clocks.max.sm")
+    return float(out[0])
+
+
+def conversion_sass(card: str) -> dict:
+    """Phase 2: the SASS counts of CONVERSION_SASS's kernels in the built
+    library (tools/sass_count.py): {wrapper: (instructions per thread on the
+    common path, MUFU among them, pixels per thread)}."""
+    from turbo_metrics_tpu_torch.tools import sass_count
+
+    rows = {r["kernel"]: r for r in sass_count.kernel_counts([k for k, _ in CONVERSION_SASS.values()])}
+    counts = {}
+    for wrapper, (kernel, ppt) in CONVERSION_SASS.items():
+        need(kernel in rows, f"no SASS of {kernel} in the built library (have {sorted(rows)})")
+        r = rows[kernel]
+        counts[wrapper] = (r["path"], r["mufu"], ppt)
+        log(f"SASS {kernel}: {r['path']} instructions per thread on the common path ({r['path'] / ppt:.1f} per "
+            f"pixel), {r['mufu']} MUFU ({r['mufu'] / ppt:.2f} per pixel), {r['static']} in the function [{card}]")
+    return counts
+
+
+def issue_ms(counts, threads: int, dev) -> float:
+    """The least time of ``threads`` threads each issuing the SASS of
+    ``counts`` (path, mufu, _): its instructions over 128 lanes per SM and
+    clock, its MUFU over 16, whichever takes longer, at the card's highest
+    SM clock."""
+    from turbo_metrics_tpu_torch.tools.sass_count import ISSUE_LANES_PER_SM, MUFU_LANES_PER_SM
+
+    path, mufu, _ = counts
+    rate = torch.cuda.get_device_properties(dev).multi_processor_count * sm_clock_mhz() * 1e6
+    return max(path * threads / (rate * ISSUE_LANES_PER_SM), mufu * threads / (rate * MUFU_LANES_PER_SM)) * 1e3
 
 
 def check_golden(dev) -> float:
@@ -1610,6 +1772,7 @@ def main() -> int:
         if "registers" in ln or "spill" in ln:
             log(f"  ptxas: {ln.strip()}")
     check_level_blocks(_build.LIBRARY.get(), card)
+    conv_sass = conversion_sass(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1668,6 +1831,7 @@ def main() -> int:
         check_vif_edges(dev)
         check_adm_convert_edges(dev)
         check_motion_tail_edges(dev, taps, opsin)
+        check_xpsnr_convert_edges(dev)
         check_mezzanine_engine(dev)
         model4k = Ssimulacra2(UHD_WIDTH, UHD_HEIGHT, device=dev)
         e4, lvl3 = check_uhd(y4k, uv4k, model4k, uhd_scores, dev)
@@ -1753,6 +1917,10 @@ def main() -> int:
         k13_dev_ms = device_ms(lambda: xpsnr.xpsnr_block_stats(*xp_args), ("xpsnr_kernel",))
         k5_dev_ms = device_ms(
             lambda: convert.yuv_to_linear_rgb(y422, uv422, **k5_kw), ("yuv_to_rgb_kernel",))
+        k6_dev_ms = device_ms(lambda: convert.yuv420_to_linear_rgb_pair(y2, uv2), ("yuv_to_rgb_kernel",))
+        k1_conv_dev_ms = device_ms(lambda: scale_stats.fused_scale0_yuv(y2, uv2, taps, opsin),
+                                   ("yuv420_to_xyb_kernel",))
+        k1_dev_ms = device_ms(lambda: scale_stats.fused_scale0_yuv(y2, uv2, taps, opsin))
         k4_dev_ms = device_ms(lambda: fused_tail.fused_tail(lvl3, 3, taps, opsin), ("fused_tail_kernel",))
         k2_lvl3_dev_ms = device_ms(
             lambda: scale_tail.fused_pyramid_tail(lvl3, 3, taps, opsin),
@@ -1831,7 +1999,10 @@ def main() -> int:
         log(f"4K B={UHD_BATCH} levels {first}-{model4k.num_scales - 1} from {hw[1]}x{hw[0]}: #4 device "
             f"{d4:.4f} ms (call {c4:.3f}), kernel 2 device {d2:.4f} ms (its kernels only; call {c2:.3f}) "
             f"[{card}]")
+    log(f"kernel 1 B={BATCH}: its conversion pass yuv420_to_xyb_kernel {k1_conv_dev_ms:.4f} ms of "
+        f"{k1_dev_ms:.4f} ms device time ({100 * k1_conv_dev_ms / k1_dev_ms:.1f}%) [{card}]")
     for name, t in (("xpsnr_block_stats", k13_dev_ms), ("yuv_to_linear_rgb", k5_dev_ms),
+                    ("yuv420_to_linear_rgb_pair (B=8 pair)", k6_dev_ms),
                     (f"motion_stats (B=8 u8; its row sums' memset {k16_memset_ms:.4f} ms of it)", k16_dev_ms),
                     ("integer_blur (one u8 frame)", k17_dev_ms),
                     ("fused_tail (4K level 3)", k4_dev_ms),
@@ -1846,16 +2017,21 @@ def main() -> int:
 
     # Bounds from this run's shapes: bytes each input read once and each
     # output written once, f32 operations of the algorithm (F_* above), or
-    # int32 operations for XPSNR (I_XPSNR).
+    # int32 operations for XPSNR (I_XPSNR); for #5 and #6 the issue of their
+    # SASS instructions and MUFU (CONVERSION_SASS) instead of f32 operations.
     _, bsz, h, w = y2.shape
+    hq, wq = (h + 1) // 2, (w + 1) // 2
+    conv_ms = {
+        "yuv_to_linear_rgb": issue_ms(conv_sass["yuv_to_linear_rgb"], bsz * h * wq, dev),
+        "yuv420_to_linear_rgb_pair": issue_ms(conv_sass["yuv420_to_linear_rgb_pair"], 2 * bsz * hq * wq, dev),
+    }
     xp_out = bsz * 3 * 4 * -(-h // 16) * -(-w // 16)
     mh1, mw1 = ms_l1.shape[-2:]
     dims_s2 = model.dims
     s0_out = torch.empty(bsz, 3, 6)
     rows = [
         ("fused_scale0_yuv", "ssimulacra2_scale.cu", PALLAS + "scale_stats.py:1985", launches, e1, k1_ms,
-         k1_plain_ms, nbytes(y2, uv2, lvl1, s0_out),
-         bsz * h * w * 2 * F_CONVERT + s2_level_flops(bsz, h, w)),
+         k1_plain_ms, nbytes(y2, uv2, lvl1, s0_out), bsz * h * w * 2 * F_CONVERT + s2_level_flops(bsz, h, w)),
         ("fused_pyramid_tail", "ssimulacra2_scale.cu", PALLAS + "scale_tail.py:243", launches, e2, k2_ms,
          k2_plain_ms, nbytes(lvl1) + (ns - 1) * nbytes(s0_out),
          sum(s2_level_flops(bsz, lh, lw) for lh, lw in dims_s2[1:])),
@@ -1863,8 +2039,7 @@ def main() -> int:
          multi_err["fused_scale_rgb"], k3_ms, k3_plain_ms, nbytes(p12, lvl1, s0_out),
          s2_level_flops(bsz, h, w)),
         ("yuv420_to_linear_rgb_pair", "convert.cu", PALLAS + "convert.py:404", multi_launches,
-         multi_err["yuv420_to_linear_rgb_pair"], k6_ms, k6_plain_ms, nbytes(y2, uv2, p12),
-         bsz * h * w * 2 * F_CONVERT),
+         multi_err["yuv420_to_linear_rgb_pair"], k6_ms, k6_plain_ms, nbytes(y2, uv2, p12), 0),
         ("ssim_sums", "windowed.cu", PALLAS + "windowed.py:400", multi_launches, multi_err["ssim_sums"],
          k11_ms, k11_plain_ms, nbytes(p12, ms_l1) + bsz * 3 * 2 * 4,
          ssim_level_flops(bsz, h, w, True, True)),
@@ -1872,7 +2047,7 @@ def main() -> int:
          multi_err["msssim_tail"], k12_ms, k12_plain_ms, nbytes(ms_l1) + bsz * (lv - 1) * 3 * 2 * 4,
          sum(ssim_level_flops(bsz, mh1 >> i, mw1 >> i, False, i + 2 < lv) for i in range(lv - 1))),
         ("yuv_to_linear_rgb", "convert.cu", PALLAS + "convert.py:125", mezz_launches, e5, k5_ms, k5_plain_ms,
-         nbytes(y422, uv422) + bsz * 3 * h * w * 4, bsz * h * w * F_CONVERT),
+         nbytes(y422, uv422) + bsz * 3 * h * w * 4, 0),
         ("xpsnr_block_stats", "xpsnr.cu", PALLAS + "xpsnr.py:197", xpsnr_launches, e13, k13_ms, k13_plain_ms,
          nbytes(*xp_args) + xp_out, bsz * h * w * I_XPSNR),
         ("vif_scale0", "vif.cu", PALLAS + "vif.py:540", vmaf_launches, vmaf_err["vif_scale0"], k14_ms,
@@ -1913,7 +2088,7 @@ def main() -> int:
     kernels = []
     for name, src_file, replaces, counts, err, ms, pms, nb, ops, *lib in rows:
         is_int = name in ("xpsnr_block_stats", "motion_stats", "integer_blur")
-        bound_ms, bound_by = bound(nb, ops, PEAK_I32_PER_S if is_int else PEAK_F32_PER_S)
+        bound_ms, bound_by = bound(nb, ops, PEAK_I32_PER_S if is_int else PEAK_F32_PER_S, conv_ms.get(name, 0.0))
         log(f"{name}: {ms:.3f} ms vs plain {pms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
             f"({nb / 1e6:.1f} MB, {ops / 1e9:.2f} G{'int32 ops' if is_int else 'FLOP'}), "
             f"launches {counts[name]}, max abs err {err:.3g} [{card}]")
@@ -1936,7 +2111,9 @@ def main() -> int:
             # #11, #14 and #18 around a fused tile pass (one tile kernel per
             # level instead of a row and a column pass and an emission or
             # mask pass), #4 around the same level pass, #16 and #17 around
-            # a blur in registers.
+            # a blur in registers, #5 and #6 around fewer instructions per
+            # transfer function and wide accesses, #13 around 16-byte row
+            # chunks in registers.
             "redesigned": REDESIGNED.get(name),
         })
     peak = max(RUN_PEAK[0], torch.cuda.max_memory_allocated(dev))

@@ -183,12 +183,27 @@ def test_kernel_dissect_on_cpu():
         "#15 VIF scales 1-3": {"vif_tile_kernel": 3, "reduce_frames_kernel": 3},
         "#18 ADM": {"adm_tile_kernel": 4, "reduce_frames_kernel": 4},
         "#6 conversion (4:2:0 pair)": {"yuv_to_rgb_kernel": 1},
+        "#5 conversion (10-bit 4:2:2)": {"yuv_to_rgb_kernel": 1},
+        "#13 XPSNR block stats (u8)": {"xpsnr_kernel": 1},
+        "#13 XPSNR block stats (10-bit vs 8-bit)": {"xpsnr_kernel": 1},
         "#16 motion (u8)": {"memset": 1, "motion_kernel": 1},
         "#17 motion blur (one frame)": {"motion_kernel": 1},
         "#4 tail, 3 levels from level 2": {"fused_tail_kernel": 1},
         "#4 tail, 4 levels from a third of the frame (1440p levels 2-5)": {"fused_tail_kernel": 1},
     }
     assert kernels == want
+
+
+def test_kernel_dissect_only_times_the_entries_asked_for():
+    """``--only TEXT`` times the entries whose name contains TEXT and no
+    other."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = kernel_dissect.main(
+            ["--device", "cpu", "--batch", "1", "--height", "48", "--width", "64", "--iters", "1", "--only", "#13"]
+        )
+    assert {r["entry"] for r in result["dissect"]} == {
+        "#13 XPSNR block stats (u8)", "#13 XPSNR block stats (10-bit vs 8-bit)"
+    }
 
 
 def test_kernel_dissect_needs_the_card_on_cuda():
@@ -309,7 +324,8 @@ def test_level_outputs_own_calls_run_on_cpu():
     mask halo leaves the band plane, #6 at 8 bits and an odd size, #5 at
     4:2:2 10-bit and 4:4:4 12-bit PQ, #16 on 8-bit, 10-bit (at an odd size
     and at the given shape) and int32 luma, #17 on one frame, #4 on three
-    and five levels) build their inputs from a seed and run through the
+    and five levels, #13 on u8, 10-bit against 8-bit and 10-bit luma) build
+    their inputs from a seed and run through the
     wrappers, here their twins: each entry names its wrapper and returns the
     wrapper's shapes."""
     from turbo_metrics_tpu_torch.tools import level_outputs
@@ -320,7 +336,7 @@ def test_level_outputs_own_calls_run_on_cpu():
         got = fn()
         shapes[entry] = tuple(got.shape) if torch.is_tensor(got) else tuple(tuple(t.shape) for t in got)
     assert {w for _, w, _ in calls} == {"adm_stats", "yuv420_to_linear_rgb_pair", "yuv_to_linear_rgb",
-                                        "motion_stats", "integer_blur", "fused_tail"}
+                                        "motion_stats", "integer_blur", "fused_tail", "xpsnr_block_stats"}
     assert shapes == {
         "#16 motion u8 64x48": ((1, 48, 64), (1, 48)),
         "#16 motion 10-bit 131x35": ((3, 35, 131), (3, 35)),
@@ -335,4 +351,48 @@ def test_level_outputs_own_calls_run_on_cpu():
         "#6 conversion 99x67": (2, 2, 3, 67, 99),
         "#5 4:2:2 10-bit 64x48": (1, 3, 48, 64),
         "#5 4:4:4 12-bit PQ 131x35": (3, 3, 35, 131),
+        "#13 XPSNR u8 64x48": ((1, 3, 4),) * 3,
+        "#13 XPSNR 10-bit vs 8-bit 64x48": ((1, 3, 4),) * 3,
+        "#13 XPSNR 10-bit 131x35": ((3, 3, 9),) * 3,
     }
+
+
+# A kernel's SASS as cuobjdump lists it: an early exit, the IEEE division's
+# check and the stub that calls its slow path, a special case reached only by
+# a branch, the closing branch to itself and the slow-path subroutine.
+_SASS = [
+    (0x00, "S2R R0, SR_TID.X"), (0x10, "@P0 EXIT"), (0x20, "MUFU.RCP R3, R2"),
+    (0x30, "FCHK P0, R5, R2"), (0x40, "@!P0 BRA 0x70"), (0x50, "MOV R4, R5"),
+    (0x60, "CALL.REL.NOINC 0xe0"), (0x70, "@P1 BRA 0xa0"), (0x80, "MUFU.EX2 R0, R0"),
+    (0x90, "BRA 0xb0"), (0xa0, "MOV R0, 0x7fffffff"), (0xb0, "STG.E [R2.64], R0"),
+    (0xc0, "EXIT"), (0xd0, "BRA 0xd0"), (0xe0, "FFMA R1, R1, R1, R1"),
+    (0xf0, "RET.REL.NODEC R20 0x0"), (0x100, "NOP"),
+]
+
+
+@pytest.mark.parametrize("listing,want", [
+    (_SASS, {"static": 16, "path": 10, "mufu": 2}),
+    # A loop's closing branch counts once; a predicated branch over
+    # straight-line code is taken as not taken.
+    ([(0x00, "IADD3 R1, R1, 0x1, RZ"), (0x10, "@P0 BRA 0x30"), (0x20, "MUFU.LG2 R2, R1"),
+      (0x30, "BRA 0x0"), (0x40, "EXIT")], {"static": 5, "path": 4, "mufu": 1}),
+])
+def test_sass_count_walks_the_common_path(listing, want):
+    """``sass_count.count`` counts a thread's common path: the division's
+    slow-path stub, blocks reached by branches only and the subroutines
+    after the body are left out; MUFU among them counted apart."""
+    from turbo_metrics_tpu_torch.tools import sass_count
+
+    assert sass_count.count(listing) == want
+
+
+@pytest.mark.parametrize("demangled,want", [
+    ("void <unnamed>::yuv_to_rgb_kernel<unsigned short, (int)1, (int)2, (int)0>(const void *, "
+     "const void *, int, int, <unnamed>::ConvParams, float *)", "yuv_to_rgb_kernel<unsigned short, 1, 2, 0>"),
+    ("void (anonymous namespace)::xpsnr_kernel<unsigned char, unsigned char, (bool)1>(const T1 *, "
+     "const T2 *, const T1 *, int, int, int, long *)", "xpsnr_kernel<unsigned char, unsigned char, 1>"),
+])
+def test_sass_count_short_names(demangled, want):
+    from turbo_metrics_tpu_torch.tools import sass_count
+
+    assert sass_count.short_name(demangled) == want

@@ -35,6 +35,7 @@ from turbo_metrics_tpu_torch.io.frame_source import RawFrame
 from turbo_metrics_tpu_torch.io.probe import create_source as port_create_source
 from turbo_metrics_tpu_torch.ops import colorspace as t_cs
 from turbo_metrics_tpu_torch.ops.kernels import convert
+from turbo_metrics_tpu_torch.tools.edge_cases import threshold_codes
 
 # The suite runs in several worker processes at once: one intra-op thread per
 # worker keeps torch from oversubscribing the cores that the JAX tests share.
@@ -73,6 +74,25 @@ def test_convert_twin_matches_jax(rng, chroma, depth, transfer):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=atol)
     want = yuv420_to_linear_rgb_pallas(jnp.asarray(y), jnp.asarray(uv), interpret=True, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("full_range", [False, True])
+@pytest.mark.parametrize("depth", [8, 10, 16])
+@pytest.mark.parametrize("transfer", ["bt709", "srgb"])
+def test_convert_twin_at_thresholds_matches_jax(transfer, depth, full_range):
+    """Kernel #5's twin at the threshold code values (4:4:4), with neutral
+    chroma and with Cb and Cr one code off it (so that the three channels
+    fall on both sides of the threshold), against the jnp conversion."""
+    codes = threshold_codes(depth, full_range)
+    neutral = t_cs.sample_range(depth, full_range).neutral
+    dt = np.uint8 if depth == 8 else np.uint16
+    y = np.broadcast_to(codes, (3, codes.size)).astype(dt)[None]
+    cb = np.array([neutral, neutral + 1, neutral - 1])[:, None].repeat(codes.size, 1)
+    uv = np.stack([cb, cb[::-1]], axis=-1).astype(dt)[None]
+    kw = dict(depth=depth, transfer=transfer, full_range=full_range, chroma=444)
+    got = convert.yuv_to_linear_rgb(torch.from_numpy(y.copy()), torch.from_numpy(uv), **kw)
+    want = j_cs.yuv420_to_linear_rgb(jnp.asarray(y), jnp.asarray(uv), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=3e-6)
 
 
 def test_convert_slots_and_routes_agree(rng):

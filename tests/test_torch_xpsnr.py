@@ -31,6 +31,7 @@ from turbo_metrics_tpu_torch.color.characteristics import height_fallback
 from turbo_metrics_tpu_torch.io.frame_source import RawFrame
 from turbo_metrics_tpu_torch.ops import xpsnr_ops as tx
 from turbo_metrics_tpu_torch.ops.kernels import xpsnr as kx
+from turbo_metrics_tpu_torch.tools.edge_cases import XPSNR_EDGE_CASES, XPSNR_LUMA
 
 # The suite runs in several worker processes at once: one intra-op thread per
 # worker keeps torch from oversubscribing the cores that the JAX tests share.
@@ -126,6 +127,24 @@ def test_kernel_twin_matches_jax(rng, ref_depth, dis_depth):
     dis_aligned = np.asarray(jax_engine._align_luma_depth(dis, dis_depth, ref_depth))
     prev = np.concatenate([prev0[None], ref[:-1]])
     _assert_grids({k: v.numpy() for k, v in got.items()}, _jnp_stats(ref, dis_aligned, prev))
+
+
+@pytest.mark.parametrize("h,w,ref_type,dis_type", XPSNR_EDGE_CASES)
+def test_kernel_twin_at_branch_points_matches_jax(rng, h, w, ref_type, dis_type):
+    """Kernel #13's twin on two frames, the second taking the first as its
+    previous frame, against the jnp path at the sizes where the kernel
+    branches (the distorted stream aligned to the reference's depth)."""
+    (ref_dt, ref_depth), (dis_dt, dis_depth) = XPSNR_LUMA[ref_type], XPSNR_LUMA[dis_type]
+    ref = rng.integers(0, 1 << ref_depth, (2, h, w)).astype(ref_dt)
+    dis = rng.integers(0, 1 << dis_depth, (2, h, w)).astype(dis_dt)
+    prev0 = rng.integers(0, 1 << ref_depth, (h, w)).astype(ref_dt)
+    got = kx.xpsnr_block_stats(
+        *(torch.from_numpy(a) for a in (ref, dis, prev0)), dis_shift=ref_depth - dis_depth
+    )
+    assert all(g.shape == (2, -(-h // 16), -(-w // 16)) for g in got.values())
+    dis_aligned = np.asarray(jax_engine._align_luma_depth(dis, dis_depth, ref_depth))
+    want = _jnp_stats(ref, dis_aligned, np.concatenate([prev0[None], ref[:-1]]))
+    _assert_grids({k: v.numpy() for k, v in got.items()}, want)
 
 
 def test_weights_and_db_match_jax(rng):

@@ -91,9 +91,10 @@ namespace {
 // level's pixel.  A quad that hangs over an odd edge replicates the last
 // row/column (ops/downscale.py), so the mean of the replicated samples is
 // exact.
-// grid: (ceil(wq/kBx), ceil(hq/kBy), 2*B)
+// grid: (ceil(wq/kBx), ceil(hq/kBy), 2*B); TF the transfer function
+// (colorspace.cuh).
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, int TF>
 __global__ void __launch_bounds__(kThreads)
 yuv420_to_xyb_kernel(const T* __restrict__ luma, const T* __restrict__ chroma,
                      int h, int w, ConvParams p, const float* __restrict__ opsin,
@@ -122,7 +123,7 @@ yuv420_to_xyb_kernel(const T* __restrict__ luma, const T* __restrict__ chroma,
       const int r = min(2 * qi + dy, h - 1);
       const int c = min(2 * qj + dx, w - 1);
       float rgb[3];
-      pixel_rgb((float)yp[(size_t)r * w + c], t, p, rgb);
+      pixel_rgb<TF>((float)yp[(size_t)r * w + c], t, p, rgb);
       acc[0] += rgb[0];
       acc[1] += rgb[1];
       acc[2] += rgb[2];
@@ -229,19 +230,23 @@ int tm_yuv420_to_xyb(const void* luma, const void* chroma, int is16, int batch, 
                      float y_coeff, float r_coeff, float b_coeff, float g_coeff1,
                      float g_coeff2, float minimum, float neutral, int transfer,
                      const float* opsin, float* xyb, float* next, void* stream) {
-  const ConvParams p = {y_coeff, r_coeff, b_coeff, g_coeff1, g_coeff2, minimum, neutral, transfer};
+  const ConvParams p = {y_coeff, r_coeff, b_coeff, g_coeff1, g_coeff2, minimum, neutral};
   const dim3 grid = quad_grid(h, w, 2 * batch);
   const dim3 block(kBx, kBy);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is16) {
-    yuv420_to_xyb_kernel<uint16_t><<<grid, block, 0, s>>>(
-        static_cast<const uint16_t*>(luma), static_cast<const uint16_t*>(chroma), h, w, p, opsin,
-        xyb, next);
-  } else {
-    yuv420_to_xyb_kernel<uint8_t><<<grid, block, 0, s>>>(
-        static_cast<const uint8_t*>(luma), static_cast<const uint8_t*>(chroma), h, w, p, opsin,
-        xyb, next);
-  }
+  const bool known = dispatch_transfer(transfer, [&](auto tf) {
+    constexpr int TF = decltype(tf)::value;
+    if (is16) {
+      yuv420_to_xyb_kernel<uint16_t, TF><<<grid, block, 0, s>>>(
+          static_cast<const uint16_t*>(luma), static_cast<const uint16_t*>(chroma), h, w, p, opsin,
+          xyb, next);
+    } else {
+      yuv420_to_xyb_kernel<uint8_t, TF><<<grid, block, 0, s>>>(
+          static_cast<const uint8_t*>(luma), static_cast<const uint8_t*>(chroma), h, w, p, opsin,
+          xyb, next);
+    }
+  });
+  if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

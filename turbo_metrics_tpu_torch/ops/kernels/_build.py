@@ -52,10 +52,12 @@ _SIGNATURES = {
     "tm_downscale2": [_P, _I, _I, _I, _P, _P],
     "tm_yuv420_to_rgb": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
     "tm_yuv_to_rgb": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
+    "tm_convert_attributes": [_I, _I, _I, _PI],
     "tm_ssim_blocks": [_I, _I],
     "tm_ssim_tile_attrs": [_I, _PI],
     "tm_ssim_level": [_P, _I, _I, _I, _I, _P, _F, _F, _P, _P, _I, _P, _P],
     "tm_xpsnr_block_stats": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
+    "tm_xpsnr_attributes": [_I, _I, _I, _PI],
     "tm_motion_stats": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "tm_integer_blur": [_P, _I, _I, _I, _I, _I, _P, _P],
     "tm_motion_attrs": [_I, _PI],
@@ -110,8 +112,17 @@ class KernelLibrary:
                 self._lib = self._load()
             return self._lib
 
+    def path(self) -> Path:
+        """The library's file, built first where needed."""
+        self.get()
+        return self._path()
+
+    @staticmethod
+    def _path() -> Path:
+        return BUILD_DIR / f"libtm_kernels_{source_key()}.so"
+
     def _load(self) -> ctypes.CDLL:
-        path = BUILD_DIR / f"libtm_kernels_{source_key()}.so"
+        path = self._path()
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             t0 = time.monotonic()

@@ -16,9 +16,11 @@ and beside them kernel 1 (``fused_scale0_yuv`` on a seeded 8-bit 4:2:0
 pair), kernel 2 (``fused_pyramid_tail`` from #3's emitted level, one entry
 per level), #10, #11 (with and without the next level), #12, #14, #15 and
 #18 on the same inputs, #6 (``yuv420_to_linear_rgb_pair``) on kernel 1's
-8-bit 4:2:0 pair, VMAF motion's #16 (``motion_stats``, with the memset
-that zeroes its row sums) on its reference luma and #17 (``integer_blur``)
-on one frame of it, and #4 (``fused_tail``) on three levels from the pair's
+8-bit 4:2:0 pair, #5 (``yuv_to_linear_rgb``) on a seeded 10-bit 4:2:2
+batch, XPSNR's #13 (``xpsnr_block_stats``) on the pair's luma and on
+that 10-bit luma against the 8-bit one (path (c)'s instance), VMAF
+motion's #16 (``motion_stats``, with the memset that zeroes its row sums)
+on its reference luma and #17 (``integer_blur``) on one frame of it, and #4 (``fused_tail``) on three levels from the pair's
 level 2 (at 1080p the size of a 4K level 3) and on four levels of a seeded
 pair at twice the batch and a third of the frame (at the defaults the
 1440p chain: B=8, levels 2-5 from 360x640).  Each call is timed by CUDA
@@ -32,6 +34,7 @@ host-clock times and no device times.  Run:
     python -m turbo_metrics_tpu_torch.tools.kernel_dissect                # on the card
     python -m turbo_metrics_tpu_torch.tools.kernel_dissect --device cpu \\
         --batch 1 --height 48 --width 64 --iters 1                        # the twins
+    python -m turbo_metrics_tpu_torch.tools.kernel_dissect --batch 8 --only '#13'   # some entries
 
 It prints a readable line per entry and, last, one JSON object
 ``{"dissect": [{"entry", "wrapper", "kernel", "device_ms",
@@ -233,6 +236,7 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
         vif,
         windowed,
         windowed_tail,
+        xpsnr,
     )
     from turbo_metrics_tpu_torch.ops.xyb import linear_rgb_to_xyb
 
@@ -264,6 +268,10 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
     # levels to #4.
     p1440 = torch.from_numpy(
         rng.random((2, 2 * b, 3, -(-h // 3), -(-w // 3)), dtype=np.float64).astype(np.float32)).to(dev)
+    # #5's input: a 10-bit 4:2:2 batch (the reference slot of a mezzanine
+    # against its encode).
+    y422 = torch.from_numpy(rng.integers(64, 941, (b, h, w)).astype(np.uint16)).to(dev)
+    uv422 = torch.from_numpy(rng.integers(64, 961, (b, h, (w + 1) // 2, 2)).astype(np.uint16)).to(dev)
     return [
         Probe("scale0 full (with ds)", "fused_scale_rgb",
               lambda: scale_stats.fused_scale_rgb(p12, taps, opsin, emit_ds=True), rgb_level),
@@ -294,6 +302,12 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
         Probe("#18 ADM", "adm_stats", lambda: adm.adm_stats(pair), levels(adm_ops.NUM_LEVELS, ADM_LEVEL)),
         Probe("#6 conversion (4:2:0 pair)", "yuv420_to_linear_rgb_pair",
               lambda: convert.yuv420_to_linear_rgb_pair(y2, uv2), once("yuv_to_rgb_kernel")),
+        Probe("#5 conversion (10-bit 4:2:2)", "yuv_to_linear_rgb",
+              lambda: convert.yuv_to_linear_rgb(y422, uv422, depth=10, chroma=422), once("yuv_to_rgb_kernel")),
+        Probe("#13 XPSNR block stats (u8)", "xpsnr_block_stats",
+              lambda: xpsnr.xpsnr_block_stats(luma, y2[1], luma[0]), once("xpsnr_kernel")),
+        Probe("#13 XPSNR block stats (10-bit vs 8-bit)", "xpsnr_block_stats",
+              lambda: xpsnr.xpsnr_block_stats(y422, luma, y422[0], dis_shift=2), once("xpsnr_kernel")),
         Probe("#16 motion (u8)", "motion_stats", lambda: motion.motion_stats(luma, prev0),
               once(MEMSET, *MOTION)),
         Probe("#17 motion blur (one frame)", "integer_blur", lambda: motion.integer_blur(luma[:1]),
@@ -347,6 +361,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--iters", type=int, default=20, help=f"timed calls per run ({REPEATS} runs per entry)")
+    ap.add_argument("--only", default="", metavar="TEXT",
+                    help="time only the entries whose name contains TEXT (e.g. '#13')")
     return ap
 
 
@@ -361,6 +377,8 @@ def main(argv=None) -> dict:
     rows = []
     with torch.no_grad():
         for probe in probes(args.batch, args.height, args.width, dev):
+            if args.only not in probe.entry:
+                continue
             new = dissect(probe, args.iters, dev)
             for entry in dict.fromkeys(r["entry"] for r in new):
                 mine = [r for r in new if r["entry"] == entry]

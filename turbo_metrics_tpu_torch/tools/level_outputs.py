@@ -7,7 +7,7 @@ unpacked beside it with ``git archive``), runs the probes of that
 checkout's dissect tool (``kernel_dissect.probes`` at the tool's default
 shape, B=4 1080x1920, inputs from seed 0) whose wrapper is one of
 ``WRAPPERS``, and the calls of ``own_calls`` (ADM, the two conversions,
-VMAF motion and the SSIMULACRA2 tail on seeded inputs built here, so that a
+VMAF motion, the SSIMULACRA2 tail and XPSNR on seeded inputs built here, so that a
 checkout whose tool lacks a probe is compared all the same), on the card,
 and saves every tensor
 they return, with the peak device memory of each call above its inputs;
@@ -46,11 +46,13 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     odd size, #5 on 10-bit 4:2:2 at the given shape and on 12-bit 4:4:4 at
     an odd size, VMAF motion's #16 on 8-bit and 10-bit luma at the given
     shape and on 10-bit and int32 luma codes at an odd size (blurred planes
-    and row SADs) and #17 on one frame, and #4 on three levels of a linear-RGB pair at a
+    and row SADs) and #17 on one frame, #4 on three levels of a linear-RGB pair at a
     quarter of the given shape (at 1080p the 4K level 3, 270x480) and on
-    five levels from 67x99."""
+    five levels from 67x99, and XPSNR's #13 (its three grids) on u8 luma
+    and on a 10-bit reference against 8-bit luma at the given shape and on
+    10-bit luma at an odd size."""
     from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
-    from turbo_metrics_tpu_torch.ops.kernels import adm, convert, fused_tail, motion
+    from turbo_metrics_tpu_torch.ops.kernels import adm, convert, fused_tail, motion, xpsnr
 
     rng = np.random.default_rng(9)
 
@@ -94,7 +96,7 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
          lambda: fused_tail.fused_tail(p4k, 3, m.taps, m.opsin)),
         ("#4 tail 5 levels from 99x67", "fused_tail", lambda: fused_tail.fused_tail(p67, 5, m.taps, m.opsin)),
     ]
-    return calls + [
+    calls += [
         (f"#6 conversion {width}x{height}", "yuv420_to_linear_rgb_pair",
          lambda: convert.yuv420_to_linear_rgb_pair(y8, uv8)),
         ("#6 conversion 99x67", "yuv420_to_linear_rgb_pair",
@@ -104,6 +106,20 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
         ("#5 4:4:4 12-bit PQ 131x35", "yuv_to_linear_rgb",
          lambda: convert.yuv_to_linear_rgb(y12, uv12, depth=12, chroma=444, matrix="bt2020",
                                            transfer="pq")),
+    ]
+
+    def xpsnr_call(ref, dis, depth):
+        prev0 = luma(ref.shape[1:], depth, np.uint8 if depth == 8 else np.uint16)
+        shift = depth - (8 if dis.dtype == torch.uint8 else depth)
+        return lambda: tuple(xpsnr.xpsnr_block_stats(ref, dis, prev0, dis_shift=shift).values())
+
+    x8 = (luma((batch, height, width), 8, np.uint8), luma((batch, height, width), 8, np.uint8))
+    x10 = (luma((batch, height, width), 10, np.uint16), luma((batch, height, width), 8, np.uint8))
+    return calls + [
+        (f"#13 XPSNR u8 {width}x{height}", "xpsnr_block_stats", xpsnr_call(*x8, 8)),
+        (f"#13 XPSNR 10-bit vs 8-bit {width}x{height}", "xpsnr_block_stats", xpsnr_call(*x10, 10)),
+        ("#13 XPSNR 10-bit 131x35", "xpsnr_block_stats",
+         xpsnr_call(luma((3, 35, 131), 10, np.uint16), luma((3, 35, 131), 10, np.uint16), 10)),
     ]
 
 
