@@ -16,9 +16,12 @@ Phases, each fatal on failure (exit code 1):
      every fused level kernel instance (adm_tile_kernel among them), of the
      motion kernel (#16, #17) per luma type, of #4's fused_tail_kernel, of
      the conversion kernel (#5, #6; tm_convert_attributes) and of the XPSNR
-     kernel (#13; tm_xpsnr_attributes) per type pair; the SASS instructions
-     and MUFU of #5's and #6's BT.709 instances (tools/sass_count.py),
-     which set their instruction bounds;
+     kernel (#13; tm_xpsnr_attributes) per type pair, and of every instance
+     of the fixed-point kernels K-int-VIF and K-int-ADM (with and without
+     their check stores; their partial counts tm_integer_vif_blocks and
+     tm_integer_adm_blocks checked like VIF's and ADM's); the SASS
+     instructions and MUFU of #5's and #6's BT.709 instances
+     (tools/sass_count.py), which set their instruction bounds;
   3. write a seeded 1080p 8-bit 4:2:0 BT.709 limited-range Y4M pair
      (16 frames, noise on a smooth base) to a temporary directory;
   4. score it through the port's CLI (-m ssimulacra2 --output json), every
@@ -42,9 +45,18 @@ Phases, each fatal on failure (exit code 1):
      launched once per batch and #17 once (the stream's first frame); then
      the same run with --vmaf-model on a fixture model written to the
      temporary directory: 16 finite fused scores;
+  4d-int. path (d-int): the same pair with -m vmaf --vmaf-integer
+     --vmaf-model (fixture), counters reset just before and read just after:
+     16 finite values of each feature and fused score, K-int-VIF and
+     K-int-ADM launched four times per batch (a scale, a level), #16 once
+     per batch, #17 once, #14, #15 and #18 no time; motion equal to path
+     (d)'s, vif and adm2 within INT_VS_FLOAT of path (d)'s float features;
   4e. score the pair of phase 4c with all six metrics: the VMAF kernels
      launched, 16 finite values of each, the five other metrics within TOL of
      phase 4c's; every 1080p run of phases 4-4e launches kernel #4 no time;
+  4e-int. score the pair of phase 4c with -m vmaf --vmaf-integer: 16 finite
+     values of each feature, the integer kernels four times per batch,
+     motion equal to path (e)'s;
   4f. write a seeded 8-frame 3840x2160 8-bit 4:2:0 BT.709 limited-range Y4M
      pair and score it with -m ssimulacra2 (B=4 by default_batch), counters
      reset just before and read just after: 8 finite scores, kernel 1 twice,
@@ -120,6 +132,15 @@ Phases, each fatal on failure (exit code 1):
      the range ends, 8, 10 and 16 bits, both ranges, every transfer (atol
      1e-6, 1e-4 for PQ), and #5 (4:2:0, 4:2:2) and #6 on u8 and u16 luma
      views one sample past their storage's start, each on its own log line;
+  5j. K-int-VIF and K-int-ADM against their twins (run on the card) at
+     1080p B=8, on path (d-int)'s u8 luma and on a seeded 10-bit u16 batch:
+     every integer surface equal (VIF's s11, s22, s12, mu1, mu2 per scale
+     and each scale's input; ADM's six bands and angle gate per level, from
+     the kernels' check stores), VIF's sums per scale within rel 1e-6,
+     ADM's within rel 1e-5; the twins' features against the CLI's (d-int);
+     the same at INT_EDGE_SIZES (1x1 to 67x99, h < 9, u8, u16 and int32 at
+     8 to 16 bits); the engine with vmaf_integer on the card against the
+     CPU on a 67x99 10-bit 4:2:2 / 8-bit 4:2:0 pair;
   6. score the frozen golden pair through the kernel route: 80.486135 +- 0.05;
   7. time each kernel and its twin (#7 also against avg_pool2d, #19 against
      five F.conv2d blurs with TF32 off, separable and as one 11x11 kernel,
@@ -130,11 +151,13 @@ Phases, each fatal on failure (exit code 1):
      inputs, by CUDA events and by torch.profiler device time; #4 and
      kernel 2 on the 4K levels s-5 from each first level s (device and call
      times); #16, #17, #13, #5, #6 and kernel 1's conversion pass by device
-     time too; the peak
+     time too; K-int-VIF and K-int-ADM (call and device time) against their
+     twins, and the VMAF step with vmaf_integer beside the float one
+     (float, integer, integer plain x2, integer, float); the peak
      device memory of one kernel step above its inputs (1080p SSIMULACRA2,
-     multi-metric and VMAF, 4K SSIMULACRA2); and the CLI
-     runs of phases 4, 4a, 4b (a), 4c, 4d, 4e and 4f again warm, three
-     times each in turn;
+     multi-metric, VMAF float and integer, 4K SSIMULACRA2); and the CLI
+     runs of phases 4, 4a, 4b (a), 4c, 4d, 4d-int, 4e and 4f again warm,
+     three times each in turn;
   8. the dissect path: turbo_metrics_tpu_torch.tools.kernel_dissect at its
      default shape, counters reset just before and read just after: every
      wrapper it times launched (#19, #6, #5 and #13 among them), a device time for
@@ -147,7 +170,10 @@ and, for the integer work of XPSNR and of VMAF's motion, 33.5 TOP/s of
 int32: 64 of the SM's 128 lanes take int32, Hopper architecture white
 paper; for the conversions #5 and #6, the SASS
 instructions of their kernels at 128 lanes per SM and clock, or their MUFU
-at 16, whichever takes longer, at the card's highest SM clock), then as the last
+at 16, whichever takes longer, at the card's highest SM clock; for K-int-VIF
+and K-int-ADM, which replace no TPU kernel ("tpu_kernel": false; "replaces"
+names the JAX package's jnp function), their int32 operations at the int32
+rate or all their operations at the f32 rate), then as the last
 line {"ok": true, "device": {...}}.  Without CUDA, or outside the
 repository, it exits non-zero and prints no result.  Imports nothing of JAX.
 """
@@ -184,6 +210,25 @@ VMAF_FEATURES = ("vmaf_motion",) + VIF + ADM
 TOL = {"psnr": 1e-4, "ssim": 1e-5, "msssim": 1e-5, "ssimulacra2": 0.01, "xpsnr": 1e-9,
        "vmaf_motion": 0.0, **{k: 1e-5 for k in VIF}, **{k: 1e-4 for k in ADM}}
 VMAF_KERNELS = ("motion_stats", "integer_blur", "vif_scale0", "vif_tail", "adm_stats")
+# VMAF's fixed-point features (path d-int): kernels with no TPU counterpart
+# (the JAX package computes them with jnp only), one launch per scale/level.
+INT_KERNELS = ("integer_vif_stats", "integer_adm_stats")
+# Path (d-int)'s sanity bars against path (d)'s float features: the same
+# metric at other arithmetic.  tests/test_integer_paths.py:88-97, 163-176
+# hold a 96x128 sinusoid to 5e-3 (vif) and 2e-2 (adm2); on this script's
+# 1080p pair the fixed-point schedule itself (its means kept in Q4) is
+# 0.0097 (vif) and 0.0134 (adm2) from the float features (frames 0-1, the
+# plain versions, which equal the JAX package's integer path bit for bit),
+# so vif is held to 2e-2 here.  The kernels are held to the plain versions
+# exactly (phase 5j).
+INT_VS_FLOAT = {"vmaf_vif": 2e-2, "vmaf_adm": 2e-2}
+# Sizes where the integer kernels branch (phase 5j), as (h, w, depth, luma
+# type): the smallest planes, h < 9 (the 17-tap window wider than the plane
+# at scale 0), odd sizes that cross the 32x32 tiles' edges, ADM's edge sizes,
+# and each luma type.
+INT_EDGE_SIZES = ((1, 1, 8, np.uint8), (3, 3, 8, np.uint8), (5, 7, 8, np.uint8), (8, 13, 10, np.uint16),
+                  (13, 21, 8, np.int32), (67, 99, 10, np.uint16), (35, 131, 16, np.uint16),
+                  (33, 65, 8, np.int32), (67, 99, 8, np.uint8))
 # ADM's edge sizes (phases 2 and 5g): the centre region starts at the band
 # plane's first row or column on some level of the first three, so the
 # mask's halo leaves the plane there.
@@ -218,6 +263,25 @@ I_XPSNR = 20
 # |blurred - previous| and the row sum (3).
 I_BLUR = 22
 I_MOTION = I_BLUR + 3
+# Per pixel of the pair at one fixed-point VIF scale: int32 operations per
+# tap of the window 20 (five quantities, two passes, a multiply-add of 2),
+# 29 per pixel (the products 3, ten rounding adds and shifts 20, the moments
+# 6), per tap of the next window 3 (ref and dis: the vertical pass at half
+# the pixels, the horizontal at a quarter) and 3 of its rounding; f32 25 (the
+# guarded map with two log2).
+I_IVIF_TAP = 20
+I_IVIF_PIX = 29
+I_IVIF_EMIT_TAP = 3
+I_IVIF_EMIT = 3
+F_IVIF_MAP = 25
+# Per input pixel of the pair at one fixed-point ADM level: int32 44 (the
+# row pass 16 and its rounding 4, the column pass 16 and its rounding 4, the
+# gate at a quarter of the pixels 4), 4 more at level 0 (the pre-rounding and
+# (x - 128) << 8); f32 23 (the gate's products, the dequantisation, the
+# decoupling, the masks and cubes, at a quarter of the pixels).
+I_IADM_LEVEL = 44
+I_IADM_CODES = 4
+F_IADM_LEVEL = 23
 # f32 operations per pixel of the pair at one VIF scale: ref^2, dis^2,
 # ref*dis 3 and the guarded map with two log2 ~25, plus per tap of the
 # window 20 (five quantities, two passes, a multiply and an add) and per
@@ -254,7 +318,8 @@ REDESIGNED = {"fused_scale0_yuv": "fused level pass", "fused_scale_rgb": "fused 
 # The wrappers the dissect path times (phase 8), each launched there.
 DISSECT_KERNELS = ("fused_scale_rgb", "scale_sums", "blur_only", "fused_scale0_yuv", "fused_pyramid_tail",
                    "fused_scale_pair", "ssim_sums", "msssim_tail", "vif_scale0", "vif_tail", "adm_stats",
-                   "yuv420_to_linear_rgb_pair", "yuv_to_linear_rgb", "xpsnr_block_stats")
+                   "yuv420_to_linear_rgb_pair", "yuv_to_linear_rgb", "xpsnr_block_stats", "integer_vif_stats",
+                   "integer_adm_stats")
 
 
 def vif_flops(bsz: int, h: int, w: int, scales) -> float:
@@ -266,6 +331,35 @@ def vif_flops(bsz: int, h: int, w: int, scales) -> float:
             total += bsz * h * w * (F_VIF_MAP + F_VIF_TAP * taps + F_VIF_EMIT_TAP * emit)
         h, w = (h + 1) // 2, (w + 1) // 2
     return total
+
+
+def integer_vif_ops(bsz: int, h: int, w: int) -> tuple[float, float]:
+    """(int32, f32) operations of the four fixed-point VIF scales."""
+    i_ops = f_ops = 0.0
+    for k in range(4):
+        taps, emit = (1 << (4 - k)) + 1, (1 << (3 - k)) + 1 if k < 3 else 0
+        px = bsz * h * w
+        i_ops += px * (I_IVIF_TAP * taps + I_IVIF_PIX + (I_IVIF_EMIT_TAP * emit + I_IVIF_EMIT if emit else 0))
+        f_ops += px * F_IVIF_MAP
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return i_ops, f_ops
+
+
+def integer_adm_ops(bsz: int, h: int, w: int) -> tuple[float, float]:
+    """(int32, f32) operations of the four fixed-point ADM levels."""
+    i_ops, f_ops = bsz * h * w * I_IADM_CODES, 0.0
+    for _ in range(4):
+        i_ops += bsz * h * w * I_IADM_LEVEL
+        f_ops += bsz * h * w * F_IADM_LEVEL
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return i_ops, f_ops
+
+
+def mixed_ops_ms(i_ops: float, f_ops: float) -> float:
+    """Least ms of int32 and f32 operations that share the SMs' issue: the
+    int32 ones at their half rate, or all of them at the f32 rate, whichever
+    takes longer."""
+    return max(i_ops / PEAK_I32_PER_S, (i_ops + f_ops) / PEAK_F32_PER_S) * 1e3
 
 
 def adm_flops(bsz: int, h: int, w: int) -> float:
@@ -412,6 +506,8 @@ def counted_kernels() -> dict:
         convert,
         downscale,
         fused_tail,
+        integer_adm,
+        integer_vif,
         motion,
         scale_stats,
         scale_tail,
@@ -440,6 +536,8 @@ def counted_kernels() -> dict:
         "scale_sums": scale_stats.scale_sums,
         "fused_scale_pair": scale_stats.fused_scale_pair,
         "blur_only": blur_probe.blur_only,
+        "integer_vif_stats": integer_vif.integer_vif_stats,
+        "integer_adm_stats": integer_adm.integer_adm_stats,
     }
 
 
@@ -582,7 +680,59 @@ def run_vmaf_paths(ref_path: str, dis_path: str, dev, card: str, tmp: str):
         f"launches {fused_launches}; fused scores {fused['vmaf'].tolist()} [{card}]")
     for k in VMAF_FEATURES:
         need(np.array_equal(fused[k], scores[k]), f"(d): {k} differs between the runs with and without a model")
-    return scores, fused["vmaf"], launches
+    for name in INT_KERNELS:
+        need(launches[name] == 0, f"(d): the float route launched {name}")
+    return scores, fused["vmaf"], launches, model
+
+
+def run_vmaf_int_path(ref_path: str, dis_path: str, dev, card: str, model: str, float_scores):
+    """Phase 4d-int: path (d-int), VMAF's fixed-point features with the
+    fixture model through the CLI on the 1080p pair (-m vmaf --vmaf-integer
+    --vmaf-model): 16 finite values of each feature and fused score, K-int-VIF
+    and K-int-ADM launched four times per batch (a scale, a level), #16 once
+    per batch and #17 once, the float VIF and ADM kernels no time; motion
+    equal to path (d)'s, vif and adm2 within INT_VS_FLOAT of path (d)'s float
+    features.  Returns (the features and fused scores, launches)."""
+    per_batch = FRAMES // BATCH
+    scores, launches, seconds = run_cli(ref_path, dis_path, dev, ["vmaf"],
+                                        extra=["--vmaf-integer", "--vmaf-model", model],
+                                        keys=VMAF_FEATURES + ("vmaf",))
+    log(f"CLI (d-int) -m vmaf --vmaf-integer --vmaf-model (fixture): {FRAMES} frames in {seconds:.2f} s "
+        f"(first call and decode included), launches {launches} [{card}]")
+    for k in VMAF_FEATURES + ("vmaf",):
+        log(f"CLI (d-int) {k}: {scores[k].tolist()}")
+    for name in INT_KERNELS:
+        need(launches[name] == 4 * per_batch, f"(d-int): {name} launched {launches[name]} times, want {4 * per_batch}")
+    need(launches["motion_stats"] == per_batch and launches["integer_blur"] == 1,
+         f"(d-int): motion launched {launches['motion_stats']} / {launches['integer_blur']} times")
+    for name in ("vif_scale0", "vif_tail", "adm_stats"):
+        need(launches[name] == 0, f"(d-int): the float kernel {name} was launched")
+    need(np.array_equal(scores["vmaf_motion"], float_scores["vmaf_motion"]), "(d-int): motion differs from (d)'s")
+    for k, tol in INT_VS_FLOAT.items():
+        d = float(np.abs(scores[k] - float_scores[k]).max())
+        log(f"(d-int) {k} vs path (d)'s float features: max |diff| {d:.3g} (bar {tol})")
+        need(d <= tol, f"(d-int) {k} apart from the float feature by {d}")
+    return scores, launches
+
+
+def run_mezz_int_path(ref_path: str, dis_path: str, dev, card: str, float_scores):
+    """Phase 4e-int: the pair of phase 4c (10-bit 4:2:2 reference, 8-bit 4:2:0
+    encode) through -m vmaf --vmaf-integer: the distorted luma aligned to 10
+    bits, both pre-rounded to 8; 16 finite values of each feature, the
+    integer kernels four times per batch; the differences from path (e)'s
+    float features logged."""
+    scores, launches, seconds = run_cli(ref_path, dis_path, dev, ["vmaf"], extra=["--vmaf-integer"])
+    log(f"CLI (e-int) 4:2:2 10-bit vs 4:2:0 8-bit, -m vmaf --vmaf-integer: {FRAMES} frames in {seconds:.2f} s "
+        f"(first call and decode included), launches {launches} [{card}]")
+    batches = launches["motion_stats"]
+    need(batches >= FRAMES // BATCH, f"(e-int): {batches} batches, want >= {FRAMES // BATCH}")
+    for name in INT_KERNELS:
+        need(launches[name] == 4 * batches, f"(e-int): {name} launched {launches[name]} times, want {4 * batches}")
+    need(np.array_equal(scores["vmaf_motion"], float_scores["vmaf_motion"]), "(e-int): motion differs from (e)'s")
+    for k in VIF + ADM:
+        log(f"CLI (e-int) {k}: {scores[k].tolist()}; max |diff| vs path (e)'s float feature "
+            f"{float(np.abs(scores[k] - float_scores[k]).max()):.3g}")
+    return scores
 
 
 def run_all6_path(ref_path: str, dis_path: str, dev, card: str, mezz_scores):
@@ -1007,6 +1157,136 @@ def check_vmaf_kernels(y16, cli_vmaf) -> dict:
     return err, pair, l1_p
 
 
+def check_integer_pair(pair, depth: int, what: str) -> dict:
+    """K-int-VIF and K-int-ADM against their twins (run on the card) on one
+    pair of luma codes: every integer surface equal (VIF's moments and means
+    per scale and each scale's input; ADM's six bands and gate per level),
+    VIF's sums per scale within rel 1e-6, ADM's within rel 1e-5.  Returns the
+    max abs errors of the sums and the twins' sums."""
+    from turbo_metrics_tpu_torch.ops import integer_adm as iadm_ops
+    from turbo_metrics_tpu_torch.ops import integer_vif as ivif_ops
+    from turbo_metrics_tpu_torch.ops.kernels import integer_adm, integer_vif
+
+    planes, planes_p = integer_vif.integer_vif_planes(pair, depth=depth), integer_vif.integer_vif_planes_ref(pair,
+                                                                                                          depth=depth)
+    for k, (got, want) in enumerate(zip(planes, planes_p)):
+        for key in got:
+            need(torch.equal(got[key], want[key]), f"K-int-VIF {key} at scale {k} differs from the twin's ({what})")
+    sums_p = torch.stack([ivif_ops.scale_log_sums(p["s11"], p["s22"], p["s12"]) for p in planes_p], dim=1)
+    sums = integer_vif.integer_vif_stats(pair, depth=depth)
+    need(torch.equal(sums, integer_vif.integer_vif_stats(pair, depth=depth)), f"K-int-VIF not deterministic ({what})")
+    e_v = check_close(f"K-int-VIF sums ({what})", sums, sums_p, 1e-6, 0.0)
+    levels, levels_p = integer_adm.integer_adm_levels(pair, depth=depth), integer_adm.integer_adm_levels_ref(pair,
+                                                                                                          depth=depth)
+    for li, (got, want) in enumerate(zip(levels, levels_p)):
+        for key in want:
+            need(torch.equal(got[key], want[key]), f"K-int-ADM {key} at level {li} differs from the twin's ({what})")
+    adm_p = torch.stack([iadm_ops.level_stats(lv, li) for li, lv in enumerate(levels_p)], dim=1)
+    adm = integer_adm.integer_adm_stats(pair, depth=depth)
+    e_a = check_close(f"K-int-ADM sums ({what})", adm, adm_p, 1e-5, 0.0)
+    rel_v = float(((sums - sums_p).abs() / sums_p.abs().clamp_min(1e-30)).max())
+    rel_a = float(((adm - adm_p).abs() / adm_p.abs().clamp_min(1e-30)).max())
+    log(f"K-int-VIF / K-int-ADM vs twins, {what}: integer surfaces equal; sums max rel diff {rel_v:.3g} / "
+        f"{rel_a:.3g}")
+    return {"integer_vif_stats": e_v, "integer_adm_stats": e_a, "vif": sums_p, "adm": adm_p}
+
+
+def check_integer_kernels(y16, cli_int) -> tuple:
+    """Phase 5j: K-int-VIF and K-int-ADM against their twins on the card at
+    1080p B=8: the first batch of path (d-int)'s 8-bit u8 luma, and a seeded
+    10-bit u16 batch (pre-rounded to 8 bits in the kernels); the features of
+    the twins' sums against the CLI's (d-int) (VIF 1e-5, ADM 1e-4); then
+    check_integer_edges.  Returns the max abs errors by kernel and the 8-bit
+    pair."""
+    from turbo_metrics_tpu_torch.ops.adm import adm_score
+    from turbo_metrics_tpu_torch.ops.vif import vif_scores
+
+    pair = y16[:, :BATCH].contiguous()
+    _, _, h, w = pair.shape
+    res = check_integer_pair(pair, 8, f"{w}x{h} u8 B={BATCH}")
+    feats = {f"vmaf_{k}": v for k, v in vif_scores(res["vif"].cpu().numpy()).items()}
+    feats.update({"vmaf_adm" if k == "adm2" else f"vmaf_{k}": v
+                  for k, v in adm_score(res["adm"].cpu().numpy(), h, w).items()})
+    for k in VIF + ADM:
+        d = float(np.abs(feats[k] - cli_int[k][:BATCH]).max())
+        need(d <= TOL[k], f"(d-int) {k}: twins vs CLI {d}")
+    log(f"(d-int) features of the twins' sums vs the CLI's, frames 0-{BATCH - 1}: within VIF 1e-5, ADM 1e-4")
+    rng = np.random.default_rng(12)
+    y10 = torch.from_numpy(rng.integers(0, 1 << 10, (BATCH, h, w)).astype(np.uint16)).to(y16.device)
+    d10 = (y10.to(torch.int32) + torch.from_numpy(rng.integers(-24, 25, (BATCH, h, w))).to(y16.device))
+    pair10 = torch.stack([y10, d10.clamp(0, 1023).to(torch.uint16)])
+    res10 = check_integer_pair(pair10, 10, f"{w}x{h} 10-bit u16 B={BATCH}")
+    err = {k: max(res[k], res10[k]) for k in INT_KERNELS}
+    check_integer_edges(y16.device)
+    return err, pair
+
+
+def check_integer_edges(dev) -> None:
+    """Phase 5j, INT_EDGE_SIZES: K-int-VIF and K-int-ADM against their twins
+    (check_integer_pair) on seeded B=2 pairs whose distorted image is the
+    reference plus noise, each luma type, 8 to 16 bits."""
+    rng = np.random.default_rng(21)
+    for h, w, depth, dt in INT_EDGE_SIZES:
+        hi = 1 << depth
+        r = rng.integers(0, hi, (2, h, w))
+        d = np.clip(r + rng.integers(-hi // 16, hi // 16 + 1, r.shape), 0, hi - 1)
+        pair = torch.from_numpy(np.stack([r, d]).astype(dt)).to(dev)
+        check_integer_pair(pair, depth, f"{h}x{w} {depth}-bit {np.dtype(dt).name} B=2")
+
+
+def check_integer_engine(dev) -> None:
+    """Phase 5j: the engine with vmaf_integer on the card against the same
+    engine on the CPU, on a small odd-sized pair of a 10-bit 4:2:2 reference
+    and an 8-bit 4:2:0 distorted stream (phase 5b's), 3 frames in batches of
+    2: motion equal, VIF 1e-5, ADM 1e-4."""
+    from turbo_metrics_tpu_torch.color.characteristics import height_fallback
+    from turbo_metrics_tpu_torch.engine import Metrics, TurboMetrics
+    from turbo_metrics_tpu_torch.io.frame_source import RawFrame
+
+    rng = np.random.default_rng(17)
+    h, w, n = 67, 99, 3
+    ref, dis = [], []
+    for _ in range(n):
+        y = rng.integers(64, 941, (h, w))
+        uv = rng.integers(64, 961, (h, (w + 1) // 2, 2))
+        ref.append(RawFrame(y=y.astype(np.uint16), uv=uv.astype(np.uint16), depth=10, chroma=422))
+        dis.append(RawFrame(
+            y=np.clip(y // 4 + rng.integers(-6, 7, y.shape), 0, 255).astype(np.uint8),
+            uv=np.clip(uv[::2] // 4 + rng.integers(-6, 7, uv[::2].shape), 0, 255).astype(np.uint8),
+            depth=8,
+        ))
+    cc = (height_fallback(h), "limited")
+    res = {}
+    kiv = counted_kernels()["integer_vif_stats"]
+    before = kiv.launches
+    for where in (dev, "cpu"):
+        eng = TurboMetrics(w, h, Metrics(vmaf=True), batch=2, device=where, vmaf_integer=True)
+        scores = eng.compute_frames(ref[:2], cc, dis[:2], cc) + eng.compute_frames(ref[2:], cc, dis[2:], cc)
+        res[str(where)] = {m: np.array([getattr(s, m) for s in scores]) for m in VMAF_FEATURES}
+    need(kiv.launches - before == 8, f"integer engine: {kiv.launches - before} K-int-VIF launches, want 8")
+    got, want = res[str(dev)], res["cpu"]
+    for m in VMAF_FEATURES:
+        d = float(np.abs(got[m] - want[m]).max())
+        need(np.isfinite(got[m]).all() and d <= TOL[m], f"integer engine {m}: card {got[m]} vs CPU {want[m]}")
+    log(f"engine vmaf_integer {h}x{w} 10-bit 4:2:2 vs 8-bit 4:2:0 on the card vs the CPU: motion equal, "
+        f"VIF within 1e-5, ADM within 1e-4; vif {got['vmaf_vif'].tolist()}")
+
+
+def vmaf_int_step(y_ref, y_dis, prev0, kernels: bool) -> dict:
+    """VMAF's device step with vmaf_integer on one 8-bit batch through the
+    kernels (or their twins): the pair of codes, the motion blur and row
+    SADs, K-int-VIF, K-int-ADM."""
+    from turbo_metrics_tpu_torch.engine import vmaf_code_pair
+    from turbo_metrics_tpu_torch.ops.kernels import integer_adm, integer_vif, motion
+
+    pair = vmaf_code_pair(y_ref, y_dis, 8, 8)
+    if kernels:
+        return {"motion": motion.motion_stats(y_ref, prev0), "vif": integer_vif.integer_vif_stats(pair),
+                "adm": integer_adm.integer_adm_stats(pair)}
+    return {"motion": motion.motion_stats_ref(y_ref, prev0), "vif": integer_vif.integer_vif_stats_ref(pair),
+            "adm": integer_adm.integer_adm_stats_ref(pair)}
+
+
 # The run's peak device memory up to the last reset of the peak counter.
 RUN_PEAK = [0]
 
@@ -1137,6 +1417,26 @@ def check_level_blocks(lib, card: str) -> None:
     _build.check(lib.tm_adm_tile_attrs(a), "tm_adm_tile_attrs")
     log(f"adm_tile_kernel: {a[0]} registers, {a[1]} B of dynamic shared memory per block, {a[2]} blocks "
         f"per SM, {a[3]} B of local memory (spills) [{card}]")
+    for h, w in vif_sizes:
+        got, want = lib.tm_integer_vif_blocks(h, w), vif.vif_blocks(h, w)
+        need(got == want, f"tm_integer_vif_blocks({h}, {w}) = {got}, vif_blocks = {want}")
+    for ch, cw in adm_levels:
+        top, _, left, _ = adm_ops.center_region(ch, cw)
+        got, want = lib.tm_integer_adm_blocks(ch, cw, top, left), adm.adm_blocks(ch, cw, top, left)
+        need(got == want, f"tm_integer_adm_blocks({ch}, {cw}, {top}, {left}) = {got}, adm_blocks = {want}")
+    types = ("unsigned char", "unsigned short", "int")
+    for chk in (0, 1):
+        for scale, ty, inst in ((0, 0, "8, 4"), (0, 1, "8, 4"), (0, 2, "8, 4"), (1, 1, "4, 2"), (2, 1, "2, 1"),
+                                (3, 1, "1, 0")):
+            _build.check(lib.tm_integer_vif_attrs(scale, ty, chk, a), "tm_integer_vif_attrs")
+            log(f"integer_vif_kernel<{types[ty]}, {inst}, {'true' if chk else 'false'}> (scale {scale}): {a[0]} "
+                f"registers, {a[1]} B of dynamic shared memory per block, {a[2]} blocks per SM, {a[3]} B of "
+                f"local memory (spills) [{card}]")
+        for codes, ty in ((1, 0), (1, 1), (1, 2), (0, 2)):
+            _build.check(lib.tm_integer_adm_attrs(codes, ty, chk, a), "tm_integer_adm_attrs")
+            log(f"integer_adm_kernel<{types[ty]}, {'true' if codes else 'false'}, {'true' if chk else 'false'}>: "
+                f"{a[0]} registers, {a[1]} B of dynamic shared memory per block, {a[2]} blocks per SM, {a[3]} B "
+                f"of local memory (spills) [{card}]")
     for code, name in enumerate(("unsigned char", "unsigned short", "int")):
         _build.check(lib.tm_motion_attrs(code, a), "tm_motion_attrs")
         log(f"motion_kernel<{name}>: {a[0]} registers, {a[1]} B of static shared memory per block, {a[2]} "
@@ -1735,6 +2035,8 @@ def main() -> int:
             convert,
             downscale,
             fused_tail,
+            integer_adm,
+            integer_vif,
             motion,
             scale_stats,
             scale_tail,
@@ -1789,8 +2091,10 @@ def main() -> int:
         log(f"wrote {FRAMES}-frame {WIDTH}x{HEIGHT} 4:2:2 10-bit / 4:2:0 8-bit Y4M pair in "
             f"{time.monotonic() - t0:.1f} s")
         mezz_scores, mezz_launches = run_mezzanine_path(mref_path, mdis_path, dev, card)
-        vmaf_scores, _, vmaf_launches = run_vmaf_paths(ref_path, dis_path, dev, card, tmp)
-        run_all6_path(mref_path, mdis_path, dev, card, mezz_scores)
+        vmaf_scores, _, vmaf_launches, vmaf_model = run_vmaf_paths(ref_path, dis_path, dev, card, tmp)
+        int_scores, int_launches = run_vmaf_int_path(ref_path, dis_path, dev, card, vmaf_model, vmaf_scores)
+        all6_scores, _ = run_all6_path(mref_path, mdis_path, dev, card, mezz_scores)
+        run_mezz_int_path(mref_path, mdis_path, dev, card, all6_scores)
         t0 = time.monotonic()
         uref_path, udis_path = write_y4m_pair(tmp, UHD_WIDTH, UHD_HEIGHT, UHD_FRAMES, "_uhd")
         log(f"wrote {UHD_FRAMES}-frame {UHD_WIDTH}x{UHD_HEIGHT} Y4M pair in {time.monotonic() - t0:.1f} s")
@@ -1802,19 +2106,20 @@ def main() -> int:
         # Phase 7, CLI part: each route again, warm, three times in turn
         # (host-clock times spread widely on a shared host).
         warm_runs = {
-            "-m ssimulacra2": (ref_path, dis_path, ["ssimulacra2"], FRAMES),
-            "multi-metric": (ref_path, dis_path, MULTI, FRAMES),
-            "(a) -m xpsnr": (ref_path, dis_path, ["xpsnr"], FRAMES),
-            "(c) 4:2:2 10-bit vs 4:2:0, all five": (mref_path, mdis_path, ALL5, FRAMES),
-            "(d) -m vmaf": (ref_path, dis_path, ["vmaf"], FRAMES),
-            "(e) 4:2:2 10-bit vs 4:2:0, all six": (mref_path, mdis_path, ALL6, FRAMES),
+            "-m ssimulacra2": (ref_path, dis_path, ["ssimulacra2"], FRAMES, ()),
+            "multi-metric": (ref_path, dis_path, MULTI, FRAMES, ()),
+            "(a) -m xpsnr": (ref_path, dis_path, ["xpsnr"], FRAMES, ()),
+            "(c) 4:2:2 10-bit vs 4:2:0, all five": (mref_path, mdis_path, ALL5, FRAMES, ()),
+            "(d) -m vmaf": (ref_path, dis_path, ["vmaf"], FRAMES, ()),
+            "(d-int) -m vmaf --vmaf-integer": (ref_path, dis_path, ["vmaf"], FRAMES, ("--vmaf-integer",)),
+            "(e) 4:2:2 10-bit vs 4:2:0, all six": (mref_path, mdis_path, ALL6, FRAMES, ()),
             f"(f) {UHD_WIDTH}x{UHD_HEIGHT} -m ssimulacra2, {UHD_FRAMES} frames":
-                (uref_path, udis_path, ["ssimulacra2"], UHD_FRAMES),
+                (uref_path, udis_path, ["ssimulacra2"], UHD_FRAMES, ()),
         }
         warm_s = {k: [] for k in warm_runs}
         for _ in range(3):
-            for k, (r, d, ms, n) in warm_runs.items():
-                warm_s[k].append(run_cli(r, d, dev, ms, frames=n)[2])
+            for k, (r, d, ms, n, extra) in warm_runs.items():
+                warm_s[k].append(run_cli(r, d, dev, ms, extra=extra, frames=n)[2])
 
     model = Ssimulacra2(WIDTH, HEIGHT, device=dev)
     qmod = Quality(device=dev)
@@ -1828,6 +2133,8 @@ def main() -> int:
         e13 = check_xpsnr_kernel(y16, xpsnr_scores)
         e5 = check_convert_kernel(y422, uv422)
         vmaf_err, vpair, vlevel1 = check_vmaf_kernels(y16, vmaf_scores)
+        int_err, ipair = check_integer_kernels(y16, int_scores)
+        check_integer_engine(dev)
         check_vif_edges(dev)
         check_adm_convert_edges(dev)
         check_motion_tail_edges(dev, taps, opsin)
@@ -1894,6 +2201,22 @@ def main() -> int:
         vmaf_plain_ms = [time_ms(lambda: vmaf_step(vy, vd, prev0, False), 3) for _ in range(2)]
         vmaf_ms.append(time_ms(lambda: vmaf_step(vy, vd, prev0, True), 10))
         vmaf_mib = step_peak_mib(lambda: vmaf_step(vy, vd, prev0, True), dev)
+        kiv_ms = time_ms(lambda: integer_vif.integer_vif_stats(ipair), 20)
+        kiv_plain_ms = time_ms(lambda: integer_vif.integer_vif_stats_ref(ipair), 3)
+        kia_ms = time_ms(lambda: integer_adm.integer_adm_stats(ipair), 20)
+        kia_plain_ms = time_ms(lambda: integer_adm.integer_adm_stats_ref(ipair), 3)
+        kiv_dev_ms = device_ms(lambda: integer_vif.integer_vif_stats(ipair),
+                               ("integer_vif_kernel", "reduce_frames_kernel"))
+        kia_dev_ms = device_ms(lambda: integer_adm.integer_adm_stats(ipair),
+                               ("integer_adm_kernel", "reduce_frames_kernel"))
+        # The integer VMAF step beside the float one: float, integer, integer
+        # plain, integer plain, integer, float.
+        vmaf_f_ms = [time_ms(lambda: vmaf_step(vy, vd, prev0, True), 10)]
+        vmaf_int_ms = [time_ms(lambda: vmaf_int_step(vy, vd, prev0, True), 10)]
+        vmaf_int_plain_ms = [time_ms(lambda: vmaf_int_step(vy, vd, prev0, False), 3) for _ in range(2)]
+        vmaf_int_ms.append(time_ms(lambda: vmaf_int_step(vy, vd, prev0, True), 10))
+        vmaf_f_ms.append(time_ms(lambda: vmaf_step(vy, vd, prev0, True), 10))
+        vmaf_int_mib = step_peak_mib(lambda: vmaf_int_step(vy, vd, prev0, True), dev)
         k4_ms = time_ms(lambda: fused_tail.fused_tail(lvl3, 3, taps, opsin), 20)
         k4_plain_ms = time_ms(lambda: fused_tail.fused_tail_ref(lvl3, 3, taps, opsin), 5)
         k2_lvl3_ms = time_ms(lambda: scale_tail.fused_pyramid_tail(lvl3, 3, taps, opsin), 20)
@@ -1970,6 +2293,8 @@ def main() -> int:
         ("kernel step", step_ms), ("plain step", plain_ms),
         ("multi-metric kernel step", multi_ms), ("multi-metric plain step", multi_plain_ms),
         ("VMAF kernel step", vmaf_ms), ("VMAF plain step", vmaf_plain_ms),
+        ("VMAF kernel step, float features (beside the integer step)", vmaf_f_ms),
+        ("VMAF kernel step, vmaf_integer", vmaf_int_ms), ("VMAF plain step, vmaf_integer", vmaf_int_plain_ms),
     ):
         log(
             f"{name} B={BATCH} {WIDTH}x{HEIGHT}: "
@@ -1986,7 +2311,8 @@ def main() -> int:
             + f" [{card}]"
         )
     log(f"peak device memory of one kernel step above its inputs: SSIMULACRA2 {WIDTH}x{HEIGHT} B={BATCH} "
-        f"{step_mib:.1f} MiB, multi-metric {multi_mib:.1f} MiB, VMAF {vmaf_mib:.1f} MiB, SSIMULACRA2 "
+        f"{step_mib:.1f} MiB, multi-metric {multi_mib:.1f} MiB, VMAF {vmaf_mib:.1f} MiB, VMAF vmaf_integer "
+        f"{vmaf_int_mib:.1f} MiB, SSIMULACRA2 "
         f"{UHD_WIDTH}x{UHD_HEIGHT} B={UHD_BATCH} {uhd_mib:.1f} MiB [{card}]")
     log(f"kernel 2 on the same 4K level-3 plane as #4: {k2_lvl3_ms:.3f} ms (#4 {k4_ms:.3f} ms) [{card}]")
     log(f"avg_pool2d(2, ceil_mode=True) on #7's input: {k7_lib_ms:.3f} ms (#7 {k7_ms:.3f} ms) [{card}]")
@@ -2005,6 +2331,8 @@ def main() -> int:
                     ("yuv420_to_linear_rgb_pair (B=8 pair)", k6_dev_ms),
                     (f"motion_stats (B=8 u8; its row sums' memset {k16_memset_ms:.4f} ms of it)", k16_dev_ms),
                     ("integer_blur (one u8 frame)", k17_dev_ms),
+                    ("integer_vif_stats (B=8 u8, four scales)", kiv_dev_ms),
+                    ("integer_adm_stats (B=8 u8, four levels)", kia_dev_ms),
                     ("fused_tail (4K level 3)", k4_dev_ms),
                     ("fused_pyramid_tail on the same plane (its 12 kernels)", k2_lvl3_dev_ms),
                     ("4K kernel step, every kernel (kernel 1, #3 x2, #4)", uhd_dev_ms),
@@ -2085,6 +2413,15 @@ def main() -> int:
          k19_plain_ms, nbytes(lin1) + lin1.shape[0] * 3 * 64 * 4, lin1.shape[0] * 3 * rh * rw * F_PROBE,
          k19_lib_ms),
     ]
+    # Kernels with no TPU counterpart (the JAX package's jnp functions they
+    # port), bound by int32 and f32 operations sharing the issue.
+    iv_ops, ia_ops = integer_vif_ops(bsz, h, w), integer_adm_ops(bsz, h, w)
+    int_rows = [
+        ("integer_vif_stats", "integer_vif.cu", "turbo_metrics_tpu/ops/integer_vif.py:100", int_err, kiv_ms,
+         kiv_plain_ms, nbytes(ipair) + bsz * 4 * 2 * 4, iv_ops, kiv_dev_ms),
+        ("integer_adm_stats", "integer_adm.cu", "turbo_metrics_tpu/ops/integer_adm.py:107", int_err, kia_ms,
+         kia_plain_ms, nbytes(ipair) + bsz * 4 * 3 * 2 * 4, ia_ops, kia_dev_ms),
+    ]
     kernels = []
     for name, src_file, replaces, counts, err, ms, pms, nb, ops, *lib in rows:
         is_int = name in ("xpsnr_block_stats", "motion_stats", "integer_blur")
@@ -2115,6 +2452,19 @@ def main() -> int:
             # transfer function and wide accesses, #13 around 16-byte row
             # chunks in registers.
             "redesigned": REDESIGNED.get(name),
+            "tpu_kernel": True,
+        })
+    for name, src_file, ports, err, ms, pms, nb, (i_ops, f_ops), dms in int_rows:
+        bound_ms, bound_by = bound(nb, 0.0, issue=mixed_ops_ms(i_ops, f_ops))
+        log(f"{name}: {ms:.3f} ms (device {dms:.4f}) vs plain {pms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({nb / 1e6:.1f} MB, {i_ops / 1e9:.2f} G int32 ops + {f_ops / 1e9:.2f} G FLOP), launches "
+            f"{int_launches[name]}, max abs err {err[name]:.3g} [{card}]")
+        kernels.append({
+            "name": name, "route": "cuda", "source": CSRC + src_file,
+            # No TPU kernel: the jnp function of the JAX package it ports.
+            "replaces": ports, "launches": int_launches[name], "max_abs_err": err[name], "ms": ms,
+            "plain_ms": pms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "redesigned": None, "tpu_kernel": False, "device_ms": dms,
         })
     peak = max(RUN_PEAK[0], torch.cuda.max_memory_allocated(dev))
     log(f"peak device memory {peak / 2**30:.2f} GiB [{card}]")

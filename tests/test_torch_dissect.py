@@ -182,6 +182,8 @@ def test_kernel_dissect_on_cpu():
         "#14 VIF scale 0": {"vif_tile_kernel": 1, "reduce_frames_kernel": 1},
         "#15 VIF scales 1-3": {"vif_tile_kernel": 3, "reduce_frames_kernel": 3},
         "#18 ADM": {"adm_tile_kernel": 4, "reduce_frames_kernel": 4},
+        **{f"K-int-VIF launch {i}": {"integer_vif_kernel": 1, "reduce_frames_kernel": 1} for i in (1, 2, 3, 4)},
+        **{f"K-int-ADM launch {i}": {"integer_adm_kernel": 1, "reduce_frames_kernel": 1} for i in (1, 2, 3, 4)},
         "#6 conversion (4:2:0 pair)": {"yuv_to_rgb_kernel": 1},
         "#5 conversion (10-bit 4:2:2)": {"yuv_to_rgb_kernel": 1},
         "#13 XPSNR block stats (u8)": {"xpsnr_kernel": 1},

@@ -277,13 +277,18 @@ def test_mixed_depth_pair_matches_jax(tmp_path, rng, capsys):
     _close_scores(got, want, ("psnr", "ssimulacra2"))
 
 
-def test_not_ported_yet_raises(y4m_pair, tmp_path):
-    ref, dis = y4m_pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_engine.TurboMetrics(W, H, port_engine.Metrics(vmaf=True), device="cpu", vmaf_integer=True)
-    assert port_cli.main(
-        [ref, dis, "-m", "vmaf", "--vmaf-integer", "--device", "cpu", "--no-progress"]
-    ) == 1
+def test_not_ported_yet_raises(y4m_pair, tmp_path, caplog):
+    """Inputs not ported yet (ROADMAP.md Queue 1 item 4): an IVF file through
+    create_source and the CLI (exit 1, the error naming the item), and a
+    PNG."""
+    ref, _ = y4m_pair
+    ivf = tmp_path / "x.ivf"
+    ivf.write_bytes(b"DKIF" + bytes(60))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+        port_create_source(str(ivf))
+    with caplog.at_level("ERROR", logger="turbo_metrics_tpu_torch"):
+        assert port_cli.main([ref, str(ivf), "-m", "vmaf", "--device", "cpu", "--no-progress"]) == 1
+    assert "Queue 1 item 4" in caplog.text
     png = tmp_path / "x.png"
     png.write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(64))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -4,10 +4,10 @@ The same flags and output shapes as the JAX package's CLI (itself mirroring
 turbo-metrics-cli/src/main.rs:31-102), plus ``--device``: ``cuda`` (the
 default, an error when CUDA is absent) or ``cpu`` (the plain torch path).
 Ported so far: ``-m ssimulacra2``, ``-m psnr``, ``-m ssim``, ``-m msssim``,
-``-m xpsnr`` and ``-m vmaf`` (the float features, and the fused score with
-``--vmaf-model``) on Y4M input (4:2:0, 4:2:2, 4:4:4 and monochrome, 8 to 16
-bits), alone or together; ``--vmaf-integer`` and other containers exit with
-a "not ported yet" error.
+``-m xpsnr`` and ``-m vmaf`` (the float features or, with ``--vmaf-integer``,
+their fixed-point conventions, and the fused score with ``--vmaf-model``) on
+Y4M input (4:2:0, 4:2:2, 4:4:4 and monochrome, 8 to 16 bits), alone or
+together; other containers exit with a "not ported yet" error.
 """
 
 from __future__ import annotations
@@ -100,7 +100,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--vmaf-integer",
         action="store_true",
-        help="Fixed-point VMAF VIF/ADM features (not ported yet: exits with an error).",
+        help=(
+            "compute the VMAF VIF/ADM features with libvmaf-STYLE "
+            "fixed-point (integer) conventions instead of the float "
+            "pipeline.  The schedule is self-specified 32-bit fixed "
+            "point, not verified bit-identical to libvmaf's 64-bit "
+            "integer_vif.c/integer_adm.c (see README 'Feature fidelity "
+            "notes' and docs/VALIDATION.md)."
+        ),
     )
     p.add_argument(
         "--device",

@@ -13,7 +13,9 @@
 //
 // Conventions: half-sample symmetric extension (x[-1] = x[0], x[n] =
 // x[n-1], period 2n), output index i reads input 2i - 1 + tap, ceil(n/2)
-// outputs; the mask filter reflects 101 (level.cuh reflect101).
+// outputs; the mask filter reflects 101 (level.cuh reflect101).  The tile
+// geometry and the finish (decoupling, CSF, masks, cubes and partials) are
+// adm_tile.cuh's, shared with the fixed-point ADM (integer_adm.cu).
 //
 // Numerics: every operation is written with an explicit rounding intrinsic,
 // so nothing is contracted into FMAs and every band, gate and masked value
@@ -71,45 +73,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "level.cuh"
+#include "adm_tile.cuh"
 
 namespace {
 
-constexpr int kTaps = 4;
+constexpr int kTaps = kAdmTaps;
 
 struct AdmConsts {
   float lo[kTaps], hi[kTaps];  // db2 analysis taps
-  float rf_hv, rf_d;           // CSF factors of the H/V and D bands
-  float cos1, eps;             // cos^2(1 deg), the decoupling epsilon
-  float m_centre, m_edge;      // mask filter weights 1/15, 1/30
+  float cos1;                  // cos^2(1 deg)
+  AdmFinish f;                 // the finish's constants
 };
 
-// The shared-memory tile: band pixels (li, lj) in [0, kBand)^2 are band
-// (by0 - 1 + li, bx0 - 1 + lj) of a tile at (by0, bx0); input row lr in [0,
-// kInRows) is input row symmetric(2 by0 - 3 + lr), and raw column k of it
-// input column symmetric(A + k), A = 2 bx0 - 4 - 2 (bx0 & 1) (a multiple of
-// 4, so that a raw row is whole 16-byte chunks).
-constexpr int kThreadsAdm = 2 * kTileThreads;  // 8 warps, two per 32x8 sub-tile
-constexpr int kBand = kTileW + 2;            // band pixels per side: the tile and the mask halo
-constexpr int kInRows = 2 * kBand + 2;       // input rows a tile reads (band i reads 2i-1 .. 2i+2)
-constexpr int kRawChunks = kBand / 2 + 2;    // 16-byte chunks of a raw row (19)
-constexpr int kRawW = 4 * kRawChunks;        // raw samples of a row (76)
-constexpr int kPairs = (kBand + 2) / 2;      // band-column pairs of the row pass (one spare)
-constexpr int kRawStride = (kInRows * kRawW + 31) / 32 * 32;  // one image's raw rows, 128-byte aligned
-constexpr int kRawFloats = 2 * kRawStride;     // both images' raw rows
-constexpr int kRowFloats = kInRows * kBand;  // one row-filtered plane (lo or hi of one image)
-constexpr int kBandFloats = kBand * kBand;   // one plane of band pixels
-constexpr int kHalo = 4 * kBand - 4;         // band pixels of the halo ring
-constexpr int kRowsPerWarp = kBy / 2;        // interior band rows of a warp
-constexpr int kRowLanes = kPairs * (kThreadsAdm / kPairs);        // row-pass threads (252)
 constexpr size_t kSmemBytes = sizeof(float) * (kRawFloats + 4 * kRowFloats + 6 * kBandFloats) + 16;
-
-__device__ __forceinline__ int symmetric(int i, int n) {
-  if (i >= 0 && i < n) return i;
-  int m = i % (2 * n);
-  if (m < 0) m += 2 * n;
-  return m < n ? m : 2 * n - 1 - m;
-}
 
 // taps . x[k], as acc = x0*t0; acc = acc + xk*tk (the plain version's order).
 template <typename Load>
@@ -148,10 +124,6 @@ __device__ __forceinline__ void wait_parity(unsigned bar, int parity) {
       "r"(parity)
       : "memory");
 }
-
-// Raw column 0 of the tile at bx0: input column 2 bx0 - 4 - 2 (bx0 & 1), a
-// multiple of 4.
-__device__ __forceinline__ int raw_col0(int bx0) { return 2 * bx0 - 4 - 2 * (bx0 & 1); }
 
 // Thread 0 starts the copy of both images' raw rows of the tile at (b, by0,
 // bx0) into raw[image][lr][kRawW]; the block waits for the mbarrier's phase
@@ -217,37 +189,18 @@ __device__ __forceinline__ void col_tap(float& acc, int k, float t, float x) {
   acc = k == 0 ? m : __fadd_rn(acc, m);
 }
 
-// What a band pixel gives: the A bands of both images, and |csf*a|, |csf*r|,
-// |csf*o| of bands H, V, D.
-struct BandPixel {
-  float a[2];                 // A of ref, dis
-  float ca[3], cr[3], co[3];  // |csf*a|, |csf*r|, |csf*o| of H, V, D
-};
-
 // The angle gate, decoupling and CSF of one band pixel from its A, H, V, D
 // of both images, dwt[image][A, H, V, D] (ops/adm.py decouple, in its
 // order).
 __device__ __forceinline__ BandPixel gate_csf(const float (&dwt)[2][4], const AdmConsts& c) {
-  BandPixel p;
-  p.a[0] = dwt[0][0];
-  p.a[1] = dwt[1][0];
   const float o_h = dwt[0][1], o_v = dwt[0][2], t_h = dwt[1][1], t_v = dwt[1][2];
   const float ot_dp = __fadd_rn(__fmul_rn(o_h, t_h), __fmul_rn(o_v, t_v));
   const float o_mag_sq = __fadd_rn(__fmul_rn(o_h, o_h), __fmul_rn(o_v, o_v));
   const float t_mag_sq = __fadd_rn(__fmul_rn(t_h, t_h), __fmul_rn(t_v, t_v));
   const bool angle_ok =
       ot_dp >= 0.0f && __fmul_rn(ot_dp, ot_dp) >= __fmul_rn(__fmul_rn(c.cos1, o_mag_sq), t_mag_sq);
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    const float o = dwt[0][q + 1], t = dwt[1][q + 1];
-    const float rf = q == 2 ? c.rf_d : c.rf_hv;
-    const float k = fminf(fmaxf(__fdiv_rn(t, __fadd_rn(o, c.eps)), 0.0f), 1.0f);
-    const float r = angle_ok ? t : __fmul_rn(k, o);
-    p.ca[q] = fabsf(__fmul_rn(rf, __fsub_rn(t, r)));
-    p.cr[q] = fabsf(__fmul_rn(rf, r));
-    p.co[q] = fabsf(__fmul_rn(rf, o));
-  }
-  return p;
+  const float o[3] = {dwt[0][1], dwt[0][2], dwt[0][3]}, t[3] = {dwt[1][1], dwt[1][2], dwt[1][3]};
+  return decouple_csf(o, t, angle_ok, c.f);
 }
 
 // The column pass at kOut band pixels li0 .. li0+kOut-1 of column lj from
@@ -312,17 +265,13 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
   float* xch = rows;                   // rows 4-7 of each sub-tile's cubes, once rows is dead
   const unsigned bar = static_cast<unsigned>(__cvta_generic_to_shared(mc + 3 * kBandFloats));
   const int ch = (h + 1) / 2, cw = (w + 1) / 2;
-  const int ky = (top + kTileH - 1) / kTileH, kx = (left + kTileW - 1) / kTileW;
-  const int gy0 = top - ky * kTileH, gx0 = left - kx * kTileW;
-  const int nx = (cw - gx0 + kTileW - 1) / kTileW, ny = (ch - gy0 + kTileH - 1) / kTileH;
-  const int ntiles = nx * ny * bsz;
+  const AdmGrid g = adm_grid(h, w, top, left);
+  const int ntiles = g.nx * g.ny * bsz;
   const int nbx = (cw - 2 * left + kBx - 1) / kBx, nby = (ch - 2 * top + kBy - 1) / kBy;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int sub = warp / 2, half = warp % 2;  // sub-tile, rows 0-3 or 4-7 of it
   auto origin = [&](int t, int& b, int& by0, int& bx0) {
-    b = t / (nx * ny);
-    by0 = gy0 + (t / nx % ny) * kTileH;
-    bx0 = gx0 + t % nx * kTileW;
+    tile_origin(t, g.nx, g.ny, g.gy0, g.gx0, b, by0, bx0);
   };
 
   if (threadIdx.x == 0) {
@@ -383,27 +332,12 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
     // Column pass, gate, decoupling and CSF.  The mask's products
     // |csf*a| * (1/30) and |csf*a| * (1/15) of each band pixel go to shared
     // memory, once each: first at the halo ring, ...
-    auto put_mask = [&](int li, int lj, const BandPixel& p) {
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        me[q * kBandFloats + li * kBand + lj] = __fmul_rn(p.ca[q], c.m_edge);
-        mc[q * kBandFloats + li * kBand + lj] = __fmul_rn(p.ca[q], c.m_centre);
-      }
-    };
     for (int i = threadIdx.x; i < kHalo; i += kThreadsAdm) {
       int li, lj;
-      if (i < kBand) {
-        li = 0, lj = i;
-      } else if (i < 2 * kBand) {
-        li = kBand - 1, lj = i - kBand;
-      } else if (i < 2 * kBand + kTileH) {
-        li = i - 2 * kBand + 1, lj = 0;
-      } else {
-        li = i - 2 * kBand - kTileH + 1, lj = kBand - 1;
-      }
+      halo_pixel(i, li, lj);
       float dwt[1][2][4];
       column_pass<1>(rows, li, lj, c, dwt);
-      put_mask(li, lj, gate_csf(dwt[0], c));
+      put_mask(me, mc, li, lj, gate_csf(dwt[0], c), c.f);
     }
     // ... then at the interior: column lane, the warp's four rows; |csf*r|
     // and |csf*o| stay in registers.
@@ -417,7 +351,7 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
       for (int o = 0; o < kRowsPerWarp; ++o) {
         const int gi = by0 + row0 + o;
         const BandPixel p = gate_csf(dwt[o], c);
-        put_mask(1 + row0 + o, lane + 1, p);
+        put_mask(me, mc, 1 + row0 + o, lane + 1, p, c.f);
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           cr[o][q] = p.cr[q];
@@ -425,85 +359,15 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
         }
         if (approx != nullptr && gi >= 0 && gi < ch && gj >= 0 && gj < cw) {
           const size_t nb = (size_t)ch * cw, at = (size_t)gi * cw + gj;
-          approx[(size_t)b * nb + at] = p.a[0];
-          approx[((size_t)bsz + b) * nb + at] = p.a[1];
+          approx[(size_t)b * nb + at] = dwt[o][0][0];
+          approx[((size_t)bsz + b) * nb + at] = dwt[o][1][0];
         }
       }
     }
     __syncthreads();
 
-    // The mask (three 3x3 filters over |csf*a|, neighbours at their
-    // reflect-101 index in the plane, summed in the plain version's order)
-    // and the cubes at the centre region [top, ch-top) x [left, cw-left).
-    // The four rows of a thread share their neighbours: rows row0 - 1 ..
-    // row0 + 4 (reflected) of columns lane - 1 .. lane + 1 are read once.
-    // A pixel of the plane finds them inside the tile's band pixels; one
-    // outside it (whose cubes are not summed) reads clamped indices.
-    int nrow[kRowsPerWarp + 2], ncol[3];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp + 2; ++r) {
-      nrow[r] = min(max(reflect101(by0 + row0 - 1 + r, ch) - by0 + 1, 0), kBand - 1) * kBand;
-    }
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) ncol[dx] = min(max(reflect101(gj - 1 + dx, cw) - bx0 + 1, 0), kBand - 1);
-    float thr[kRowsPerWarp];
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      float e[kRowsPerWarp + 2][3], cen[kRowsPerWarp];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp + 2; ++r) {
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) e[r][dx] = me[q * kBandFloats + nrow[r] + ncol[dx]];
-      }
-#pragma unroll
-      for (int o = 0; o < kRowsPerWarp; ++o) cen[o] = mc[q * kBandFloats + nrow[o + 1] + ncol[1]];
-#pragma unroll
-      for (int o = 0; o < kRowsPerWarp; ++o) {
-        float m = 0.0f;
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float x = (dy == 1 && dx == 1) ? cen[o] : e[o + dy][dx];
-            m = (dy == 0 && dx == 0) ? x : __fadd_rn(m, x);
-          }
-        }
-        thr[o] = q == 0 ? m : __fadd_rn(thr[o], m);
-      }
-    }
-    const bool col_in = gj >= left && gj < cw - left;
-    float v[kRowsPerWarp][6];
-#pragma unroll
-    for (int o = 0; o < kRowsPerWarp; ++o) {
-      const int gi = by0 + row0 + o;
-      const bool in_region = col_in && gi >= top && gi < ch - top;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        const float rm = fmaxf(__fsub_rn(cr[o][q], thr[o]), 0.0f);
-        const float oc = co[o][q];
-        v[o][2 * q] = in_region ? __fmul_rn(__fmul_rn(rm, rm), rm) : 0.0f;
-        v[o][2 * q + 1] = in_region ? __fmul_rn(__fmul_rn(oc, oc), oc) : 0.0f;
-      }
-    }
-    // Rows o and o + 4 of each sub-tile added (the first stride of level.cuh's
-    // tree) in the warp that holds rows 0-3, then the rest of the tree.
-    float* x4 = xch + sub * (kRowsPerWarp * 6 * 32) + lane;
-    if (half == 1) {
-#pragma unroll
-      for (int o = 0; o < kRowsPerWarp; ++o) {
-#pragma unroll
-        for (int k = 0; k < 6; ++k) x4[(o * 6 + k) * 32] = v[o][k];
-      }
-    }
-    __syncthreads();
-    if (half == 0) {
-#pragma unroll
-      for (int o = 0; o < kRowsPerWarp; ++o) {
-#pragma unroll
-        for (int k = 0; k < 6; ++k) v[o][k] = __fadd_rn(v[o][k], x4[(o * 6 + k) * 32]);
-      }
-      subtile_partials<6>(v, parts, b, (bx0 - left) / kBx, (by0 - top) / kBy + sub, nbx, nby);
-    }
+    // The mask and the cubes at the centre region, then the partials.
+    mask_cubes_partials(me, mc, xch, cr, co, b, by0, bx0, row0, ch, cw, top, left, nbx, nby, parts);
   }
 }
 
@@ -570,11 +434,6 @@ bool raw_tensor_map(CUtensorMap* map, const float* in, int bsz, int h, int w) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int adm_blocks(int ch, int cw, int top, int left) {
-  const dim3 g = pixel_grid(ch - 2 * top, cw - 2 * left, 1);
-  return (int)(g.x * g.y);
-}
-
 }  // namespace
 
 extern "C" {
@@ -619,16 +478,11 @@ int tm_adm_level(const float* in, int bsz, int h, int w, const float* taps, floa
     c.lo[k] = taps[k];
     c.hi[k] = taps[kTaps + k];
   }
-  c.rf_hv = rf_hv;
-  c.rf_d = rf_d;
   c.cos1 = cos1;
-  c.eps = eps;
-  c.m_centre = m_centre;
-  c.m_edge = m_edge;
+  c.f = {rf_hv, rf_d, eps, m_centre, m_edge};
   const int ch = (h + 1) / 2, cw = (w + 1) / 2;
-  const int ky = (top + kTileH - 1) / kTileH, kx = (left + kTileW - 1) / kTileW;
-  const int gy0 = top - ky * kTileH, gx0 = left - kx * kTileW;
-  const int tiles = (cw - gx0 + kTileW - 1) / kTileW * ((ch - gy0 + kTileH - 1) / kTileH) * bsz;
+  const AdmGrid g = adm_grid(h, w, top, left);
+  const int tiles = g.nx * g.ny * bsz;
   const int grid = tiles < setup.per_sm * setup.sms ? tiles : setup.per_sm * setup.sms;
   CUtensorMap tmap = {};
   const int use_tma = raw_tensor_map(&tmap, in, bsz, h, w);

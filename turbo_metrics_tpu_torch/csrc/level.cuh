@@ -1,9 +1,9 @@
 // Block geometry, the deterministic cross-block reduction and the
 // reflect-101 border rule shared by the per-level kernels
 // (ssimulacra2_scale.cu, ssimulacra2_tail.cu, downscale.cu, windowed.cu,
-// vif.cu, adm.cu, blur_probe.cu), and the tile geometry, loads and
-// sub-tile tree of the fused level kernels (ssimulacra2_scale.cu,
-// windowed.cu, vif.cu, adm.cu).
+// vif.cu, adm.cu, blur_probe.cu, integer_vif.cu, integer_adm.cu), and the
+// tile geometry, loads and sub-tile tree of the fused level kernels
+// (ssimulacra2_scale.cu, windowed.cu, vif.cu, adm.cu, integer_adm.cu).
 //
 // A level kernel reduces K quantities per block in a fixed tree in f32 and
 // writes them as parts (planes, nblk, K); reduce_parts_kernel then sums each

@@ -21,12 +21,13 @@ JAX engine's ``_get_step``):
   * for VMAF (the JAX engine's ``_luma_metric_outs``), on the same luma
     codes: the motion blur and row SADs (ops/kernels/motion.py), with the
     previous blurred frame carried from batch to batch, and VIF and ADM
-    (ops/kernels/vif.py, ops/kernels/adm.py) on the pair in 8-bit units.
+    (ops/kernels/vif.py, ops/kernels/adm.py) on the pair in 8-bit units, or
+    with ``vmaf_integer`` their fixed-point conventions on the luma codes
+    themselves (ops/kernels/integer_vif.py, ops/kernels/integer_adm.py).
 Only per-frame values, the (B, 3, S, 2, 3) sub-scores, the XPSNR block
 grids and VMAF's sums come back; the SSIMULACRA2 score, the XPSNR
 weighting, VMAF's feature scores and its fusion model run on the host in
-f64.  VMAF's fixed-point features (``vmaf_integer``) are not ported yet and
-raise.
+f64.
 """
 
 from __future__ import annotations
@@ -59,13 +60,6 @@ from turbo_metrics_tpu_torch.ops.vif import vif_scores
 from turbo_metrics_tpu_torch.ops.vmaf_motion import motion_score
 from turbo_metrics_tpu_torch.ops.xpsnr_ops import align_luma_depth, frames_db
 from turbo_metrics_tpu_torch.utils.stats import Stats
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to turbo_metrics_tpu_torch yet (ROADMAP.md {item}); "
-        "use turbo_metrics_tpu for it"
-    )
 
 
 @dataclass
@@ -254,6 +248,14 @@ def vmaf_pair(y_ref: torch.Tensor, y_dis: torch.Tensor, depth_ref: int, depth_di
     return torch.stack([y_ref.to(torch.float32), y_dis.to(torch.float32)]) * scale8
 
 
+def vmaf_code_pair(y_ref: torch.Tensor, y_dis: torch.Tensor, depth_ref: int, depth_dis: int) -> torch.Tensor:
+    """The fixed-point VIF's and ADM's input: the (2, B, H, W) pair of luma
+    codes in the reference's type (uint8, uint16 or int32), the distorted
+    luma aligned to the reference's depth first (where its codes then fit)."""
+    y_dis = align_luma_depth(y_dis, depth_dis, depth_ref)
+    return torch.stack([y_ref, y_dis.to(y_ref.dtype)])
+
+
 class _VmafFuser:
     """Streams FrameScores through the fusion model with one frame of
     holdback: libvmaf's 'motion2' feature for frame i is
@@ -299,7 +301,9 @@ class TurboMetrics:
 
     ``vmaf_model`` (models.vmaf_model.VmafModel): the fusion model of the
     ``vmaf`` score; without one, ``Metrics(vmaf=True)`` gives the elementary
-    features only."""
+    features only.  ``vmaf_integer``: VIF and ADM under libvmaf-style
+    fixed-point conventions (the repository's own 32-bit schedule, not
+    claimed bit-identical to libvmaf) instead of the float pipeline."""
 
     def __init__(
         self,
@@ -314,8 +318,6 @@ class TurboMetrics:
     ):
         if not metrics.any():
             raise ValueError("at least one metric must be selected")
-        if vmaf_integer:
-            raise not_ported("VMAF's fixed-point features (vmaf_integer)", "Queue 1 item 8")
         if (metrics.ssim or metrics.msssim) and min(width, height) < 11:
             raise ValueError("SSIM and MS-SSIM need frames of at least 11x11")
         self.width = int(width)
@@ -334,6 +336,7 @@ class TurboMetrics:
         # VMAF motion state: the previous batch's last blurred reference luma.
         self._vmaf_prev_blur: Optional[torch.Tensor] = None
         self.vmaf_model = vmaf_model
+        self.vmaf_integer = vmaf_integer
         if vmaf_model is not None:
             metrics.vmaf_fused = True
 
@@ -496,9 +499,15 @@ class TurboMetrics:
         mot = motion_stats(y_ref, self._vmaf_prev_blur, depth=depth)
         # The padding repeats the last real frame, so the last plane is its.
         self._vmaf_prev_blur = mot["blurred"][-1].clone()
-        pair = vmaf_pair(y_ref, _luma_code(spec_dis, arr_dis), depth, spec_dis.depth)
-        vs = vif_scores(vif_scale_stats(pair).cpu().numpy())
-        adm = adm_score(adm_stats(pair).cpu().numpy(), self.height, self.width)
+        if self.vmaf_integer:
+            # The fixed-point path takes the integer codes themselves, at the
+            # reference's depth (engine.py:326-334 of the JAX package).
+            pair = vmaf_code_pair(y_ref, _luma_code(spec_dis, arr_dis), depth, spec_dis.depth)
+        else:
+            pair = vmaf_pair(y_ref, _luma_code(spec_dis, arr_dis), depth, spec_dis.depth)
+        kw = dict(integer=self.vmaf_integer, depth=depth)
+        vs = vif_scores(vif_scale_stats(pair, **kw).cpu().numpy())
+        adm = adm_score(adm_stats(pair, **kw).cpu().numpy(), self.height, self.width)
         sads = mot["sad_rows"].sum(dim=-1).cpu().numpy()
         for i, s in enumerate(scores):
             s.vmaf_vif = float(vs["vif"][i])

@@ -148,6 +148,14 @@ def decouple(o_bands, t_bands, level: int):
     o_mag_sq = o_h * o_h + o_v * o_v
     t_mag_sq = t_h * t_h + t_v * t_v
     angle_ok = (ot_dp >= 0.0) & (ot_dp * ot_dp >= _f32(COS_1DEG_SQ, dev) * o_mag_sq * t_mag_sq)
+    return (angle_ok,) + decouple_csf(o_bands, t_bands, angle_ok, level)
+
+
+def decouple_csf(o_bands, t_bands, angle_ok: torch.Tensor, level: int):
+    """Decoupling and CSF of one level's detail bands (H, V, D) under the
+    angle gate ``angle_ok`` -> ([csf*r], [csf*a], [csf*o]), in the jnp
+    path's order: the float path's and the integer path's common finish."""
+    dev = angle_ok.device
     rf_hv, rf_d = csf_rfactors(level)
     eps = _f32(DECOUPLE_EPS, dev)
     csf_r, csf_a, csf_o = [], [], []
@@ -158,7 +166,7 @@ def decouple(o_bands, t_bands, level: int):
         csf_r.append(rf * r)
         csf_a.append(rf * (t_b - r))
         csf_o.append(rf * o_b)
-    return angle_ok, csf_r, csf_a, csf_o
+    return csf_r, csf_a, csf_o
 
 
 def level_sums(csf_r, csf_a, csf_o) -> torch.Tensor:
@@ -183,12 +191,21 @@ def level_sums(csf_r, csf_a, csf_o) -> torch.Tensor:
     return torch.stack(bands, dim=-2).float()
 
 
-def adm_stats(y_ref: torch.Tensor, y_dis: torch.Tensor) -> torch.Tensor:
+def adm_stats(
+    y_ref: torch.Tensor, y_dis: torch.Tensor, *, integer: bool = False, depth: int = 8
+) -> torch.Tensor:
     """Per-scale, per-band centre-region cube sums for (B, H, W) f32 luma.
 
     Returns (B, NUM_LEVELS, 3, 2): [..., b, 0] = sum |masked csf*r_b|^3,
     [..., b, 1] = sum |csf*o_b|^3 over the centre region, bands b = (H, V, D).
+
+    ``integer=True`` takes the fixed-point path (ops/integer_adm.py) on
+    integer luma codes at ``depth`` bits instead.
     """
+    if integer:
+        from turbo_metrics_tpu_torch.ops.integer_adm import integer_adm_stats
+
+        return integer_adm_stats(y_ref, y_dis, depth=depth)
     o = y_ref.to(torch.float32)
     t = y_dis.to(torch.float32)
     out = []

@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "ssimulacra2_scale.cu", "ssimulacra2_tail.cu", "downscale.cu", "convert.cu", "windowed.cu",
-    "xpsnr.cu", "motion.cu", "vif.cu", "adm.cu", "blur_probe.cu",
+    "xpsnr.cu", "motion.cu", "vif.cu", "adm.cu", "blur_probe.cu", "integer_vif.cu", "integer_adm.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -67,6 +67,13 @@ _SIGNATURES = {
     "tm_adm_blocks": [_I, _I, _I, _I],
     "tm_adm_tile_attrs": [_PI],
     "tm_adm_level": [_P, _I, _I, _I, _PF, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _I, _P],
+    "tm_integer_vif_blocks": [_I, _I],
+    "tm_integer_vif_attrs": [_I, _I, _I, _PI],
+    "tm_integer_vif_level": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
+    "tm_integer_adm_blocks": [_I, _I, _I, _I],
+    "tm_integer_adm_attrs": [_I, _I, _I, _PI],
+    "tm_integer_adm_level": [_P, _I, _I, _I, _I, _I, _I, _PI, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _I,
+                             _P, _P],
     "tm_blur_probe_blocks": [_I, _I],
     "tm_blur_probe": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }

@@ -1,0 +1,102 @@
+"""K-int-ADM: ADM's four levels under the fixed-point conventions.
+
+``integer_adm_stats`` launches ``tm_integer_adm_level``
+(csrc/integer_adm.cu) once per level on a CUDA tensor, each level reading
+the int32 approximation bands the one before wrote, and runs its plain twin
+``integer_adm_stats_ref`` (ops/integer_adm.py) on a CPU tensor.  No TPU
+kernel stands behind it: the JAX package computes ``integer_adm_stats``
+(turbo_metrics_tpu/ops/integer_adm.py:107) with jnp.  ``integer_adm_levels``
+runs the same launches with the kernel's check stores on, for holding its
+bands and gate against ``integer_adm_levels_ref`` bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from turbo_metrics_tpu_torch.ops import adm, integer_adm
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels.adm import level_scratch
+from turbo_metrics_tpu_torch.ops.kernels.integer_vif import check_codes, pre_shift
+from turbo_metrics_tpu_torch.ops.kernels.xpsnr import DTYPE_CODES
+
+_TAPS = (ctypes.c_int * 8)(*np.concatenate(integer_adm.adm_coeffs_q()).astype(np.int32).tolist())
+
+
+def integer_adm_stats_ref(pair, *, depth=8):
+    """Plain twin of ``integer_adm_stats`` (same arguments and result)."""
+    check_codes(pair)
+    pre_shift(depth)
+    return integer_adm.integer_adm_stats(pair[0], pair[1], depth=depth)
+
+
+def integer_adm_levels_ref(pair, *, depth=8):
+    """Plain twin of ``integer_adm_levels``."""
+    check_codes(pair)
+    pre_shift(depth)
+    return integer_adm.integer_adm_levels(pair[0], pair[1], depth=depth)
+
+
+def _run(pair, depth, levels: bool):
+    check_codes(pair)
+    shift = pre_shift(depth)
+    if pair.device.type != "cuda":
+        raise ValueError(f"integer ADM runs on cuda or cpu, not {pair.device}")
+    lib = LIBRARY.get()
+    stream = torch.cuda.current_stream(pair.device).cuda_stream
+    _, bsz, h, w = pair.shape
+    dev = pair.device
+    sums = torch.empty((bsz, adm.NUM_LEVELS, 3, 2), dtype=torch.float32, device=dev)
+    out, x = [], pair
+    for level in range(adm.NUM_LEVELS):
+        ch, cw = (h + 1) // 2, (w + 1) // 2
+        top, _, left, _ = adm.center_region(ch, cw)
+        last = level + 1 == adm.NUM_LEVELS
+        approx = None if last else torch.empty((2, bsz, ch, cw), dtype=torch.int32, device=dev)
+        surface = torch.empty((7, bsz, ch, cw), dtype=torch.int32, device=dev) if levels else None
+        parts = level_scratch(bsz, h, w, dev)
+        rf_hv, rf_d = adm.csf_rfactors(level)
+        check(
+            lib.tm_integer_adm_level(
+                x.data_ptr(), int(level == 0), DTYPE_CODES[x.dtype], shift if level == 0 else 0, bsz, h, w,
+                _TAPS, float(integer_adm.COS_1DEG_SQ_F32),
+                float(np.float32((1 << (level + 1)) / (1 << integer_adm.Q_BAND))),
+                float(np.float32(rf_hv)), float(np.float32(rf_d)), float(np.float32(adm.DECOUPLE_EPS)),
+                float(adm.MASK_CENTRE), float(adm.MASK_EDGE), top, left,
+                None if approx is None else approx.data_ptr(), parts.data_ptr(), sums[:, level].data_ptr(),
+                adm.NUM_LEVELS * 6, None if surface is None else surface.data_ptr(), stream,
+            ),
+            "tm_integer_adm_level",
+        )
+        integer_adm_stats.launches += 1
+        if levels:
+            lv = dict(zip(integer_adm.BANDS, surface[:6].unbind(0)))
+            lv["angle_ok"] = surface[6] != 0
+            out.append(lv)
+        x, h, w = approx, ch, cw
+    return sums, out
+
+
+def integer_adm_stats(pair: torch.Tensor, *, depth: int = 8) -> torch.Tensor:
+    """Per-level, per-band centre-region cube sums of a (2, B, h, w) pair of
+    (reference, distorted) luma codes at ``depth`` bits under the
+    fixed-point conventions -> (B, 4, 3, 2) f32: [..., band, 0] = sum
+    |masked csf*r|^3, [..., band, 1] = sum |csf*o|^3, bands (H, V, D)."""
+    if pair.device.type == "cpu":
+        return integer_adm_stats_ref(pair, depth=depth)
+    return _run(pair, depth, False)[0]
+
+
+integer_adm_stats.launches = 0
+
+
+def integer_adm_levels(pair: torch.Tensor, *, depth: int = 8) -> list[dict]:
+    """The integer surface of every level, from the kernel's check stores:
+    the bands o_h .. t_d ((B, ch, cw) int32) and the gate (bool).  Counts
+    its launches with ``integer_adm_stats``; not on the main path."""
+    if pair.device.type == "cpu":
+        return integer_adm_levels_ref(pair, depth=depth)
+    return _run(pair, depth, True)[1]

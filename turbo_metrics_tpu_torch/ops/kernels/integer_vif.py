@@ -1,0 +1,125 @@
+"""K-int-VIF: VIF's four scales under the fixed-point conventions.
+
+``integer_vif_stats`` launches ``tm_integer_vif_level`` (csrc/integer_vif.cu)
+once per scale on a CUDA tensor, each scale reading the uint16 input the one
+before emitted, and runs its plain twin ``integer_vif_stats_ref``
+(ops/integer_vif.py) on a CPU tensor.  No TPU kernel stands behind it: the
+JAX package computes ``integer_vif_stats`` (turbo_metrics_tpu/ops/
+integer_vif.py:100) with jnp.  ``integer_vif_planes`` runs the same launches
+with the kernel's check stores on, for holding its integer planes against
+``integer_vif_planes_ref`` bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from turbo_metrics_tpu_torch.ops import integer_vif
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels.vif import vif_blocks
+from turbo_metrics_tpu_torch.ops.kernels.xpsnr import DTYPE_CODES
+from turbo_metrics_tpu_torch.ops.vif import NUM_SCALES
+
+PLANES = ("s11", "s22", "s12", "mu1", "mu2")
+_COEFFS: dict = {}
+
+
+def _coeffs(scale: int, device) -> torch.Tensor:
+    """C1, C2 of the scale's window, then C1, C2 of the next scale's (int32,
+    on ``device``, made once)."""
+    key = (scale, str(device))
+    if key not in _COEFFS:
+        parts = [integer_vif.vif_coeffs_q(k, bits) for k in (scale, scale + 1)
+                 if k < NUM_SCALES for bits in (16, 12)]
+        _COEFFS[key] = torch.from_numpy(np.concatenate(parts).astype(np.int32)).to(device)
+    return _COEFFS[key]
+
+
+def check_codes(pair):
+    """Raise unless ``pair`` is a contiguous (2, B, h, w) pair of uint8,
+    uint16 or int32 luma codes (the input of the integer VIF and ADM)."""
+    if pair.ndim != 4 or pair.shape[0] != 2:
+        raise ValueError(f"pair must be (2, B, h, w), got {tuple(pair.shape)}")
+    if pair.dtype not in DTYPE_CODES or not pair.is_contiguous():
+        raise ValueError(f"pair must be contiguous uint8, uint16 or int32 codes, got {pair.dtype}")
+
+
+def pre_shift(depth: int) -> int:
+    """The pre-rounding shift of codes at ``depth`` bits to 8 bits."""
+    if not 1 <= depth <= 16:
+        raise ValueError(f"depth must be 1-16 bits, got {depth}")
+    return max(depth - 8, 0)
+
+
+def integer_vif_stats_ref(pair, *, depth=8):
+    """Plain twin of ``integer_vif_stats`` (same arguments and result)."""
+    check_codes(pair)
+    pre_shift(depth)
+    return integer_vif.integer_vif_stats(pair[0], pair[1], depth=depth)
+
+
+def integer_vif_planes_ref(pair, *, depth=8):
+    """Plain twin of ``integer_vif_planes``."""
+    check_codes(pair)
+    pre_shift(depth)
+    return integer_vif.integer_vif_scale_planes(pair[0], pair[1], depth=depth)
+
+
+def _run(pair, depth, planes: bool):
+    check_codes(pair)
+    shift = pre_shift(depth)
+    if pair.device.type != "cuda":
+        raise ValueError(f"integer VIF runs on cuda or cpu, not {pair.device}")
+    lib = LIBRARY.get()
+    stream = torch.cuda.current_stream(pair.device).cuda_stream
+    _, bsz, h, w = pair.shape
+    dev = pair.device
+    sums = torch.empty((bsz, NUM_SCALES, 2), dtype=torch.float32, device=dev)
+    out, x = [], pair
+    for k in range(NUM_SCALES):
+        nxt = None
+        if k + 1 < NUM_SCALES:
+            nxt = torch.empty((2, bsz, (h + 1) // 2, (w + 1) // 2), dtype=torch.uint16, device=dev)
+        moments = torch.empty((5, bsz, h, w), dtype=torch.int32, device=dev) if planes else None
+        parts = torch.empty(bsz * vif_blocks(h, w) * 2, dtype=torch.float32, device=dev)
+        check(
+            lib.tm_integer_vif_level(
+                x.data_ptr(), DTYPE_CODES[x.dtype], bsz, h, w, k, shift if k == 0 else 0,
+                _coeffs(k, dev).data_ptr(), parts.data_ptr(), sums[:, k].data_ptr(), NUM_SCALES * 2,
+                None if nxt is None else nxt.data_ptr(), None if moments is None else moments.data_ptr(),
+                stream,
+            ),
+            "tm_integer_vif_level",
+        )
+        integer_vif_stats.launches += 1
+        if planes:
+            out.append(dict(zip(PLANES, moments.unbind(0))))
+            if k > 0:
+                out[-1].update(ref=x[0].to(torch.int32), dis=x[1].to(torch.int32))
+        x = nxt
+        if nxt is not None:
+            h, w = nxt.shape[-2:]
+    return sums, out
+
+
+def integer_vif_stats(pair: torch.Tensor, *, depth: int = 8) -> torch.Tensor:
+    """Per-scale (num, den) sums of a (2, B, h, w) pair of (reference,
+    distorted) luma codes at ``depth`` bits under the fixed-point
+    conventions -> (B, 4, 2) f32."""
+    if pair.device.type == "cpu":
+        return integer_vif_stats_ref(pair, depth=depth)
+    return _run(pair, depth, False)[0]
+
+
+integer_vif_stats.launches = 0
+
+
+def integer_vif_planes(pair: torch.Tensor, *, depth: int = 8) -> list[dict]:
+    """The integer planes of every scale, from the kernel's check stores:
+    per scale s11, s22, s12, mu1, mu2 ((B, h, w) int32) and, from scale 1
+    on, the scale's input ('ref', 'dis').  Counts its launches with
+    ``integer_vif_stats``; not on the main path."""
+    if pair.device.type == "cpu":
+        return integer_vif_planes_ref(pair, depth=depth)
+    return _run(pair, depth, True)[1]

@@ -20,7 +20,10 @@ per level), #10, #11 (with and without the next level), #12, #14, #15 and
 batch, XPSNR's #13 (``xpsnr_block_stats``) on the pair's luma and on
 that 10-bit luma against the 8-bit one (path (c)'s instance), VMAF
 motion's #16 (``motion_stats``, with the memset that zeroes its row sums)
-on its reference luma and #17 (``integer_blur``) on one frame of it, and #4 (``fused_tail``) on three levels from the pair's
+on its reference luma and #17 (``integer_blur``) on one frame of it, the
+fixed-point VIF and ADM kernels (``integer_vif_stats``, ``integer_adm_stats``;
+no TPU kernel stands behind them) on the pair's 8-bit luma codes, one entry
+per launch (launch 1 is scale or level 0), and #4 (``fused_tail``) on three levels from the pair's
 level 2 (at 1080p the size of a 4K level 3) and on four levels of a seeded
 pair at twice the batch and a third of the frame (at the defaults the
 1440p chain: B=8, levels 2-5 from 360x640).  Each call is timed by CUDA
@@ -66,6 +69,10 @@ VIF_LEVEL = ("vif_tile_kernel", "reduce_frames_kernel")
 # One ADM level (csrc/adm.cu): the fused tile kernel (DWT, gate, CSF, mask,
 # cubes, the next level's A bands), the reduction.
 ADM_LEVEL = ("adm_tile_kernel", "reduce_frames_kernel")
+# One scale of the fixed-point VIF (csrc/integer_vif.cu) and one level of the
+# fixed-point ADM (csrc/integer_adm.cu): the tile kernel, the reduction.
+INT_VIF_LEVEL = ("integer_vif_kernel", "reduce_frames_kernel")
+INT_ADM_LEVEL = ("integer_adm_kernel", "reduce_frames_kernel")
 # VMAF motion (csrc/motion.cu) and the small SSIMULACRA2 levels in one
 # cooperative launch (csrc/ssimulacra2_tail.cu): one kernel each.
 MOTION = ("motion_kernel",)
@@ -219,7 +226,7 @@ def _profile_calls(fn, iters: int) -> tuple:
 
 def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
     """The timed calls, on inputs made from seed 0 on ``dev``."""
-    from turbo_metrics_tpu_torch.engine import vmaf_pair
+    from turbo_metrics_tpu_torch.engine import vmaf_code_pair, vmaf_pair
     from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
     from turbo_metrics_tpu_torch.ops import adm as adm_ops
     from turbo_metrics_tpu_torch.ops import quality
@@ -230,6 +237,8 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
         blur_probe,
         convert,
         fused_tail,
+        integer_adm,
+        integer_vif,
         motion,
         scale_stats,
         scale_tail,
@@ -257,6 +266,7 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
     ms_lvl1 = windowed.ssim_sums(p12, win, quantize=True, emit_ds=True)[1]
     ms_levels = quality._clamp_levels(h, w, 5)[0] - 1
     pair = vmaf_pair(y2[0], y2[1], 8, 8)
+    codes = vmaf_code_pair(y2[0], y2[1], 8, 8)
     vif_lvl1 = vif.vif_scale0(pair)[1]
     tail_levels = model.num_scales - 1
     rgb_level = once("rgb_to_xyb_kernel", *LEVEL)
@@ -300,6 +310,10 @@ def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
         Probe("#15 VIF scales 1-3", "vif_tail", lambda: vif.vif_tail(vif_lvl1),
               levels(vif_ops.NUM_SCALES - 1, VIF_LEVEL)),
         Probe("#18 ADM", "adm_stats", lambda: adm.adm_stats(pair), levels(adm_ops.NUM_LEVELS, ADM_LEVEL)),
+        Probe("K-int-VIF launch {}", "integer_vif_stats", lambda: integer_vif.integer_vif_stats(codes),
+              once(*INT_VIF_LEVEL), parts=vif_ops.NUM_SCALES),
+        Probe("K-int-ADM launch {}", "integer_adm_stats", lambda: integer_adm.integer_adm_stats(codes),
+              once(*INT_ADM_LEVEL), parts=adm_ops.NUM_LEVELS),
         Probe("#6 conversion (4:2:0 pair)", "yuv420_to_linear_rgb_pair",
               lambda: convert.yuv420_to_linear_rgb_pair(y2, uv2), once("yuv_to_rgb_kernel")),
         Probe("#5 conversion (10-bit 4:2:2)", "yuv_to_linear_rgb",
