@@ -1012,17 +1012,14 @@ def check_convert_kernel(y422, uv422) -> float:
     return err
 
 
-def check_mezzanine_engine(dev) -> None:
-    """Phases 5b and 5c: path (e)'s engine (10-bit 4:2:2 reference, 8-bit
-    4:2:0 distorted, all six metrics) on the card against the same engine on
-    the CPU, on a small odd-sized pair, 3 frames in batches of 2 (XPSNR and
-    motion state chained, the last batch padded)."""
+def mezzanine_frames(h: int = 67, w: int = 99, n: int = 3):
+    """n seeded frame pairs of a small odd-sized 10-bit 4:2:2 reference and
+    an 8-bit 4:2:0 distorted stream (path (e)'s formats), and their colour
+    characteristics."""
     from turbo_metrics_tpu_torch.color.characteristics import height_fallback
-    from turbo_metrics_tpu_torch.engine import Metrics, TurboMetrics
     from turbo_metrics_tpu_torch.io.frame_source import RawFrame
 
     rng = np.random.default_rng(17)
-    h, w, n = 67, 99, 3
     ref, dis = [], []
     for _ in range(n):
         y = rng.integers(64, 941, (h, w))
@@ -1033,7 +1030,18 @@ def check_mezzanine_engine(dev) -> None:
             uv=np.clip(uv[::2] // 4 + rng.integers(-6, 7, uv[::2].shape), 0, 255).astype(np.uint8),
             depth=8,
         ))
-    cc = (height_fallback(h), "limited")
+    return ref, dis, (height_fallback(h), "limited")
+
+
+def check_mezzanine_engine(dev) -> None:
+    """Phases 5b and 5c: path (e)'s engine (10-bit 4:2:2 reference, 8-bit
+    4:2:0 distorted, all six metrics) on the card against the same engine on
+    the CPU, on a small odd-sized pair, 3 frames in batches of 2 (XPSNR and
+    motion state chained, the last batch padded)."""
+    from turbo_metrics_tpu_torch.engine import Metrics, TurboMetrics
+
+    h, w = 67, 99
+    ref, dis, cc = mezzanine_frames(h, w)
     metrics = Metrics(**{m: True for m in ALL6})
     keys = output_keys(ALL6)
     conv = counted_kernels()["yuv_to_linear_rgb"]
@@ -1236,26 +1244,12 @@ def check_integer_edges(dev) -> None:
 
 def check_integer_engine(dev) -> None:
     """Phase 5j: the engine with vmaf_integer on the card against the same
-    engine on the CPU, on a small odd-sized pair of a 10-bit 4:2:2 reference
-    and an 8-bit 4:2:0 distorted stream (phase 5b's), 3 frames in batches of
-    2: motion equal, VIF 1e-5, ADM 1e-4."""
-    from turbo_metrics_tpu_torch.color.characteristics import height_fallback
+    engine on the CPU on mezzanine_frames (phase 5b's pair), 3 frames in
+    batches of 2: motion equal, VIF 1e-5, ADM 1e-4."""
     from turbo_metrics_tpu_torch.engine import Metrics, TurboMetrics
-    from turbo_metrics_tpu_torch.io.frame_source import RawFrame
 
-    rng = np.random.default_rng(17)
-    h, w, n = 67, 99, 3
-    ref, dis = [], []
-    for _ in range(n):
-        y = rng.integers(64, 941, (h, w))
-        uv = rng.integers(64, 961, (h, (w + 1) // 2, 2))
-        ref.append(RawFrame(y=y.astype(np.uint16), uv=uv.astype(np.uint16), depth=10, chroma=422))
-        dis.append(RawFrame(
-            y=np.clip(y // 4 + rng.integers(-6, 7, y.shape), 0, 255).astype(np.uint8),
-            uv=np.clip(uv[::2] // 4 + rng.integers(-6, 7, uv[::2].shape), 0, 255).astype(np.uint8),
-            depth=8,
-        ))
-    cc = (height_fallback(h), "limited")
+    h, w = 67, 99
+    ref, dis, cc = mezzanine_frames(h, w)
     res = {}
     kiv = counted_kernels()["integer_vif_stats"]
     before = kiv.launches
