@@ -215,13 +215,13 @@ VMAF_KERNELS = ("motion_stats", "integer_blur", "vif_scale0", "vif_tail", "adm_s
 INT_KERNELS = ("integer_vif_stats", "integer_adm_stats")
 # Path (d-int)'s sanity bars against path (d)'s float features: the same
 # metric at other arithmetic.  tests/test_integer_paths.py:88-97, 163-176
-# hold a 96x128 sinusoid to 5e-3 (vif) and 2e-2 (adm2); on this script's
-# 1080p pair the fixed-point schedule itself (its means kept in Q4) is
-# 0.0097 (vif) and 0.0134 (adm2) from the float features (frames 0-1, the
-# plain versions, which equal the JAX package's integer path bit for bit),
-# so vif is held to 2e-2 here.  The kernels are held to the plain versions
-# exactly (phase 5j).
-INT_VS_FLOAT = {"vmaf_vif": 2e-2, "vmaf_adm": 2e-2}
+# hold a 96x128 sinusoid to 5e-3 (vif) and 2e-2 (adm2).  On this script's
+# 1080p pair the JAX package's own fixed-point schedule (its means kept in
+# Q4) is 0.00971 (vif) and 0.01341 (adm2) from its float features on frames
+# 0-1 (tools/vmaf_int_gap.py, on the CPU), so vif is held to that gap plus
+# 0.0023 of margin for the other frames, adm2 to 2e-2.  The kernels are held
+# to the plain versions exactly (phase 5j).
+INT_VS_FLOAT = {"vmaf_vif": 1.2e-2, "vmaf_adm": 2e-2}
 # Sizes where the integer kernels branch (phase 5j), as (h, w, depth, luma
 # type): the smallest planes, h < 9 (the 17-tap window wider than the plane
 # at scale 0), odd sizes that cross the 32x32 tiles' edges, ADM's edge sizes,

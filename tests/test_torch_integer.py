@@ -41,10 +41,8 @@ from turbo_metrics_tpu_torch.ops import adm as tadm
 from turbo_metrics_tpu_torch.ops import integer_adm as tia
 from turbo_metrics_tpu_torch.ops import integer_vif as tiv
 from turbo_metrics_tpu_torch.ops import vif as tvif
-from turbo_metrics_tpu_torch.ops.kernels import adm as kadm
 from turbo_metrics_tpu_torch.ops.kernels import integer_adm as kia
 from turbo_metrics_tpu_torch.ops.kernels import integer_vif as kiv
-from turbo_metrics_tpu_torch.ops.kernels import vif as kvif
 
 from tests.test_integer_paths import _pair
 
@@ -209,21 +207,18 @@ def test_integer_stats_match_jax_and_oracle(jax_stats, name):
 
 
 def test_integer_dispatch_and_kernel_twins():
-    """``integer=True`` of ops/vif.vif_scale_stats, ops/adm.adm_stats and the
-    kernel wrappers reaches the fixed-point path; on CPU tensors the kernel
-    wrappers run their twins (no launch counted), for uint8, uint16 and
-    int32 codes alike; the check wrappers give the twins' surfaces."""
+    """On CPU tensors the kernel wrappers of K-int-VIF and K-int-ADM run
+    their twins (no launch counted), for uint8, uint16 and int32 codes
+    alike; the check wrappers give the twins' surfaces."""
     ref, dis = _pair(40, 56, seed=2, depth=10)
     r, d = _t(ref)[None], _t(dis)[None]
     want_v = tiv.integer_vif_stats(r, d, depth=10)
     want_a = tia.integer_adm_stats(r, d, depth=10)
-    assert torch.equal(tvif.vif_scale_stats(r, d, integer=True, depth=10), want_v)
-    assert torch.equal(tadm.adm_stats(r, d, integer=True, depth=10), want_a)
     launches = (kiv.integer_vif_stats.launches, kia.integer_adm_stats.launches)
     for dt in (torch.uint16, torch.int32):
         pair = torch.stack([r, d]).to(dt)
-        assert torch.equal(kvif.vif_scale_stats(pair, integer=True, depth=10), want_v)
-        assert torch.equal(kadm.adm_stats(pair, integer=True, depth=10), want_a)
+        assert torch.equal(kiv.integer_vif_stats(pair, depth=10), want_v)
+        assert torch.equal(kia.integer_adm_stats(pair, depth=10), want_a)
     assert (kiv.integer_vif_stats.launches, kia.integer_adm_stats.launches) == launches
     r8, d8 = _pair(40, 56, seed=2)
     r8, d8 = _t(r8)[None], _t(d8)[None]

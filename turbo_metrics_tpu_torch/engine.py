@@ -52,6 +52,8 @@ from turbo_metrics_tpu_torch.ops.kernels.convert import (
 )
 from turbo_metrics_tpu_torch.ops.adm import adm_score
 from turbo_metrics_tpu_torch.ops.kernels.adm import adm_stats
+from turbo_metrics_tpu_torch.ops.kernels.integer_adm import integer_adm_stats
+from turbo_metrics_tpu_torch.ops.kernels.integer_vif import integer_vif_stats
 from turbo_metrics_tpu_torch.ops.kernels.motion import integer_blur, motion_stats
 from turbo_metrics_tpu_torch.ops.kernels.vif import vif_scale_stats
 from turbo_metrics_tpu_torch.ops.kernels.xpsnr import xpsnr_block_stats
@@ -503,11 +505,14 @@ class TurboMetrics:
             # The fixed-point path takes the integer codes themselves, at the
             # reference's depth (engine.py:326-334 of the JAX package).
             pair = vmaf_code_pair(y_ref, _luma_code(spec_dis, arr_dis), depth, spec_dis.depth)
+            vif_sums = integer_vif_stats(pair, depth=depth)
+            adm_sums = integer_adm_stats(pair, depth=depth)
         else:
             pair = vmaf_pair(y_ref, _luma_code(spec_dis, arr_dis), depth, spec_dis.depth)
-        kw = dict(integer=self.vmaf_integer, depth=depth)
-        vs = vif_scores(vif_scale_stats(pair, **kw).cpu().numpy())
-        adm = adm_score(adm_stats(pair, **kw).cpu().numpy(), self.height, self.width)
+            vif_sums = vif_scale_stats(pair)
+            adm_sums = adm_stats(pair)
+        vs = vif_scores(vif_sums.cpu().numpy())
+        adm = adm_score(adm_sums.cpu().numpy(), self.height, self.width)
         sads = mot["sad_rows"].sum(dim=-1).cpu().numpy()
         for i, s in enumerate(scores):
             s.vmaf_vif = float(vs["vif"][i])

@@ -191,21 +191,12 @@ def level_sums(csf_r, csf_a, csf_o) -> torch.Tensor:
     return torch.stack(bands, dim=-2).float()
 
 
-def adm_stats(
-    y_ref: torch.Tensor, y_dis: torch.Tensor, *, integer: bool = False, depth: int = 8
-) -> torch.Tensor:
+def adm_stats(y_ref: torch.Tensor, y_dis: torch.Tensor) -> torch.Tensor:
     """Per-scale, per-band centre-region cube sums for (B, H, W) f32 luma.
 
     Returns (B, NUM_LEVELS, 3, 2): [..., b, 0] = sum |masked csf*r_b|^3,
     [..., b, 1] = sum |csf*o_b|^3 over the centre region, bands b = (H, V, D).
-
-    ``integer=True`` takes the fixed-point path (ops/integer_adm.py) on
-    integer luma codes at ``depth`` bits instead.
     """
-    if integer:
-        from turbo_metrics_tpu_torch.ops.integer_adm import integer_adm_stats
-
-        return integer_adm_stats(y_ref, y_dis, depth=depth)
     o = y_ref.to(torch.float32)
     t = y_dis.to(torch.float32)
     out = []

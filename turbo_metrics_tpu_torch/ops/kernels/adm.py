@@ -48,17 +48,11 @@ def level_scratch(bsz: int, h: int, w: int, dev) -> torch.Tensor:
     return torch.empty(bsz * adm_blocks(ch, cw, top, left) * 6, dtype=torch.float32, device=dev)
 
 
-def adm_stats(pair: torch.Tensor, *, integer: bool = False, depth: int = 8) -> torch.Tensor:
+def adm_stats(pair: torch.Tensor) -> torch.Tensor:
     """Per-level, per-band centre-region cube sums of a (2, B, h, w) f32
     (reference, distorted) luma pair in 8-bit units -> (B, 4, 3, 2) f32:
     [..., band, 0] = sum |masked csf*r|^3, [..., band, 1] = sum |csf*o|^3,
-    bands (H, V, D).  ``integer=True``: the fixed-point path on a pair of
-    luma codes at ``depth`` bits instead, through K-int-ADM
-    (ops/kernels/integer_adm.py)."""
-    if integer:
-        from turbo_metrics_tpu_torch.ops.kernels.integer_adm import integer_adm_stats
-
-        return integer_adm_stats(pair, depth=depth)
+    bands (H, V, D)."""
     check_pair(pair)
     if pair.device.type == "cpu":
         return adm_stats_ref(pair)

@@ -137,14 +137,8 @@ def vif_tail(level1: torch.Tensor) -> torch.Tensor:
 vif_tail.launches = 0
 
 
-def vif_scale_stats(pair: torch.Tensor, *, integer: bool = False, depth: int = 8) -> torch.Tensor:
+def vif_scale_stats(pair: torch.Tensor) -> torch.Tensor:
     """All four scales' (num, den) sums of a (2, B, h, w) f32 pair -> (B, 4,
-    2) f32, through #14 and #15 (their twins on the CPU).  ``integer=True``:
-    the fixed-point path on a pair of luma codes at ``depth`` bits instead,
-    through K-int-VIF (ops/kernels/integer_vif.py)."""
-    if integer:
-        from turbo_metrics_tpu_torch.ops.kernels.integer_vif import integer_vif_stats
-
-        return integer_vif_stats(pair, depth=depth)
+    2) f32, through #14 and #15 (their twins on the CPU)."""
     sums0, level1 = vif_scale0(pair)
     return torch.cat([sums0[:, None], vif_tail(level1)], dim=1)

@@ -112,20 +112,11 @@ def scale_sums(ref: torch.Tensor, dis: torch.Tensor, win: np.ndarray) -> torch.T
     ).float()
 
 
-def vif_scale_stats(
-    ref: torch.Tensor, dis: torch.Tensor, *, integer: bool = False, depth: int = 8
-) -> torch.Tensor:
+def vif_scale_stats(ref: torch.Tensor, dis: torch.Tensor) -> torch.Tensor:
     """Per-scale (num, den) sums for (B, H, W) f32 luma in 8-bit units.
 
     Returns (B, 4, 2): [..., k, 0] = num_k, [..., k, 1] = den_k.
-
-    ``integer=True`` takes the fixed-point path (ops/integer_vif.py) on
-    integer luma codes at ``depth`` bits instead.
     """
-    if integer:
-        from turbo_metrics_tpu_torch.ops.integer_vif import integer_vif_stats
-
-        return integer_vif_stats(ref, dis, depth=depth)
     out = []
     for k in range(NUM_SCALES):
         win = vif_window(k)
