@@ -17,11 +17,13 @@ Phases, each fatal on failure (exit code 1):
      motion kernel (#16, #17) per luma type, of #4's fused_tail_kernel, of
      the conversion kernel (#5, #6; tm_convert_attributes) and of the XPSNR
      kernel (#13; tm_xpsnr_attributes) per type pair, and of every instance
-     of the fixed-point kernels K-int-VIF and K-int-ADM (with and without
-     their check stores; their partial counts tm_integer_vif_blocks and
-     tm_integer_adm_blocks checked like VIF's and ADM's); the SASS
-     instructions and MUFU of #5's and #6's BT.709 instances
-     (tools/sass_count.py), which set their instruction bounds;
+     of the fixed-point kernels K-int-VIF (narrow and wide) and K-int-ADM
+     (with and without their check stores; their partial counts
+     tm_integer_vif_blocks and tm_integer_adm_blocks checked like VIF's and
+     ADM's); the SASS instructions and MUFU of #5's and #6's BT.709
+     instances (tools/sass_count.py), which set their instruction bounds,
+     and the IMAD, IADD3 and LDS of K-int-VIF's and K-int-ADM's u8
+     instances per thread and per output pixel (INT_SASS);
   3. write a seeded 1080p 8-bit 4:2:0 BT.709 limited-range Y4M pair
      (16 frames, noise on a smooth base) to a temporary directory;
   4. score it through the port's CLI (-m ssimulacra2 --output json), every
@@ -263,15 +265,23 @@ I_XPSNR = 20
 # |blurred - previous| and the row sum (3).
 I_BLUR = 22
 I_MOTION = I_BLUR + 3
-# Per pixel of the pair at one fixed-point VIF scale: int32 operations per
-# tap of the window 20 (five quantities, two passes, a multiply-add of 2),
-# 29 per pixel (the products 3, ten rounding adds and shifts 20, the moments
-# 6), per tap of the next window 3 (ref and dis: the vertical pass at half
-# the pixels, the horizontal at a quarter) and 3 of its rounding; f32 25 (the
-# guarded map with two log2).
-I_IVIF_TAP = 20
+# Per pixel of the pair at one fixed-point VIF scale, the least work with
+# the symmetric windows folded (csrc/integer_vif.cu): int32 operations per
+# tap pair k < R of the window 30 (five quantities, two passes, an add of
+# the pair's samples 1 and a multiply-add of 2), per centre tap 20 (ten
+# multiply-adds), 29 per pixel (the products 3, ten rounding adds and shifts
+# 20, the moments 6), per tap pair of the next window 4.5 and its centre 3
+# (ref and dis: the vertical pass at half the pixels, the horizontal at a
+# quarter) and 3 of its rounding; f32 25 (the guarded map with two log2).
+# The bound of the unfolded windows counts 20 per tap of the window (2R +
+# 1) and 3 per tap of the next one (I_IVIF_TAP_UNFOLDED).
+I_IVIF_PAIR = 30
+I_IVIF_CENTRE = 20
+I_IVIF_TAP_UNFOLDED = 20
 I_IVIF_PIX = 29
-I_IVIF_EMIT_TAP = 3
+I_IVIF_EMIT_PAIR = 4.5
+I_IVIF_EMIT_CENTRE = 3
+I_IVIF_EMIT_TAP_UNFOLDED = 3
 I_IVIF_EMIT = 3
 F_IVIF_MAP = 25
 # Per input pixel of the pair at one fixed-point ADM level: int32 44 (the
@@ -314,7 +324,21 @@ REDESIGNED = {"fused_scale0_yuv": "fused level pass", "fused_scale_rgb": "fused 
               "fused_tail": "fused tile passes in one cooperative launch",
               "yuv_to_linear_rgb": "transfer function as a template parameter, MUFU powers, float2 stores",
               "yuv420_to_linear_rgb_pair": "transfer function as a template parameter, MUFU powers, float2 stores",
-              "xpsnr_block_stats": "16-byte row chunks in a register window, neighbours by shuffles, dp4a at u8"}
+              "xpsnr_block_stats": "16-byte row chunks in a register window, neighbours by shuffles, dp4a at u8",
+              "integer_vif_stats": "folded symmetric taps as kernel parameters, 16-byte tile loads issued first, "
+                                   "uint16 shared planes for uint8 codes",
+              "integer_adm_stats": "persistent blocks, TMA copies of the next tile at the input's type, "
+                                   "one |csf*a| plane"}
+# The SASS of K-int-VIF's scale-0 and K-int-ADM's level-0 main-path
+# instances (uint8 codes), counted by tools/sass_count.py: (kernel, output
+# pixels per thread on the common path).  A thread of the VIF instance
+# writes eight pixels of its tile; one of the ADM instance four band pixels
+# of a tile, each from four input pixels, plus the halo ring.
+INT_SASS = {
+    "integer_vif_stats": ("integer_vif_kernel<unsigned char, 8, 4, 1, 0>", 8),
+    "integer_adm_stats": ("integer_adm_kernel<unsigned char, 1, 0>", 4),
+}
+INT_SASS_OPS = ("IMAD", "IADD3", "LDS")
 # The wrappers the dissect path times (phase 8), each launched there.
 DISSECT_KERNELS = ("fused_scale_rgb", "scale_sums", "blur_only", "fused_scale0_yuv", "fused_pyramid_tail",
                    "fused_scale_pair", "ssim_sums", "msssim_tail", "vif_scale0", "vif_tail", "adm_stats",
@@ -333,13 +357,20 @@ def vif_flops(bsz: int, h: int, w: int, scales) -> float:
     return total
 
 
-def integer_vif_ops(bsz: int, h: int, w: int) -> tuple[float, float]:
-    """(int32, f32) operations of the four fixed-point VIF scales."""
+def integer_vif_ops(bsz: int, h: int, w: int, folded: bool = True) -> tuple[float, float]:
+    """(int32, f32) operations of the four fixed-point VIF scales, with the
+    windows folded (or, for the bound of the unfolded windows, not)."""
     i_ops = f_ops = 0.0
     for k in range(4):
-        taps, emit = (1 << (4 - k)) + 1, (1 << (3 - k)) + 1 if k < 3 else 0
+        r, re = 1 << (3 - k), (1 << (2 - k)) if k < 3 else 0
         px = bsz * h * w
-        i_ops += px * (I_IVIF_TAP * taps + I_IVIF_PIX + (I_IVIF_EMIT_TAP * emit + I_IVIF_EMIT if emit else 0))
+        if folded:
+            taps = I_IVIF_PAIR * r + I_IVIF_CENTRE
+            emit = I_IVIF_EMIT_PAIR * re + I_IVIF_EMIT_CENTRE + I_IVIF_EMIT if k < 3 else 0
+        else:
+            taps = I_IVIF_TAP_UNFOLDED * (2 * r + 1)
+            emit = I_IVIF_EMIT_TAP_UNFOLDED * (2 * re + 1) + I_IVIF_EMIT if k < 3 else 0
+        i_ops += px * (taps + I_IVIF_PIX + emit)
         f_ops += px * F_IVIF_MAP
         h, w = (h + 1) // 2, (w + 1) // 2
     return i_ops, f_ops
@@ -1420,12 +1451,13 @@ def check_level_blocks(lib, card: str) -> None:
         need(got == want, f"tm_integer_adm_blocks({ch}, {cw}, {top}, {left}) = {got}, adm_blocks = {want}")
     types = ("unsigned char", "unsigned short", "int")
     for chk in (0, 1):
-        for scale, ty, inst in ((0, 0, "8, 4"), (0, 1, "8, 4"), (0, 2, "8, 4"), (1, 1, "4, 2"), (2, 1, "2, 1"),
-                                (3, 1, "1, 0")):
-            _build.check(lib.tm_integer_vif_attrs(scale, ty, chk, a), "tm_integer_vif_attrs")
-            log(f"integer_vif_kernel<{types[ty]}, {inst}, {'true' if chk else 'false'}> (scale {scale}): {a[0]} "
-                f"registers, {a[1]} B of dynamic shared memory per block, {a[2]} blocks per SM, {a[3]} B of "
-                f"local memory (spills) [{card}]")
+        for scale, ty, narrow, inst in ((0, 0, 1, "8, 4"), (0, 0, 0, "8, 4"), (0, 1, 0, "8, 4"), (0, 2, 0, "8, 4"),
+                                        (1, 1, 1, "4, 2"), (1, 1, 0, "4, 2"), (2, 1, 1, "2, 1"), (2, 1, 0, "2, 1"),
+                                        (3, 1, 1, "1, 0"), (3, 1, 0, "1, 0")):
+            _build.check(lib.tm_integer_vif_attrs(scale, ty, narrow, chk, a), "tm_integer_vif_attrs")
+            log(f"integer_vif_kernel<{types[ty]}, {inst}, {'true' if narrow else 'false'}, "
+                f"{'true' if chk else 'false'}> (scale {scale}): {a[0]} registers, {a[1]} B of dynamic shared "
+                f"memory per block, {a[2]} blocks per SM, {a[3]} B of local memory (spills) [{card}]")
         for codes, ty in ((1, 0), (1, 1), (1, 2), (0, 2)):
             _build.check(lib.tm_integer_adm_attrs(codes, ty, chk, a), "tm_integer_adm_attrs")
             log(f"integer_adm_kernel<{types[ty]}, {'true' if codes else 'false'}, {'true' if chk else 'false'}>: "
@@ -1714,6 +1746,21 @@ def conversion_sass(card: str) -> dict:
         log(f"SASS {kernel}: {r['path']} instructions per thread on the common path ({r['path'] / ppt:.1f} per "
             f"pixel), {r['mufu']} MUFU ({r['mufu'] / ppt:.2f} per pixel), {r['static']} in the function [{card}]")
     return counts
+
+
+def integer_sass(card: str) -> None:
+    """Phase 2: the SASS of INT_SASS's kernels in the built library
+    (tools/sass_count.py): IMAD, IADD3 and LDS on a thread's common path,
+    per thread and per output pixel."""
+    from turbo_metrics_tpu_torch.tools import sass_count
+
+    rows = {r["kernel"]: r for r in sass_count.kernel_counts([k for k, _ in INT_SASS.values()], ops=INT_SASS_OPS)}
+    for wrapper, (kernel, ppt) in INT_SASS.items():
+        need(kernel in rows, f"no SASS of {kernel} in the built library (have {sorted(rows)})")
+        r = rows[kernel]
+        per = ", ".join(f"{r['ops'][op]} {op} ({r['ops'][op] / ppt:.1f} per pixel)" for op in INT_SASS_OPS)
+        log(f"SASS {kernel} ({wrapper}): {r['path']} instructions per thread on the common path "
+            f"({r['path'] / ppt:.1f} per output pixel): {per}; {r['static']} in the function [{card}]")
 
 
 def issue_ms(counts, threads: int, dev) -> float:
@@ -2069,6 +2116,7 @@ def main() -> int:
             log(f"  ptxas: {ln.strip()}")
     check_level_blocks(_build.LIBRARY.get(), card)
     conv_sass = conversion_sass(card)
+    integer_sass(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2450,15 +2498,18 @@ def main() -> int:
         })
     for name, src_file, ports, err, ms, pms, nb, (i_ops, f_ops), dms in int_rows:
         bound_ms, bound_by = bound(nb, 0.0, issue=mixed_ops_ms(i_ops, f_ops))
+        unfolded = ""
+        if name == "integer_vif_stats":
+            unfolded = f"; with unfolded windows {mixed_ops_ms(*integer_vif_ops(bsz, h, w, folded=False)):.4f} ms"
         log(f"{name}: {ms:.3f} ms (device {dms:.4f}) vs plain {pms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-            f"({nb / 1e6:.1f} MB, {i_ops / 1e9:.2f} G int32 ops + {f_ops / 1e9:.2f} G FLOP), launches "
+            f"({nb / 1e6:.1f} MB, {i_ops / 1e9:.2f} G int32 ops + {f_ops / 1e9:.2f} G FLOP{unfolded}), launches "
             f"{int_launches[name]}, max abs err {err[name]:.3g} [{card}]")
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + src_file,
             # No TPU kernel: the jnp function of the JAX package it ports.
             "replaces": ports, "launches": int_launches[name], "max_abs_err": err[name], "ms": ms,
             "plain_ms": pms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "redesigned": None, "tpu_kernel": False, "device_ms": dms,
+            "redesigned": REDESIGNED.get(name), "tpu_kernel": False, "device_ms": dms,
         })
     peak = max(RUN_PEAK[0], torch.cuda.max_memory_allocated(dev))
     log(f"peak device memory {peak / 2**30:.2f} GiB [{card}]")

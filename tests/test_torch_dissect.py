@@ -326,20 +326,35 @@ def test_level_outputs_own_calls_run_on_cpu():
     mask halo leaves the band plane, #6 at 8 bits and an odd size, #5 at
     4:2:2 10-bit and 4:4:4 12-bit PQ, #16 on 8-bit, 10-bit (at an odd size
     and at the given shape) and int32 luma, #17 on one frame, #4 on three
-    and five levels, #13 on u8, 10-bit against 8-bit and 10-bit luma) build
-    their inputs from a seed and run through the
-    wrappers, here their twins: each entry names its wrapper and returns the
-    wrapper's shapes."""
+    and five levels, #13 on u8, 10-bit against 8-bit and 10-bit luma, and
+    the fixed-point VIF and ADM: sums, and per scale and per level the
+    integer surfaces, on u8 and 10-bit u16 pairs at the given shape and
+    12-bit u16 and 10-bit int32 pairs at 67x99) build their inputs from a
+    seed and run through the wrappers, here their twins: each entry names
+    its wrapper and returns the wrapper's shapes."""
     from turbo_metrics_tpu_torch.tools import level_outputs
 
     calls = level_outputs.own_calls(1, 48, 64, torch.device("cpu"))
     shapes = {}
     for entry, _, fn in calls:
         got = fn()
-        shapes[entry] = tuple(got.shape) if torch.is_tensor(got) else tuple(tuple(t.shape) for t in got)
+        shapes[entry] = (tuple(got.shape) if torch.is_tensor(got)
+                         else tuple(None if t is None else tuple(t.shape) for t in got))
     assert {w for _, w, _ in calls} == {"adm_stats", "yuv420_to_linear_rgb_pair", "yuv_to_linear_rgb",
-                                        "motion_stats", "integer_blur", "fused_tail", "xpsnr_block_stats"}
-    assert shapes == {
+                                        "motion_stats", "integer_blur", "fused_tail", "xpsnr_block_stats",
+                                        "integer_vif_stats", "integer_adm_stats"}
+    int_shapes = {}
+    for what, (b, h, w) in (("u8 64x48", (1, 48, 64)), ("10-bit u16 64x48", (1, 48, 64)),
+                            ("12-bit u16 99x67", (2, 67, 99)), ("10-bit int32 99x67", (2, 67, 99))):
+        int_shapes[f"K-int-VIF sums {what}"] = (b, 4, 2)
+        int_shapes[f"K-int-ADM sums {what}"] = (b, 4, 3, 2)
+        for k in range(4):
+            ch, cw = (h + 1) // 2, (w + 1) // 2
+            int_shapes[f"K-int-VIF scale {k} {what}"] = ((b, h, w),) * 7
+            int_shapes[f"K-int-ADM level {k} {what}"] = ((b, ch, cw),) * 9
+            h, w = ch, cw
+    assert {k: v for k, v in shapes.items() if k.startswith("K-int")} == int_shapes
+    assert {k: v for k, v in shapes.items() if not k.startswith("K-int")} == {
         "#16 motion u8 64x48": ((1, 48, 64), (1, 48)),
         "#16 motion 10-bit 131x35": ((3, 35, 131), (3, 35)),
         "#16 motion int32 codes 131x35": ((3, 35, 131), (3, 35)),
@@ -386,6 +401,19 @@ def test_sass_count_walks_the_common_path(listing, want):
     from turbo_metrics_tpu_torch.tools import sass_count
 
     assert sass_count.count(listing) == want
+
+
+def test_sass_count_tallies_opcodes_on_the_path():
+    """With opcode prefixes, ``sass_count.count`` also counts the path's
+    instructions by prefix (every form of IMAD under IMAD), not those that
+    only branches reach."""
+    from turbo_metrics_tpu_torch.tools import sass_count
+
+    listing = [(0x00, "IMAD R1, R2, R3, R1"), (0x10, "IMAD.MOV.U32 R4, RZ, RZ, R1"), (0x20, "IADD3 R1, R1, R4, RZ"),
+               (0x30, "@P0 BRA 0x60"), (0x40, "LDS.U16 R5, [R2]"), (0x50, "BRA 0x80"),
+               (0x60, "IMAD R6, R6, R6, RZ"), (0x70, "LDS R6, [R3]"), (0x80, "EXIT")]
+    got = sass_count.count(listing, ("IMAD", "IADD3", "LDS"))
+    assert got == {"static": 9, "path": 7, "mufu": 0, "ops": {"IMAD": 2, "IADD3": 1, "LDS": 1}}
 
 
 @pytest.mark.parametrize("demangled,want", [

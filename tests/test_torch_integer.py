@@ -19,6 +19,8 @@ import json
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 
@@ -162,6 +164,130 @@ def test_integer_adm_levels_match_jax(jax_surfaces, name):
             assert g.dtype == (np.bool_ if key == "angle_ok" else np.int32), key
             np.testing.assert_array_equal(g, want[li][key], err_msg=f"{name} level {li} {key}")
             np.testing.assert_array_equal(g, oracle[li][key], err_msg=f"{name} level {li} {key} (oracle)")
+
+
+# -- what K-int-VIF's design rests on (csrc/integer_vif.cu) -------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def test_vif_windows_are_symmetric():
+    """Every scale's C1 and C2 (and so each next window, C1e and C2e) equals
+    its own reverse: the kernel folds each window, c[k] (x[k] + x[2R-k]),
+    and refuses one that is not."""
+    for k in range(4):
+        for bits in (16, 12):
+            c = tiv.vif_coeffs_q(k, bits)
+            assert len(c) == 2 * (8 >> k) + 1
+            np.testing.assert_array_equal(c, c[::-1])
+
+
+def _folded_pass(x: torch.Tensor, c: np.ndarray, dim: int, rshift: int) -> torch.Tensor:
+    """The kernel's blur along ``dim``: c[R] x[i] + sum_{k<R} c[k] (x[i-R+k]
+    + x[i+R-k]) in uint32 (int64 masked to 32 bits after every operation),
+    then (+ 2^(rshift-1)) >> rshift; reflect-101 borders."""
+    r = len(c) // 2
+    d = x.shape[dim]
+    xp = x.index_select(dim, tvif.reflect101_index(d, r, x.device))
+    acc = int(c[r]) * xp.narrow(dim, r, d) & _M32
+    for k in range(r):
+        pair = (xp.narrow(dim, k, d) + xp.narrow(dim, 2 * r - k, d)) & _M32
+        acc = (acc + int(c[k]) * pair) & _M32
+    return ((acc + (1 << (rshift - 1))) & _M32) >> rshift
+
+
+def _folded_scale(x: torch.Tensor, y: torch.Tensor, k: int) -> dict:
+    """A torch model of one scale of the kernel's folded uint32 schedule on
+    its inputs x, y (int64 holding uint32): the vertical planes (vx, vy,
+    vxx, vyy, vxy), the moments and means, and, below scale 3, the next
+    window's vertical pass (vxe, vye) and the next scale's input."""
+    c1, c2 = tiv.vif_coeffs_q(k, 16), tiv.vif_coeffs_q(k, 12)
+    v = {"vx": _folded_pass(x, c1, -2, 8), "vy": _folded_pass(y, c1, -2, 8)}
+    for name, p in (("vxx", x * x), ("vyy", y * y), ("vxy", x * y)):
+        v[name] = _folded_pass(p & _M32, c2, -2, 12)
+    mu1 = tiv.wrap_i32(_folded_pass(v["vx"], c2, -1, 16)).to(torch.int64)
+    mu2 = tiv.wrap_i32(_folded_pass(v["vy"], c2, -1, 16)).to(torch.int64)
+    pb = {n: tiv.wrap_i32(_folded_pass(v["v" + n], c2, -1, 4)).to(torch.int64) for n in ("xx", "yy", "xy")}
+    out = dict(v, s11=torch.clamp_min(tiv.wrap_i32(pb["xx"] - tiv.wrap_i32(mu1 * mu1)), 0),
+               s22=torch.clamp_min(tiv.wrap_i32(pb["yy"] - tiv.wrap_i32(mu2 * mu2)), 0),
+               s12=tiv.wrap_i32(pb["xy"] - tiv.wrap_i32(mu1 * mu2)), mu1=mu1.to(torch.int32), mu2=mu2.to(torch.int32))
+    if k < 3:
+        c1e, c2e = tiv.vif_coeffs_q(k + 1, 16), tiv.vif_coeffs_q(k + 1, 12)
+        for img, z in (("x", x), ("y", y)):
+            out["v" + img + "e"] = _folded_pass(z, c1e, -2, 8)
+            out["next_" + img] = tiv.wrap_i32(_folded_pass(out["v" + img + "e"], c2e, -1, 20)[..., ::2, ::2])
+    return out
+
+
+def _scale_inputs(plane: torch.Tensor) -> torch.Tensor:
+    return plane.to(torch.int64) & _M32
+
+
+FOLD_CASES = {
+    "u8-40x56": lambda rng: (rng.integers(0, 256, (40, 56)), rng.integers(0, 256, (40, 56)), np.uint8),
+    # int32 codes over the whole range (as uint32 bits): every blur wraps.
+    "wrapped-int32-24x40": lambda rng: (rng.integers(-(1 << 31), 1 << 31, (24, 40)),
+                                        rng.integers(-(1 << 31), 1 << 31, (24, 40)), np.int32),
+}
+
+
+@pytest.mark.parametrize("name", list(FOLD_CASES))
+def test_folded_vif_schedule_matches_twin(name):
+    """The folded uint32 schedule (a torch model of csrc/integer_vif.cu's
+    passes) equals ``integer_vif_scale_planes`` bit for bit: at scale 0,
+    which emits the next scale's input, and at scale 3, on the twin's own
+    scale-3 input; also where the codes wrap every 32-bit sum."""
+    ref, dis, dt = FOLD_CASES[name](np.random.default_rng(41))
+    r, d = _t(ref.astype(dt)), _t(dis.astype(dt))
+    planes = tiv.integer_vif_scale_planes(r, d)
+    got0 = _folded_scale(_scale_inputs(r), _scale_inputs(d), 0)
+    for key in ("s11", "s22", "s12", "mu1", "mu2"):
+        assert torch.equal(got0[key], planes[0][key]), key
+    assert torch.equal(got0["next_x"], planes[1]["ref"]) and torch.equal(got0["next_y"], planes[1]["dis"])
+    got3 = _folded_scale(_scale_inputs(planes[3]["ref"]), _scale_inputs(planes[3]["dis"]), 3)
+    for key in ("s11", "s22", "s12", "mu1", "mu2"):
+        assert torch.equal(got3[key], planes[3][key]), key
+
+
+def test_narrow_instances_chosen_by_type_and_depth():
+    """K-int-VIF's narrow instances (uint16 shared planes) take
+    uint8 codes that are not pre-rounded, nothing else."""
+    z = torch.zeros((2, 1, 4, 4))
+    assert kiv.narrow_codes(z.to(torch.uint8), 8) and kiv.narrow_codes(z.to(torch.uint8), 6)
+    assert not kiv.narrow_codes(z.to(torch.uint8), 10)
+    assert not kiv.narrow_codes(z.to(torch.uint16), 8) and not kiv.narrow_codes(z.to(torch.int32), 8)
+
+
+@settings(max_examples=24, deadline=None, derandomize=True)
+@given(depth=st.integers(8, 16), seed=st.integers(0, 2**32 - 1), extreme=st.booleans())
+def test_vif_planes_stay_in_the_narrow_range(depth, seed, extreme):
+    """For codes < 2^depth every scale's input, as the twin computes it, is
+    at most 2^8: at most 255 at 8 bits, where the kernel's narrow instances
+    keep the vertical planes (vx <= 65280, vxx, vyy, vxy <= 65025) and the
+    next window's vertical pass (<= 65280) in uint16; above 8 bits the
+    largest code pre-rounds to 256, whose vertical sums (up to 65536) need
+    the wide instances.  ``extreme``: every code at 0 or at the largest."""
+    rng = np.random.default_rng(seed)
+    hi = (1 << depth) - 1
+    shape = (20, 36)
+    if extreme:
+        ref, dis = rng.integers(0, 2, shape) * hi, rng.integers(0, 2, shape) * hi
+    else:
+        ref, dis = rng.integers(0, hi + 1, shape), rng.integers(0, hi + 1, shape)
+    dt = np.uint8 if depth == 8 else np.uint16
+    planes = tiv.integer_vif_scale_planes(_t(ref.astype(dt)), _t(dis.astype(dt)), depth=depth)
+    top = 255 if depth == 8 else 256
+    for k in range(4):
+        assert int(planes[k]["ref"].max()) <= top and int(planes[k]["dis"].max()) <= top
+    if depth > 8:
+        assert ((hi + (1 << (depth - 9))) >> (depth - 8)) == 256
+        return
+    for k in range(4):
+        m = _folded_scale(_scale_inputs(planes[k]["ref"]), _scale_inputs(planes[k]["dis"]), k)
+        assert int(torch.stack([m["vx"], m["vy"]]).max()) <= 65280
+        assert int(torch.stack([m["vxx"], m["vyy"], m["vxy"]]).max()) <= 65025
+        if k < 3:
+            assert int(torch.stack([m["vxe"], m["vye"]]).max()) <= 65280
 
 
 STATS_CASES = {"96x128-b2": (2, 96, 128, 8), "67x99-10bit": (1, 67, 99, 10)}

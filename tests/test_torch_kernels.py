@@ -249,6 +249,39 @@ def test_build_key_covers_every_csrc_file(tmp_path):
     assert len(seen) == len(files) + 2
 
 
+def _c_entry_params(name: str) -> list[str]:
+    """The parameter declarations of the C entry point ``name`` in csrc/."""
+    import re
+
+    for src in _build.SOURCES:
+        text = (_build.CSRC / src).read_text()
+        m = re.search(r"^int " + name + r"\(([^)]*)\)\s*\{", text, re.M)
+        if m:
+            return [p.strip() for p in m.group(1).split(",") if p.strip() not in ("", "void")]
+    raise AssertionError(f"{name} is defined in no source of csrc/")
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_entry_point_bindings_match_the_sources(name):
+    """Each ctypes binding of _build has the C entry point's parameters, one
+    for one: a pointer for a pointer (device or host), a float for a float,
+    an int for an int (no nvcc needed; a mismatch passes a wrong argument
+    silently on the card)."""
+    import ctypes
+
+    params = _c_entry_params(name)
+    argtypes = _build._SIGNATURES[name]
+    assert len(params) == len(argtypes), (params, argtypes)
+    for decl, kind in zip(params, argtypes):
+        if "*" in decl:
+            assert kind in (ctypes.c_void_p, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)), decl
+            if kind is not ctypes.c_void_p:
+                assert decl.startswith(("float", "const float") if kind._type_ is ctypes.c_float
+                                       else ("int", "const int")), decl
+        else:
+            assert kind is (ctypes.c_float if decl.startswith("float") else ctypes.c_int), decl
+
+
 @pytest.mark.parametrize("hw", [(1, 1), (33, 65), (67, 99), (1080, 1920)])
 def test_level_scratch_holds_xyb_and_partials_only(hw):
     """The SSIMULACRA2 level pass keeps its four row-blurred planes in shared

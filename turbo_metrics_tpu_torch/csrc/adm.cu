@@ -49,19 +49,19 @@
 //   * the row pass (lo and hi at the tile's 34 band columns) goes to shared
 //     memory; the column pass runs over four consecutive band rows per
 //     thread, reading each of their 10 row-filtered rows once; the gate,
-//     decoupling and CSF follow; the mask's products |csf*a|/30 and
-//     |csf*a|/15 go to shared memory once per band pixel, |csf*r| and
+//     decoupling and CSF follow; |csf*a| goes to shared memory once per
+//     band pixel (the mask forms its products as it reads it), |csf*r| and
 //     |csf*o| of the interior stay in registers, and the A bands (the next
 //     level's input) are written from the interior only;
 //   * the mask reads its neighbours at their reflect-101 index in the plane,
 //     which lies inside the tile's 34x34 band pixels wherever a mask halo
 //     leaves the plane, so no band pixel is computed twice; a thread's four
 //     rows share their neighbour rows.
-// 108,592 B of dynamic shared memory per block (raw boxes 42,752, row
-// passes 38,080, mask products 27,744, the mbarrier), set once per
-// process.  Neither the row-filtered nor the band planes reach device
-// memory.  An input whose rows are not whole 16-byte chunks, or smaller
-// than 8 x 4, is read one sample at a time instead of by tensor copies.
+// 94,720 B of dynamic shared memory per block (raw boxes 42,752, row
+// passes 38,080, |csf*a| 13,872, the mbarrier), set once per process.
+// Neither the row-filtered nor the band planes reach device memory.  An
+// input whose rows are not whole 16-byte chunks, or smaller than 8 x 4, is
+// read one sample at a time instead of by tensor copies.
 //
 // Layouts (all contiguous; ch = ceil(h/2), cw = ceil(w/2)):
 //   in     (2, B, h, w)      f32 luma in 8-bit units, or the previous level's A bands
@@ -85,7 +85,9 @@ struct AdmConsts {
   AdmFinish f;                 // the finish's constants
 };
 
-constexpr size_t kSmemBytes = sizeof(float) * (kRawFloats + 4 * kRowFloats + 6 * kBandFloats) + 16;
+using Raw = RawTile<float>;
+static_assert(Raw::kMaxOff == 0, "f32 raw rows start at raw column 0");
+constexpr size_t kSmemBytes = Raw::kBytes + sizeof(float) * (4 * kRowFloats + 3 * kBandFloats) + 16;
 
 // taps . x[k], as acc = x0*t0; acc = acc + xk*tk (the plain version's order).
 template <typename Load>
@@ -97,89 +99,6 @@ __device__ __forceinline__ float dec(const float (&taps)[kTaps], Load load) {
     acc = k == 0 ? x : __fadd_rn(acc, x);
   }
   return acc;
-}
-
-// The Tensor Memory Accelerator's copy of one image's raw rows: the box of
-// kRawW x kInRows samples at column c0, row c1 of plane c2 of the input
-// (tmap), zeros outside the input, completing on the mbarrier at bar.
-__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap& tmap, int c0, int c1, int c2,
-                                         unsigned bar) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(d),
-      "l"(reinterpret_cast<uint64_t>(&tmap)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// Waits until the mbarrier at bar has completed the phase of this parity.
-__device__ __forceinline__ void wait_parity(unsigned bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// Thread 0 starts the copy of both images' raw rows of the tile at (b, by0,
-// bx0) into raw[image][lr][kRawW]; the block waits for the mbarrier's phase
-// (wait_parity), then fills the samples outside the input (fix_edges).
-__device__ __forceinline__ void start_raw(float* __restrict__ raw, const CUtensorMap& tmap, int bsz,
-                                          int b, int by0, int bx0, unsigned bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"((int)(2 * kInRows * kRawW * sizeof(float)))
-               : "memory");
-#pragma unroll
-  for (int im = 0; im < 2; ++im) {
-    tma_load(raw + im * kRawStride, tmap, raw_col0(bx0), 2 * by0 - 3, im * bsz + b, bar);
-  }
-}
-
-// Where the box left the h x w input, the samples that a band pixel of the
-// plane reads get the value at their symmetric index, which the box holds
-// (h >= 4, w >= 8): input rows -1, h and h+1 (every column of the box that
-// is read, -1 .. w+2), then columns -1, w, w+1 and w+2 of the other rows.
-__device__ __forceinline__ void fix_edges(float* __restrict__ raw, int h, int w, int by0, int bx0) {
-  const int r0 = 2 * by0 - 3, a0 = raw_col0(bx0);
-  if (r0 >= 0 && r0 + kInRows <= h && a0 >= 0 && a0 + kRawW <= w) return;
-  constexpr int kRowFix = 3 * kRawW, kColFix = 4 * kInRows;
-  for (int i = threadIdx.x; i < 2 * (kRowFix + kColFix); i += kThreadsAdm) {
-    const int im = i / (kRowFix + kColFix), n = i % (kRowFix + kColFix);
-    int r, col;
-    if (n < kRowFix) {
-      const int e = n / kRawW;
-      r = e == 0 ? -1 : h - 1 + e;
-      col = a0 + n % kRawW;
-    } else {
-      const int e = (n - kRowFix) / kInRows;
-      r = r0 + (n - kRowFix) % kInRows;
-      col = e == 0 ? -1 : w - 1 + e;
-      if (r < 0 || r >= h) continue;
-    }
-    const int lr = r - r0, k = col - a0;
-    if (lr < 0 || lr >= kInRows || k < 0 || k >= kRawW || col < -1 || col > w + 2) continue;
-    float* p = raw + im * kRawStride;
-    p[lr * kRawW + k] = p[(symmetric(r, h) - r0) * kRawW + symmetric(col, w) - a0];
-  }
-}
-
-// The raw rows of the tile at (b, by0, bx0), one load per sample at its
-// symmetric index, by the whole block: for inputs that the tensor copy does
-// not take (rows not a multiple of 16 bytes, or smaller than 8 x 4).
-__device__ __forceinline__ void load_raw(float* __restrict__ raw, const float* __restrict__ in,
-                                         int bsz, int b, int h, int w, int by0, int bx0) {
-  const int r0 = 2 * by0 - 3, a0 = raw_col0(bx0);
-  const size_t npx = (size_t)h * w;
-  for (int i = threadIdx.x; i < 2 * kInRows * kRawW; i += kThreadsAdm) {
-    const int k = i % kRawW, lr = i / kRawW % kInRows, im = i / (kRawW * kInRows);
-    const float* q = in + ((size_t)im * bsz + b) * npx + (size_t)symmetric(r0 + lr, h) * w;
-    raw[im * kRawStride + lr * kRawW + k] = __ldg(q + symmetric(a0 + k, w));
-  }
 }
 
 // One tap of the column pass: acc = x*t at k = 0, else acc + x*t (the
@@ -258,12 +177,11 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
                 int bsz, int h, int w, int top, int left, AdmConsts c, float* __restrict__ approx,
                 float* __restrict__ parts) {
   extern __shared__ __align__(128) float smem[];
-  float* raw = smem;                   // [2 images][kRawStride]: kInRows x kRawW each
-  float* rows = raw + kRawFloats;      // [2 images][lo, hi][kInRows][kBand]
-  float* me = rows + 4 * kRowFloats;   // [H, V, D][kBand][kBand] |csf*a| * (1/30)
-  float* mc = me + 3 * kBandFloats;    // [H, V, D][kBand][kBand] |csf*a| * (1/15)
+  float* raw = smem;                   // [2 images][Raw::kStride]: kInRows x Raw::kW each
+  float* rows = raw + 2 * Raw::kStride;  // [2 images][lo, hi][kInRows][kBand]
+  float* ca = rows + 4 * kRowFloats;   // [H, V, D][kBand][kBand] |csf*a|
   float* xch = rows;                   // rows 4-7 of each sub-tile's cubes, once rows is dead
-  const unsigned bar = static_cast<unsigned>(__cvta_generic_to_shared(mc + 3 * kBandFloats));
+  const unsigned bar = static_cast<unsigned>(__cvta_generic_to_shared(ca + 3 * kBandFloats));
   const int ch = (h + 1) / 2, cw = (w + 1) / 2;
   const AdmGrid g = adm_grid(h, w, top, left);
   const int ntiles = g.nx * g.ny * bsz;
@@ -274,10 +192,7 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
     tile_origin(t, g.nx, g.ny, g.gy0, g.gx0, b, by0, bx0);
   };
 
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) init_barrier(bar);
   __syncthreads();
   if (use_tma && threadIdx.x == 0 && (int)blockIdx.x < ntiles) {
     int b, by0, bx0;
@@ -304,7 +219,7 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
       const int m = threadIdx.x % kPairs;
       for (int rr = threadIdx.x / kPairs; rr < 2 * kInRows; rr += kRowLanes / kPairs) {
         const int im = rr >= kInRows, lr = rr - im * kInRows;
-        const float* r = raw + im * kRawStride + lr * kRawW + 4 * m;
+        const float* r = raw + im * Raw::kStride + lr * Raw::kW + 4 * m;
         const float4 p0 = *reinterpret_cast<const float4*>(r);
         const float4 p1 = *reinterpret_cast<const float4*>(r + 4);
         const float x[6] = {p0.y, p0.z, p0.w, p1.x, p1.y, p1.z};
@@ -329,15 +244,14 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
       start_raw(raw, tmap, bsz, nb, nby0, nbx0, bar);
     }
 
-    // Column pass, gate, decoupling and CSF.  The mask's products
-    // |csf*a| * (1/30) and |csf*a| * (1/15) of each band pixel go to shared
-    // memory, once each: first at the halo ring, ...
+    // Column pass, gate, decoupling and CSF.  |csf*a| of each band pixel
+    // goes to shared memory, once: first at the halo ring, ...
     for (int i = threadIdx.x; i < kHalo; i += kThreadsAdm) {
       int li, lj;
       halo_pixel(i, li, lj);
       float dwt[1][2][4];
       column_pass<1>(rows, li, lj, c, dwt);
-      put_mask(me, mc, li, lj, gate_csf(dwt[0], c), c.f);
+      put_mask(ca, li, lj, gate_csf(dwt[0], c));
     }
     // ... then at the interior: column lane, the warp's four rows; |csf*r|
     // and |csf*o| stay in registers.
@@ -351,7 +265,7 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
       for (int o = 0; o < kRowsPerWarp; ++o) {
         const int gi = by0 + row0 + o;
         const BandPixel p = gate_csf(dwt[o], c);
-        put_mask(me, mc, 1 + row0 + o, lane + 1, p, c.f);
+        put_mask(ca, 1 + row0 + o, lane + 1, p);
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           cr[o][q] = p.cr[q];
@@ -367,7 +281,7 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
     __syncthreads();
 
     // The mask and the cubes at the centre region, then the partials.
-    mask_cubes_partials(me, mc, xch, cr, co, b, by0, bx0, row0, ch, cw, top, left, nbx, nby, parts);
+    mask_cubes_partials(ca, xch, cr, co, b, by0, bx0, row0, ch, cw, top, left, nbx, nby, c.f, parts);
   }
 }
 
@@ -395,43 +309,6 @@ const TileSetup& tile_setup() {
     return t;
   }();
   return setup;
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
-// libcuda): once per process.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess) {
-      return static_cast<EncodeTiled>(nullptr);
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// The tensor map of the (2B, h, w) input whose boxes are a tile's raw rows
-// of one image; false where the tensor copy does not take the input (rows
-// not a multiple of 16 bytes, an unaligned base, a plane smaller than 8 x
-// 4): the kernel then loads the samples one by one.
-bool raw_tensor_map(CUtensorMap* map, const float* in, int bsz, int h, int w) {
-  if (w % 4 != 0 || w < 8 || h < 4 || reinterpret_cast<uintptr_t>(in) % 16 != 0) return false;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)2 * bsz};
-  const cuuint64_t strides[2] = {(cuuint64_t)w * sizeof(float), (cuuint64_t)h * w * sizeof(float)};
-  const cuuint32_t box[3] = {kRawW, kInRows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(in), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -1,20 +1,28 @@
-// The tile geometry and the float finish of one ADM level, shared by the
-// float kernel (adm.cu, #18) and the fixed-point one (integer_adm.cu), so
-// that both decouple, weight, mask and pool the same way in the same order
-// (ops/adm.py decouple_csf and level_sums):
+// The tile geometry, the raw-row copies and the float finish of one ADM
+// level, shared by the float kernel (adm.cu, #18) and the fixed-point one
+// (integer_adm.cu), so that both read, decouple, weight, mask and pool the
+// same way in the same order (ops/adm.py decouple_csf and level_sums):
 //   * the tile: a block of kThreadsAdm threads owns a 32x32 tile of band
 //     pixels of one frame plus the mask's one-pixel halo (kBand x kBand),
 //     reads kInRows input rows and kRawW raw columns of each image, and
 //     keeps the row pass (lo and hi) of both images in shared memory;
+//   * the raw rows (RawTile<E>, at the input's own type E): copied by the
+//     Tensor Memory Accelerator (start_raw, completing on an mbarrier,
+//     then fix_edges), or loaded sample by sample (load_raw) where the
+//     tensor copy does not take the input (raw_tensor_map);
 //   * decouple_csf: the decoupling ratio, the gate's choice and the CSF
 //     weights of one band pixel;
-//   * put_mask: the mask's products of one band pixel into shared memory;
-//   * mask_cubes_partials: the 3x3 masks, the centre-region cubes and each
+//   * put_mask: |csf*a| of one band pixel into shared memory;
+//   * mask_cubes_partials: the 3x3 masks (the products |csf*a| * 1/30 and
+//     * 1/15 formed where they are read), the centre-region cubes and each
 //     32x8 sub-tile's six partials.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "level.cuh"
 
@@ -41,13 +49,27 @@ constexpr int kInRows = 2 * kBand + 2;       // input rows a tile reads (band i 
 constexpr int kRawChunks = kBand / 2 + 2;    // 16-byte chunks of a raw row (19)
 constexpr int kRawW = 4 * kRawChunks;        // raw samples of a row (76)
 constexpr int kPairs = (kBand + 2) / 2;      // band-column pairs of the row pass (one spare)
-constexpr int kRawStride = (kInRows * kRawW + 31) / 32 * 32;  // one image's raw rows, 128-byte aligned
-constexpr int kRawFloats = 2 * kRawStride;     // both images' raw rows
 constexpr int kRowFloats = kInRows * kBand;  // one row-filtered plane (lo or hi of one image)
 constexpr int kBandFloats = kBand * kBand;   // one plane of band pixels
 constexpr int kHalo = 4 * kBand - 4;         // band pixels of the halo ring
 constexpr int kRowsPerWarp = kBy / 2;        // interior band rows of a warp
 constexpr int kRowLanes = kPairs * (kThreadsAdm / kPairs);        // row-pass threads (252)
+
+// The raw rows of a tile at element type E in shared memory: kInRows rows of
+// kW samples per image, each image's rows 128-byte aligned.  A row is the
+// box row of a tensor copy that starts at the 16-byte boundary at or before
+// the tile's raw column 0 (raw_off samples before it) and holds its kRawW
+// samples, in whole 16-byte chunks: 76 samples at f32 and int32 (raw
+// column 0 is a multiple of 4, so the offset is 0), 80 at uint16, 96 at
+// uint8.
+template <typename E>
+struct RawTile {
+  static constexpr int kAlign = 16 / (int)sizeof(E);          // samples of 16 bytes
+  static constexpr int kMaxOff = kAlign > 4 ? kAlign - 4 : 0;  // the largest raw_off
+  static constexpr int kW = (kRawW + kMaxOff + kAlign - 1) / kAlign * kAlign;
+  static constexpr int kStride = (kInRows * kW * (int)sizeof(E) + 127) / 128 * 128 / (int)sizeof(E);
+  static constexpr int kBytes = 2 * kStride * (int)sizeof(E);
+};
 
 // Half-sample symmetric index of i on an axis of n (x[-1] = x[0], x[n] =
 // x[n-1]), period 2n.
@@ -61,6 +83,112 @@ __device__ __forceinline__ int symmetric(int i, int n) {
 // Raw column 0 of the tile at bx0: input column 2 bx0 - 4 - 2 (bx0 & 1), a
 // multiple of 4.
 __device__ __forceinline__ int raw_col0(int bx0) { return 2 * bx0 - 4 - 2 * (bx0 & 1); }
+
+// Where raw column k of the tile at bx0 lies in its shared row: at raw_off
+// + k, raw_off the distance from the 16-byte boundary at or before raw
+// column 0 (where the tensor copy's box starts); 0 at f32 and int32.
+template <typename E>
+__device__ __forceinline__ int raw_off(int bx0) {
+  constexpr int a = RawTile<E>::kAlign;
+  return ((raw_col0(bx0) % a) + a) % a;
+}
+
+// The Tensor Memory Accelerator's copy of one image's raw rows: the box of
+// kW x kInRows samples at column c0, row c1 of plane c2 of the input
+// (tmap), zeros outside the input, completing on the mbarrier at bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& tmap, int c0, int c1, int c2,
+                                         unsigned bar) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(d),
+      "l"(reinterpret_cast<uint64_t>(&tmap)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// Thread 0: the mbarrier at bar initialised for one arrival; the block
+// syncs before it is used.
+__device__ __forceinline__ void init_barrier(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Waits until the mbarrier at bar has completed the phase of this parity.
+__device__ __forceinline__ void wait_parity(unsigned bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Thread 0 starts the copy of both images' raw rows of the tile at (b, by0,
+// bx0) into raw[image][lr][kW], from the 16-byte boundary at or before raw
+// column 0; the block waits for the mbarrier's phase (wait_parity), then
+// fills the samples outside the input (fix_edges).
+template <typename E>
+__device__ __forceinline__ void start_raw(E* __restrict__ raw, const CUtensorMap& tmap, int bsz, int b, int by0,
+                                          int bx0, unsigned bar) {
+  using RT = RawTile<E>;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"((int)(2 * kInRows * RT::kW * sizeof(E)))
+               : "memory");
+#pragma unroll
+  for (int im = 0; im < 2; ++im) {
+    tma_load(raw + im * RT::kStride, tmap, raw_col0(bx0) - raw_off<E>(bx0), 2 * by0 - 3, im * bsz + b, bar);
+  }
+}
+
+// Where the box left the h x w input, the samples that a band pixel of the
+// plane reads get the value at their symmetric index, which the box holds
+// (h >= 4, w >= 8): input rows -1, h and h+1 (every column of the box that
+// is read, -1 .. w+2), then columns -1, w, w+1 and w+2 of the other rows.
+template <typename E>
+__device__ __forceinline__ void fix_edges(E* __restrict__ raw, int h, int w, int by0, int bx0) {
+  using RT = RawTile<E>;
+  const int r0 = 2 * by0 - 3, a0 = raw_col0(bx0), off = raw_off<E>(bx0);
+  if (r0 >= 0 && r0 + kInRows <= h && a0 >= 0 && a0 + kRawW <= w) return;
+  constexpr int kRowFix = 3 * kRawW, kColFix = 4 * kInRows;
+  for (int i = threadIdx.x; i < 2 * (kRowFix + kColFix); i += kThreadsAdm) {
+    const int im = i / (kRowFix + kColFix), n = i % (kRowFix + kColFix);
+    int r, col;
+    if (n < kRowFix) {
+      const int e = n / kRawW;
+      r = e == 0 ? -1 : h - 1 + e;
+      col = a0 + n % kRawW;
+    } else {
+      const int e = (n - kRowFix) / kInRows;
+      r = r0 + (n - kRowFix) % kInRows;
+      col = e == 0 ? -1 : w - 1 + e;
+      if (r < 0 || r >= h) continue;
+    }
+    const int lr = r - r0, k = col - a0;
+    if (lr < 0 || lr >= kInRows || k < 0 || k >= kRawW || col < -1 || col > w + 2) continue;
+    E* p = raw + im * RT::kStride + off;
+    p[lr * RT::kW + k] = p[(symmetric(r, h) - r0) * RT::kW + symmetric(col, w) - a0];
+  }
+}
+
+// The raw rows of the tile at (b, by0, bx0), one load per sample at its
+// symmetric index, by the whole block, at the places the tensor copy puts
+// them: for inputs that the tensor copy does not take.
+template <typename E>
+__device__ __forceinline__ void load_raw(E* __restrict__ raw, const E* __restrict__ in, int bsz, int b, int h,
+                                         int w, int by0, int bx0) {
+  using RT = RawTile<E>;
+  const int r0 = 2 * by0 - 3, a0 = raw_col0(bx0), off = raw_off<E>(bx0);
+  const size_t npx = (size_t)h * w;
+  for (int i = threadIdx.x; i < 2 * kInRows * kRawW; i += kThreadsAdm) {
+    const int k = i % kRawW, lr = i / kRawW % kInRows, im = i / (kRawW * kInRows);
+    const E* q = in + ((size_t)im * bsz + b) * npx + (size_t)symmetric(r0 + lr, h) * w;
+    raw[im * RT::kStride + lr * RT::kW + off + k] = __ldg(q + symmetric(a0 + k, w));
+  }
+}
 
 // The tile of t = (b ny + ty) nx + tx, of a grid anchored at the centre
 // region's origin (top, left), starting at (gy0, gx0): frame b, band origin
@@ -108,22 +236,18 @@ __device__ __forceinline__ BandPixel decouple_csf(const float (&o)[3], const flo
   return p;
 }
 
-// The mask's products |csf*a| * (1/30) into me and |csf*a| * (1/15) into mc
-// ([H, V, D][kBand][kBand]) at band pixel (li, lj).
-__device__ __forceinline__ void put_mask(float* __restrict__ me, float* __restrict__ mc, int li, int lj,
-                                         const BandPixel& p, const AdmFinish& f) {
+// |csf*a| of band pixel (li, lj) into ca ([H, V, D][kBand][kBand]).
+__device__ __forceinline__ void put_mask(float* __restrict__ ca, int li, int lj, const BandPixel& p) {
 #pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    me[q * kBandFloats + li * kBand + lj] = __fmul_rn(p.ca[q], f.m_edge);
-    mc[q * kBandFloats + li * kBand + lj] = __fmul_rn(p.ca[q], f.m_centre);
-  }
+  for (int q = 0; q < 3; ++q) ca[q * kBandFloats + li * kBand + lj] = p.ca[q];
 }
 
-// After every band pixel of the tile at (b, by0, bx0) has put its mask
-// products (the caller syncs the block first): the mask (three 3x3 filters
-// over |csf*a|, neighbours at their reflect-101 index in the plane, summed
-// in the plain version's order) and the cubes at the centre region [top,
-// ch-top) x [left, cw-left) of the warp's four rows (row0 .. row0+3 of the
+// After every band pixel of the tile at (b, by0, bx0) has put its |csf*a|
+// (the caller syncs the block first): the mask (three 3x3 filters over
+// |csf*a|, each neighbour's product with its weight, |csf*a| * (1/30) or at
+// the centre * (1/15), formed as it is read, at its reflect-101 index in the
+// plane, summed in the plain version's order) and the cubes at the centre
+// region [top, ch-top) x [left, cw-left) of the warp's four rows (row0 .. row0+3 of the
 // tile, column lane; cr, co their |csf*r| and |csf*o|), then each 32x8
 // sub-tile's six partials into parts (the centre region's pixel_grid, nbx x
 // nby blocks per frame).  The four rows of a thread share their neighbours:
@@ -132,11 +256,11 @@ __device__ __forceinline__ void put_mask(float* __restrict__ me, float* __restri
 // pixels; one outside it (whose cubes are not summed) reads clamped
 // indices.  xch: 4 * kRowsPerWarp * 6 * 32 floats of shared memory that
 // nothing else reads now.  Every thread of the block calls it.
-__device__ __forceinline__ void mask_cubes_partials(const float* __restrict__ me, const float* __restrict__ mc,
-                                                    float* __restrict__ xch, const float (&cr)[kRowsPerWarp][3],
+__device__ __forceinline__ void mask_cubes_partials(const float* __restrict__ ca, float* __restrict__ xch,
+                                                    const float (&cr)[kRowsPerWarp][3],
                                                     const float (&co)[kRowsPerWarp][3], int b, int by0, int bx0,
                                                     int row0, int ch, int cw, int top, int left, int nbx, int nby,
-                                                    float* __restrict__ parts) {
+                                                    const AdmFinish& f, float* __restrict__ parts) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int sub = warp / 2, half = warp % 2;
   const int gj = bx0 + lane;
@@ -154,10 +278,10 @@ __device__ __forceinline__ void mask_cubes_partials(const float* __restrict__ me
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp + 2; ++r) {
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx) e[r][dx] = me[q * kBandFloats + nrow[r] + ncol[dx]];
+      for (int dx = 0; dx < 3; ++dx) e[r][dx] = __fmul_rn(ca[q * kBandFloats + nrow[r] + ncol[dx]], f.m_edge);
     }
 #pragma unroll
-    for (int o = 0; o < kRowsPerWarp; ++o) cen[o] = mc[q * kBandFloats + nrow[o + 1] + ncol[1]];
+    for (int o = 0; o < kRowsPerWarp; ++o) cen[o] = __fmul_rn(ca[q * kBandFloats + nrow[o + 1] + ncol[1]], f.m_centre);
 #pragma unroll
     for (int o = 0; o < kRowsPerWarp; ++o) {
       float m = 0.0f;
@@ -229,6 +353,49 @@ __host__ __device__ inline AdmGrid adm_grid(int h, int w, int top, int left) {
   g.nx = (cw - g.gx0 + kTileW - 1) / kTileW;
   g.ny = (ch - g.gy0 + kTileH - 1) / kTileH;
   return g;
+}
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query (no link
+// to libcuda): once per process.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of the (2B, h, w) input of element type E whose boxes are a
+// tile's raw rows of one image (RawTile<E>::kW x kInRows); false where the
+// tensor copy does not take the input (rows not a multiple of 16 bytes, an
+// unaligned base, a plane smaller than 8 x 4): the kernel then loads the
+// samples one by one (load_raw).
+template <typename E>
+bool raw_tensor_map(CUtensorMap* map, const E* in, int bsz, int h, int w) {
+  if ((w * sizeof(E)) % 16 != 0 || w < 8 || h < 4 || reinterpret_cast<uintptr_t>(in) % 16 != 0) return false;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const CUtensorMapDataType type = std::is_same_v<E, float>      ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : std::is_same_v<E, int>      ? CU_TENSOR_MAP_DATA_TYPE_INT32
+                                   : std::is_same_v<E, uint16_t> ? CU_TENSOR_MAP_DATA_TYPE_UINT16
+                                                                 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)2 * bsz};
+  const cuuint64_t strides[2] = {(cuuint64_t)w * sizeof(E), (cuuint64_t)h * w * sizeof(E)};
+  const cuuint32_t box[3] = {RawTile<E>::kW, kInRows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<E*>(in), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

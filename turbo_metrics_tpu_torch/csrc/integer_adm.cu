@@ -31,20 +31,26 @@
 // pixel of the pair at level 0 2 bytes of u8 codes in and the A bands out
 // at a quarter of the pixels, against ~30 int32 and ~30 f32 operations), in
 // practice the latency of each tile's dependent chains.  The design is
-// #18's tile (adm_tile.cuh), simplified: one block of 8 warps per 32x32 tile
-// of band pixels of one frame, both images; the tile's 70 input rows x 76
-// columns of each image are read into shared memory, a warp per row and a
-// lane per sample at its symmetric index, a thread's 54 loads all issued
-// before its first store (int32; level 0 converts the codes there), the
-// integer row pass (lo and hi) goes to shared memory, the
-// integer column pass, gate and the finish's decoupling run at the halo ring
-// and then at the interior, where the A bands (the next level's input) are
-// written and |csf*r|, |csf*o| stay in registers; then adm_tile.cuh's masks,
-// cubes and partials.  #18's persistent blocks and tensor copies are not used: the
-// level-0 input is 1-4 bytes a sample and is converted as it is read.
-// 108,576 B of dynamic shared memory per block: two blocks per SM.  With
-// kCheck the kernel also writes the integer surface: the six detail bands
-// and the gate (0/1), int32.
+// #18's (adm.cu, adm_tile.cuh) with integer arithmetic:
+//   * a persistent block of 8 warps walks 32x32 tiles of band pixels of one
+//     frame, both images, on adm_tile.cuh's grid;
+//   * a tile's 70 input rows x 76 columns of each image stay in shared
+//     memory at the input's own type (RawTile<T>: 13,568 B for both images
+//     at u8, 42,752 as int32); thread 0 starts the next tile's two boxes as
+//     tensor copies as soon as the row pass has read the current one, so
+//     the copy runs under the column pass and the mask; where the tensor
+//     copy does not take the input, the compute warps load it (load_raw).
+//     Level 0 converts the codes where the row pass reads them;
+//   * the integer row pass (lo and hi) goes to shared memory, the integer
+//     column pass, gate and the finish's decoupling run at the halo ring
+//     (threads 0-131, while the others go on to their rows) and then at the
+//     interior, where the A bands (the next level's input) are written and
+//     |csf*r|, |csf*o| stay in registers; |csf*a| goes to shared memory;
+//     then adm_tile.cuh's masks, cubes and partials.
+// Dynamic shared memory per block: 65,536 B from u8 codes and 74,496 from
+// u16 (three blocks per SM), 94,720 from int32 codes and A bands (two).
+// With kCheck the kernel also writes the integer surface: the six detail
+// bands and the gate (0/1), int32.
 //
 // Layouts (all contiguous; ch = ceil(h/2), cw = ceil(w/2)):
 //   in     (2, B, h, w)      luma codes uint8 / uint16 / int32 (level 0), or
@@ -54,6 +60,7 @@
 //   sums   (B, ...)          f32 at sums[b * sums_pstride + band * 2 + {0 num, 1 den}]
 //   check  (7, B, ch, cw)    int32 o_h, o_v, o_d, t_h, t_v, t_d, angle_ok (kCheck)
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,7 +77,14 @@ struct IntAdmConsts {
   AdmFinish f;                     // the finish's constants
 };
 
-constexpr size_t kSmemBytes = sizeof(int) * (kRawFloats + 4 * kRowFloats) + sizeof(float) * 6 * kBandFloats;
+// The shared memory of an instance reading T: the raw rows, the row passes,
+// |csf*a| and the mbarrier.
+template <typename T>
+struct IntTile {
+  static constexpr size_t kSmemBytes =
+      RawTile<T>::kBytes + sizeof(int) * 4 * kRowFloats + sizeof(float) * 3 * kBandFloats + 16;
+  static constexpr int kMinBlocks = kSmemBytes <= 75 * 1024 ? 3 : 2;
+};
 
 // (sum_k taps[k] x[k] + 2^12) >> 13 in int32 wraparound (x[k] = load(k)).
 template <typename Load>
@@ -81,54 +95,30 @@ __device__ __forceinline__ int dec_q(const int (&taps)[kAdmTaps], Load load) {
   return static_cast<int>(acc + (1u << (kQTaps - 1))) >> kQTaps;  // arithmetic shift
 }
 
-// The raw rows of the tile at (b, by0, bx0) as int32, by the whole block: a
-// warp per row (its symmetric index), a lane per sample of it (the column's
-// symmetric index only where the tile's columns leave the plane), every load
-// of the thread issued before the first store; level 0 (kCodes) the codes
-// pre-rounded by `shift` and mapped to (x - 128) << 8, other levels the A
-// bands as they are.
-template <typename T, bool kCodes>
-__device__ __forceinline__ void load_raw_q(int* __restrict__ raw, const T* __restrict__ in, int bsz, int b,
-                                           int h, int w, int by0, int bx0, int shift) {
-  constexpr int kWarps = kThreadsAdm / 32, kLoadRows = (2 * kInRows + kWarps - 1) / kWarps;
-  constexpr int kPerRow = (kRawW + 31) / 32;
-  const int r0 = 2 * by0 - 3, a0 = raw_col0(bx0);
-  const bool cols_in = a0 >= 0 && a0 + kRawW <= w;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const size_t npx = (size_t)h * w;
-  T ld[kLoadRows][kPerRow];
-#pragma unroll
-  for (int n = 0; n < kLoadRows; ++n) {
-    const int rr = warp + n * kWarps;
-    if (rr < 2 * kInRows) {
-      const int im = rr >= kInRows, lr = rr - im * kInRows;
-      const T* q = in + ((size_t)im * bsz + b) * npx + (size_t)symmetric(r0 + lr, h) * w;
-#pragma unroll
-      for (int j = 0; j < kPerRow; ++j) {
-        const int k = lane + 32 * j;
-        if (k < kRawW) ld[n][j] = __ldg(q + (cols_in ? a0 + k : symmetric(a0 + k, w)));
-      }
-    }
+// Raw samples 1 .. 6 of the 8 at r (a raw row at a multiple of 4 samples),
+// as int: two 16-, 8- or 4-byte loads, by the sample's width.
+template <typename T>
+__device__ __forceinline__ void raw_six(const T* r, int (&x)[6]) {
+  alignas(16) T v[8];
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<int4*>(v) = *reinterpret_cast<const int4*>(r);
+    *reinterpret_cast<int4*>(v + 4) = *reinterpret_cast<const int4*>(r + 4);
+  } else if constexpr (sizeof(T) == 2) {
+    *reinterpret_cast<uint2*>(v) = *reinterpret_cast<const uint2*>(r);
+    *reinterpret_cast<uint2*>(v + 4) = *reinterpret_cast<const uint2*>(r + 4);
+  } else {
+    *reinterpret_cast<uint32_t*>(v) = *reinterpret_cast<const uint32_t*>(r);
+    *reinterpret_cast<uint32_t*>(v + 4) = *reinterpret_cast<const uint32_t*>(r + 4);
   }
 #pragma unroll
-  for (int n = 0; n < kLoadRows; ++n) {
-    const int rr = warp + n * kWarps;
-    if (rr < 2 * kInRows) {
-      const int im = rr >= kInRows, lr = rr - im * kInRows;
-#pragma unroll
-      for (int j = 0; j < kPerRow; ++j) {
-        const int k = lane + 32 * j;
-        if (k < kRawW) {
-          int v = static_cast<int>(ld[n][j]);
-          if constexpr (kCodes) {
-            if (shift > 0) v = static_cast<int>(static_cast<uint32_t>(v) + (1u << (shift - 1))) >> shift;
-            v = static_cast<int>((static_cast<uint32_t>(v) - 128u) << 8);
-          }
-          raw[im * kRawStride + lr * kRawW + k] = v;
-        }
-      }
-    }
-  }
+  for (int i = 0; i < 6; ++i) x[i] = static_cast<int>(v[1 + i]);
+}
+
+// Level 0's input sample from a luma code: pre-rounded by shift, then (x -
+// 128) << 8, in int32 wraparound.
+__device__ __forceinline__ int code_q(int v, int shift) {
+  if (shift > 0) v = static_cast<int>(static_cast<uint32_t>(v) + (1u << (shift - 1))) >> shift;
+  return static_cast<int>((static_cast<uint32_t>(v) - 128u) << 8);
 }
 
 // The integer column pass at kOut band pixels li0 .. li0+kOut-1 of column lj
@@ -197,123 +187,173 @@ __device__ __forceinline__ BandPixel gate_csf_q(const int (&dwt)[2][4], const In
 }
 
 // ---------------------------------------------------------------------------
-// One block of 8 warps per 32x32 tile of band pixels, tile blockIdx.x = (b
-// ny + ty) nx + tx of adm_tile.cuh's grid (anchored at the centre region's
-// origin).  Per tile: the raw rows, the integer row pass into shared memory,
-// the integer column pass, gate, decoupling and CSF at the halo ring and at
-// the tile (there also the A bands into approx, and with kCheck the bands
-// and the gate into check), the masks and the cubes at the centre-region
-// pixels, and each 32x8 sub-tile's six partials into parts[(b * nblk + blk)
-// * 6 + k] (reduce_frames_kernel<6> then sums them in f64).  Warps 2s and
-// 2s + 1 hold rows 0-3 and 4-7 of sub-tile s, one column per lane.
-// grid: (tiles), block: kThreadsAdm (1-D), dynamic shared memory: kSmemBytes.
+// A persistent block of 8 warps walks the 32x32 tiles of band pixels t =
+// blockIdx.x, blockIdx.x + gridDim.x, ... of adm_tile.cuh's grid (anchored
+// at the centre region's origin; t = (b ny + ty) nx + tx).  Per tile: the
+// raw rows (tensor copies when use_tma, tmap the input's map, else loads),
+// the integer row pass into shared memory, the copy of the next tile's raw
+// rows started, the integer column pass, gate, decoupling and CSF at the
+// halo ring and at the tile (there also the A bands into approx, and with
+// kCheck the bands and the gate into check), the masks and the cubes at the
+// centre-region pixels, and each 32x8 sub-tile's six partials into
+// parts[(b * nblk + blk) * 6 + k] (reduce_frames_kernel<6> then sums them
+// in f64).  Warps 2s and 2s + 1 hold rows 0-3 and 4-7 of sub-tile s, one
+// column per lane.
+// grid: (min(tiles, resident blocks)), block: kThreadsAdm (1-D), dynamic
+// shared memory: IntTile<T>::kSmemBytes.
 // ---------------------------------------------------------------------------
 template <typename T, bool kCodes, bool kCheck>
-__global__ void __launch_bounds__(kThreadsAdm, 2)
-integer_adm_kernel(const T* __restrict__ in, int bsz, int h, int w, int shift, int top, int left,
-                   IntAdmConsts c, int* __restrict__ approx, float* __restrict__ parts, int* __restrict__ check) {
-  extern __shared__ __align__(128) int smem_i[];
-  int* raw = smem_i;                   // [2 images][kRawStride]: kInRows x kRawW each
-  int* rows = raw + kRawFloats;        // [2 images][lo, hi][kInRows][kBand]
-  float* me = reinterpret_cast<float*>(rows + 4 * kRowFloats);  // [H, V, D][kBand][kBand] |csf*a| / 30
-  float* mc = me + 3 * kBandFloats;    // [H, V, D][kBand][kBand] |csf*a| / 15
+__global__ void __launch_bounds__(kThreadsAdm, IntTile<T>::kMinBlocks)
+integer_adm_kernel(const T* __restrict__ in, const __grid_constant__ CUtensorMap tmap, int use_tma, int bsz, int h,
+                   int w, int shift, int top, int left, const __grid_constant__ IntAdmConsts c,
+                   int* __restrict__ approx, float* __restrict__ parts, int* __restrict__ check) {
+  using RT = RawTile<T>;
+  extern __shared__ __align__(128) unsigned char smem_b[];
+  T* raw = reinterpret_cast<T*>(smem_b);                      // [2 images][RT::kStride]: kInRows x RT::kW each
+  int* rows = reinterpret_cast<int*>(smem_b + RT::kBytes);    // [2 images][lo, hi][kInRows][kBand]
+  float* ca = reinterpret_cast<float*>(rows + 4 * kRowFloats);  // [H, V, D][kBand][kBand] |csf*a|
   float* xch = reinterpret_cast<float*>(rows);  // rows 4-7 of each sub-tile's cubes, once rows is dead
+  const unsigned bar = static_cast<unsigned>(__cvta_generic_to_shared(ca + 3 * kBandFloats));
   const int ch = (h + 1) / 2, cw = (w + 1) / 2;
   const AdmGrid g = adm_grid(h, w, top, left);
+  const int ntiles = g.nx * g.ny * bsz;
   const int nbx = (cw - 2 * left + kBx - 1) / kBx, nby = (ch - 2 * top + kBy - 1) / kBy;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int sub = warp / 2, half = warp % 2;  // sub-tile, rows 0-3 or 4-7 of it
-  int b, by0, bx0;
-  tile_origin(blockIdx.x, g.nx, g.ny, g.gy0, g.gx0, b, by0, bx0);
+  auto origin = [&](int t, int& b, int& by0, int& bx0) {
+    tile_origin(t, g.nx, g.ny, g.gy0, g.gx0, b, by0, bx0);
+  };
 
-  load_raw_q<T, kCodes>(raw, in, bsz, b, h, w, by0, bx0, shift);
+  if (threadIdx.x == 0) init_barrier(bar);
   __syncthreads();
-
-  // Row pass: thread i filters pair m = i % 18 of raw rows i / 18, + 14,
-  // ...: band columns lj0 and lj0 + 1, lj0 = 2m - (bx0 & 1), from raw
-  // samples 4m+1 .. 4m+6 (input columns s .. s+5, s = 2 bx0 - 3 + 2 lj0).
-  if (threadIdx.x < kRowLanes) {
-    const int m = threadIdx.x % kPairs;
-    for (int rr = threadIdx.x / kPairs; rr < 2 * kInRows; rr += kRowLanes / kPairs) {
-      const int im = rr >= kInRows, lr = rr - im * kInRows;
-      const int* r = raw + im * kRawStride + lr * kRawW + 4 * m;
-      const int4 p0 = *reinterpret_cast<const int4*>(r);
-      const int4 p1 = *reinterpret_cast<const int4*>(r + 4);
-      const int x[6] = {p0.y, p0.z, p0.w, p1.x, p1.y, p1.z};
-      int* lo = rows + (2 * im) * kRowFloats + lr * kBand;
-      int* hi = lo + kRowFloats;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int lj = 2 * m - (bx0 & 1) + e;
-        if (lj >= 0 && lj < kBand) {
-          auto load = [&x, e](int k) { return x[2 * e + k]; };
-          lo[lj] = dec_q(c.lo, load);
-          hi[lj] = dec_q(c.hi, load);
-        }
-      }
+  if (use_tma && threadIdx.x == 0 && (int)blockIdx.x < ntiles) {
+    int b, by0, bx0;
+    origin(blockIdx.x, b, by0, bx0);
+    start_raw(raw, tmap, bsz, b, by0, bx0, bar);
+  }
+  int parity = 0;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    int b, by0, bx0;
+    origin(t, b, by0, bx0);
+    if (use_tma) {
+      wait_parity(bar, parity);
+      parity ^= 1;
+      fix_edges(raw, h, w, by0, bx0);
+    } else {
+      load_raw(raw, in, bsz, b, h, w, by0, bx0);
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // Column pass, gate, decoupling and CSF: first at the halo ring, ...
-  for (int i = threadIdx.x; i < kHalo; i += kThreadsAdm) {
-    int li, lj;
-    halo_pixel(i, li, lj);
-    int dwt[1][2][4];
-    column_pass_q<1>(rows, li, lj, c, dwt);
-    bool angle_ok;
-    put_mask(me, mc, li, lj, gate_csf_q(dwt[0], c, angle_ok), c.f);
-  }
-  // ... then at the interior: column lane, the warp's four rows; |csf*r|
-  // and |csf*o| stay in registers.
-  const int gj = bx0 + lane;
-  const int row0 = sub * kBy + half * kRowsPerWarp;  // the warp's first row in the tile
-  float cr[kRowsPerWarp][3], co[kRowsPerWarp][3];
-  {
-    int dwt[kRowsPerWarp][2][4];
-    column_pass_q<kRowsPerWarp>(rows, 1 + row0, lane + 1, c, dwt);
+    // Row pass: thread i filters pair m = i % 18 of raw rows i / 18, + 14,
+    // ...: band columns lj0 and lj0 + 1, lj0 = 2m - (bx0 & 1), from raw
+    // samples 4m+1 .. 4m+6 (input columns s .. s+5, s = 2 bx0 - 3 + 2 lj0),
+    // level 0's codes converted here.
+    if (threadIdx.x < kRowLanes) {
+      const int m = threadIdx.x % kPairs, off = raw_off<T>(bx0);
+      for (int rr = threadIdx.x / kPairs; rr < 2 * kInRows; rr += kRowLanes / kPairs) {
+        const int im = rr >= kInRows, lr = rr - im * kInRows;
+        int x[6];
+        raw_six(raw + im * RT::kStride + lr * RT::kW + off + 4 * m, x);
+        if constexpr (kCodes) {
 #pragma unroll
-    for (int o = 0; o < kRowsPerWarp; ++o) {
-      const int gi = by0 + row0 + o;
-      bool angle_ok;
-      const BandPixel p = gate_csf_q(dwt[o], c, angle_ok);
-      put_mask(me, mc, 1 + row0 + o, lane + 1, p, c.f);
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        cr[o][q] = p.cr[q];
-        co[o][q] = p.co[q];
-      }
-      if (gi >= 0 && gi < ch && gj >= 0 && gj < cw) {
-        const size_t nb = (size_t)ch * cw, at = (size_t)gi * cw + gj;
-        if (approx != nullptr) {
-          approx[(size_t)b * nb + at] = dwt[o][0][0];
-          approx[((size_t)bsz + b) * nb + at] = dwt[o][1][0];
+          for (int i = 0; i < 6; ++i) x[i] = code_q(x[i], shift);
         }
-        if constexpr (kCheck) {
-          const size_t plane = (size_t)bsz * nb;
+        int* lo = rows + (2 * im) * kRowFloats + lr * kBand;
+        int* hi = lo + kRowFloats;
 #pragma unroll
-          for (int q = 0; q < 3; ++q) {
-            check[q * plane + (size_t)b * nb + at] = dwt[o][0][q + 1];
-            check[(3 + q) * plane + (size_t)b * nb + at] = dwt[o][1][q + 1];
+        for (int e = 0; e < 2; ++e) {
+          const int lj = 2 * m - (bx0 & 1) + e;
+          if (lj >= 0 && lj < kBand) {
+            auto load = [&x, e](int k) { return x[2 * e + k]; };
+            lo[lj] = dec_q(c.lo, load);
+            hi[lj] = dec_q(c.hi, load);
           }
-          check[6 * plane + (size_t)b * nb + at] = angle_ok ? 1 : 0;
         }
       }
     }
-  }
-  __syncthreads();
+    __syncthreads();
+    // The next tile's raw rows come in while this one computes.
+    if (use_tma && threadIdx.x == 0 && t + (int)gridDim.x < ntiles) {
+      int nb, nby0, nbx0;
+      origin(t + gridDim.x, nb, nby0, nbx0);
+      start_raw(raw, tmap, bsz, nb, nby0, nbx0, bar);
+    }
 
-  // The masks and the cubes at the centre region, then the partials.
-  mask_cubes_partials(me, mc, xch, cr, co, b, by0, bx0, row0, ch, cw, top, left, nbx, nby, parts);
+    // Column pass, gate, decoupling and CSF: first at the halo ring, ...
+    for (int i = threadIdx.x; i < kHalo; i += kThreadsAdm) {
+      int li, lj;
+      halo_pixel(i, li, lj);
+      int dwt[1][2][4];
+      column_pass_q<1>(rows, li, lj, c, dwt);
+      bool angle_ok;
+      put_mask(ca, li, lj, gate_csf_q(dwt[0], c, angle_ok));
+    }
+    // ... then at the interior: column lane, the warp's four rows; |csf*r|
+    // and |csf*o| stay in registers.
+    const int gj = bx0 + lane;
+    const int row0 = sub * kBy + half * kRowsPerWarp;  // the warp's first row in the tile
+    float cr[kRowsPerWarp][3], co[kRowsPerWarp][3];
+    {
+      int dwt[kRowsPerWarp][2][4];
+      column_pass_q<kRowsPerWarp>(rows, 1 + row0, lane + 1, c, dwt);
+#pragma unroll
+      for (int o = 0; o < kRowsPerWarp; ++o) {
+        const int gi = by0 + row0 + o;
+        bool angle_ok;
+        const BandPixel p = gate_csf_q(dwt[o], c, angle_ok);
+        put_mask(ca, 1 + row0 + o, lane + 1, p);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          cr[o][q] = p.cr[q];
+          co[o][q] = p.co[q];
+        }
+        if (gi >= 0 && gi < ch && gj >= 0 && gj < cw) {
+          const size_t nb = (size_t)ch * cw, at = (size_t)gi * cw + gj;
+          if (approx != nullptr) {
+            approx[(size_t)b * nb + at] = dwt[o][0][0];
+            approx[((size_t)bsz + b) * nb + at] = dwt[o][1][0];
+          }
+          if constexpr (kCheck) {
+            const size_t plane = (size_t)bsz * nb;
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+              check[q * plane + (size_t)b * nb + at] = dwt[o][0][q + 1];
+              check[(3 + q) * plane + (size_t)b * nb + at] = dwt[o][1][q + 1];
+            }
+            check[6 * plane + (size_t)b * nb + at] = angle_ok ? 1 : 0;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // The masks and the cubes at the centre region, then the partials.
+    mask_cubes_partials(ca, xch, cr, co, b, by0, bx0, row0, ch, cw, top, left, nbx, nby, c.f, parts);
+  }
 }
 
-// Allows the instance its dynamic shared memory: once per process (the
-// function-local static), before its first launch or occupancy query.
+// Allows the instance its dynamic shared memory and reads how many of its
+// blocks the card holds at once: once per process (the function-local
+// static), before its first launch or occupancy query.
+struct TileSetup {
+  cudaError_t err;
+  int per_sm, sms;
+};
+
 template <typename T, bool kCodes, bool kCheck>
-cudaError_t tile_setup() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      integer_adm_kernel<T, kCodes, kCheck>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-  return err;
+const TileSetup& tile_setup() {
+  static const TileSetup setup = [] {
+    const auto kernel = integer_adm_kernel<T, kCodes, kCheck>;
+    constexpr int kBytes = (int)IntTile<T>::kSmemBytes;
+    TileSetup t = {cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes), 0, 0};
+    int dev = 0;
+    if (t.err == cudaSuccess) t.err = cudaGetDevice(&dev);
+    if (t.err == cudaSuccess) t.err = cudaDeviceGetAttribute(&t.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (t.err == cudaSuccess) t.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&t.per_sm, kernel, kThreadsAdm, kBytes);
+    if (t.err == cudaSuccess && t.per_sm == 0) t.err = cudaErrorInvalidConfiguration;
+    return t;
+  }();
+  return setup;
 }
 
 struct Args {
@@ -329,12 +369,17 @@ struct Args {
 
 template <typename T, bool kCodes, bool kCheck>
 int launch(const Args& a) {
-  cudaError_t err = tile_setup<T, kCodes, kCheck>();
-  if (err != cudaSuccess) return (int)err;
+  const TileSetup& setup = tile_setup<T, kCodes, kCheck>();
+  if (setup.err != cudaSuccess) return (int)setup.err;
   const AdmGrid g = adm_grid(a.h, a.w, a.top, a.left);
-  integer_adm_kernel<T, kCodes, kCheck><<<g.nx * g.ny * a.bsz, kThreadsAdm, kSmemBytes, a.s>>>(
-      static_cast<const T*>(a.in), a.bsz, a.h, a.w, a.shift, a.top, a.left, a.c, a.approx, a.parts, a.check);
-  err = cudaGetLastError();
+  const int tiles = g.nx * g.ny * a.bsz;
+  const int grid = tiles < setup.per_sm * setup.sms ? tiles : setup.per_sm * setup.sms;
+  const T* in = static_cast<const T*>(a.in);
+  CUtensorMap tmap = {};
+  const int use_tma = raw_tensor_map(&tmap, in, a.bsz, a.h, a.w);
+  integer_adm_kernel<T, kCodes, kCheck><<<grid, kThreadsAdm, IntTile<T>::kSmemBytes, a.s>>>(
+      in, tmap, use_tma, a.bsz, a.h, a.w, a.shift, a.top, a.left, a.c, a.approx, a.parts, a.check);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int ch = (a.h + 1) / 2, cw = (a.w + 1) / 2;
   reduce_frames_kernel<6><<<a.bsz, kReduceThreads, 0, a.s>>>(a.parts, adm_blocks(ch, cw, a.top, a.left), a.sums,
@@ -344,18 +389,14 @@ int launch(const Args& a) {
 
 template <typename T, bool kCodes, bool kCheck>
 int attrs(int* out) {
-  cudaError_t err = tile_setup<T, kCodes, kCheck>();
+  const TileSetup& t = tile_setup<T, kCodes, kCheck>();
   cudaFuncAttributes fa;
+  cudaError_t err = t.err;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, integer_adm_kernel<T, kCodes, kCheck>);
-  int per_sm = 0;
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, integer_adm_kernel<T, kCodes, kCheck>,
-                                                        kThreadsAdm, kSmemBytes);
-  }
   if (err != cudaSuccess) return (int)err;
   out[0] = fa.numRegs;
-  out[1] = (int)kSmemBytes;
-  out[2] = per_sm;
+  out[1] = (int)IntTile<T>::kSmemBytes;
+  out[2] = t.per_sm;
   out[3] = (int)fa.localSizeBytes;
   return 0;
 }

@@ -23,33 +23,39 @@
 //
 // Arithmetic: native uint32 for every blur.  Each true sum is < 2^32, so the
 // wrapped sums are exact, and where they are not (inputs no luma holds) they
-// wrap as the plain version's uint32 schedule does.  The moments are formed
-// in uint32 and read as int32 (mu1*mu1 and pb - mu1*mu1 as the plain
-// version's int32 wraparound; signed overflow in C++ is undefined).  The map
-// is f32 with every operation rounded on its own (__fmul_rn, __fdiv_rn, ...),
-// so nvcc contracts nothing into FMAs and each term is the plain version's
-// f32 value; only the sums (f32 per 32x8 tile in level.cuh's tree, then
-// f64) and log2f's last bit differ.
+// wrap as the plain version's uint32 schedule does.  Every window is
+// symmetric (c[k] == c[2R-k], checked on the host), so a blur is folded:
+// c[R] x[R] + sum_{k<R} c[k] (x[k] + x[2R-k]), R + 1 multiply-adds and R
+// adds instead of 2R + 1 multiply-adds; uint32 arithmetic is a ring mod 2^32,
+// so the folded sum is the wrapped sum bit for bit, for any codes.  The
+// moments are formed in uint32 and read as int32 (mu1*mu1 and pb - mu1*mu1
+// as the plain version's int32 wraparound; signed overflow in C++ is
+// undefined).  The map is f32 with every operation rounded on its own
+// (__fmul_rn, __fdiv_rn, ...), so nvcc contracts nothing into FMAs and each
+// term is the plain version's f32 value; only the sums (f32 per 32x8 tile
+// in level.cuh's tree, then f64) and log2f's last bit differ.
 //
 // What bounds it on this card: integer multiply-adds.  Per pixel of the
-// pair at scale 0 the algorithm needs ~2 bytes in against ~215 integer
-// multiply-adds (five quantities, 17 taps, two passes, the vertical pass
-// over 48 of every 32 columns) and ~30 f32 operations; IMAD issues at half
-// the f32 rate.  The design follows vif_tile_kernel (vif.cu) with the passes
-// swapped:
+// pair at scale 0 the algorithm needs ~2 bytes in against ~95 folded
+// multiply-adds and ~80 adds (five quantities, two passes of 9 + 8) and ~30
+// f32 operations; IMAD issues at half the f32 rate.  The design follows
+// vif_tile_kernel (vif.cu) with the passes swapped:
 //   * one block of 128 threads per 32x32 output tile of one frame; the
-//     tile's input rows y0-R .. y0+31+R and columns x0-R .. x0+31+R of both
-//     images go to shared memory as uint32, each at its reflect-101 index,
-//     pre-rounded (a thread's 36 loads issued all before their stores
-//     measured 9% slower: more registers);
+//     tile's input rows y0-R .. y0+31+R of both images go to shared memory.
+//     Where the tile's rows and the 16-byte chunks around its columns lie
+//     inside the plane and the rows are whole chunks (every interior tile at
+//     1080p), each thread issues its 16-byte loads all before its first
+//     store; elsewhere one load per sample at its reflect-101 index;
+//   * the taps are kernel parameters (the constant bank), not registers;
 //   * the vertical pass of the five quantities at the tile's 32 rows and
 //     all 32+2R columns goes to shared memory (a thread one column of four
-//     rows, from a 4+2R-row window), and never reaches device memory;
+//     rows, from a 4+2R-row window, one quantity at a time), and never
+//     reaches device memory;
 //   * the horizontal pass, moments and map run on a row segment of eight
-//     pixels per thread, each warp one 32x8 sub-tile, so a thread reads each
-//     vertical sample once (24 shared loads per quantity for eight outputs
-//     at R = 8, not 17 per output); the sub-tile's sums are the threads'
-//     (in column order) added by a fixed tree of shuffles;
+//     pixels per thread, each warp one 32x8 sub-tile, one quantity at a time
+//     (24 shared loads per quantity for eight outputs at R = 8); the
+//     sub-tile's sums are the threads' (in column order) added by a fixed
+//     tree of shuffles;
 //   * the next scale's input is computed only where it is kept: the next
 //     window's vertical pass at the tile's 16 even rows, its horizontal pass
 //     at their 16 even columns (each output is independent, so this is
@@ -57,9 +63,21 @@
 //   * with kCheck, the int32 planes s11, s22, s12, mu1, mu2 too (the exact
 //     surface the card's checks hold against the plain version); the main
 //     path's instances compile without those stores.
-// At R = 8 a block takes 54,912 B of dynamic shared memory (inputs 18,432,
-// vertical planes 31,360 at an odd row stride, emission rows 5,120): four
-// blocks per SM.
+// Two storage widths (kNarrow, chosen on the host from the luma's type and
+// depth): uint8 codes at depth <= 8 are < 2^8 at every scale (the next
+// scale's input is a rounded weighted mean of the last one's: (sum C2e vxe
+// + 2^19) >> 20 <= (255 * 2^24 + 2^19) >> 20 = 255), so vx <= (255 * 2^16 +
+// 2^7) >> 8 = 65280, vp <= (65025 * 2^12 + 2^11) >> 12 = 65025 and vxe <=
+// 65280 fit uint16, and so does the input tile (uint16 rather than the
+// codes' uint8: with uint8 samples nvcc packs them for IDP.2A with PRMT,
+// 399 PRMT per thread, 4% slower).  At R = 8 that block takes 30,528 B of
+// dynamic shared memory (inputs 12,288, vertical planes 15,680 at an odd
+// row stride, emission rows 2,560): six blocks per SM at 80 registers
+// (five at 96 measured 6% slower).
+// Other codes (uint16, int32, and uint8 pre-rounded from a depth above 8,
+// whose samples reach 256 and vertical sums 65536) keep uint32 planes, the
+// input pre-rounded as it is stored: 54,912 B at R = 8 from uint16 or
+// int32, four blocks per SM.
 //
 // Layouts (all contiguous):
 //   in     (2, B, h, w)          luma codes, uint8 / uint16 / int32 (type)
@@ -71,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "level.cuh"
 
 namespace {
@@ -78,21 +98,121 @@ namespace {
 constexpr int kVRows = kBy / 2;  // output rows of a thread's vertical-pass window
 constexpr int kHRun = kTileW / 4;  // output columns of a thread's horizontal-pass row segment
 
-// The shared-memory tile of a scale with a window of radius R and a next
-// window of radius RE (0: no emission).
+// The folded taps of a scale with a window of radius R and a next window of
+// radius RE (0: no emission): c[k] for k = 0 .. R of C1, C2, C1e, C2e (the
+// window's other half is the same, reversed).
 template <int R, int RE>
-struct ITile {
-  static constexpr int kInW = kTileW + 2 * R;            // input columns (x0-R .. x0+31+R)
-  static constexpr int kHaloH = kTileH + 2 * R;          // input rows (y0-R .. y0+31+R)
-  static constexpr int kIn = kHaloH * kInW;              // one image's input tile
-  static constexpr int kVS = kInW | 1;                   // row stride of the vertical planes (odd: no
-                                                         // bank conflicts in the horizontal pass)
-  static constexpr int kVert = kTileH * kVS;             // one vertically filtered quantity
-  static constexpr int kEmitW = kTileW + 2 * RE;         // columns of the emission's vertical pass
-  static constexpr int kEmit = RE > 0 ? (kTileH / 2) * kEmitW : 0;  // one image's emission rows
-  static constexpr int kVJobs = kInW * (kTileH / kVRows);  // (column, 4-row group) of the vertical pass
-  static constexpr size_t kSmemBytes = sizeof(uint32_t) * (2 * kIn + 5 * kVert + 2 * kEmit);
+struct FoldedTaps {
+  uint32_t c1[R + 1], c2[R + 1], c1e[RE + 1], c2e[RE + 1];
 };
+
+// sum_k c[k] x(k) over a symmetric window of radius N, folded, in uint32
+// (x(k): the sample under tap k).
+template <int N, typename X>
+__device__ __forceinline__ uint32_t folded_sum(const uint32_t (&c)[N + 1], X x) {
+  uint32_t acc = c[N] * x(N);
+#pragma unroll
+  for (int k = 0; k < N; ++k) acc += c[k] * (x(k) + x(2 * N - k));
+  return acc;
+}
+
+// The shared-memory tile of a scale with a window of radius R and a next
+// window of radius RE, reading luma of type T, narrow or wide.
+template <typename T, int R, int RE, bool kNarrow>
+struct ITile {
+  using In = std::conditional_t<kNarrow, uint16_t, uint32_t>;  // the input tile's samples
+  using V = std::conditional_t<kNarrow, uint16_t, uint32_t>;  // vertical planes and emission rows
+  static constexpr int kChunk = 16 / (int)sizeof(T);           // samples of a 16-byte chunk of a row
+  static constexpr int kPad = (R + kChunk - 1) / kChunk * kChunk;  // chunk-path samples left of x0
+  static constexpr int kOff = kPad - R;                        // tile column of input column x0-R
+  static constexpr int kRowW = kTileW + 2 * kPad;              // input tile row (x0-kPad .. x0+31+kPad)
+  static constexpr int kRowChunks = kRowW / kChunk;
+  static constexpr int kInW = kTileW + 2 * R;                  // input columns read (x0-R .. x0+31+R)
+  static constexpr int kHaloH = kTileH + 2 * R;                // input rows (y0-R .. y0+31+R)
+  static constexpr int kIn = kHaloH * kRowW;                   // one image's input tile
+  static constexpr int kLoads = (2 * kHaloH * kRowChunks + kTileThreads - 1) / kTileThreads;  // chunks a thread loads
+  static constexpr int kVS = kInW | 1;                         // row stride of the vertical planes (odd: no
+                                                               // bank conflicts in the horizontal pass)
+  static constexpr int kVert = kTileH * kVS;                   // one vertically filtered quantity
+  static constexpr int kEmitW = kTileW + 2 * RE;               // columns of the emission's vertical pass
+  static constexpr int kEmit = RE > 0 ? (kTileH / 2) * kEmitW : 0;  // one image's emission rows
+  static constexpr int kInBytes = (2 * kIn * (int)sizeof(In) + 15) / 16 * 16;
+  static constexpr size_t kSmemBytes = kInBytes + sizeof(V) * (5 * kVert + 2 * kEmit);
+  static constexpr int kMinBlocks = kNarrow ? 6 : 4;
+  static_assert((kIn * sizeof(In)) % 16 == 0, "an image's input tile is whole 16-byte chunks");
+};
+
+// The stored form of an input code: the narrow tile keeps it, the wide one
+// pre-rounds it by shift (an int32 code as its bits, as the plain version's
+// uint32 cast).
+template <typename In, typename T>
+__device__ __forceinline__ In stored(T v, int shift) {
+  uint32_t u = static_cast<uint32_t>(v);
+  if constexpr (std::is_same_v<In, uint32_t>) {
+    if (shift > 0) u = (u + (1u << (shift - 1))) >> shift;
+  }
+  return static_cast<In>(u);
+}
+
+// The tile's input rows y0-R .. y0+31+R of both images into in[image][row]
+// [kRowW], input column x0-R+c at kOff + c.  Chunk path (chunks != 0): each
+// thread's 16-byte chunks of rows x0-kPad .. x0+31+kPad are all loaded
+// before the first is stored.  Otherwise each needed sample at its
+// reflect-101 index.
+template <typename T, int R, int RE, bool kNarrow>
+__device__ __forceinline__ void load_tile(typename ITile<T, R, RE, kNarrow>::In* __restrict__ in,
+                                          const T* __restrict__ src, int bsz, int b, int h, int w, int x0, int y0,
+                                          int shift, bool chunks) {
+  using Q = ITile<T, R, RE, kNarrow>;
+  using In = typename Q::In;
+  const size_t npx = (size_t)h * w;
+  const T* a = src + (size_t)b * npx;
+  const T* d = src + ((size_t)bsz + b) * npx;
+  if (chunks) {
+    constexpr int kPerImage = Q::kHaloH * Q::kRowChunks;
+    uint4 v[Q::kLoads];
+#pragma unroll
+    for (int n = 0; n < Q::kLoads; ++n) {
+      const int i = threadIdx.x + n * kTileThreads;
+      if (i < 2 * kPerImage) {
+        const int img = i / kPerImage, rem = i - img * kPerImage;
+        const int r = rem / Q::kRowChunks, k = rem - r * Q::kRowChunks;
+        const T* p = (img ? d : a) + (size_t)(y0 - R + r) * w + x0 - Q::kPad + k * Q::kChunk;
+        v[n] = __ldg(reinterpret_cast<const uint4*>(p));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < Q::kLoads; ++n) {
+      const int i = threadIdx.x + n * kTileThreads;
+      if (i < 2 * kPerImage) {
+        const int img = i / kPerImage, rem = i - img * kPerImage;
+        const int r = rem / Q::kRowChunks, k = rem - r * Q::kRowChunks;
+        In* q = in + img * Q::kIn + r * Q::kRowW + k * Q::kChunk;
+        if constexpr (std::is_same_v<In, T>) {
+          *reinterpret_cast<uint4*>(q) = v[n];
+        } else {
+          alignas(16) T s[Q::kChunk];
+          *reinterpret_cast<uint4*>(s) = v[n];
+          alignas(16) In u[Q::kChunk];
+#pragma unroll
+          for (int e = 0; e < Q::kChunk; ++e) u[e] = stored<In>(s[e], shift);
+#pragma unroll
+          for (int e = 0; e < Q::kChunk; e += 16 / (int)sizeof(In)) {
+            *reinterpret_cast<uint4*>(q + e) = *reinterpret_cast<const uint4*>(u + e);
+          }
+        }
+      }
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < 2 * Q::kHaloH * Q::kInW; i += kTileThreads) {
+    const int img = i / (Q::kHaloH * Q::kInW), rem = i - img * (Q::kHaloH * Q::kInW);
+    const int r = rem / Q::kInW, c = rem - r * Q::kInW;
+    const T* p = img ? d : a;
+    in[img * Q::kIn + r * Q::kRowW + Q::kOff + c] =
+        stored<In>(__ldg(p + (size_t)reflect101(y0 - R + r, h) * w + reflect101(x0 - R + c, w)), shift);
+  }
+}
 
 // The guarded map of one pixel from its int32 moments (ops/integer_vif.py
 // scale_log_sums, in its order): v = (num, den).
@@ -120,123 +240,105 @@ __device__ __forceinline__ void ivif_map(int s11i, int s22i, int s12i, float (&v
 // blk = its index in the frame's (ceil(h/8), ceil(w/32)) grid of 32x8 tiles
 // (reduce_frames_kernel<2> then sums them in f64).  With RE > 0 also the
 // tile's 16x16 pixels of the next scale's input into next; with kCheck the
-// moments into check.  coeffs: C1, C2 of this scale (2R+1 each), then C1, C2
-// of the next (2RE+1 each).  shift: the pre-rounding shift (0: none).
+// moments into check.  taps: the folded C1, C2 of this scale and of the
+// next.  shift: the pre-rounding shift (0: none; wide instances only).
+// aligned: the input's rows are whole 16-byte chunks from an aligned base.
 // grid: (ceil(w/32), ceil(h/32), B), block: kTileThreads (1-D), dynamic
-// shared memory: ITile<R, RE>::kSmemBytes.
+// shared memory: ITile<T, R, RE, kNarrow>::kSmemBytes.
 // ---------------------------------------------------------------------------
-template <typename T, int R, int RE, bool kCheck>
-__global__ void __launch_bounds__(kTileThreads, 4)
-integer_vif_kernel(const T* __restrict__ src, int bsz, int h, int w, int shift, const int* __restrict__ coeffs,
-                   float* __restrict__ parts, uint16_t* __restrict__ next, int* __restrict__ check) {
-  using Q = ITile<R, RE>;
-  extern __shared__ __align__(16) uint32_t smem_u[];
-  uint32_t* in = smem_u;                 // [2 images][kHaloH][kInW]
-  uint32_t* vert = in + 2 * Q::kIn;      // [vx, vy, vxx, vyy, vxy][kTileH][kVS]
-  uint32_t* emit = vert + 5 * Q::kVert;  // [2 images][kTileH / 2][kEmitW]
+template <typename T, int R, int RE, bool kNarrow, bool kCheck>
+__global__ void __launch_bounds__(kTileThreads, (ITile<T, R, RE, kNarrow>::kMinBlocks))
+integer_vif_kernel(const T* __restrict__ src, int bsz, int h, int w, int shift, int aligned,
+                   const __grid_constant__ FoldedTaps<R, RE> taps, float* __restrict__ parts, uint16_t* __restrict__ next,
+                   int* __restrict__ check) {
+  using Q = ITile<T, R, RE, kNarrow>;
+  using In = typename Q::In;
+  using V = typename Q::V;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  In* in = reinterpret_cast<In*>(smem_b);                 // [2 images][kHaloH][kRowW]
+  V* vert = reinterpret_cast<V*>(smem_b + Q::kInBytes);   // [vx, vy, vxx, vyy, vxy][kTileH][kVS]
+  V* emit = vert + 5 * Q::kVert;                           // [2 images][kTileH / 2][kEmitW]
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
   const int b = blockIdx.z;
   const size_t npx = (size_t)h * w;
 
-  // Input tiles: rows y0-R .. y0+31+R, columns x0-R .. x0+31+R, each sample
-  // at its reflect-101 index, as uint32 (an int32 code as its bits, as the
-  // plain version's uint32 cast), pre-rounded.
-  {
-    const T* a = src + (size_t)b * npx;
-    const T* d = src + ((size_t)bsz + b) * npx;
-    for (int i = threadIdx.x; i < 2 * Q::kIn; i += kTileThreads) {
-      const int img = i / Q::kIn, rem = i - img * Q::kIn;
-      const int r = rem / Q::kInW, c = rem - r * Q::kInW;
-      const T* p = img ? d : a;
-      uint32_t v =
-          static_cast<uint32_t>(__ldg(p + (size_t)reflect101(y0 - R + r, h) * w + reflect101(x0 - R + c, w)));
-      if (shift > 0) v = (v + (1u << (shift - 1))) >> shift;
-      in[i] = v;
-    }
-  }
-  uint32_t c1[2 * R + 1], c2[2 * R + 1], c1e[2 * RE + 1], c2e[2 * RE + 1];
-#pragma unroll
-  for (int k = 0; k <= 2 * R; ++k) {
-    c1[k] = static_cast<uint32_t>(__ldg(coeffs + k));
-    c2[k] = static_cast<uint32_t>(__ldg(coeffs + 2 * R + 1 + k));
-  }
-  if constexpr (RE > 0) {
-#pragma unroll
-    for (int k = 0; k <= 2 * RE; ++k) {
-      c1e[k] = static_cast<uint32_t>(__ldg(coeffs + 4 * R + 2 + k));
-      c2e[k] = static_cast<uint32_t>(__ldg(coeffs + 4 * R + 2 + 2 * RE + 1 + k));
-    }
-  }
+  const bool chunks = aligned && y0 - R >= 0 && y0 + kTileH + R <= h && x0 - Q::kPad >= 0 &&
+                      x0 + kTileW + Q::kPad <= w;
+  load_tile<T, R, RE, kNarrow>(in, src, bsz, b, h, w, x0, y0, shift, chunks);
   __syncthreads();
 
   // Vertical pass: column c (input column x0 - R + c) of output rows g*4 ..
-  // g*4+3, from input rows g*4 .. g*4+3+2R of the tile (row o + k for tap k).
-  for (int job = threadIdx.x; job < Q::kVJobs; job += kTileThreads) {
+  // g*4+3, from input rows g*4 .. g*4+3+2R of the tile (row o + k for tap
+  // k), one quantity at a time.
+  constexpr int kVJobs = Q::kInW * (kTileH / kVRows);
+#pragma unroll
+  for (int n = 0; n < (kVJobs + kTileThreads - 1) / kTileThreads; ++n) {
+    const int job = threadIdx.x + n * kTileThreads;
+    if (job >= kVJobs) break;
     const int c = job % Q::kInW, g = job / Q::kInW;
-    uint32_t s[kVRows][5];
+    constexpr int kWin = kVRows + 2 * R;
+    uint32_t xa[kWin], xd[kWin];
 #pragma unroll
-    for (int i = 0; i < kVRows + 2 * R; ++i) {
-      const uint32_t xa = in[(g * kVRows + i) * Q::kInW + c];
-      const uint32_t xd = in[Q::kIn + (g * kVRows + i) * Q::kInW + c];
-      const uint32_t x[5] = {xa, xd, xa * xa, xd * xd, xa * xd};
-#pragma unroll
-      for (int o = 0; o < kVRows; ++o) {
-        const int k = i - o;
-        if (k >= 0 && k <= 2 * R) {
-#pragma unroll
-          for (int q = 0; q < 5; ++q) {
-            const uint32_t m = (q < 2 ? c1[k] : c2[k]) * x[q];
-            s[o][q] = k == 0 ? m : s[o][q] + m;
-          }
-        }
-      }
+    for (int i = 0; i < kWin; ++i) {
+      xa[i] = in[(g * kVRows + i) * Q::kRowW + Q::kOff + c];
+      xd[i] = in[Q::kIn + (g * kVRows + i) * Q::kRowW + Q::kOff + c];
     }
 #pragma unroll
-    for (int o = 0; o < kVRows; ++o) {
+    for (int q = 0; q < 5; ++q) {
+      uint32_t p[kWin];
 #pragma unroll
-      for (int q = 0; q < 5; ++q) {
-        vert[(q * kTileH + g * kVRows + o) * Q::kVS + c] = q < 2 ? (s[o][q] + (1u << 7)) >> 8
-                                                                   : (s[o][q] + (1u << 11)) >> 12;
+      for (int i = 0; i < kWin; ++i) {
+        p[i] = q == 0 ? xa[i] : q == 1 ? xd[i] : q == 2 ? xa[i] * xa[i] : q == 3 ? xd[i] * xd[i] : xa[i] * xd[i];
+      }
+#pragma unroll
+      for (int o = 0; o < kVRows; ++o) {
+        const auto x = [&p, o](int k) { return p[o + k]; };
+        const uint32_t s = q < 2 ? folded_sum<R>(taps.c1, x) : folded_sum<R>(taps.c2, x);
+        vert[(q * kTileH + g * kVRows + o) * Q::kVS + c] =
+            static_cast<V>(q < 2 ? (s + (1u << 7)) >> 8 : (s + (1u << 11)) >> 12);
       }
     }
   }
   // The next window's vertical pass at the tile's even rows y0 + 2i, columns
   // x0-RE .. x0+31+RE (input row 2i + R - RE + k for tap k).
   if constexpr (RE > 0) {
-    for (int idx = threadIdx.x; idx < 2 * Q::kEmit; idx += kTileThreads) {
+#pragma unroll
+    for (int n = 0; n < (2 * Q::kEmit + kTileThreads - 1) / kTileThreads; ++n) {
+      const int idx = threadIdx.x + n * kTileThreads;
+      if (idx >= 2 * Q::kEmit) break;
       const int img = idx / Q::kEmit, rem = idx - img * Q::kEmit;
       const int i = rem / Q::kEmitW, e = rem - i * Q::kEmitW;
-      const uint32_t* p = in + img * Q::kIn + (2 * i + R - RE) * Q::kInW + R - RE + e;
-      uint32_t sum = 0;
-#pragma unroll
-      for (int k = 0; k <= 2 * RE; ++k) sum += c1e[k] * p[k * Q::kInW];
-      emit[idx] = (sum + (1u << 7)) >> 8;
+      const In* p = in + img * Q::kIn + (2 * i + R - RE) * Q::kRowW + Q::kOff + R - RE + e;
+      const uint32_t sum = folded_sum<RE>(taps.c1e, [p](int k) { return static_cast<uint32_t>(p[k * Q::kRowW]); });
+      emit[idx] = static_cast<V>((sum + (1u << 7)) >> 8);
     }
   }
   __syncthreads();
 
   // Horizontal pass, moments and map: lane l of the warp takes row l / 4 of
   // its 32x8 sub-tile and that row's eight columns c0 .. c0+7, c0 = 8 (l %
-  // 4), reading each vertical sample once (output o, tap k: vertical column
-  // c0 + o + k).
+  // 4), one quantity at a time, reading each vertical sample once (output o,
+  // tap k: vertical column c0 + o + k).
   const int row = warp * kBy + lane / 4, c0 = kHRun * (lane % 4);
   const int gr = y0 + row;
-  uint32_t acc[kHRun][5];
+  uint32_t mu[2][kHRun];
+  int s[3][kHRun];
 #pragma unroll
-  for (int j = 0; j < kHRun + 2 * R; ++j) {
-    uint32_t x[5];
+  for (int q = 0; q < 5; ++q) {
+    uint32_t x[kHRun + 2 * R];
 #pragma unroll
-    for (int q = 0; q < 5; ++q) x[q] = vert[(q * kTileH + row) * Q::kVS + c0 + j];
+    for (int j = 0; j < kHRun + 2 * R; ++j) x[j] = vert[(q * kTileH + row) * Q::kVS + c0 + j];
 #pragma unroll
     for (int o = 0; o < kHRun; ++o) {
-      const int k = j - o;
-      if (k >= 0 && k <= 2 * R) {
-#pragma unroll
-        for (int q = 0; q < 5; ++q) {
-          const uint32_t m = c2[k] * x[q];
-          acc[o][q] = k == 0 ? m : acc[o][q] + m;
-        }
+      const uint32_t sum = folded_sum<R>(taps.c2, [&x, o](int k) { return x[o + k]; });
+      if (q < 2) {
+        mu[q][o] = (sum + (1u << 15)) >> 16;
+      } else {
+        const uint32_t pb = (sum + 8u) >> 4;
+        const uint32_t m = q == 2 ? mu[0][o] * mu[0][o] : q == 3 ? mu[1][o] * mu[1][o] : mu[0][o] * mu[1][o];
+        const int v = static_cast<int>(pb - m);
+        s[q - 2][o] = q < 4 ? max(v, 0) : v;
       }
     }
   }
@@ -245,24 +347,19 @@ integer_vif_kernel(const T* __restrict__ src, int bsz, int h, int w, int shift, 
 #pragma unroll
   for (int o = 0; o < kHRun; ++o) {
     const int gc = x0 + c0 + o;
-    const uint32_t mu1 = (acc[o][0] + (1u << 15)) >> 16, mu2 = (acc[o][1] + (1u << 15)) >> 16;
-    const uint32_t pxx = (acc[o][2] + 8u) >> 4, pyy = (acc[o][3] + 8u) >> 4, pxy = (acc[o][4] + 8u) >> 4;
-    const int s11 = max(static_cast<int>(pxx - mu1 * mu1), 0);
-    const int s22 = max(static_cast<int>(pyy - mu2 * mu2), 0);
-    const int s12 = static_cast<int>(pxy - mu1 * mu2);
     const bool in_plane = gr < h && gc < w;
     if constexpr (kCheck) {
       if (in_plane) {
         const size_t at = (size_t)b * npx + (size_t)gr * w + gc, plane = (size_t)bsz * npx;
-        check[at] = s11;
-        check[plane + at] = s22;
-        check[2 * plane + at] = s12;
-        check[3 * plane + at] = static_cast<int>(mu1);
-        check[4 * plane + at] = static_cast<int>(mu2);
+        check[at] = s[0][o];
+        check[plane + at] = s[1][o];
+        check[2 * plane + at] = s[2][o];
+        check[3 * plane + at] = static_cast<int>(mu[0][o]);
+        check[4 * plane + at] = static_cast<int>(mu[1][o]);
       }
     }
     float nd[2] = {0.0f, 0.0f};
-    if (in_plane) ivif_map(s11, s22, s12, nd);
+    if (in_plane) ivif_map(s[0][o], s[1][o], s[2][o], nd);
 #pragma unroll
     for (int k = 0; k < 2; ++k) v[k] = o == 0 ? nd[k] : __fadd_rn(v[k], nd[k]);
   }
@@ -287,15 +384,15 @@ integer_vif_kernel(const T* __restrict__ src, int bsz, int h, int w, int shift, 
   // even rows: next scale pixel (y0/2 + i, x0/2 + m) of both images.
   if constexpr (RE > 0) {
     const int he = (h + 1) / 2, we = (w + 1) / 2;
-    for (int idx = threadIdx.x; idx < 2 * (kTileH / 2) * (kTileW / 2); idx += kTileThreads) {
+#pragma unroll
+    for (int n = 0; n < 2 * (kTileH / 2) * (kTileW / 2) / kTileThreads; ++n) {
+      const int idx = threadIdx.x + n * kTileThreads;
       const int img = idx / ((kTileH / 2) * (kTileW / 2)), i = idx / (kTileW / 2) % (kTileH / 2);
       const int m = idx % (kTileW / 2);
       const int ni = y0 / 2 + i, nj = x0 / 2 + m;
       if (ni >= he || nj >= we) continue;
-      const uint32_t* p = emit + (img * (kTileH / 2) + i) * Q::kEmitW + 2 * m;
-      uint32_t sum = 0;
-#pragma unroll
-      for (int k = 0; k <= 2 * RE; ++k) sum += c2e[k] * p[k];
+      const V* p = emit + (img * (kTileH / 2) + i) * Q::kEmitW + 2 * m;
+      const uint32_t sum = folded_sum<RE>(taps.c2e, [p](int k) { return static_cast<uint32_t>(p[k]); });
       next[(((size_t)img * bsz + b) * he + ni) * we + nj] = static_cast<uint16_t>((sum + (1u << 19)) >> 20);
     }
   }
@@ -308,18 +405,18 @@ int vif_blocks(int h, int w) {
 
 // Allows the instance its dynamic shared memory: once per process (the
 // function-local static), before its first launch or occupancy query.
-template <typename T, int R, int RE, bool kCheck>
+template <typename T, int R, int RE, bool kNarrow, bool kCheck>
 cudaError_t tile_setup() {
   static const cudaError_t err =
-      cudaFuncSetAttribute(integer_vif_kernel<T, R, RE, kCheck>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)ITile<R, RE>::kSmemBytes);
+      cudaFuncSetAttribute(integer_vif_kernel<T, R, RE, kNarrow, kCheck>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ITile<T, R, RE, kNarrow>::kSmemBytes);
   return err;
 }
 
 struct Args {
   const void* in;
   int bsz, h, w, shift;
-  const int* coeffs;
+  const int* coeffs;  // host: C1, C2 of this scale (2R+1 each), then C1, C2 of the next (2RE+1 each)
   float *parts, *sums;
   int sums_pstride;
   uint16_t* next;
@@ -327,13 +424,37 @@ struct Args {
   cudaStream_t s;
 };
 
-template <typename T, int R, int RE, bool kCheck>
+// The folded taps from the full windows at coeffs; false unless every
+// window is symmetric.
+template <int R, int RE>
+bool fold_taps(const int* coeffs, FoldedTaps<R, RE>& t) {
+  const int* c1 = coeffs;
+  const int* c2 = c1 + 2 * R + 1;
+  const int* c1e = c2 + 2 * R + 1;
+  const int* c2e = c1e + 2 * RE + 1;
+  for (int k = 0; k <= R; ++k) {
+    if (c1[k] != c1[2 * R - k] || c2[k] != c2[2 * R - k]) return false;
+    t.c1[k] = static_cast<uint32_t>(c1[k]);
+    t.c2[k] = static_cast<uint32_t>(c2[k]);
+  }
+  for (int k = 0; k <= RE; ++k) {
+    if (RE > 0 && (c1e[k] != c1e[2 * RE - k] || c2e[k] != c2e[2 * RE - k])) return false;
+    t.c1e[k] = RE > 0 ? static_cast<uint32_t>(c1e[k]) : 0u;
+    t.c2e[k] = RE > 0 ? static_cast<uint32_t>(c2e[k]) : 0u;
+  }
+  return true;
+}
+
+template <typename T, int R, int RE, bool kNarrow, bool kCheck>
 int launch(const Args& a) {
-  cudaError_t err = tile_setup<T, R, RE, kCheck>();
+  cudaError_t err = tile_setup<T, R, RE, kNarrow, kCheck>();
   if (err != cudaSuccess) return (int)err;
+  FoldedTaps<R, RE> taps;
+  if (!fold_taps<R, RE>(a.coeffs, taps)) return (int)cudaErrorInvalidValue;
+  const int aligned = reinterpret_cast<uintptr_t>(a.in) % 16 == 0 && ((size_t)a.w * sizeof(T)) % 16 == 0;
   const dim3 grid((a.w + kTileW - 1) / kTileW, (a.h + kTileH - 1) / kTileH, a.bsz);
-  integer_vif_kernel<T, R, RE, kCheck><<<grid, kTileThreads, ITile<R, RE>::kSmemBytes, a.s>>>(
-      static_cast<const T*>(a.in), a.bsz, a.h, a.w, a.shift, a.coeffs, a.parts, a.next, a.check);
+  integer_vif_kernel<T, R, RE, kNarrow, kCheck><<<grid, kTileThreads, ITile<T, R, RE, kNarrow>::kSmemBytes, a.s>>>(
+      static_cast<const T*>(a.in), a.bsz, a.h, a.w, a.shift, aligned, taps, a.parts, a.next, a.check);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_frames_kernel<2><<<a.bsz, kReduceThreads, 0, a.s>>>(a.parts, vif_blocks(a.h, a.w), a.sums,
@@ -341,54 +462,66 @@ int launch(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int R, int RE, bool kCheck>
+template <typename T, int R, int RE, bool kNarrow, bool kCheck>
 int attrs(int* out) {
-  cudaError_t err = tile_setup<T, R, RE, kCheck>();
+  cudaError_t err = tile_setup<T, R, RE, kNarrow, kCheck>();
   cudaFuncAttributes fa;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, integer_vif_kernel<T, R, RE, kCheck>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, integer_vif_kernel<T, R, RE, kNarrow, kCheck>);
   int per_sm = 0;
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, integer_vif_kernel<T, R, RE, kCheck>,
-                                                        kTileThreads, ITile<R, RE>::kSmemBytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, integer_vif_kernel<T, R, RE, kNarrow, kCheck>,
+                                                        kTileThreads, ITile<T, R, RE, kNarrow>::kSmemBytes);
   }
   if (err != cudaSuccess) return (int)err;
   out[0] = fa.numRegs;
-  out[1] = (int)ITile<R, RE>::kSmemBytes;
+  out[1] = (int)ITile<T, R, RE, kNarrow>::kSmemBytes;
   out[2] = per_sm;
   out[3] = (int)fa.localSizeBytes;
   return 0;
 }
 
-// The instance of (scale, luma type, check), handed to F: scale 0 reads
-// uint8 (type 0), uint16 (1) or int32 (2) codes, scales 1-3 the uint16
-// planes scale 0-2 emitted.
+// The instance of (scale, luma type, width, check), handed to F: scale 0
+// reads uint8 (type 0), uint16 (1) or int32 (2) codes, scales 1-3 the
+// uint16 planes scale 0-2 emitted; narrow only from uint8 codes (scale 0:
+// not pre-rounded).
 template <bool kCheck, typename F>
-int dispatch(int scale, int type, F&& f) {
+int dispatch(int scale, int type, int narrow, int shift, F&& f) {
+  if (narrow && (type != (scale == 0 ? 0 : 1) || shift != 0)) return (int)cudaErrorInvalidValue;
+  if (scale == 0) {
+    switch (type) {
+      case 0:
+        return narrow ? f.template operator()<uint8_t, 8, 4, true, kCheck>()
+                      : f.template operator()<uint8_t, 8, 4, false, kCheck>();
+      case 1: return f.template operator()<uint16_t, 8, 4, false, kCheck>();
+      case 2: return f.template operator()<int, 8, 4, false, kCheck>();
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (type != 1) return (int)cudaErrorInvalidValue;
   switch (scale) {
-    case 0:
-      switch (type) {
-        case 0: return f.template operator()<uint8_t, 8, 4, kCheck>();
-        case 1: return f.template operator()<uint16_t, 8, 4, kCheck>();
-        case 2: return f.template operator()<int, 8, 4, kCheck>();
-        default: return (int)cudaErrorInvalidValue;
-      }
-    case 1: return type == 1 ? f.template operator()<uint16_t, 4, 2, kCheck>() : (int)cudaErrorInvalidValue;
-    case 2: return type == 1 ? f.template operator()<uint16_t, 2, 1, kCheck>() : (int)cudaErrorInvalidValue;
-    case 3: return type == 1 ? f.template operator()<uint16_t, 1, 0, kCheck>() : (int)cudaErrorInvalidValue;
+    case 1:
+      return narrow ? f.template operator()<uint16_t, 4, 2, true, kCheck>()
+                    : f.template operator()<uint16_t, 4, 2, false, kCheck>();
+    case 2:
+      return narrow ? f.template operator()<uint16_t, 2, 1, true, kCheck>()
+                    : f.template operator()<uint16_t, 2, 1, false, kCheck>();
+    case 3:
+      return narrow ? f.template operator()<uint16_t, 1, 0, true, kCheck>()
+                    : f.template operator()<uint16_t, 1, 0, false, kCheck>();
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 struct Launch {
   const Args& a;
-  template <typename T, int R, int RE, bool kCheck>
-  int operator()() const { return launch<T, R, RE, kCheck>(a); }
+  template <typename T, int R, int RE, bool kNarrow, bool kCheck>
+  int operator()() const { return launch<T, R, RE, kNarrow, kCheck>(a); }
 };
 
 struct Attrs {
   int* out;
-  template <typename T, int R, int RE, bool kCheck>
-  int operator()() const { return attrs<T, R, RE, kCheck>(out); }
+  template <typename T, int R, int RE, bool kNarrow, bool kCheck>
+  int operator()() const { return attrs<T, R, RE, kNarrow, kCheck>(out); }
 };
 
 }  // namespace
@@ -400,30 +533,34 @@ extern "C" {
 int tm_integer_vif_blocks(int h, int w) { return vif_blocks(h, w); }
 
 // What integer_vif_kernel takes at VIF scale `scale` (0-3) on luma of
-// `type` (0 uint8, 1 uint16, 2 int32; scales 1-3: 1), with the check stores
+// `type` (0 uint8, 1 uint16, 2 int32; scales 1-3: 1), narrow (uint8 codes
+// at depth <= 8 and the scales after them) or wide, with the check stores
 // (check != 0) or without: out[0] registers per thread, out[1] dynamic
 // shared memory per block in bytes, out[2] resident blocks per SM, out[3]
 // local memory per thread in bytes (spills).
-int tm_integer_vif_attrs(int scale, int type, int check, int* out) {
+int tm_integer_vif_attrs(int scale, int type, int narrow, int check, int* out) {
   const Attrs f{out};
-  return check ? dispatch<true>(scale, type, f) : dispatch<false>(scale, type, f);
+  return check ? dispatch<true>(scale, type, narrow, 0, f) : dispatch<false>(scale, type, narrow, 0, f);
 }
 
 // Fixed-point VIF scale `scale` (0-3) of the pair `in` (2, B, h, w) of luma
 // codes of `type` -> sums[b * sums_pstride + {0, 1}] = (num, den).  shift:
 // the pre-rounding shift (depth - 8 at scale 0 above 8 bits, else 0).
-// coeffs (device int32): C1, C2 of this scale's window, then C1, C2 of the
-// next scale's (scales 0-2).  With scale < 3 it also writes `next` (2, B,
+// narrow: the luma were uint8 codes at depth <= 8 (every scale's samples <
+// 2^8; the caller passes the same at every scale).  coeffs (host int32):
+// C1, C2 of this scale's window, then C1, C2 of the next scale's (scales
+// 0-2), each symmetric.  With scale < 3 it also writes `next` (2, B,
 // ceil(h/2), ceil(w/2)) uint16, the next scale's input; with check non-null
 // the moments (5, B, h, w) int32 s11, s22, s12, mu1, mu2.  parts holds
 // B*tm_integer_vif_blocks(h, w)*2 floats, the only scratch.
-int tm_integer_vif_level(const void* in, int type, int bsz, int h, int w, int scale, int shift,
+int tm_integer_vif_level(const void* in, int type, int narrow, int bsz, int h, int w, int scale, int shift,
                          const int* coeffs, float* parts, float* sums, int sums_pstride, uint16_t* next,
                          int* check, void* stream) {
   const Args a{in, bsz, h, w, shift, coeffs, parts, sums, sums_pstride, next, check,
                static_cast<cudaStream_t>(stream)};
   const Launch f{a};
-  return check != nullptr ? dispatch<true>(scale, type, f) : dispatch<false>(scale, type, f);
+  return check != nullptr ? dispatch<true>(scale, type, narrow, shift, f)
+                          : dispatch<false>(scale, type, narrow, shift, f);
 }
 
 }  // extern "C"

@@ -91,8 +91,9 @@ def angle_gate(o_h, o_v, t_h, t_v) -> torch.Tensor:
 
 
 def integer_adm_levels(ref: torch.Tensor, dis: torch.Tensor, *, depth: int = 8) -> list[dict]:
-    """Per-level integer bands (int32 Q8) and the angle gate (bool): the
-    exact surface.  Inputs: (..., H, W) integer luma."""
+    """Per-level integer bands (int32 Q8), the angle gate (bool) and the A
+    bands ('a_ref', 'a_dis': the next level's input, int32): the exact
+    surface.  Inputs: (..., H, W) integer luma."""
     x = wrap_i32(ref.to(torch.int64)).to(torch.int64)
     y = wrap_i32(dis.to(torch.int64)).to(torch.int64)
     if depth > 8:
@@ -108,6 +109,7 @@ def integer_adm_levels(ref: torch.Tensor, dis: torch.Tensor, *, depth: int = 8) 
         out.append({
             **{k: v.to(torch.int32) for k, v in bands.items()},
             "angle_ok": angle_gate(o_h, o_v, t_h, t_v),
+            "a_ref": o_a.to(torch.int32), "a_dis": t_a.to(torch.int32),
         })
         o, t = o_a, t_a
     return out

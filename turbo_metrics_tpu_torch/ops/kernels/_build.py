@@ -68,8 +68,8 @@ _SIGNATURES = {
     "tm_adm_tile_attrs": [_PI],
     "tm_adm_level": [_P, _I, _I, _I, _PF, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _I, _P],
     "tm_integer_vif_blocks": [_I, _I],
-    "tm_integer_vif_attrs": [_I, _I, _I, _PI],
-    "tm_integer_vif_level": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
+    "tm_integer_vif_attrs": [_I, _I, _I, _I, _PI],
+    "tm_integer_vif_level": [_P, _I, _I, _I, _I, _I, _I, _I, _PI, _P, _P, _I, _P, _P, _P],
     "tm_integer_adm_blocks": [_I, _I, _I, _I],
     "tm_integer_adm_attrs": [_I, _I, _I, _PI],
     "tm_integer_adm_level": [_P, _I, _I, _I, _I, _I, _I, _PI, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _I,

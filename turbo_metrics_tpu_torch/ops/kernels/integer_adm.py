@@ -55,7 +55,7 @@ def _run(pair, depth, levels: bool):
         ch, cw = (h + 1) // 2, (w + 1) // 2
         top, _, left, _ = adm.center_region(ch, cw)
         last = level + 1 == adm.NUM_LEVELS
-        approx = None if last else torch.empty((2, bsz, ch, cw), dtype=torch.int32, device=dev)
+        approx = None if last and not levels else torch.empty((2, bsz, ch, cw), dtype=torch.int32, device=dev)
         surface = torch.empty((7, bsz, ch, cw), dtype=torch.int32, device=dev) if levels else None
         parts = level_scratch(bsz, h, w, dev)
         rf_hv, rf_d = adm.csf_rfactors(level)
@@ -75,6 +75,7 @@ def _run(pair, depth, levels: bool):
         if levels:
             lv = dict(zip(integer_adm.BANDS, surface[:6].unbind(0)))
             lv["angle_ok"] = surface[6] != 0
+            lv["a_ref"], lv["a_dis"] = approx.unbind(0)
             out.append(lv)
         x, h, w = approx, ch, cw
     return sums, out
@@ -95,8 +96,9 @@ integer_adm_stats.launches = 0
 
 def integer_adm_levels(pair: torch.Tensor, *, depth: int = 8) -> list[dict]:
     """The integer surface of every level, from the kernel's check stores:
-    the bands o_h .. t_d ((B, ch, cw) int32) and the gate (bool).  Counts
-    its launches with ``integer_adm_stats``; not on the main path."""
+    the bands o_h .. t_d ((B, ch, cw) int32), the gate (bool) and the A
+    bands it writes ('a_ref', 'a_dis', int32; at the last level too).
+    Counts its launches with ``integer_adm_stats``; not on the main path."""
     if pair.device.type == "cpu":
         return integer_adm_levels_ref(pair, depth=depth)
     return _run(pair, depth, True)[1]

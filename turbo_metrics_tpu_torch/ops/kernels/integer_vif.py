@@ -2,7 +2,8 @@
 
 ``integer_vif_stats`` launches ``tm_integer_vif_level`` (csrc/integer_vif.cu)
 once per scale on a CUDA tensor, each scale reading the uint16 input the one
-before emitted, and runs its plain twin ``integer_vif_stats_ref``
+before emitted (uint8 codes at depth <= 8 through the kernel's narrow
+instances, ``narrow_codes``), and runs its plain twin ``integer_vif_stats_ref``
 (ops/integer_vif.py) on a CPU tensor.  No TPU kernel stands behind it: the
 JAX package computes ``integer_vif_stats`` (turbo_metrics_tpu/ops/
 integer_vif.py:100) with jnp.  ``integer_vif_planes`` runs the same launches
@@ -11,6 +12,8 @@ with the kernel's check stores on, for holding its integer planes against
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -25,15 +28,22 @@ PLANES = ("s11", "s22", "s12", "mu1", "mu2")
 _COEFFS: dict = {}
 
 
-def _coeffs(scale: int, device) -> torch.Tensor:
-    """C1, C2 of the scale's window, then C1, C2 of the next scale's (int32,
-    on ``device``, made once)."""
-    key = (scale, str(device))
-    if key not in _COEFFS:
+def _coeffs(scale: int):
+    """C1, C2 of the scale's window, then C1, C2 of the next scale's (host
+    int32 for the kernel's parameters, made once)."""
+    if scale not in _COEFFS:
         parts = [integer_vif.vif_coeffs_q(k, bits) for k in (scale, scale + 1)
                  if k < NUM_SCALES for bits in (16, 12)]
-        _COEFFS[key] = torch.from_numpy(np.concatenate(parts).astype(np.int32)).to(device)
-    return _COEFFS[key]
+        taps = np.concatenate(parts).astype(np.int32).tolist()
+        _COEFFS[scale] = (ctypes.c_int * len(taps))(*taps)
+    return _COEFFS[scale]
+
+
+def narrow_codes(pair: torch.Tensor, depth: int) -> bool:
+    """Whether the kernel's narrow instances take ``pair``: uint8 codes that
+    are not pre-rounded (depth <= 8), so that every scale's samples are <
+    2^8 and its vertical sums < 2^16 (csrc/integer_vif.cu)."""
+    return pair.dtype == torch.uint8 and pre_shift(depth) == 0
 
 
 def check_codes(pair):
@@ -75,6 +85,7 @@ def _run(pair, depth, planes: bool):
     stream = torch.cuda.current_stream(pair.device).cuda_stream
     _, bsz, h, w = pair.shape
     dev = pair.device
+    narrow = int(narrow_codes(pair, depth))
     sums = torch.empty((bsz, NUM_SCALES, 2), dtype=torch.float32, device=dev)
     out, x = [], pair
     for k in range(NUM_SCALES):
@@ -85,8 +96,8 @@ def _run(pair, depth, planes: bool):
         parts = torch.empty(bsz * vif_blocks(h, w) * 2, dtype=torch.float32, device=dev)
         check(
             lib.tm_integer_vif_level(
-                x.data_ptr(), DTYPE_CODES[x.dtype], bsz, h, w, k, shift if k == 0 else 0,
-                _coeffs(k, dev).data_ptr(), parts.data_ptr(), sums[:, k].data_ptr(), NUM_SCALES * 2,
+                x.data_ptr(), DTYPE_CODES[x.dtype], narrow, bsz, h, w, k, shift if k == 0 else 0,
+                _coeffs(k), parts.data_ptr(), sums[:, k].data_ptr(), NUM_SCALES * 2,
                 None if nxt is None else nxt.data_ptr(), None if moments is None else moments.data_ptr(),
                 stream,
             ),

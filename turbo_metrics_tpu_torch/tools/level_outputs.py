@@ -7,7 +7,8 @@ unpacked beside it with ``git archive``), runs the probes of that
 checkout's dissect tool (``kernel_dissect.probes`` at the tool's default
 shape, B=4 1080x1920, inputs from seed 0) whose wrapper is one of
 ``WRAPPERS``, and the calls of ``own_calls`` (ADM, the two conversions,
-VMAF motion, the SSIMULACRA2 tail and XPSNR on seeded inputs built here, so that a
+VMAF motion, the SSIMULACRA2 tail, XPSNR and the fixed-point VIF and ADM
+on seeded inputs built here, so that a
 checkout whose tool lacks a probe is compared all the same), on the card,
 and saves every tensor
 they return, with the peak device memory of each call above its inputs;
@@ -48,9 +49,11 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     shape and on 10-bit and int32 luma codes at an odd size (blurred planes
     and row SADs) and #17 on one frame, #4 on three levels of a linear-RGB pair at a
     quarter of the given shape (at 1080p the 4K level 3, 270x480) and on
-    five levels from 67x99, and XPSNR's #13 (its three grids) on u8 luma
+    five levels from 67x99, XPSNR's #13 (its three grids) on u8 luma
     and on a 10-bit reference against 8-bit luma at the given shape and on
-    10-bit luma at an odd size."""
+    10-bit luma at an odd size, and the fixed-point K-int-VIF and K-int-ADM
+    on u8 and 10-bit u16 luma pairs at the given shape and on 12-bit u16
+    and 10-bit int32 pairs at 67x99 (int_calls)."""
     from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
     from turbo_metrics_tpu_torch.ops.kernels import adm, convert, fused_tail, motion, xpsnr
 
@@ -115,12 +118,53 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
 
     x8 = (luma((batch, height, width), 8, np.uint8), luma((batch, height, width), 8, np.uint8))
     x10 = (luma((batch, height, width), 10, np.uint16), luma((batch, height, width), 8, np.uint8))
+    calls += int_calls(rng, batch, height, width, dev)
     return calls + [
         (f"#13 XPSNR u8 {width}x{height}", "xpsnr_block_stats", xpsnr_call(*x8, 8)),
         (f"#13 XPSNR 10-bit vs 8-bit {width}x{height}", "xpsnr_block_stats", xpsnr_call(*x10, 10)),
         ("#13 XPSNR 10-bit 131x35", "xpsnr_block_stats",
          xpsnr_call(luma((3, 35, 131), 10, np.uint16), luma((3, 35, 131), 10, np.uint16), 10)),
     ]
+
+
+# The integer surfaces saved per scale and per level, in this order (ADM's
+# A bands where the checkout's integer_adm_levels returns them).
+IVIF_KEYS = ("s11", "s22", "s12", "mu1", "mu2", "ref", "dis")
+IADM_KEYS = ("o_h", "o_v", "o_d", "t_h", "t_v", "t_d", "angle_ok", "a_ref", "a_dis")
+
+
+def int_calls(rng, batch: int, height: int, width: int, dev) -> list:
+    """(entry, wrapper, call) of K-int-VIF and K-int-ADM on seeded luma
+    pairs (the distorted image the reference plus noise): u8 and 10-bit u16
+    at the given shape, 12-bit u16 and 10-bit int32 codes at 67x99, B=2.
+    Per pair the per-scale and per-level sums, and per scale and per level
+    the check surfaces of integer_vif_planes and integer_adm_levels."""
+    from turbo_metrics_tpu_torch.ops.kernels import integer_adm, integer_vif
+
+    def pair(b, h, w, depth, dtype):
+        ref = rng.integers(0, 1 << depth, (b, h, w))
+        dis = np.clip(ref + rng.integers(-(1 << (depth - 4)), 1 << (depth - 4), ref.shape), 0, (1 << depth) - 1)
+        return torch.from_numpy(np.stack([ref, dis]).astype(dtype)).to(dev)
+
+    calls = []
+    for what, p, depth in ((f"u8 {width}x{height}", pair(batch, height, width, 8, np.uint8), 8),
+                           (f"10-bit u16 {width}x{height}", pair(batch, height, width, 10, np.uint16), 10),
+                           ("12-bit u16 99x67", pair(2, 67, 99, 12, np.uint16), 12),
+                           ("10-bit int32 99x67", pair(2, 67, 99, 10, np.int32), 10)):
+        calls += [
+            (f"K-int-VIF sums {what}", "integer_vif_stats",
+             lambda p=p, d=depth: integer_vif.integer_vif_stats(p, depth=d)),
+            (f"K-int-ADM sums {what}", "integer_adm_stats",
+             lambda p=p, d=depth: integer_adm.integer_adm_stats(p, depth=d)),
+        ]
+        for k in range(4):
+            calls.append((f"K-int-VIF scale {k} {what}", "integer_vif_stats",
+                          lambda p=p, d=depth, k=k: tuple(integer_vif.integer_vif_planes(p, depth=d)[k].get(key)
+                                                          for key in IVIF_KEYS)))
+            calls.append((f"K-int-ADM level {k} {what}", "integer_adm_stats",
+                          lambda p=p, d=depth, k=k: tuple(integer_adm.integer_adm_levels(p, depth=d)[k].get(key)
+                                                          for key in IADM_KEYS)))
+    return calls
 
 
 def save(root: str, out: str) -> dict:

@@ -19,7 +19,10 @@ pattern it counts:
     predicated instructions count whichever way they go; a loop counts
     once;
   * ``mufu``: the ``MUFU`` instructions (the special-function unit: ex2,
-    lg2, rcp, rsqrt, sin, cos) among ``path``.
+    lg2, rcp, rsqrt, sin, cos) among ``path``;
+  * ``ops``: with ``--ops``, the instructions among ``path`` whose opcode
+    starts with each given prefix (``IMAD`` counts IMAD.WIDE, IMAD.MOV and
+    the other forms of the multiply-add too; ``LDS`` the shared loads).
 
 An instruction bound is then ``path`` times the threads over the card's
 issue rate (4 warp instructions per SM per clock, 32 lanes each) and
@@ -27,9 +30,10 @@ issue rate (4 warp instructions per SM per clock, 32 lanes each) and
 per clock).  On the card's machine:
 
     python -m turbo_metrics_tpu_torch.tools.sass_count 'yuv_to_rgb_kernel<unsigned short, 1, 2, 0>'
+    python -m turbo_metrics_tpu_torch.tools.sass_count integer_vif_kernel --ops IMAD,IADD3,LDS
 
 prints a line per matching kernel and, last, one JSON object
-``{"sass": [{"kernel", "static", "path", "mufu"}, ...]}``.
+``{"sass": [{"kernel", "static", "path", "mufu"[, "ops"]}, ...]}``.
 """
 
 from __future__ import annotations
@@ -105,19 +109,21 @@ def _opcode(ins: str) -> tuple:
     return pred, parts[1 if pred else 0]
 
 
-def count(instructions: list) -> dict:
-    """{"static", "path", "mufu"} of one function (see the module's notes)."""
-    ops = [(off, *_opcode(ins), ins) for off, ins in instructions]
-    at = {off: i for i, (off, *_) in enumerate(ops)}
+def count(instructions: list, ops=()) -> dict:
+    """{"static", "path", "mufu"} of one function (see the module's notes),
+    and "ops" where ``ops`` names opcode prefixes to count on the path."""
+    code = [(off, *_opcode(ins), ins) for off, ins in instructions]
+    at = {off: i for i, (off, *_) in enumerate(code)}
 
     def target(i):
-        tgt = _TARGET.search(ops[i][3].split(ops[i][2], 1)[1])
+        tgt = _TARGET.search(code[i][3].split(code[i][2], 1)[1])
         return at.get(int(tgt.group(1), 16)) if tgt else None
 
     path = mufu = 0
+    tally = dict.fromkeys(ops, 0)
     i = 0
-    while i < len(ops):
-        _, pred, op, _ = ops[i]
+    while i < len(code):
+        _, pred, op, _ = code[i]
         if op.startswith(("EXIT", "RET")) and not pred:
             path += op.startswith("EXIT")
             break
@@ -127,7 +133,7 @@ def count(instructions: list) -> dict:
             i = j
             continue
         if j is not None and pred and i < j <= i + 1 + CALL_STUB and any(
-                o[2].startswith("CALL") for o in ops[i + 1 : j]):  # over the call of a slow path
+                o[2].startswith("CALL") for o in code[i + 1 : j]):  # over the call of a slow path
             path += 1
             i = j
             continue
@@ -137,8 +143,13 @@ def count(instructions: list) -> dict:
         if not op.startswith("NOP"):
             path += 1
             mufu += op.startswith("MUFU")
+            for prefix in tally:
+                tally[prefix] += op.startswith(prefix)
         i += 1
-    return {"static": sum(not o[2].startswith("NOP") for o in ops), "path": path, "mufu": mufu}
+    out = {"static": sum(not o[2].startswith("NOP") for o in code), "path": path, "mufu": mufu}
+    if ops:
+        out["ops"] = tally
+    return out
 
 
 def short_name(demangled: str) -> str:
@@ -156,14 +167,15 @@ def short_name(demangled: str) -> str:
     return name
 
 
-def kernel_counts(patterns, library: str | None = None) -> list:
-    """[{"kernel", "static", "path", "mufu"}] of each kernel whose demangled
-    name (without its argument list) contains one of ``patterns``."""
+def kernel_counts(patterns, library: str | None = None, ops=()) -> list:
+    """[{"kernel", "static", "path", "mufu", "ops"}] of each kernel whose
+    demangled name (without its argument list) contains one of
+    ``patterns``; ``ops``: the opcode prefixes to count on the path."""
     rows = []
     for name, instructions in disassemble(library).items():
         short = short_name(name)
         if any(p in short for p in patterns):
-            rows.append({"kernel": short, **count(instructions)})
+            rows.append({"kernel": short, **count(instructions, ops)})
     return rows
 
 
@@ -173,10 +185,13 @@ def main(argv=None) -> dict:
     ap.add_argument("patterns", nargs="+", help="substrings of demangled kernel names, e.g. "
                     "'yuv_to_rgb_kernel<unsigned short, 1, 2, 0>'")
     ap.add_argument("--library", help="a built kernel library (default: the port's, built if needed)")
+    ap.add_argument("--ops", default="", metavar="PREFIXES",
+                    help="comma-separated opcode prefixes to count on the common path, e.g. IMAD,IADD3,LDS")
     args = ap.parse_args(argv)
-    rows = kernel_counts(args.patterns, args.library)
+    rows = kernel_counts(args.patterns, args.library, tuple(p for p in args.ops.split(",") if p))
     for r in rows:
-        print(f"{r['kernel']}: {r['path']} instructions on the common path ({r['mufu']} MUFU), "
+        tally = "".join(f", {n} {k}" for k, n in r.get("ops", {}).items())
+        print(f"{r['kernel']}: {r['path']} instructions on the common path ({r['mufu']} MUFU{tally}), "
               f"{r['static']} in all", flush=True)
     result = {"sass": rows}
     print(json.dumps(result), flush=True)
