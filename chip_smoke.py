@@ -140,8 +140,8 @@ Phases, each fatal on failure (exit code 1):
      and each scale's input; ADM's six bands and angle gate per level, from
      the kernels' check stores), VIF's sums per scale within rel 1e-6,
      ADM's within rel 1e-5; the twins' features against the CLI's (d-int);
-     the same at INT_EDGE_SIZES (1x1 to 67x99, h < 9, u8, u16 and int32 at
-     8 to 16 bits); the engine with vmaf_integer on the card against the
+     the same at INT_EDGE_SIZES (1x1 to 96x128, h < 9, u8, u16 and int32
+     at 8 to 16 bits); the engine with vmaf_integer on the card against the
      CPU on a 67x99 10-bit 4:2:2 / 8-bit 4:2:0 pair;
   6. score the frozen golden pair through the kernel route: 80.486135 +- 0.05;
   7. time each kernel and its twin (#7 also against avg_pool2d, #19 against
@@ -227,10 +227,13 @@ INT_VS_FLOAT = {"vmaf_vif": 1.2e-2, "vmaf_adm": 2e-2}
 # Sizes where the integer kernels branch (phase 5j), as (h, w, depth, luma
 # type): the smallest planes, h < 9 (the 17-tap window wider than the plane
 # at scale 0), odd sizes that cross the 32x32 tiles' edges, ADM's edge sizes,
-# and each luma type.
+# and each luma type; at 96x128 rows of whole 16-byte chunks with interior
+# tiles, so that VIF's chunk loads and ADM's tensor copies run at u8 (codes
+# pre-rounded from 10 bits) and int32.  u8 codes lie below 2^8 at any depth.
 INT_EDGE_SIZES = ((1, 1, 8, np.uint8), (3, 3, 8, np.uint8), (5, 7, 8, np.uint8), (8, 13, 10, np.uint16),
                   (13, 21, 8, np.int32), (67, 99, 10, np.uint16), (35, 131, 16, np.uint16),
-                  (33, 65, 8, np.int32), (67, 99, 8, np.uint8))
+                  (33, 65, 8, np.int32), (67, 99, 8, np.uint8), (96, 128, 10, np.uint8),
+                  (96, 128, 10, np.int32))
 # ADM's edge sizes (phases 2 and 5g): the centre region starts at the band
 # plane's first row or column on some level of the first three, so the
 # mask's halo leaves the plane there.
@@ -338,7 +341,6 @@ INT_SASS = {
     "integer_vif_stats": ("integer_vif_kernel<unsigned char, 8, 4, 1, 0>", 8),
     "integer_adm_stats": ("integer_adm_kernel<unsigned char, 1, 0>", 4),
 }
-INT_SASS_OPS = ("IMAD", "IADD3", "LDS")
 # The wrappers the dissect path times (phase 8), each launched there.
 DISSECT_KERNELS = ("fused_scale_rgb", "scale_sums", "blur_only", "fused_scale0_yuv", "fused_pyramid_tail",
                    "fused_scale_pair", "ssim_sums", "msssim_tail", "vif_scale0", "vif_tail", "adm_stats",
@@ -1266,7 +1268,7 @@ def check_integer_edges(dev) -> None:
     reference plus noise, each luma type, 8 to 16 bits."""
     rng = np.random.default_rng(21)
     for h, w, depth, dt in INT_EDGE_SIZES:
-        hi = 1 << depth
+        hi = min(1 << depth, int(np.iinfo(dt).max) + 1)
         r = rng.integers(0, hi, (2, h, w))
         d = np.clip(r + rng.integers(-hi // 16, hi // 16 + 1, r.shape), 0, hi - 1)
         pair = torch.from_numpy(np.stack([r, d]).astype(dt)).to(dev)
@@ -1451,7 +1453,7 @@ def check_level_blocks(lib, card: str) -> None:
         need(got == want, f"tm_integer_adm_blocks({ch}, {cw}, {top}, {left}) = {got}, adm_blocks = {want}")
     types = ("unsigned char", "unsigned short", "int")
     for chk in (0, 1):
-        for scale, ty, narrow, inst in ((0, 0, 1, "8, 4"), (0, 0, 0, "8, 4"), (0, 1, 0, "8, 4"), (0, 2, 0, "8, 4"),
+        for scale, ty, narrow, inst in ((0, 0, 1, "8, 4"), (0, 1, 0, "8, 4"), (0, 2, 0, "8, 4"),
                                         (1, 1, 1, "4, 2"), (1, 1, 0, "4, 2"), (2, 1, 1, "2, 1"), (2, 1, 0, "2, 1"),
                                         (3, 1, 1, "1, 0"), (3, 1, 0, "1, 0")):
             _build.check(lib.tm_integer_vif_attrs(scale, ty, narrow, chk, a), "tm_integer_vif_attrs")
@@ -1754,11 +1756,11 @@ def integer_sass(card: str) -> None:
     per thread and per output pixel."""
     from turbo_metrics_tpu_torch.tools import sass_count
 
-    rows = {r["kernel"]: r for r in sass_count.kernel_counts([k for k, _ in INT_SASS.values()], ops=INT_SASS_OPS)}
+    rows = {r["kernel"]: r for r in sass_count.kernel_counts([k for k, _ in INT_SASS.values()])}
     for wrapper, (kernel, ppt) in INT_SASS.items():
         need(kernel in rows, f"no SASS of {kernel} in the built library (have {sorted(rows)})")
         r = rows[kernel]
-        per = ", ".join(f"{r['ops'][op]} {op} ({r['ops'][op] / ppt:.1f} per pixel)" for op in INT_SASS_OPS)
+        per = ", ".join(f"{r['ops'][op]} {op} ({r['ops'][op] / ppt:.1f} per pixel)" for op in sass_count.OPS)
         log(f"SASS {kernel} ({wrapper}): {r['path']} instructions per thread on the common path "
             f"({r['path'] / ppt:.1f} per output pixel): {per}; {r['static']} in the function [{card}]")
 

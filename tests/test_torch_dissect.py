@@ -345,7 +345,8 @@ def test_level_outputs_own_calls_run_on_cpu():
                                         "integer_vif_stats", "integer_adm_stats"}
     int_shapes = {}
     for what, (b, h, w) in (("u8 64x48", (1, 48, 64)), ("10-bit u16 64x48", (1, 48, 64)),
-                            ("12-bit u16 99x67", (2, 67, 99)), ("10-bit int32 99x67", (2, 67, 99))):
+                            ("12-bit u16 99x67", (2, 67, 99)), ("10-bit int32 99x67", (2, 67, 99)),
+                            ("u8 read at 10 bits 128x96", (2, 96, 128)), ("10-bit int32 128x96", (2, 96, 128))):
         int_shapes[f"K-int-VIF sums {what}"] = (b, 4, 2)
         int_shapes[f"K-int-ADM sums {what}"] = (b, 4, 3, 2)
         for k in range(4):
@@ -388,11 +389,12 @@ _SASS = [
 
 
 @pytest.mark.parametrize("listing,want", [
-    (_SASS, {"static": 16, "path": 10, "mufu": 2}),
+    (_SASS, {"static": 16, "path": 10, "mufu": 2, "ops": {"IMAD": 0, "IADD3": 0, "LDS": 0}}),
     # A loop's closing branch counts once; a predicated branch over
     # straight-line code is taken as not taken.
     ([(0x00, "IADD3 R1, R1, 0x1, RZ"), (0x10, "@P0 BRA 0x30"), (0x20, "MUFU.LG2 R2, R1"),
-      (0x30, "BRA 0x0"), (0x40, "EXIT")], {"static": 5, "path": 4, "mufu": 1}),
+      (0x30, "BRA 0x0"), (0x40, "EXIT")],
+     {"static": 5, "path": 4, "mufu": 1, "ops": {"IMAD": 0, "IADD3": 1, "LDS": 0}}),
 ])
 def test_sass_count_walks_the_common_path(listing, want):
     """``sass_count.count`` counts a thread's common path: the division's
@@ -404,15 +406,15 @@ def test_sass_count_walks_the_common_path(listing, want):
 
 
 def test_sass_count_tallies_opcodes_on_the_path():
-    """With opcode prefixes, ``sass_count.count`` also counts the path's
-    instructions by prefix (every form of IMAD under IMAD), not those that
-    only branches reach."""
+    """``sass_count.count`` also counts the path's instructions by the
+    prefixes of ``OPS`` (every form of IMAD under IMAD), not those that only
+    branches reach."""
     from turbo_metrics_tpu_torch.tools import sass_count
 
     listing = [(0x00, "IMAD R1, R2, R3, R1"), (0x10, "IMAD.MOV.U32 R4, RZ, RZ, R1"), (0x20, "IADD3 R1, R1, R4, RZ"),
                (0x30, "@P0 BRA 0x60"), (0x40, "LDS.U16 R5, [R2]"), (0x50, "BRA 0x80"),
                (0x60, "IMAD R6, R6, R6, RZ"), (0x70, "LDS R6, [R3]"), (0x80, "EXIT")]
-    got = sass_count.count(listing, ("IMAD", "IADD3", "LDS"))
+    got = sass_count.count(listing)
     assert got == {"static": 9, "path": 7, "mufu": 0, "ops": {"IMAD": 2, "IADD3": 1, "LDS": 1}}
 
 

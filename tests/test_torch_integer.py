@@ -250,44 +250,41 @@ def test_folded_vif_schedule_matches_twin(name):
 
 
 def test_narrow_instances_chosen_by_type_and_depth():
-    """K-int-VIF's narrow instances (uint16 shared planes) take
-    uint8 codes that are not pre-rounded, nothing else."""
+    """K-int-VIF's narrow instances (uint16 shared planes) take uint8 codes,
+    whatever the depth they are read at, and nothing else."""
     z = torch.zeros((2, 1, 4, 4))
-    assert kiv.narrow_codes(z.to(torch.uint8), 8) and kiv.narrow_codes(z.to(torch.uint8), 6)
-    assert not kiv.narrow_codes(z.to(torch.uint8), 10)
-    assert not kiv.narrow_codes(z.to(torch.uint16), 8) and not kiv.narrow_codes(z.to(torch.int32), 8)
+    assert kiv.narrow_codes(z.to(torch.uint8))
+    assert not kiv.narrow_codes(z.to(torch.uint16)) and not kiv.narrow_codes(z.to(torch.int32))
 
 
 @settings(max_examples=24, deadline=None, derandomize=True)
 @given(depth=st.integers(8, 16), seed=st.integers(0, 2**32 - 1), extreme=st.booleans())
 def test_vif_planes_stay_in_the_narrow_range(depth, seed, extreme):
-    """For codes < 2^depth every scale's input, as the twin computes it, is
-    at most 2^8: at most 255 at 8 bits, where the kernel's narrow instances
-    keep the vertical planes (vx <= 65280, vxx, vyy, vxy <= 65025) and the
-    next window's vertical pass (<= 65280) in uint16; above 8 bits the
-    largest code pre-rounds to 256, whose vertical sums (up to 65536) need
-    the wide instances.  ``extreme``: every code at 0 or at the largest."""
+    """For uint8 codes read at ``depth`` bits every scale's input, as the
+    twin computes it, is at most 255 (at most 128 where the codes are
+    pre-rounded), so the kernel's narrow instances keep the vertical planes
+    (vx <= 65280, vxx, vyy, vxy <= 65025) and the next window's vertical
+    pass (<= 65280) in uint16; uint16 codes < 2^depth above 8 bits
+    pre-round to up to 256, whose vertical sums (up to 65536) need the wide
+    instances.  ``extreme``: every code at 0 or at the largest."""
     rng = np.random.default_rng(seed)
-    hi = (1 << depth) - 1
     shape = (20, 36)
     if extreme:
-        ref, dis = rng.integers(0, 2, shape) * hi, rng.integers(0, 2, shape) * hi
+        ref, dis = rng.integers(0, 2, shape) * 255, rng.integers(0, 2, shape) * 255
     else:
-        ref, dis = rng.integers(0, hi + 1, shape), rng.integers(0, hi + 1, shape)
-    dt = np.uint8 if depth == 8 else np.uint16
-    planes = tiv.integer_vif_scale_planes(_t(ref.astype(dt)), _t(dis.astype(dt)), depth=depth)
-    top = 255 if depth == 8 else 256
+        ref, dis = rng.integers(0, 256, shape), rng.integers(0, 256, shape)
+    planes = tiv.integer_vif_scale_planes(_t(ref.astype(np.uint8)), _t(dis.astype(np.uint8)), depth=depth)
+    top = 255 if depth == 8 else 128
     for k in range(4):
         assert int(planes[k]["ref"].max()) <= top and int(planes[k]["dis"].max()) <= top
-    if depth > 8:
-        assert ((hi + (1 << (depth - 9))) >> (depth - 8)) == 256
-        return
-    for k in range(4):
         m = _folded_scale(_scale_inputs(planes[k]["ref"]), _scale_inputs(planes[k]["dis"]), k)
         assert int(torch.stack([m["vx"], m["vy"]]).max()) <= 65280
         assert int(torch.stack([m["vxx"], m["vyy"], m["vxy"]]).max()) <= 65025
         if k < 3:
             assert int(torch.stack([m["vxe"], m["vye"]]).max()) <= 65280
+    if depth > 8:
+        hi = (1 << depth) - 1
+        assert ((hi + (1 << (depth - 9))) >> (depth - 8)) == 256
 
 
 STATS_CASES = {"96x128-b2": (2, 96, 128, 8), "67x99-10bit": (1, 67, 99, 10)}

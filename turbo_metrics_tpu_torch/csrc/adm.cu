@@ -61,7 +61,8 @@
 // passes 38,080, |csf*a| 13,872, the mbarrier), set once per process.
 // Neither the row-filtered nor the band planes reach device memory.  An
 // input whose rows are not whole 16-byte chunks, or smaller than 8 x 4, is
-// read one sample at a time instead of by tensor copies.
+// loaded by the block's warps (adm_tile.cuh load_raw) instead of by tensor
+// copies.
 //
 // Layouts (all contiguous; ch = ceil(h/2), cw = ceil(w/2)):
 //   in     (2, B, h, w)      f32 luma in 8-bit units, or the previous level's A bands

@@ -8,8 +8,8 @@
 //     keeps the row pass (lo and hi) of both images in shared memory;
 //   * the raw rows (RawTile<E>, at the input's own type E): copied by the
 //     Tensor Memory Accelerator (start_raw, completing on an mbarrier,
-//     then fix_edges), or loaded sample by sample (load_raw) where the
-//     tensor copy does not take the input (raw_tensor_map);
+//     then fix_edges), or loaded by the block (load_raw) where the tensor
+//     copy does not take the input (raw_tensor_map);
 //   * decouple_csf: the decoupling ratio, the gate's choice and the CSF
 //     weights of one band pixel;
 //   * put_mask: |csf*a| of one band pixel into shared memory;
@@ -174,19 +174,41 @@ __device__ __forceinline__ void fix_edges(E* __restrict__ raw, int h, int w, int
   }
 }
 
-// The raw rows of the tile at (b, by0, bx0), one load per sample at its
-// symmetric index, by the whole block, at the places the tensor copy puts
-// them: for inputs that the tensor copy does not take.
+// The raw rows of the tile at (b, by0, bx0), by the whole block, at the
+// places the tensor copy puts them: for inputs that the tensor copy does not
+// take.  A warp per row (at its symmetric index), a lane per sample (the
+// column's symmetric index only where the tile's columns leave the input);
+// a thread issues the loads of kGroup rows before it stores the first.
 template <typename E>
 __device__ __forceinline__ void load_raw(E* __restrict__ raw, const E* __restrict__ in, int bsz, int b, int h,
                                          int w, int by0, int bx0) {
   using RT = RawTile<E>;
+  constexpr int kWarps = kThreadsAdm / 32, kPerRow = (kRawW + 31) / 32, kGroup = 6;
   const int r0 = 2 * by0 - 3, a0 = raw_col0(bx0), off = raw_off<E>(bx0);
+  const bool cols_in = a0 >= 0 && a0 + kRawW <= w;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const size_t npx = (size_t)h * w;
-  for (int i = threadIdx.x; i < 2 * kInRows * kRawW; i += kThreadsAdm) {
-    const int k = i % kRawW, lr = i / kRawW % kInRows, im = i / (kRawW * kInRows);
-    const E* q = in + ((size_t)im * bsz + b) * npx + (size_t)symmetric(r0 + lr, h) * w;
-    raw[im * RT::kStride + lr * RT::kW + off + k] = __ldg(q + symmetric(a0 + k, w));
+  for (int g = warp; g < 2 * kInRows; g += kGroup * kWarps) {
+    E v[kGroup][kPerRow];
+#pragma unroll
+    for (int n = 0; n < kGroup; ++n) {
+      const int rr = g + n * kWarps, im = rr >= kInRows, lr = rr - im * kInRows;
+      const E* q = in + ((size_t)im * bsz + b) * npx + (size_t)symmetric(r0 + lr, h) * w;
+#pragma unroll
+      for (int j = 0; j < kPerRow; ++j) {
+        const int k = lane + 32 * j;
+        if (rr < 2 * kInRows && k < kRawW) v[n][j] = __ldg(q + (cols_in ? a0 + k : symmetric(a0 + k, w)));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kGroup; ++n) {
+      const int rr = g + n * kWarps, im = rr >= kInRows, lr = rr - im * kInRows;
+#pragma unroll
+      for (int j = 0; j < kPerRow; ++j) {
+        const int k = lane + 32 * j;
+        if (rr < 2 * kInRows && k < kRawW) raw[im * RT::kStride + lr * RT::kW + off + k] = v[n][j];
+      }
+    }
   }
 }
 
@@ -379,7 +401,7 @@ inline EncodeTiled encode_tiled() {
 // tile's raw rows of one image (RawTile<E>::kW x kInRows); false where the
 // tensor copy does not take the input (rows not a multiple of 16 bytes, an
 // unaligned base, a plane smaller than 8 x 4): the kernel then loads the
-// samples one by one (load_raw).
+// samples itself (load_raw).
 template <typename E>
 bool raw_tensor_map(CUtensorMap* map, const E* in, int bsz, int h, int w) {
   if ((w * sizeof(E)) % 16 != 0 || w < 8 || h < 4 || reinterpret_cast<uintptr_t>(in) % 16 != 0) return false;

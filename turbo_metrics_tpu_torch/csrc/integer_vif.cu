@@ -63,21 +63,22 @@
 //   * with kCheck, the int32 planes s11, s22, s12, mu1, mu2 too (the exact
 //     surface the card's checks hold against the plain version); the main
 //     path's instances compile without those stores.
-// Two storage widths (kNarrow, chosen on the host from the luma's type and
-// depth): uint8 codes at depth <= 8 are < 2^8 at every scale (the next
-// scale's input is a rounded weighted mean of the last one's: (sum C2e vxe
-// + 2^19) >> 20 <= (255 * 2^24 + 2^19) >> 20 = 255), so vx <= (255 * 2^16 +
-// 2^7) >> 8 = 65280, vp <= (65025 * 2^12 + 2^11) >> 12 = 65025 and vxe <=
-// 65280 fit uint16, and so does the input tile (uint16 rather than the
-// codes' uint8: with uint8 samples nvcc packs them for IDP.2A with PRMT,
-// 399 PRMT per thread, 4% slower).  At R = 8 that block takes 30,528 B of
-// dynamic shared memory (inputs 12,288, vertical planes 15,680 at an odd
-// row stride, emission rows 2,560): six blocks per SM at 80 registers
-// (five at 96 measured 6% slower).
-// Other codes (uint16, int32, and uint8 pre-rounded from a depth above 8,
-// whose samples reach 256 and vertical sums 65536) keep uint32 planes, the
-// input pre-rounded as it is stored: 54,912 B at R = 8 from uint16 or
-// int32, four blocks per SM.
+// Two storage widths (kNarrow, chosen on the host from the luma's type):
+// uint8 codes are < 2^8 at every scale, pre-rounded or not (a code
+// pre-rounded by s >= 1 is (x + 2^(s-1)) >> s <= (255 + 2^(s-1)) >> s <=
+// 128; the next scale's input is a rounded weighted mean of the last one's:
+// (sum C2e vxe + 2^19) >> 20 <= (255 * 2^24 + 2^19) >> 20 = 255), so vx <=
+// (255 * 2^16 + 2^7) >> 8 = 65280, vp <= (65025 * 2^12 + 2^11) >> 12 =
+// 65025 and vxe <= 65280 fit uint16, and so does the input tile (uint16
+// rather than the codes' uint8: with uint8 samples nvcc packs them for
+// IDP.2A with PRMT, 399 PRMT per thread, 4% slower).  At R = 8 that block
+// takes 30,528 B of dynamic shared memory (inputs 12,288, vertical planes
+// 15,680 at an odd row stride, emission rows 2,560): six blocks per SM at
+// 80 registers (five at 96 measured 6% slower).
+// uint16 and int32 codes keep uint32 planes (a uint16 code < 2^depth
+// pre-rounds to up to 256, whose vertical sums reach 65536): 54,912 B at
+// R = 8, four blocks per SM.  Both widths pre-round the input as it is
+// stored.
 //
 // Layouts (all contiguous):
 //   in     (2, B, h, w)          luma codes, uint8 / uint16 / int32 (type)
@@ -142,24 +143,22 @@ struct ITile {
   static_assert((kIn * sizeof(In)) % 16 == 0, "an image's input tile is whole 16-byte chunks");
 };
 
-// The stored form of an input code: the narrow tile keeps it, the wide one
-// pre-rounds it by shift (an int32 code as its bits, as the plain version's
-// uint32 cast).
-template <typename In, typename T>
+// The stored form of an input code: with kRound pre-rounded by shift (> 0;
+// an int32 code as its bits, as the plain version's uint32 cast).
+template <bool kRound, typename In, typename T>
 __device__ __forceinline__ In stored(T v, int shift) {
   uint32_t u = static_cast<uint32_t>(v);
-  if constexpr (std::is_same_v<In, uint32_t>) {
-    if (shift > 0) u = (u + (1u << (shift - 1))) >> shift;
-  }
+  if constexpr (kRound) u = (u + (1u << (shift - 1))) >> shift;
   return static_cast<In>(u);
 }
 
 // The tile's input rows y0-R .. y0+31+R of both images into in[image][row]
-// [kRowW], input column x0-R+c at kOff + c.  Chunk path (chunks != 0): each
-// thread's 16-byte chunks of rows x0-kPad .. x0+31+kPad are all loaded
-// before the first is stored.  Otherwise each needed sample at its
-// reflect-101 index.
-template <typename T, int R, int RE, bool kNarrow>
+// [kRowW], input column x0-R+c at kOff + c, pre-rounded by shift where
+// kRound (the caller's branch on shift > 0, so that codes that need none
+// run no rounding).  Chunk path (chunks != 0): each thread's 16-byte chunks
+// of rows x0-kPad .. x0+31+kPad are all loaded before the first is stored.
+// Otherwise each needed sample at its reflect-101 index.
+template <typename T, int R, int RE, bool kNarrow, bool kRound>
 __device__ __forceinline__ void load_tile(typename ITile<T, R, RE, kNarrow>::In* __restrict__ in,
                                           const T* __restrict__ src, int bsz, int b, int h, int w, int x0, int y0,
                                           int shift, bool chunks) {
@@ -188,14 +187,14 @@ __device__ __forceinline__ void load_tile(typename ITile<T, R, RE, kNarrow>::In*
         const int img = i / kPerImage, rem = i - img * kPerImage;
         const int r = rem / Q::kRowChunks, k = rem - r * Q::kRowChunks;
         In* q = in + img * Q::kIn + r * Q::kRowW + k * Q::kChunk;
-        if constexpr (std::is_same_v<In, T>) {
+        if constexpr (std::is_same_v<In, T> && !kRound) {
           *reinterpret_cast<uint4*>(q) = v[n];
         } else {
           alignas(16) T s[Q::kChunk];
           *reinterpret_cast<uint4*>(s) = v[n];
           alignas(16) In u[Q::kChunk];
 #pragma unroll
-          for (int e = 0; e < Q::kChunk; ++e) u[e] = stored<In>(s[e], shift);
+          for (int e = 0; e < Q::kChunk; ++e) u[e] = stored<kRound, In>(s[e], shift);
 #pragma unroll
           for (int e = 0; e < Q::kChunk; e += 16 / (int)sizeof(In)) {
             *reinterpret_cast<uint4*>(q + e) = *reinterpret_cast<const uint4*>(u + e);
@@ -210,7 +209,7 @@ __device__ __forceinline__ void load_tile(typename ITile<T, R, RE, kNarrow>::In*
     const int r = rem / Q::kInW, c = rem - r * Q::kInW;
     const T* p = img ? d : a;
     in[img * Q::kIn + r * Q::kRowW + Q::kOff + c] =
-        stored<In>(__ldg(p + (size_t)reflect101(y0 - R + r, h) * w + reflect101(x0 - R + c, w)), shift);
+        stored<kRound, In>(__ldg(p + (size_t)reflect101(y0 - R + r, h) * w + reflect101(x0 - R + c, w)), shift);
   }
 }
 
@@ -241,7 +240,7 @@ __device__ __forceinline__ void ivif_map(int s11i, int s22i, int s12i, float (&v
 // (reduce_frames_kernel<2> then sums them in f64).  With RE > 0 also the
 // tile's 16x16 pixels of the next scale's input into next; with kCheck the
 // moments into check.  taps: the folded C1, C2 of this scale and of the
-// next.  shift: the pre-rounding shift (0: none; wide instances only).
+// next.  shift: the pre-rounding shift (0: none; scale 0 only).
 // aligned: the input's rows are whole 16-byte chunks from an aligned base.
 // grid: (ceil(w/32), ceil(h/32), B), block: kTileThreads (1-D), dynamic
 // shared memory: ITile<T, R, RE, kNarrow>::kSmemBytes.
@@ -265,7 +264,13 @@ integer_vif_kernel(const T* __restrict__ src, int bsz, int h, int w, int shift, 
 
   const bool chunks = aligned && y0 - R >= 0 && y0 + kTileH + R <= h && x0 - Q::kPad >= 0 &&
                       x0 + kTileW + Q::kPad <= w;
-  load_tile<T, R, RE, kNarrow>(in, src, bsz, b, h, w, x0, y0, shift, chunks);
+  // One branch on shift for the whole load: a test per sample cost the
+  // narrow scale 0 2% at 1080p.
+  if (shift > 0) {
+    load_tile<T, R, RE, kNarrow, true>(in, src, bsz, b, h, w, x0, y0, shift, chunks);
+  } else {
+    load_tile<T, R, RE, kNarrow, false>(in, src, bsz, b, h, w, x0, y0, shift, chunks);
+  }
   __syncthreads();
 
   // Vertical pass: column c (input column x0 - R + c) of output rows g*4 ..
@@ -481,23 +486,20 @@ int attrs(int* out) {
 }
 
 // The instance of (scale, luma type, width, check), handed to F: scale 0
-// reads uint8 (type 0), uint16 (1) or int32 (2) codes, scales 1-3 the
-// uint16 planes scale 0-2 emitted; narrow only from uint8 codes (scale 0:
-// not pre-rounded).
+// reads uint8 (type 0, narrow), uint16 (1) or int32 (2) codes (wide),
+// scales 1-3 the uint16 planes scale 0-2 emitted, narrow from uint8 codes;
+// only scale 0 pre-rounds.
 template <bool kCheck, typename F>
 int dispatch(int scale, int type, int narrow, int shift, F&& f) {
-  if (narrow && (type != (scale == 0 ? 0 : 1) || shift != 0)) return (int)cudaErrorInvalidValue;
+  if (scale == 0 ? (narrow != 0) != (type == 0) : type != 1 || shift != 0) return (int)cudaErrorInvalidValue;
   if (scale == 0) {
     switch (type) {
-      case 0:
-        return narrow ? f.template operator()<uint8_t, 8, 4, true, kCheck>()
-                      : f.template operator()<uint8_t, 8, 4, false, kCheck>();
+      case 0: return f.template operator()<uint8_t, 8, 4, true, kCheck>();
       case 1: return f.template operator()<uint16_t, 8, 4, false, kCheck>();
       case 2: return f.template operator()<int, 8, 4, false, kCheck>();
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (type != 1) return (int)cudaErrorInvalidValue;
   switch (scale) {
     case 1:
       return narrow ? f.template operator()<uint16_t, 4, 2, true, kCheck>()
@@ -534,7 +536,7 @@ int tm_integer_vif_blocks(int h, int w) { return vif_blocks(h, w); }
 
 // What integer_vif_kernel takes at VIF scale `scale` (0-3) on luma of
 // `type` (0 uint8, 1 uint16, 2 int32; scales 1-3: 1), narrow (uint8 codes
-// at depth <= 8 and the scales after them) or wide, with the check stores
+// and the scales after them) or wide, with the check stores
 // (check != 0) or without: out[0] registers per thread, out[1] dynamic
 // shared memory per block in bytes, out[2] resident blocks per SM, out[3]
 // local memory per thread in bytes (spills).
@@ -546,8 +548,8 @@ int tm_integer_vif_attrs(int scale, int type, int narrow, int check, int* out) {
 // Fixed-point VIF scale `scale` (0-3) of the pair `in` (2, B, h, w) of luma
 // codes of `type` -> sums[b * sums_pstride + {0, 1}] = (num, den).  shift:
 // the pre-rounding shift (depth - 8 at scale 0 above 8 bits, else 0).
-// narrow: the luma were uint8 codes at depth <= 8 (every scale's samples <
-// 2^8; the caller passes the same at every scale).  coeffs (host int32):
+// narrow: the luma were uint8 codes (every scale's samples < 2^8; the
+// caller passes the same at every scale).  coeffs (host int32):
 // C1, C2 of this scale's window, then C1, C2 of the next scale's (scales
 // 0-2), each symmetric.  With scale < 3 it also writes `next` (2, B,
 // ceil(h/2), ceil(w/2)) uint16, the next scale's input; with check non-null

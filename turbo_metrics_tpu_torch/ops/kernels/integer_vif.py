@@ -2,8 +2,8 @@
 
 ``integer_vif_stats`` launches ``tm_integer_vif_level`` (csrc/integer_vif.cu)
 once per scale on a CUDA tensor, each scale reading the uint16 input the one
-before emitted (uint8 codes at depth <= 8 through the kernel's narrow
-instances, ``narrow_codes``), and runs its plain twin ``integer_vif_stats_ref``
+before emitted (uint8 codes through the kernel's narrow instances,
+``narrow_codes``), and runs its plain twin ``integer_vif_stats_ref``
 (ops/integer_vif.py) on a CPU tensor.  No TPU kernel stands behind it: the
 JAX package computes ``integer_vif_stats`` (turbo_metrics_tpu/ops/
 integer_vif.py:100) with jnp.  ``integer_vif_planes`` runs the same launches
@@ -39,11 +39,11 @@ def _coeffs(scale: int):
     return _COEFFS[scale]
 
 
-def narrow_codes(pair: torch.Tensor, depth: int) -> bool:
-    """Whether the kernel's narrow instances take ``pair``: uint8 codes that
-    are not pre-rounded (depth <= 8), so that every scale's samples are <
-    2^8 and its vertical sums < 2^16 (csrc/integer_vif.cu)."""
-    return pair.dtype == torch.uint8 and pre_shift(depth) == 0
+def narrow_codes(pair: torch.Tensor) -> bool:
+    """Whether the kernel's narrow instances take ``pair``: uint8 codes, at
+    any depth (pre-rounded, a code stays <= 128), so that every scale's
+    samples are < 2^8 and its vertical sums < 2^16 (csrc/integer_vif.cu)."""
+    return pair.dtype == torch.uint8
 
 
 def check_codes(pair):
@@ -85,7 +85,7 @@ def _run(pair, depth, planes: bool):
     stream = torch.cuda.current_stream(pair.device).cuda_stream
     _, bsz, h, w = pair.shape
     dev = pair.device
-    narrow = int(narrow_codes(pair, depth))
+    narrow = int(narrow_codes(pair))
     sums = torch.empty((bsz, NUM_SCALES, 2), dtype=torch.float32, device=dev)
     out, x = [], pair
     for k in range(NUM_SCALES):

@@ -52,8 +52,9 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     five levels from 67x99, XPSNR's #13 (its three grids) on u8 luma
     and on a 10-bit reference against 8-bit luma at the given shape and on
     10-bit luma at an odd size, and the fixed-point K-int-VIF and K-int-ADM
-    on u8 and 10-bit u16 luma pairs at the given shape and on 12-bit u16
-    and 10-bit int32 pairs at 67x99 (int_calls)."""
+    on u8 and 10-bit u16 luma pairs at the given shape, on 12-bit u16 and
+    10-bit int32 pairs at 67x99 and on u8 and int32 pairs read at 10 bits
+    at 96x128 (int_calls)."""
     from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
     from turbo_metrics_tpu_torch.ops.kernels import adm, convert, fused_tail, motion, xpsnr
 
@@ -136,7 +137,9 @@ IADM_KEYS = ("o_h", "o_v", "o_d", "t_h", "t_v", "t_d", "angle_ok", "a_ref", "a_d
 def int_calls(rng, batch: int, height: int, width: int, dev) -> list:
     """(entry, wrapper, call) of K-int-VIF and K-int-ADM on seeded luma
     pairs (the distorted image the reference plus noise): u8 and 10-bit u16
-    at the given shape, 12-bit u16 and 10-bit int32 codes at 67x99, B=2.
+    at the given shape, 12-bit u16 and 10-bit int32 codes at 67x99, B=2,
+    and, at 96x128 (rows of whole 16-byte chunks, interior tiles), u8 codes
+    read at 10 bits and 10-bit int32 codes, B=2.
     Per pair the per-scale and per-level sums, and per scale and per level
     the check surfaces of integer_vif_planes and integer_adm_levels."""
     from turbo_metrics_tpu_torch.ops.kernels import integer_adm, integer_vif
@@ -150,7 +153,9 @@ def int_calls(rng, batch: int, height: int, width: int, dev) -> list:
     for what, p, depth in ((f"u8 {width}x{height}", pair(batch, height, width, 8, np.uint8), 8),
                            (f"10-bit u16 {width}x{height}", pair(batch, height, width, 10, np.uint16), 10),
                            ("12-bit u16 99x67", pair(2, 67, 99, 12, np.uint16), 12),
-                           ("10-bit int32 99x67", pair(2, 67, 99, 10, np.int32), 10)):
+                           ("10-bit int32 99x67", pair(2, 67, 99, 10, np.int32), 10),
+                           ("u8 read at 10 bits 128x96", pair(2, 96, 128, 8, np.uint8), 10),
+                           ("10-bit int32 128x96", pair(2, 96, 128, 10, np.int32), 10)):
         calls += [
             (f"K-int-VIF sums {what}", "integer_vif_stats",
              lambda p=p, d=depth: integer_vif.integer_vif_stats(p, depth=d)),

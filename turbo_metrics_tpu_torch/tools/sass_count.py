@@ -20,9 +20,9 @@ pattern it counts:
     once;
   * ``mufu``: the ``MUFU`` instructions (the special-function unit: ex2,
     lg2, rcp, rsqrt, sin, cos) among ``path``;
-  * ``ops``: with ``--ops``, the instructions among ``path`` whose opcode
-    starts with each given prefix (``IMAD`` counts IMAD.WIDE, IMAD.MOV and
-    the other forms of the multiply-add too; ``LDS`` the shared loads).
+  * ``ops``: the instructions among ``path`` whose opcode starts with each
+    prefix of ``OPS`` (``IMAD`` counts IMAD.WIDE, IMAD.MOV and the other
+    forms of the multiply-add too; ``LDS`` the shared loads).
 
 An instruction bound is then ``path`` times the threads over the card's
 issue rate (4 warp instructions per SM per clock, 32 lanes each) and
@@ -30,10 +30,10 @@ issue rate (4 warp instructions per SM per clock, 32 lanes each) and
 per clock).  On the card's machine:
 
     python -m turbo_metrics_tpu_torch.tools.sass_count 'yuv_to_rgb_kernel<unsigned short, 1, 2, 0>'
-    python -m turbo_metrics_tpu_torch.tools.sass_count integer_vif_kernel --ops IMAD,IADD3,LDS
+    python -m turbo_metrics_tpu_torch.tools.sass_count integer_vif_kernel
 
 prints a line per matching kernel and, last, one JSON object
-``{"sass": [{"kernel", "static", "path", "mufu"[, "ops"]}, ...]}``.
+``{"sass": [{"kernel", "static", "path", "mufu", "ops"}, ...]}``.
 """
 
 from __future__ import annotations
@@ -50,6 +50,9 @@ from pathlib import Path
 # schedulers, each one warp instruction of 32 lanes; 16 special-function lanes.
 ISSUE_LANES_PER_SM = 4 * 32
 MUFU_LANES_PER_SM = 16
+# The opcode prefixes tallied on the common path: the integer multiply-adds
+# and adds, and the shared loads.
+OPS = ("IMAD", "IADD3", "LDS")
 
 _FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
 _INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -109,31 +112,31 @@ def _opcode(ins: str) -> tuple:
     return pred, parts[1 if pred else 0]
 
 
-def count(instructions: list, ops=()) -> dict:
-    """{"static", "path", "mufu"} of one function (see the module's notes),
-    and "ops" where ``ops`` names opcode prefixes to count on the path."""
-    code = [(off, *_opcode(ins), ins) for off, ins in instructions]
-    at = {off: i for i, (off, *_) in enumerate(code)}
+def count(instructions: list) -> dict:
+    """{"static", "path", "mufu", "ops"} of one function (see the module's
+    notes)."""
+    ops = [(off, *_opcode(ins), ins) for off, ins in instructions]
+    at = {off: i for i, (off, *_) in enumerate(ops)}
 
     def target(i):
-        tgt = _TARGET.search(code[i][3].split(code[i][2], 1)[1])
+        tgt = _TARGET.search(ops[i][3].split(ops[i][2], 1)[1])
         return at.get(int(tgt.group(1), 16)) if tgt else None
 
     path = mufu = 0
-    tally = dict.fromkeys(ops, 0)
+    tally = dict.fromkeys(OPS, 0)
     i = 0
-    while i < len(code):
-        _, pred, op, _ = code[i]
+    while i < len(ops):
+        _, pred, op, _ = ops[i]
         if op.startswith(("EXIT", "RET")) and not pred:
             path += op.startswith("EXIT")
             break
         j = target(i) if op.startswith("BRA") else None
-        if j is not None and not pred and j > i:  # the code after it is reached by branches only
+        if j is not None and not pred and j > i:  # the ops after it is reached by branches only
             path += 1
             i = j
             continue
         if j is not None and pred and i < j <= i + 1 + CALL_STUB and any(
-                o[2].startswith("CALL") for o in code[i + 1 : j]):  # over the call of a slow path
+                o[2].startswith("CALL") for o in ops[i + 1 : j]):  # over the call of a slow path
             path += 1
             i = j
             continue
@@ -146,10 +149,7 @@ def count(instructions: list, ops=()) -> dict:
             for prefix in tally:
                 tally[prefix] += op.startswith(prefix)
         i += 1
-    out = {"static": sum(not o[2].startswith("NOP") for o in code), "path": path, "mufu": mufu}
-    if ops:
-        out["ops"] = tally
-    return out
+    return {"static": sum(not o[2].startswith("NOP") for o in ops), "path": path, "mufu": mufu, "ops": tally}
 
 
 def short_name(demangled: str) -> str:
@@ -167,15 +167,15 @@ def short_name(demangled: str) -> str:
     return name
 
 
-def kernel_counts(patterns, library: str | None = None, ops=()) -> list:
+def kernel_counts(patterns, library: str | None = None) -> list:
     """[{"kernel", "static", "path", "mufu", "ops"}] of each kernel whose
     demangled name (without its argument list) contains one of
-    ``patterns``; ``ops``: the opcode prefixes to count on the path."""
+    ``patterns``."""
     rows = []
     for name, instructions in disassemble(library).items():
         short = short_name(name)
         if any(p in short for p in patterns):
-            rows.append({"kernel": short, **count(instructions, ops)})
+            rows.append({"kernel": short, **count(instructions)})
     return rows
 
 
@@ -185,12 +185,10 @@ def main(argv=None) -> dict:
     ap.add_argument("patterns", nargs="+", help="substrings of demangled kernel names, e.g. "
                     "'yuv_to_rgb_kernel<unsigned short, 1, 2, 0>'")
     ap.add_argument("--library", help="a built kernel library (default: the port's, built if needed)")
-    ap.add_argument("--ops", default="", metavar="PREFIXES",
-                    help="comma-separated opcode prefixes to count on the common path, e.g. IMAD,IADD3,LDS")
     args = ap.parse_args(argv)
-    rows = kernel_counts(args.patterns, args.library, tuple(p for p in args.ops.split(",") if p))
+    rows = kernel_counts(args.patterns, args.library)
     for r in rows:
-        tally = "".join(f", {n} {k}" for k, n in r.get("ops", {}).items())
+        tally = "".join(f", {n} {k}" for k, n in r["ops"].items())
         print(f"{r['kernel']}: {r['path']} instructions on the common path ({r['mufu']} MUFU{tally}), "
               f"{r['static']} in all", flush=True)
     result = {"sass": rows}
