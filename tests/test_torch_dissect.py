@@ -147,7 +147,120 @@ def test_blur_probe_is_built():
     """blur_probe.cu is one of the library's sources, its entry points bound."""
     assert "blur_probe.cu" in _build.SOURCES
     assert (_build.CSRC / "blur_probe.cu").is_file()
-    assert {"tm_blur_probe", "tm_blur_probe_blocks"} <= set(_build._SIGNATURES)
+    assert {"tm_blur_probe", "tm_blur_probe_blocks", "tm_blur_probe_attrs"} <= set(_build._SIGNATURES)
+
+
+# The CUDA kernel's input tile (csrc/blur_probe.cu) starts 8 columns left of
+# its output tile, on a 16-byte boundary, and 5 rows above it.
+IN_OFF = 8
+
+
+def test_kernel_tile_divides_the_region_tile():
+    """The kernel's tile divides the TPU probe's 128x512 tile, so ``region``
+    always gives whole blocks (tm_blur_probe refuses any other region); its
+    column pass has a thread per 4 x COLUMN_ROWS outputs, whole warps; the
+    row pass's tasks start on 16-byte chunks and share the threads out
+    evenly."""
+    kh, kw, n = blur_probe.KERNEL_TILE_H, blur_probe.KERNEL_TILE_W, blur_probe.ROW_OUTPUTS
+    threads = blur_probe.BLOCK_THREADS
+    assert TH % kh == 0 and TW % kw == 0
+    for h, w in ((1, 1), (67, 99), (300, 700), (1080, 1920), (2160, 3840), (TH + 1, TW + 1)):
+        rh, rw = blur_probe.region(h, w)
+        assert rh % kh == 0 and rw % kw == 0 and rh >= h and rw >= w
+    assert threads == (kw // 4) * (kh // blur_probe.COLUMN_ROWS) and threads % 32 == 0 and kw % 32 == 0
+    # A warp's lanes take 32 consecutive rows at one column; each thread the
+    # same number of the first kh rows' tasks, at most one of the halo's.
+    assert kh % 32 == 0
+    for m in (n, blur_probe.HALO_ROW_OUTPUTS):
+        assert m % 4 == 0 and kw % m == 0
+    assert (kh * kw // n) % threads == 0 and 2 * RADIUS * kw // blur_probe.HALO_ROW_OUTPUTS <= threads
+
+
+def _fma(a, b, c):
+    """f32 fma(a, b, c): the product exact in f64, the sum rounded to f64 and
+    then to f32 (a double rounding, far inside the tests' tolerance)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _kernel_model(x, taps, passes=5):
+    """A torch model of blur_probe_kernel's schedule on (P, h, w) f32 planes:
+    per block of the region its input tile with the halo, zeros outside the
+    plane; the row pass by its tasks, each output from the 16-byte chunks
+    its thread loads; the column pass thread by thread, each adding its
+    outputs to one f32 sum row by row and column by column over ``passes``
+    repetitions; the block's f32 tree (level.cuh tile_partials' order); the
+    plane's f64 sum of its block partials in
+    reduce_plane's order.  Every output sums its taps k = 0..10 in order."""
+    th, tw, n = blur_probe.KERNEL_TILE_H, blur_probe.KERNEL_TILE_W, blur_probe.ROW_OUTPUTS
+    t = torch.tensor(taps_f32(taps), dtype=torch.float32)
+    p, h, w = x.shape
+    rh, rw = blur_probe.region(h, w)
+    nby, nbx = rh // th, rw // tw
+    halo_h, in_w = th + 2 * RADIUS, tw + 2 * IN_OFF
+    xp = torch.nn.functional.pad(x, (IN_OFF, rw - w + IN_OFF, RADIUS, rh - h + RADIUS))
+    tiles = xp.unfold(1, halo_h, th).unfold(2, in_w, tw)  # (P, nby, nbx, halo_h, in_w)
+
+    # Row pass: a task of n outputs from column col0 reads the chunks of
+    # input columns col0 .. col0 + n + 15 of its row; its output j takes
+    # input columns col0 + j + 3 + k (output column - 5 + k).  Tasks of
+    # ROW_OUTPUTS on the tile's first th input rows, of HALO_ROW_OUTPUTS on
+    # its last 10.
+    rows = torch.zeros(tiles.shape[:-1] + (tw,))
+    for r0_, r1_, n_ in ((0, th, n), (th, halo_h, blur_probe.HALO_ROW_OUTPUTS)):
+        g, j, k = np.meshgrid(np.arange(tw // n_), np.arange(n_), np.arange(11), indexing="ij")
+        col = g * n_ + j + IN_OFF - RADIUS + k
+        assert (col >= g * n_).all() and (col < g * n_ + n_ + 16).all() and (g * n_ + n_ + 16 <= in_w).all()
+        col = torch.from_numpy(col.reshape(tw, 11))  # (output column, tap)
+        s = torch.zeros(tiles.shape[:-2] + (r1_ - r0_, tw))
+        for kk in range(11):
+            s = _fma(t[kk], tiles[..., r0_:r1_, col[:, kk]], s)
+        rows[..., r0_:r1_, :] = s
+
+    # Column pass: thread i owns columns 4 (i % (tw / 4)) .. + 3 and output
+    # rows cr (i // (tw / 4)) .. + cr - 1, whose window of cr + 10 rows
+    # stays inside the row-blurred tile.
+    cr, threads = blur_probe.COLUMN_ROWS, blur_probe.BLOCK_THREADS
+    assert threads == (tw // 4) * (th // cr) and (th // cr - 1) * cr + cr + 2 * RADIUS <= halo_h
+    out = torch.zeros(rows.shape[:-2] + (th, tw))
+    for kk in range(11):
+        out = _fma(t[kk], rows[..., kk : kk + th, :], out)
+    # (..., row group, row, column chunk, column) -> (..., thread, the thread's order)
+    per = out.reshape(p, nby, nbx, th // cr, cr, tw // 4, 4).permute(0, 1, 2, 3, 5, 4, 6)
+    per = per.reshape(p, nby, nbx, threads, -1)
+    acc = torch.zeros(p, nby, nbx, threads)
+    for _ in range(passes):
+        for m in range(per.shape[-1]):
+            acc = acc + per[..., m]
+    stride = threads // 2
+    while stride:
+        acc = torch.cat([acc[..., :stride] + acc[..., stride : 2 * stride], acc[..., stride:]], dim=-1)
+        stride //= 2
+    parts = acc[..., 0].reshape(p, -1).double()  # block index by * nbx + bx
+    nblk = parts.shape[1]
+    parts = torch.nn.functional.pad(parts, (0, -nblk % 256)).reshape(p, -1, 256)
+    tot = torch.zeros(p, 256, dtype=torch.float64)
+    for i in range(parts.shape[1]):
+        tot = tot + parts[:, i]
+    stride = 128
+    while stride:
+        tot = torch.cat([tot[:, :stride] + tot[:, stride : 2 * stride], tot[:, stride:]], dim=-1)
+        stride //= 2
+    res = torch.zeros((p, 8, 8), dtype=torch.float32)
+    res[:, 0, 0] = tot[:, 0].float()
+    return res
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 67, 99), (2, 300, 700), (1, TH, TW)])
+def test_kernel_schedule_matches_twin(shape):
+    """The kernel's tiling and order of sums (``_kernel_model``) gives the
+    twin's totals at rtol 1e-5, inside one region tile, across several and
+    on a plane of one whole tile, with five repetitions and with two."""
+    img = torch.from_numpy(_image(shape, seed=14))
+    for passes in (5, 2):
+        got = _kernel_model(img.reshape(-1, *shape[-2:]), taps_f32(), passes)
+        want = blur_probe.blur_only_ref(img, taps_f32(), passes=passes)
+        torch.testing.assert_close(got[:, 0, 0], want[:, 0, 0], rtol=1e-5, atol=0)
+        assert not got[:, REST].any()
 
 
 def test_kernel_dissect_on_cpu():
@@ -215,6 +328,26 @@ def test_kernel_dissect_needs_the_card_on_cuda():
         pytest.skip("a CUDA card is present: the tool runs there")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         kernel_dissect.main(["--batch", "1", "--height", "48", "--width", "64", "--iters", "1"])
+
+
+def test_probe_variants_need_the_card():
+    """The variant timer of #19 builds and times CUDA kernels only: without a
+    card it stops before building anything.  Each variant names a tile that
+    divides the TPU tile and row tasks of whole 16-byte chunks; the first is
+    the library's own geometry; a name of another form is refused."""
+    from turbo_metrics_tpu_torch.tools import probe_variants
+
+    for v in probe_variants.VARIANTS:
+        rows, cols, n, col_rows = probe_variants.parse(v)
+        assert TH % rows == 0 and TW % cols == 0 and n % 4 == 0 and cols % n == 0 and rows % col_rows == 0
+    assert probe_variants.parse(probe_variants.VARIANTS[0]) == (
+        blur_probe.KERNEL_TILE_H, blur_probe.KERNEL_TILE_W, blur_probe.ROW_OUTPUTS, blur_probe.COLUMN_ROWS)
+    with pytest.raises(ValueError):
+        probe_variants.parse("64x8")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the tool runs there")
+    with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+        probe_variants.main(["--variants", "64x8"])
 
 
 MARK = "at::cuda::spin_kernel"
@@ -389,12 +522,18 @@ _SASS = [
 
 
 @pytest.mark.parametrize("listing,want", [
-    (_SASS, {"static": 16, "path": 10, "mufu": 2, "ops": {"IMAD": 0, "IADD3": 0, "LDS": 0}}),
+    (_SASS, {"static": 16, "path": 10, "mufu": 2, "ops": {"IMAD": 0, "IADD3": 0, "LDS": 0, "FFMA": 0}}),
     # A loop's closing branch counts once; a predicated branch over
     # straight-line code is taken as not taken.
     ([(0x00, "IADD3 R1, R1, 0x1, RZ"), (0x10, "@P0 BRA 0x30"), (0x20, "MUFU.LG2 R2, R1"),
       (0x30, "BRA 0x0"), (0x40, "EXIT")],
-     {"static": 5, "path": 4, "mufu": 1, "ops": {"IMAD": 0, "IADD3": 1, "LDS": 0}}),
+     {"static": 5, "path": 4, "mufu": 1, "ops": {"IMAD": 0, "IADD3": 1, "LDS": 0, "FFMA": 0}}),
+    # FFMA in every form (FFMA.FTZ among them), not FMUL or the FFMA of a
+    # block that only a branch reaches.
+    ([(0x00, "LDS.128 R4, [R2]"), (0x10, "FFMA R1, R4, R8, RZ"), (0x20, "FFMA.FTZ R1, R5, R9, R1"),
+      (0x30, "FMUL R3, R6, R10"), (0x40, "@P0 BRA 0x70"), (0x50, "FADD R0, R0, R1"), (0x60, "BRA 0x80"),
+      (0x70, "FFMA R0, R1, R1, R0"), (0x80, "EXIT")],
+     {"static": 9, "path": 8, "mufu": 0, "ops": {"IMAD": 0, "IADD3": 0, "LDS": 1, "FFMA": 2}}),
 ])
 def test_sass_count_walks_the_common_path(listing, want):
     """``sass_count.count`` counts a thread's common path: the division's
@@ -415,7 +554,7 @@ def test_sass_count_tallies_opcodes_on_the_path():
                (0x30, "@P0 BRA 0x60"), (0x40, "LDS.U16 R5, [R2]"), (0x50, "BRA 0x80"),
                (0x60, "IMAD R6, R6, R6, RZ"), (0x70, "LDS R6, [R3]"), (0x80, "EXIT")]
     got = sass_count.count(listing)
-    assert got == {"static": 9, "path": 7, "mufu": 0, "ops": {"IMAD": 2, "IADD3": 1, "LDS": 1}}
+    assert got == {"static": 9, "path": 7, "mufu": 0, "ops": {"IMAD": 2, "IADD3": 1, "LDS": 1, "FFMA": 0}}
 
 
 @pytest.mark.parametrize("demangled,want", [

@@ -75,6 +75,7 @@ _SIGNATURES = {
     "tm_integer_adm_level": [_P, _I, _I, _I, _I, _I, _I, _PI, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _I,
                              _P, _P],
     "tm_blur_probe_blocks": [_I, _I],
+    "tm_blur_probe_attrs": [_PI],
     "tm_blur_probe": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 

@@ -22,7 +22,8 @@ pattern it counts:
     lg2, rcp, rsqrt, sin, cos) among ``path``;
   * ``ops``: the instructions among ``path`` whose opcode starts with each
     prefix of ``OPS`` (``IMAD`` counts IMAD.WIDE, IMAD.MOV and the other
-    forms of the multiply-add too; ``LDS`` the shared loads).
+    forms of the multiply-add too, ``FFMA`` FFMA.FTZ and the like; ``LDS``
+    the shared loads).
 
 An instruction bound is then ``path`` times the threads over the card's
 issue rate (4 warp instructions per SM per clock, 32 lanes each) and
@@ -31,6 +32,7 @@ per clock).  On the card's machine:
 
     python -m turbo_metrics_tpu_torch.tools.sass_count 'yuv_to_rgb_kernel<unsigned short, 1, 2, 0>'
     python -m turbo_metrics_tpu_torch.tools.sass_count integer_vif_kernel
+    python -m turbo_metrics_tpu_torch.tools.sass_count blur_probe_kernel
 
 prints a line per matching kernel and, last, one JSON object
 ``{"sass": [{"kernel", "static", "path", "mufu", "ops"}, ...]}``.
@@ -51,8 +53,8 @@ from pathlib import Path
 ISSUE_LANES_PER_SM = 4 * 32
 MUFU_LANES_PER_SM = 16
 # The opcode prefixes tallied on the common path: the integer multiply-adds
-# and adds, and the shared loads.
-OPS = ("IMAD", "IADD3", "LDS")
+# and adds, the shared loads and the f32 multiply-adds.
+OPS = ("IMAD", "IADD3", "LDS", "FFMA")
 
 _FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
 _INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
