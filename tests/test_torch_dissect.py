@@ -150,8 +150,15 @@ def test_blur_probe_is_built():
     assert {"tm_blur_probe", "tm_blur_probe_blocks", "tm_blur_probe_attrs"} <= set(_build._SIGNATURES)
 
 
-# The CUDA kernel's input tile (csrc/blur_probe.cu) starts 8 columns left of
-# its output tile, on a 16-byte boundary, and 5 rows above it.
+# blur_probe_kernel's geometry (csrc/blur_probe.cu), which _kernel_model
+# follows: one block of BLOCK_THREADS threads per KERNEL_TILE_H x
+# KERNEL_TILE_W output tile; a row-pass task blurs ROW_OUTPUTS consecutive
+# outputs of one of the tile's first KERNEL_TILE_H input rows, or
+# HALO_ROW_OUTPUTS of one of its last 10; a thread's column pass gives
+# COLUMN_ROWS x 4 outputs.  The input tile starts 8 columns left of the
+# output tile, on a 16-byte boundary, and 5 rows above it.
+KERNEL_TILE_H, KERNEL_TILE_W, ROW_OUTPUTS, HALO_ROW_OUTPUTS, COLUMN_ROWS = 64, 64, 32, 8, 8
+BLOCK_THREADS = (KERNEL_TILE_W // 4) * (KERNEL_TILE_H // COLUMN_ROWS)
 IN_OFF = 8
 
 
@@ -161,19 +168,19 @@ def test_kernel_tile_divides_the_region_tile():
     column pass has a thread per 4 x COLUMN_ROWS outputs, whole warps; the
     row pass's tasks start on 16-byte chunks and share the threads out
     evenly."""
-    kh, kw, n = blur_probe.KERNEL_TILE_H, blur_probe.KERNEL_TILE_W, blur_probe.ROW_OUTPUTS
-    threads = blur_probe.BLOCK_THREADS
+    kh, kw, n = KERNEL_TILE_H, KERNEL_TILE_W, ROW_OUTPUTS
+    threads = BLOCK_THREADS
     assert TH % kh == 0 and TW % kw == 0
     for h, w in ((1, 1), (67, 99), (300, 700), (1080, 1920), (2160, 3840), (TH + 1, TW + 1)):
         rh, rw = blur_probe.region(h, w)
         assert rh % kh == 0 and rw % kw == 0 and rh >= h and rw >= w
-    assert threads == (kw // 4) * (kh // blur_probe.COLUMN_ROWS) and threads % 32 == 0 and kw % 32 == 0
+    assert threads == (kw // 4) * (kh // COLUMN_ROWS) and threads % 32 == 0 and kw % 32 == 0
     # A warp's lanes take 32 consecutive rows at one column; each thread the
     # same number of the first kh rows' tasks, at most one of the halo's.
     assert kh % 32 == 0
-    for m in (n, blur_probe.HALO_ROW_OUTPUTS):
+    for m in (n, HALO_ROW_OUTPUTS):
         assert m % 4 == 0 and kw % m == 0
-    assert (kh * kw // n) % threads == 0 and 2 * RADIUS * kw // blur_probe.HALO_ROW_OUTPUTS <= threads
+    assert (kh * kw // n) % threads == 0 and 2 * RADIUS * kw // HALO_ROW_OUTPUTS <= threads
 
 
 def _fma(a, b, c):
@@ -191,7 +198,7 @@ def _kernel_model(x, taps, passes=5):
     repetitions; the block's f32 tree (level.cuh tile_partials' order); the
     plane's f64 sum of its block partials in
     reduce_plane's order.  Every output sums its taps k = 0..10 in order."""
-    th, tw, n = blur_probe.KERNEL_TILE_H, blur_probe.KERNEL_TILE_W, blur_probe.ROW_OUTPUTS
+    th, tw, n = KERNEL_TILE_H, KERNEL_TILE_W, ROW_OUTPUTS
     t = torch.tensor(taps_f32(taps), dtype=torch.float32)
     p, h, w = x.shape
     rh, rw = blur_probe.region(h, w)
@@ -206,7 +213,7 @@ def _kernel_model(x, taps, passes=5):
     # ROW_OUTPUTS on the tile's first th input rows, of HALO_ROW_OUTPUTS on
     # its last 10.
     rows = torch.zeros(tiles.shape[:-1] + (tw,))
-    for r0_, r1_, n_ in ((0, th, n), (th, halo_h, blur_probe.HALO_ROW_OUTPUTS)):
+    for r0_, r1_, n_ in ((0, th, n), (th, halo_h, HALO_ROW_OUTPUTS)):
         g, j, k = np.meshgrid(np.arange(tw // n_), np.arange(n_), np.arange(11), indexing="ij")
         col = g * n_ + j + IN_OFF - RADIUS + k
         assert (col >= g * n_).all() and (col < g * n_ + n_ + 16).all() and (g * n_ + n_ + 16 <= in_w).all()
@@ -219,7 +226,7 @@ def _kernel_model(x, taps, passes=5):
     # Column pass: thread i owns columns 4 (i % (tw / 4)) .. + 3 and output
     # rows cr (i // (tw / 4)) .. + cr - 1, whose window of cr + 10 rows
     # stays inside the row-blurred tile.
-    cr, threads = blur_probe.COLUMN_ROWS, blur_probe.BLOCK_THREADS
+    cr, threads = COLUMN_ROWS, BLOCK_THREADS
     assert threads == (tw // 4) * (th // cr) and (th // cr - 1) * cr + cr + 2 * RADIUS <= halo_h
     out = torch.zeros(rows.shape[:-2] + (th, tw))
     for kk in range(11):
@@ -328,26 +335,6 @@ def test_kernel_dissect_needs_the_card_on_cuda():
         pytest.skip("a CUDA card is present: the tool runs there")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         kernel_dissect.main(["--batch", "1", "--height", "48", "--width", "64", "--iters", "1"])
-
-
-def test_probe_variants_need_the_card():
-    """The variant timer of #19 builds and times CUDA kernels only: without a
-    card it stops before building anything.  Each variant names a tile that
-    divides the TPU tile and row tasks of whole 16-byte chunks; the first is
-    the library's own geometry; a name of another form is refused."""
-    from turbo_metrics_tpu_torch.tools import probe_variants
-
-    for v in probe_variants.VARIANTS:
-        rows, cols, n, col_rows = probe_variants.parse(v)
-        assert TH % rows == 0 and TW % cols == 0 and n % 4 == 0 and cols % n == 0 and rows % col_rows == 0
-    assert probe_variants.parse(probe_variants.VARIANTS[0]) == (
-        blur_probe.KERNEL_TILE_H, blur_probe.KERNEL_TILE_W, blur_probe.ROW_OUTPUTS, blur_probe.COLUMN_ROWS)
-    with pytest.raises(ValueError):
-        probe_variants.parse("64x8")
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present: the tool runs there")
-    with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
-        probe_variants.main(["--variants", "64x8"])
 
 
 MARK = "at::cuda::spin_kernel"

@@ -24,10 +24,10 @@
 // multiply-adds.  What the design does about it:
 //   * a 64x64 output tile, one block of 128 threads: the row pass blurs 74
 //     rows, 1.16x the outputs; its input (74 x 80 f32 from output column
-//     -8, rows 84 floats apart) and row results (74 x 64, rows 68 apart)
-//     take 44,992 B of dynamic shared memory: 5 blocks, 20 warps, an SM.
-//     More warps an SM, not fewer loads, made the variants faster
-//     (tools/probe_variants.py);
+//     -8, rows 84 floats apart), row results (74 x 64, rows 68 apart) and
+//     block tree take 45,504 B of static shared memory: 5 blocks, 20 warps,
+//     an SM.  More warps an SM, not fewer loads, made the other tile
+//     geometries measured slower (PERF.md section 6);
 //   * the block reads its input tile once, by asynchronous copies straight
 //     into shared memory (cp.async: 16 bytes a copy in the interior of the
 //     plane, one sample a copy at its edges; zeros outside it, so no padded
@@ -50,19 +50,14 @@
 // Per output and repetition that is 23.7 FFMA (11 x 74/64 + 11) and about 3
 // other instructions; a repetition runs at about 0.8 of the FFMA rate.
 // What bounds it now is the fill of the input tiles, which overlaps the
-// repetitions little (tools/probe_variants.py times it alone, passes=0).
+// repetitions little.
 // Every repetition really runs: the row pass writes the row-blurred tile to
 // shared memory and the column pass reads it back after a barrier, so the
 // compiler cannot compute one repetition and reuse it.  Each output sums its
 // taps k = 0..10 in order from 0.  Sums are deterministic: each thread adds
-// its outputs in a fixed order, the block reduces them in a fixed f32 tree
-// (level.cuh tile_partials' order), and reduce_plane adds a plane's tile
-// partials in f64 in a fixed order (no atomics).
-//
-// TM_PROBE_ROWS, TM_PROBE_COLS, TM_PROBE_N and TM_PROBE_COL_ROWS build the
-// other geometries that tools/probe_variants.py times; the library takes
-// the defaults, which ops/kernels/blur_probe.py states and chip_smoke.py
-// checks against tm_blur_probe_attrs.
+// its outputs in a fixed order, the block reduces them in level.cuh's
+// fixed f32 tree (block_partials over 128 threads), and reduce_plane adds a
+// plane's tile partials in f64 in a fixed order (no atomics).
 //
 // Layouts (all contiguous):
 //   x      (planes, h, w)          f32
@@ -75,32 +70,19 @@
 
 #include "level.cuh"
 
-#ifndef TM_PROBE_ROWS
-#define TM_PROBE_ROWS 64
-#endif
-#ifndef TM_PROBE_COLS
-#define TM_PROBE_COLS 64
-#endif
-#ifndef TM_PROBE_N
-#define TM_PROBE_N 32
-#endif
-#ifndef TM_PROBE_COL_ROWS
-#define TM_PROBE_COL_ROWS 8
-#endif
-
 namespace {
 
 constexpr int kProbeRadius = 5;
 constexpr int kProbeTaps = 2 * kProbeRadius + 1;
-constexpr int kProbeTh = TM_PROBE_ROWS;  // output rows of a block's tile
-constexpr int kProbeTw = TM_PROBE_COLS;  // output columns of a block's tile
+constexpr int kProbeTh = 64;  // output rows of a block's tile
+constexpr int kProbeTw = 64;  // output columns of a block's tile
 constexpr int kHaloH = kProbeTh + 2 * kProbeRadius;  // rows of the input tile and the row pass
 constexpr int kInOff = 8;                            // input column 0 = output column -8
 constexpr int kInCols = kProbeTw + 2 * kInOff;       // input columns held (-8 .. 71; -5 .. 68 used)
 // Column pass: a thread gives kColRows x 4 outputs from one register window
 // of kColRows + 10 rows: thread i owns columns 4 (i % (kProbeTw / 4)) .. + 3
 // and output rows kColRows (i / (kProbeTw / 4)) .. + kColRows - 1.
-constexpr int kColRows = TM_PROBE_COL_ROWS;
+constexpr int kColRows = 8;
 constexpr int kColWin = kColRows + 2 * kProbeRadius;
 constexpr int kPThreads = (kProbeTw / 4) * (kProbeTh / kColRows);  // threads of a block
 // Row strides of the input tile and the row-blurred tile, in floats: 20 and
@@ -108,38 +90,34 @@ constexpr int kPThreads = (kProbeTw / 4) * (kProbeTh / kColRows);  // threads of
 // eight consecutive rows at one column fall in eight different bank groups.
 constexpr int kInW = kInCols + 4;
 constexpr int kRowW = kProbeTw + 4;
-constexpr int kInFloats = kHaloH * kInW;
-constexpr int kRowFloats = kHaloH * kRowW;
-constexpr int kSmemBytes = (kInFloats + kRowFloats) * (int)sizeof(float);
-// Resident blocks per SM that the shared memory allows (228 KB an SM, 1 KB
-// reserved per block and the static tree buffer), at most as many as leave a
-// thread 64 registers: the floor the compiler keeps the registers to.
-constexpr int kSmemBlocks = 233472 / (kSmemBytes + 1024 + kPThreads * 4);
-constexpr int kRegBlocks = 65536 / (kPThreads * 64);
-constexpr int kMinBlocks = kSmemBlocks < kRegBlocks ? kSmemBlocks : kRegBlocks;
+// Shared memory of a block: the input tile, the row-blurred tile and the
+// block tree, 45,504 B, under the 48 KB of static shared memory; five
+// blocks of it fit an SM's 228 KB (1 KB reserved a block).
+constexpr int kSmemBytes = (kHaloH * (kInW + kRowW) + kPThreads) * (int)sizeof(float);
+constexpr int kMinBlocks = 5;
 
 // Input tile: 16-byte chunks, kInCols / 4 a row.
 constexpr int kRowChunks = kInCols / 4;
 constexpr int kChunks = kHaloH * kRowChunks;
 
-// Row pass.  A task blurs kN consecutive outputs of one row: the lanes of a
+// Row pass.  A task blurs N consecutive outputs of one row: the lanes of a
 // warp take 32 consecutive rows at one column, each walking its row in
 // registers.  The tile's first kProbeTh input rows take tasks of kRowN
 // outputs (each thread the same number), the last 10 rows tasks of
 // kHaloN outputs (one task a thread at most).
-constexpr int kRowN = TM_PROBE_N;
-constexpr int kHaloN = 2 * kProbeRadius * kProbeTw / 8 <= kPThreads ? 8 : 16;
+constexpr int kRowN = 32;
+constexpr int kHaloN = 8;
 constexpr int kMainTasks = kProbeTh * (kProbeTw / kRowN);
-constexpr int kMainIters = (kMainTasks + kPThreads - 1) / kPThreads;
+constexpr int kMainIters = kMainTasks / kPThreads;
 constexpr int kHaloTasks = 2 * kProbeRadius * (kProbeTw / kHaloN);
 
 static_assert(128 % kProbeTh == 0 && 512 % kProbeTw == 0, "a 128x512 region tile is whole blocks");
 static_assert(kProbeTw % 32 == 0 && kProbeTh % kColRows == 0 && kPThreads % 32 == 0, "column pass");
-static_assert((kPThreads & (kPThreads - 1)) == 0 && kPThreads <= 1024, "the block tree");
 static_assert(kRowN % 4 == 0 && kProbeTw % kRowN == 0 && kProbeTh % 32 == 0, "main row tasks");
+static_assert(kMainTasks % kPThreads == 0, "each thread the same number of main row tasks");
 static_assert(kHaloTasks <= kPThreads, "one halo task a thread at most");
 static_assert(kInW % 32 == 20 && kRowW % 32 == 4, "bank-spread row strides");
-static_assert(kMinBlocks >= 1, "the tile fits one block's shared memory");
+static_assert(kSmemBytes <= 48 * 1024 && kMinBlocks * (kSmemBytes + 1024) <= 228 * 1024, "5 blocks an SM");
 
 // The row blur of input row r's outputs col0 .. col0 + N - 1 (col0 a
 // multiple of 4) into row r of the row-blurred tile: the 16-byte chunks
@@ -174,14 +152,13 @@ __device__ __forceinline__ void row_task(const float* __restrict__ in, float* __
 }
 
 // grid: (region_w / kProbeTw, region_h / kProbeTh, planes), block: kPThreads
-// (1-D), dynamic shared memory: kSmemBytes.
+// (1-D).
 __global__ void __launch_bounds__(kPThreads, kMinBlocks)
 blur_probe_kernel(const float* __restrict__ x, int h, int w, int passes,
                   const float* __restrict__ taps, float* __restrict__ parts) {
-  extern __shared__ float4 smem[];
-  float* in = reinterpret_cast<float*>(smem);  // [kHaloH][kInW]
-  float* rows = in + kInFloats;                // [kHaloH][kRowW]
-  __shared__ float red[kPThreads];
+  __shared__ __align__(16) float in[kHaloH * kInW];
+  __shared__ __align__(16) float rows[kHaloH * kRowW];
+  __shared__ float red[1][kPThreads];
   const int tid = threadIdx.x;
   const int r0 = blockIdx.y * kProbeTh, c0 = blockIdx.x * kProbeTw;
   const size_t plane = blockIdx.z;
@@ -199,7 +176,7 @@ blur_probe_kernel(const float* __restrict__ x, int h, int w, int passes,
     const int r = i / kRowChunks, q = i - r * kRowChunks;
     const int gr = r0 - kProbeRadius + r, gc = c0 - kInOff + 4 * q;
     const bool row_in = gr >= 0 && gr < h;
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem + r * (kInW / 4) + q);
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(in + r * kInW + 4 * q);
     if (interior) {
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
                    ::"r"(dst), "l"(src + (row_in ? (size_t)gr * w + gc : 0)), "r"(row_in ? 16 : 0));
@@ -228,9 +205,7 @@ blur_probe_kernel(const float* __restrict__ x, int h, int w, int passes,
 #pragma unroll
     for (int n = 0; n < kMainIters; ++n) {
       const int i = tid + n * kPThreads;
-      if (kMainTasks % kPThreads == 0 || i < kMainTasks) {
-        row_task<kRowN>(in, rows, i % kProbeTh, (i / kProbeTh) * kRowN, t);
-      }
+      row_task<kRowN>(in, rows, i % kProbeTh, (i / kProbeTh) * kRowN, t);
     }
     if (tid < kHaloTasks) {
       row_task<kHaloN>(in, rows, kProbeTh + tid % (2 * kProbeRadius), (tid / (2 * kProbeRadius)) * kHaloN, t);
@@ -261,19 +236,8 @@ blur_probe_kernel(const float* __restrict__ x, int h, int w, int passes,
     __syncthreads();  // the next repetition overwrites rows
   }
 
-  // The block's partial: a fixed f32 tree over its threads (level.cuh
-  // tile_partials' order), written to parts[plane * nblk + blk].
-  red[tid] = acc;
-  __syncthreads();
-#pragma unroll
-  for (int stride = kPThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) red[tid] += red[tid + stride];
-    __syncthreads();
-  }
-  if (tid == 0) {
-    const size_t nblk = (size_t)gridDim.x * gridDim.y;
-    parts[plane * nblk + (size_t)blockIdx.y * gridDim.x + blockIdx.x] = red[0];
-  }
+  const float v[1] = {acc};
+  block_partials<1, kPThreads>(v, red, parts, plane);
 }
 
 // One plane per block: the f64 sum of its tile partials into out[p, 0, 0],
@@ -290,14 +254,6 @@ dim3 probe_grid(int region_h, int region_w, int planes) {
   return dim3(region_w / kProbeTw, region_h / kProbeTh, planes);
 }
 
-// Allows the kernel its dynamic shared memory: once per process (the
-// function-local static), before its first launch or occupancy query.
-cudaError_t probe_setup() {
-  static const cudaError_t err =
-      cudaFuncSetAttribute(blur_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  return err;
-}
-
 }  // namespace
 
 extern "C" {
@@ -311,31 +267,20 @@ int tm_blur_probe_blocks(int region_h, int region_w) {
 }
 
 // What blur_probe_kernel takes on this card: out[0] registers per thread,
-// out[1] shared memory per block in bytes (dynamic and static), out[2]
-// resident blocks per SM, out[3] local memory per thread in bytes (spills);
-// and its geometry: out[4] output rows of a tile, out[5] and out[6] outputs
-// of a row-pass task on the tile's first out[4] input rows and on its last
-// 10, out[7] output columns of a tile, out[8] output rows of a thread's
-// column pass, out[9] threads of a block.
+// out[1] static shared memory per block in bytes, out[2] resident blocks per
+// SM, out[3] local memory per thread in bytes (spills).
 int tm_blur_probe_attrs(int* out) {
-  cudaError_t err = probe_setup();
   cudaFuncAttributes a;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, blur_probe_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&a, blur_probe_kernel);
   int per_sm = 0;
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, blur_probe_kernel, kPThreads, kSmemBytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, blur_probe_kernel, kPThreads, 0);
   }
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
-  out[1] = kSmemBytes + (int)a.sharedSizeBytes;
+  out[1] = (int)a.sharedSizeBytes;
   out[2] = per_sm;
   out[3] = (int)a.localSizeBytes;
-  out[4] = kProbeTh;
-  out[5] = kRowN;
-  out[6] = kHaloN;
-  out[7] = kProbeTw;
-  out[8] = kColRows;
-  out[9] = kPThreads;
   return 0;
 }
 
@@ -348,12 +293,10 @@ int tm_blur_probe(const float* x, int planes, int h, int w, int region_h, int re
                   int passes, const float* taps, float* parts, float* out, void* stream) {
   if (region_h <= 0 || region_w <= 0 || region_h % kProbeTh || region_w % kProbeTw)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = probe_setup();
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid = probe_grid(region_h, region_w, planes);
-  blur_probe_kernel<<<grid, kPThreads, kSmemBytes, s>>>(x, h, w, passes, taps, parts);
-  err = cudaGetLastError();
+  blur_probe_kernel<<<grid, kPThreads, 0, s>>>(x, h, w, passes, taps, parts);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   probe_reduce_kernel<<<planes, kReduceThreads, 0, s>>>(parts, (int)(grid.x * grid.y), out);
   return (int)cudaGetLastError();

@@ -38,17 +38,19 @@ constexpr int kTileW = kBx;              // output columns of a block
 constexpr int kTileH = kSubTiles * kBy;  // output rows of a block
 constexpr int kTileThreads = 32 * kSubTiles;
 
-// Tree-reduce v[K] over the block's kThreads threads (red: K*kThreads floats
-// of shared memory) in a fixed order and write the K sums to out[k] (thread
-// 0).  The caller syncs the block before it reuses red.
-template <int K>
-__device__ __forceinline__ void tile_partials(const float (&v)[K], float (*red)[kThreads],
+// Tree-reduce v[K] over the block's T threads (red: K*T floats of shared
+// memory; T a power of two, kThreads unless the block is another size) in a
+// fixed order and write the K sums to out[k] (thread 0).  The caller syncs
+// the block before it reuses red.
+template <int K, int T = kThreads>
+__device__ __forceinline__ void tile_partials(const float (&v)[K], float (*red)[T],
                                               float* __restrict__ out) {
+  static_assert(T > 0 && (T & (T - 1)) == 0, "the tree halves the block");
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
 #pragma unroll
   for (int k = 0; k < K; ++k) red[k][tid] = v[k];
   __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+  for (int stride = T / 2; stride > 0; stride >>= 1) {
     if (tid < stride) {
 #pragma unroll
       for (int k = 0; k < K; ++k) red[k][tid] += red[k][tid + stride];
@@ -63,12 +65,12 @@ __device__ __forceinline__ void tile_partials(const float (&v)[K], float (*red)[
 
 // tile_partials of block (blockIdx.x, blockIdx.y), written to
 // parts[(plane * nblk + blk) * K + k].
-template <int K>
-__device__ __forceinline__ void block_partials(const float (&v)[K], float (*red)[kThreads],
+template <int K, int T = kThreads>
+__device__ __forceinline__ void block_partials(const float (&v)[K], float (*red)[T],
                                                float* __restrict__ parts, size_t plane) {
   const size_t nblk = (size_t)gridDim.x * gridDim.y;
   const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  tile_partials<K>(v, red, parts + (plane * nblk + blk) * K);
+  tile_partials<K, T>(v, red, parts + (plane * nblk + blk) * K);
 }
 
 // The rest of tile_partials' tree for the warp's sub-tile of a fused level

@@ -22,14 +22,6 @@ from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
 
 # The TPU probe's output tile, whose whole tiles make the summed region.
 TILE_H, TILE_W = 128, 512
-# The CUDA kernel's geometry (csrc/blur_probe.cu; chip_smoke.py checks it
-# against tm_blur_probe_attrs): one block of BLOCK_THREADS threads per
-# KERNEL_TILE_H x KERNEL_TILE_W output tile, which divides the TPU tile; a
-# row-pass task blurs ROW_OUTPUTS consecutive outputs of one of the tile's
-# first KERNEL_TILE_H input rows, or HALO_ROW_OUTPUTS of one of its last
-# 10; a thread's column pass gives COLUMN_ROWS x 4 outputs.
-KERNEL_TILE_H, KERNEL_TILE_W, ROW_OUTPUTS, HALO_ROW_OUTPUTS, COLUMN_ROWS = 64, 64, 32, 8, 8
-BLOCK_THREADS = (KERNEL_TILE_W // 4) * (KERNEL_TILE_H // COLUMN_ROWS)
 
 
 def _planes(img: torch.Tensor) -> torch.Tensor:
