@@ -66,6 +66,31 @@ Phases, each fatal on failure (exit code 1):
      pair and score it with -m ssimulacra2 (B=4 by default_batch), counters
      reset just before and read just after: 8 finite scores, kernel 1 twice,
      #3 four times (levels 1 and 2), #4 twice (levels 3-5), kernel 2 never;
+  4g. the compressed-input path (ROADMAP Queue 1 item 4) on the committed
+     pair of turbo_metrics_tpu_torch/tools/clips/ (a 16-frame 1080p VP9 MKV
+     reference and MPEG-2 TS distorted stream, and clips.json, their record
+     made by tests/torch_io_clips.py with the JAX package on the CPU).  First
+     an explicit probe, before any decode, prints what the machine has: g++,
+     pkg-config's libav, the libav shared objects, the native shim's build
+     or load (io/native.py), Pillow and cv2.  With Pillow, the golden pair
+     of phase 6 as 8-bit PNG files through the CLI: the golden score within
+     0.05, #3 launched.  Where the shim builds or
+     loads: the decoded planes of both clips equal the record's sha256;
+     -m ssimulacra2 on (MKV, TS), counters reset just before and read just
+     after: 16 finite scores, kernels 1 and 2 launched, within 0.01 per
+     frame of the record's JAX scores; the same with --decode-workers 2 and
+     on Y4M files of the decoded frames: bit-equal.  Where it does not:
+     NativeVideoSource raises the port's error naming the missing libav
+     libraries, a line says that compressed decoding through the shim was
+     not checked; then, with cv2, create_source takes the JAX package's
+     fallback (OpenCvVideoSource, 8-bit RGB): the CLI on (MKV, TS): 16
+     finite scores, #3 and kernel 2 launched, --decode-workers 2 (ignored)
+     and compute_frames on the decoded frames bit-equal, within 0.01 of the
+     plain five-blur chain on the card and, where the card's cv2 decodes the
+     record's RGB frames, of the record's JAX scores of those frames;
+     without cv2, create_source raises an error naming the stream.  Decode
+     ms per frame of each codec; phase 7 times the compressed pair's CLI
+     warm beside a Y4M pair's;
   5. hold each kernel against its plain PyTorch twin on the card at the main
      path's shapes (batch 8): sub-scores rtol 1e-4 / atol 1e-5, the emitted
      level 1 atol 1e-5, frame scores within 0.01 (also against the CLI's),
@@ -161,8 +186,8 @@ Phases, each fatal on failure (exit code 1):
      (float, integer, integer plain x2, integer, float); the peak
      device memory of one kernel step above its inputs (1080p SSIMULACRA2,
      multi-metric, VMAF float and integer, 4K SSIMULACRA2); and the CLI
-     runs of phases 4, 4a, 4b (a), 4c, 4d, 4d-int, 4e and 4f again warm,
-     three times each in turn;
+     runs of phases 4, 4a, 4b (a), 4c, 4d, 4d-int, 4e, 4f and 4g (the
+     compressed pair and a Y4M pair) again warm, three times each in turn;
   8. the dissect path: turbo_metrics_tpu_torch.tools.kernel_dissect at its
      default shape, counters reset just before and read just after: every
      wrapper it times launched (#19, #6, #5 and #13 among them), a device time for
@@ -505,6 +530,12 @@ def srgb8_to_linear(img):
 
 
 def golden_pair():
+    """The golden pair as linear f32 RGB."""
+    return tuple(srgb8_to_linear(img) for img in golden_pair_u8())
+
+
+def golden_pair_u8():
+    """The golden pair's 8-bit sRGB images (120x160x3)."""
     rng = np.random.default_rng(20240901)
     h, w = 120, 160
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -518,7 +549,7 @@ def golden_pair():
     )
     ref8 = np.clip(base, 0, 255).astype(np.uint8)
     dis8 = np.clip(ref8.astype(np.int16) + rng.integers(-9, 10, ref8.shape), 0, 255).astype(np.uint8)
-    return srgb8_to_linear(ref8), srgb8_to_linear(dis8)
+    return ref8, dis8
 
 
 def device_ms(fn, names=None, iters: int = 20) -> float:
@@ -1830,6 +1861,227 @@ def run_uhd_path(ref_path: str, dis_path: str, dev, card: str):
     return scores["ssimulacra2"], launches
 
 
+# Phase 4g: the committed compressed pair (tests/torch_io_clips.py made it
+# and its record, clips.json, with the JAX package on the CPU).
+CLIPS = os.path.join("turbo_metrics_tpu_torch", "tools", "clips")
+
+
+def decoding_tools() -> dict:
+    """Phase 4g's explicit probe, before any decode: what this machine has
+    for the native shim (compiler, pkg-config, libav's shared objects; then
+    the shim's build or load, which decodes nothing), Pillow and cv2."""
+    from turbo_metrics_tpu_torch.io import native
+
+    have = native.libav_probe()
+    t0 = time.monotonic()
+    have["shim_error"] = native.SHIM.error()
+    have["shim_seconds"] = time.monotonic() - t0
+    have["shim_path"] = str(native.SHIM.path)
+    have["shim_built"] = native.SHIM.built
+    for mod in ("PIL", "cv2"):
+        try:
+            have[mod] = __import__(mod).__version__
+        except ImportError:
+            have[mod] = None
+    return have
+
+
+def decode_all(src) -> tuple:
+    """Every frame of a source, and the host ms per frame of the decode."""
+    t0 = time.perf_counter()
+    frames = []
+    while (f := src.get_frame()) is not None:
+        frames.append(f)
+    src.close()
+    return frames, (time.perf_counter() - t0) * 1e3 / max(len(frames), 1)
+
+
+def sha256(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def write_y4m_frames(path: str, frames) -> None:
+    """8-bit 4:2:0 decoded frames as Y4M (no colour tags: the same height
+    fallback and limited range as the native source's)."""
+    h, w = frames[0].y.shape
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F25:1 Ip A1:1 C420\n".encode())
+        for fr in frames:
+            f.write(b"FRAME\n" + fr.y.tobytes() + np.ascontiguousarray(fr.uv[..., 0]).tobytes()
+                    + np.ascontiguousarray(fr.uv[..., 1]).tobytes())
+
+
+def run_compressed_path(dev, card: str, tmp: str, y4m_pair):
+    """Phase 4g: the committed VP9 MKV / MPEG-2 TS pair through the port's
+    input layer and CLI.  Returns the warm runs to time in phase 7 (the
+    compressed pair beside a Y4M pair)."""
+    from turbo_metrics_tpu_torch.io import native, probe
+
+    with open(os.path.join(CLIPS, "clips.json")) as f:
+        record = json.load(f)
+    ref, dis = (os.path.join(CLIPS, record[k]) for k in ("reference", "distorted"))
+    have = decoding_tools()
+    log(f"decoding on this machine: g++ {have['compiler']}; pkg-config libav {have['pkg_config']}; "
+        f"shared objects {have['shared_objects']}; missing {have['missing']}; Pillow {have['PIL']}; "
+        f"cv2 {have['cv2']} [{card}]")
+    if have["PIL"] is not None:
+        run_image_pair(dev, card, tmp)
+    else:
+        log("no Pillow: the image input path is not checked on this machine")
+    if have["shim_error"] is None:
+        log(f"native shim: {have['shim_path']} {'built' if have['shim_built'] else 'loaded'} in "
+            f"{have['shim_seconds']:.2f} s")
+        return run_native_clips(dev, card, tmp, record, ref, dis)
+    log(f"native shim: unavailable: {have['shim_error']}")
+    # The explicit probe found no usable libav: compressed decoding through
+    # the shim is not checked on this machine, and the port's error says why.
+    err = None
+    try:
+        native.NativeVideoSource(ref).close()
+    except RuntimeError as e:
+        err = str(e)
+    need(err is not None, "NativeVideoSource opened a clip though the shim is unavailable")
+    need("native demuxer unavailable" in err and all(n in err for n in have["missing"]),
+         f"the port's error does not name the missing libraries {have['missing']}: {err}")
+    log(f"compressed decoding through the native shim NOT checked on this card ({card}): "
+        f"the shim does not build here (libav missing: {', '.join(have['missing']) or 'development files'}); "
+        f"NativeVideoSource raises: {err}")
+    if have["cv2"] is None:
+        err = None
+        try:
+            probe.create_source(ref).close()
+        except RuntimeError as e:
+            err = str(e)
+        need(err is not None and "vp9" in err and "1920x1080" in err,
+             f"the probe's error does not name the stream: {err}")
+        log(f"no OpenCV either: create_source raises {err}")
+        return {}
+    return run_opencv_clips(dev, card, record, ref, dis, y4m_pair)
+
+
+def run_image_pair(dev, card: str, tmp: str) -> None:
+    """Phase 4g, images: the golden pair's 8-bit sRGB images as PNG files
+    through the CLI (Pillow, the engine's RGB route): the golden score."""
+    from PIL import Image
+
+    paths = [os.path.join(tmp, n) for n in ("golden_ref.png", "golden_dis.png")]
+    for path, img in zip(paths, golden_pair_u8()):
+        Image.fromarray(img).save(path)
+    scores, launches, _ = run_cli(*paths, dev, ["ssimulacra2"], frames=1)
+    score = float(scores["ssimulacra2"][0])
+    log(f"CLI (g) PNG golden pair: {score:.6f} (frozen {GOLDEN}, budget 0.05), launches "
+        f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+    need(abs(score - GOLDEN) <= 0.05, f"(g) PNG golden pair {score} vs {GOLDEN}")
+    need(launches["fused_scale_rgb"] > 0, f"(g) the PNG pair did not launch #3: {launches}")
+
+
+def run_native_clips(dev, card: str, tmp: str, record: dict, ref: str, dis: str):
+    """Phase 4g where the shim builds or loads: decoded planes against the
+    record's hashes, the CLI against the JAX package's CPU scores, with
+    --decode-workers 2 and on Y4M files of the decoded frames."""
+    from turbo_metrics_tpu_torch.io import native
+
+    decoded = {}
+    for path in (ref, dis):
+        rec = record["clips"][os.path.basename(path)]["native"]
+        frames, _ = decode_all(native.NativeVideoSource(path))
+        planes = [[sha256(f.y), sha256(f.uv[..., 0]), sha256(f.uv[..., 1])] for f in frames]
+        need(planes == rec["planes_sha256"],
+             f"{path}: decoded planes differ from the record in frames "
+             f"{[i for i, (a, b) in enumerate(zip(planes, rec['planes_sha256'])) if a != b]} "
+             f"({len(planes)} frames, {len(rec['planes_sha256'])} recorded)")
+        _, ms = decode_all(native.NativeVideoSource(path))
+        log(f"{rec['format']}: {len(frames)} frames {frames[0].y.shape[1]}x{frames[0].y.shape[0]}, planes equal "
+            f"to the record; native decode {ms:.2f} ms per frame (host clock, warm) [{card}]")
+        decoded[path] = frames
+    want = np.asarray(record["ssimulacra2_jax_cpu"]["native"])
+    scores, launches, seconds = run_cli(ref, dis, dev, ["ssimulacra2"])
+    s2 = scores["ssimulacra2"]
+    log(f"CLI (g) VP9 MKV vs MPEG-2 TS -m ssimulacra2: {FRAMES} frames in {seconds:.2f} s, launches "
+        f"{launches} [{card}]")
+    need(launches["fused_scale0_yuv"] > 0 and launches["fused_pyramid_tail"] > 0,
+         f"(g): a kernel of the SSIMULACRA2 route was not launched: {launches}")
+    d = float(np.abs(s2 - want).max())
+    log(f"CLI (g) scores {s2.tolist()}; max |diff| vs the JAX package on the CPU {d:.3g}")
+    need(d <= 0.01, f"(g) scores apart from the JAX package's by {d}")
+    pooled, _, _ = run_cli(ref, dis, dev, ["ssimulacra2"], extra=("--decode-workers", "2"))
+    need(np.array_equal(pooled["ssimulacra2"], s2), "(g) --decode-workers 2 changed the scores")
+    y4m = [os.path.join(tmp, n) for n in ("clip_ref.y4m", "clip_dis.y4m")]
+    for path, frames in zip(y4m, (decoded[ref], decoded[dis])):
+        write_y4m_frames(path, frames)
+    again, _, _ = run_cli(*y4m, dev, ["ssimulacra2"])
+    need(np.array_equal(again["ssimulacra2"], s2), "(g) Y4M of the decoded frames scored differently")
+    log("(g) --decode-workers 2 and the Y4M of the decoded frames: scores bit-equal")
+    return {"(g) VP9 MKV vs MPEG-2 TS, native shim": (ref, dis, ["ssimulacra2"], FRAMES, ()),
+            "(g) Y4M of the same decoded frames": (*y4m, ["ssimulacra2"], FRAMES, ())}
+
+
+def run_opencv_clips(dev, card: str, record: dict, ref: str, dis: str, y4m_pair):
+    """Phase 4g where the shim is unavailable and cv2 present: the JAX
+    package's fallback, OpenCV (8-bit RGB frames, the engine's RGB route:
+    sRGB conversion, #3, the level chain)."""
+    from turbo_metrics_tpu_torch.engine import Metrics, TurboMetrics
+    from turbo_metrics_tpu_torch.io import opencv_source, probe
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2, ssimulacra2_subscores
+    from turbo_metrics_tpu_torch.ops import colorspace
+
+    for path in (ref, dis):
+        src = probe.create_source(path)
+        need(isinstance(src, opencv_source.OpenCvVideoSource),
+             f"{path}: the probe took {type(src).__name__}, not the OpenCV fallback")
+        src.close()
+    decoded, same = {}, {}
+    for path in (ref, dis):
+        rec = record["clips"][os.path.basename(path)]["opencv"]
+        frames, _ = decode_all(opencv_source.OpenCvVideoSource(path))
+        need(len(frames) == FRAMES, f"{path}: OpenCV decoded {len(frames)} frames")
+        _, ms = decode_all(opencv_source.OpenCvVideoSource(path))
+        hashes = [sha256(f.rgb) for f in frames]
+        same[path] = hashes == rec["rgb_sha256"]
+        log(f"{os.path.basename(path)}: OpenCV decode {ms:.2f} ms per frame (host clock, warm; 8-bit RGB); "
+            f"frames {'equal to' if same[path] else 'NOT equal to'} the record's (cv2 {rec['cv2']}) in "
+            f"{sum(a == b for a, b in zip(hashes, rec['rgb_sha256']))} of {FRAMES} [{card}]")
+        decoded[path] = frames
+    scores, launches, seconds = run_cli(ref, dis, dev, ["ssimulacra2"])
+    s2 = scores["ssimulacra2"]
+    log(f"CLI (g) VP9 MKV vs MPEG-2 TS through OpenCV, -m ssimulacra2: {FRAMES} frames in {seconds:.2f} s, "
+        f"launches {launches} [{card}]")
+    need(launches["fused_scale_rgb"] > 0 and launches["fused_pyramid_tail"] > 0,
+         f"(g): a kernel of the RGB route (#3, kernel 2) was not launched: {launches}")
+    pooled, _, _ = run_cli(ref, dis, dev, ["ssimulacra2"], extra=("--decode-workers", "2"))
+    need(np.array_equal(pooled["ssimulacra2"], s2), "(g) --decode-workers 2 changed the scores")
+    # The same decoded frames through the engine directly, and through the
+    # plain five-blur chain on the card.
+    h, w = decoded[ref][0].rgb.shape[:2]
+    engine = TurboMetrics(w, h, Metrics(ssimulacra2=True), batch=BATCH, device=dev)
+    srgb = opencv_source.SRGB_CHARACTERISTICS, "full"
+    model = Ssimulacra2(w, h, device=dev)
+    direct, plain = [], []
+    with torch.no_grad():
+        for b in range(0, FRAMES, BATCH):
+            fr, fd = decoded[ref][b:b + BATCH], decoded[dis][b:b + BATCH]
+            direct += [s.ssimulacra2 for s in engine.compute_frames(fr, srgb, fd, srgb)]
+            lin = [colorspace.srgb_to_linear(torch.from_numpy(np.stack([f.rgb for f in fs])).to(dev)
+                                             .permute(0, 3, 1, 2), depth=8) for fs in (fr, fd)]
+            plain += model.score(ssimulacra2_subscores(*lin, num_scales=model.num_scales)).tolist()
+    need(np.array_equal(np.asarray(direct), s2), "(g) compute_frames on the decoded frames scored differently")
+    d_plain = float(np.abs(np.asarray(plain) - s2).max())
+    log(f"CLI (g) scores {s2.tolist()}; --decode-workers 2 (ignored: not the native shim) and compute_frames "
+        f"on the decoded frames bit-equal; max |diff| vs the plain five-blur chain on the card {d_plain:.3g}")
+    need(d_plain <= 0.01, f"(g) kernel route apart from the plain chain by {d_plain}")
+    if all(same.values()):
+        d = float(np.abs(s2 - np.asarray(record["ssimulacra2_jax_cpu"]["opencv"])).max())
+        log(f"(g) max |diff| vs the JAX package on the CPU on the same OpenCV frames {d:.3g}")
+        need(d <= 0.01, f"(g) scores apart from the JAX package's by {d}")
+    else:
+        log("(g) this card's cv2 decodes other RGB frames than the record's: no comparison with the JAX "
+            "package's scores")
+    return {"(g) VP9 MKV vs MPEG-2 TS, OpenCV": (ref, dis, ["ssimulacra2"], FRAMES, ()),
+            "(g) the Y4M pair of phase 3": (*y4m_pair, ["ssimulacra2"], FRAMES, ())}
+
+
 def plain_level(lin, levels: int):
     """The plain 2x2-mean chain: level ``levels`` of a (2, B, 3, h, w) pair."""
     from turbo_metrics_tpu_torch.ops.downscale import downscale_by_2
@@ -2171,6 +2423,7 @@ def main() -> int:
         uref_path, udis_path = write_y4m_pair(tmp, UHD_WIDTH, UHD_HEIGHT, UHD_FRAMES, "_uhd")
         log(f"wrote {UHD_FRAMES}-frame {UHD_WIDTH}x{UHD_HEIGHT} Y4M pair in {time.monotonic() - t0:.1f} s")
         uhd_scores, uhd_launches = run_uhd_path(uref_path, udis_path, dev, card)
+        clip_runs = run_compressed_path(dev, card, tmp, (ref_path, dis_path))
         y16 = load_pair(ref_path, dis_path, dev, FRAMES)[0]
         y2, uv2 = load_pair(ref_path, dis_path, dev)
         y422, uv422 = load_frames(mref_path, dev)
@@ -2188,6 +2441,7 @@ def main() -> int:
             f"(f) {UHD_WIDTH}x{UHD_HEIGHT} -m ssimulacra2, {UHD_FRAMES} frames":
                 (uref_path, udis_path, ["ssimulacra2"], UHD_FRAMES, ()),
         }
+        warm_runs.update(clip_runs)
         warm_s = {k: [] for k in warm_runs}
         for _ in range(3):
             for k, (r, d, ms, n, extra) in warm_runs.items():
@@ -2414,6 +2668,11 @@ def main() -> int:
     for k, runs in warm_s.items():
         log(f"CLI warm, {FRAMES} frames, {k}: " + " / ".join(f"{t * 1e3:.1f}" for t in runs)
             + f" ms, median {float(np.median(runs)) * 1e3:.1f} ms (host clock) [{card}]")
+    if clip_runs:
+        ck, yk = clip_runs
+        log(f"CLI warm (g), -m ssimulacra2, {FRAMES} frames {WIDTH}x{HEIGHT}: the compressed pair "
+            f"{float(np.median(warm_s[ck])) * 1e3:.1f} ms beside {yk} {float(np.median(warm_s[yk])) * 1e3:.1f} ms "
+            f"(medians, host clock) [{card}]")
 
     # Bounds from this run's shapes: bytes each input read once and each
     # output written once, f32 operations of the algorithm (F_* above), or

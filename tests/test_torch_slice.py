@@ -278,18 +278,21 @@ def test_mixed_depth_pair_matches_jax(tmp_path, rng, capsys):
 
 
 def test_not_ported_yet_raises(y4m_pair, tmp_path, caplog):
-    """Inputs not ported yet (ROADMAP.md Queue 1 item 4): an IVF file through
-    create_source and the CLI (exit 1, the error naming the item), and a
-    PNG."""
+    """Undecodable inputs, which raised "not ported yet" before the input
+    layer was ported: a truncated IVF file and a garbage PNG raise the same
+    exception type through the port's and the JAX package's create_source,
+    and the port's CLI exits 1 with the input named in the log."""
     ref, _ = y4m_pair
     ivf = tmp_path / "x.ivf"
     ivf.write_bytes(b"DKIF" + bytes(60))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
-        port_create_source(str(ivf))
-    with caplog.at_level("ERROR", logger="turbo_metrics_tpu_torch"):
-        assert port_cli.main([ref, str(ivf), "-m", "vmaf", "--device", "cpu", "--no-progress"]) == 1
-    assert "Queue 1 item 4" in caplog.text
     png = tmp_path / "x.png"
     png.write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_create_source(str(png))
+    for bad in (ivf, png):
+        with pytest.raises(Exception) as want:
+            jax_create_source(str(bad))
+        with pytest.raises(type(want.value)):
+            port_create_source(str(bad))
+        caplog.clear()
+        with caplog.at_level("ERROR", logger="turbo_metrics_tpu_torch"):
+            assert port_cli.main([ref, str(bad), "-m", "vmaf", "--device", "cpu", "--no-progress"]) == 1
+        assert f"Could not read distorted {bad}" in caplog.text

@@ -3,11 +3,15 @@
 The same flags and output shapes as the JAX package's CLI (itself mirroring
 turbo-metrics-cli/src/main.rs:31-102), plus ``--device``: ``cuda`` (the
 default, an error when CUDA is absent) or ``cpu`` (the plain torch path).
-Ported so far: ``-m ssimulacra2``, ``-m psnr``, ``-m ssim``, ``-m msssim``,
+Metrics: ``-m ssimulacra2``, ``-m psnr``, ``-m ssim``, ``-m msssim``,
 ``-m xpsnr`` and ``-m vmaf`` (the float features or, with ``--vmaf-integer``,
-their fixed-point conventions, and the fused score with ``--vmaf-model``) on
-Y4M input (4:2:0, 4:2:2, 4:4:4 and monochrome, 8 to 16 bits), alone or
-together; other containers exit with a "not ported yet" error.
+their fixed-point conventions, and the fused score with ``--vmaf-model``),
+alone or together.  Inputs, probed as the JAX package probes them
+(io/probe.py): images through Pillow, Y4M (4:2:0, 4:2:2, 4:4:4 and
+monochrome, 8 to 16 bits), and any container and codec libav decodes (MKV,
+MP4, TS, IVF; H.264, HEVC, AV1, VP9, MPEG-2, ...) through the native shim,
+by path or from stdin, else through OpenCV; ``--decode-workers N`` decodes a
+seekable constant-frame-rate file with N seek-partitioned decoders.
 """
 
 from __future__ import annotations
@@ -85,8 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
         type=int,
         default=1,
         metavar="N",
-        help="Parallel decoders per input (seekable compressed files only; "
-        "Y4M input ignores it).",
+        help="Parallel decoders per input: seekable constant-frame-rate files "
+        "that the native shim decodes; other inputs (Y4M, images, stdin, "
+        "OpenCV) ignore it with a warning.",
     )
     p.add_argument(
         "--vmaf-model",
@@ -174,16 +179,27 @@ def main(argv: list[str] | None = None) -> int:
     try:
         source_ref = create_source(args.reference, use_stdin=args.reference == "-")
     except Exception as e:
-        log.error("Could not read reference : %s", e)
+        log.error("Could not read reference %s : %s", args.reference, e)
         return 1
     try:
         source_dis = create_source(args.distorted, use_stdin=args.distorted == "-")
     except Exception as e:
-        log.error("Could not read distorted : %s", e)
+        log.error("Could not read distorted %s : %s", args.distorted, e)
         return 1
 
     if args.decode_workers > 1:
-        log.warning("Y4M input is not seekable-CFR compressed video; --decode-workers ignored")
+        from turbo_metrics_tpu_torch.io.native import NativeVideoSource
+        from turbo_metrics_tpu_torch.parallel.decode_pool import ChunkedVideoSource
+
+        def chunked(src, path):
+            if isinstance(src, NativeVideoSource) and src.can_seek():
+                src.close()
+                return ChunkedVideoSource(path, workers=args.decode_workers)
+            log.warning("%s: not seekable-CFR; --decode-workers ignored for it", path)
+            return src
+
+        source_ref = chunked(source_ref, args.reference)
+        source_dis = chunked(source_dis, args.distorted)
 
     if args.color_matrix or args.color_transfer or args.color_range:
         from turbo_metrics_tpu_torch.io.frame_source import ColorOverrideSource
