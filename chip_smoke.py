@@ -191,7 +191,28 @@ Phases, each fatal on failure (exit code 1):
   8. the dissect path: turbo_metrics_tpu_torch.tools.kernel_dissect at its
      default shape, counters reset just before and read just after: every
      wrapper it times launched (#19, #6, #5 and #13 among them), a device time for
-     every CUDA kernel of every entry.
+     every CUDA kernel of every entry;
+  9. frame data parallelism (parallel/mesh.py): (a) phase 3's pair (16
+     frames, B=8) through TurboMetrics.compute_all unsharded and over a mesh
+     of two shards of card 0, each on its own stream (a shard edge inside
+     each batch, the state across the batch edge), with all six metrics and
+     the fixture model, with --vmaf-integer's engine and the model, and with
+     SSIMULACRA2 alone, counters reset just before and read just after each
+     run: every FrameScores field equal to the unsharded engine's (a field
+     that is not is logged with its difference and held to
+     tests/test_parallel.py's bars: scores 1e-6, VIF, ADM and XPSNR 1e-9,
+     motion exact), each wrapper launched once per shard where the
+     unsharded run launched it once, #17 once more per batch (the later
+     shard's previous frame); (b) one mesh batch inside device_trace: the
+     kernels of csrc/ on two streams, equal launches but the edge blur; (c)
+     with several cards, (a) over every card, else a line saying that the
+     cross-device path went unexercised; (d) dryrun_multichip over the two
+     shards; (e) one batch's time unsharded and over the mesh by CUDA events
+     (unsharded, mesh, mesh, unsharded), then each way's split into
+     uploads, launches with their device work and host scoring (host
+     clock) and its kernels' device time (torch.profiler).
+With the one argument --mesh-only it runs phases 1, 2's build and 9 alone
+(phase 9 (c) runs on a machine with several cards).
 Prints the card, the dissect tool's JSON line, then one JSON line of
 per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -2342,8 +2363,274 @@ def run_dissect_path(card: str):
          "the dissect tool recorded no device time for a kernel")
     return result, launches
 
+# Phase 9: frame data parallelism (parallel/mesh.py, TurboMetrics(mesh=...)):
+# two shards of card 0, each on its own stream.
+MESH_SHARDS = 2
+# Phase 9 (a)'s configurations: (name, Metrics flags, vmaf_integer, with the
+# fixture fusion model).
+MESH_CONFIGS = (
+    ("all six, fixture model", dict(ssimulacra2=True, psnr=True, ssim=True, msssim=True, xpsnr=True, vmaf=True),
+     False, True),
+    ("--vmaf-integer, fixture model", dict(vmaf=True), True, True),
+    ("SSIMULACRA2 alone", dict(ssimulacra2=True), False, False),
+)
 
-def main() -> int:
+
+def mesh_bar(field: str) -> float:
+    """tests/test_parallel.py's bars for a field that is not bit-equal to
+    the unsharded engine's: motion exact, VIF, ADM and XPSNR 1e-9, the
+    scores 1e-6."""
+    if field == "vmaf_motion":
+        return 0.0
+    if field == "xpsnr" or field.startswith(("vmaf_vif", "vmaf_adm")):
+        return 1e-9
+    return 1e-6
+
+
+def library_kernels() -> set:
+    """The names of the CUDA kernels of csrc/ (its __global__ functions)."""
+    import glob
+    import re
+
+    names = set()
+    for path in glob.glob(os.path.join(os.path.dirname(os.path.abspath(__file__)), CSRC, "*.cu*")):
+        with open(path) as f:
+            names |= set(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\((?:[^()]|\([^()]*\))*\))*\)\s*)?(\w+)",
+                f.read()))
+    need(len(names) > 10, f"found only the kernels {names} in {CSRC}")
+    return names
+
+
+def mesh_engine(flags: dict, integer: bool, fused: bool, dev, mesh=None):
+    from turbo_metrics_tpu_torch.engine import Metrics, TurboMetrics
+    from turbo_metrics_tpu_torch.models.vmaf_model import VmafModel
+
+    return TurboMetrics(WIDTH, HEIGHT, Metrics(**flags), batch=BATCH, device=dev, vmaf_integer=integer,
+                        vmaf_model=VmafModel.from_dict(FIXTURE_MODEL) if fused else None, mesh=mesh)
+
+
+def engine_run(ref_path: str, dis_path: str, engine):
+    """``engine.compute_all`` of the Y4M pair, every launch counter set to 0
+    just before and read just after: (each frame's FrameScores as a dict,
+    launches, host seconds)."""
+    from turbo_metrics_tpu_torch.io.probe import create_source
+
+    frames = []
+    srcs = (create_source(ref_path), create_source(dis_path))
+    reset_counts()
+    t0 = time.monotonic()
+    res = engine.compute_all(*srcs, on_frame=lambda s: frames.append(s.to_dict()))
+    launches = read_counts()
+    seconds = time.monotonic() - t0
+    for src in srcs:
+        src.close()
+    need(res.frame_count == FRAMES and len(frames) == FRAMES, f"the engine scored {res.frame_count} frames")
+    return frames, launches, seconds
+
+
+def check_mesh_scores(what: str, got: list, want: list) -> None:
+    """Every FrameScores field of the mesh engine against the unsharded
+    engine's: bit for bit expected; a field that is not is logged with its
+    largest difference and held to mesh_bar."""
+    need(len(got) == len(want), f"(9) {what}: {len(got)} frames vs {len(want)}")
+    diff = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        need(set(g) == set(w), f"(9) {what}: frame {i} has the fields {sorted(g)}, unsharded {sorted(w)}")
+        for k, v in g.items():
+            need(math.isfinite(v) or v == w[k], f"(9) {what}: frame {i} {k} = {v}")
+            if v != w[k]:
+                diff[k] = max(diff.get(k, 0.0), abs(v - w[k]))
+    fields = sorted(got[0])
+    if not diff:
+        log(f"(9a) {what}: all {len(fields)} fields of {len(got)} frames bit-equal to the unsharded engine "
+            f"({', '.join(fields)})")
+    for k, d in diff.items():
+        log(f"(9a) {what}: {k} NOT bit-equal to the unsharded engine, max |diff| {d:.3g} (bar {mesh_bar(k):g})")
+        need(d <= mesh_bar(k), f"(9) {what}: {k} apart from the unsharded engine's by {d}")
+
+
+def check_mesh_launches(what: str, got: dict, single: dict, shards: int) -> None:
+    """Each wrapper launched by the mesh run once per shard where the
+    unsharded run launched it once; #17 (integer_blur) once for the stream's
+    first frame and once per batch for each shard after the first (its
+    previous shard's last reference frame)."""
+    batches = FRAMES // BATCH
+    for k, u in single.items():
+        want = 1 + batches * (shards - 1) if k == "integer_blur" and u else shards * u
+        need(got[k] == want, f"(9) {what}: {k} launched {got[k]} times over {shards} shards, want {want} "
+             f"(unsharded {u})")
+    need(any(got.values()), f"(9) {what}: no kernel launched")
+
+
+def run_mesh_configs(ref_path: str, dis_path: str, dev, mesh, card: str, label: str) -> dict:
+    """Phase 9 (a) (and (c) over every card): each of MESH_CONFIGS through
+    the unsharded engine and through the engine over ``mesh``, every field
+    held.  Returns {config: (unsharded seconds, mesh seconds)}."""
+    out = {}
+    for name, flags, integer, fused in MESH_CONFIGS:
+        want, single_launches, s1 = engine_run(ref_path, dis_path, mesh_engine(flags, integer, fused, dev))
+        eng = mesh_engine(flags, integer, fused, dev, mesh)
+        need(eng.batch == BATCH, f"(9) the mesh engine's batch is {eng.batch}")
+        got, launches, s2 = engine_run(ref_path, dis_path, eng)
+        what = f"{label} {name}"
+        check_mesh_scores(what, got, want)
+        check_mesh_launches(what, launches, single_launches, mesh.size)
+        log(f"(9a) {what}: {FRAMES} frames in {s2:.2f} s over {mesh.size} shards, {s1:.2f} s unsharded (first "
+            f"calls and decode included); launches {launches} [{card}]")
+        out[name] = (s1, s2)
+    return out
+
+
+def load_raw_pair(ref_path: str, dis_path: str):
+    """The Y4M pair's frames on the host: (ref frames, dis frames, ref cc,
+    dis cc)."""
+    from turbo_metrics_tpu_torch.io.probe import create_source
+
+    srcs = (create_source(ref_path), create_source(dis_path))
+    frames = [[src.get_frame() for _ in range(FRAMES)] for src in srcs]
+    ccs = [src.color_characteristics() for src in srcs]
+    for src in srcs:
+        src.close()
+    return frames[0], frames[1], ccs[0], ccs[1]
+
+
+def check_mesh_trace(raw, dev, mesh, tmp: str, card: str) -> None:
+    """Phase 9 (b): one steady-state mesh batch (all six metrics) inside
+    device_trace; the trace file's kernels of csrc/ lie on exactly two
+    streams, the two shards', with equal launches of every kernel but the
+    later shard's one more motion_kernel (#17 on its previous shard's last
+    reference frame)."""
+    from collections import Counter
+
+    from turbo_metrics_tpu_torch.utils.profiling import device_trace, kernel_name
+
+    fr, fd, cc_r, cc_d = raw
+    name, flags, integer, fused = MESH_CONFIGS[0]
+    eng = mesh_engine(flags, integer, fused, dev, mesh)
+    eng.compute_frames(fr[:BATCH], cc_r, fd[:BATCH], cc_d)
+    with device_trace(os.path.join(tmp, "mesh_trace")) as log_dir:
+        eng.compute_frames(fr[BATCH:2 * BATCH], cc_r, fd[BATCH:2 * BATCH], cc_d)
+    files = sorted(os.listdir(log_dir))
+    need(len(files) == 1, f"(9b) device_trace wrote {files}")
+    with open(os.path.join(log_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    ours = library_kernels()
+    per_stream: dict = {}
+    others = Counter()
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        base = kernel_name(e["name"]).split("<", 1)[0]
+        stream = e.get("args", {}).get("stream")
+        if base in ours:
+            per_stream.setdefault(stream, Counter())[base] += 1
+        else:
+            others[stream] += 1
+    log(f"(9b) trace {files[0]} of one mesh batch ({name}): the kernels of csrc/ by stream "
+        f"{ {k: dict(v) for k, v in per_stream.items()} }; other kernels (torch's) by stream {dict(others)} "
+        f"[{card}]")
+    need(len(per_stream) == 2, f"(9b) the shards' kernels lie on {len(per_stream)} streams, want 2")
+    a, b = per_stream.values()
+    extra = (b - a) + (a - b)
+    need(extra == Counter({"motion_kernel": 1}),
+         f"(9b) the two shards' launches differ by {dict(extra)}, want one motion_kernel (the edge blur)")
+    log(f"(9b) two streams, {sum(a.values())} and {sum(b.values())} launches of the kernels of csrc/: equal "
+        "but the later shard's edge blur")
+
+
+def time_mesh_batch(raw, dev, mesh, card: str) -> dict:
+    """Phase 9 (e): one batch's compute_frames (all six metrics), unsharded
+    and over the mesh, by CUDA events around the call (the uploads and the
+    read-back of the scores included): unsharded, mesh, mesh, unsharded.
+    Written down, not claimed."""
+    from turbo_metrics_tpu_torch.tools.kernel_dissect import time_ms
+
+    fr, fd, cc_r, cc_d = raw
+    _, flags, integer, fused = MESH_CONFIGS[0]
+    engines = {"unsharded": mesh_engine(flags, integer, fused, dev),
+               f"{mesh.size} shards": mesh_engine(flags, integer, fused, dev, mesh)}
+    times = {k: [] for k in engines}
+    for k in (*engines, *reversed(engines)):
+        times[k].append(time_ms(lambda: engines[k].compute_frames(fr[:BATCH], cc_r, fd[:BATCH], cc_d), 5, dev))
+    for k, t in times.items():
+        log(f"(9e) one batch B={BATCH} {WIDTH}x{HEIGHT}, all six metrics, {k}: "
+            + " / ".join(f"{x:.3f} ms" for x in t) + f" (CUDA events around compute_frames) [{card}]")
+    split_mesh_batch(engines, raw, card)
+    return times
+
+
+def split_mesh_batch(engines: dict, raw, card: str, calls: int = 3) -> None:
+    """Where one batch's time goes, each way: host ms of the uploads
+    (``_planes``), of the launches with their device work (``_step``, every
+    shard, the device synced after each, uploads taken out) and of the host
+    scoring (``_scores``), per batch over ``calls`` calls; and the device
+    time of the batch's kernels by torch.profiler."""
+    from turbo_metrics_tpu_torch.utils.profiling import Timer, cuda_kernel_records
+
+    fr, fd, cc_r, cc_d = raw
+
+    def batch(eng):
+        return eng.compute_frames(fr[:BATCH], cc_r, fd[:BATCH], cc_d)
+
+    def timed(fn, timer):
+        def run(*args):
+            out = []
+            with timer.measure(out):
+                out.append(fn(*args))
+            return out[0]
+        return run
+
+    for k, eng in engines.items():
+        timers = {name: Timer() for name in ("_planes", "_step", "_scores")}
+        for name, timer in timers.items():
+            setattr(eng, name, timed(getattr(eng, name), timer))
+        try:
+            for _ in range(calls):
+                batch(eng)
+        finally:
+            for name in timers:
+                delattr(eng, name)
+        ms = {name: 1e3 * sum(t.samples) / calls for name, t in timers.items()}
+        device_ms = sum(t for _, t in cuda_kernel_records(lambda: batch(eng)))
+        log(f"(9e) split of one batch, {k}: uploads {ms['_planes']:.3f} ms, launches and device work "
+            f"{ms['_step'] - ms['_planes']:.3f} ms (synced per shard), host scoring {ms['_scores']:.3f} ms "
+            f"(host clock, mean of {calls}); its kernels' device time {device_ms:.3f} ms (torch.profiler) "
+            f"[{card}]")
+
+
+def run_mesh_phase(dev, card: str) -> dict:
+    """Phase 9: (a) the three configurations over two shards of card 0, (b)
+    the trace, (c) every card where there are several, (d) the dry run,
+    (e) the times."""
+    from turbo_metrics_tpu_torch.parallel import dryrun
+    from turbo_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MESH_SHARDS, device=f"cuda:{dev.index or 0}")
+    with tempfile.TemporaryDirectory(prefix="tm_mesh_") as tmp:
+        ref_path, dis_path = write_y4m_pair(tmp)
+        runs = run_mesh_configs(ref_path, dis_path, dev, mesh, card, f"{MESH_SHARDS} shards of {dev}")
+        raw = load_raw_pair(ref_path, dis_path)
+        check_mesh_trace(raw, dev, mesh, tmp, card)
+        if torch.cuda.device_count() > 1:
+            every = make_mesh()
+            runs.update({f"{k} ({every.size} cards)": v for k, v in run_mesh_configs(
+                ref_path, dis_path, dev, every, card, f"{every.size} cards").items()})
+        else:
+            log("(9c) one card: the cross-device path (shards on distinct cards) went unexercised")
+        reset_counts()
+        dryrun.dryrun_multichip(MESH_SHARDS, device=str(mesh.devices[0]))
+        launches = read_counts()
+        need(all(launches[k] > 0 for k in ("yuv420_to_linear_rgb_pair", "fused_scale_rgb", "ssim_sums",
+                                             "xpsnr_block_stats", "vif_scale0", "adm_stats", "motion_stats")),
+             f"(9d) a kernel of the dry run was not launched: {launches}")
+        log(f"(9d) dryrun_multichip({MESH_SHARDS}, device={str(mesh.devices[0])!r}): ok, launches {launches}")
+        times = time_mesh_batch(raw, dev, mesh, card)
+    return {"runs": runs, "batch_ms": times}
+
+
+def main(argv=None) -> int:
+    mesh_only = list(sys.argv[1:] if argv is None else argv) == ["--mesh-only"]
     try:
         from turbo_metrics_tpu_torch.models.ssimulacra2 import (
             Ssimulacra2,
@@ -2395,6 +2682,14 @@ def main() -> int:
     for ln in _build.LIBRARY.build_log.splitlines():
         if "registers" in ln or "spill" in ln:
             log(f"  ptxas: {ln.strip()}")
+    if mesh_only:
+        # Phase 9 alone, for a machine with several cards: (c) runs there.
+        log(f"--mesh-only: phase 9 alone on {torch.cuda.device_count()} card(s)")
+        run_mesh_phase(torch.device("cuda", 0), card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     check_level_blocks(_build.LIBRARY.get(), card)
     conv_sass = conversion_sass(card)
     integer_sass(card)
@@ -2613,6 +2908,7 @@ def main() -> int:
              "the repetitions were not all run")
         del xp
         dissect, dissect_launches = run_dissect_path(card)
+        run_mesh_phase(dev, card)
 
     mpx = WIDTH * HEIGHT / 1e6
     for name, runs in (

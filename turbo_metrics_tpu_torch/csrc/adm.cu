@@ -75,6 +75,7 @@
 #include <stdint.h>
 
 #include "adm_tile.cuh"
+#include "per_device.cuh"
 
 namespace {
 
@@ -287,20 +288,20 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
 }
 
 // Allows the kernel its dynamic shared memory and reads how many of its
-// blocks the card holds at once: once per process (the function-local
-// static), before its first launch or occupancy query.
+// blocks the card holds at once: once per device (per_device.cuh), before
+// the first launch or occupancy query on it.
 struct TileSetup {
   cudaError_t err;
   int per_sm, sms;
 };
 
-const TileSetup& tile_setup() {
-  static const TileSetup setup = [] {
+TileSetup tile_setup() {
+  static tm_setup::PerDevice<TileSetup> setups;
+  cudaError_t err = cudaSuccess;
+  const TileSetup* setup = setups.get(&err, [](int dev) {
     TileSetup t = {cudaFuncSetAttribute(adm_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         (int)kSmemBytes),
                    0, 0};
-    int dev = 0;
-    if (t.err == cudaSuccess) t.err = cudaGetDevice(&dev);
     if (t.err == cudaSuccess) t.err = cudaDeviceGetAttribute(&t.sms, cudaDevAttrMultiProcessorCount, dev);
     if (t.err == cudaSuccess) {
       t.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&t.per_sm, adm_tile_kernel, kThreadsAdm,
@@ -308,8 +309,8 @@ const TileSetup& tile_setup() {
     }
     if (t.err == cudaSuccess && t.per_sm == 0) t.err = cudaErrorInvalidConfiguration;
     return t;
-  }();
-  return setup;
+  });
+  return setup != nullptr ? *setup : TileSetup{err, 0, 0};
 }
 
 }  // namespace
@@ -325,7 +326,7 @@ int tm_adm_blocks(int ch, int cw, int top, int left) { return adm_blocks(ch, cw,
 // out[1] dynamic shared memory per block in bytes, out[2] resident blocks
 // per SM, out[3] local memory per thread in bytes (spills).
 int tm_adm_tile_attrs(int* out) {
-  const TileSetup& t = tile_setup();
+  const TileSetup t = tile_setup();
   cudaFuncAttributes a;
   cudaError_t err = t.err;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, adm_tile_kernel);
@@ -349,7 +350,7 @@ int tm_adm_level(const float* in, int bsz, int h, int w, const float* taps, floa
                  int left, float* approx, float* parts, float* sums, int sums_pstride,
                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const TileSetup& setup = tile_setup();
+  const TileSetup setup = tile_setup();
   if (setup.err != cudaSuccess) return (int)setup.err;
   AdmConsts c;
   for (int k = 0; k < kTaps; ++k) {

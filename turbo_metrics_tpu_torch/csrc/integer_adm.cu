@@ -65,6 +65,7 @@
 #include <stdint.h>
 
 #include "adm_tile.cuh"
+#include "per_device.cuh"
 
 namespace {
 
@@ -333,27 +334,27 @@ integer_adm_kernel(const T* __restrict__ in, const __grid_constant__ CUtensorMap
 }
 
 // Allows the instance its dynamic shared memory and reads how many of its
-// blocks the card holds at once: once per process (the function-local
-// static), before its first launch or occupancy query.
+// blocks the card holds at once: once per device (per_device.cuh), before
+// the first launch or occupancy query on it.
 struct TileSetup {
   cudaError_t err;
   int per_sm, sms;
 };
 
 template <typename T, bool kCodes, bool kCheck>
-const TileSetup& tile_setup() {
-  static const TileSetup setup = [] {
+TileSetup tile_setup() {
+  static tm_setup::PerDevice<TileSetup> setups;
+  cudaError_t err = cudaSuccess;
+  const TileSetup* setup = setups.get(&err, [](int dev) {
     const auto kernel = integer_adm_kernel<T, kCodes, kCheck>;
     constexpr int kBytes = (int)IntTile<T>::kSmemBytes;
     TileSetup t = {cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes), 0, 0};
-    int dev = 0;
-    if (t.err == cudaSuccess) t.err = cudaGetDevice(&dev);
     if (t.err == cudaSuccess) t.err = cudaDeviceGetAttribute(&t.sms, cudaDevAttrMultiProcessorCount, dev);
     if (t.err == cudaSuccess) t.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&t.per_sm, kernel, kThreadsAdm, kBytes);
     if (t.err == cudaSuccess && t.per_sm == 0) t.err = cudaErrorInvalidConfiguration;
     return t;
-  }();
-  return setup;
+  });
+  return setup != nullptr ? *setup : TileSetup{err, 0, 0};
 }
 
 struct Args {
@@ -369,7 +370,7 @@ struct Args {
 
 template <typename T, bool kCodes, bool kCheck>
 int launch(const Args& a) {
-  const TileSetup& setup = tile_setup<T, kCodes, kCheck>();
+  const TileSetup setup = tile_setup<T, kCodes, kCheck>();
   if (setup.err != cudaSuccess) return (int)setup.err;
   const AdmGrid g = adm_grid(a.h, a.w, a.top, a.left);
   const int tiles = g.nx * g.ny * a.bsz;
@@ -389,7 +390,7 @@ int launch(const Args& a) {
 
 template <typename T, bool kCodes, bool kCheck>
 int attrs(int* out) {
-  const TileSetup& t = tile_setup<T, kCodes, kCheck>();
+  const TileSetup t = tile_setup<T, kCodes, kCheck>();
   cudaFuncAttributes fa;
   cudaError_t err = t.err;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, integer_adm_kernel<T, kCodes, kCheck>);

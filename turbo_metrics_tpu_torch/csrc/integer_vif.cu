@@ -93,6 +93,7 @@
 #include <type_traits>
 
 #include "level.cuh"
+#include "per_device.cuh"
 
 namespace {
 
@@ -408,14 +409,18 @@ int vif_blocks(int h, int w) {
   return (int)(g.x * g.y);
 }
 
-// Allows the instance its dynamic shared memory: once per process (the
-// function-local static), before its first launch or occupancy query.
+// Allows the instance its dynamic shared memory: once per device
+// (per_device.cuh), before the first launch or occupancy query on it.
 template <typename T, int R, int RE, bool kNarrow, bool kCheck>
 cudaError_t tile_setup() {
-  static const cudaError_t err =
-      cudaFuncSetAttribute(integer_vif_kernel<T, R, RE, kNarrow, kCheck>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ITile<T, R, RE, kNarrow>::kSmemBytes);
-  return err;
+  static tm_setup::PerDevice<cudaError_t> setups;
+  cudaError_t err = cudaSuccess;
+  const cudaError_t* setup = setups.get(&err, [](int) {
+    return cudaFuncSetAttribute(integer_vif_kernel<T, R, RE, kNarrow, kCheck>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)ITile<T, R, RE, kNarrow>::kSmemBytes);
+  });
+  return setup != nullptr ? *setup : err;
 }
 
 struct Args {

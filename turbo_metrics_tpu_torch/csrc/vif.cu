@@ -64,6 +64,7 @@
 #include <stdint.h>
 
 #include "level.cuh"
+#include "per_device.cuh"
 
 namespace {
 
@@ -287,13 +288,17 @@ int vif_blocks(int h, int w) {
   return (int)(g.x * g.y);
 }
 
-// Allows the instance its dynamic shared memory: once per process (the
-// function-local static), before its first launch or occupancy query.
+// Allows the instance its dynamic shared memory: once per device
+// (per_device.cuh), before the first launch or occupancy query on it.
 template <int R, int RE>
 cudaError_t tile_setup() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      vif_tile_kernel<R, RE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile<R, RE>::kSmemBytes);
-  return err;
+  static tm_setup::PerDevice<cudaError_t> setups;
+  cudaError_t err = cudaSuccess;
+  const cudaError_t* setup = setups.get(&err, [](int) {
+    return cudaFuncSetAttribute(vif_tile_kernel<R, RE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)Tile<R, RE>::kSmemBytes);
+  });
+  return setup != nullptr ? *setup : err;
 }
 
 template <int R, int RE>

@@ -1,4 +1,5 @@
-"""The pipeline engine: batches frame pairs and scores them on one device.
+"""The pipeline engine: batches frame pairs and scores them on one device,
+or on the shards of a mesh (``TurboMetrics(mesh=...)``, parallel/mesh.py).
 
 Counterpart of the JAX package's ``TurboMetrics`` (itself modelled on
 turbo-metrics/src/lib.rs:188-434) for SSIMULACRA2, PSNR, SSIM, MS-SSIM,
@@ -25,9 +26,9 @@ JAX engine's ``_get_step``):
     with ``vmaf_integer`` their fixed-point conventions on the luma codes
     themselves (ops/kernels/integer_vif.py, ops/kernels/integer_adm.py).
 Only per-frame values, the (B, 3, S, 2, 3) sub-scores, the XPSNR block
-grids and VMAF's sums come back; the SSIMULACRA2 score, the XPSNR
-weighting, VMAF's feature scores and its fusion model run on the host in
-f64.
+grids and VMAF's sums come back, read once every launch of the batch is
+queued; the SSIMULACRA2 score, the XPSNR weighting, VMAF's feature scores
+and its fusion model run on the host in f64.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from turbo_metrics_tpu_torch.ops.quality import Quality
 from turbo_metrics_tpu_torch.ops.vif import vif_scores
 from turbo_metrics_tpu_torch.ops.vmaf_motion import motion_score
 from turbo_metrics_tpu_torch.ops.xpsnr_ops import align_luma_depth, frames_db
+from turbo_metrics_tpu_torch.parallel.mesh import gather_frames, launch_shards
 from turbo_metrics_tpu_torch.utils.stats import Stats
 
 
@@ -305,7 +307,21 @@ class TurboMetrics:
     ``vmaf`` score; without one, ``Metrics(vmaf=True)`` gives the elementary
     features only.  ``vmaf_integer``: VIF and ADM under libvmaf-style
     fixed-point conventions (the repository's own 32-bit schedule, not
-    claimed bit-identical to libvmaf) instead of the float pipeline."""
+    claimed bit-identical to libvmaf) instead of the float pipeline.
+
+    ``mesh`` (parallel.mesh.Mesh): shard each batch's frames over the mesh's
+    devices, which then replace ``device`` (the JAX engine's ``mesh=``,
+    engine.py:495-556 of the JAX package).  The batch rounds up to a
+    multiple of the mesh's size; each shard's frames are uploaded straight
+    to its device and run there under its own stream, every shard launched
+    before any result is read, and the host scores the gathered results in
+    frame order.  Shard k > 0 also receives the previous shard's last
+    reference frame, uploaded once more: XPSNR's previous frame and, blurred
+    on its own device (#17), VMAF motion's previous blurred plane, so
+    shards never wait on each other (the JAX engine exchanges that plane
+    with a ppermute; the blur is exact, so the integers are the same).
+    Shard 0 takes the stream state, and the last shard's state carries to
+    the next batch."""
 
     def __init__(
         self,
@@ -317,6 +333,7 @@ class TurboMetrics:
         device="cuda",
         vmaf_model=None,
         vmaf_integer: bool = False,
+        mesh=None,
     ):
         if not metrics.any():
             raise ValueError("at least one metric must be selected")
@@ -325,14 +342,22 @@ class TurboMetrics:
         self.width = int(width)
         self.height = int(height)
         self.metrics = metrics
-        self.device = resolve_device(device)
-        self.model = (
-            Ssimulacra2(self.width, self.height, device=self.device) if metrics.ssimulacra2 else None
-        )
-        self.quality = (
-            Quality(device=self.device) if metrics.psnr or metrics.ssim or metrics.msssim else None
-        )
+        self.mesh = mesh
+        devices = [resolve_device(d) for d in ((device,) if mesh is None else mesh.distinct_devices())]
+        # One SSIMULACRA2 model and one Quality per device.
+        self._models = {
+            dev: (
+                Ssimulacra2(self.width, self.height, device=dev) if metrics.ssimulacra2 else None,
+                Quality(device=dev) if metrics.psnr or metrics.ssim or metrics.msssim else None,
+            )
+            for dev in devices
+        }
+        self.device = devices[0]
+        self.model, self.quality = self._models[self.device]
         self.batch = batch if batch is not None else default_batch(width, height, metrics)
+        if mesh is not None and self.batch % mesh.size:
+            # Round the batch up so that every shard gets equal frames.
+            self.batch = -(-self.batch // mesh.size) * mesh.size
         # XPSNR temporal state: the last reference luma of the previous batch.
         self._prev_ref: Optional[torch.Tensor] = None
         # VMAF motion state: the previous batch's last blurred reference luma.
@@ -369,62 +394,148 @@ class TurboMetrics:
             dis_frames = dis_frames + [dis_frames[-1]] * pad
         spec = ConvertSpec.for_frame(ref_frames[0], *cc_ref)
         spec_dis = ConvertSpec.for_frame(dis_frames[0], *cc_dis)
+        first = self.metrics.vmaf and self._vmaf_prev_blur is None
+        if self.mesh is None:
+            out, state = self._step(
+                self.device, spec, ref_frames, spec_dis, dis_frames, self._prev_ref, self._vmaf_prev_blur
+            )
+        else:
+            out, state = self._mesh_step(spec, ref_frames, spec_dis, dis_frames)
+        scores = self._scores(out, n, spec, first)
+        # Replaced once the scores are read: the shards may read the old
+        # state until then.
+        if self.metrics.xpsnr:
+            self._prev_ref = state[0]
+        if self.metrics.vmaf:
+            self._vmaf_prev_blur = state[1]
+        return scores
+
+    def _mesh_step(self, spec: ConvertSpec, ref_frames: list, spec_dis: ConvertSpec, dis_frames: list):
+        """``_step`` on every shard of the mesh; returns the gathered
+        results and the last shard's state."""
+        mesh = self.mesh
+        per = len(ref_frames) // mesh.size
         m = self.metrics
-        scores = [FrameScores() for _ in range(n)]
+
+        def shard(k: int, dev: torch.device):
+            a = k * per
+            prev_ref = prev_blur = None
+            if k == 0:
+                # The stream state, from the previous batch's last shard.
+                if self._prev_ref is not None:
+                    prev_ref = self._prev_ref.to(dev)
+                if self._vmaf_prev_blur is not None:
+                    prev_blur = self._vmaf_prev_blur.to(dev)
+            elif m.xpsnr or m.vmaf:
+                # The previous shard's last reference frame, uploaded again.
+                prev = _luma_code(spec, self._planes(dev, ref_frames[a - 1:a]))
+                prev_ref = prev[0]
+                if m.vmaf:
+                    prev_blur = integer_blur(prev, depth=spec.depth)[0]
+            return self._step(
+                dev, spec, ref_frames[a:a + per], spec_dis, dis_frames[a:a + per], prev_ref, prev_blur
+            )
+
+        results = launch_shards(shard, mesh)
+        return gather_frames([out for out, _ in results], mesh, per), results[-1][1]
+
+    def _step(
+        self, dev: torch.device, spec: ConvertSpec, ref_frames: list, spec_dis: ConvertSpec,
+        dis_frames: list, prev_ref: Optional[torch.Tensor], prev_blur: Optional[torch.Tensor],
+    ) -> tuple[dict, tuple]:
+        """Upload the frames to ``dev`` and launch every selected metric's
+        kernels there.  ``prev_ref``: the reference luma before the first
+        frame (None: the stream's first frame, its own); ``prev_blur``: its
+        blurred plane (None: the stream's first frame).  Returns the
+        per-frame results as device tensors (nothing is read back) and the
+        state after the last frame, (last reference luma, its blurred
+        plane)."""
+        m = self.metrics
+        model, quality = self._models[dev]
+        out: dict = {}
+        last_ref = last_blur = None
         # Planar YUV of one spec for both inputs is uploaded as one (2, B, ...)
         # stack, so that one conversion launch covers the pair.
         pair = None
         if spec == spec_dis and spec.kind == "yuv420":
-            pair = self._planes(ref_frames, dis_frames)
+            pair = self._planes(dev, ref_frames, dis_frames)
             arr_ref, arr_dis = tuple(a[0] for a in pair), tuple(a[1] for a in pair)
         else:
-            arr_ref, arr_dis = self._planes(ref_frames), self._planes(dis_frames)
-        s2_from_yuv = pair is not None and spec.chroma == 420 and self.quality is None
-        if s2_from_yuv and self.model is not None:
+            arr_ref, arr_dis = self._planes(dev, ref_frames), self._planes(dev, dis_frames)
+        s2_from_yuv = pair is not None and spec.chroma == 420 and quality is None
+        if s2_from_yuv and model is not None:
             # SSIMULACRA2 the only RGB family: scale 0 conversion-fused, no
             # RGB pair buffer.
-            sub = self.model.subscores_from_yuv(
+            out["ssimulacra2"] = model.subscores_from_yuv(
                 *pair,
                 depth=spec.depth,
                 matrix=spec.matrix,
                 transfer=spec.transfer,
                 full_range=spec.full_range,
             )
-            s2 = self.model.score(sub)
+        elif model is not None or quality is not None:
+            p12 = self._linear_rgb_pair(dev, spec, arr_ref, spec_dis, arr_dis, pair)
+            if quality is not None:
+                out.update(quality.from_rgb(p12, psnr=m.psnr, ssim=m.ssim, msssim=m.msssim))
+            if model is not None:
+                out["ssimulacra2"] = model.subscores_from_rgb(p12)
+        if m.xpsnr:
+            out["xpsnr"], last_ref = self._xpsnr(spec, arr_ref, spec_dis, arr_dis, prev_ref)
+        if m.vmaf:
+            vmaf, last_blur = self._vmaf(spec, arr_ref, spec_dis, arr_dis, prev_blur)
+            out.update(vmaf)
+        return out, (last_ref, last_blur)
+
+    def _scores(self, out: dict, n: int, spec_ref: ConvertSpec, first: bool) -> list[FrameScores]:
+        """The host's part: the first ``n`` frames' scores from a step's
+        device results (the SSIMULACRA2 score, the XPSNR weighting and
+        VMAF's feature scores in f64)."""
+        scores = [FrameScores() for _ in range(n)]
+        for name in ("psnr", "ssim", "msssim"):
+            if name in out:
+                vals = out[name].cpu().numpy().astype(np.float64)
+                for i in range(n):
+                    setattr(scores[i], name, float(vals[i]))
+        if "ssimulacra2" in out:
+            s2 = self.model.score(out["ssimulacra2"])
             for i in range(n):
                 scores[i].ssimulacra2 = float(s2[i])
-        elif self.model is not None or self.quality is not None:
-            p12 = self._linear_rgb_pair(spec, arr_ref, spec_dis, arr_dis, pair)
-            if self.quality is not None:
-                out = self.quality.from_rgb(p12, psnr=m.psnr, ssim=m.ssim, msssim=m.msssim)
-                for name, vals in out.items():
-                    vals = vals.cpu().numpy().astype(np.float64)
-                    for i in range(n):
-                        setattr(scores[i], name, float(vals[i]))
-            if self.model is not None:
-                s2 = self.model.score(self.model.subscores_from_rgb(p12))
-                for i in range(n):
-                    scores[i].ssimulacra2 = float(s2[i])
-        if m.xpsnr:
-            self._xpsnr(spec, arr_ref, spec_dis, arr_dis, scores)
-        if m.vmaf:
-            self._vmaf(spec, arr_ref, spec_dis, arr_dis, scores)
+        if "xpsnr" in out:
+            # As in the JAX engine: an RGB reference is weighted at 8 bits,
+            # whatever its depth.
+            depth = spec_ref.depth if spec_ref.kind == "yuv420" else 8
+            db = frames_db(out["xpsnr"], width=self.width, height=self.height, depth=depth)
+            for s, v in zip(scores, db):
+                s.xpsnr = v
+        if "vif" in out:
+            vs = vif_scores(out["vif"].cpu().numpy())
+            adm = adm_score(out["adm"].cpu().numpy(), self.height, self.width)
+            sads = out["sad"].cpu().numpy()
+            for i, s in enumerate(scores):
+                s.vmaf_vif = float(vs["vif"][i])
+                s.vmaf_adm = float(adm["adm2"][i])
+                for k in range(4):
+                    setattr(s, f"vmaf_vif_scale{k}", float(vs[f"vif_scale{k}"][i]))
+                    setattr(s, f"vmaf_adm_scale{k}", float(adm[f"adm_scale{k}"][i]))
+                s.vmaf_motion = motion_score(int(sads[i]), self.width, self.height, depth=spec_ref.depth)
+            if first:
+                scores[0].vmaf_motion = 0.0
         return scores
 
-    def _planes(self, *inputs: list[RawFrame]) -> tuple[torch.Tensor, ...]:
-        """One input's frames on the device, or two inputs' stacked on a
+    def _planes(self, dev: torch.device, *inputs: list[RawFrame]) -> tuple[torch.Tensor, ...]:
+        """One input's frames on ``dev``, or two inputs' stacked on a
         leading axis of 2: (luma (B, h, w), chroma (B, ch, cw, 2)) for planar
         YUV, (rgb (B, h, w, 3),) for packed RGB."""
         fields = ("rgb",) if inputs[0][0].kind == "rgb" else ("y", "uv")
         out = []
         for field in fields:
             a = np.stack([np.stack([getattr(f, field) for f in frames]) for frames in inputs])
-            out.append(torch.from_numpy(a[0] if len(inputs) == 1 else a).to(self.device))
+            out.append(torch.from_numpy(a[0] if len(inputs) == 1 else a).to(dev))
         return tuple(out)
 
     def _linear_rgb_pair(
-        self, spec_ref: ConvertSpec, arr_ref: tuple, spec_dis: ConvertSpec, arr_dis: tuple,
-        pair: Optional[tuple] = None,
+        self, dev: torch.device, spec_ref: ConvertSpec, arr_ref: tuple, spec_dis: ConvertSpec,
+        arr_dis: tuple, pair: Optional[tuple] = None,
     ) -> torch.Tensor:
         """The (2, B, 3, h, w) linear-RGB pair buffer of a batch: one
         conversion launch for the stacked ``pair`` planes of a shared YUV
@@ -434,7 +545,7 @@ class TurboMetrics:
             return self._convert(spec_ref, pair)
         p12 = torch.empty(
             (2, arr_ref[0].shape[0], 3, self.height, self.width),
-            dtype=torch.float32, device=self.device,
+            dtype=torch.float32, device=dev,
         )
         for slot, (spec, arrays) in enumerate(((spec_ref, arr_ref), (spec_dis, arr_dis))):
             self._convert(spec, arrays, p12, slot)
@@ -466,41 +577,34 @@ class TurboMetrics:
 
     def _xpsnr(
         self, spec_ref: ConvertSpec, arr_ref: tuple, spec_dis: ConvertSpec, arr_dis: tuple,
-        scores: list[FrameScores],
-    ) -> None:
-        """XPSNR of the batch's frames into ``scores`` (engine.py:302-314,
-        :913-919 and :980-992 of the JAX package)."""
+        prev_ref: Optional[torch.Tensor],
+    ) -> tuple[dict, torch.Tensor]:
+        """XPSNR's block grids of the batch's frames (engine.py:302-314,
+        :913-919 and :980-992 of the JAX package) and the last reference
+        luma."""
         y_ref = _luma_code(spec_ref, arr_ref)
         y_dis = _luma_code(spec_dis, arr_dis)
         # The stream's first frame is its own previous frame (tact 0).
-        prev0 = y_ref[0] if self._prev_ref is None else self._prev_ref.to(y_ref.dtype)
+        prev0 = y_ref[0] if prev_ref is None else prev_ref.to(y_ref.dtype)
         # The JAX engine's _align_luma_depth, as a shift the kernel applies
         # while it reads: XPSNR compares raw code values, so a pair whose
         # inputs differ in depth is compared at the reference's depth.
         stats = xpsnr_block_stats(y_ref, y_dis, prev0, dis_shift=spec_ref.depth - spec_dis.depth)
-        self._prev_ref = y_ref[-1].clone()
-        # As in the JAX engine: an RGB reference is weighted at 8 bits,
-        # whatever its depth.
-        depth = spec_ref.depth if spec_ref.kind == "yuv420" else 8
-        db = frames_db(stats, width=self.width, height=self.height, depth=depth)
-        for s, v in zip(scores, db):
-            s.xpsnr = v
+        return stats, y_ref[-1].clone()
 
     def _vmaf(
         self, spec_ref: ConvertSpec, arr_ref: tuple, spec_dis: ConvertSpec, arr_dis: tuple,
-        scores: list[FrameScores],
-    ) -> None:
-        """VMAF's elementary features of the batch's frames into ``scores``
-        (engine.py:315-374 and :920-979 of the JAX package)."""
+        prev_blur: Optional[torch.Tensor],
+    ) -> tuple[dict, torch.Tensor]:
+        """VMAF's elementary sums of the batch's frames (engine.py:315-374
+        and :920-979 of the JAX package): {'vif', 'adm', 'sad'}, and the
+        last blurred reference luma."""
         depth = spec_ref.depth
         y_ref = _luma_code(spec_ref, arr_ref)
-        first = self._vmaf_prev_blur is None
-        if first:
+        if prev_blur is None:
             # The stream's first frame is its own previous frame (motion 0).
-            self._vmaf_prev_blur = integer_blur(y_ref[:1], depth=depth)[0]
-        mot = motion_stats(y_ref, self._vmaf_prev_blur, depth=depth)
-        # The padding repeats the last real frame, so the last plane is its.
-        self._vmaf_prev_blur = mot["blurred"][-1].clone()
+            prev_blur = integer_blur(y_ref[:1], depth=depth)[0]
+        mot = motion_stats(y_ref, prev_blur, depth=depth)
         if self.vmaf_integer:
             # The fixed-point path takes the integer codes themselves, at the
             # reference's depth (engine.py:326-334 of the JAX package).
@@ -511,18 +615,9 @@ class TurboMetrics:
             pair = vmaf_pair(y_ref, _luma_code(spec_dis, arr_dis), depth, spec_dis.depth)
             vif_sums = vif_scale_stats(pair)
             adm_sums = adm_stats(pair)
-        vs = vif_scores(vif_sums.cpu().numpy())
-        adm = adm_score(adm_sums.cpu().numpy(), self.height, self.width)
-        sads = mot["sad_rows"].sum(dim=-1).cpu().numpy()
-        for i, s in enumerate(scores):
-            s.vmaf_vif = float(vs["vif"][i])
-            s.vmaf_adm = float(adm["adm2"][i])
-            for k in range(4):
-                setattr(s, f"vmaf_vif_scale{k}", float(vs[f"vif_scale{k}"][i]))
-                setattr(s, f"vmaf_adm_scale{k}", float(adm[f"adm_scale{k}"][i]))
-            s.vmaf_motion = motion_score(int(sads[i]), self.width, self.height, depth=depth)
-        if first:
-            scores[0].vmaf_motion = 0.0
+        # The padding repeats the last real frame, so the last plane is its.
+        out = {"vif": vif_sums, "adm": adm_sums, "sad": mot["sad_rows"].sum(dim=-1)}
+        return out, mot["blurred"][-1].clone()
 
     def compute_one(
         self,

@@ -12,6 +12,7 @@ on a machine without ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,6 +21,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -185,3 +188,16 @@ def check(status: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
+
+
+@contextlib.contextmanager
+def launch_stream(dev: torch.device):
+    """The raw handle of ``dev``'s current stream, with ``dev`` the calling
+    thread's current device for the block: the library's entry points launch
+    on the current device, which must be the one that holds their tensors
+    and the stream.  Where ``dev`` is current already nothing is switched."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        yield torch.cuda.current_stream(dev).cuda_stream
+        return
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream

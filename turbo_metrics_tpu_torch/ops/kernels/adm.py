@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from turbo_metrics_tpu_torch.ops import adm
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 from turbo_metrics_tpu_torch.ops.kernels.scale_stats import PART_H, PART_W
 from turbo_metrics_tpu_torch.ops.kernels.vif import check_pair
 
@@ -61,27 +61,27 @@ def adm_stats(pair: torch.Tensor) -> torch.Tensor:
     lib = LIBRARY.get()
     _, bsz, h, w = pair.shape
     dev = pair.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
     sums = torch.empty((bsz, adm.NUM_LEVELS, 3, 2), dtype=torch.float32, device=dev)
     x = pair
-    for level in range(adm.NUM_LEVELS):
-        ch, cw = (h + 1) // 2, (w + 1) // 2
-        top, _, left, _ = adm.center_region(ch, cw)
-        last = level + 1 == adm.NUM_LEVELS
-        approx = None if last else torch.empty((2, bsz, ch, cw), dtype=torch.float32, device=dev)
-        parts = level_scratch(bsz, h, w, dev)
-        rf_hv, rf_d = adm.csf_rfactors(level)
-        check(
-            lib.tm_adm_level(
-                x.data_ptr(), bsz, h, w, _TAPS, float(np.float32(rf_hv)), float(np.float32(rf_d)),
-                float(np.float32(adm.COS_1DEG_SQ)), float(np.float32(adm.DECOUPLE_EPS)),
-                float(adm.MASK_CENTRE), float(adm.MASK_EDGE), top, left,
-                approx.data_ptr() if approx is not None else None, parts.data_ptr(),
-                sums[:, level].data_ptr(), adm.NUM_LEVELS * 6, stream,
-            ),
-            "tm_adm_level",
-        )
-        x, h, w = approx, ch, cw
+    with launch_stream(dev) as stream:
+        for level in range(adm.NUM_LEVELS):
+            ch, cw = (h + 1) // 2, (w + 1) // 2
+            top, _, left, _ = adm.center_region(ch, cw)
+            last = level + 1 == adm.NUM_LEVELS
+            approx = None if last else torch.empty((2, bsz, ch, cw), dtype=torch.float32, device=dev)
+            parts = level_scratch(bsz, h, w, dev)
+            rf_hv, rf_d = adm.csf_rfactors(level)
+            check(
+                lib.tm_adm_level(
+                    x.data_ptr(), bsz, h, w, _TAPS, float(np.float32(rf_hv)), float(np.float32(rf_d)),
+                    float(np.float32(adm.COS_1DEG_SQ)), float(np.float32(adm.DECOUPLE_EPS)),
+                    float(adm.MASK_CENTRE), float(adm.MASK_EDGE), top, left,
+                    approx.data_ptr() if approx is not None else None, parts.data_ptr(),
+                    sums[:, level].data_ptr(), adm.NUM_LEVELS * 6, stream,
+                ),
+                "tm_adm_level",
+            )
+            x, h, w = approx, ch, cw
     adm_stats.launches += 1
     return sums
 

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from turbo_metrics_tpu_torch.ops.gaussian import blur_2d, taps_f32
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 
 # The TPU probe's output tile, whose whole tiles make the summed region.
 TILE_H, TILE_W = 128, 512
@@ -85,13 +85,14 @@ def blur_only(img: torch.Tensor, taps, *, passes: int = 5) -> torch.Tensor:
     lib = LIBRARY.get()
     parts = torch.empty(p * lib.tm_blur_probe_blocks(rh, rw), dtype=torch.float32, device=x.device)
     out = torch.empty((p, 8, 8), dtype=torch.float32, device=x.device)
-    check(
-        lib.tm_blur_probe(
-            x.data_ptr(), p, h, w, rh, rw, passes, taps.data_ptr(), parts.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-        ),
-        "tm_blur_probe",
-    )
+    with launch_stream(x.device) as stream:
+        check(
+            lib.tm_blur_probe(
+                x.data_ptr(), p, h, w, rh, rw, passes, taps.data_ptr(), parts.data_ptr(),
+                out.data_ptr(), stream,
+            ),
+            "tm_blur_probe",
+        )
     blur_only.launches += 1
     return out
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from turbo_metrics_tpu_torch.ops import colorspace
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 from turbo_metrics_tpu_torch.ops.kernels.scale_stats import TRANSFER_CODES, check_yuv
 
 
@@ -94,15 +94,16 @@ def yuv420_to_linear_rgb_pair(
     rng = colorspace.sample_range(depth, full_range)
     coeffs = colorspace.conversion_coeffs(depth, matrix, full_range, kr_kb)
     dst = out if slot is None else out[slot]
-    check(
-        lib.tm_yuv420_to_rgb(
-            y.data_ptr(), uv.data_ptr(), int(depth > 8),
-            bsz * (2 if slot is None else 1), h, w, *coeffs,
-            float(rng.minimum), float(rng.neutral), TRANSFER_CODES[transfer],
-            dst.data_ptr(), torch.cuda.current_stream(y.device).cuda_stream,
-        ),
-        "tm_yuv420_to_rgb",
-    )
+    with launch_stream(y.device) as stream:
+        check(
+            lib.tm_yuv420_to_rgb(
+                y.data_ptr(), uv.data_ptr(), int(depth > 8),
+                bsz * (2 if slot is None else 1), h, w, *coeffs,
+                float(rng.minimum), float(rng.neutral), TRANSFER_CODES[transfer],
+                dst.data_ptr(), stream,
+            ),
+            "tm_yuv420_to_rgb",
+        )
     yuv420_to_linear_rgb_pair.launches += 1
     return out
 
@@ -173,14 +174,15 @@ def yuv_to_linear_rgb(
         out = torch.empty(shape, dtype=torch.float32, device=y.device)
     rng = colorspace.sample_range(depth, full_range)
     coeffs = colorspace.conversion_coeffs(depth, matrix, full_range, kr_kb)
-    check(
-        lib.tm_yuv_to_rgb(
-            y.data_ptr(), uv.data_ptr(), int(depth > 8), int(chroma), y.numel() // (h * w),
-            h, w, *coeffs, float(rng.minimum), float(rng.neutral), TRANSFER_CODES[transfer],
-            out.data_ptr(), torch.cuda.current_stream(y.device).cuda_stream,
-        ),
-        "tm_yuv_to_rgb",
-    )
+    with launch_stream(y.device) as stream:
+        check(
+            lib.tm_yuv_to_rgb(
+                y.data_ptr(), uv.data_ptr(), int(depth > 8), int(chroma), y.numel() // (h * w),
+                h, w, *coeffs, float(rng.minimum), float(rng.neutral), TRANSFER_CODES[transfer],
+                out.data_ptr(), stream,
+            ),
+            "tm_yuv_to_rgb",
+        )
     yuv_to_linear_rgb.launches += 1
     return out
 

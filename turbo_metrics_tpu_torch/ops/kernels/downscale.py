@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from turbo_metrics_tpu_torch.ops import downscale as plain
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 
 downscale_by_2_ref = plain.downscale_by_2
 
@@ -32,9 +32,9 @@ def downscale_by_2(x: torch.Tensor) -> torch.Tensor:
     if not 1 <= n * c <= 65535:
         raise ValueError(f"N*C must be in [1, 65535], got {n * c}")
     out = torch.empty((n, c, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    check(LIBRARY.get().tm_downscale2(x.data_ptr(), n * c, h, w, out.data_ptr(), stream),
-          "tm_downscale2")
+    with launch_stream(x.device) as stream:
+        check(LIBRARY.get().tm_downscale2(x.data_ptr(), n * c, h, w, out.data_ptr(), stream),
+              "tm_downscale2")
     downscale_by_2.launches += 1
     return out
 

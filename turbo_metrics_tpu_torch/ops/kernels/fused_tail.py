@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 from turbo_metrics_tpu_torch.ops.kernels.scale_stats import (
     check_level,
     check_level_consts,
@@ -74,14 +74,15 @@ def fused_tail(
         ptr[name] = at
         at += n * scratch.element_size()
     sums = torch.empty((bsz, num_levels, 3, 6), dtype=torch.float32, device=p12.device)
-    check(
-        lib.tm_fused_tail(
-            p12.data_ptr(), bsz, h, w, num_levels, taps.data_ptr(), opsin.data_ptr(),
-            ptr["xyb_even"], ptr["xyb_odd"], ptr["lvl_a"], ptr["lvl_b"], ptr["parts"],
-            sums.data_ptr(), torch.cuda.current_stream(p12.device).cuda_stream,
-        ),
-        "tm_fused_tail",
-    )
+    with launch_stream(p12.device) as stream:
+        check(
+            lib.tm_fused_tail(
+                p12.data_ptr(), bsz, h, w, num_levels, taps.data_ptr(), opsin.data_ptr(),
+                ptr["xyb_even"], ptr["xyb_odd"], ptr["lvl_a"], ptr["lvl_b"], ptr["parts"],
+                sums.data_ptr(), stream,
+            ),
+            "tm_fused_tail",
+        )
     fused_tail.launches += 1
     return sums
 

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from turbo_metrics_tpu_torch.ops import adm, integer_adm
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 from turbo_metrics_tpu_torch.ops.kernels.adm import level_scratch
 from turbo_metrics_tpu_torch.ops.kernels.integer_vif import check_codes, pre_shift
 from turbo_metrics_tpu_torch.ops.kernels.xpsnr import DTYPE_CODES
@@ -46,38 +46,38 @@ def _run(pair, depth, levels: bool):
     if pair.device.type != "cuda":
         raise ValueError(f"integer ADM runs on cuda or cpu, not {pair.device}")
     lib = LIBRARY.get()
-    stream = torch.cuda.current_stream(pair.device).cuda_stream
     _, bsz, h, w = pair.shape
     dev = pair.device
     sums = torch.empty((bsz, adm.NUM_LEVELS, 3, 2), dtype=torch.float32, device=dev)
     out, x = [], pair
-    for level in range(adm.NUM_LEVELS):
-        ch, cw = (h + 1) // 2, (w + 1) // 2
-        top, _, left, _ = adm.center_region(ch, cw)
-        last = level + 1 == adm.NUM_LEVELS
-        approx = None if last and not levels else torch.empty((2, bsz, ch, cw), dtype=torch.int32, device=dev)
-        surface = torch.empty((7, bsz, ch, cw), dtype=torch.int32, device=dev) if levels else None
-        parts = level_scratch(bsz, h, w, dev)
-        rf_hv, rf_d = adm.csf_rfactors(level)
-        check(
-            lib.tm_integer_adm_level(
-                x.data_ptr(), int(level == 0), DTYPE_CODES[x.dtype], shift if level == 0 else 0, bsz, h, w,
-                _TAPS, float(integer_adm.COS_1DEG_SQ_F32),
-                float(np.float32((1 << (level + 1)) / (1 << integer_adm.Q_BAND))),
-                float(np.float32(rf_hv)), float(np.float32(rf_d)), float(np.float32(adm.DECOUPLE_EPS)),
-                float(adm.MASK_CENTRE), float(adm.MASK_EDGE), top, left,
-                None if approx is None else approx.data_ptr(), parts.data_ptr(), sums[:, level].data_ptr(),
-                adm.NUM_LEVELS * 6, None if surface is None else surface.data_ptr(), stream,
-            ),
-            "tm_integer_adm_level",
-        )
-        integer_adm_stats.launches += 1
-        if levels:
-            lv = dict(zip(integer_adm.BANDS, surface[:6].unbind(0)))
-            lv["angle_ok"] = surface[6] != 0
-            lv["a_ref"], lv["a_dis"] = approx.unbind(0)
-            out.append(lv)
-        x, h, w = approx, ch, cw
+    with launch_stream(dev) as stream:
+        for level in range(adm.NUM_LEVELS):
+            ch, cw = (h + 1) // 2, (w + 1) // 2
+            top, _, left, _ = adm.center_region(ch, cw)
+            last = level + 1 == adm.NUM_LEVELS
+            approx = None if last and not levels else torch.empty((2, bsz, ch, cw), dtype=torch.int32, device=dev)
+            surface = torch.empty((7, bsz, ch, cw), dtype=torch.int32, device=dev) if levels else None
+            parts = level_scratch(bsz, h, w, dev)
+            rf_hv, rf_d = adm.csf_rfactors(level)
+            check(
+                lib.tm_integer_adm_level(
+                    x.data_ptr(), int(level == 0), DTYPE_CODES[x.dtype], shift if level == 0 else 0, bsz, h, w,
+                    _TAPS, float(integer_adm.COS_1DEG_SQ_F32),
+                    float(np.float32((1 << (level + 1)) / (1 << integer_adm.Q_BAND))),
+                    float(np.float32(rf_hv)), float(np.float32(rf_d)), float(np.float32(adm.DECOUPLE_EPS)),
+                    float(adm.MASK_CENTRE), float(adm.MASK_EDGE), top, left,
+                    None if approx is None else approx.data_ptr(), parts.data_ptr(), sums[:, level].data_ptr(),
+                    adm.NUM_LEVELS * 6, None if surface is None else surface.data_ptr(), stream,
+                ),
+                "tm_integer_adm_level",
+            )
+            integer_adm_stats.launches += 1
+            if levels:
+                lv = dict(zip(integer_adm.BANDS, surface[:6].unbind(0)))
+                lv["angle_ok"] = surface[6] != 0
+                lv["a_ref"], lv["a_dis"] = approx.unbind(0)
+                out.append(lv)
+            x, h, w = approx, ch, cw
     return sums, out
 
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from turbo_metrics_tpu_torch.ops import integer_vif
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 from turbo_metrics_tpu_torch.ops.kernels.vif import vif_blocks
 from turbo_metrics_tpu_torch.ops.kernels.xpsnr import DTYPE_CODES
 from turbo_metrics_tpu_torch.ops.vif import NUM_SCALES
@@ -82,35 +82,35 @@ def _run(pair, depth, planes: bool):
     if pair.device.type != "cuda":
         raise ValueError(f"integer VIF runs on cuda or cpu, not {pair.device}")
     lib = LIBRARY.get()
-    stream = torch.cuda.current_stream(pair.device).cuda_stream
     _, bsz, h, w = pair.shape
     dev = pair.device
     narrow = int(narrow_codes(pair))
     sums = torch.empty((bsz, NUM_SCALES, 2), dtype=torch.float32, device=dev)
     out, x = [], pair
-    for k in range(NUM_SCALES):
-        nxt = None
-        if k + 1 < NUM_SCALES:
-            nxt = torch.empty((2, bsz, (h + 1) // 2, (w + 1) // 2), dtype=torch.uint16, device=dev)
-        moments = torch.empty((5, bsz, h, w), dtype=torch.int32, device=dev) if planes else None
-        parts = torch.empty(bsz * vif_blocks(h, w) * 2, dtype=torch.float32, device=dev)
-        check(
-            lib.tm_integer_vif_level(
-                x.data_ptr(), DTYPE_CODES[x.dtype], narrow, bsz, h, w, k, shift if k == 0 else 0,
-                _coeffs(k), parts.data_ptr(), sums[:, k].data_ptr(), NUM_SCALES * 2,
-                None if nxt is None else nxt.data_ptr(), None if moments is None else moments.data_ptr(),
-                stream,
-            ),
-            "tm_integer_vif_level",
-        )
-        integer_vif_stats.launches += 1
-        if planes:
-            out.append(dict(zip(PLANES, moments.unbind(0))))
-            if k > 0:
-                out[-1].update(ref=x[0].to(torch.int32), dis=x[1].to(torch.int32))
-        x = nxt
-        if nxt is not None:
-            h, w = nxt.shape[-2:]
+    with launch_stream(dev) as stream:
+        for k in range(NUM_SCALES):
+            nxt = None
+            if k + 1 < NUM_SCALES:
+                nxt = torch.empty((2, bsz, (h + 1) // 2, (w + 1) // 2), dtype=torch.uint16, device=dev)
+            moments = torch.empty((5, bsz, h, w), dtype=torch.int32, device=dev) if planes else None
+            parts = torch.empty(bsz * vif_blocks(h, w) * 2, dtype=torch.float32, device=dev)
+            check(
+                lib.tm_integer_vif_level(
+                    x.data_ptr(), DTYPE_CODES[x.dtype], narrow, bsz, h, w, k, shift if k == 0 else 0,
+                    _coeffs(k), parts.data_ptr(), sums[:, k].data_ptr(), NUM_SCALES * 2,
+                    None if nxt is None else nxt.data_ptr(), None if moments is None else moments.data_ptr(),
+                    stream,
+                ),
+                "tm_integer_vif_level",
+            )
+            integer_vif_stats.launches += 1
+            if planes:
+                out.append(dict(zip(PLANES, moments.unbind(0))))
+                if k > 0:
+                    out[-1].update(ref=x[0].to(torch.int32), dis=x[1].to(torch.int32))
+            x = nxt
+            if nxt is not None:
+                h, w = nxt.shape[-2:]
     return sums, out
 
 

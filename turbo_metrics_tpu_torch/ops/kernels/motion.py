@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from turbo_metrics_tpu_torch.ops import vmaf_motion
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 # The luma types of csrc/motion.cu are those of csrc/xpsnr.cu.
 from turbo_metrics_tpu_torch.ops.kernels.xpsnr import DTYPE_CODES
 
@@ -45,7 +45,6 @@ def _check(y, depth, prev0=None):
 def _device(y, name):
     if y.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {y.device}")
-    return torch.cuda.current_stream(y.device).cuda_stream
 
 
 def integer_blur_ref(y, *, depth=8):
@@ -60,15 +59,16 @@ def integer_blur(y: torch.Tensor, *, depth: int = 8) -> torch.Tensor:
     _check(y, depth)
     if y.device.type == "cpu":
         return integer_blur_ref(y, depth=depth)
-    stream = _device(y, "integer_blur")
+    _device(y, "integer_blur")
     lib = LIBRARY.get()
     bsz, h, w = y.shape
     blurred = torch.empty((bsz, h, w), dtype=torch.uint16, device=y.device)
-    check(
-        lib.tm_integer_blur(y.data_ptr(), DTYPE_CODES[y.dtype], bsz, h, w, depth,
-                            blurred.data_ptr(), stream),
-        "tm_integer_blur",
-    )
+    with launch_stream(y.device) as stream:
+        check(
+            lib.tm_integer_blur(y.data_ptr(), DTYPE_CODES[y.dtype], bsz, h, w, depth,
+                                blurred.data_ptr(), stream),
+            "tm_integer_blur",
+        )
     integer_blur.launches += 1
     return blurred
 
@@ -93,16 +93,17 @@ def motion_stats(y: torch.Tensor, prev0: torch.Tensor, *, depth: int = 8) -> dic
     _check(y, depth, prev0)
     if y.device.type == "cpu":
         return motion_stats_ref(y, prev0, depth=depth)
-    stream = _device(y, "motion_stats")
+    _device(y, "motion_stats")
     lib = LIBRARY.get()
     bsz, h, w = y.shape
     blurred = torch.empty((bsz, h, w), dtype=torch.uint16, device=y.device)
     sad_rows = torch.empty((bsz, h), dtype=torch.int64, device=y.device)
-    check(
-        lib.tm_motion_stats(y.data_ptr(), DTYPE_CODES[y.dtype], prev0.data_ptr(), bsz, h, w, depth,
-                            blurred.data_ptr(), sad_rows.data_ptr(), stream),
-        "tm_motion_stats",
-    )
+    with launch_stream(y.device) as stream:
+        check(
+            lib.tm_motion_stats(y.data_ptr(), DTYPE_CODES[y.dtype], prev0.data_ptr(), bsz, h, w, depth,
+                                blurred.data_ptr(), sad_rows.data_ptr(), stream),
+            "tm_motion_stats",
+        )
     motion_stats.launches += 1
     return {"blurred": blurred, "sad_rows": sad_rows}
 

@@ -32,7 +32,7 @@ import torch
 from turbo_metrics_tpu_torch.ops import colorspace
 from turbo_metrics_tpu_torch.ops.downscale import downscale_by_2
 from turbo_metrics_tpu_torch.ops.gaussian import blur_2d
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 from turbo_metrics_tpu_torch.ops.ssim_maps import edge_maps, ssim_map
 from turbo_metrics_tpu_torch.ops.xyb import linear_rgb_to_xyb
 
@@ -195,23 +195,23 @@ def fused_scale0_yuv(
         if emit_ds else None
     )
     sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    check(
-        lib.tm_yuv420_to_xyb(
-            y2.data_ptr(), uv2.data_ptr(), int(depth > 8), bsz, h, w, *coeffs,
-            float(rng.minimum), float(rng.neutral), TRANSFER_CODES[transfer],
-            opsin.data_ptr(), xyb.data_ptr(), ds.data_ptr() if emit_ds else None,
-            stream,
-        ),
-        "tm_yuv420_to_xyb",
-    )
-    check(
-        lib.tm_level_sums(
-            xyb.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(), 18,
-            stream,
-        ),
-        "tm_level_sums",
-    )
+    with launch_stream(dev) as stream:
+        check(
+            lib.tm_yuv420_to_xyb(
+                y2.data_ptr(), uv2.data_ptr(), int(depth > 8), bsz, h, w, *coeffs,
+                float(rng.minimum), float(rng.neutral), TRANSFER_CODES[transfer],
+                opsin.data_ptr(), xyb.data_ptr(), ds.data_ptr() if emit_ds else None,
+                stream,
+            ),
+            "tm_yuv420_to_xyb",
+        )
+        check(
+            lib.tm_level_sums(
+                xyb.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(), 18,
+                stream,
+            ),
+            "tm_level_sums",
+        )
     fused_scale0_yuv.launches += 1
     return sums, ds
 
@@ -233,21 +233,21 @@ def launch_rgb_level(lib, p12, taps, opsin, scratch, sums, sums_bstride, nxt) ->
     level at least this large."""
     _, bsz, _, h, w = p12.shape
     xyb, parts = scratch
-    stream = torch.cuda.current_stream(p12.device).cuda_stream
-    check(
-        lib.tm_rgb_to_xyb(
-            p12.data_ptr(), bsz, h, w, opsin.data_ptr(), xyb.data_ptr(),
-            nxt.data_ptr() if nxt is not None else None, stream,
-        ),
-        "tm_rgb_to_xyb",
-    )
-    check(
-        lib.tm_level_sums(
-            xyb.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(),
-            sums_bstride, stream,
-        ),
-        "tm_level_sums",
-    )
+    with launch_stream(p12.device) as stream:
+        check(
+            lib.tm_rgb_to_xyb(
+                p12.data_ptr(), bsz, h, w, opsin.data_ptr(), xyb.data_ptr(),
+                nxt.data_ptr() if nxt is not None else None, stream,
+            ),
+            "tm_rgb_to_xyb",
+        )
+        check(
+            lib.tm_level_sums(
+                xyb.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(),
+                sums_bstride, stream,
+            ),
+            "tm_level_sums",
+        )
 
 
 def fused_scale_rgb(
@@ -308,13 +308,14 @@ def scale_sums(xyb1: torch.Tensor, xyb2: torch.Tensor, taps: torch.Tensor) -> to
     dev = xyb1.device
     parts = level_parts(bsz, h, w, dev)
     sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
-    check(
-        lib.tm_level_sums_pair(
-            xyb1.data_ptr(), xyb2.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(),
-            sums.data_ptr(), 18, torch.cuda.current_stream(dev).cuda_stream,
-        ),
-        "tm_level_sums_pair",
-    )
+    with launch_stream(dev) as stream:
+        check(
+            lib.tm_level_sums_pair(
+                xyb1.data_ptr(), xyb2.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(),
+                sums.data_ptr(), 18, stream,
+            ),
+            "tm_level_sums_pair",
+        )
     scale_sums.launches += 1
     return sums
 
@@ -344,21 +345,21 @@ def fused_scale_pair(
     dev = lin_ref.device
     xyb, parts = s2_level_scratch(bsz, h, w, dev)
     sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    check(
-        lib.tm_rgb_pair_to_xyb(
-            lin_ref.data_ptr(), lin_dis.data_ptr(), bsz, h, w, opsin.data_ptr(), xyb.data_ptr(),
-            None, stream,
-        ),
-        "tm_rgb_pair_to_xyb",
-    )
-    check(
-        lib.tm_level_sums(
-            xyb.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(), 18,
-            stream,
-        ),
-        "tm_level_sums",
-    )
+    with launch_stream(dev) as stream:
+        check(
+            lib.tm_rgb_pair_to_xyb(
+                lin_ref.data_ptr(), lin_dis.data_ptr(), bsz, h, w, opsin.data_ptr(), xyb.data_ptr(),
+                None, stream,
+            ),
+            "tm_rgb_pair_to_xyb",
+        )
+        check(
+            lib.tm_level_sums(
+                xyb.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(), 18,
+                stream,
+            ),
+            "tm_level_sums",
+        )
     fused_scale_pair.launches += 1
     return sums
 

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from turbo_metrics_tpu_torch.ops import vif
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 from turbo_metrics_tpu_torch.ops.kernels.scale_stats import PART_H, PART_W
 
 _WINDOWS: dict = {}
@@ -79,14 +79,15 @@ def _launch(lib, x, scale, sums, sums_pstride, nxt):
     dev = x.device
     parts = level_scratch(bsz, h, w, dev)
     win_e = None if nxt is None else _window(scale + 1, dev).data_ptr()
-    check(
-        lib.tm_vif_level(
-            x.data_ptr(), bsz, h, w, scale, _window(scale, dev).data_ptr(), win_e, parts.data_ptr(),
-            sums.data_ptr(), sums_pstride, None if nxt is None else nxt.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        ),
-        "tm_vif_level",
-    )
+    with launch_stream(dev) as stream:
+        check(
+            lib.tm_vif_level(
+                x.data_ptr(), bsz, h, w, scale, _window(scale, dev).data_ptr(), win_e, parts.data_ptr(),
+                sums.data_ptr(), sums_pstride, None if nxt is None else nxt.data_ptr(),
+                stream,
+            ),
+            "tm_vif_level",
+        )
 
 
 def _next_level(x):

@@ -16,7 +16,7 @@ import torch
 
 from turbo_metrics_tpu_torch.ops import quality
 from turbo_metrics_tpu_torch.ops.colorspace import f32_to_uint8
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 from turbo_metrics_tpu_torch.ops.kernels.scale_stats import PART_H, PART_W, check_level
 
 WINDOW = 2 * quality.RADIUS + 1
@@ -90,15 +90,16 @@ def launch_level(lib, q12, window, quantize, c1, c2, sums, sums_bstride, ds, par
     _, bsz, _, h, w = q12.shape
     if parts is None:
         parts = level_scratch(bsz, h, w, q12.device)
-    check(
-        lib.tm_ssim_level(
-            q12.data_ptr(), bsz, h, w, int(quantize), window.data_ptr(), float(c1), float(c2),
-            parts.data_ptr(), sums.data_ptr(), sums_bstride,
-            ds.data_ptr() if ds is not None else None,
-            torch.cuda.current_stream(q12.device).cuda_stream,
-        ),
-        "tm_ssim_level",
-    )
+    with launch_stream(q12.device) as stream:
+        check(
+            lib.tm_ssim_level(
+                q12.data_ptr(), bsz, h, w, int(quantize), window.data_ptr(), float(c1), float(c2),
+                parts.data_ptr(), sums.data_ptr(), sums_bstride,
+                ds.data_ptr() if ds is not None else None,
+                stream,
+            ),
+            "tm_ssim_level",
+        )
 
 
 def ssim_blocks(h: int, w: int) -> int:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from turbo_metrics_tpu_torch.ops import xpsnr_ops
-from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check
+from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 
 # Luma types the kernel takes: u8 / u16 decoded planes, int32 luma codes of
 # RGB sources.
@@ -82,14 +82,15 @@ def xpsnr_block_stats(
     bsz, h, w = y_ref.shape
     hb, wb = -(-h // xpsnr_ops.BLOCK), -(-w // xpsnr_ops.BLOCK)
     out = torch.empty((3, bsz, hb, wb), dtype=torch.int64, device=y_ref.device)
-    check(
-        lib.tm_xpsnr_block_stats(
-            y_ref.data_ptr(), DTYPE_CODES[y_ref.dtype], y_dis.data_ptr(),
-            DTYPE_CODES[y_dis.dtype], prev0.data_ptr(), bsz, h, w, int(dis_shift),
-            out.data_ptr(), torch.cuda.current_stream(y_ref.device).cuda_stream,
-        ),
-        "tm_xpsnr_block_stats",
-    )
+    with launch_stream(y_ref.device) as stream:
+        check(
+            lib.tm_xpsnr_block_stats(
+                y_ref.data_ptr(), DTYPE_CODES[y_ref.dtype], y_dis.data_ptr(),
+                DTYPE_CODES[y_dis.dtype], prev0.data_ptr(), bsz, h, w, int(dis_shift),
+                out.data_ptr(), stream,
+            ),
+            "tm_xpsnr_block_stats",
+        )
     xpsnr_block_stats.launches += 1
     return dict(zip(QUANTITIES, out.unbind(0)))
 

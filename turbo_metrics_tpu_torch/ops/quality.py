@@ -36,11 +36,28 @@ C2 = float(np.float32((0.03 * 255.0) ** 2))
 MSSSIM_WEIGHTS = np.array([0.0448, 0.2856, 0.3001, 0.2363, 0.1333], dtype=np.float64)
 
 
+# Squared differences of 8-bit codes summed per run of PSNR_RUN in f32: each
+# run's sum stays below 2**24 (256 * 255**2), so it is exact in any order.
+PSNR_RUN = 256
+
+
 def psnr(a: torch.Tensor, b: torch.Tensor, *, peak: float = 255.0) -> torch.Tensor:
     """PSNR in dB over all channels, f32; (..., C, H, W) -> (...,).  An
-    identical pair gives inf."""
+    identical pair gives inf.
+
+    The squared differences are summed in runs of PSNR_RUN in f32, the runs'
+    sums in f64, and the mean rounded once to f32.  For 8-bit codes (the
+    engine's quantized pairs) every sum is exact, so a frame's PSNR does not
+    depend on the batch or the shard it is scored in; an f32 mean does
+    (torch splits its reduction by the number of frames, which at 1080p
+    moves the dB by ~2e-6)."""
     diff = a - b
-    mse = torch.mean(diff * diff, dim=(-3, -2, -1))
+    sq = (diff * diff).flatten(-3)
+    n = sq.shape[-1]
+    if n % PSNR_RUN:
+        sq = torch.nn.functional.pad(sq, (0, PSNR_RUN - n % PSNR_RUN))
+    runs = sq.unflatten(-1, (-1, PSNR_RUN)).sum(dim=-1)
+    mse = (torch.sum(runs, dim=-1, dtype=torch.float64) / n).to(torch.float32)
     return 10.0 * torch.log10(float(np.float32(peak * peak)) / mse)
 
 

@@ -51,13 +51,17 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import time
 from collections import Counter
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
+
+# The profiler reading and the timer live in utils/profiling.py; MEMSET names
+# the memsets of the probes that list it (#16 zeroes its row sums before its
+# kernel adds into them), left out of the others' readings.
+from turbo_metrics_tpu_torch.utils.profiling import MEMSET, cuda_kernel_records, kernel_name, time_ms
 
 # The kernels of one SSIMULACRA2 level after its conversion pass
 # (csrc/ssimulacra2_scale.cu): the fused level pass, the f64 reduction.
@@ -77,10 +81,6 @@ INT_ADM_LEVEL = ("integer_adm_kernel", "reduce_frames_kernel")
 # cooperative launch (csrc/ssimulacra2_tail.cu): one kernel each.
 MOTION = ("motion_kernel",)
 TAIL = ("fused_tail_kernel",)
-# The name given to the profiler's records of cudaMemsetAsync: device work of
-# the probes that list it (#16 zeroes its row sums before its kernel adds
-# into them), left out of the others' readings.
-MEMSET = "memset"
 # Timed runs of ``--iters`` calls per entry; the call time is their median.
 REPEATS = 5
 # Profiler readings of one entry that keep fewer than half their calls whole
@@ -110,37 +110,8 @@ def levels(count: int, names) -> tuple:
     return tuple((n, count) for n in names)
 
 
-def kernel_name(raw: str) -> str:
-    """A profiler kernel name without its return type, namespace and
-    arguments: 'reduce_parts_kernel<6>'."""
-    name = raw.replace("(anonymous namespace)::", "")
-    if name.startswith("void "):
-        name = name[len("void "):]
-    return name.split("(", 1)[0]
-
-
 def base_name(raw: str) -> str:
     return kernel_name(raw).split("<", 1)[0]
-
-
-def time_ms(fn, iters: int, device: torch.device = torch.device("cuda"), warmup: int = 2) -> float:
-    """Mean time of fn() over ``iters`` calls after warm-up: CUDA events on
-    the card, the host clock on the CPU."""
-    for _ in range(warmup):
-        fn()
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / iters
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 class ProfileMismatch(RuntimeError):
@@ -189,23 +160,6 @@ def kernel_device_ms(fn, iters: int, expect: int | None = None, memsets: bool = 
     return [(n, sum(call[i][1] for call in calls) / len(calls)) for i, n in enumerate(first)]
 
 
-def _cuda_records(run) -> list:
-    """[(kernel name, ms)] of the CUDA kernels and memsets (``MEMSET``) that
-    run() launches, by torch.profiler, in launch order."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = sorted(
-        (e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy")),
-        key=lambda e: e.time_range.start,
-    )
-    return [(MEMSET if e.name.startswith("Memset") else kernel_name(e.name), e.time_range.elapsed_us() / 1e3)
-            for e in events]
-
-
 def _profile_calls(fn, iters: int) -> tuple:
     """(the records of ``iters`` fn() calls, each after a mark: a spin
     kernel of a few cycles; the marks' kernel names, read alone first)."""
@@ -214,14 +168,14 @@ def _profile_calls(fn, iters: int) -> tuple:
 
     fn()
     torch.cuda.synchronize()
-    marks = {n for n, _ in _cuda_records(lambda: [mark() for _ in range(4)])}
+    marks = {n for n, _ in cuda_kernel_records(lambda: [mark() for _ in range(4)])}
 
     def calls():
         for _ in range(iters):
             mark()
             fn()
 
-    return _cuda_records(calls), marks
+    return cuda_kernel_records(calls), marks
 
 
 def probes(batch: int, height: int, width: int, dev: torch.device) -> list:

@@ -1,0 +1,158 @@
+"""Profiling and timing helpers.
+
+The mapping of the reference's observability hooks (SURVEY.md section 5):
+cuProfilerStart/Stop + Nsight -> ``device_trace`` (torch.profiler, a
+Chrome/Perfetto trace); CuEvent timing -> ``Timer`` and ``time_ms`` (CUDA
+events on the card, the host clock on the CPU); ``cuda_kernel_records``
+reads the device time of each kernel a call launches (the dissect tool's
+reading, tools/kernel_dissect.py).
+
+The JAX package's ``dump_hlo`` and ``enable_compilation_cache`` have no
+counterpart: there is no XLA program to dump or cache.  The kernels are
+built once per hash of their sources into the package's ``_build/`` by
+ops/kernels/_build.py, which is the port's compilation cache; the
+counterpart of the reference's CUDA-graph dot dump
+(``torch.cuda.CUDAGraph.debug_dump``) comes with CUDA graphs (ROADMAP
+Queue 1 item 3b).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import os
+import tempfile
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+# The name given to the profiler's records of cudaMemsetAsync: device work of
+# the calls that issue one (#16 zeroes its row sums before its kernel adds
+# into them).
+MEMSET = "memset"
+
+_TRACES = itertools.count()
+
+
+def _cuda_devices(tree) -> set:
+    """The CUDA devices of the tensors in a nest of dicts, tuples and lists."""
+    if torch.is_tensor(tree):
+        return {tree.device} if tree.device.type == "cuda" else set()
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (tuple, list)):
+        return set()
+    return set().union(*(_cuda_devices(t) for t in tree))
+
+
+def synchronize(result) -> None:
+    """Wait for the work on every CUDA device that holds a tensor of
+    ``result`` (a tensor or a nest of them); nothing on the CPU."""
+    for dev in _cuda_devices(result):
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str | None = None):
+    """Capture a torch.profiler trace of the block (host activity, and the
+    card's kernels where CUDA is present) and write it into ``log_dir``
+    (``turbo_metrics_trace`` in the temporary directory where None) as a
+    Chrome/Perfetto trace file, ``trace_<pid>_<n>.json``.  Yields
+    ``log_dir``.  The counterpart of the reference's
+    cuProfilerStart/Stop bracketing (cudarse-driver/src/lib.rs:50-56)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "turbo_metrics_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        yield log_dir
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{next(_TRACES)}.json"))
+
+
+@dataclass
+class Timer:
+    """Wall-clock timer that syncs the device (CuEvent::elapsed_since
+    analog).  ``samples`` holds seconds."""
+
+    samples: list = field(default_factory=list)
+
+    @contextlib.contextmanager
+    def measure(self, result=None):
+        """Time the block; at its end, wait for the devices of ``result``
+        (a tensor or a nest of them, read then: a list the block fills
+        works)."""
+        t0 = time.perf_counter()
+        yield
+        if result is not None:
+            synchronize(result)
+        self.samples.append(time.perf_counter() - t0)
+
+    def time_fn(self, fn, *args, iters: int = 10, warmup: int = 1) -> float:
+        """Steady-state seconds per call of ``fn(*args)``: CUDA events
+        where its result lies on the card, the host clock on the CPU."""
+        r = None
+        for _ in range(max(warmup, 1)):
+            r = fn(*args)
+        devs = _cuda_devices(r)
+        if not devs:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn(*args)
+            dt = (time.perf_counter() - t0) / iters
+        else:
+            dev = min(devs, key=lambda d: d.index or 0)
+            with torch.cuda.device(dev):
+                dt = time_ms(lambda: fn(*args), iters, dev, warmup=0) / 1e3
+        self.samples.append(dt)
+        return dt
+
+
+def time_ms(fn, iters: int, device: torch.device = torch.device("cuda"), warmup: int = 2) -> float:
+    """Mean time of fn() over ``iters`` calls after warm-up: CUDA events on
+    the card, the host clock on the CPU."""
+    for _ in range(warmup):
+        fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_name(raw: str) -> str:
+    """A profiler kernel name without its return type, namespace and
+    arguments: 'reduce_parts_kernel<6>'."""
+    name = raw.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[len("void "):]
+    return name.split("(", 1)[0]
+
+
+def cuda_kernel_records(run) -> list:
+    """[(kernel name, ms)] of the CUDA kernels and memsets (``MEMSET``) that
+    run() launches, by torch.profiler, in launch order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy")),
+        key=lambda e: e.time_range.start,
+    )
+    return [(MEMSET if e.name.startswith("Memset") else kernel_name(e.name), e.time_range.elapsed_us() / 1e3)
+            for e in events]
