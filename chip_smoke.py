@@ -203,16 +203,15 @@ Phases, each fatal on failure (exit code 1):
      tests/test_parallel.py's bars: scores 1e-6, VIF, ADM and XPSNR 1e-9,
      motion exact), each wrapper launched once per shard where the
      unsharded run launched it once, #17 once more per batch (the later
-     shard's previous frame); (b) one mesh batch inside device_trace: the
-     kernels of csrc/ on two streams, equal launches but the edge blur; (c)
+     shard's previous frame); (b) one mesh batch inside device_trace: besides
+     the default stream, kernels on two streams, equal launches but the
+     edge blur; (c)
      with several cards, (a) over every card, else a line saying that the
      cross-device path went unexercised; (d) dryrun_multichip over the two
      shards; (e) one batch's time unsharded and over the mesh by CUDA events
      (unsharded, mesh, mesh, unsharded), then each way's split into
-     uploads, launches with their device work and host scoring (host
-     clock) and its kernels' device time (torch.profiler).
-With the one argument --mesh-only it runs phases 1, 2's build and 9 alone
-(phase 9 (c) runs on a machine with several cards).
+     uploads, launches with their device work, edge uploads and host
+     scoring (host clock) and its kernels' device time (torch.profiler).
 Prints the card, the dissect tool's JSON line, then one JSON line of
 per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -2387,21 +2386,6 @@ def mesh_bar(field: str) -> float:
     return 1e-6
 
 
-def library_kernels() -> set:
-    """The names of the CUDA kernels of csrc/ (its __global__ functions)."""
-    import glob
-    import re
-
-    names = set()
-    for path in glob.glob(os.path.join(os.path.dirname(os.path.abspath(__file__)), CSRC, "*.cu*")):
-        with open(path) as f:
-            names |= set(re.findall(
-                r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\((?:[^()]|\([^()]*\))*\))*\)\s*)?(\w+)",
-                f.read()))
-    need(len(names) > 10, f"found only the kernels {names} in {CSRC}")
-    return names
-
-
 def mesh_engine(flags: dict, integer: bool, fused: bool, dev, mesh=None):
     from turbo_metrics_tpu_torch.engine import Metrics, TurboMetrics
     from turbo_metrics_tpu_torch.models.vmaf_model import VmafModel
@@ -2497,10 +2481,11 @@ def load_raw_pair(ref_path: str, dis_path: str):
 
 def check_mesh_trace(raw, dev, mesh, tmp: str, card: str) -> None:
     """Phase 9 (b): one steady-state mesh batch (all six metrics) inside
-    device_trace; the trace file's kernels of csrc/ lie on exactly two
-    streams, the two shards', with equal launches of every kernel but the
-    later shard's one more motion_kernel (#17 on its previous shard's last
-    reference frame)."""
+    device_trace, after one marker kernel on the default stream: besides the
+    default stream (the marker's, then the gather's) the trace's kernels lie
+    on exactly two streams, the two shards', with equal launches of every
+    kernel but the later shard's one more motion_kernel (#17 on its previous
+    shard's last reference frame)."""
     from collections import Counter
 
     from turbo_metrics_tpu_torch.utils.profiling import device_trace, kernel_name
@@ -2510,33 +2495,31 @@ def check_mesh_trace(raw, dev, mesh, tmp: str, card: str) -> None:
     eng = mesh_engine(flags, integer, fused, dev, mesh)
     eng.compute_frames(fr[:BATCH], cc_r, fd[:BATCH], cc_d)
     with device_trace(os.path.join(tmp, "mesh_trace")) as log_dir:
+        torch.ones(1, device=dev)
+        torch.cuda.synchronize(dev)
         eng.compute_frames(fr[BATCH:2 * BATCH], cc_r, fd[BATCH:2 * BATCH], cc_d)
     files = sorted(os.listdir(log_dir))
     need(len(files) == 1, f"(9b) device_trace wrote {files}")
     with open(os.path.join(log_dir, files[0])) as f:
-        events = json.load(f)["traceEvents"]
-    ours = library_kernels()
+        kernels = sorted((e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"),
+                         key=lambda e: e["ts"])
+    need(len(kernels) > 1, f"(9b) the trace holds {len(kernels)} kernels")
+    default = kernels[0]["args"]["stream"]
     per_stream: dict = {}
-    others = Counter()
-    for e in events:
-        if e.get("cat") != "kernel":
-            continue
-        base = kernel_name(e["name"]).split("<", 1)[0]
-        stream = e.get("args", {}).get("stream")
-        if base in ours:
-            per_stream.setdefault(stream, Counter())[base] += 1
-        else:
-            others[stream] += 1
-    log(f"(9b) trace {files[0]} of one mesh batch ({name}): the kernels of csrc/ by stream "
-        f"{ {k: dict(v) for k, v in per_stream.items()} }; other kernels (torch's) by stream {dict(others)} "
+    for e in kernels[1:]:
+        per_stream.setdefault(e["args"]["stream"], Counter())[kernel_name(e["name"]).split("<", 1)[0]] += 1
+    on_default = per_stream.pop(default, Counter())
+    log(f"(9b) trace {files[0]} of one mesh batch ({name}): kernels by stream "
+        f"{ {k: sum(v.values()) for k, v in per_stream.items()} }, {sum(on_default.values())} more on the "
+        f"default stream {default}; the shards' streams by kernel {[dict(v) for v in per_stream.values()]} "
         f"[{card}]")
     need(len(per_stream) == 2, f"(9b) the shards' kernels lie on {len(per_stream)} streams, want 2")
     a, b = per_stream.values()
     extra = (b - a) + (a - b)
     need(extra == Counter({"motion_kernel": 1}),
          f"(9b) the two shards' launches differ by {dict(extra)}, want one motion_kernel (the edge blur)")
-    log(f"(9b) two streams, {sum(a.values())} and {sum(b.values())} launches of the kernels of csrc/: equal "
-        "but the later shard's edge blur")
+    log(f"(9b) two streams, {sum(a.values())} and {sum(b.values())} launches: equal but the later shard's "
+        "edge blur")
 
 
 def time_mesh_batch(raw, dev, mesh, card: str) -> dict:
@@ -2561,11 +2544,13 @@ def time_mesh_batch(raw, dev, mesh, card: str) -> dict:
 
 
 def split_mesh_batch(engines: dict, raw, card: str, calls: int = 3) -> None:
-    """Where one batch's time goes, each way: host ms of the uploads
-    (``_planes``), of the launches with their device work (``_step``, every
-    shard, the device synced after each, uploads taken out) and of the host
-    scoring (``_scores``), per batch over ``calls`` calls; and the device
-    time of the batch's kernels by torch.profiler."""
+    """Where one batch's time goes, each way, by the host clock with the
+    device synced after each part (so the shards run one after the other):
+    the uploads inside ``_step`` (``_planes``), the launches with their
+    device work (``_step``, every shard, its uploads taken out), the edge
+    frames' uploads outside ``_step`` (a later shard's previous frame) and
+    the host scoring (``_scores``), per batch over ``calls`` calls; and the
+    device time of the batch's kernels by torch.profiler."""
     from turbo_metrics_tpu_torch.utils.profiling import Timer, cuda_kernel_records
 
     fr, fd, cc_r, cc_d = raw
@@ -2573,30 +2558,38 @@ def split_mesh_batch(engines: dict, raw, card: str, calls: int = 3) -> None:
     def batch(eng):
         return eng.compute_frames(fr[:BATCH], cc_r, fd[:BATCH], cc_d)
 
-    def timed(fn, timer):
-        def run(*args):
-            out = []
-            with timer.measure(out):
-                out.append(fn(*args))
-            return out[0]
-        return run
+    def run(timer, fn, *args):
+        out = []
+        with timer.measure(out):
+            out.append(fn(*args))
+        return out[0]
 
     for k, eng in engines.items():
-        timers = {name: Timer() for name in ("_planes", "_step", "_scores")}
-        for name, timer in timers.items():
-            setattr(eng, name, timed(getattr(eng, name), timer))
+        timers = {name: Timer() for name in ("uploads", "step", "edge", "scoring")}
+        inside = []
+
+        def step(*args, _fn=eng._step):
+            inside.append(True)
+            try:
+                return run(timers["step"], _fn, *args)
+            finally:
+                inside.pop()
+
+        eng._step = step
+        eng._planes = lambda *a, _fn=eng._planes: run(timers["uploads" if inside else "edge"], _fn, *a)
+        eng._scores = lambda *a, _fn=eng._scores: run(timers["scoring"], _fn, *a)
         try:
             for _ in range(calls):
                 batch(eng)
         finally:
-            for name in timers:
+            for name in ("_step", "_planes", "_scores"):
                 delattr(eng, name)
         ms = {name: 1e3 * sum(t.samples) / calls for name, t in timers.items()}
         device_ms = sum(t for _, t in cuda_kernel_records(lambda: batch(eng)))
-        log(f"(9e) split of one batch, {k}: uploads {ms['_planes']:.3f} ms, launches and device work "
-            f"{ms['_step'] - ms['_planes']:.3f} ms (synced per shard), host scoring {ms['_scores']:.3f} ms "
-            f"(host clock, mean of {calls}); its kernels' device time {device_ms:.3f} ms (torch.profiler) "
-            f"[{card}]")
+        log(f"(9e) split of one batch, {k}: uploads {ms['uploads']:.3f} ms, launches and device work "
+            f"{ms['step'] - ms['uploads']:.3f} ms, edge uploads {ms['edge']:.3f} ms, host scoring "
+            f"{ms['scoring']:.3f} ms (host clock, synced after each part, mean of {calls}); its kernels' "
+            f"device time {device_ms:.3f} ms (torch.profiler) [{card}]")
 
 
 def run_mesh_phase(dev, card: str) -> dict:
@@ -2629,8 +2622,7 @@ def run_mesh_phase(dev, card: str) -> dict:
     return {"runs": runs, "batch_ms": times}
 
 
-def main(argv=None) -> int:
-    mesh_only = list(sys.argv[1:] if argv is None else argv) == ["--mesh-only"]
+def main() -> int:
     try:
         from turbo_metrics_tpu_torch.models.ssimulacra2 import (
             Ssimulacra2,
@@ -2682,14 +2674,6 @@ def main(argv=None) -> int:
     for ln in _build.LIBRARY.build_log.splitlines():
         if "registers" in ln or "spill" in ln:
             log(f"  ptxas: {ln.strip()}")
-    if mesh_only:
-        # Phase 9 alone, for a machine with several cards: (c) runs there.
-        log(f"--mesh-only: phase 9 alone on {torch.cuda.device_count()} card(s)")
-        run_mesh_phase(torch.device("cuda", 0), card)
-        print(card)
-        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                                 "count": torch.cuda.device_count()}}))
-        return 0
     check_level_blocks(_build.LIBRARY.get(), card)
     conv_sass = conversion_sass(card)
     integer_sass(card)

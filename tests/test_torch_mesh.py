@@ -156,6 +156,30 @@ def test_mesh_engine_matches_unsharded(case):
         assert got[0]["vmaf_motion"] == 0.0 and all(g["vmaf_motion"] > 0 for g in got[1:])
 
 
+@pytest.mark.parametrize("flags", [dict(xpsnr=True), dict(psnr=True, ssim=True, xpsnr=True, vmaf=True)],
+                         ids=["xpsnr", "psnr_ssim_xpsnr_vmaf"])
+def test_mesh_engine_call_longer_than_batch(flags):
+    """A call of 9 frames to an engine of batch 8 over two shards pads to 10
+    (a multiple of the mesh), scores all 9 frames as the unsharded engine
+    does, and carries frame 8 into the next call's XPSNR and motion state."""
+    frames = _frames(seed=99, n=13)
+    cc = (height_fallback(H), "limited")
+    out = []
+    for kw in ({}, dict(mesh=mesh.make_mesh(2, device="cpu"))):
+        eng = TurboMetrics(W, H, Metrics(**flags), batch=8, device="cpu", **kw)
+        scores = []
+        for a, b in ((0, 9), (9, 13)):
+            refs = [RawFrame(y=y, uv=uv, depth=8) for y, uv, _ in frames[a:b]]
+            diss = [RawFrame(y=yd, uv=uv, depth=8) for _, uv, yd in frames[a:b]]
+            scores += [s.to_dict() for s in eng.compute_frames(refs, cc, diss, cc)]
+        out.append(scores)
+    want, got = out
+    assert len(got) == len(want) == 13
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert "xpsnr" in g, (i, g)
+        assert g == w, (i, {k: (g[k], w.get(k)) for k in g if g[k] != w.get(k)})
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_mesh_engine_matches_jax_mesh(case, jax_scores, jnp_vmaf):
     """The port's engine over four CPU shards against the JAX engine over

@@ -8,7 +8,7 @@ import os
 import pytest
 import torch
 
-from turbo_metrics_tpu_torch.tools import kernel_dissect
+from turbo_metrics_tpu_torch.tools import kernel_dissect, psnr_timing
 from turbo_metrics_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -92,3 +92,16 @@ def test_synchronize_takes_any_nest(tree):
     """A nest of CPU tensors (or no tensor at all) needs no device sync."""
     assert profiling._cuda_devices(tree) == set()
     profiling.synchronize(tree)
+
+
+@pytest.mark.parametrize("shape", [(2, 48, 64), (3, 67, 99)], ids=["48x64", "67x99"])
+def test_psnr_timing_tool_on_the_cpu(shape, capsys):
+    """The PSNR timing tool on the CPU: the exact formulations (quality.psnr
+    among them) agree bit for bit on a batch and on each half of it, and
+    every formulation gets one time per timed run."""
+    b, h, w = shape
+    out = psnr_timing.main(["--device", "cpu", "--batch", str(b), "--height", str(h), "--width", str(w),
+                            "--iters", "1", "--rounds", "1"])
+    assert [r["name"] for r in out["psnr_timing"]] == list(psnr_timing.FORMULATIONS)
+    assert all(len(r["ms"]) == 2 and min(r["ms"]) > 0 for r in out["psnr_timing"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out

@@ -62,7 +62,7 @@ from turbo_metrics_tpu_torch.ops.quality import Quality
 from turbo_metrics_tpu_torch.ops.vif import vif_scores
 from turbo_metrics_tpu_torch.ops.vmaf_motion import motion_score
 from turbo_metrics_tpu_torch.ops.xpsnr_ops import align_luma_depth, frames_db
-from turbo_metrics_tpu_torch.parallel.mesh import gather_frames, launch_shards
+from turbo_metrics_tpu_torch.parallel.mesh import frames_per_shard, gather_frames, launch_shards
 from turbo_metrics_tpu_torch.utils.stats import Stats
 
 
@@ -388,8 +388,11 @@ class TurboMetrics:
         # Pad a partial batch to the full batch by repeating its last frame,
         # so every step sees one shape; padded scores are dropped below.  The
         # XPSNR state stays right because the padding is the last real frame.
-        if n < self.batch:
-            pad = self.batch - n
+        # Over a mesh, a longer call pads to a multiple of the mesh's size.
+        size = 1 if self.mesh is None else self.mesh.size
+        target = -(-max(n, self.batch) // size) * size
+        if n < target:
+            pad = target - n
             ref_frames = ref_frames + [ref_frames[-1]] * pad
             dis_frames = dis_frames + [dis_frames[-1]] * pad
         spec = ConvertSpec.for_frame(ref_frames[0], *cc_ref)
@@ -414,7 +417,7 @@ class TurboMetrics:
         """``_step`` on every shard of the mesh; returns the gathered
         results and the last shard's state."""
         mesh = self.mesh
-        per = len(ref_frames) // mesh.size
+        per = frames_per_shard(len(ref_frames), mesh)
         m = self.metrics
 
         def shard(k: int, dev: torch.device):

@@ -102,7 +102,7 @@ def make_mesh(n_devices: Optional[int] = None, *, device="cuda", axis: str = FRA
     return Mesh(tuple(devices), axis)
 
 
-def _frames_per_shard(n: int, mesh: Mesh) -> int:
+def frames_per_shard(n: int, mesh: Mesh) -> int:
     if n % mesh.size:
         raise ValueError(f"{n} frames do not split evenly over a mesh of {mesh.size}")
     return n // mesh.size
@@ -118,7 +118,7 @@ def split_frames(t, mesh: Mesh) -> list:
     """Equal leading-dim chunks of ``t`` (a tensor or a numpy array), chunk
     k on ``mesh.devices[k]``: the counterpart of the JAX package's
     ``frame_sharding``.  The leading dim must split evenly."""
-    per = _frames_per_shard(t.shape[0], mesh)
+    per = frames_per_shard(t.shape[0], mesh)
     return [_upload(t[k * per:(k + 1) * per], d) for k, d in enumerate(mesh.devices)]
 
 
@@ -210,7 +210,7 @@ def shard_over_frames(fn: Callable, mesh: Mesh, *, in_ndims: Sequence[int]):
         n = args[0].shape[0]
         if any(a.shape[0] != n for a in args):
             raise ValueError(f"inputs differ in their leading dim: {[a.shape[0] for a in args]}")
-        per = _frames_per_shard(n, mesh)
+        per = frames_per_shard(n, mesh)
         outs = launch_shards(
             lambda k, dev: fn(*(_upload(a[k * per:(k + 1) * per], dev) for a in args)), mesh
         )
