@@ -211,7 +211,31 @@ Phases, each fatal on failure (exit code 1):
      shards; (e) one batch's time unsharded and over the mesh by CUDA events
      (unsharded, mesh, mesh, unsharded), then each way's split into
      uploads, launches with their device work, edge uploads and host
-     scoring (host clock) and its kernels' device time (torch.profiler).
+     scoring (host clock) and its kernels' device time (torch.profiler);
+  10. width sharding (parallel/mesh.py shard_over_width): (a) a seeded
+     7680x4320 B=1 linear-RGB pair through Ssimulacra2(7680, 4320)
+     (pallas3) unsharded, then ssimulacra2_subscores over 2, 4 and 8
+     column strips of card 0 (8: kernel 2 takes a strip's levels 1-5),
+     each strip on its own stream, and the same for a
+     seeded 8-bit 4:2:0 pair through ssimulacra2_subscores_from_yuv,
+     counters reset just before and read just after each run: sub-scores
+     within atol/rtol 2e-5 of the unsharded ones (tests/test_parallel.py's
+     bar), the score within 1e-5, each wrapper of each strip's route
+     (models/ssimulacra2.level_route of the strip's own width) launched
+     once per strip, the gaps logged; (b) kernels 1, 2, #3 and #4 with
+     windows of owned columns that cut 32-column tiles mid-way (67x99, the
+     4K level 3, an odd 8K strip 4320x2081) against their twins, sums at
+     phase 5d's bars (rtol 1e-4 / atol 1e-5); (c) (a) from host copies of
+     the inputs against the unsharded run on the card's tensors: one strip
+     per card with several cards, else two strips of the one card and a
+     line saying that the cross-device path went unexercised; (d) one call of each entry
+     unsharded and over 2, 4 and 8 strips by CUDA events (unsharded, 2, 4,
+     8, 8, 4, 2, unsharded) with each call's peak device memory (allocated, and
+     reserved from an emptied cache), and one 4-strip
+     call inside device_trace: the streams and whether #4's grids (each
+     sized to the whole card) overlapped; (e) the kernels line's entries of
+     kernels 1, 2, #3 and #4 carry (b)'s largest difference
+     ("windowed_max_abs_err").
 Prints the card, the dissect tool's JSON line, then one JSON line of
 per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -2622,6 +2646,287 @@ def run_mesh_phase(dev, card: str) -> dict:
     return {"runs": runs, "batch_ms": times}
 
 
+# Phase 10: width sharding.  One 8K frame pair (B=1), the columns split over
+# strips of card 0, each on its own stream; tests/test_parallel.py's bar
+# (sharded vs single, atol/rtol 2e-5), the score within 1e-5.
+WIDE_WIDTH, WIDE_HEIGHT = 7680, 4320
+# 2 and 4 strips; 8, whose 1280-column strips send levels 1-5 to kernel 2.
+WIDTH_STRIPS = (2, 4, 8)
+WIDTH_TOL, WIDTH_SCORE_TOL = 2e-5, 1e-5
+# Phase 5d's bars for a level kernel's sums against its twin.
+SUMS_RTOL, SUMS_ATOL = 1e-4, 1e-5
+# Windows of owned columns that cut 32-column tiles mid-way (10b): (what,
+# h, w, window, batch).
+WINDOW_CASES = (("67x99", 67, 99, (13, 77), 2), ("4K level 3", 270, 480, (45, 301), 4),
+                ("odd 8K strip", WIDE_HEIGHT, 2081, (160, 2081), 1))
+
+
+def wide_pairs(dev, seed: int = 17):
+    """Phase 10's seeded 7680x4320 B=1 pairs, made on the card: linear RGB
+    (a smooth base with noise, the distorted copy noisier), (B, 3, h, w) f32
+    each, and 8-bit 4:2:0 BT.709 limited range (noise on a smooth base, the
+    distorted copy within +-6): (2, B, h, w) luma, (2, B, h/2, w/2, 2)
+    chroma."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = WIDE_HEIGHT, WIDE_WIDTH
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    base = torch.stack([0.5 + 0.4 * torch.sin(xx / 17.0) * torch.cos(yy / 23.0),
+                        0.5 + 0.3 * torch.cos(xx / 11.0 + 1.0) * torch.sin(yy / 31.0),
+                        0.5 + 0.2 * torch.sin((xx + yy) / 13.0)])[None]
+
+    def noise(shape, sigma):
+        return sigma * torch.randn(shape, device=dev, generator=g)
+
+    ref = (base + noise(base.shape, 0.01)).clamp(0, 1)
+    dis = (ref + noise(ref.shape, 0.02)).clamp(0, 1)
+    luma = 128 + 70 * torch.sin(xx / 9.0) * torch.cos(yy / 7.0)
+    cy = torch.arange(h // 2, device=dev, dtype=torch.float32)[:, None]
+    cx = torch.arange(w // 2, device=dev, dtype=torch.float32)[None, :]
+    chroma = torch.stack([128 + 40 * torch.sin(cx / 5.0) + 0 * cy, 128 + 40 * torch.cos(cy / 4.0) + 0 * cx], -1)
+    y_r = (luma + noise(luma.shape, 3.0))[None]
+    uv_r = (chroma + noise(chroma.shape, 3.0))[None]
+    y2 = torch.stack([y_r, y_r + torch.randint(-6, 7, y_r.shape, device=dev, generator=g)])
+    uv2 = torch.stack([uv_r, uv_r + torch.randint(-6, 7, uv_r.shape, device=dev, generator=g)])
+
+    def codes(t):
+        return t.round().clamp(16, 235).to(torch.uint8).contiguous()
+
+    return (ref.contiguous(), dis.contiguous()), (codes(y2), codes(uv2))
+
+
+def width_entries(model, rgb, yuv):
+    """(entry, function, inputs, in_ndims, unsharded call) of phase 10's two
+    entries: linear RGB through ssimulacra2_subscores (pallas3; unsharded
+    through the module's forward) and 8-bit 4:2:0 through
+    ssimulacra2_subscores_from_yuv (kernel 1, then the level chain)."""
+    import functools
+
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import (
+        ssimulacra2_subscores,
+        ssimulacra2_subscores_from_yuv,
+    )
+
+    consts = dict(num_scales=model.num_scales, taps=model.taps, opsin=model.opsin)
+    f_rgb = functools.partial(ssimulacra2_subscores, backend="pallas3", **consts)
+    f_yuv = functools.partial(ssimulacra2_subscores_from_yuv, **consts)
+    return (("RGB", f_rgb, rgb, (4, 4), lambda: model(*rgb)),
+            ("YUV 4:2:0", f_yuv, yuv, (4, 5), lambda: model.subscores_from_yuv(*yuv)))
+
+
+def strip_launches(plan, h: int, num_scales: int, yuv: bool) -> dict:
+    """The wrappers the strips of ``plan`` launch, once per kernel of each
+    strip's own route: kernel 1 then the chain from level 1 (YUV), or the
+    chain from level 0 (RGB)."""
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import level_route
+
+    want: dict = {}
+    for s in plan:
+        first = 1 if yuv else 0
+        if yuv:
+            want["fused_scale0_yuv"] = want.get("fused_scale0_yuv", 0) + 1
+        for k, _ in level_route(-(-h >> first), -(-s.width >> first), num_scales, first):
+            want[k] = want.get(k, 0) + 1
+    return want
+
+
+def run_width_configs(model, rgb, yuv, mesh_of, card: str, label: str, strips=WIDTH_STRIPS,
+                      host: bool = False, tag: str = "(10a)") -> dict:
+    """Phase 10 (a) (and (c) over every card): each entry unsharded on the
+    card's inputs, then over each mesh of ``mesh_of(n)`` for n in
+    ``strips`` (``host``: the sharded calls take host copies of the inputs,
+    which each strip cuts and uploads to its own card), counters reset just
+    before and read just after each run: sub-scores within WIDTH_TOL,
+    scores within WIDTH_SCORE_TOL, every wrapper of the strips' routes
+    launched once per strip.  Returns {(entry, n): (max abs diff, score
+    diff)}."""
+    from turbo_metrics_tpu_torch.parallel.mesh import halo_overhead, shard_over_width, spatial_sharding
+
+    out = {}
+    for entry, fn, args, ndims, single in width_entries(model, rgb, yuv):
+        shard_args = tuple(t.cpu() for t in args) if host else args
+        reset_counts()
+        want = single()
+        single_launches = {k: v for k, v in read_counts().items() if v}
+        want_score = float(model.score(want)[0])
+        log(f"{tag} {entry} {WIDE_WIDTH}x{WIDE_HEIGHT} B=1 unsharded: score {want_score:.6f}, launches "
+            f"{single_launches} [{card}]")
+        for n in strips:
+            mesh = mesh_of(n)
+            plan = spatial_sharding(mesh, WIDE_WIDTH, num_scales=model.num_scales, chroma=entry != "RGB")
+            reset_counts()
+            got = shard_over_width(fn, mesh, in_ndims=ndims)(*shard_args)
+            launches = {k: v for k, v in read_counts().items() if v}
+            what = f"{tag} {label}: {entry} over {n} strips"
+            need(tuple(got.shape) == tuple(want.shape) and got.device == mesh.devices[0],
+                 f"{what}: sub-scores {tuple(got.shape)} on {got.device}")
+            need(bool(torch.isfinite(got).all()), f"{what}: non-finite sub-scores")
+            err = check_close(what, got.to(want.device), want, WIDTH_TOL, WIDTH_TOL)
+            rel = float(((got.to(want.device) - want).abs() / want.abs().clamp_min(1e-30)).max())
+            score = float(model.score(got)[0])
+            need(abs(score - want_score) <= WIDTH_SCORE_TOL,
+                 f"{what}: score {score} vs unsharded {want_score}")
+            expect = strip_launches(plan, WIDE_HEIGHT, model.num_scales, entry != "RGB")
+            need(launches == expect, f"{what}: launches {launches}, want {expect} (one per kernel of each "
+                 "strip's route)")
+            log(f"{what} ({', '.join(f'[{s.lo}, {s.hi}) owns {s.own_hi - s.own_lo}' for s in plan)}; halo "
+                f"overhead {halo_overhead(plan):.4f}): sub-scores max |diff| {err:.3g}, max rel {rel:.3g}; "
+                f"score {score:.6f}, |diff| {abs(score - want_score):.3g}; launches {launches} [{card}]")
+            out[(entry, n)] = (err, abs(score - want_score))
+    return out
+
+
+def check_window_kernels(dev, taps, opsin, card: str) -> dict:
+    """Phase 10 (b): kernels 1, 2, #3 and #4 with windows of owned columns
+    that cut tiles mid-way (WINDOW_CASES) against their twins on the same
+    inputs, sums at phase 5d's bars.  Returns each wrapper's largest
+    difference."""
+    from turbo_metrics_tpu_torch.ops.kernels import fused_tail, scale_stats, scale_tail
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    errs = {}
+    for what, h, w, win, b in WINDOW_CASES:
+        p12 = torch.rand((2, b, 3, h, w), device=dev, generator=g)
+        y2 = torch.randint(16, 236, (2, b, h, w), device=dev, generator=g, dtype=torch.uint8)
+        uv2 = torch.randint(16, 241, (2, b, (h + 1) // 2, (w + 1) // 2, 2), device=dev, generator=g,
+                            dtype=torch.uint8)
+        lv, nxt = 5, scale_stats.next_window(*win)
+        lvl1 = scale_stats.fused_scale_rgb(p12, taps, opsin)[1]
+        calls = {
+            "fused_scale0_yuv": (lambda: scale_stats.fused_scale0_yuv(y2, uv2, taps, opsin, columns=win),
+                                 lambda: scale_stats.fused_scale0_yuv_ref(y2, uv2, taps, opsin, columns=win)),
+            "fused_scale_rgb": (lambda: scale_stats.fused_scale_rgb(p12, taps, opsin, columns=win),
+                                lambda: scale_stats.fused_scale_rgb_ref(p12, taps, opsin, columns=win)),
+            "fused_pyramid_tail": (lambda: scale_tail.fused_pyramid_tail(lvl1, lv, taps, opsin, columns=nxt),
+                                   lambda: scale_tail.fused_pyramid_tail_ref(lvl1, lv, taps, opsin, columns=nxt)),
+            "fused_tail": (lambda: fused_tail.fused_tail(lvl1, lv, taps, opsin, columns=nxt),
+                           lambda: fused_tail.fused_tail_ref(lvl1, lv, taps, opsin, columns=nxt)),
+        }
+        line = []
+        for name, (kern, twin) in calls.items():
+            got, want = kern(), twin()
+            if isinstance(got, tuple):
+                (got, got_l1), (want, want_l1) = got, want
+                check_close(f"(10b) {name} {what} level 1", got_l1, want_l1, 0.0, 1e-5)
+            e = check_close(f"(10b) {name} {what} window {win if name.startswith('fused_scale') else nxt}",
+                            got, want, SUMS_RTOL, SUMS_ATOL)
+            rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+            errs[name] = max(errs.get(name, 0.0), e)
+            line.append(f"{name} max abs {e:.3g} rel {rel:.3g}")
+        log(f"(10b) windowed kernels vs twins, {what} (B={b}, level-0 window {win}, from level 1 {nxt}): "
+            + "; ".join(line) + f" [{card}]")
+    return errs
+
+
+def width_trace(fn, args, ndims, mesh, tmp: str, card: str) -> None:
+    """Phase 10 (d): one sharded call inside device_trace: the streams its
+    kernels ran on and whether #4's grids (fused_tail_kernel, each sized to
+    the whole card) overlapped in time."""
+    from turbo_metrics_tpu_torch.parallel.mesh import shard_over_width
+    from turbo_metrics_tpu_torch.utils.profiling import device_trace, kernel_name
+
+    sharded = shard_over_width(fn, mesh, in_ndims=ndims)
+    sharded(*args)
+    with device_trace(os.path.join(tmp, "width_trace")) as log_dir:
+        sharded(*args)
+        torch.cuda.synchronize()
+    files = sorted(os.listdir(log_dir))
+    need(len(files) == 1, f"(10d) device_trace wrote {files}")
+    with open(os.path.join(log_dir, files[0])) as f:
+        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    tails = sorted((e for e in kernels if kernel_name(e["name"]).startswith("fused_tail_kernel")),
+                   key=lambda e: e["ts"])
+    streams = sorted({e["args"]["stream"] for e in kernels})
+    overlaps = sum(1 for a, b in zip(tails, tails[1:]) if b["ts"] < a["ts"] + a["dur"])
+    log(f"(10d) trace {files[0]} of one call over {mesh.size} strips: {len(kernels)} kernels on streams "
+        f"{streams}; #4 grids {len(tails)} on streams {[e['args']['stream'] for e in tails]}, "
+        f"{[round(e['dur'], 1) for e in tails]} us, {overlaps} of {max(len(tails) - 1, 0)} consecutive pairs "
+        f"overlapping ({'serialised' if tails and not overlaps else 'concurrent'}) [{card}]")
+    need(len(tails) == mesh.size, f"(10d) {len(tails)} #4 grids in the trace, want {mesh.size}")
+
+
+def time_width(model, rgb, yuv, mesh_of, card: str) -> dict:
+    """Phase 10 (d): one call of each entry unsharded and over each strip
+    count of WIDTH_STRIPS on card 0, by CUDA events (unsharded, 2, 4, 8, 8,
+    4, 2, unsharded), and each call's peak device memory above its
+    inputs."""
+    from turbo_metrics_tpu_torch.parallel.mesh import shard_over_width
+    from turbo_metrics_tpu_torch.utils.profiling import time_ms
+
+    out = {}
+    dev = model.device
+    for entry, fn, args, ndims, single in width_entries(model, rgb, yuv):
+        calls = {"unsharded": lambda f=fn, a=args: f(*a)}
+        for n in WIDTH_STRIPS:
+            calls[f"{n} strips"] = (lambda s=shard_over_width(fn, mesh_of(n), in_ndims=ndims), a=args: s(*a))
+        times = {k: [] for k in calls}
+        for k in (*calls, *reversed(calls)):
+            times[k].append(time_ms(calls[k], 5, dev))
+        peaks = {k: step_peak_mib(c, dev) for k, c in calls.items()}
+        reserved = {k: peak_reserved_mib(c, dev) for k, c in calls.items()}
+        for k in calls:
+            log(f"(10d) {entry} {WIDE_WIDTH}x{WIDE_HEIGHT} B=1, {k}: " + " / ".join(f"{t:.3f}" for t in times[k])
+                + f" ms (CUDA events, one call), peak device memory above its inputs {peaks[k]:.1f} MiB "
+                f"allocated, {reserved[k]:.1f} MiB reserved by the caching allocator [{card}]")
+        out[entry] = {"ms": times, "peak_mib": peaks, "reserved_mib": reserved}
+    return out
+
+
+def peak_reserved_mib(fn, dev) -> float:
+    """The device memory the caching allocator reserves for one fn() call
+    from an emptied cache, in MiB.  Strips on side streams free their
+    temporaries at enqueue, which the allocated peak does not see while
+    their blocks stay held for their streams."""
+    torch.cuda.synchronize(dev)
+    RUN_PEAK[0] = max(RUN_PEAK[0], torch.cuda.max_memory_allocated(dev))
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return (torch.cuda.max_memory_reserved(dev) - base) / 2**20
+
+
+def run_width_cards(model, rgb, yuv, card: str) -> dict:
+    """Phase 10 (c): (a) from host copies of the inputs, which each strip
+    cuts and uploads to its card, against the unsharded run on card 0's
+    tensors: with one strip per card (cards 0 .. n-1 for each strip count
+    up to the cards there are) where there are several, else over two
+    strips of the one card."""
+    from turbo_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    every = torch.cuda.device_count()
+    if every < 2:
+        runs = run_width_configs(model, rgb, yuv, lambda n: make_mesh(n, device="cuda:0"), card,
+                                 "strips of cuda:0 (host inputs)", strips=(2,), host=True, tag="(10c)")
+        log("(10c) one card: host inputs over its strips checked; the cross-device path (one strip per "
+            "card) went unexercised")
+        return {("host", *k): v for k, v in runs.items()}
+    strips = sorted({min(n, every) for n in WIDTH_STRIPS})
+    runs = run_width_configs(model, rgb, yuv, lambda n: make_mesh(n), card,
+                             "one strip per card (host inputs)", strips=strips, host=True, tag="(10c)")
+    return {("cards", *k): v for k, v in runs.items()}
+
+
+def run_width_phase(dev, model, card: str) -> dict:
+    """Phase 10: (a) both entries over 2, 4 and 8 strips of card 0, (b) the
+    windowed kernels against their twins, (c) every card where there are
+    several, (d) the times, the peak memory and the trace of #4's grids."""
+    from turbo_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    rgb, yuv = wide_pairs(dev)
+    card0 = f"cuda:{dev.index or 0}"
+    runs = run_width_configs(model, rgb, yuv, lambda n: make_mesh(n, device=card0), card,
+                             f"strips of {card0}")
+    errs = check_window_kernels(dev, model.taps, model.opsin, card)
+    runs.update(run_width_cards(model, rgb, yuv, card))
+    times = time_width(model, rgb, yuv, lambda n: make_mesh(n, device=card0), card)
+    entry, fn, args, ndims, _ = width_entries(model, rgb, yuv)[0]
+    with tempfile.TemporaryDirectory(prefix="tm_width_") as tmp:
+        width_trace(fn, args, ndims, make_mesh(4, device=card0), tmp, card)
+    return {"runs": runs, "window_err": errs, "times": times}
+
+
 def main() -> int:
     try:
         from turbo_metrics_tpu_torch.models.ssimulacra2 import (
@@ -2893,6 +3198,7 @@ def main() -> int:
         del xp
         dissect, dissect_launches = run_dissect_path(card)
         run_mesh_phase(dev, card)
+        width = run_width_phase(dev, Ssimulacra2(WIDE_WIDTH, WIDE_HEIGHT, device=dev), card)
 
     mpx = WIDTH * HEIGHT / 1e6
     for name, runs in (
@@ -3065,6 +3371,10 @@ def main() -> int:
             "redesigned": REDESIGNED.get(name),
             "tpu_kernel": True,
         })
+        if name in width["window_err"]:
+            # Kernels 1, 2, #3 and #4 with a window of owned columns that
+            # cuts tiles mid-way, against their twins (phase 10b).
+            kernels[-1]["windowed_max_abs_err"] = width["window_err"][name]
     for name, src_file, ports, err, ms, pms, nb, (i_ops, f_ops), dms in int_rows:
         bound_ms, bound_by = bound(nb, 0.0, issue=mixed_ops_ms(i_ops, f_ops))
         unfolded = ""

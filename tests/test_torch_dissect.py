@@ -446,7 +446,8 @@ def test_level_outputs_own_calls_run_on_cpu():
     mask halo leaves the band plane, #6 at 8 bits and an odd size, #5 at
     4:2:2 10-bit and 4:4:4 12-bit PQ, #16 on 8-bit, 10-bit (at an odd size
     and at the given shape) and int32 luma, #17 on one frame, #4 on three
-    and five levels, #13 on u8, 10-bit against 8-bit and 10-bit luma, and
+    and five levels, kernel 1, #3 and kernel 2 (five levels) at 67x99, #13
+    on u8, 10-bit against 8-bit and 10-bit luma, and
     the fixed-point VIF and ADM: sums, and per scale and per level the
     integer surfaces, on u8 and 10-bit u16 pairs at the given shape and
     12-bit u16 and 10-bit int32 pairs at 67x99) build their inputs from a
@@ -462,7 +463,8 @@ def test_level_outputs_own_calls_run_on_cpu():
                          else tuple(None if t is None else tuple(t.shape) for t in got))
     assert {w for _, w, _ in calls} == {"adm_stats", "yuv420_to_linear_rgb_pair", "yuv_to_linear_rgb",
                                         "motion_stats", "integer_blur", "fused_tail", "xpsnr_block_stats",
-                                        "integer_vif_stats", "integer_adm_stats"}
+                                        "integer_vif_stats", "integer_adm_stats", "fused_scale0_yuv",
+                                        "fused_scale_rgb", "fused_pyramid_tail"}
     int_shapes = {}
     for what, (b, h, w) in (("u8 64x48", (1, 48, 64)), ("10-bit u16 64x48", (1, 48, 64)),
                             ("12-bit u16 99x67", (2, 67, 99)), ("10-bit int32 99x67", (2, 67, 99)),
@@ -483,6 +485,9 @@ def test_level_outputs_own_calls_run_on_cpu():
         "#17 motion blur u8 64x48": (1, 48, 64),
         "#4 tail 3 levels from 16x12": (1, 3, 3, 6),
         "#4 tail 5 levels from 99x67": (2, 5, 3, 6),
+        "kernel 1 99x67": ((2, 3, 6), (2, 2, 3, 34, 50)),
+        "#3 99x67": ((2, 3, 6), (2, 2, 3, 34, 50)),
+        "kernel 2 5 levels from 99x67": (2, 5, 3, 6),
         "#18 ADM 13x21": (1, 4, 3, 2),
         "#18 ADM 67x99": (1, 4, 3, 2),
         "#6 conversion 64x48": (2, 1, 3, 48, 64),

@@ -167,13 +167,18 @@ constexpr int kTileSmemFloats = 2 * kInFloats + 4 * kRowFloats;
 // input rows into shared memory, the column pass and the maps, and each 32x8
 // sub-tile's six partials into parts[((b*3 + ch) * nblk + blk) * 6 + k], blk
 // = its index in the level's (ceil(h/8), ceil(w/32)) grid of 32x8 tiles
-// (level.cuh pixel_grid; reduce_plane<6> then sums them in f64).  S: how
-// the XYB planes are read (level.cuh Src).  A caller that runs another tile
-// in the same block syncs the block first.
+// (level.cuh pixel_grid; reduce_plane<6> then sums them in f64).  Only the
+// window of owned columns [clo, chi) (0 <= clo < chi <= w; 0 and w for the
+// whole plane) adds to the partials: a column strip of a frame cut with a
+// halo (parallel/mesh.py spatial_sharding) blurs its halo columns but sums
+// only its own.  A tile that lies wholly outside the window skips its pass
+// and writes zero partials, the bits its pass would write.  S: how the XYB
+// planes are read (level.cuh Src).  A caller that runs another tile in the
+// same block syncs the block first.
 template <Src S>
 __device__ __forceinline__ void level_tile(const float* __restrict__ xa,
-                                           const float* __restrict__ xb, int h, int w,
-                                           const float* __restrict__ taps,
+                                           const float* __restrict__ xb, int h, int w, int clo,
+                                           int chi, const float* __restrict__ taps,
                                            float* __restrict__ parts, int tx, int ty,
                                            size_t plane, float* __restrict__ smem) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -184,6 +189,14 @@ __device__ __forceinline__ void level_tile(const float* __restrict__ xa,
   const int nbx = (w + kBx - 1) / kBx, nby = (h + kBy - 1) / kBy;
   const int by = ty * kSubTiles + warp;  // this warp's sub-tile row in that grid
   const int c = x0 + lane;                       // this thread's output column
+  if (x0 + kTileW <= clo || x0 >= chi) {  // the whole block: tx is the block's
+    if (lane == 0 && by < nby) {
+      float* out = parts + (plane * nbx * nby + (size_t)by * nbx + tx) * 6;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) out[k] = 0.0f;
+    }
+    return;
+  }
 
   // Input tiles: rows y0-5 .. y0+36, columns x0-8 .. x0+39 of both planes.
   {
@@ -246,8 +259,9 @@ __device__ __forceinline__ void level_tile(const float* __restrict__ xa,
     float va[6], vb[6];
     const int ra = warp * kBy + o, rb = ra + kBy / 2;
     const float* p = in + (ra + kRadius) * kInW + lane + kInOff;
-    tile_maps(s[o], p, y0 + ra < h && c < w, va);
-    tile_maps(s[o + kBy / 2], p + (kBy / 2) * kInW, y0 + rb < h && c < w, vb);
+    const bool owned = c >= clo && c < chi;
+    tile_maps(s[o], p, y0 + ra < h && owned, va);
+    tile_maps(s[o + kBy / 2], p + (kBy / 2) * kInW, y0 + rb < h && owned, vb);
 #pragma unroll
     for (int k = 0; k < 6; ++k) v[o][k] = __fadd_rn(va[k], vb[k]);
   }

@@ -168,14 +168,16 @@ rgb_to_xyb_kernel(const float* __restrict__ ref, const float* __restrict__ dis, 
 
 // ---------------------------------------------------------------------------
 // The fused level pass (level_tile in ssimulacra2_level.cuh): one block per
-// 32x32 output tile of plane blockIdx.z (b*3 + ch).
+// 32x32 output tile of plane blockIdx.z (b*3 + ch), the columns [clo, chi)
+// summed.
 // grid: (ceil(w/32), ceil(h/32), B*3), block: kTileThreads (1-D).
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kTileThreads)
 level_tile_kernel(const float* __restrict__ xa, const float* __restrict__ xb, int h, int w,
-                  const float* __restrict__ taps, float* __restrict__ parts) {
+                  int clo, int chi, const float* __restrict__ taps, float* __restrict__ parts) {
   __shared__ __align__(16) float smem[kTileSmemFloats];
-  level_tile<Src::kReadOnly>(xa, xb, h, w, taps, parts, blockIdx.x, blockIdx.y, blockIdx.z, smem);
+  level_tile<Src::kReadOnly>(xa, xb, h, w, clo, chi, taps, parts, blockIdx.x, blockIdx.y,
+                             blockIdx.z, smem);
 }
 
 int level_blocks(int h, int w) {
@@ -184,11 +186,13 @@ int level_blocks(int h, int w) {
 }
 
 // Blur, maps and sums of one level from the reference's XYB xa and the
-// distorted one's xb, B*3 planes each.
-int level_sums(const float* xa, const float* xb, int batch, int h, int w, const float* taps,
-               float* parts, float* sums, int sums_bstride, cudaStream_t s) {
+// distorted one's xb, B*3 planes each; the sums over the columns [clo, chi)
+// (0 and w: the whole plane).
+int level_sums(const float* xa, const float* xb, int batch, int h, int w, int clo, int chi,
+               const float* taps, float* parts, float* sums, int sums_bstride, cudaStream_t s) {
+  if (clo < 0 || clo >= chi || chi > w) return (int)cudaErrorInvalidValue;
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, 3 * batch);
-  level_tile_kernel<<<grid, kTileThreads, 0, s>>>(xa, xb, h, w, taps, parts);
+  level_tile_kernel<<<grid, kTileThreads, 0, s>>>(xa, xb, h, w, clo, chi, taps, parts);
   reduce_parts_kernel<6><<<3 * batch, kReduceThreads, 0, s>>>(parts, level_blocks(h, w), sums,
                                                                sums_bstride);
   return (int)cudaGetLastError();
@@ -273,21 +277,23 @@ int tm_rgb_to_xyb(const float* rgb, int batch, int h, int w, const float* opsin,
 }
 
 // The fused level pass and the reduction (shared by the replacements
-// above): xyb (2,B,3,h,w) -> sums[b*sums_bstride + ch*6 + k].  parts holds
-// B*3*tm_level_blocks(h,w)*6 floats; no other scratch.
-int tm_level_sums(const float* xyb, int batch, int h, int w, const float* taps, float* parts,
-                  float* sums, int sums_bstride, void* stream) {
-  return level_sums(xyb, xyb + (size_t)batch * 3 * h * w, batch, h, w, taps, parts, sums,
-                    sums_bstride, static_cast<cudaStream_t>(stream));
+// above): xyb (2,B,3,h,w) -> sums[b*sums_bstride + ch*6 + k] over the
+// owned columns [clo, chi) (0 and w: the whole level; a column strip's
+// window, parallel/mesh.py).  parts holds B*3*tm_level_blocks(h,w)*6
+// floats; no other scratch.
+int tm_level_sums(const float* xyb, int batch, int h, int w, int clo, int chi, const float* taps,
+                  float* parts, float* sums, int sums_bstride, void* stream) {
+  return level_sums(xyb, xyb + (size_t)batch * 3 * h * w, batch, h, w, clo, chi, taps, parts,
+                    sums, sums_bstride, static_cast<cudaStream_t>(stream));
 }
 
 // The same from two (B,3,h,w) XYB tensors, xyb1 (reference) and xyb2
 // (distorted), without stacking them: the replacement of scale_sums_pallas
 // (turbo_metrics_tpu/ops/pallas/scale_stats_legacy.py:172).
-int tm_level_sums_pair(const float* xyb1, const float* xyb2, int batch, int h, int w,
-                       const float* taps, float* parts, float* sums, int sums_bstride,
+int tm_level_sums_pair(const float* xyb1, const float* xyb2, int batch, int h, int w, int clo,
+                       int chi, const float* taps, float* parts, float* sums, int sums_bstride,
                        void* stream) {
-  return level_sums(xyb1, xyb2, batch, h, w, taps, parts, sums, sums_bstride,
+  return level_sums(xyb1, xyb2, batch, h, w, clo, chi, taps, parts, sums, sums_bstride,
                     static_cast<cudaStream_t>(stream));
 }
 

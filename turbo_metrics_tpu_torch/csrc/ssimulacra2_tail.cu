@@ -83,6 +83,7 @@ constexpr int kMaxLevels = 6;
 struct TailArgs {
   const float* p12;
   int batch, h0, w0, levels;
+  int clo0, chi0;  // the first level's window of owned columns
   const float* taps;
   const float* opsin;
   float* xyb[2];  // even, odd levels
@@ -129,19 +130,23 @@ __device__ __forceinline__ void reduce_plane_half(const float* __restrict__ src,
   }
 }
 
-// Level l's size and the offset of its partials in a.parts (the levels'
-// partials one after another).
+// Level l's size, its window of owned columns [clo, chi) (the first level's
+// halved l times, rounded outwards: the columns its quads cover) and the
+// offset of its partials in a.parts (the levels' partials one after
+// another).
 struct Level {
-  int h, w;
+  int h, w, clo, chi;
   size_t poff;
 };
 
 __device__ __forceinline__ Level level_at(const TailArgs& a, int l) {
-  Level v = {a.h0, a.w0, 0};
+  Level v = {a.h0, a.w0, a.clo0, a.chi0, 0};
   for (int i = 0; i < l; ++i) {
     v.poff += (size_t)3 * a.batch * ((v.w + kBx - 1) / kBx) * ((v.h + kBy - 1) / kBy) * 6;
     v.h = (v.h + 1) / 2;
     v.w = (v.w + 1) / 2;
+    v.clo /= 2;
+    v.chi = (v.chi + 1) / 2;
   }
   return v;
 }
@@ -172,8 +177,9 @@ __global__ void __launch_bounds__(kTileThreads) fused_tail_kernel(TailArgs a) {
         const int per_plane = ntiles / planes;
         const int plane = item / per_plane, t = item - plane * per_plane;
         const float* xa = lt % 2 ? a.xyb[1] : a.xyb[0];
-        level_tile<Src::kWritten>(xa, xa + (size_t)planes * vt.h * vt.w, vt.h, vt.w, a.taps,
-                                  a.parts + vt.poff, t % ntx, t / ntx, plane, smem);
+        level_tile<Src::kWritten>(xa, xa + (size_t)planes * vt.h * vt.w, vt.h, vt.w, vt.clo,
+                                  vt.chi, a.taps, a.parts + vt.poff, t % ntx, t / ntx, plane,
+                                  smem);
       } else if (item < ntiles + nqchunks) {
         const int h = vq.h, w = vq.w;
         const int hq = (h + 1) / 2, wq = (w + 1) / 2;
@@ -223,18 +229,21 @@ extern "C" {
 // launch: the replacement of fused_tail_pallas (turbo_metrics_tpu/ops/pallas/
 // scale_stats.py:2494).  Scratch (the caller's): xyb_even 2*B*3*h*w floats,
 // xyb_odd, lvl_a and lvl_b 2*B*3*ceil(h/2)*ceil(w/2) each, parts the sum
-// over the levels of B*3*tm_level_blocks(h_l,w_l)*6.  sums (B,levels,3,6).
-int tm_fused_tail(const float* p12, int batch, int h, int w, int levels, const float* taps,
-                  const float* opsin, float* xyb_even, float* xyb_odd, float* lvl_a,
-                  float* lvl_b, float* parts, float* sums, void* stream) {
-  if (levels < 1 || levels > kMaxLevels || batch < 1 || h < 1 || w < 1) {
+// over the levels of B*3*tm_level_blocks(h_l,w_l)*6.  sums (B,levels,3,6),
+// over the owned columns [clo, chi) of the first level (0 and w: the whole
+// level) and, on level l, [floor(clo/2^l), ceil(chi/2^l)).
+int tm_fused_tail(const float* p12, int batch, int h, int w, int clo, int chi, int levels,
+                  const float* taps, const float* opsin, float* xyb_even, float* xyb_odd,
+                  float* lvl_a, float* lvl_b, float* parts, float* sums, void* stream) {
+  if (levels < 1 || levels > kMaxLevels || batch < 1 || h < 1 || w < 1 || clo < 0 ||
+      clo >= chi || chi > w) {
     return (int)cudaErrorInvalidValue;
   }
   int blocks = 0;
   cudaError_t err = co_resident_blocks(&blocks);
   if (err != cudaSuccess) return (int)err;
-  TailArgs a = {p12, batch, h, w, levels, taps, opsin, {xyb_even, xyb_odd}, {lvl_a, lvl_b},
-                parts, sums};
+  TailArgs a = {p12, batch, h, w, levels, clo, chi, taps, opsin, {xyb_even, xyb_odd},
+                {lvl_a, lvl_b}, parts, sums};
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel((const void*)fused_tail_kernel, dim3(blocks),
                                     dim3(kTileThreads), args, 0, static_cast<cudaStream_t>(stream));

@@ -21,6 +21,15 @@ The level chain (``level_sums_chain``, the JAX package's
 for every remaining level once a level is small, else kernel #3 with the next
 level emitted.  The final 108-weight score runs on the host in f64
 (models/ssimulacra2_score.py).  Layout: (B, 3, H, W) planar f32.
+
+Width sharding (``subscores_width_sharded``, parallel/mesh.py
+``shard_over_width``): ``ssimulacra2_level_sums`` and
+``ssimulacra2_level_sums_from_yuv`` return the per-level (B, 3, 6) sums of
+the first two entries over ``columns=(own_lo, own_hi)``, a window of owned
+level-0 columns (None: the whole width).  Every column is converted,
+downscaled and blurred; only the window's pixels are summed, on level l the
+columns [own_lo >> l, ceil(own_hi / 2^l)).  The column strips of one frame
+add their windows' sums, normalised by the whole frame's level sizes.
 """
 
 from __future__ import annotations
@@ -45,11 +54,13 @@ from turbo_metrics_tpu_torch.ops.kernels.scale_stats import (
     fused_scale0_yuv,
     fused_scale_pair,
     fused_scale_rgb,
+    next_window,
     norms_from_sums,
     scale_sums,
+    window,
 )
 from turbo_metrics_tpu_torch.ops.kernels.scale_tail import fused_pyramid_tail
-from turbo_metrics_tpu_torch.ops.ssim_maps import scale_norms
+from turbo_metrics_tpu_torch.ops.ssim_maps import plain_maps, scale_norms
 from turbo_metrics_tpu_torch.ops.xyb import (
     OPSIN_ABSORBANCE_BIAS,
     OPSIN_ABSORBANCE_BIAS_ROOT,
@@ -57,6 +68,7 @@ from turbo_metrics_tpu_torch.ops.xyb import (
     linear_rgb_to_xyb,
     opsin_vector,
 )
+from turbo_metrics_tpu_torch.parallel.mesh import launch_shards, spatial_sharding, strip_input, upload
 
 NUM_SCALES = 6
 MATRIX_NAMES = ("bt709", "bt601_525", "bt601_625", "bt2020")
@@ -108,20 +120,38 @@ def level_route(h: int, w: int, num_scales: int, first_level: int = 0) -> list:
     return route
 
 
-def level_sums_chain(p12, first_level: int, taps, opsin, *, num_scales: int) -> list:
+def _whole(columns, w: int):
+    """``columns`` as a checked (lo, hi) window of a w wide level, None
+    where it is the whole width."""
+    if columns is None:
+        return None
+    win = window(columns, w)
+    return None if win == (0, w) else win
+
+
+def _next(win):
+    return None if win is None else next_window(*win)
+
+
+def level_sums_chain(p12, first_level: int, taps, opsin, *, num_scales: int, columns=None) -> list:
     """(B, 3, 6) sums of levels ``first_level`` .. ``num_scales - 1`` from
     the contiguous (2, B, 3, h, w) f32 linear-RGB plane of level
     ``first_level``, through the kernels ``level_route`` picks (the JAX
     package's ``ssimulacra2_subscores_from_padded`` loop on the unpadded
-    layout)."""
+    layout), each level's sums over the owned columns ``columns`` of this
+    first level (None: the whole width) and their ``next_window`` on each
+    next one.  The route is the plane's own: a column strip may take
+    another than its frame, and every route computes the same pixels."""
+    win = _whole(columns, p12.shape[-1])
     out = []
     for kernel, levels in level_route(p12.shape[-2], p12.shape[-1], num_scales, first_level):
         if kernel == "fused_scale_rgb":
-            sums, p12 = fused_scale_rgb(p12, taps, opsin, emit_ds=levels[0] + 1 < num_scales)
+            sums, p12 = fused_scale_rgb(p12, taps, opsin, emit_ds=levels[0] + 1 < num_scales, columns=win)
             out.append(sums)
+            win = _next(win)
         else:
             run = fused_pyramid_tail if kernel == "fused_pyramid_tail" else fused_tail
-            out += list(run(p12, len(levels), taps, opsin).unbind(1))
+            out += list(run(p12, len(levels), taps, opsin, columns=win).unbind(1))
     return out
 
 
@@ -158,6 +188,99 @@ def _level_consts(taps, opsin, device):
     return taps.contiguous(), opsin.contiguous()
 
 
+def _plain_levels(lin_ref, lin_dis, num_scales: int, blur, opsin):
+    """The plain chain, level by level: (xyb1, xyb2, mu1, mu2, s11, s22,
+    s12), the XYB pair and its five blurs, like the reference's fused blur
+    launch (ssimulacra2-cuda/src/kernel.rs:219-277)."""
+    for s in range(num_scales):
+        if s:
+            lin_ref, lin_dis = downscale_by_2(lin_ref), downscale_by_2(lin_dis)
+        xyb1 = linear_rgb_to_xyb(lin_ref, opsin=opsin)
+        xyb2 = linear_rgb_to_xyb(lin_dis, opsin=opsin)
+        stacked = torch.cat([xyb1, xyb2, xyb1 * xyb1, xyb2 * xyb2, xyb1 * xyb2], dim=1)
+        yield (xyb1, xyb2, *torch.chunk(blur(stacked), 5, dim=1))
+
+
+def _plain_level_sums(lin_ref, lin_dis, num_scales: int, blur, opsin, win) -> list:
+    """The plain chain's per-level (B, 3, 6) f64 sums over the window
+    ``win`` of owned level-0 columns (None: every column): ``scale_norms``'
+    maps, summed instead of averaged."""
+    out = []
+    for level in _plain_levels(lin_ref, lin_dis, num_scales, blur, opsin):
+        quantities = []
+        for m in plain_maps(*level):
+            m2 = m * m
+            quantities += [m, m2 * m2]
+        if win is not None:
+            quantities = [q[..., win[0]:win[1]] for q in quantities]
+        out.append(torch.stack([q.double().sum(dim=(-2, -1)) for q in quantities], dim=-1))
+        win = _next(win)
+    return out
+
+
+def _resolve_backend(backend: str, device) -> str:
+    if backend == "auto":
+        backend = default_backend(device)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {('auto',) + BACKENDS}")
+    return backend
+
+
+def ssimulacra2_level_sums(
+    lin_ref: torch.Tensor,
+    lin_dis: torch.Tensor,
+    *,
+    num_scales: int,
+    backend: str = "jnp",
+    taps=None,
+    opsin=None,
+    columns=None,
+) -> list:
+    """Per-level (B, 3, 6) sums (d, d^4, art, art^4, det, det^4) of (B, 3,
+    H, W) linear-RGB pairs over the owned columns ``columns`` (module
+    docstring), by ``backend`` as ``ssimulacra2_subscores`` routes it: f32
+    from the kernel routes, f64 from the plain ones.  ``jnp_iir`` takes no
+    window narrower than the frame: its recursive blur reaches the whole
+    row, so no finite halo makes a strip's pixels the frame's."""
+    backend = _resolve_backend(backend, lin_ref.device)
+    win = _whole(columns, lin_ref.shape[-1])
+    if backend in ("jnp", "jnp_iir"):
+        if backend == "jnp_iir" and win is not None:
+            raise ValueError(
+                "backend 'jnp_iir' takes no window of owned columns: its recursive blur reaches "
+                "the whole row, so no finite halo serves a column strip"
+            )
+        blur = blur_2d_iir if backend == "jnp_iir" else functools.partial(blur_2d, taps=taps)
+        return _plain_level_sums(lin_ref, lin_dis, num_scales, blur, opsin, win)
+
+    taps, opsin = _level_consts(taps, opsin, lin_ref.device)
+    lin_ref, lin_dis = lin_ref.to(torch.float32), lin_dis.to(torch.float32)
+    if backend == "pallas3":
+        # One copy into the pair buffer, also from a column strip's views.
+        p12 = torch.stack([lin_ref, lin_dis])
+        return level_sums_chain(p12, 0, taps, opsin, num_scales=num_scales, columns=win)
+    lin_ref, lin_dis = lin_ref.contiguous(), lin_dis.contiguous()
+    sums = []
+    for s in range(num_scales):
+        if s:
+            win = _next(win)
+        if backend == "pallas":
+            # Plain downscale and XYB (the JAX route's jnp), then kernel #8.
+            if s:
+                lin_ref, lin_dis = downscale_by_2(lin_ref), downscale_by_2(lin_dis)
+            sums.append(scale_sums(
+                linear_rgb_to_xyb(lin_ref, opsin=opsin), linear_rgb_to_xyb(lin_dis, opsin=opsin), taps,
+                columns=win,
+            ))
+        else:
+            # Kernel #10 per level, kernel #7 on each image between levels.
+            if s:
+                lin_ref = downscale_kernel.downscale_by_2(lin_ref)
+                lin_dis = downscale_kernel.downscale_by_2(lin_dis)
+            sums.append(fused_scale_pair(lin_ref, lin_dis, taps, opsin, columns=win))
+    return sums
+
+
 def ssimulacra2_subscores(
     lin_ref: torch.Tensor,
     lin_dis: torch.Tensor,
@@ -174,57 +297,50 @@ def ssimulacra2_subscores(
     ``default_backend`` of the inputs' device); on a CPU tensor every kernel
     runs its plain twin, as the JAX package's ``interpret*`` routes run
     theirs.  The plain chains blur
-    five quantities per level (mu1, mu2, sigma11, sigma22, sigma12), like
-    the reference's fused blur launch (ssimulacra2-cuda/src/kernel.rs:219-277).
+    five quantities per level (``_plain_levels``).
     """
-    if backend == "auto":
-        backend = default_backend(lin_ref.device)
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; one of {('auto',) + BACKENDS}")
-    dims = scale_dims(lin_ref.shape[-2], lin_ref.shape[-1], num_scales)
+    backend = _resolve_backend(backend, lin_ref.device)
     if backend in ("jnp", "jnp_iir"):
         blur = blur_2d_iir if backend == "jnp_iir" else functools.partial(blur_2d, taps=taps)
-        per_scale = []
-        for s in range(num_scales):
-            if s:
-                lin_ref = downscale_by_2(lin_ref)
-                lin_dis = downscale_by_2(lin_dis)
-            xyb1 = linear_rgb_to_xyb(lin_ref, opsin=opsin)
-            xyb2 = linear_rgb_to_xyb(lin_dis, opsin=opsin)
-            stacked = torch.cat([xyb1, xyb2, xyb1 * xyb1, xyb2 * xyb2, xyb1 * xyb2], dim=1)
-            mu1, mu2, s11, s22, s12 = torch.chunk(blur(stacked), 5, dim=1)
-            per_scale.append(scale_norms(xyb1, xyb2, mu1, mu2, s11, s22, s12))
+        per_scale = [scale_norms(*q) for q in _plain_levels(lin_ref, lin_dis, num_scales, blur, opsin)]
         return _apply_needs_mask(torch.stack(per_scale, dim=2), weight_needs(num_scales))
-
-    taps, opsin = _level_consts(taps, opsin, lin_ref.device)
-    lin_ref = lin_ref.to(torch.float32).contiguous()
-    lin_dis = lin_dis.to(torch.float32).contiguous()
-    if backend == "pallas3":
-        p12 = torch.stack([lin_ref, lin_dis])
-        return subscores_from_sums(level_sums_chain(p12, 0, taps, opsin, num_scales=num_scales), dims)
-    sums = []
-    for s in range(num_scales):
-        if backend == "pallas":
-            # Plain downscale and XYB (the JAX route's jnp), then kernel #8.
-            if s:
-                lin_ref, lin_dis = downscale_by_2(lin_ref), downscale_by_2(lin_dis)
-            sums.append(scale_sums(
-                linear_rgb_to_xyb(lin_ref, opsin=opsin), linear_rgb_to_xyb(lin_dis, opsin=opsin), taps
-            ))
-        else:
-            # Kernel #10 per level, kernel #7 on each image between levels.
-            if s:
-                lin_ref = downscale_kernel.downscale_by_2(lin_ref)
-                lin_dis = downscale_kernel.downscale_by_2(lin_dis)
-            sums.append(fused_scale_pair(lin_ref, lin_dis, taps, opsin))
-    return subscores_from_sums(sums, dims)
+    sums = ssimulacra2_level_sums(lin_ref, lin_dis, num_scales=num_scales, backend=backend, taps=taps, opsin=opsin)
+    return subscores_from_sums(sums, scale_dims(lin_ref.shape[-2], lin_ref.shape[-1], num_scales))
 
 
 def subscores_from_sums(sums_per_level: list, dims) -> torch.Tensor:
     """Per-level (B, 3, 6) sums at pyramid ``dims`` -> masked (B, 3, S, 2, 3)
-    sub-scores."""
+    f32 sub-scores (norms taken at the sums' precision).  The sums of a
+    frame's column strips, added, take the whole frame's ``scale_dims``."""
     per = [norms_from_sums(s, lh * lw) for s, (lh, lw) in zip(sums_per_level, dims)]
-    return _apply_needs_mask(torch.stack(per, dim=2), weight_needs(len(dims)))
+    return _apply_needs_mask(torch.stack(per, dim=2), weight_needs(len(dims))).float()
+
+
+def ssimulacra2_level_sums_from_yuv(
+    y2: torch.Tensor,
+    uv2: torch.Tensor,
+    taps: torch.Tensor,
+    opsin: torch.Tensor,
+    *,
+    num_scales: int,
+    depth: int = 8,
+    matrix: str = "bt709",
+    transfer: str = "bt709",
+    full_range: bool = False,
+    kr_kb=None,
+    columns=None,
+) -> list:
+    """Per-level (B, 3, 6) f32 sums of ``ssimulacra2_subscores_from_yuv``
+    over the owned columns ``columns`` (module docstring)."""
+    win = _whole(columns, y2.shape[-1])
+    sums0, level1 = fused_scale0_yuv(
+        y2, uv2, taps, opsin, depth=depth, matrix=matrix, transfer=transfer,
+        full_range=full_range, emit_ds=num_scales > 1, kr_kb=kr_kb, columns=win,
+    )
+    levels = [sums0]
+    if num_scales > 1:
+        levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales, columns=_next(win))
+    return levels
 
 
 def ssimulacra2_subscores_from_yuv(
@@ -247,15 +363,11 @@ def ssimulacra2_subscores_from_yuv(
     level 1 through the level chain (kernel 2 at 1080p and 720p; #3 twice,
     then #4, at 3840x2160).  Returns (B, 3, num_scales, 2, 3) f32.
     """
-    h, w = y2.shape[-2], y2.shape[-1]
-    sums0, level1 = fused_scale0_yuv(
-        y2, uv2, taps, opsin, depth=depth, matrix=matrix, transfer=transfer,
-        full_range=full_range, emit_ds=num_scales > 1, kr_kb=kr_kb,
+    levels = ssimulacra2_level_sums_from_yuv(
+        y2, uv2, taps, opsin, num_scales=num_scales, depth=depth, matrix=matrix, transfer=transfer,
+        full_range=full_range, kr_kb=kr_kb,
     )
-    levels = [sums0]
-    if num_scales > 1:
-        levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales)
-    return subscores_from_sums(levels, scale_dims(h, w, num_scales))
+    return subscores_from_sums(levels, scale_dims(y2.shape[-2], y2.shape[-1], num_scales))
 
 
 def ssimulacra2_subscores_from_rgb(
@@ -272,6 +384,107 @@ def ssimulacra2_subscores_from_rgb(
     if num_scales > 1:
         levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales)
     return subscores_from_sums(levels, scale_dims(h, w, num_scales))
+
+
+def _width_entry(fn):
+    """(the per-strip sums function of the entry ``fn`` calls, whether it
+    is the YUV entry, its keywords): ``fn`` is ``ssimulacra2_subscores`` or
+    ``ssimulacra2_subscores_from_yuv``, bare or through functools.partial
+    with keywords only; anything else raises ``TypeError``."""
+    base, kw = fn, {}
+    while isinstance(base, functools.partial):
+        if base.args:
+            raise TypeError("width sharding takes functools.partial with keywords only: "
+                            "the frame's inputs are the sharded function's arguments")
+        kw = {**base.keywords, **kw}
+        base = base.func
+    if base is ssimulacra2_subscores:
+        return ssimulacra2_level_sums, False, kw
+    if base is ssimulacra2_subscores_from_yuv:
+        return ssimulacra2_level_sums_from_yuv, True, kw
+    raise TypeError(
+        f"width sharding supports models.ssimulacra2.ssimulacra2_subscores and "
+        f"ssimulacra2_subscores_from_yuv (bare or through functools.partial), not {fn!r}: the port "
+        "has no SPMD partitioner to split any function's columns, so width sharding is written into "
+        "those entries' level kernels (an owned-column window and a halo cut at upload)"
+    )
+
+
+def _pyramid(h: int, w: int, num_scales: int) -> list:
+    """Every level's dims of a ``num_scales`` chain, whatever their size:
+    the plain chains compute and average all of them, where ``scale_dims``
+    stops below 8."""
+    out = [(h, w)]
+    for _ in range(num_scales - 1):
+        h, w = (h + 1) // 2, (w + 1) // 2
+        out.append((h, w))
+    return out
+
+
+def subscores_width_sharded(fn, mesh, *, in_ndims):
+    """``fn`` with one frame's columns split over ``mesh`` (parallel/mesh.py
+    module docstring).  ``fn``: ``ssimulacra2_subscores`` (inputs the (B, 3,
+    H, W) linear-RGB pair, ``in_ndims`` (4, 4); ``backend`` any but
+    ``jnp_iir``, whose recursive blur reaches the whole row) or
+    ``ssimulacra2_subscores_from_yuv`` (inputs (2, B, h, w) luma and (2, B,
+    ch, cw, 2) 4:2:0 chroma, ``in_ndims`` (4, 5); ``taps`` and ``opsin``
+    among its keywords), bare or through functools.partial.  Each call plans
+    the strips (``spatial_sharding``), and each strip, under its device and
+    its stream (``launch_shards``), takes its columns of the inputs
+    (``strip_input``: a view of an RGB input already on its device, else a
+    contiguous cut uploaded there) and runs its per-level sums over its
+    owned window; the strips' sums add in f64 on ``mesh.devices[0]``, where
+    the sub-scores are returned, normalised by the whole frame's level
+    sizes as the unsharded ``fn`` normalises them.  A mesh of one runs
+    ``fn`` unchanged on its device.  Any other ``fn`` raises
+    ``TypeError``."""
+    sums_fn, yuv, kw = _width_entry(fn)
+    want = (4, 5) if yuv else (4, 4)
+    if tuple(in_ndims) != want:
+        raise ValueError(f"{fn!r} takes inputs of {want} dims, got in_ndims={tuple(in_ndims)}")
+    if "num_scales" not in kw:
+        raise TypeError("width sharding needs fn's num_scales (functools.partial(fn, num_scales=...))")
+    if not yuv and kw.get("backend", "jnp") == "jnp_iir":
+        raise ValueError(
+            "backend 'jnp_iir' does not shard over the width: its recursive blur reaches the whole row, "
+            "so no finite halo serves a column strip"
+        )
+    if yuv and ("taps" not in kw or "opsin" not in kw):
+        raise TypeError("width sharding of ssimulacra2_subscores_from_yuv needs its taps and opsin as keywords")
+    num_scales = int(kw["num_scales"])
+    dest = mesh.devices[0]
+    plain = not yuv and _resolve_backend(kw.get("backend", "jnp"), dest) == "jnp"
+
+    def sharded(*args):
+        if len(args) != len(in_ndims):
+            raise ValueError(f"expected {len(in_ndims)} inputs, got {len(args)}")
+        for i, (a, nd) in enumerate(zip(args, in_ndims)):
+            if a.ndim != nd:
+                raise ValueError(f"input {i} has {a.ndim} dims, expected {nd}")
+        if mesh.size == 1:
+            return fn(*(upload(a, dest) for a in args))
+        h, w = args[0].shape[-2], args[0].shape[-1]
+        plan = spatial_sharding(mesh, w, num_scales=num_scales, chroma=yuv)
+
+        def strip_sums(k, dev):
+            kwk = dict(kw)
+            if yuv:
+                kwk["taps"], kwk["opsin"] = _level_consts(kw["taps"], kw["opsin"], dev)
+            parts = [strip_input(a, plan[k], dev, chroma=yuv and i == 1, view=not yuv) for i, a in enumerate(args)]
+            return torch.stack(sums_fn(*parts, **kwk, columns=plan[k].columns), dim=1)
+
+        total = None
+        for sums in launch_shards(strip_sums, mesh):
+            if sums.device.type == "cuda":
+                # Read on the device's current stream, which launch_shards
+                # made wait on the strip's stream.
+                sums.record_stream(torch.cuda.current_stream(sums.device))
+            sums = sums.to(dest, torch.float64)
+            total = sums if total is None else total + sums
+        dims = _pyramid(h, w, num_scales) if plain else scale_dims(h, w, num_scales)
+        return subscores_from_sums(list(total.unbind(1)), dims)
+
+    return sharded
 
 
 def builtin_constants() -> dict:

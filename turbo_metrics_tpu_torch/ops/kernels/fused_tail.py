@@ -20,6 +20,7 @@ from turbo_metrics_tpu_torch.ops.kernels.scale_stats import (
     check_level,
     check_level_consts,
     level_blocks,
+    window,
 )
 from turbo_metrics_tpu_torch.ops.kernels.scale_tail import fused_pyramid_tail_ref
 
@@ -47,7 +48,8 @@ def scratch_floats(bsz: int, h: int, w: int, num_levels: int) -> dict:
 
 
 def fused_tail(
-    p12: torch.Tensor, num_levels: int, taps: torch.Tensor, opsin: torch.Tensor
+    p12: torch.Tensor, num_levels: int, taps: torch.Tensor, opsin: torch.Tensor, *,
+    columns=None,
 ) -> torch.Tensor:
     """Sums of ``num_levels`` pyramid levels, the first being ``p12``, in one
     launch.
@@ -55,14 +57,17 @@ def fused_tail(
     ``p12``: contiguous (2, B, 3, h, w) f32 linear RGB (reference,
     distorted).  Each further level is the edge-replicated 2x2 mean of the one
     before.  Returns (B, num_levels, 3, 6) f32 sums in ``norms_from_sums``
-    order.  A launch that the card refuses raises; nothing falls back.
+    order, over the owned columns ``columns`` of the first level and their
+    ``next_window`` on each next one (scale_stats module docstring).  A
+    launch that the card refuses raises; nothing falls back.
     """
     check_level(p12)
     if not 1 <= num_levels <= 6:
         raise ValueError(f"num_levels must be in [1, 6], got {num_levels}")
     check_level_consts(taps, opsin, p12.device)
+    clo, chi = window(columns, p12.shape[-1])
     if p12.device.type == "cpu":
-        return fused_tail_ref(p12, num_levels, taps, opsin)
+        return fused_tail_ref(p12, num_levels, taps, opsin, columns=columns)
     if p12.device.type != "cuda":
         raise ValueError(f"fused_tail runs on cuda or cpu, not {p12.device}")
     lib = LIBRARY.get()
@@ -77,7 +82,7 @@ def fused_tail(
     with launch_stream(p12.device) as stream:
         check(
             lib.tm_fused_tail(
-                p12.data_ptr(), bsz, h, w, num_levels, taps.data_ptr(), opsin.data_ptr(),
+                p12.data_ptr(), bsz, h, w, clo, chi, num_levels, taps.data_ptr(), opsin.data_ptr(),
                 ptr["xyb_even"], ptr["xyb_odd"], ptr["lvl_a"], ptr["lvl_b"], ptr["parts"],
                 sums.data_ptr(), stream,
             ),

@@ -21,8 +21,15 @@ tensors (``tm_rgb_pair_to_xyb`` + ``tm_level_sums``, twin
 ``fused_scale_pallas`` (v2, scale_stats_legacy.py:367).  Both serve the
 legacy backends of models/ssimulacra2.ssimulacra2_subscores.
 
-The level helpers (``level_sums_ref``, ``norms_from_sums``) are shared with
-kernels 2 and #4.
+The level helpers (``level_sums_ref``, ``norms_from_sums``, ``window``) are
+shared with kernels 2 and #4.
+
+Every level wrapper takes ``columns=(clo, chi)``, the window of owned
+columns whose pixels its sums add (None: the whole width).  A column strip
+of a frame cut with a halo (parallel/mesh.py ``spatial_sharding``) blurs
+and emits every column it holds but sums only its own; where a wrapper runs
+several levels, ``columns`` is the first level's window and each next
+level's is ``next_window`` of it.
 """
 
 from __future__ import annotations
@@ -47,12 +54,30 @@ def norms_from_sums(sums: torch.Tensor, npx: int) -> torch.Tensor:
     return torch.stack([n1, n4], dim=-2)
 
 
-def level_sums_ref(x1: torch.Tensor, x2: torch.Tensor, taps) -> torch.Tensor:
+def window(columns, w: int) -> tuple[int, int]:
+    """The owned columns ``columns`` = (clo, chi) of a level w wide as
+    ints, (0, w) for None; 0 <= clo < chi <= w, else ValueError."""
+    if columns is None:
+        return 0, w
+    clo, chi = (int(c) for c in columns)
+    if not 0 <= clo < chi <= w:
+        raise ValueError(f"columns must satisfy 0 <= lo < hi <= {w}, got {tuple(columns)}")
+    return clo, chi
+
+
+def next_window(clo: int, chi: int) -> tuple[int, int]:
+    """The next level's window: the columns whose 2x2 quads the window
+    covers (lo halved down, hi halved up)."""
+    return clo // 2, (chi + 1) // 2
+
+
+def level_sums_ref(x1: torch.Tensor, x2: torch.Tensor, taps, columns=None) -> torch.Tensor:
     """Plain per-level sums from XYB planes (B, 3, h, w) -> (B, 3, 6) f32.
 
     Blurs the 4 quantities the maps need (x1, x2, (x1-x2)^2, x1*x2: see
     ``ssim_map``), builds the maps and sums (d, d^4, art, art^4, det, det^4)
-    in f64, like the kernel's final reduction.
+    in f64, like the kernel's final reduction, over the owned columns
+    ``columns`` (``window``; every column blurred, the window's summed).
     """
     diff = x1 - x2
     mu1, mu2, sdd, s12 = blur_2d(
@@ -64,6 +89,9 @@ def level_sums_ref(x1: torch.Tensor, x2: torch.Tensor, taps) -> torch.Tensor:
     for m in (d, art, det):
         m2 = m * m
         quantities += [m, m2 * m2]
+    if columns is not None:
+        clo, chi = window(columns, x1.shape[-1])
+        quantities = [q[..., clo:chi] for q in quantities]
     return torch.stack(
         [q.double().sum(dim=(-2, -1)) for q in quantities], dim=-1
     ).float()
@@ -141,7 +169,7 @@ def s2_level_scratch(bsz: int, h: int, w: int, dev):
 
 def fused_scale0_yuv_ref(
     y2, uv2, taps, opsin, *, depth=8, matrix="bt709", transfer="bt709",
-    full_range=False, emit_ds=True, kr_kb=None,
+    full_range=False, emit_ds=True, kr_kb=None, columns=None,
 ):
     """Plain twin of ``fused_scale0_yuv`` (same arguments and results)."""
     lin = colorspace.yuv420_to_linear_rgb(
@@ -149,7 +177,7 @@ def fused_scale0_yuv_ref(
         full_range=full_range, kr_kb=kr_kb,
     )  # (2, B, 3, h, w)
     xyb = linear_rgb_to_xyb(lin, opsin=opsin)
-    sums = level_sums_ref(xyb[0], xyb[1], taps)
+    sums = level_sums_ref(xyb[0], xyb[1], taps, columns)
     return sums, (downscale_by_2(lin) if emit_ds else None)
 
 
@@ -165,22 +193,25 @@ def fused_scale0_yuv(
     full_range: bool = False,
     emit_ds: bool = True,
     kr_kb=None,
+    columns=None,
 ):
     """Scale 0 of the pyramid from YUV 4:2:0 — conversion fused.
 
     ``y2``: (2, B, h, w) luma (reference, distorted), uint8 at 8 bits else
     uint16; ``uv2``: (2, B, ceil(h/2), ceil(w/2), 2) chroma.  ``taps`` and
     ``opsin``: (11,) f32 constants on the same device (the ``Ssimulacra2``
-    module's buffers).  Returns (sums (B, 3, 6) f32, level 1 as contiguous
-    (2, B, 3, ceil(h/2), ceil(w/2)) f32 linear RGB, or None without
-    ``emit_ds``).  Full-resolution linear RGB is never stored.
+    module's buffers).  Returns (sums (B, 3, 6) f32 over the owned columns
+    ``columns`` (module docstring), level 1 as contiguous (2, B, 3,
+    ceil(h/2), ceil(w/2)) f32 linear RGB, or None without ``emit_ds``).
+    Full-resolution linear RGB is never stored.
     """
     check_yuv(y2, uv2, depth, transfer)
     check_level_consts(taps, opsin, y2.device)
+    clo, chi = window(columns, y2.shape[-1])
     if y2.device.type == "cpu":
         return fused_scale0_yuv_ref(
             y2, uv2, taps, opsin, depth=depth, matrix=matrix, transfer=transfer,
-            full_range=full_range, emit_ds=emit_ds, kr_kb=kr_kb,
+            full_range=full_range, emit_ds=emit_ds, kr_kb=kr_kb, columns=columns,
         )
     if y2.device.type != "cuda":
         raise ValueError(f"fused_scale0_yuv runs on cuda or cpu, not {y2.device}")
@@ -207,8 +238,8 @@ def fused_scale0_yuv(
         )
         check(
             lib.tm_level_sums(
-                xyb.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(), 18,
-                stream,
+                xyb.data_ptr(), bsz, h, w, clo, chi, taps.data_ptr(), parts.data_ptr(),
+                sums.data_ptr(), 18, stream,
             ),
             "tm_level_sums",
         )
@@ -219,18 +250,18 @@ def fused_scale0_yuv(
 fused_scale0_yuv.launches = 0
 
 
-def fused_scale_rgb_ref(p12, taps, opsin, *, emit_ds=True):
+def fused_scale_rgb_ref(p12, taps, opsin, *, emit_ds=True, columns=None):
     """Plain twin of ``fused_scale_rgb`` (same arguments and results)."""
     xyb = linear_rgb_to_xyb(p12, opsin=opsin)
-    sums = level_sums_ref(xyb[0], xyb[1], taps)
+    sums = level_sums_ref(xyb[0], xyb[1], taps, columns)
     return sums, (downscale_by_2(p12) if emit_ds else None)
 
 
-def launch_rgb_level(lib, p12, taps, opsin, scratch, sums, sums_bstride, nxt) -> None:
+def launch_rgb_level(lib, p12, taps, opsin, scratch, sums, sums_bstride, nxt, clo, chi) -> None:
     """``tm_rgb_to_xyb`` + ``tm_level_sums`` on one level ``p12`` (2, B, 3,
-    h, w): sums into ``sums[b * sums_bstride + ch * 6 + k]``, the next level
-    into ``nxt`` unless it is None.  ``scratch``: ``s2_level_scratch`` of a
-    level at least this large."""
+    h, w): sums over the columns [clo, chi) into ``sums[b * sums_bstride +
+    ch * 6 + k]``, the next level into ``nxt`` unless it is None.
+    ``scratch``: ``s2_level_scratch`` of a level at least this large."""
     _, bsz, _, h, w = p12.shape
     xyb, parts = scratch
     with launch_stream(p12.device) as stream:
@@ -243,27 +274,30 @@ def launch_rgb_level(lib, p12, taps, opsin, scratch, sums, sums_bstride, nxt) ->
         )
         check(
             lib.tm_level_sums(
-                xyb.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(),
-                sums_bstride, stream,
+                xyb.data_ptr(), bsz, h, w, clo, chi, taps.data_ptr(), parts.data_ptr(),
+                sums.data_ptr(), sums_bstride, stream,
             ),
             "tm_level_sums",
         )
 
 
 def fused_scale_rgb(
-    p12: torch.Tensor, taps: torch.Tensor, opsin: torch.Tensor, *, emit_ds: bool = True
+    p12: torch.Tensor, taps: torch.Tensor, opsin: torch.Tensor, *, emit_ds: bool = True,
+    columns=None,
 ):
     """One pyramid level from linear RGB, the next level emitted.
 
     ``p12``: contiguous (2, B, 3, h, w) f32 linear RGB (reference,
     distorted), e.g. the conversion kernel's pair buffer.  Returns (sums (B,
-    3, 6) f32, the edge-replicated 2x2 mean as (2, B, 3, ceil(h/2),
-    ceil(w/2)) f32, or None without ``emit_ds``).
+    3, 6) f32 over the owned columns ``columns`` (module docstring), the
+    edge-replicated 2x2 mean as (2, B, 3, ceil(h/2), ceil(w/2)) f32, or None
+    without ``emit_ds``).
     """
     check_level(p12)
     check_level_consts(taps, opsin, p12.device)
+    clo, chi = window(columns, p12.shape[-1])
     if p12.device.type == "cpu":
-        return fused_scale_rgb_ref(p12, taps, opsin, emit_ds=emit_ds)
+        return fused_scale_rgb_ref(p12, taps, opsin, emit_ds=emit_ds, columns=columns)
     if p12.device.type != "cuda":
         raise ValueError(f"fused_scale_rgb runs on cuda or cpu, not {p12.device}")
     lib = LIBRARY.get()
@@ -274,7 +308,7 @@ def fused_scale_rgb(
         if emit_ds else None
     )
     sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
-    launch_rgb_level(lib, p12, taps, opsin, s2_level_scratch(bsz, h, w, dev), sums, 18, ds)
+    launch_rgb_level(lib, p12, taps, opsin, s2_level_scratch(bsz, h, w, dev), sums, 18, ds, clo, chi)
     fused_scale_rgb.launches += 1
     return sums, ds
 
@@ -292,15 +326,19 @@ def check_image_pair(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("the two tensors must be contiguous and on one device")
 
 
-def scale_sums(xyb1: torch.Tensor, xyb2: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+def scale_sums(
+    xyb1: torch.Tensor, xyb2: torch.Tensor, taps: torch.Tensor, *, columns=None
+) -> torch.Tensor:
     """One level's sums from the reference's and the distorted image's
     positive-shifted XYB, (B, 3, h, w) f32 each, without stacking them.
-    Returns (B, 3, 6) f32 in ``norms_from_sums`` order."""
+    Returns (B, 3, 6) f32 in ``norms_from_sums`` order, over the owned
+    columns ``columns`` (module docstring)."""
     check_image_pair(xyb1, xyb2)
     if taps.shape != (11,) or taps.dtype != torch.float32 or taps.device != xyb1.device:
         raise ValueError(f"taps must be an (11,) float32 tensor on {xyb1.device}")
+    clo, chi = window(columns, xyb1.shape[-1])
     if xyb1.device.type == "cpu":
-        return level_sums_ref(xyb1, xyb2, taps)
+        return level_sums_ref(xyb1, xyb2, taps, columns)
     if xyb1.device.type != "cuda":
         raise ValueError(f"scale_sums runs on cuda or cpu, not {xyb1.device}")
     lib = LIBRARY.get()
@@ -311,8 +349,8 @@ def scale_sums(xyb1: torch.Tensor, xyb2: torch.Tensor, taps: torch.Tensor) -> to
     with launch_stream(dev) as stream:
         check(
             lib.tm_level_sums_pair(
-                xyb1.data_ptr(), xyb2.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(),
-                sums.data_ptr(), 18, stream,
+                xyb1.data_ptr(), xyb2.data_ptr(), bsz, h, w, clo, chi, taps.data_ptr(),
+                parts.data_ptr(), sums.data_ptr(), 18, stream,
             ),
             "tm_level_sums_pair",
         )
@@ -323,21 +361,26 @@ def scale_sums(xyb1: torch.Tensor, xyb2: torch.Tensor, taps: torch.Tensor) -> to
 scale_sums.launches = 0
 
 
-def fused_scale_pair_ref(lin_ref, lin_dis, taps, opsin):
+def fused_scale_pair_ref(lin_ref, lin_dis, taps, opsin, *, columns=None):
     """Plain twin of ``fused_scale_pair`` (same arguments and result)."""
-    return fused_scale_rgb_ref(torch.stack([lin_ref, lin_dis]), taps, opsin, emit_ds=False)[0]
+    return fused_scale_rgb_ref(
+        torch.stack([lin_ref, lin_dis]), taps, opsin, emit_ds=False, columns=columns
+    )[0]
 
 
 def fused_scale_pair(
-    lin_ref: torch.Tensor, lin_dis: torch.Tensor, taps: torch.Tensor, opsin: torch.Tensor
+    lin_ref: torch.Tensor, lin_dis: torch.Tensor, taps: torch.Tensor, opsin: torch.Tensor, *,
+    columns=None,
 ) -> torch.Tensor:
     """One level's sums from the reference's and the distorted image's
     linear RGB, (B, 3, h, w) f32 each, no next level.  Returns (B, 3, 6) f32
-    in ``norms_from_sums`` order."""
+    in ``norms_from_sums`` order, over the owned columns ``columns`` (module
+    docstring)."""
     check_image_pair(lin_ref, lin_dis)
     check_level_consts(taps, opsin, lin_ref.device)
+    clo, chi = window(columns, lin_ref.shape[-1])
     if lin_ref.device.type == "cpu":
-        return fused_scale_pair_ref(lin_ref, lin_dis, taps, opsin)
+        return fused_scale_pair_ref(lin_ref, lin_dis, taps, opsin, columns=columns)
     if lin_ref.device.type != "cuda":
         raise ValueError(f"fused_scale_pair runs on cuda or cpu, not {lin_ref.device}")
     lib = LIBRARY.get()
@@ -355,8 +398,8 @@ def fused_scale_pair(
         )
         check(
             lib.tm_level_sums(
-                xyb.data_ptr(), bsz, h, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(), 18,
-                stream,
+                xyb.data_ptr(), bsz, h, w, clo, chi, taps.data_ptr(), parts.data_ptr(),
+                sums.data_ptr(), 18, stream,
             ),
             "tm_level_sums",
         )

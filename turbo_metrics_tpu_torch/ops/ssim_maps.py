@@ -45,6 +45,19 @@ def edge_maps(img1, img2, mu1, mu2):
     return torch.clamp_min(d1, 0.0), torch.clamp_min(-d1, 0.0)
 
 
+def plain_maps(img1, img2, mu1, mu2, s11, s22, s12) -> tuple:
+    """The plain chain's (ssim, artifact, detail-loss) maps from its five
+    blurs: the SSIM map as cpu.rs:604-631 writes it, from mu1, mu2 and the
+    blurred products s11, s22, s12, and ``edge_maps``."""
+    mu12 = mu1 * mu2
+    mu_diff = mu1 - mu2
+    num_m = 1.0 - mu_diff * mu_diff
+    num_s = 2.0 * (s12 - mu12) + C2
+    denom_s = (s11 - mu1 * mu1) + (s22 - mu2 * mu2) + C2
+    d = torch.clamp_min((denom_s - num_m * num_s) / denom_s, 0.0)
+    return (d, *edge_maps(img1, img2, mu1, mu2))
+
+
 def scale_norms(
     img1: torch.Tensor,
     img2: torch.Tensor,
@@ -63,18 +76,10 @@ def scale_norms(
     axis -1 is the map (0 = ssim, 1 = artifact, 2 = detail-loss) — the flat
     weight order of the final score (examples/cpu.rs:843-854).
     """
-    mu12 = mu1 * mu2
-    mu_diff = mu1 - mu2
-    num_m = 1.0 - mu_diff * mu_diff
-    num_s = 2.0 * (s12 - mu12) + C2
-    denom_s = (s11 - mu1 * mu1) + (s22 - mu2 * mu2) + C2
-    d = torch.clamp_min((denom_s - num_m * num_s) / denom_s, 0.0)
-    artifact, detail_lost = edge_maps(img1, img2, mu1, mu2)
-
     def norms(m):
         n1 = torch.mean(m, dim=(-2, -1))
         m2 = m * m
         n4 = torch.sqrt(torch.sqrt(torch.mean(m2 * m2, dim=(-2, -1))))
         return torch.stack([n1, n4], dim=-1)  # (..., C, 2)
 
-    return torch.stack([norms(d), norms(artifact), norms(detail_lost)], dim=-1)
+    return torch.stack([norms(m) for m in plain_maps(img1, img2, mu1, mu2, s11, s22, s12)], dim=-1)

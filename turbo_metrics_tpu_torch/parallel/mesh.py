@@ -14,20 +14,38 @@ A mesh may repeat a device.  On the CPU repeats take the place of the JAX
 package's virtual host devices; on one card two shards on ``cuda:0`` run on
 two streams of it.
 
-Width sharding (the JAX package's ``spatial_sharding`` and
-``shard_over_width``, which split one frame's columns over the devices) is
-not here yet.  Those rely on XLA's SPMD partitioner to insert the halo
-exchanges the separable blurs need into any function; PyTorch has no such
-partitioner, so the port's counterpart has to be written into the kernels:
-column strips that start on even columns, a halo of 5 columns per level
-copied between devices, and a window of owned columns in the level kernels'
-sums (csrc/ssimulacra2_level.cuh).
+Width sharding (``spatial_sharding``, ``split_columns``, ``shard_over_width``:
+the JAX package's counterparts split one frame's columns over the devices)
+is written into SSIMULACRA2's level kernels, since PyTorch has no SPMD
+partitioner to insert the blurs' halo exchanges into any function.  This
+module plans and cuts the strips; models/ssimulacra2.py
+``subscores_width_sharded`` (``shard_over_width`` here) runs them and adds
+their sums.  Each strip is cut once, at upload, with a halo wide enough for
+every level, and nothing passes between devices until the strips' sums are
+added:
+  * the strips' owned edges sit on multiples of A = 2^(S-1) for S levels,
+    so every 2x2 quad of every level inside a strip is the frame's quad and
+    every level's linear RGB and XYB in the strip equal the frame's, bit
+    for bit (kernel 1 takes one chroma pair per quad: A >= 2 with chroma);
+  * only the 11-tap blur sees a strip's inner edge, within 5 columns of it
+    on each level; a halo of H = 5 * 2^(S-1) level-0 columns on each side
+    (clipped at the frame's edges) leaves at least 5 real columns beyond
+    the owned ones on every level, so every owned pixel's maps are the
+    unsharded frame's, bit for bit;
+  * the level kernels sum only the owned window (``columns=`` of
+    models/ssimulacra2.py's level sums and the level wrappers), and the
+    strips' (B, S, 3, 6) sums add in f64; only the grouping of the sums
+    changes.
+The halo costs (w + 2 H (n - 1)) / w of the columns: 1.042 over 2 strips
+and 1.125 over 4 at 7680 columns with six levels.  A per-level exchange of
+5-column halos between devices would break kernel 2 and #4, which run
+several levels in one launch.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -108,7 +126,7 @@ def frames_per_shard(n: int, mesh: Mesh) -> int:
     return n // mesh.size
 
 
-def _upload(chunk, dev: torch.device) -> torch.Tensor:
+def upload(chunk, dev: torch.device) -> torch.Tensor:
     if isinstance(chunk, np.ndarray):
         chunk = torch.from_numpy(np.ascontiguousarray(chunk))
     return chunk.to(dev)
@@ -119,7 +137,7 @@ def split_frames(t, mesh: Mesh) -> list:
     k on ``mesh.devices[k]``: the counterpart of the JAX package's
     ``frame_sharding``.  The leading dim must split evenly."""
     per = frames_per_shard(t.shape[0], mesh)
-    return [_upload(t[k * per:(k + 1) * per], d) for k, d in enumerate(mesh.devices)]
+    return [upload(t[k * per:(k + 1) * per], d) for k, d in enumerate(mesh.devices)]
 
 
 def launch_shards(fn: Callable, mesh: Mesh) -> list:
@@ -212,7 +230,7 @@ def shard_over_frames(fn: Callable, mesh: Mesh, *, in_ndims: Sequence[int]):
             raise ValueError(f"inputs differ in their leading dim: {[a.shape[0] for a in args]}")
         per = frames_per_shard(n, mesh)
         outs = launch_shards(
-            lambda k, dev: fn(*(_upload(a[k * per:(k + 1) * per], dev) for a in args)), mesh
+            lambda k, dev: fn(*(upload(a[k * per:(k + 1) * per], dev) for a in args)), mesh
         )
         return gather_frames(outs, mesh, per)
 
@@ -229,3 +247,124 @@ def pad_batch_to_mesh(arr: np.ndarray, mesh: Mesh) -> tuple[np.ndarray, int]:
     if pad:
         arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)], axis=0)
     return arr, n
+
+
+# ---------------------------------------------------------------------------
+# Width sharding: one frame's columns over the mesh (module docstring).
+# ---------------------------------------------------------------------------
+
+RADIUS = 5  # the SSIMULACRA2 blur's radius (ops/gaussian.py RADIUS)
+
+
+class Strip(NamedTuple):
+    """One strip of a frame's columns: ``lo``/``hi`` its level-0 columns of
+    the frame, halo included; ``own_lo``/``own_hi`` the window of columns
+    it owns, strip-local (columns ``lo + own_lo`` .. ``lo + own_hi`` of the
+    frame)."""
+
+    lo: int
+    hi: int
+    own_lo: int
+    own_hi: int
+
+    @property
+    def width(self) -> int:
+        return self.hi - self.lo
+
+    @property
+    def columns(self) -> tuple:
+        return self.own_lo, self.own_hi
+
+
+def strip_alignment(num_scales: int, chroma: bool = False) -> int:
+    """A = 2^(S-1): the multiple that every owned edge and every cut sits on,
+    at least 2 for 4:2:0 chroma (whole chroma samples)."""
+    a = 1 << max(int(num_scales) - 1, 0)
+    return max(a, 2) if chroma else a
+
+
+def strip_halo(num_scales: int, chroma: bool = False) -> int:
+    """H: the halo of level-0 columns on each side of a strip, 5 * 2^(S-1)
+    rounded up to the alignment (it is a multiple of it but at one level
+    with chroma, 6 there)."""
+    a = strip_alignment(num_scales, chroma)
+    return -(-RADIUS * (1 << max(int(num_scales) - 1, 0)) // a) * a
+
+
+def spatial_sharding(mesh: Mesh, w: int, *, num_scales: int, chroma: bool = False) -> tuple:
+    """The column strips of a w wide frame over ``mesh``, one ``Strip`` per
+    mesh entry (the counterpart of the JAX package's ``spatial_sharding``).
+    The owned widths are as even as the alignment A allows, each a multiple
+    of A but the last, which ends at ``w`` (odd widths included); each
+    strip's cut adds ``strip_halo`` columns on either side, clipped at the
+    frame's edges.  ``ValueError`` where a strip would own fewer than A
+    columns."""
+    n = mesh.size
+    a = strip_alignment(num_scales, chroma)
+    halo = strip_halo(num_scales, chroma)
+    if num_scales < 1 or w < n * a:
+        raise ValueError(
+            f"a {w}-column frame does not split over {n} strips of {num_scales} levels: each strip "
+            f"owns at least {a} columns (owned edges on multiples of {a}), so the width must be at "
+            f"least {n * a}"
+        )
+    units, rem = divmod(w // a, n)
+    edges = [0]
+    for k in range(n):
+        edges.append(edges[-1] + a * (units + (k < rem)))
+    edges[-1] = w
+    plan = []
+    for own_lo, own_hi in zip(edges, edges[1:]):
+        lo, hi = max(0, own_lo - halo), min(w, own_hi + halo)
+        plan.append(Strip(lo, hi, own_lo - lo, own_hi - lo))
+    return tuple(plan)
+
+
+def halo_overhead(plan: Sequence[Strip]) -> float:
+    """The columns that the strips hold over the frame's own."""
+    return sum(s.width for s in plan) / plan[-1].hi
+
+
+def _columns(t, strip: Strip, chroma: bool):
+    """Strip ``strip``'s columns of ``t`` (a tensor or a numpy array), a
+    view: the last dim's [lo, hi), or for 4:2:0 chroma (..., cw, 2) the
+    chroma columns [lo/2, ceil(hi/2))."""
+    if chroma:
+        return t[..., strip.lo // 2:(strip.hi + 1) // 2, :]
+    return t[..., strip.lo:strip.hi]
+
+
+def _cut(t, strip: Strip, chroma: bool):
+    """``_columns``, contiguous."""
+    part = _columns(t, strip, chroma)
+    if isinstance(part, np.ndarray):
+        return np.ascontiguousarray(part)
+    return part.contiguous()
+
+
+def split_columns(t, plan: Sequence[Strip], mesh: Mesh, *, chroma: bool = False) -> list:
+    """Strip k's columns of every plane of ``t`` on ``mesh.devices[k]``, each
+    a contiguous copy (``chroma``: a (2, B, ch, cw, 2) 4:2:0 chroma tensor,
+    cut at [lo/2, ceil(hi/2))).  The copies come from ``t`` itself: nothing
+    passes between the strips' devices."""
+    return [upload(_cut(t, s, chroma), d) for s, d in zip(plan, mesh.devices)]
+
+
+def strip_input(t, strip: Strip, dev, *, chroma: bool = False, view: bool = False):
+    """Strip ``strip``'s columns of one input on ``dev``: with ``view``, a
+    view where ``t`` already lies there; else ``split_columns``' contiguous
+    cut, uploaded there."""
+    if view and isinstance(t, torch.Tensor) and t.device == dev:
+        return _columns(t, strip, chroma)
+    return upload(_cut(t, strip, chroma), dev)
+
+
+def shard_over_width(fn: Callable, mesh: Mesh, *, in_ndims: Sequence[int]):
+    """``fn`` with one frame's columns split over the mesh: the JAX
+    package's name for SSIMULACRA2's width sharding,
+    models/ssimulacra2.py ``subscores_width_sharded`` (``fn`` is its
+    ``ssimulacra2_subscores`` or ``ssimulacra2_subscores_from_yuv``; any
+    other raises ``TypeError``)."""
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import subscores_width_sharded
+
+    return subscores_width_sharded(fn, mesh, in_ndims=in_ndims)

@@ -36,8 +36,10 @@ import sys
 import numpy as np
 import torch
 
-# The dissect probes whose results are saved: SSIM's, VIF's and ADM's levels.
-WRAPPERS = ("ssim_sums", "msssim_tail", "vif_scale0", "vif_tail", "adm_stats")
+# The dissect probes whose results are saved: SSIMULACRA2's level kernels
+# (kernel 1, #3, kernel 2, #8, #10) and SSIM's, VIF's and ADM's levels.
+WRAPPERS = ("fused_scale0_yuv", "fused_scale_rgb", "fused_pyramid_tail", "scale_sums", "fused_scale_pair",
+            "ssim_sums", "msssim_tail", "vif_scale0", "vif_tail", "adm_stats")
 
 
 def own_calls(batch: int, height: int, width: int, dev) -> list:
@@ -49,14 +51,15 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     shape and on 10-bit and int32 luma codes at an odd size (blurred planes
     and row SADs) and #17 on one frame, #4 on three levels of a linear-RGB pair at a
     quarter of the given shape (at 1080p the 4K level 3, 270x480) and on
-    five levels from 67x99, XPSNR's #13 (its three grids) on u8 luma
+    five levels from 67x99, kernel 1 (8-bit 4:2:0), #3 and kernel 2 (five
+    levels) at 67x99, XPSNR's #13 (its three grids) on u8 luma
     and on a 10-bit reference against 8-bit luma at the given shape and on
     10-bit luma at an odd size, and the fixed-point K-int-VIF and K-int-ADM
     on u8 and 10-bit u16 luma pairs at the given shape, on 12-bit u16 and
     10-bit int32 pairs at 67x99 and on u8 and int32 pairs read at 10 bits
     at 96x128 (int_calls)."""
     from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
-    from turbo_metrics_tpu_torch.ops.kernels import adm, convert, fused_tail, motion, xpsnr
+    from turbo_metrics_tpu_torch.ops.kernels import adm, convert, fused_tail, motion, scale_stats, scale_tail, xpsnr
 
     rng = np.random.default_rng(9)
 
@@ -99,6 +102,10 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
         (f"#4 tail 3 levels from {width // 4}x{height // 4}", "fused_tail",
          lambda: fused_tail.fused_tail(p4k, 3, m.taps, m.opsin)),
         ("#4 tail 5 levels from 99x67", "fused_tail", lambda: fused_tail.fused_tail(p67, 5, m.taps, m.opsin)),
+        ("kernel 1 99x67", "fused_scale0_yuv", lambda: scale_stats.fused_scale0_yuv(y8o, uv8o, m.taps, m.opsin)),
+        ("#3 99x67", "fused_scale_rgb", lambda: scale_stats.fused_scale_rgb(p67, m.taps, m.opsin)),
+        ("kernel 2 5 levels from 99x67", "fused_pyramid_tail",
+         lambda: scale_tail.fused_pyramid_tail(p67, 5, m.taps, m.opsin)),
     ]
     calls += [
         (f"#6 conversion {width}x{height}", "yuv420_to_linear_rgb_pair",
