@@ -235,7 +235,32 @@ Phases, each fatal on failure (exit code 1):
      call inside device_trace: the streams and whether #4's grids (each
      sized to the whole card) overlapped; (e) the kernels line's entries of
      kernels 1, 2, #3 and #4 carry (b)'s largest difference
-     ("windowed_max_abs_err").
+     ("windowed_max_abs_err");
+  11. width sharding of PSNR, SSIM, MS-SSIM and XPSNR (shard_over_width of
+     ops/quality.quality_from_rgb and ops/kernels/xpsnr.xpsnr_block_stats):
+     (a) a seeded 7680x4320 B=1 linear-RGB pair buffer through
+     quality_from_rgb (PSNR, SSIM, MS-SSIM at five levels: owned edges on
+     multiples of 16, a halo of 80 columns) unsharded, then over 2, 4 and
+     8 column strips of card 0, each strip on its own stream, counters
+     reset just before and read just after each run: PSNR bit-equal, SSIM
+     and MS-SSIM within 1e-6 (tests/test_parallel.py's score bar), #11
+     and #12 launched once per strip; (b) a seeded 8K u8 luma pair and a
+     10-bit u16 reference against 8-bit luma (dis_shift 2) through #13
+     over the same strips (owned edges on multiples of 16, one block of
+     halo): every grid and the XPSNR in dB bit-equal, #13 launched once per
+     strip; (c) #11 (quantizing and not) and #12 with windows of owned
+     columns that cut 32-column tiles mid-way (67x99, a 1080p level, an odd
+     8K strip 4320x2081) against their twins at phase 5a's bars (sums rtol
+     1e-5, the emitted level equal), and the full window bit-equal to no
+     window; (d) (a) and (b) from host copies of the inputs: one strip per
+     card with several cards, else two strips of the one card and a line
+     saying that the cross-device path went unexercised; (e) one call of
+     each entry unsharded and over 2, 4 and 8 strips by CUDA events
+     (unsharded, 2, 4, 8, 8, 4, 2, unsharded) with each call's peak device
+     memory (allocated, and reserved from an emptied cache); (f) the
+     kernels line's entries of #11 and #12 carry (c)'s largest difference
+     ("windowed_max_abs_err"), #13's whether the sharded grids were equal
+     ("sharded_grids_equal").
 Prints the card, the dissect tool's JSON line, then one JSON line of
 per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -2927,6 +2952,262 @@ def run_width_phase(dev, model, card: str) -> dict:
     return {"runs": runs, "window_err": errs, "times": times}
 
 
+# Phase 11: width sharding of PSNR, SSIM, MS-SSIM and XPSNR.  The 8K frame
+# of phase 10 (B=1) over the same strips of card 0, each on its own stream;
+# tests/test_parallel.py's score bar for SSIM and MS-SSIM, PSNR and XPSNR
+# bit for bit.
+METRIC_TOL = 1e-6
+# Phase 5a's bars for #11 / #12 against their twins.
+SSIM_SUMS_RTOL = 1e-5
+# Windows of owned columns whose valid outputs start and end inside 32-column
+# tiles (11c): (what, h, w, level-0 window, batch).
+SSIM_WINDOW_CASES = (("67x99", 67, 99, (13, 77), 2), ("1080p level", HEIGHT, WIDTH, (45, 1301), 2),
+                     ("odd 8K strip", WIDE_HEIGHT, 2081, (160, 2081), 1))
+
+
+def wide_metric_inputs(dev, seed: int = 19):
+    """Phase 11's seeded 7680x4320 B=1 inputs, made on the card: the
+    linear-RGB pair buffer (2, 1, 3, h, w) of phase 10's pair, and per
+    XPSNR case (what, y_ref, y_dis, prev0, dis_shift): u8 luma (noise on a
+    smooth base, the distorted copy within +-6, the previous reference
+    shifted), and a 10-bit u16 reference against the 8-bit distorted
+    luma."""
+    (ref, dis), _ = wide_pairs(dev)
+    p12 = torch.stack([ref, dis]).contiguous()
+    del ref, dis
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = WIDE_HEIGHT, WIDE_WIDTH
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    base = 128 + 70 * torch.sin(xx / 9.0) * torch.cos(yy / 7.0)
+    y8 = (base + 3 * torch.randn((1, h, w), device=dev, generator=g)).round().clamp(0, 255)
+    d8 = (y8 + torch.randint(-6, 7, y8.shape, device=dev, generator=g)).clamp(0, 255)
+    prev8 = torch.roll(y8[0], 3, dims=1)
+    y10 = y8 * 4 + torch.randint(0, 4, y8.shape, device=dev, generator=g)
+    prev10 = torch.roll(y10[0], 3, dims=1)
+
+    def u8(t):
+        return t.to(torch.uint8).contiguous()
+
+    def u16(t):
+        return t.to(torch.int32).to(torch.uint16).contiguous()
+
+    return p12, (("u8", u8(y8), u8(d8), u8(prev8), 0),
+                 ("10-bit u16 vs 8-bit", u16(y10), u8(d8), u16(prev10), 2))
+
+
+def metric_entries(qmod, p12, xp_cases):
+    """(entry, function, inputs, in_ndims, what it launches per strip) of
+    phase 11's entries: quality_from_rgb with PSNR, SSIM and MS-SSIM, and
+    the kernel route's xpsnr_block_stats per XPSNR case."""
+    import functools
+
+    from turbo_metrics_tpu_torch.ops.kernels.xpsnr import xpsnr_block_stats
+    from turbo_metrics_tpu_torch.ops.quality import quality_from_rgb
+
+    f_q = functools.partial(quality_from_rgb, window=qmod.window, want_psnr=True, want_ssim=True,
+                            want_msssim=True, levels=MS_LEVELS, c1=qmod.c1, c2=qmod.c2,
+                            weights=qmod.msssim_weights)
+    out = [("PSNR/SSIM/MS-SSIM", f_q, (p12,), (5,), {"ssim_sums": 1, "msssim_tail": 1})]
+    for what, y_ref, y_dis, prev0, shift in xp_cases:
+        out.append((f"XPSNR {what}", functools.partial(xpsnr_block_stats, dis_shift=shift),
+                    (y_ref, y_dis, prev0), (3, 3, 2), {"xpsnr_block_stats": 1}))
+    return out
+
+
+def metric_plan(fn, mesh, w: int):
+    """The strips shard_over_width cuts for ``fn`` (phase 11's entries)."""
+    from turbo_metrics_tpu_torch.ops import quality
+    from turbo_metrics_tpu_torch.parallel.mesh import spatial_sharding
+
+    if fn.func is quality.quality_from_rgb:
+        lv, _ = quality._clamp_levels(WIDE_HEIGHT, w, MS_LEVELS)
+        return spatial_sharding(mesh, w, num_scales=lv)
+    return spatial_sharding(mesh, w, alignment=16, halo=16)
+
+
+def xpsnr_db_of(grids: dict, depth: int) -> list:
+    from turbo_metrics_tpu_torch.ops.xpsnr_ops import frames_db
+
+    return [float(v) for v in frames_db({k: v.cpu() for k, v in grids.items()}, width=WIDE_WIDTH,
+                                        height=WIDE_HEIGHT, depth=depth)]
+
+
+def check_metric_outputs(what: str, entry: str, got: dict, want: dict, depth: int) -> dict:
+    """Phase 11 (a)/(b): PSNR, the XPSNR grids and dB bit-equal, SSIM and
+    MS-SSIM within METRIC_TOL; returns each output's largest difference."""
+    need(list(got) == list(want), f"{what}: outputs {list(got)}, want {list(want)}")
+    diffs = {}
+    for k, v in want.items():
+        g = got[k].to(v.device)
+        need(g.shape == v.shape and g.dtype == v.dtype, f"{what}: {k} {tuple(g.shape)} {g.dtype}")
+        diffs[k] = float((g.double() - v.double()).abs().max())
+        if k in ("ssim", "msssim"):
+            need(bool(torch.isfinite(g).all()) and diffs[k] <= METRIC_TOL,
+                 f"{what}: {k} {g.tolist()} vs unsharded {v.tolist()} (bar {METRIC_TOL})")
+        else:
+            need(torch.equal(g, v), f"{what}: {k} differs from the unsharded call's, max |diff| {diffs[k]:.3g}")
+    if entry.startswith("XPSNR"):
+        db, want_db = xpsnr_db_of(got, depth), xpsnr_db_of(want, depth)
+        need(db == want_db, f"{what}: XPSNR {db} dB vs unsharded {want_db}")
+        diffs["xpsnr_db"] = db[0]
+    return diffs
+
+
+def run_metric_configs(qmod, p12, xp_cases, mesh_of, card: str, label: str, strips=WIDTH_STRIPS,
+                       host: bool = False, tag: str = "(11a/b)") -> dict:
+    """Phase 11 (a), (b) (and (d)): each entry unsharded on the card's
+    inputs, then over each mesh of ``mesh_of(n)`` for n in ``strips``
+    (``host``: the sharded calls take host copies of the inputs), counters
+    reset just before and read just after each run.  Returns {(entry, n):
+    each output's largest difference}."""
+    from turbo_metrics_tpu_torch.parallel.mesh import halo_overhead, shard_over_width
+
+    out = {}
+    depths = {f"XPSNR {c[0]}": 10 if c[4] else 8 for c in xp_cases}
+    for entry, fn, args, ndims, per_strip in metric_entries(qmod, p12, xp_cases):
+        shard_args = tuple(t.cpu() for t in args) if host else args
+        reset_counts()
+        want = fn(*args)
+        single = {k: v for k, v in read_counts().items() if v}
+        need(single == per_strip, f"{tag} {entry} unsharded: launches {single}, want {per_strip}")
+        shown = {k: [round(x, 7) for x in v.tolist()] for k, v in want.items() if v.ndim == 1}
+        log(f"{tag} {entry} {WIDE_WIDTH}x{WIDE_HEIGHT} B=1 unsharded: {shown or 'grids'}"
+            + (f", XPSNR {xpsnr_db_of(want, depths[entry])[0]!r} dB" if entry in depths else "")
+            + f", launches {single} [{card}]")
+        for n in strips:
+            mesh = mesh_of(n)
+            plan = metric_plan(fn, mesh, WIDE_WIDTH)
+            reset_counts()
+            got = shard_over_width(fn, mesh, in_ndims=ndims)(*shard_args)
+            launches = {k: v for k, v in read_counts().items() if v}
+            what = f"{tag} {label}: {entry} over {n} strips"
+            need(all(v.device == mesh.devices[0] for v in got.values()), f"{what}: not on {mesh.devices[0]}")
+            diffs = check_metric_outputs(what, entry, got, want, depths.get(entry, 8))
+            expect = {k: v * n for k, v in per_strip.items()}
+            need(launches == expect, f"{what}: launches {launches}, want {expect} (once per strip)")
+            log(f"{what} ({', '.join(f'[{s.lo}, {s.hi}) owns {s.own_hi - s.own_lo}' for s in plan)}; halo "
+                f"overhead {halo_overhead(plan):.4f}): max |diff| "
+                + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items() if k != "xpsnr_db")
+                + ("; grids and dB bit-equal" if entry in depths else "; PSNR bit-equal")
+                + f"; launches {launches} [{card}]")
+            out[(entry, n)] = diffs
+    return out
+
+
+def check_ssim_windows(dev, win, card: str) -> dict:
+    """Phase 11 (c): #11 (quantizing a linear-RGB pair, and on code values)
+    and #12 (four levels from the emitted level, three at 67x99) with windows
+    of owned columns that cut tiles mid-way (SSIM_WINDOW_CASES) against
+    their twins on the same inputs, sums at phase 5a's bars, the emitted
+    level equal; and each with the full window bit-equal to no window.
+    Returns each wrapper's largest difference."""
+    from turbo_metrics_tpu_torch.ops.kernels import windowed, windowed_tail
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    errs = {"ssim_sums": 0.0, "msssim_tail": 0.0}
+    for what, h, w, win_cols, b in SSIM_WINDOW_CASES:
+        lin = torch.rand((2, b, 3, h, w), device=dev, generator=g)
+        noise = torch.randint(-20, 21, (b, 3, h, w), device=dev, generator=g)
+        ref = torch.randint(0, 256, (b, 3, h, w), device=dev, generator=g)
+        codes = torch.stack([ref, (ref + noise).clamp(0, 255)]).float().contiguous()
+        line = []
+        for name, p, quantize in (("quantize", lin, True), ("codes", codes, False)):
+            kw = dict(quantize=quantize, emit_ds=True)
+            s_k, d_k = windowed.ssim_sums(p, win, **kw, columns=win_cols)
+            s_p, d_p = windowed.ssim_sums_ref(p, win, **kw, columns=win_cols)
+            e = check_close(f"(11c) #11 {name} {what} window {win_cols}", s_k, s_p, SSIM_SUMS_RTOL, 0.0)
+            need(torch.equal(d_k, d_p), f"(11c) #11 {name} {what}: the emitted level differs from the twin's")
+            full = windowed.ssim_sums(p, win, **kw, columns=(0, w))
+            plain = windowed.ssim_sums(p, win, **kw)
+            need(torch.equal(full[0], plain[0]) and torch.equal(full[1], plain[1]),
+                 f"(11c) #11 {name} {what}: the full window differs from no window")
+            errs["ssim_sums"] = max(errs["ssim_sums"], e)
+            rel = float(((s_k - s_p).abs() / s_p.abs()).max())
+            line.append(f"#11 {name} max abs {e:.3g} rel {rel:.3g}")
+        l1 = d_p
+        lv = 1  # #12's levels from level 1: as many as fit, at most MS-SSIM's four
+        while min(l1.shape[-2:]) >> lv >= 11 and lv < MS_LEVELS - 1:
+            lv += 1
+        cols1 = (win_cols[0] // 2, win_cols[1] // 2)
+        t_k = windowed_tail.msssim_tail(l1, lv, win, columns=cols1)
+        t_p = windowed_tail.msssim_tail_ref(l1, lv, win, columns=cols1)
+        e = check_close(f"(11c) #12 {what} {lv} levels window {cols1}", t_k, t_p, SSIM_SUMS_RTOL, 0.0)
+        need(torch.equal(windowed_tail.msssim_tail(l1, lv, win, columns=(0, l1.shape[-1])),
+                         windowed_tail.msssim_tail(l1, lv, win)),
+             f"(11c) #12 {what}: the full window differs from no window")
+        errs["msssim_tail"] = max(errs["msssim_tail"], e)
+        rel = float(((t_k - t_p).abs() / t_p.abs()).max())
+        line.append(f"#12 {lv} levels from {l1.shape[-1]}x{l1.shape[-2]} window {cols1} max abs {e:.3g} rel {rel:.3g}")
+        log(f"(11c) windowed kernels vs twins, {what} (B={b}, window {win_cols}): " + "; ".join(line)
+            + f"; full windows bit-equal to none [{card}]")
+        del lin, codes, ref, noise
+    return errs
+
+
+def time_metrics(qmod, p12, xp_cases, mesh_of, card: str) -> dict:
+    """Phase 11 (e): one call of each entry unsharded and over each strip
+    count of WIDTH_STRIPS on card 0, by CUDA events (unsharded, 2, 4, 8, 8,
+    4, 2, unsharded), and each call's peak device memory above its inputs
+    (allocated, and reserved from an emptied cache)."""
+    from turbo_metrics_tpu_torch.parallel.mesh import shard_over_width
+    from turbo_metrics_tpu_torch.utils.profiling import time_ms
+
+    out = {}
+    dev = p12.device
+    for entry, fn, args, ndims, _ in metric_entries(qmod, p12, xp_cases):
+        calls = {"unsharded": lambda f=fn, a=args: f(*a)}
+        for n in WIDTH_STRIPS:
+            calls[f"{n} strips"] = (lambda s=shard_over_width(fn, mesh_of(n), in_ndims=ndims), a=args: s(*a))
+        times = {k: [] for k in calls}
+        for k in (*calls, *reversed(calls)):
+            times[k].append(time_ms(calls[k], 5, dev))
+        peaks = {k: step_peak_mib(c, dev) for k, c in calls.items()}
+        reserved = {k: peak_reserved_mib(c, dev) for k, c in calls.items()}
+        for k in calls:
+            log(f"(11e) {entry} {WIDE_WIDTH}x{WIDE_HEIGHT} B=1, {k}: " + " / ".join(f"{t:.4f}" for t in times[k])
+                + f" ms (CUDA events, one call), peak device memory above its inputs {peaks[k]:.1f} MiB "
+                f"allocated, {reserved[k]:.1f} MiB reserved by the caching allocator [{card}]")
+        out[entry] = {"ms": times, "peak_mib": peaks, "reserved_mib": reserved}
+    return out
+
+
+def run_metric_cards(qmod, p12, xp_cases, card: str) -> dict:
+    """Phase 11 (d): (a) and (b) from host copies of the inputs, which each
+    strip cuts and uploads to its card, against the unsharded run on card
+    0's tensors: one strip per card where there are several, else two
+    strips of the one card."""
+    from turbo_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    every = torch.cuda.device_count()
+    if every < 2:
+        runs = run_metric_configs(qmod, p12, xp_cases, lambda n: make_mesh(n, device="cuda:0"), card,
+                                  "strips of cuda:0 (host inputs)", strips=(2,), host=True, tag="(11d)")
+        log("(11d) one card: host inputs over its strips checked; the cross-device path (one strip per "
+            "card) went unexercised")
+        return {("host", *k): v for k, v in runs.items()}
+    strips = sorted({min(n, every) for n in WIDTH_STRIPS})
+    runs = run_metric_configs(qmod, p12, xp_cases, lambda n: make_mesh(n), card,
+                              "one strip per card (host inputs)", strips=strips, host=True, tag="(11d)")
+    return {("cards", *k): v for k, v in runs.items()}
+
+
+def run_metric_width_phase(dev, qmod, card: str) -> dict:
+    """Phase 11: (a)/(b) every entry over 2, 4 and 8 strips of card 0, (c)
+    the windowed #11 and #12 against their twins, (d) host inputs (every
+    card where there are several), (e) the times and the peak memory."""
+    from turbo_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    card0 = f"cuda:{dev.index or 0}"
+    errs = check_ssim_windows(dev, qmod.window, card)
+    p12, xp_cases = wide_metric_inputs(dev)
+    runs = run_metric_configs(qmod, p12, xp_cases, lambda n: make_mesh(n, device=card0), card,
+                              f"strips of {card0}")
+    runs.update(run_metric_cards(qmod, p12, xp_cases, card))
+    times = time_metrics(qmod, p12, xp_cases, lambda n: make_mesh(n, device=card0), card)
+    return {"runs": runs, "window_err": errs, "times": times}
+
+
 def main() -> int:
     try:
         from turbo_metrics_tpu_torch.models.ssimulacra2 import (
@@ -3199,6 +3480,7 @@ def main() -> int:
         dissect, dissect_launches = run_dissect_path(card)
         run_mesh_phase(dev, card)
         width = run_width_phase(dev, Ssimulacra2(WIDE_WIDTH, WIDE_HEIGHT, device=dev), card)
+        metric_width = run_metric_width_phase(dev, qmod, card)
 
     mpx = WIDTH * HEIGHT / 1e6
     for name, runs in (
@@ -3375,6 +3657,12 @@ def main() -> int:
             # Kernels 1, 2, #3 and #4 with a window of owned columns that
             # cuts tiles mid-way, against their twins (phase 10b).
             kernels[-1]["windowed_max_abs_err"] = width["window_err"][name]
+        if name in metric_width["window_err"]:
+            # #11 and #12 likewise (phase 11c).
+            kernels[-1]["windowed_max_abs_err"] = metric_width["window_err"][name]
+        if name == "xpsnr_block_stats":
+            # Phase 11 (b) and (d) stop the run where a strip's grids differ.
+            kernels[-1]["sharded_grids_equal"] = True
     for name, src_file, ports, err, ms, pms, nb, (i_ops, f_ops), dms in int_rows:
         bound_ms, bound_by = bound(nb, 0.0, issue=mixed_ops_ms(i_ops, f_ops))
         unfolded = ""

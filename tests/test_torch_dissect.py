@@ -447,7 +447,8 @@ def test_level_outputs_own_calls_run_on_cpu():
     4:2:2 10-bit and 4:4:4 12-bit PQ, #16 on 8-bit, 10-bit (at an odd size
     and at the given shape) and int32 luma, #17 on one frame, #4 on three
     and five levels, kernel 1, #3 and kernel 2 (five levels) at 67x99, #13
-    on u8, 10-bit against 8-bit and 10-bit luma, and
+    on u8, 10-bit against 8-bit and 10-bit luma, #11 and #12 with windows of
+    owned columns, and
     the fixed-point VIF and ADM: sums, and per scale and per level the
     integer surfaces, on u8 and 10-bit u16 pairs at the given shape and
     12-bit u16 and 10-bit int32 pairs at 67x99) build their inputs from a
@@ -464,7 +465,7 @@ def test_level_outputs_own_calls_run_on_cpu():
     assert {w for _, w, _ in calls} == {"adm_stats", "yuv420_to_linear_rgb_pair", "yuv_to_linear_rgb",
                                         "motion_stats", "integer_blur", "fused_tail", "xpsnr_block_stats",
                                         "integer_vif_stats", "integer_adm_stats", "fused_scale0_yuv",
-                                        "fused_scale_rgb", "fused_pyramid_tail"}
+                                        "fused_scale_rgb", "fused_pyramid_tail", "ssim_sums", "msssim_tail"}
     int_shapes = {}
     for what, (b, h, w) in (("u8 64x48", (1, 48, 64)), ("10-bit u16 64x48", (1, 48, 64)),
                             ("12-bit u16 99x67", (2, 67, 99)), ("10-bit int32 99x67", (2, 67, 99)),
@@ -497,6 +498,10 @@ def test_level_outputs_own_calls_run_on_cpu():
         "#13 XPSNR u8 64x48": ((1, 3, 4),) * 3,
         "#13 XPSNR 10-bit vs 8-bit 64x48": ((1, 3, 4),) * 3,
         "#13 XPSNR 10-bit 131x35": ((3, 3, 9),) * 3,
+        "#11 window (13, 77) quantize 99x67": ((2, 3, 2), (2, 2, 3, 33, 49)),
+        "#11 window (45, 63) 64x48": ((1, 3, 2), (2, 1, 3, 24, 32)),
+        "#12 window (13, 77) 3 levels from 99x67": (2, 3, 3, 2),
+        "#12 window (1, 31) 2 levels from 32x24": (1, 2, 3, 2),
     }
 
 

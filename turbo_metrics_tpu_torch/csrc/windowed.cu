@@ -25,6 +25,16 @@
 // map, the per-32x8-tile partials and the emission of the next level), then
 // the f64 reduction of the partials (level.cuh reduce_parts_kernel).
 //
+// Only a window [clo, chi) of the valid grid's columns adds to the sums (0
+// and w-10: all of them).  A column strip of a frame cut with a halo
+// (parallel/mesh.py spatial_sharding) correlates and emits every column it
+// holds but sums only the outputs centred on its own columns: output j is
+// centred on input column j + 5, so the strip's owned input columns
+// [lo, hi) give the window [lo - 5, hi - 5) clipped to the grid
+// (ops/kernels/windowed.py valid_window).  A tile wholly outside the window
+// skips its correlation passes and map and writes zero partials, the bits
+// its pass would write; it still emits its part of the next level.
+//
 // What bounds it on this card: the f32 work.  Per pixel and channel of the
 // pair the algorithm needs 8 bytes in (and 2 bytes out with emission)
 // against ~200 f32 operations (two 11-tap passes over four quantities, the
@@ -130,13 +140,14 @@ __device__ __forceinline__ float4 quant4(float4 v) {
 // pass and the map, and each 32x8 sub-tile's two partials into
 // parts[((b*3 + ch) * nblk + blk) * 2 + k], blk = its index in the valid
 // grid's (ceil((h-10)/8), ceil((w-10)/32)) grid of 32x8 tiles
-// (reduce_parts_kernel<2> then sums them in f64); with ds non-null also the
-// tile's part of the next level.
+// (reduce_parts_kernel<2> then sums them in f64), only the outputs of the
+// valid grid's columns [clo, chi) adding; with ds non-null also the tile's
+// part of the next level.
 // grid: (ceil((w-10)/32), ceil((h-10)/32), B*3), block: kTileThreads (1-D).
 // ---------------------------------------------------------------------------
 template <bool kQuantize>
 __global__ void __launch_bounds__(kTileThreads)
-ssim_tile_kernel(const float* __restrict__ level, int planes, int h, int w,
+ssim_tile_kernel(const float* __restrict__ level, int planes, int h, int w, int clo, int chi,
                  const float* __restrict__ win, float c1, float c2, float* __restrict__ parts,
                  float* __restrict__ ds) {
   __shared__ __align__(16) float in[2 * kInFloats];  // [2 images][kHaloH][kInW]
@@ -149,6 +160,15 @@ ssim_tile_kernel(const float* __restrict__ level, int planes, int h, int w,
   const int nbx = (wv + kBx - 1) / kBx, nby = (hv + kBy - 1) / kBy;
   const int by = blockIdx.y * kSubTiles + warp;  // this warp's sub-tile row in that grid
   const int c = x0 + lane;                       // this thread's output column
+  // The whole block: the tile's 32 output columns all lie outside the window.
+  const bool outside = x0 + kTileW <= clo || x0 >= chi;
+  float v[kBy / 2][2];
+  if (outside && ds == nullptr) {
+#pragma unroll
+    for (int o = 0; o < kBy / 2; ++o) v[o][0] = v[o][1] = 0.0f;
+    subtile_partials<2>(v, parts, plane, blockIdx.x, by, nbx, nby);
+    return;
+  }
 
   // Input tiles: rows y0 .. y0+41, columns x0 .. x0+43 of both planes.
   {
@@ -174,8 +194,9 @@ ssim_tile_kernel(const float* __restrict__ level, int planes, int h, int w,
   for (int k = 0; k < kTaps; ++k) t[k] = __ldg(win + k);
   __syncthreads();
 
-  // Row pass: every input row of the tile, one output column per lane.
-  for (int r = warp; r < kHaloH; r += kSubTiles) {
+  // Row pass: every input row of the tile, one output column per lane
+  // (none outside the window).
+  for (int r = warp; r < kHaloH && !outside; r += kSubTiles) {
     const float* p = in + r * kInW + lane;
     float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
@@ -202,6 +223,12 @@ ssim_tile_kernel(const float* __restrict__ level, int planes, int h, int w,
     }
   }
   __syncthreads();
+  if (outside) {
+#pragma unroll
+    for (int o = 0; o < kBy / 2; ++o) v[o][0] = v[o][1] = 0.0f;
+    subtile_partials<2>(v, parts, plane, blockIdx.x, by, nbx, nby);
+    return;
+  }
 
   // Column pass: column `lane` of the warp's sub-tile, eight outputs from
   // one window of kColWin rows, each summed over k = 0..10 in order.
@@ -222,14 +249,15 @@ ssim_tile_kernel(const float* __restrict__ level, int planes, int h, int w,
   }
 
   // The map, rows o and o + 4 added (the first stride of level.cuh's tree),
-  // then the rest of the sub-tile's tree.
-  float v[kBy / 2][2];
+  // then the rest of the sub-tile's tree.  chi <= wv: an owned column is a
+  // valid one.
+  const bool owned = c >= clo && c < chi;
 #pragma unroll
   for (int o = 0; o < kBy / 2; ++o) {
     float va[2] = {0.0f, 0.0f}, vb[2] = {0.0f, 0.0f};
     const int ra = y0 + warp * kBy + o, rb = ra + kBy / 2;
-    if (ra < hv && c < wv) ssim_map(s[o], c1, c2, va);
-    if (rb < hv && c < wv) ssim_map(s[o + kBy / 2], c1, c2, vb);
+    if (ra < hv && owned) ssim_map(s[o], c1, c2, va);
+    if (rb < hv && owned) ssim_map(s[o + kBy / 2], c1, c2, vb);
 #pragma unroll
     for (int k = 0; k < 2; ++k) v[o][k] = __fadd_rn(va[k], vb[k]);
   }
@@ -275,20 +303,27 @@ int tm_ssim_tile_attrs(int quantize, int* out) {
 }
 
 // One SSIM level: level (2,B,3,h,w) with h, w >= 11 -> sums[b*sums_bstride +
-// ch*2 + k]; with ds non-null also the next level (2,B,3,h/2,w/2).  win: the
-// 11 window taps (f32, device); c1, c2: the SSIM stabilisers; parts holds
-// B*3*tm_ssim_blocks(h,w)*2 floats, the only scratch.
+// ch*2 + k] over the valid grid's columns [clo, chi) (0 <= clo <= chi <=
+// w-10; 0 and w-10: the whole level; clo == chi: zeros); with ds non-null
+// also the next level (2,B,3,h/2,w/2), whole.  win: the 11 window taps (f32,
+// device); c1, c2: the SSIM stabilisers; parts holds B*3*tm_ssim_blocks(h,w)*2
+// floats, the only scratch.
 int tm_ssim_level(const float* level, int batch, int h, int w, int quantize, const float* win,
-                  float c1, float c2, float* parts, float* sums, int sums_bstride, float* ds,
-                  void* stream) {
+                  float c1, float c2, int clo, int chi, float* parts, float* sums, int sums_bstride,
+                  float* ds, void* stream) {
+  if (h < kTaps || w < kTaps || clo < 0 || clo > chi || chi > w - 2 * kRadius) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int planes = 3 * batch;
   const dim3 grid((w - 2 * kRadius + kTileW - 1) / kTileW, (h - 2 * kRadius + kTileH - 1) / kTileH,
                   planes);
   if (quantize) {
-    ssim_tile_kernel<true><<<grid, kTileThreads, 0, s>>>(level, planes, h, w, win, c1, c2, parts, ds);
+    ssim_tile_kernel<true><<<grid, kTileThreads, 0, s>>>(level, planes, h, w, clo, chi, win, c1, c2,
+                                                          parts, ds);
   } else {
-    ssim_tile_kernel<false><<<grid, kTileThreads, 0, s>>>(level, planes, h, w, win, c1, c2, parts, ds);
+    ssim_tile_kernel<false><<<grid, kTileThreads, 0, s>>>(level, planes, h, w, clo, chi, win, c1, c2,
+                                                           parts, ds);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -68,7 +68,15 @@ from turbo_metrics_tpu_torch.ops.xyb import (
     linear_rgb_to_xyb,
     opsin_vector,
 )
-from turbo_metrics_tpu_torch.parallel.mesh import launch_shards, spatial_sharding, strip_input, upload
+from turbo_metrics_tpu_torch.parallel.mesh import (
+    add_strips,
+    check_inputs,
+    launch_shards,
+    partial_keywords,
+    spatial_sharding,
+    strip_input,
+    upload,
+)
 
 NUM_SCALES = 6
 MATRIX_NAMES = ("bt709", "bt601_525", "bt601_625", "bt2020")
@@ -390,24 +398,14 @@ def _width_entry(fn):
     """(the per-strip sums function of the entry ``fn`` calls, whether it
     is the YUV entry, its keywords): ``fn`` is ``ssimulacra2_subscores`` or
     ``ssimulacra2_subscores_from_yuv``, bare or through functools.partial
-    with keywords only; anything else raises ``TypeError``."""
-    base, kw = fn, {}
-    while isinstance(base, functools.partial):
-        if base.args:
-            raise TypeError("width sharding takes functools.partial with keywords only: "
-                            "the frame's inputs are the sharded function's arguments")
-        kw = {**base.keywords, **kw}
-        base = base.func
+    with keywords only (parallel/mesh.py ``shard_over_width`` picks this
+    module's strip loop for them)."""
+    base, kw = partial_keywords(fn)
     if base is ssimulacra2_subscores:
         return ssimulacra2_level_sums, False, kw
     if base is ssimulacra2_subscores_from_yuv:
         return ssimulacra2_level_sums_from_yuv, True, kw
-    raise TypeError(
-        f"width sharding supports models.ssimulacra2.ssimulacra2_subscores and "
-        f"ssimulacra2_subscores_from_yuv (bare or through functools.partial), not {fn!r}: the port "
-        "has no SPMD partitioner to split any function's columns, so width sharding is written into "
-        "those entries' level kernels (an owned-column window and a halo cut at upload)"
-    )
+    raise TypeError(f"subscores_width_sharded takes the SSIMULACRA2 sub-scores entries, not {fn!r}")
 
 
 def _pyramid(h: int, w: int, num_scales: int) -> list:
@@ -456,11 +454,7 @@ def subscores_width_sharded(fn, mesh, *, in_ndims):
     plain = not yuv and _resolve_backend(kw.get("backend", "jnp"), dest) == "jnp"
 
     def sharded(*args):
-        if len(args) != len(in_ndims):
-            raise ValueError(f"expected {len(in_ndims)} inputs, got {len(args)}")
-        for i, (a, nd) in enumerate(zip(args, in_ndims)):
-            if a.ndim != nd:
-                raise ValueError(f"input {i} has {a.ndim} dims, expected {nd}")
+        check_inputs(args, in_ndims)
         if mesh.size == 1:
             return fn(*(upload(a, dest) for a in args))
         h, w = args[0].shape[-2], args[0].shape[-1]
@@ -473,14 +467,7 @@ def subscores_width_sharded(fn, mesh, *, in_ndims):
             parts = [strip_input(a, plan[k], dev, chroma=yuv and i == 1, view=not yuv) for i, a in enumerate(args)]
             return torch.stack(sums_fn(*parts, **kwk, columns=plan[k].columns), dim=1)
 
-        total = None
-        for sums in launch_shards(strip_sums, mesh):
-            if sums.device.type == "cuda":
-                # Read on the device's current stream, which launch_shards
-                # made wait on the strip's stream.
-                sums.record_stream(torch.cuda.current_stream(sums.device))
-            sums = sums.to(dest, torch.float64)
-            total = sums if total is None else total + sums
+        total = add_strips(launch_shards(strip_sums, mesh), dest)
         dims = _pyramid(h, w, num_scales) if plain else scale_dims(h, w, num_scales)
         return subscores_from_sums(list(total.unbind(1)), dims)
 

@@ -12,6 +12,13 @@ batch; frame 0's is ``prev0``, the last reference luma of the previous batch
 The JAX engine uploads the same frames as a third batch of planes.  The
 distorted luma is brought to the reference's depth by ``dis_shift`` bits
 (``xpsnr_ops.align_luma_depth``) inside the kernel.
+
+``xpsnr_width_sharded`` (parallel/mesh.py ``shard_over_width``) splits a
+frame's columns into strips whose owned edges sit on multiples of the
+16-column block, each cut with one whole block of halo on either side:
+every strip runs the kernel unchanged on its columns, its block grid is the
+frame's, and its owned blocks' highpass reads real neighbours, so its owned
+block columns are the frame's bit for bit.
 """
 
 from __future__ import annotations
@@ -20,6 +27,15 @@ import torch
 
 from turbo_metrics_tpu_torch.ops import xpsnr_ops
 from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
+from turbo_metrics_tpu_torch.parallel.mesh import (
+    check_inputs,
+    launch_shards,
+    partial_keywords,
+    spatial_sharding,
+    strip_input,
+    to_dest,
+    upload,
+)
 
 # Luma types the kernel takes: u8 / u16 decoded planes, int32 luma codes of
 # RGB sources.
@@ -96,3 +112,45 @@ def xpsnr_block_stats(
 
 
 xpsnr_block_stats.launches = 0
+
+
+def xpsnr_width_sharded(fn, mesh, *, in_ndims):
+    """``xpsnr_block_stats`` with one frame's columns split over ``mesh``
+    (module docstring; ``shard_over_width`` calls this).  ``fn``:
+    ``xpsnr_block_stats``, bare or through functools.partial with
+    ``dis_shift``; its inputs (B, h, w) ``y_ref`` and ``y_dis`` and (h, w)
+    ``prev0``, ``in_ndims`` (3, 3, 2).  Each call plans the strips
+    (``spatial_sharding``: owned edges on multiples of 16, a halo of 16
+    columns), and each strip, under its device and its stream
+    (``launch_shards``), cuts its columns of the three inputs
+    (``strip_input``), runs the kernel on them and keeps its owned block
+    columns; these are joined on ``mesh.devices[0]`` into the unsharded
+    call's grids, bit for bit.  ``ValueError`` where a strip would own
+    fewer than 16 columns.  A mesh of one runs ``fn`` unchanged on its
+    device."""
+    base, kw = partial_keywords(fn)
+    if base is not xpsnr_block_stats:
+        raise TypeError(f"xpsnr_width_sharded takes ops.kernels.xpsnr.xpsnr_block_stats, not {fn!r}")
+    if tuple(in_ndims) != (3, 3, 2):
+        raise ValueError(f"{fn!r} takes inputs of (3, 3, 2) dims, got in_ndims={tuple(in_ndims)}")
+    unknown = set(kw) - {"dis_shift"}
+    if unknown:
+        raise TypeError(f"xpsnr_block_stats takes no keywords {sorted(unknown)}")
+    block = xpsnr_ops.BLOCK
+    dest = mesh.devices[0]
+
+    def sharded(*args):
+        check_inputs(args, in_ndims)
+        if mesh.size == 1:
+            return fn(*(upload(a, dest) for a in args))
+        plan = spatial_sharding(mesh, args[0].shape[-1], alignment=block, halo=block)
+
+        def strip_grids(k, dev):
+            s = plan[k]
+            grids = xpsnr_block_stats(*(strip_input(a, s, dev) for a in args), **kw)
+            return [grids[q][..., s.own_lo // block:-(-s.own_hi // block)] for q in QUANTITIES]
+
+        outs = launch_shards(strip_grids, mesh)
+        return {q: torch.cat([to_dest(o[i], dest) for o in outs], dim=-1) for i, q in enumerate(QUANTITIES)}
+
+    return sharded

@@ -17,6 +17,12 @@ Two routes, as for SSIMULACRA2:
     load) and ops/kernels/windowed_tail.py (MS-SSIM levels 1-4), which run
     their CUDA kernels on CUDA tensors and these plain functions on CPU
     tensors.  PSNR stays a plain torch expression, as in the JAX package.
+``quality_from_rgb`` is per-frame sums first (``quality_sums``: PSNR's
+exact squared-difference sum and each SSIM level's per-channel sums, over a
+window of owned columns where one is given), scores second
+(``quality_from_sums``), so that the column strips of one frame
+(``quality_width_sharded``, parallel/mesh.py ``shard_over_width``) add
+their sums before the frame is scored.
 """
 
 from __future__ import annotations
@@ -28,6 +34,15 @@ from torch import nn
 from turbo_metrics_tpu_torch.models.ssimulacra2 import resolve_device
 from turbo_metrics_tpu_torch.ops.colorspace import f32_to_uint8
 from turbo_metrics_tpu_torch.ops.gaussian import gaussian_window
+from turbo_metrics_tpu_torch.parallel.mesh import (
+    add_strips,
+    check_inputs,
+    launch_shards,
+    partial_keywords,
+    spatial_sharding,
+    strip_input,
+    upload,
+)
 
 RADIUS = 5  # gaussian_window(11, 1.5)
 C1 = float(np.float32((0.01 * 255.0) ** 2))
@@ -41,24 +56,37 @@ MSSSIM_WEIGHTS = np.array([0.0448, 0.2856, 0.3001, 0.2363, 0.1333], dtype=np.flo
 PSNR_RUN = 256
 
 
-def psnr(a: torch.Tensor, b: torch.Tensor, *, peak: float = 255.0) -> torch.Tensor:
-    """PSNR in dB over all channels, f32; (..., C, H, W) -> (...,).  An
-    identical pair gives inf.
-
-    The squared differences are summed in runs of PSNR_RUN in f32, the runs'
-    sums in f64, and the mean rounded once to f32.  For 8-bit codes (the
-    engine's quantized pairs) every sum is exact, so a frame's PSNR does not
-    depend on the batch or the shard it is scored in; an f32 mean does
-    (torch splits its reduction by the number of frames, which at 1080p
-    moves the dB by ~2e-6)."""
+def psnr_sse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The sum of squared differences over all channels, f64; (..., C, H,
+    W) -> (...,).  Summed in runs of PSNR_RUN in f32, the runs' sums in
+    f64: for 8-bit codes every sum is exact, so the sums of a frame's column
+    strips add to the frame's bit for bit."""
     diff = a - b
     sq = (diff * diff).flatten(-3)
     n = sq.shape[-1]
     if n % PSNR_RUN:
         sq = torch.nn.functional.pad(sq, (0, PSNR_RUN - n % PSNR_RUN))
     runs = sq.unflatten(-1, (-1, PSNR_RUN)).sum(dim=-1)
-    mse = (torch.sum(runs, dim=-1, dtype=torch.float64) / n).to(torch.float32)
+    return torch.sum(runs, dim=-1, dtype=torch.float64)
+
+
+def psnr_from_sse(sse: torch.Tensor, n: int, *, peak: float = 255.0) -> torch.Tensor:
+    """PSNR in dB, f32, from ``psnr_sse`` over ``n`` samples: the mean
+    rounded once to f32."""
+    mse = (sse / n).to(torch.float32)
     return 10.0 * torch.log10(float(np.float32(peak * peak)) / mse)
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor, *, peak: float = 255.0) -> torch.Tensor:
+    """PSNR in dB over all channels, f32; (..., C, H, W) -> (...,).  An
+    identical pair gives inf.
+
+    The squared differences are summed exactly (``psnr_sse``) and the mean
+    rounded once to f32.  For 8-bit codes (the engine's quantized pairs) a
+    frame's PSNR does not depend on the batch or the shard it is scored in;
+    an f32 mean does (torch splits its reduction by the number of frames,
+    which at 1080p moves the dB by ~2e-6)."""
+    return psnr_from_sse(psnr_sse(a, b), a.shape[-3] * a.shape[-2] * a.shape[-1], peak=peak)
 
 
 def _window_list(win) -> list[float]:
@@ -182,6 +210,75 @@ def builtin_constants() -> dict:
     }
 
 
+def quality_sums(
+    p12: torch.Tensor,
+    window: torch.Tensor,
+    *,
+    want_psnr: bool = False,
+    want_ssim: bool = False,
+    want_msssim: bool = False,
+    num_levels: int = 1,
+    c1: float = C1,
+    c2: float = C2,
+    columns=None,
+) -> dict:
+    """The per-frame sums that ``quality_from_rgb`` scores, of a (2, B, 3,
+    h, w) linear-RGB pair buffer: {"sse": (B,) f64 ``psnr_sse`` of the
+    quantized pair (with ``want_psnr``), "levels": per SSIM level its (B,
+    3, 2) f32 per-channel sums (``ssim_sums``, then ``msssim_tail`` for
+    levels 1 .. num_levels - 1 with ``want_msssim``; level 0 alone with
+    ``want_ssim``)}.  ``columns``: the owned columns (lo, hi) of a column
+    strip of a frame (None: the whole width), whose samples PSNR sums and on
+    which the SSIM levels' valid outputs are centred; ``num_levels`` is the
+    whole frame's clamped MS-SSIM level count."""
+    # Imported here: the kernel modules import this one for their twins.
+    from turbo_metrics_tpu_torch.ops.kernels.windowed import ssim_sums
+    from turbo_metrics_tpu_torch.ops.kernels.windowed_tail import msssim_tail
+
+    out = {}
+    if want_psnr:
+        q = f32_to_uint8(p12 if columns is None else p12[..., columns[0]:columns[1]], torch.float32)
+        out["sse"] = psnr_sse(q[0], q[1])
+    if want_msssim:
+        lv = num_levels
+        sums0, ds = ssim_sums(p12, window, quantize=True, emit_ds=lv > 1, c1=c1, c2=c2, columns=columns)
+        out["levels"] = [sums0]
+        if lv > 1:
+            cols1 = None if columns is None else (columns[0] // 2, columns[1] // 2)  # level 1's
+            tail = msssim_tail(ds, lv - 1, window, c1=c1, c2=c2, columns=cols1)
+            out["levels"] += list(tail.unbind(1))
+    elif want_ssim:
+        sums0, _ = ssim_sums(p12, window, quantize=True, emit_ds=False, c1=c1, c2=c2, columns=columns)
+        out["levels"] = [sums0]
+    return out
+
+
+def quality_from_sums(
+    sums: dict,
+    h: int,
+    w: int,
+    *,
+    want_psnr: bool = False,
+    want_ssim: bool = False,
+    want_msssim: bool = False,
+    weights=None,
+) -> dict:
+    """PSNR/SSIM/MS-SSIM, each (B,) f32, from ``quality_sums``' sums of an h
+    x w frame: every level's means over the whole frame's valid grid (level
+    l is (h >> l) x (w >> l)); ``weights``: the frame's clamped MS-SSIM
+    weights (``_clamp_levels``)."""
+    out = {}
+    if want_psnr:
+        out["psnr"] = psnr_from_sse(sums["sse"], 3 * h * w)
+    if want_msssim or want_ssim:
+        per_level = [means_from_sums(s, h >> li, w >> li) for li, s in enumerate(sums["levels"])]
+        if want_msssim:
+            out["msssim"] = _msssim_combine(per_level, weights)
+        if want_ssim:
+            out["ssim"] = per_level[0][0]
+    return out
+
+
 def quality_from_rgb(
     p12: torch.Tensor,
     window: torch.Tensor,
@@ -202,32 +299,69 @@ def quality_from_rgb(
     SSIM and MS-SSIM share that level.  ``window``: the (11,) f32 taps on
     ``p12``'s device.
     """
-    # Imported here: the kernel modules import this one for their twins.
-    from turbo_metrics_tpu_torch.ops.kernels.windowed import ssim_sums
-    from turbo_metrics_tpu_torch.ops.kernels.windowed_tail import msssim_tail
-
     h, w = p12.shape[-2], p12.shape[-1]
-    out = {}
-    if want_psnr:
-        q = f32_to_uint8(p12, torch.float32)
-        out["psnr"] = psnr(q[0], q[1])
-    if want_msssim:
-        lv, wts = _clamp_levels(h, w, levels, weights)
-        sums0, ds = ssim_sums(p12, window, quantize=True, emit_ds=lv > 1, c1=c1, c2=c2)
-        per_level = [means_from_sums(sums0, h, w)]
-        if lv > 1:
-            tail = msssim_tail(ds, lv - 1, window, c1=c1, c2=c2)
-            lh, lw = h // 2, w // 2
-            for li in range(lv - 1):
-                per_level.append(means_from_sums(tail[:, li], lh, lw))
-                lh, lw = lh // 2, lw // 2
-        out["msssim"] = _msssim_combine(per_level, wts)
-        if want_ssim:
-            out["ssim"] = per_level[0][0]
-    elif want_ssim:
-        sums0, _ = ssim_sums(p12, window, quantize=True, emit_ds=False, c1=c1, c2=c2)
-        out["ssim"] = means_from_sums(sums0, h, w)[0]
-    return out
+    flags = dict(want_psnr=want_psnr, want_ssim=want_ssim, want_msssim=want_msssim)
+    lv, wts = _clamp_levels(h, w, levels, weights)
+    sums = quality_sums(p12, window, **flags, num_levels=lv, c1=c1, c2=c2)
+    return quality_from_sums(sums, h, w, **flags, weights=wts)
+
+
+_QUALITY_KEYWORDS = {"window", "want_psnr", "want_ssim", "want_msssim", "levels", "c1", "c2", "weights"}
+
+
+def quality_width_sharded(fn, mesh, *, in_ndims):
+    """``quality_from_rgb`` with one frame's columns split over ``mesh``
+    (parallel/mesh.py module docstring; ``shard_over_width`` calls this).
+    ``fn``: ``quality_from_rgb`` through functools.partial, ``window`` and
+    any other of its options as keywords; its input, the (2, B, 3, h, w)
+    pair buffer, ``in_ndims`` (5,).  Each call plans the strips
+    (``spatial_sharding`` of the frame's clamped MS-SSIM level count L:
+    owned edges on multiples of 2^(L-1), a halo of 5 * 2^(L-1); one level
+    without MS-SSIM, no halo for PSNR alone), and each strip, under its
+    device and its stream (``launch_shards``), cuts its columns of the
+    buffer (``strip_input``) and takes ``quality_sums`` over its owned
+    columns; the strips' sums add in f64 on ``mesh.devices[0]`` and are
+    scored there by ``quality_from_sums`` with the whole frame's level
+    sizes and weights.  PSNR is the unsharded call's bit for bit; SSIM and
+    MS-SSIM differ by the rounding of the strips' f32 sums.  A mesh of one
+    runs ``fn`` unchanged on its device."""
+    base, kw = partial_keywords(fn)
+    if base is not quality_from_rgb:
+        raise TypeError(f"quality_width_sharded takes ops.quality.quality_from_rgb, not {fn!r}")
+    if tuple(in_ndims) != (5,):
+        raise ValueError(f"{fn!r} takes one input of 5 dims, got in_ndims={tuple(in_ndims)}")
+    if "window" not in kw:
+        raise TypeError("width sharding of quality_from_rgb needs its window as a keyword "
+                        "(functools.partial(quality_from_rgb, window=...))")
+    unknown = set(kw) - _QUALITY_KEYWORDS
+    if unknown:
+        raise TypeError(f"quality_from_rgb takes no keywords {sorted(unknown)}")
+    flags = {k: bool(kw.get(k, False)) for k in ("want_psnr", "want_ssim", "want_msssim")}
+    consts = dict(c1=kw.get("c1", C1), c2=kw.get("c2", C2))
+    dest = mesh.devices[0]
+
+    def sharded(*args):
+        check_inputs(args, in_ndims)
+        (p12,) = args
+        if mesh.size == 1:
+            return fn(upload(p12, dest))
+        h, w = p12.shape[-2], p12.shape[-1]
+        lv, wts = _clamp_levels(h, w, kw.get("levels", 5), kw.get("weights", MSSSIM_WEIGHTS))
+        windowed = flags["want_ssim"] or flags["want_msssim"]
+        plan = spatial_sharding(mesh, w, num_scales=lv if flags["want_msssim"] else 1,
+                                halo=None if windowed else 0)
+
+        def strip_sums(k, dev):
+            part = strip_input(p12, plan[k], dev)
+            return quality_sums(part, kw["window"].to(dev), **flags, num_levels=lv, **consts,
+                                columns=plan[k].columns)
+
+        total = add_strips(launch_shards(strip_sums, mesh), dest)
+        if "levels" in total:
+            total["levels"] = [s.to(torch.float32) for s in total["levels"]]
+        return quality_from_sums(total, h, w, **flags, weights=wts)
+
+    return sharded
 
 
 class Quality(nn.Module):

@@ -16,26 +16,30 @@ two streams of it.
 
 Width sharding (``spatial_sharding``, ``split_columns``, ``shard_over_width``:
 the JAX package's counterparts split one frame's columns over the devices)
-is written into SSIMULACRA2's level kernels, since PyTorch has no SPMD
-partitioner to insert the blurs' halo exchanges into any function.  This
-module plans and cuts the strips; models/ssimulacra2.py
-``subscores_width_sharded`` (``shard_over_width`` here) runs them and adds
-their sums.  Each strip is cut once, at upload, with a halo wide enough for
-every level, and nothing passes between devices until the strips' sums are
-added:
-  * the strips' owned edges sit on multiples of A = 2^(S-1) for S levels,
-    so every 2x2 quad of every level inside a strip is the frame's quad and
-    every level's linear RGB and XYB in the strip equal the frame's, bit
-    for bit (kernel 1 takes one chroma pair per quad: A >= 2 with chroma);
-  * only the 11-tap blur sees a strip's inner edge, within 5 columns of it
-    on each level; a halo of H = 5 * 2^(S-1) level-0 columns on each side
-    (clipped at the frame's edges) leaves at least 5 real columns beyond
-    the owned ones on every level, so every owned pixel's maps are the
-    unsharded frame's, bit for bit;
-  * the level kernels sum only the owned window (``columns=`` of
-    models/ssimulacra2.py's level sums and the level wrappers), and the
-    strips' (B, S, 3, 6) sums add in f64; only the grouping of the sums
-    changes.
+is written into each metric's kernels, since PyTorch has no SPMD
+partitioner to insert the halo exchanges into any function.  This module
+plans and cuts the strips; ``shard_over_width`` hands an entry to its
+metric's own strip loop: models/ssimulacra2.py ``subscores_width_sharded``
+(SSIMULACRA2), ops/quality.py ``quality_width_sharded`` (PSNR, SSIM and
+MS-SSIM from a linear-RGB pair) and ops/kernels/xpsnr.py
+``xpsnr_width_sharded`` (XPSNR's block grids).  Each strip is cut once, at
+upload, with a halo wide enough for every level, and nothing passes between
+devices until the strips' results are joined on ``mesh.devices[0]``:
+  * the strips' owned edges sit on multiples of an alignment A, and a halo
+    of H columns on each side (clipped at the frame's edges) leaves every
+    owned output reading the frame's own samples;
+  * SSIMULACRA2 and the SSIM family with S levels take A = 2^(S-1), so every
+    2x2 quad of every level inside a strip is the frame's quad and every
+    level's values in the strip equal the frame's, bit for bit (kernel 1
+    takes one chroma pair per quad: A >= 2 with chroma), and H = 5 *
+    2^(S-1): the 11-tap windows reach 5 columns on every level;
+  * the level kernels sum only the owned window (``columns=``), and the
+    strips' sums add in f64 (``add_strips``); only the grouping of the
+    sums changes.  PSNR's squared differences are exact integers, so its
+    strips add to the frame's sum bit for bit;
+  * XPSNR takes A = H = 16, its block: each strip's block grid is the
+    frame's, its owned blocks' 3x3 highpass reads real neighbours, and the
+    owned block columns are joined.
 The halo costs (w + 2 H (n - 1)) / w of the columns: 1.042 over 2 strips
 and 1.125 over 4 at 7680 columns with six levels.  A per-level exchange of
 5-column halos between devices would break kernel 2 and #4, which run
@@ -44,6 +48,7 @@ several levels in one launch.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Callable, NamedTuple, Optional, Sequence
 
@@ -291,22 +296,27 @@ def strip_halo(num_scales: int, chroma: bool = False) -> int:
     return -(-RADIUS * (1 << max(int(num_scales) - 1, 0)) // a) * a
 
 
-def spatial_sharding(mesh: Mesh, w: int, *, num_scales: int, chroma: bool = False) -> tuple:
+def spatial_sharding(
+    mesh: Mesh, w: int, *, num_scales: int = 1, chroma: bool = False, alignment=None, halo=None
+) -> tuple:
     """The column strips of a w wide frame over ``mesh``, one ``Strip`` per
     mesh entry (the counterpart of the JAX package's ``spatial_sharding``).
     The owned widths are as even as the alignment A allows, each a multiple
     of A but the last, which ends at ``w`` (odd widths included); each
-    strip's cut adds ``strip_halo`` columns on either side, clipped at the
-    frame's edges.  ``ValueError`` where a strip would own fewer than A
-    columns."""
+    strip's cut adds ``halo`` columns on either side, clipped at the frame's
+    edges.  A and the halo are ``strip_alignment`` and ``strip_halo`` of
+    ``num_scales`` levels unless ``alignment`` / ``halo`` give them (the
+    halo a multiple of A).  ``ValueError`` where a strip would own fewer
+    than A columns."""
     n = mesh.size
-    a = strip_alignment(num_scales, chroma)
-    halo = strip_halo(num_scales, chroma)
+    a = strip_alignment(num_scales, chroma) if alignment is None else int(alignment)
+    halo = strip_halo(num_scales, chroma) if halo is None else int(halo)
+    if a < 1 or halo < 0 or halo % a:
+        raise ValueError(f"the halo ({halo}) must be a non-negative multiple of the alignment ({a} >= 1)")
     if num_scales < 1 or w < n * a:
         raise ValueError(
-            f"a {w}-column frame does not split over {n} strips of {num_scales} levels: each strip "
-            f"owns at least {a} columns (owned edges on multiples of {a}), so the width must be at "
-            f"least {n * a}"
+            f"a {w}-column frame does not split over {n} strips: each strip owns at least {a} columns "
+            f"(owned edges on multiples of {a}), so the width must be at least {n * a}"
         )
     units, rem = divmod(w // a, n)
     edges = [0]
@@ -359,12 +369,80 @@ def strip_input(t, strip: Strip, dev, *, chroma: bool = False, view: bool = Fals
     return upload(_cut(t, strip, chroma), dev)
 
 
-def shard_over_width(fn: Callable, mesh: Mesh, *, in_ndims: Sequence[int]):
-    """``fn`` with one frame's columns split over the mesh: the JAX
-    package's name for SSIMULACRA2's width sharding,
-    models/ssimulacra2.py ``subscores_width_sharded`` (``fn`` is its
-    ``ssimulacra2_subscores`` or ``ssimulacra2_subscores_from_yuv``; any
-    other raises ``TypeError``)."""
-    from turbo_metrics_tpu_torch.models.ssimulacra2 import subscores_width_sharded
+def partial_keywords(fn: Callable) -> tuple:
+    """(the function under ``fn``'s functools.partial layers, their
+    keywords): ``TypeError`` where a layer binds a positional argument, since
+    a width-sharded function's arguments are the frame's inputs."""
+    base, kw = fn, {}
+    while isinstance(base, functools.partial):
+        if base.args:
+            raise TypeError("width sharding takes functools.partial with keywords only: "
+                            "the frame's inputs are the sharded function's arguments")
+        kw = {**base.keywords, **kw}
+        base = base.func
+    return base, kw
 
-    return subscores_width_sharded(fn, mesh, in_ndims=in_ndims)
+
+def check_inputs(args: Sequence, in_ndims: Sequence[int]) -> None:
+    """``ValueError`` unless there are ``len(in_ndims)`` inputs of those
+    numbers of dims."""
+    if len(args) != len(in_ndims):
+        raise ValueError(f"expected {len(in_ndims)} inputs, got {len(args)}")
+    for i, (a, nd) in enumerate(zip(args, in_ndims)):
+        if a.ndim != nd:
+            raise ValueError(f"input {i} has {a.ndim} dims, expected {nd}")
+
+
+def to_dest(t: torch.Tensor, dest, dtype=None) -> torch.Tensor:
+    """A strip's result ``t`` on ``dest`` (as ``dtype``).  The copy is read
+    on the device's current stream, which ``launch_shards`` made wait on
+    the strip's stream: the strip's memory is kept until then."""
+    if t.device.type == "cuda":
+        t.record_stream(torch.cuda.current_stream(t.device))
+    return t.to(dest, dtype)
+
+
+def add_strips(outs: Sequence, dest):
+    """The strips' sums ``outs`` (one nest of tensors each, of one
+    structure) added in f64 on ``dest``, strip by strip in mesh order."""
+    shard_leaves = [list(_leaves(o)) for o in outs]
+    merged = []
+    for i in range(len(shard_leaves[0])):
+        total = None
+        for leaves in shard_leaves:
+            t = to_dest(leaves[i][1], dest, torch.float64)
+            total = t if total is None else total + t
+        merged.append(total)
+    return _rebuild(outs[0], iter(merged))
+
+
+def shard_over_width(fn: Callable, mesh: Mesh, *, in_ndims: Sequence[int]):
+    """``fn`` with one frame's columns split over the mesh (module
+    docstring), bare or through functools.partial with keywords only.
+    ``fn`` is one of the entries whose kernels take an owned-column window,
+    run by its metric's own strip loop:
+      * models/ssimulacra2.py ``ssimulacra2_subscores`` and
+        ``ssimulacra2_subscores_from_yuv`` (``subscores_width_sharded``);
+      * ops/quality.py ``quality_from_rgb`` (``quality_width_sharded``);
+      * ops/kernels/xpsnr.py ``xpsnr_block_stats`` (``xpsnr_width_sharded``).
+    Any other function raises ``TypeError``."""
+    from turbo_metrics_tpu_torch.models import ssimulacra2
+    from turbo_metrics_tpu_torch.ops import quality
+    from turbo_metrics_tpu_torch.ops.kernels import xpsnr
+
+    base, _ = partial_keywords(fn)
+    for entries, sharded in (
+        ((ssimulacra2.ssimulacra2_subscores, ssimulacra2.ssimulacra2_subscores_from_yuv),
+         ssimulacra2.subscores_width_sharded),
+        ((quality.quality_from_rgb,), quality.quality_width_sharded),
+        ((xpsnr.xpsnr_block_stats,), xpsnr.xpsnr_width_sharded),
+    ):
+        if any(base is e for e in entries):
+            return sharded(fn, mesh, in_ndims=in_ndims)
+    raise TypeError(
+        "width sharding supports models.ssimulacra2.ssimulacra2_subscores and "
+        "ssimulacra2_subscores_from_yuv, ops.quality.quality_from_rgb and ops.kernels.xpsnr."
+        f"xpsnr_block_stats (bare or through functools.partial), not {fn!r}: the port has no SPMD "
+        "partitioner to split any function's columns, so width sharding is written into those entries' "
+        "kernels (an owned-column window and a halo cut at upload)"
+    )

@@ -29,6 +29,7 @@ differs or none is compared.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -57,7 +58,8 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     10-bit luma at an odd size, and the fixed-point K-int-VIF and K-int-ADM
     on u8 and 10-bit u16 luma pairs at the given shape, on 12-bit u16 and
     10-bit int32 pairs at 67x99 and on u8 and int32 pairs read at 10 bits
-    at 96x128 (int_calls)."""
+    at 96x128 (int_calls), and SSIM's #11 and #12 with windows of owned
+    columns that cut 32-column tiles mid-way (ssim_window_calls)."""
     from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
     from turbo_metrics_tpu_torch.ops.kernels import adm, convert, fused_tail, motion, scale_stats, scale_tail, xpsnr
 
@@ -127,11 +129,51 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     x8 = (luma((batch, height, width), 8, np.uint8), luma((batch, height, width), 8, np.uint8))
     x10 = (luma((batch, height, width), 10, np.uint16), luma((batch, height, width), 8, np.uint8))
     calls += int_calls(rng, batch, height, width, dev)
-    return calls + [
+    calls += [
         (f"#13 XPSNR u8 {width}x{height}", "xpsnr_block_stats", xpsnr_call(*x8, 8)),
         (f"#13 XPSNR 10-bit vs 8-bit {width}x{height}", "xpsnr_block_stats", xpsnr_call(*x10, 10)),
         ("#13 XPSNR 10-bit 131x35", "xpsnr_block_stats",
          xpsnr_call(luma((3, 35, 131), 10, np.uint16), luma((3, 35, 131), 10, np.uint16), 10)),
+    ]
+    # Last: a checkout without them draws the same inputs for every call above.
+    return calls + ssim_window_calls(rng, batch, height, width, dev)
+
+
+def ssim_window_calls(rng, batch: int, height: int, width: int, dev) -> list:
+    """(entry, wrapper, call) of #11 and #12 with owned-column windows whose
+    valid outputs start and end inside 32-column tiles: #11 quantizing and
+    emitting on a 67x99 linear-RGB pair (B=2) and on 8-bit codes at the
+    given shape, #12 three levels from 67x99 and up to four from half the
+    given shape (at 1080p the MS-SSIM level 1, 540x960).  None where the
+    checkout's wrappers take no window (before the window, the parent of an
+    A/B)."""
+    from turbo_metrics_tpu_torch.ops.kernels import windowed, windowed_tail
+    from turbo_metrics_tpu_torch.ops.quality import Quality
+
+    if "columns" not in inspect.signature(windowed.ssim_sums).parameters:
+        return []
+    win = Quality(device=dev).window
+
+    def codes(b, h, w):
+        ref = rng.integers(0, 256, (b, 3, h, w))
+        dis = np.clip(ref + rng.integers(-20, 21, ref.shape), 0, 255)
+        return torch.from_numpy(np.stack([ref, dis]).astype(np.float32)).to(dev)
+
+    lin = torch.from_numpy(rng.random((2, 2, 3, 67, 99), dtype=np.float64).astype(np.float32)).to(dev)
+    h2, w2 = height // 2, width // 2
+    q67, qfull, qhalf = codes(2, 67, 99), codes(batch, height, width), codes(batch, h2, w2)
+    # At 1080p (45, 1301) and (48, 912): valid outputs from column 40 and 43 on.
+    cut, cut2 = (45, width * 2 // 3 + 21), (w2 // 20, w2 - w2 // 20)
+    lv2 = min(4, (min(h2, w2) // 11).bit_length())
+    return [
+        ("#11 window (13, 77) quantize 99x67", "ssim_sums",
+         lambda: windowed.ssim_sums(lin, win, quantize=True, emit_ds=True, columns=(13, 77))),
+        (f"#11 window {cut} {width}x{height}", "ssim_sums",
+         lambda: windowed.ssim_sums(qfull, win, emit_ds=True, columns=cut)),
+        ("#12 window (13, 77) 3 levels from 99x67", "msssim_tail",
+         lambda: windowed_tail.msssim_tail(q67, 3, win, columns=(13, 77))),
+        (f"#12 window {cut2} {lv2} levels from {w2}x{h2}", "msssim_tail",
+         lambda: windowed_tail.msssim_tail(qhalf, lv2, win, columns=cut2)),
     ]
 
 
