@@ -260,7 +260,32 @@ Phases, each fatal on failure (exit code 1):
      memory (allocated, and reserved from an emptied cache); (f) the
      kernels line's entries of #11 and #12 carry (c)'s largest difference
      ("windowed_max_abs_err"), #13's whether the sharded grids were equal
-     ("sharded_grids_equal").
+     ("sharded_grids_equal");
+  12. width sharding of VMAF's float features (shard_over_width of
+     ops/kernels/vif.vif_scale_stats, adm.adm_stats, motion.motion_stats
+     and motion.integer_blur): (a) a seeded 7680x4320 B=2 u8 luma pair (its
+     f32 pair for VIF and ADM), the u8 reference luma with prev0 the blur
+     (#17) of a third seeded frame, and a 10-bit u16 luma with its own
+     prev0, each entry unsharded, then over 2, 4 and 8 column strips of
+     card 0 (VIF: owned edges on multiples of 8, a halo of 24 columns; ADM
+     16 and 32; motion and #17 16 and 16), each strip on its own stream,
+     counters reset just before and read just after each run: VIF and ADM
+     sums within rtol 1e-6 and vif_scores / adm_score (the frame's size)
+     within 1e-6, the blurred planes, row SADs, motion scores and #17's
+     planes bit-equal, vif_scale0, vif_tail, adm_stats, motion_stats and
+     integer_blur launched once per strip; (b) #14, #15, #16 and #18 with
+     windows of owned columns that cut tiles mid-way (67x99, 75x101,
+     1080p, an interior and an odd-width edge strip of an 8K frame, #18 as
+     a column strip of its frame: block loads and tensor copies) against
+     their twins at phase 5c's bars, and the full window bit-equal to no
+     window; (c) (a) from host copies of the inputs: one strip per card
+     with several cards, else two strips of the one card and a line saying
+     that the cross-device path went unexercised; (d) one call of each
+     entry unsharded and over 2, 4 and 8 strips by CUDA events (unsharded,
+     2, 4, 8, 8, 4, 2, unsharded) with each call's peak device memory; (e)
+     the kernels line's entries of #14, #15 and #18 carry (b)'s largest
+     difference ("windowed_max_abs_err"), #16's and #17's whether the
+     sharded planes and row sums were equal ("sharded_planes_equal").
 Prints the card, the dissect tool's JSON line, then one JSON line of
 per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -2398,11 +2423,15 @@ def run_dissect_path(card: str):
     reset_counts()
     out = io.StringIO()
     t0 = time.monotonic()
-    with contextlib.redirect_stdout(out):
-        result = kernel_dissect.main([])
+    try:
+        with contextlib.redirect_stdout(out):
+            result = kernel_dissect.main([])
+    finally:
+        # The entries done before a failing one say which one failed.
+        lines = out.getvalue().splitlines()
+        for ln in lines if lines and not lines[-1].startswith("{") else lines[:-1]:
+            log(f"dissect: {ln}")
     launches = read_counts()
-    for ln in out.getvalue().splitlines()[:-1]:
-        log(f"dissect: {ln}")
     log(f"dissect path in {time.monotonic() - t0:.1f} s, launches {launches} [{card}]")
     need(all(launches[k] > 0 for k in DISSECT_KERNELS),
          f"a kernel of the dissect path was not launched: {launches}")
@@ -3050,49 +3079,72 @@ def check_metric_outputs(what: str, entry: str, got: dict, want: dict, depth: in
     if entry.startswith("XPSNR"):
         db, want_db = xpsnr_db_of(got, depth), xpsnr_db_of(want, depth)
         need(db == want_db, f"{what}: XPSNR {db} dB vs unsharded {want_db}")
-        diffs["xpsnr_db"] = db[0]
     return diffs
 
 
-def run_metric_configs(qmod, p12, xp_cases, mesh_of, card: str, label: str, strips=WIDTH_STRIPS,
-                       host: bool = False, tag: str = "(11a/b)") -> dict:
-    """Phase 11 (a), (b) (and (d)): each entry unsharded on the card's
-    inputs, then over each mesh of ``mesh_of(n)`` for n in ``strips``
-    (``host``: the sharded calls take host copies of the inputs), counters
-    reset just before and read just after each run.  Returns {(entry, n):
-    each output's largest difference}."""
+def output_tensors(out) -> list:
+    """The tensors of an entry's result: a tensor, or a dict's values."""
+    return list(out.values()) if isinstance(out, dict) else [out]
+
+
+def run_strip_entries(entries, plan_of, check, describe, mesh_of, card: str, label: str, strips, host: bool,
+                      tag: str) -> dict:
+    """Phases 11 and 12, the strip runs: each entry (entry, function,
+    inputs, in_ndims, launches per strip) unsharded on the card's inputs,
+    then over each mesh of ``mesh_of(n)`` for n in ``strips`` (``host``:
+    the sharded calls take host copies of the inputs), counters reset just
+    before and read just after each run, every wrapper of the entry
+    launched once per strip.  ``plan_of(fn, mesh)``: the strips
+    shard_over_width cuts; ``check(what, entry, got, want)``: (each output's
+    largest difference, what was equal), failing the run past the phase's
+    bars; ``describe(entry, want)``: what the unsharded call gave.  Returns
+    {(entry, n): the differences}."""
     from turbo_metrics_tpu_torch.parallel.mesh import halo_overhead, shard_over_width
 
     out = {}
-    depths = {f"XPSNR {c[0]}": 10 if c[4] else 8 for c in xp_cases}
-    for entry, fn, args, ndims, per_strip in metric_entries(qmod, p12, xp_cases):
+    for entry, fn, args, ndims, per_strip in entries:
         shard_args = tuple(t.cpu() for t in args) if host else args
         reset_counts()
         want = fn(*args)
         single = {k: v for k, v in read_counts().items() if v}
         need(single == per_strip, f"{tag} {entry} unsharded: launches {single}, want {per_strip}")
-        shown = {k: [round(x, 7) for x in v.tolist()] for k, v in want.items() if v.ndim == 1}
-        log(f"{tag} {entry} {WIDE_WIDTH}x{WIDE_HEIGHT} B=1 unsharded: {shown or 'grids'}"
-            + (f", XPSNR {xpsnr_db_of(want, depths[entry])[0]!r} dB" if entry in depths else "")
-            + f", launches {single} [{card}]")
+        log(f"{tag} {entry} unsharded: {describe(entry, want)}, launches {single} [{card}]")
         for n in strips:
             mesh = mesh_of(n)
-            plan = metric_plan(fn, mesh, WIDE_WIDTH)
+            plan = plan_of(fn, mesh)
             reset_counts()
             got = shard_over_width(fn, mesh, in_ndims=ndims)(*shard_args)
             launches = {k: v for k, v in read_counts().items() if v}
             what = f"{tag} {label}: {entry} over {n} strips"
-            need(all(v.device == mesh.devices[0] for v in got.values()), f"{what}: not on {mesh.devices[0]}")
-            diffs = check_metric_outputs(what, entry, got, want, depths.get(entry, 8))
+            need(all(v.device == mesh.devices[0] for v in output_tensors(got)), f"{what}: not on {mesh.devices[0]}")
+            diffs, equal = check(what, entry, got, want)
             expect = {k: v * n for k, v in per_strip.items()}
             need(launches == expect, f"{what}: launches {launches}, want {expect} (once per strip)")
+            shown = ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
             log(f"{what} ({', '.join(f'[{s.lo}, {s.hi}) owns {s.own_hi - s.own_lo}' for s in plan)}; halo "
-                f"overhead {halo_overhead(plan):.4f}): max |diff| "
-                + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items() if k != "xpsnr_db")
-                + ("; grids and dB bit-equal" if entry in depths else "; PSNR bit-equal")
-                + f"; launches {launches} [{card}]")
+                f"overhead {halo_overhead(plan):.5f}): " + (f"max |diff| {shown}; " if shown else "")
+                + f"{equal}; launches {launches} [{card}]")
             out[(entry, n)] = diffs
     return out
+
+
+def run_metric_configs(qmod, p12, xp_cases, mesh_of, card: str, label: str, strips=WIDTH_STRIPS,
+                       host: bool = False, tag: str = "(11a/b)") -> dict:
+    """Phase 11 (a), (b) (and (d)): run_strip_entries of phase 11's
+    entries.  Returns {(entry, n): each output's largest difference}."""
+    depths = {f"XPSNR {c[0]}": 10 if c[4] else 8 for c in xp_cases}
+
+    def describe(entry, want):
+        shown = {k: [round(x, 7) for x in v.tolist()] for k, v in want.items() if v.ndim == 1}
+        return (f"{WIDE_WIDTH}x{WIDE_HEIGHT} B=1 {shown or 'grids'}"
+                + (f", XPSNR {xpsnr_db_of(want, depths[entry])[0]!r} dB" if entry in depths else ""))
+
+    def check(what, entry, got, want):
+        diffs = check_metric_outputs(what, entry, got, want, depths.get(entry, 8))
+        return diffs, "grids and dB bit-equal" if entry in depths else "PSNR bit-equal"
+
+    return run_strip_entries(metric_entries(qmod, p12, xp_cases), lambda fn, m: metric_plan(fn, m, WIDE_WIDTH),
+                             check, describe, mesh_of, card, label, strips, host, tag)
 
 
 def check_ssim_windows(dev, win, card: str) -> dict:
@@ -3146,16 +3198,22 @@ def check_ssim_windows(dev, win, card: str) -> dict:
 
 
 def time_metrics(qmod, p12, xp_cases, mesh_of, card: str) -> dict:
-    """Phase 11 (e): one call of each entry unsharded and over each strip
-    count of WIDTH_STRIPS on card 0, by CUDA events (unsharded, 2, 4, 8, 8,
-    4, 2, unsharded), and each call's peak device memory above its inputs
-    (allocated, and reserved from an emptied cache)."""
+    """Phase 11 (e): time_strip_entries of phase 11's entries."""
+    return time_strip_entries(metric_entries(qmod, p12, xp_cases), mesh_of, card, "(11e)",
+                              f"{WIDE_WIDTH}x{WIDE_HEIGHT} B=1")
+
+
+def time_strip_entries(entries, mesh_of, card: str, tag: str, shape: str) -> dict:
+    """Phases 11 (e) and 12 (d): one call of each entry unsharded and over
+    each strip count of WIDTH_STRIPS on card 0, by CUDA events (unsharded,
+    2, 4, 8, 8, 4, 2, unsharded), and each call's peak device memory above
+    its inputs (allocated, and reserved from an emptied cache)."""
     from turbo_metrics_tpu_torch.parallel.mesh import shard_over_width
     from turbo_metrics_tpu_torch.utils.profiling import time_ms
 
     out = {}
-    dev = p12.device
-    for entry, fn, args, ndims, _ in metric_entries(qmod, p12, xp_cases):
+    for entry, fn, args, ndims, _ in entries:
+        dev = args[0].device
         calls = {"unsharded": lambda f=fn, a=args: f(*a)}
         for n in WIDTH_STRIPS:
             calls[f"{n} strips"] = (lambda s=shard_over_width(fn, mesh_of(n), in_ndims=ndims), a=args: s(*a))
@@ -3165,7 +3223,7 @@ def time_metrics(qmod, p12, xp_cases, mesh_of, card: str) -> dict:
         peaks = {k: step_peak_mib(c, dev) for k, c in calls.items()}
         reserved = {k: peak_reserved_mib(c, dev) for k, c in calls.items()}
         for k in calls:
-            log(f"(11e) {entry} {WIDE_WIDTH}x{WIDE_HEIGHT} B=1, {k}: " + " / ".join(f"{t:.4f}" for t in times[k])
+            log(f"{tag} {entry} {shape}, {k}: " + " / ".join(f"{t:.4f}" for t in times[k])
                 + f" ms (CUDA events, one call), peak device memory above its inputs {peaks[k]:.1f} MiB "
                 f"allocated, {reserved[k]:.1f} MiB reserved by the caching allocator [{card}]")
         out[entry] = {"ms": times, "peak_mib": peaks, "reserved_mib": reserved}
@@ -3177,18 +3235,25 @@ def run_metric_cards(qmod, p12, xp_cases, card: str) -> dict:
     strip cuts and uploads to its card, against the unsharded run on card
     0's tensors: one strip per card where there are several, else two
     strips of the one card."""
+    return run_strip_cards(lambda mesh_of, label, strips: run_metric_configs(
+        qmod, p12, xp_cases, mesh_of, card, label, strips=strips, host=True, tag="(11d)"), "(11d)")
+
+
+def run_strip_cards(run, tag: str) -> dict:
+    """Phases 11 (d) and 12 (c): ``run(mesh_of, label, strips)`` (the strip
+    runs from host copies of the inputs, which each strip cuts and uploads
+    to its card) with one strip per card where there are several, else two
+    strips of the one card."""
     from turbo_metrics_tpu_torch.parallel.mesh import make_mesh
 
     every = torch.cuda.device_count()
     if every < 2:
-        runs = run_metric_configs(qmod, p12, xp_cases, lambda n: make_mesh(n, device="cuda:0"), card,
-                                  "strips of cuda:0 (host inputs)", strips=(2,), host=True, tag="(11d)")
-        log("(11d) one card: host inputs over its strips checked; the cross-device path (one strip per "
+        runs = run(lambda n: make_mesh(n, device="cuda:0"), "strips of cuda:0 (host inputs)", (2,))
+        log(f"{tag} one card: host inputs over its strips checked; the cross-device path (one strip per "
             "card) went unexercised")
         return {("host", *k): v for k, v in runs.items()}
     strips = sorted({min(n, every) for n in WIDTH_STRIPS})
-    runs = run_metric_configs(qmod, p12, xp_cases, lambda n: make_mesh(n), card,
-                              "one strip per card (host inputs)", strips=strips, host=True, tag="(11d)")
+    runs = run(lambda n: make_mesh(n), "one strip per card (host inputs)", strips)
     return {("cards", *k): v for k, v in runs.items()}
 
 
@@ -3205,6 +3270,209 @@ def run_metric_width_phase(dev, qmod, card: str) -> dict:
                               f"strips of {card0}")
     runs.update(run_metric_cards(qmod, p12, xp_cases, card))
     times = time_metrics(qmod, p12, xp_cases, lambda n: make_mesh(n, device=card0), card)
+    return {"runs": runs, "window_err": errs, "times": times}
+
+
+# Phase 12: width sharding of VMAF's float features.  A seeded 8K B=2 luma
+# pair over the strips of card 0; the sums at rtol 1e-6, the features within
+# 1e-6, motion and its blur bit for bit.
+VMAF_SUMS_RTOL, VMAF_FEATURE_TOL = 1e-6, 1e-6
+VMAF_WIDE_BATCH = 2
+# Windows of owned columns that cut 32-column tiles (ADM's 32x32 band tiles)
+# mid-way (12b): (what, h, w, frame width, first column in the frame,
+# owned window, batch).  67x99 and 75x101 (ADM's odd band sizes) and the
+# odd 8K edge strip take ADM's block loads (rows not whole 16-byte chunks),
+# the 1080p frame and the interior 8K strip its tensor copies.
+VMAF_WINDOW_CASES = (("67x99", 67, 99, 99, 0, (24, 77), 2), ("75x101", 75, 101, 101, 0, (40, 101), 2),
+                     ("1080p", HEIGHT, WIDTH, WIDTH, 0, (40, 1301), 2),
+                     ("interior 8K strip", WIDE_HEIGHT, 1024, WIDE_WIDTH + 1, 2848, (32, 992), 1),
+                     ("odd-width 8K edge strip", WIDE_HEIGHT, 993, WIDE_WIDTH + 1, 6688, (32, 993), 1))
+
+
+def wide_vmaf_inputs(dev, seed: int = 31):
+    """Phase 12's seeded 7680x4320 B=2 inputs, made on the card: the u8 luma
+    pair (noise on a smooth base, the distorted copy within +-6) as the
+    (2, B, h, w) f32 pair of VIF and ADM, and per motion case (what, luma,
+    prev0, depth): the u8 reference luma with prev0 the blur (#17) of a
+    third seeded frame, and a 10-bit u16 luma (the u8 codes times 4 plus
+    noise) with its own prev0."""
+    from turbo_metrics_tpu_torch.engine import vmaf_pair
+    from turbo_metrics_tpu_torch.ops.kernels import motion
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w, b = WIDE_HEIGHT, WIDE_WIDTH, VMAF_WIDE_BATCH
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    base = 128 + 70 * torch.sin(xx / 9.0) * torch.cos(yy / 7.0)
+    y8 = (base + 3 * torch.randn((b + 1, h, w), device=dev, generator=g)).round().clamp(0, 255)
+    d8 = (y8[:b] + torch.randint(-6, 7, (b, h, w), device=dev, generator=g)).clamp(0, 255)
+    y10 = y8 * 4 + torch.randint(0, 4, y8.shape, device=dev, generator=g)
+    u8 = y8.to(torch.uint8).contiguous()
+    u10 = y10.to(torch.int32).to(torch.uint16).contiguous()
+    prev8 = motion.integer_blur(u8[b:])[0].contiguous()
+    prev10 = motion.integer_blur(u10[b:], depth=10)[0].contiguous()
+    pair = vmaf_pair(u8[:b].contiguous(), d8.to(torch.uint8).contiguous(), 8, 8)
+    return pair, (("u8", u8[:b].contiguous(), prev8, 8), ("10-bit u16", u10[:b].contiguous(), prev10, 10))
+
+
+def vmaf_entries(pair, motion_cases):
+    """(entry, function, inputs, in_ndims, what it launches per strip) of
+    phase 12's entries: vif_scale_stats and adm_stats on the pair, and per
+    motion case motion_stats and integer_blur."""
+    import functools
+
+    from turbo_metrics_tpu_torch.ops.kernels import adm, motion, vif
+
+    out = [("VIF", vif.vif_scale_stats, (pair,), (4,), {"vif_scale0": 1, "vif_tail": 1}),
+           ("ADM", adm.adm_stats, (pair,), (4,), {"adm_stats": 1})]
+    for what, y, prev0, depth in motion_cases:
+        out.append((f"motion {what}", functools.partial(motion.motion_stats, depth=depth), (y, prev0), (3, 2),
+                    {"motion_stats": 1}))
+        out.append((f"#17 {what}", functools.partial(motion.integer_blur, depth=depth), (y,), (3,),
+                    {"integer_blur": 1}))
+    return out
+
+
+def vmaf_plan(fn, mesh):
+    """The strips shard_over_width cuts for ``fn`` (phase 12's entries)."""
+    from turbo_metrics_tpu_torch.ops.kernels import adm, motion, vif
+    from turbo_metrics_tpu_torch.parallel.mesh import spatial_sharding
+
+    base = getattr(fn, "func", fn)
+    mod = vif if base is vif.vif_scale_stats else adm if base is adm.adm_stats else motion
+    return spatial_sharding(mesh, WIDE_WIDTH, alignment=mod.STRIP_ALIGNMENT, halo=mod.STRIP_HALO)
+
+
+def vmaf_features(entry: str, sums) -> dict:
+    from turbo_metrics_tpu_torch.ops import adm as adm_ops
+    from turbo_metrics_tpu_torch.ops import vif as vif_ops
+
+    if entry == "VIF":
+        return vif_ops.vif_scores(sums.cpu().numpy())
+    return adm_ops.adm_score(sums.cpu().numpy(), WIDE_HEIGHT, WIDE_WIDTH)
+
+
+def describe_vmaf(entry: str, want) -> str:
+    from turbo_metrics_tpu_torch.ops.vmaf_motion import motion_score
+
+    shape = f"{WIDE_WIDTH}x{WIDE_HEIGHT} B={VMAF_WIDE_BATCH}"
+    if entry in ("VIF", "ADM"):
+        feats = vmaf_features(entry, want)
+        return f"{shape} " + ", ".join(f"{k} {[round(float(x), 7) for x in v]}" for k, v in feats.items())
+    if entry.startswith("motion"):
+        sad = [int(v) for v in want["sad_rows"].sum(dim=-1).cpu()]
+        return f"{shape} SAD {sad}, motion {[motion_score(v, WIDE_WIDTH, WIDE_HEIGHT) for v in sad]}"
+    return f"{shape} blurred plane"
+
+
+def check_vmaf_outputs(what: str, entry: str, got, want) -> tuple:
+    """Phase 12 (a)/(c): VIF and ADM sums within VMAF_SUMS_RTOL and their
+    features within VMAF_FEATURE_TOL; the blurred planes, row SADs and
+    motion scores bit-equal.  Returns (each output's largest difference,
+    what was equal)."""
+    from turbo_metrics_tpu_torch.ops.vmaf_motion import motion_score
+
+    for g, v in zip(output_tensors(got), output_tensors(want)):
+        need(g.shape == v.shape and g.dtype == v.dtype, f"{what}: {tuple(g.shape)} {g.dtype}, "
+             f"want {tuple(v.shape)} {v.dtype}")
+    if entry in ("VIF", "ADM"):
+        diffs = {"sums": check_close(f"{what}: sums", got.double(), want.double(), VMAF_SUMS_RTOL, 0.0)}
+        diffs["sums_rel"] = float(((got.double() - want.double()).abs() / want.double().abs().clamp_min(1e-30)).max())
+        f_got, f_want = vmaf_features(entry, got), vmaf_features(entry, want)
+        for k, v in f_want.items():
+            d = float(np.abs(f_got[k] - v).max())
+            need(np.isfinite(f_got[k]).all() and d <= VMAF_FEATURE_TOL,
+                 f"{what}: {k} {f_got[k]} vs unsharded {v} (bar {VMAF_FEATURE_TOL})")
+            diffs[k] = d
+        return diffs, f"features within {VMAF_FEATURE_TOL}"
+    if entry.startswith("#17"):
+        need(torch.equal(got, want), f"{what}: #17's plane differs from the unsharded call's")
+        return {}, "plane bit-equal"
+    for k in ("blurred", "sad_rows"):
+        need(torch.equal(got[k], want[k]), f"{what}: {k} differs from the unsharded call's")
+    scores = [motion_score(int(v), WIDE_WIDTH, WIDE_HEIGHT) for v in got["sad_rows"].sum(dim=-1).cpu()]
+    want_scores = [motion_score(int(v), WIDE_WIDTH, WIDE_HEIGHT) for v in want["sad_rows"].sum(dim=-1).cpu()]
+    need(scores == want_scores, f"{what}: motion {scores} vs unsharded {want_scores}")
+    return {}, "blurred planes, row SADs and motion bit-equal"
+
+
+def run_vmaf_configs(pair, motion_cases, mesh_of, card: str, label: str, strips=WIDTH_STRIPS,
+                     host: bool = False, tag: str = "(12a)") -> dict:
+    """Phase 12 (a) (and (c)): run_strip_entries of phase 12's entries."""
+    return run_strip_entries(vmaf_entries(pair, motion_cases), vmaf_plan, check_vmaf_outputs, describe_vmaf,
+                             mesh_of, card, label, strips, host, tag)
+
+
+def check_vmaf_windows(dev, card: str) -> dict:
+    """Phase 12 (b): #14, #15 (from the twin's emitted level 1, each scale's
+    window from it), #16 and #18 with windows of owned columns that cut
+    tiles mid-way (VMAF_WINDOW_CASES; #18 as a column strip of its frame
+    where the case has one) against their twins on the same inputs at phase
+    5c's bars (#14/#15 sums rtol 1e-4 / atol 1e-5, #14's emitted level rtol
+    1e-5 / atol 1e-4, #18 sums rtol 1e-4, #16 bit for bit), and each with
+    the full window bit-equal to no window.  Returns each wrapper's largest
+    difference."""
+    from turbo_metrics_tpu_torch.ops.adm import level_windows
+    from turbo_metrics_tpu_torch.ops.kernels import adm, motion, vif
+
+    g = torch.Generator(device=dev).manual_seed(37)
+    errs = {"vif_scale0": 0.0, "vif_tail": 0.0, "adm_stats": 0.0, "motion_stats": 0.0}
+    for what, h, w, frame_w, x0, cols, b in VMAF_WINDOW_CASES:
+        ref = torch.randint(0, 256, (b, h, w), device=dev, generator=g)
+        dis = (ref + torch.randint(-12, 13, ref.shape, device=dev, generator=g)).clamp(0, 255)
+        p = torch.stack([ref, dis]).float().contiguous()
+        y = ref.to(torch.uint8).contiguous()
+        p0 = torch.randint(0, 1 << 16, (h, w), device=dev, generator=g).to(torch.int32).to(torch.uint16)
+        s_k, l1_k = vif.vif_scale0(p, columns=cols)
+        s_p, l1_p = vif.vif_scale0_ref(p, columns=cols)
+        e14 = max(check_close(f"(12b) #14 {what} window {cols}", s_k, s_p, 1e-4, 1e-5),
+                  check_close(f"(12b) #14 {what} level 1", l1_k, l1_p, 1e-5, 1e-4))
+        cols1 = (-(-cols[0] // 2), -(-cols[1] // 2))
+        t_k, t_p = vif.vif_tail(l1_p, columns=cols1), vif.vif_tail_ref(l1_p, columns=cols1)
+        e15 = check_close(f"(12b) #15 {what} window {cols1}", t_k, t_p, 1e-4, 1e-5)
+        full0, plain0 = vif.vif_scale0(p, columns=(0, w)), vif.vif_scale0(p)
+        need(torch.equal(full0[0], plain0[0]) and torch.equal(full0[1], plain0[1])
+             and torch.equal(vif.vif_tail(l1_p, columns=(0, l1_p.shape[-1])), vif.vif_tail(l1_p)),
+             f"(12b) #14/#15 {what}: the full window differs from no window")
+        frame = (x0, frame_w)
+        a_k = adm.adm_stats(p, columns=cols, frame=frame)
+        a_p = adm.adm_stats_ref(p, columns=cols, frame=frame)
+        e18 = check_close(f"(12b) #18 {what} window {cols} at column {x0} of {frame_w}", a_k, a_p, 1e-4, 0.0)
+        need(torch.equal(adm.adm_stats(p, columns=(0, w)), adm.adm_stats(p)),
+             f"(12b) #18 {what}: the full window differs from no window")
+        m_k, m_p = motion.motion_stats(y, p0, columns=cols), motion.motion_stats_ref(y, p0, columns=cols)
+        need(torch.equal(m_k["blurred"].to(torch.int32), m_p["blurred"].to(torch.int32))
+             and torch.equal(m_k["sad_rows"], m_p["sad_rows"]), f"(12b) #16 {what} window {cols}: differs from the twin")
+        whole = motion.motion_stats(y, p0)
+        full = motion.motion_stats(y, p0, columns=(0, w))
+        need(all(torch.equal(full[k], whole[k]) for k in whole), f"(12b) #16 {what}: the full window differs")
+        for k, e in (("vif_scale0", e14), ("vif_tail", e15), ("adm_stats", e18)):
+            errs[k] = max(errs[k], e)
+        rel18 = float(((a_k - a_p).abs() / a_p.abs().clamp_min(1e-30)).max())
+        log(f"(12b) windowed kernels vs twins, {what} {w}x{h} B={b} (window {cols}; #18 at column {x0} of "
+            f"{frame_w}, its windows {level_windows(w, cols, frame)}): #14 max abs {e14:.3g}, "
+            f"#15 {e15:.3g}, #18 {e18:.3g} (rel {rel18:.3g}), #16 planes and row SADs equal; full windows "
+            f"bit-equal to none [{card}]")
+        del ref, dis, p, y, p0, l1_k, l1_p
+    return errs
+
+
+def run_vmaf_width_phase(dev, card: str) -> dict:
+    """Phase 12: (a) every entry over 2, 4 and 8 strips of card 0, (b) the
+    windowed #14, #15, #16 and #18 against their twins, (c) host inputs
+    (every card where there are several), (d) the times and the peak
+    memory."""
+    from turbo_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    card0 = f"cuda:{dev.index or 0}"
+    errs = check_vmaf_windows(dev, card)
+    pair, motion_cases = wide_vmaf_inputs(dev)
+    runs = run_vmaf_configs(pair, motion_cases, lambda n: make_mesh(n, device=card0), card, f"strips of {card0}")
+    runs.update(run_strip_cards(lambda mesh_of, label, strips: run_vmaf_configs(
+        pair, motion_cases, mesh_of, card, label, strips=strips, host=True, tag="(12c)"), "(12c)"))
+    times = time_strip_entries(vmaf_entries(pair, motion_cases), lambda n: make_mesh(n, device=card0), card,
+                               "(12d)", f"{WIDE_WIDTH}x{WIDE_HEIGHT} B={VMAF_WIDE_BATCH}")
+    del pair, motion_cases
     return {"runs": runs, "window_err": errs, "times": times}
 
 
@@ -3481,6 +3749,7 @@ def main() -> int:
         run_mesh_phase(dev, card)
         width = run_width_phase(dev, Ssimulacra2(WIDE_WIDTH, WIDE_HEIGHT, device=dev), card)
         metric_width = run_metric_width_phase(dev, qmod, card)
+        vmaf_width = run_vmaf_width_phase(dev, card)
 
     mpx = WIDTH * HEIGHT / 1e6
     for name, runs in (
@@ -3660,9 +3929,16 @@ def main() -> int:
         if name in metric_width["window_err"]:
             # #11 and #12 likewise (phase 11c).
             kernels[-1]["windowed_max_abs_err"] = metric_width["window_err"][name]
+        if name in ("vif_scale0", "vif_tail", "adm_stats"):
+            # #14, #15 and #18 likewise (phase 12b).
+            kernels[-1]["windowed_max_abs_err"] = vmaf_width["window_err"][name]
         if name == "xpsnr_block_stats":
             # Phase 11 (b) and (d) stop the run where a strip's grids differ.
             kernels[-1]["sharded_grids_equal"] = True
+        if name in ("motion_stats", "integer_blur"):
+            # Phase 12 (a) and (c) stop the run where a strip's blurred
+            # planes or row SADs differ from the unsharded call's.
+            kernels[-1]["sharded_planes_equal"] = True
     for name, src_file, ports, err, ms, pms, nb, (i_ops, f_ops), dms in int_rows:
         bound_ms, bound_by = bound(nb, 0.0, issue=mixed_ops_ms(i_ops, f_ops))
         unfolded = ""

@@ -448,7 +448,8 @@ def test_level_outputs_own_calls_run_on_cpu():
     and at the given shape) and int32 luma, #17 on one frame, #4 on three
     and five levels, kernel 1, #3 and kernel 2 (five levels) at 67x99, #13
     on u8, 10-bit against 8-bit and 10-bit luma, #11 and #12 with windows of
-    owned columns, and
+    owned columns, #14, #15, #16 and #18 likewise (#18 also as a column
+    strip of its frame), and
     the fixed-point VIF and ADM: sums, and per scale and per level the
     integer surfaces, on u8 and 10-bit u16 pairs at the given shape and
     12-bit u16 and 10-bit int32 pairs at 67x99) build their inputs from a
@@ -465,7 +466,8 @@ def test_level_outputs_own_calls_run_on_cpu():
     assert {w for _, w, _ in calls} == {"adm_stats", "yuv420_to_linear_rgb_pair", "yuv_to_linear_rgb",
                                         "motion_stats", "integer_blur", "fused_tail", "xpsnr_block_stats",
                                         "integer_vif_stats", "integer_adm_stats", "fused_scale0_yuv",
-                                        "fused_scale_rgb", "fused_pyramid_tail", "ssim_sums", "msssim_tail"}
+                                        "fused_scale_rgb", "fused_pyramid_tail", "ssim_sums", "msssim_tail",
+                                        "vif_scale0", "vif_tail"}
     int_shapes = {}
     for what, (b, h, w) in (("u8 64x48", (1, 48, 64)), ("10-bit u16 64x48", (1, 48, 64)),
                             ("12-bit u16 99x67", (2, 67, 99)), ("10-bit int32 99x67", (2, 67, 99)),
@@ -502,6 +504,15 @@ def test_level_outputs_own_calls_run_on_cpu():
         "#11 window (45, 63) 64x48": ((1, 3, 2), (2, 1, 3, 24, 32)),
         "#12 window (13, 77) 3 levels from 99x67": (2, 3, 3, 2),
         "#12 window (1, 31) 2 levels from 32x24": (1, 2, 3, 2),
+        "#14 window (24, 77) 99x67": ((2, 2), (2, 2, 34, 50)),
+        "#15 window (12, 39) from 99x67 level 1": (2, 3, 2),
+        "#18 window (24, 77) 99x67": (2, 4, 3, 2),
+        "#14 window (40, 63) 64x48": ((1, 2), (2, 1, 24, 32)),
+        "#15 window (20, 32) from 64x48 level 1": (1, 3, 2),
+        "#18 window (40, 63) 64x48": (1, 4, 3, 2),
+        "#18 strip [0, 64) owning (16, 32) of 64x48": (1, 4, 3, 2),
+        "#16 window (13, 77) u8 99x67": ((3, 67, 99), (3, 67)),
+        "#16 window (40, 63) u8 64x48": ((1, 48, 64), (1, 48)),
     }
 
 

@@ -32,9 +32,9 @@
 // partials:
 //   * a persistent block of 8 warps (2 per SM) walks 32x32 tiles of band
 //     pixels of one frame, both images (the angle gate needs o and t
-//     together); the tile grid is anchored at the centre region's origin
-//     (top, left) and extended by whole tiles until it covers the ch x cw
-//     band plane, so each 32x8 sub-tile is one block of the centre region's
+//     together); the tile grid is anchored at the summed window's origin
+//     (top, clo) and extended by whole tiles until it covers the ch x cw
+//     band plane, so each 32x8 sub-tile is one block of the window's
 //     pixel_grid and its partials are the ones a per-pixel design writes,
 //     bit for bit;
 //   * a tile reads 70 input rows x 76 columns of each image (band pixels
@@ -64,10 +64,16 @@
 // loaded by the block's warps (adm_tile.cuh load_raw) instead of by tensor
 // copies.
 //
+// The summed window: the centre region's rows [top, ch-top) and the band
+// columns [clo, chi): the centre's [left, cw-left) for a whole frame, or, in
+// a column strip of a frame cut with a halo (parallel/mesh.py
+// spatial_sharding; ops/kernels/adm.py), the strip's owned part of the
+// frame's centre columns.  Every tile of the plane still writes its A bands.
+//
 // Layouts (all contiguous; ch = ceil(h/2), cw = ceil(w/2)):
 //   in     (2, B, h, w)      f32 luma in 8-bit units, or the previous level's A bands
 //   approx (2, B, ch, cw)    f32 the A bands of ref and dis (the next level's input)
-//   parts  (B, nblk, 6)      f32 per-32x8-block partial cube sums of the centre region
+//   parts  (B, nblk, 6)      f32 per-32x8-block partial cube sums of the summed window
 //   sums   (B, ...)          f32 at sums[b * sums_pstride + band * 2 + {0 num, 1 den}]
 
 #include <cuda.h>
@@ -160,14 +166,14 @@ __device__ __forceinline__ void column_pass(const float* __restrict__ rows, int 
 // ---------------------------------------------------------------------------
 // A persistent block of 8 warps walks the 32x32 tiles of band pixels t =
 // blockIdx.x, blockIdx.x + gridDim.x, ... (tile (tx, ty) of frame b, t = (b
-// ny + ty) nx + tx); the tile grid is anchored at (top, left) and starts at
-// (gy0, gx0) = (top - 32 ky, left - 32 kx), ky = ceil(top/32), kx =
-// ceil(left/32).  Per tile: the raw rows (tensor copies when use_tma, tmap
+// ny + ty) nx + tx); the tile grid is anchored at (top, clo) and starts at
+// (gy0, gx0) = (top - 32 ky, clo - 32 kx), ky = ceil(top/32), kx =
+// ceil(clo/32).  Per tile: the raw rows (tensor copies when use_tma, tmap
 // the input's map, else loads), the row pass into shared memory, the copy
 // of the next tile's raw rows started, the column pass, gate, decoupling and
-// CSF at the tile and its halo, the mask and the cubes at the centre-region
-// pixels, and each 32x8 sub-tile's six partials into parts[(b * nblk + blk)
-// * 6 + k], blk its index in the centre region's pixel_grid
+// CSF at the tile and its halo, the mask and the cubes at the summed
+// window's pixels, and each 32x8 sub-tile's six partials into parts[(b *
+// nblk + blk) * 6 + k], blk its index in the window's pixel_grid
 // (reduce_frames_kernel<6> then sums them in f64); with approx non-null also
 // the tile's A bands.  Warps 2s and 2s + 1 hold rows 0-3 and 4-7 of sub-tile
 // s, one column per lane.
@@ -176,7 +182,7 @@ __device__ __forceinline__ void column_pass(const float* __restrict__ rows, int 
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreadsAdm, 2)
 adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMap tmap, int use_tma,
-                int bsz, int h, int w, int top, int left, AdmConsts c, float* __restrict__ approx,
+                int bsz, int h, int w, int top, int clo, int chi, AdmConsts c, float* __restrict__ approx,
                 float* __restrict__ parts) {
   extern __shared__ __align__(128) float smem[];
   float* raw = smem;                   // [2 images][Raw::kStride]: kInRows x Raw::kW each
@@ -185,9 +191,9 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
   float* xch = rows;                   // rows 4-7 of each sub-tile's cubes, once rows is dead
   const unsigned bar = static_cast<unsigned>(__cvta_generic_to_shared(ca + 3 * kBandFloats));
   const int ch = (h + 1) / 2, cw = (w + 1) / 2;
-  const AdmGrid g = adm_grid(h, w, top, left);
+  const AdmGrid g = adm_grid(h, w, top, clo);
   const int ntiles = g.nx * g.ny * bsz;
-  const int nbx = (cw - 2 * left + kBx - 1) / kBx, nby = (ch - 2 * top + kBy - 1) / kBy;
+  const int nbx = (chi - clo + kBx - 1) / kBx, nby = (ch - 2 * top + kBy - 1) / kBy;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int sub = warp / 2, half = warp % 2;  // sub-tile, rows 0-3 or 4-7 of it
   auto origin = [&](int t, int& b, int& by0, int& bx0) {
@@ -282,8 +288,8 @@ adm_tile_kernel(const float* __restrict__ in, const __grid_constant__ CUtensorMa
     }
     __syncthreads();
 
-    // The mask and the cubes at the centre region, then the partials.
-    mask_cubes_partials(ca, xch, cr, co, b, by0, bx0, row0, ch, cw, top, left, nbx, nby, c.f, parts);
+    // The mask and the cubes at the summed window, then the partials.
+    mask_cubes_partials(ca, xch, cr, co, b, by0, bx0, row0, ch, cw, top, clo, chi, nbx, nby, c.f, parts);
   }
 }
 
@@ -320,7 +326,7 @@ extern "C" {
 // Number of per-block partials tm_adm_level writes per frame for a ch x cw
 // band plane with centre region [top, ch-top) x [left, cw-left): the caller
 // sizes `parts` as B*nblk*6 floats.
-int tm_adm_blocks(int ch, int cw, int top, int left) { return adm_blocks(ch, cw, top, left); }
+int tm_adm_blocks(int ch, int cw, int top, int left) { return adm_blocks(ch, top, left, cw - left); }
 
 // What adm_tile_kernel takes on this card: out[0] registers per thread,
 // out[1] dynamic shared memory per block in bytes, out[2] resident blocks
@@ -339,16 +345,20 @@ int tm_adm_tile_attrs(int* out) {
 }
 
 // One ADM level of the pair `in` (2, B, h, w): sums[b * sums_pstride + band *
-// 2 + {0, 1}] = (sum |masked csf*r|^3, sum |csf*o|^3) over the bands' centre
-// region (top, left: its crop per side); with approx non-null also the A
-// bands (2, B, ch, cw).  taps: db2 lo[4] then hi[4]; rf_hv, rf_d: the CSF
+// 2 + {0, 1}] = (sum |masked csf*r|^3, sum |csf*o|^3) over the summed window:
+// the rows [top, ch-top) of the centre region (top: its crop per side) and
+// the band columns [clo, chi) (0 <= clo <= chi <= cw; the centre's [left,
+// cw-left) for a whole frame; clo == chi: zeros); with approx non-null also
+// the A bands (2, B, ch, cw), whole.  taps: db2 lo[4] then hi[4]; rf_hv, rf_d: the CSF
 // factors; cos1: cos^2(1 deg); eps: the decoupling epsilon; m_centre,
 // m_edge: the mask weights.  parts holds B*tm_adm_blocks(...)*6 floats, the
 // only scratch.
 int tm_adm_level(const float* in, int bsz, int h, int w, const float* taps, float rf_hv,
                  float rf_d, float cos1, float eps, float m_centre, float m_edge, int top,
-                 int left, float* approx, float* parts, float* sums, int sums_pstride,
+                 int clo, int chi, float* approx, float* parts, float* sums, int sums_pstride,
                  void* stream) {
+  const int ch = (h + 1) / 2, cw = (w + 1) / 2;
+  if (clo < 0 || clo > chi || chi > cw || top < 0 || 2 * top > ch) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const TileSetup setup = tile_setup();
   if (setup.err != cudaSuccess) return (int)setup.err;
@@ -359,17 +369,16 @@ int tm_adm_level(const float* in, int bsz, int h, int w, const float* taps, floa
   }
   c.cos1 = cos1;
   c.f = {rf_hv, rf_d, eps, m_centre, m_edge};
-  const int ch = (h + 1) / 2, cw = (w + 1) / 2;
-  const AdmGrid g = adm_grid(h, w, top, left);
+  const AdmGrid g = adm_grid(h, w, top, clo);
   const int tiles = g.nx * g.ny * bsz;
   const int grid = tiles < setup.per_sm * setup.sms ? tiles : setup.per_sm * setup.sms;
   CUtensorMap tmap = {};
   const int use_tma = raw_tensor_map(&tmap, in, bsz, h, w);
-  adm_tile_kernel<<<grid, kThreadsAdm, kSmemBytes, s>>>(in, tmap, use_tma, bsz, h, w, top, left, c, approx,
-                                                        parts);
+  adm_tile_kernel<<<grid, kThreadsAdm, kSmemBytes, s>>>(in, tmap, use_tma, bsz, h, w, top, clo, chi, c,
+                                                        approx, parts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_frames_kernel<6><<<bsz, kReduceThreads, 0, s>>>(parts, adm_blocks(ch, cw, top, left), sums,
+  reduce_frames_kernel<6><<<bsz, kReduceThreads, 0, s>>>(parts, adm_blocks(ch, top, clo, chi), sums,
                                                          sums_pstride);
   return (int)cudaGetLastError();
 }

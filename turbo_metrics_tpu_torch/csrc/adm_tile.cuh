@@ -14,8 +14,13 @@
 //     weights of one band pixel;
 //   * put_mask: |csf*a| of one band pixel into shared memory;
 //   * mask_cubes_partials: the 3x3 masks (the products |csf*a| * 1/30 and
-//     * 1/15 formed where they are read), the centre-region cubes and each
-//     32x8 sub-tile's six partials.
+//     * 1/15 formed where they are read), the cubes of the summed window and
+//     each 32x8 sub-tile's six partials.
+// The summed window is the centre region's rows [top, ch-top) and a range
+// of band columns [clo, chi): the centre's [left, cw-left) for a whole
+// frame (the fixed-point kernel always), or a column strip's owned part of
+// the frame's centre (ops/kernels/adm.py level_windows).  The tile grid is
+// anchored at (top, clo).
 #pragma once
 
 #include <cuda.h>
@@ -212,8 +217,8 @@ __device__ __forceinline__ void load_raw(E* __restrict__ raw, const E* __restric
   }
 }
 
-// The tile of t = (b ny + ty) nx + tx, of a grid anchored at the centre
-// region's origin (top, left), starting at (gy0, gx0): frame b, band origin
+// The tile of t = (b ny + ty) nx + tx, of a grid anchored at the summed
+// window's origin (top, clo), starting at (gy0, gx0): frame b, band origin
 // (by0, bx0).
 __device__ __forceinline__ void tile_origin(int t, int nx, int ny, int gy0, int gx0, int& b, int& by0,
                                             int& bx0) {
@@ -268,10 +273,10 @@ __device__ __forceinline__ void put_mask(float* __restrict__ ca, int li, int lj,
 // (the caller syncs the block first): the mask (three 3x3 filters over
 // |csf*a|, each neighbour's product with its weight, |csf*a| * (1/30) or at
 // the centre * (1/15), formed as it is read, at its reflect-101 index in the
-// plane, summed in the plain version's order) and the cubes at the centre
-// region [top, ch-top) x [left, cw-left) of the warp's four rows (row0 .. row0+3 of the
-// tile, column lane; cr, co their |csf*r| and |csf*o|), then each 32x8
-// sub-tile's six partials into parts (the centre region's pixel_grid, nbx x
+// plane, summed in the plain version's order) and the cubes at the summed
+// window [top, ch-top) x [clo, chi) of the warp's four rows (row0 .. row0+3
+// of the tile, column lane; cr, co their |csf*r| and |csf*o|), then each
+// 32x8 sub-tile's six partials into parts (the window's pixel_grid, nbx x
 // nby blocks per frame).  The four rows of a thread share their neighbours:
 // rows row0 - 1 .. row0 + 4 (reflected) of columns lane - 1 .. lane + 1 are
 // read once.  A pixel of the plane finds them inside the tile's band
@@ -281,8 +286,8 @@ __device__ __forceinline__ void put_mask(float* __restrict__ ca, int li, int lj,
 __device__ __forceinline__ void mask_cubes_partials(const float* __restrict__ ca, float* __restrict__ xch,
                                                     const float (&cr)[kRowsPerWarp][3],
                                                     const float (&co)[kRowsPerWarp][3], int b, int by0, int bx0,
-                                                    int row0, int ch, int cw, int top, int left, int nbx, int nby,
-                                                    const AdmFinish& f, float* __restrict__ parts) {
+                                                    int row0, int ch, int cw, int top, int clo, int chi, int nbx,
+                                                    int nby, const AdmFinish& f, float* __restrict__ parts) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int sub = warp / 2, half = warp % 2;
   const int gj = bx0 + lane;
@@ -318,7 +323,7 @@ __device__ __forceinline__ void mask_cubes_partials(const float* __restrict__ ca
       thr[o] = q == 0 ? m : __fadd_rn(thr[o], m);
     }
   }
-  const bool col_in = gj >= left && gj < cw - left;
+  const bool col_in = gj >= clo && gj < chi;
   float v[kRowsPerWarp][6];
 #pragma unroll
   for (int o = 0; o < kRowsPerWarp; ++o) {
@@ -349,14 +354,14 @@ __device__ __forceinline__ void mask_cubes_partials(const float* __restrict__ ca
 #pragma unroll
       for (int k = 0; k < 6; ++k) v[o][k] = __fadd_rn(v[o][k], x4[(o * 6 + k) * 32]);
     }
-    subtile_partials<6>(v, parts, b, (bx0 - left) / kBx, (by0 - top) / kBy + sub, nbx, nby);
+    subtile_partials<6>(v, parts, b, (bx0 - clo) / kBx, (by0 - top) / kBy + sub, nbx, nby);
   }
 }
 
-// Partial blocks per frame of a ch x cw band plane with centre region [top,
-// ch-top) x [left, cw-left): its pixel_grid.
-int adm_blocks(int ch, int cw, int top, int left) {
-  const dim3 g = pixel_grid(ch - 2 * top, cw - 2 * left, 1);
+// Partial blocks per frame of a band plane of ch rows whose window [top,
+// ch-top) x [clo, chi) is summed: its pixel_grid (none for clo == chi).
+int adm_blocks(int ch, int top, int clo, int chi) {
+  const dim3 g = pixel_grid(ch - 2 * top, chi - clo, 1);
   return (int)(g.x * g.y);
 }
 
@@ -366,12 +371,14 @@ struct AdmGrid {
   int gy0, gx0, nx, ny;
 };
 
-__host__ __device__ inline AdmGrid adm_grid(int h, int w, int top, int left) {
+// The grid is anchored at (top, clo) and extended by whole tiles until it
+// covers the ch x cw band plane.
+__host__ __device__ inline AdmGrid adm_grid(int h, int w, int top, int clo) {
   const int ch = (h + 1) / 2, cw = (w + 1) / 2;
-  const int ky = (top + kTileH - 1) / kTileH, kx = (left + kTileW - 1) / kTileW;
+  const int ky = (top + kTileH - 1) / kTileH, kx = (clo + kTileW - 1) / kTileW;
   AdmGrid g;
   g.gy0 = top - ky * kTileH;
-  g.gx0 = left - kx * kTileW;
+  g.gx0 = clo - kx * kTileW;
   g.nx = (cw - g.gx0 + kTileW - 1) / kTileW;
   g.ny = (ch - g.gy0 + kTileH - 1) / kTileH;
   return g;

@@ -218,6 +218,7 @@ integer_adm_kernel(const T* __restrict__ in, const __grid_constant__ CUtensorMap
   const int ch = (h + 1) / 2, cw = (w + 1) / 2;
   const AdmGrid g = adm_grid(h, w, top, left);
   const int ntiles = g.nx * g.ny * bsz;
+  // The centre region's columns [left, cw-left): the whole frame's window.
   const int nbx = (cw - 2 * left + kBx - 1) / kBx, nby = (ch - 2 * top + kBy - 1) / kBy;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int sub = warp / 2, half = warp % 2;  // sub-tile, rows 0-3 or 4-7 of it
@@ -329,7 +330,7 @@ integer_adm_kernel(const T* __restrict__ in, const __grid_constant__ CUtensorMap
     __syncthreads();
 
     // The masks and the cubes at the centre region, then the partials.
-    mask_cubes_partials(ca, xch, cr, co, b, by0, bx0, row0, ch, cw, top, left, nbx, nby, c.f, parts);
+    mask_cubes_partials(ca, xch, cr, co, b, by0, bx0, row0, ch, cw, top, left, cw - left, nbx, nby, c.f, parts);
   }
 }
 
@@ -383,8 +384,8 @@ int launch(const Args& a) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int ch = (a.h + 1) / 2, cw = (a.w + 1) / 2;
-  reduce_frames_kernel<6><<<a.bsz, kReduceThreads, 0, a.s>>>(a.parts, adm_blocks(ch, cw, a.top, a.left), a.sums,
-                                                             a.sums_pstride);
+  reduce_frames_kernel<6><<<a.bsz, kReduceThreads, 0, a.s>>>(a.parts, adm_blocks(ch, a.top, a.left, cw - a.left),
+                                                             a.sums, a.sums_pstride);
   return (int)cudaGetLastError();
 }
 
@@ -435,7 +436,7 @@ extern "C" {
 // Number of per-block partials tm_integer_adm_level writes per frame for a
 // ch x cw band plane with centre region [top, ch-top) x [left, cw-left): the
 // caller sizes `parts` as B*nblk*6 floats.
-int tm_integer_adm_blocks(int ch, int cw, int top, int left) { return adm_blocks(ch, cw, top, left); }
+int tm_integer_adm_blocks(int ch, int cw, int top, int left) { return adm_blocks(ch, top, left, cw - left); }
 
 // What integer_adm_kernel takes on this card for level 0's codes (codes !=
 // 0) of `type` (0 uint8, 1 uint16, 2 int32) or a later level's A bands

@@ -54,7 +54,11 @@
 //     rows their windows share are read from L1; a grid of segments x row
 //     bands puts 540 blocks on the card at 1080p u8 whatever the batch (one
 //     frame, #17, too);
-//   * the row sums: each warp adds its segment's SADs of a row (shuffles)
+//   * the row sums of the columns [clo, chi) (0 and w: all of them; a
+//     column strip of a frame cut with a halo, parallel/mesh.py
+//     spatial_sharding, sums only the columns it owns and still writes
+//     every blurred column it holds): each warp adds its segment's SADs of
+//     a row (shuffles)
 //     into the low 32-bit word of the row's int64, zeroed first
 //     (cudaMemsetAsync), by atomicAdd: uint32 sums wrap mod 2^32 exactly as
 //     the reference's, in any order, so the results stay deterministic.
@@ -178,20 +182,22 @@ __device__ __forceinline__ void horizontal(const uint32_t (&vt)[V], int c, int w
   }
 }
 
-// The sum of |a - b| over the columns c .. c+V-1 that lie inside the row
-// (c >= 0), a and b packed as the horizontal pass packs them.
+// The sum of |a - b| over the columns c .. c+V-1 that lie inside the
+// window [clo, chi) (chi <= w: inside the row), a and b packed as the
+// horizontal pass packs them.
 template <int V>
 __device__ __forceinline__ uint32_t sad_packed(const uint32_t (&a)[V / 2], const uint32_t (&b)[V / 2],
-                                               int c, int w) {
+                                               int c, int clo, int chi) {
   uint32_t s = 0;
 #pragma unroll
   for (int k = 0; k < V / 2; ++k) {
     const uint32_t lo = (uint32_t)abs((int32_t)(a[k] & 0xffffu) - (int32_t)(b[k] & 0xffffu));
     const uint32_t hi = (uint32_t)abs((int32_t)(a[k] >> 16) - (int32_t)(b[k] >> 16));
-    if (c + V <= w) {
+    if (c >= clo && c + V <= chi) {
       s += lo + hi;
     } else {
-      s += (c + 2 * k < w ? lo : 0u) + (c + 2 * k + 1 < w ? hi : 0u);
+      const int j = c + 2 * k;
+      s += (j >= clo && j < chi ? lo : 0u) + (j + 1 >= clo && j + 1 < chi ? hi : 0u);
     }
   }
   return s;
@@ -259,11 +265,13 @@ __device__ __forceinline__ void store_u16(uint16_t* __restrict__ row, int c, int
 
 // grid: (nseg, ceil(h / (kWarps * kRows))), nseg = ceil(w / (kSegChunks *
 // V)) row segments; block: kWarps * 32 threads.  sad_rows == nullptr: blur
-// only (prev0 unused); else sad_rows is zeroed.
+// only (prev0, clo and chi unused); else sad_rows is zeroed and sums the
+// columns [clo, chi).
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 motion_kernel(const T* __restrict__ y, const uint16_t* __restrict__ prev0, int images, int h,
-              int w, int depth, uint16_t* __restrict__ blurred, int64_t* __restrict__ sad_rows) {
+              int w, int depth, int clo, int chi, uint16_t* __restrict__ blurred,
+              int64_t* __restrict__ sad_rows) {
   constexpr int V = Chunk<T>::V;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = (blockIdx.y * kWarps + warp) * kRows;
@@ -304,7 +312,7 @@ motion_kernel(const T* __restrict__ y, const uint16_t* __restrict__ prev0, int i
       if (!with_sad) continue;
       uint32_t s = 0;
       if (writes) {
-        s = sad_packed<V>(out, prev[i], c, w);
+        s = sad_packed<V>(out, prev[i], c, clo, chi);
 #pragma unroll
         for (int k = 0; k < V / 2; ++k) prev[i][k] = out[k];
       }
@@ -317,15 +325,16 @@ motion_kernel(const T* __restrict__ y, const uint16_t* __restrict__ prev0, int i
 }
 
 template <typename T>
-void launch_type(const void* y, const uint16_t* prev0, int images, int h, int w, int depth,
-                 uint16_t* blurred, int64_t* sad_rows, dim3 grid, cudaStream_t s) {
+void launch_type(const void* y, const uint16_t* prev0, int images, int h, int w, int depth, int clo,
+                 int chi, uint16_t* blurred, int64_t* sad_rows, dim3 grid, cudaStream_t s) {
   motion_kernel<T><<<grid, kWarps * 32, 0, s>>>(static_cast<const T*>(y), prev0, images, h, w,
-                                                depth, blurred, sad_rows);
+                                                depth, clo, chi, blurred, sad_rows);
 }
 
 int launch(const void* y, int type, const uint16_t* prev0, int images, int h, int w, int depth,
-           uint16_t* blurred, int64_t* sad_rows, void* stream) {
-  if (h < 3 || w < 3 || depth < 1 || depth > 16 || images < 1 || type < 0 || type > 2) {
+           int clo, int chi, uint16_t* blurred, int64_t* sad_rows, void* stream) {
+  if (h < 3 || w < 3 || depth < 1 || depth > 16 || images < 1 || type < 0 || type > 2 || clo < 0 ||
+      clo > chi || chi > w) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -338,13 +347,13 @@ int launch(const void* y, int type, const uint16_t* prev0, int images, int h, in
   const dim3 grid((w + per_seg - 1) / per_seg, (h + kWarps * kRows - 1) / (kWarps * kRows));
   switch (type) {
     case 0:
-      launch_type<uint8_t>(y, prev0, images, h, w, depth, blurred, sad_rows, grid, s);
+      launch_type<uint8_t>(y, prev0, images, h, w, depth, clo, chi, blurred, sad_rows, grid, s);
       break;
     case 1:
-      launch_type<uint16_t>(y, prev0, images, h, w, depth, blurred, sad_rows, grid, s);
+      launch_type<uint16_t>(y, prev0, images, h, w, depth, clo, chi, blurred, sad_rows, grid, s);
       break;
     default:
-      launch_type<int32_t>(y, prev0, images, h, w, depth, blurred, sad_rows, grid, s);
+      launch_type<int32_t>(y, prev0, images, h, w, depth, clo, chi, blurred, sad_rows, grid, s);
       break;
   }
   return (int)cudaGetLastError();
@@ -373,17 +382,18 @@ extern "C" {
 // y (images, h, w) luma of type 0 u8, 1 u16, 2 int32, at `depth` bits;
 // prev0 (h, w) uint16: the blurred frame before frame 0.  Writes blurred
 // (images, h, w) uint16 and sad_rows (images, h) int64 (uint32 row sums of
-// |blurred - previous blurred|).
+// |blurred - previous blurred| over the columns [clo, chi), 0 <= clo <= chi
+// <= w; 0 and w: the whole row).
 int tm_motion_stats(const void* y, int type, const uint16_t* prev0, int images, int h, int w,
-                    int depth, uint16_t* blurred, int64_t* sad_rows, void* stream) {
+                    int depth, int clo, int chi, uint16_t* blurred, int64_t* sad_rows, void* stream) {
   if (prev0 == nullptr || sad_rows == nullptr) return (int)cudaErrorInvalidValue;
-  return launch(y, type, prev0, images, h, w, depth, blurred, sad_rows, stream);
+  return launch(y, type, prev0, images, h, w, depth, clo, chi, blurred, sad_rows, stream);
 }
 
 // The blur alone: y (images, h, w) -> blurred (images, h, w) uint16.
 int tm_integer_blur(const void* y, int type, int images, int h, int w, int depth,
                     uint16_t* blurred, void* stream) {
-  return launch(y, type, nullptr, images, h, w, depth, blurred, nullptr, stream);
+  return launch(y, type, nullptr, images, h, w, depth, 0, w, blurred, nullptr, stream);
 }
 
 // What motion_kernel<T> takes on this card (type 0 u8, 1 u16, 2 int32):

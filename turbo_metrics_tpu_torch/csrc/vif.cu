@@ -28,6 +28,14 @@
 // map, the per-32x8-tile partials and the emission of the next scale), then
 // the f64 reduction of the partials (level.cuh reduce_frames_kernel).
 //
+// Only a window [clo, chi) of the scale's columns adds to the sums (0 and w:
+// all of them).  A column strip of a frame cut with a halo (parallel/mesh.py
+// spatial_sharding; ops/kernels/vif.py) blurs and emits every column it
+// holds but sums only the maps of the columns it owns.  A tile wholly
+// outside the window skips its five-quantity passes and its map and writes
+// zero partials, the bits its pass would write; it still emits its part of
+// the next scale.
+//
 // What bounds it on this card: the f32 work.  Per pixel of the pair at scale
 // 0 the algorithm needs 8 bytes in against ~390 f32 operations (five
 // quantities, 17 taps, two passes; the map; the emission at a quarter of the
@@ -152,7 +160,8 @@ __device__ __forceinline__ float4 load4_reflect(const float* __restrict__ p, int
 // quantities (window radius R) into shared memory, the column pass and the
 // map, and each 32x8 sub-tile's two partials into parts[(b * nblk + blk) *
 // 2 + k], blk = its index in the frame's (ceil(h/8), ceil(w/32)) grid of
-// 32x8 tiles (reduce_frames_kernel<2> then sums them in f64).  With RE > 0
+// 32x8 tiles (reduce_frames_kernel<2> then sums them in f64), only the
+// maps of the columns [clo, chi) adding.  With RE > 0
 // also the tile's 16x16 pixels of the next scale's input,
 // decimate2(blur(x, next window)), into next.
 // grid: (ceil(w/32), ceil(h/32), B), block: kTileThreads (1-D), dynamic
@@ -160,8 +169,8 @@ __device__ __forceinline__ float4 load4_reflect(const float* __restrict__ p, int
 // ---------------------------------------------------------------------------
 template <int R, int RE>
 __global__ void __launch_bounds__(kTileThreads, 4)
-vif_tile_kernel(const float* __restrict__ src, int bsz, int h, int w, const float* __restrict__ win,
-                const float* __restrict__ win_e, float* __restrict__ parts,
+vif_tile_kernel(const float* __restrict__ src, int bsz, int h, int w, int clo, int chi,
+                const float* __restrict__ win, const float* __restrict__ win_e, float* __restrict__ parts,
                 float* __restrict__ next) {
   using T = Tile<R, RE>;
   extern __shared__ __align__(16) float smem[];
@@ -175,6 +184,15 @@ vif_tile_kernel(const float* __restrict__ src, int bsz, int h, int w, const floa
   const int nbx = (w + kBx - 1) / kBx, nby = (h + kBy - 1) / kBy;
   const int by = blockIdx.y * kSubTiles + warp;  // this warp's sub-tile row in that grid
   const int c = x0 + lane;                       // this thread's output column
+  // The whole block: the tile's 32 columns all lie outside the window.
+  const bool outside = x0 + kTileW <= clo || x0 >= chi;
+  float v[kBy / 2][2];
+  if (outside && RE == 0) {
+#pragma unroll
+    for (int o = 0; o < kBy / 2; ++o) v[o][0] = v[o][1] = 0.0f;
+    subtile_partials<2>(v, parts, b, blockIdx.x, by, nbx, nby);
+    return;
+  }
 
   // Input tiles: rows y0-R .. y0+31+R, columns x0-kInOff .. x0+31+kInOff.
   {
@@ -205,8 +223,9 @@ vif_tile_kernel(const float* __restrict__ src, int bsz, int h, int w, const floa
   }
   __syncthreads();
 
-  // Row pass: every input row of the tile, one output column per lane.
-  for (int r = warp; r < T::kHaloH; r += kSubTiles) {
+  // Row pass: every input row of the tile, one output column per lane
+  // (none outside the window).
+  for (int r = warp; r < T::kHaloH && !outside; r += kSubTiles) {
     const float* p = in + r * T::kInW + lane + (T::kInOff - R);
     float s[5];
 #pragma unroll
@@ -231,33 +250,39 @@ vif_tile_kernel(const float* __restrict__ src, int bsz, int h, int w, const floa
   }
   __syncthreads();
 
-  // Column pass: column `lane` of the warp's sub-tile, eight outputs from
-  // one window of kColWin rows (tile row o + k is input row y0 + o - R + k),
-  // each summed over k = 0..2R in order.
-  float s[kBy][5];
+  if (outside) {
 #pragma unroll
-  for (int i = 0; i < T::kColWin; ++i) {
-    const float* rp = rows + (warp * kBy + i) * kTileW + lane;
-    float x[5];
+    for (int o = 0; o < kBy / 2; ++o) v[o][0] = v[o][1] = 0.0f;
+  } else {
+    // Column pass: column `lane` of the warp's sub-tile, eight outputs from
+    // one window of kColWin rows (tile row o + k is input row y0 + o - R +
+    // k), each summed over k = 0..2R in order.
+    float s[kBy][5];
 #pragma unroll
-    for (int q = 0; q < 5; ++q) x[q] = rp[q * T::kRowFloats];
+    for (int i = 0; i < T::kColWin; ++i) {
+      const float* rp = rows + (warp * kBy + i) * kTileW + lane;
+      float x[5];
 #pragma unroll
-    for (int o = 0; o < kBy; ++o) {
-      if (i - o >= 0 && i - o <= 2 * R) vif_col_tap(s[o], i - o, t[i - o], x);
+      for (int q = 0; q < 5; ++q) x[q] = rp[q * T::kRowFloats];
+#pragma unroll
+      for (int o = 0; o < kBy; ++o) {
+        if (i - o >= 0 && i - o <= 2 * R) vif_col_tap(s[o], i - o, t[i - o], x);
+      }
     }
-  }
 
-  // The map, rows o and o + 4 added (the first stride of level.cuh's tree),
-  // then the rest of the sub-tile's tree.
-  float v[kBy / 2][2];
+    // The map, rows o and o + 4 added (the first stride of level.cuh's
+    // tree), then the rest of the sub-tile's tree.  chi <= w: an owned
+    // column lies in the plane.
+    const bool owned = c >= clo && c < chi;
 #pragma unroll
-  for (int o = 0; o < kBy / 2; ++o) {
-    float va[2] = {0.0f, 0.0f}, vb[2] = {0.0f, 0.0f};
-    const int ra = y0 + warp * kBy + o, rb = ra + kBy / 2;
-    if (ra < h && c < w) vif_map(s[o], va);
-    if (rb < h && c < w) vif_map(s[o + kBy / 2], vb);
+    for (int o = 0; o < kBy / 2; ++o) {
+      float va[2] = {0.0f, 0.0f}, vb[2] = {0.0f, 0.0f};
+      const int ra = y0 + warp * kBy + o, rb = ra + kBy / 2;
+      if (ra < h && owned) vif_map(s[o], va);
+      if (rb < h && owned) vif_map(s[o + kBy / 2], vb);
 #pragma unroll
-    for (int k = 0; k < 2; ++k) v[o][k] = __fadd_rn(va[k], vb[k]);
+      for (int k = 0; k < 2; ++k) v[o][k] = __fadd_rn(va[k], vb[k]);
+    }
   }
   subtile_partials<2>(v, parts, b, blockIdx.x, by, nbx, nby);
 
@@ -302,13 +327,13 @@ cudaError_t tile_setup() {
 }
 
 template <int R, int RE>
-int launch_scale(const float* in, int bsz, int h, int w, const float* win, const float* win_e,
-                 float* parts, float* sums, int sums_pstride, float* next, cudaStream_t s) {
+int launch_scale(const float* in, int bsz, int h, int w, const float* win, const float* win_e, int clo,
+                 int chi, float* parts, float* sums, int sums_pstride, float* next, cudaStream_t s) {
   cudaError_t err = tile_setup<R, RE>();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, bsz);
-  vif_tile_kernel<R, RE><<<grid, kTileThreads, Tile<R, RE>::kSmemBytes, s>>>(in, bsz, h, w, win, win_e,
-                                                                            parts, next);
+  vif_tile_kernel<R, RE><<<grid, kTileThreads, Tile<R, RE>::kSmemBytes, s>>>(in, bsz, h, w, clo, chi, win,
+                                                                            win_e, parts, next);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_frames_kernel<2><<<bsz, kReduceThreads, 0, s>>>(parts, vif_blocks(h, w), sums, sums_pstride);
@@ -356,20 +381,23 @@ int tm_vif_tile_attrs(int scale, int* out) {
 }
 
 // VIF scale `scale` (0-3, window 2^(4-scale)+1 taps `win`) of the pair `in`
-// (2, B, h, w) -> sums[b * sums_pstride + {0, 1}] = (num, den).  With scale
+// (2, B, h, w) -> sums[b * sums_pstride + {0, 1}] = (num, den) over the
+// columns [clo, chi) (0 <= clo <= chi <= w; 0 and w: the whole scale;
+// clo == chi: zeros).  With scale
 // < 3 it also writes `next` (2, B, ceil(h/2), ceil(w/2)) = decimate2(blur(in,
 // win_e)), win_e the next scale's window (at scale 3 win_e and next are
 // unused and may be null).  parts holds B*tm_vif_blocks(h, w)*2 floats, the
 // only scratch.
 int tm_vif_level(const float* in, int bsz, int h, int w, int scale, const float* win,
-                 const float* win_e, float* parts, float* sums, int sums_pstride, float* next,
-                 void* stream) {
+                 const float* win_e, int clo, int chi, float* parts, float* sums, int sums_pstride,
+                 float* next, void* stream) {
+  if (clo < 0 || clo > chi || chi > w) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (scale) {
-    case 0: return launch_scale<8, 4>(in, bsz, h, w, win, win_e, parts, sums, sums_pstride, next, s);
-    case 1: return launch_scale<4, 2>(in, bsz, h, w, win, win_e, parts, sums, sums_pstride, next, s);
-    case 2: return launch_scale<2, 1>(in, bsz, h, w, win, win_e, parts, sums, sums_pstride, next, s);
-    case 3: return launch_scale<1, 0>(in, bsz, h, w, win, win_e, parts, sums, sums_pstride, next, s);
+    case 0: return launch_scale<8, 4>(in, bsz, h, w, win, win_e, clo, chi, parts, sums, sums_pstride, next, s);
+    case 1: return launch_scale<4, 2>(in, bsz, h, w, win, win_e, clo, chi, parts, sums, sums_pstride, next, s);
+    case 2: return launch_scale<2, 1>(in, bsz, h, w, win, win_e, clo, chi, parts, sums, sums_pstride, next, s);
+    case 3: return launch_scale<1, 0>(in, bsz, h, w, win, win_e, clo, chi, parts, sums, sums_pstride, next, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -89,6 +89,40 @@ def center_region(h: int, w: int) -> tuple[int, int, int, int]:
     return top, h - top, left, w - left
 
 
+def level_windows(w: int, columns=None, frame=None) -> list[tuple[int, int]]:
+    """The band columns [clo, chi) that each level of a w wide plane sums.
+
+    ``columns`` = (lo, hi): the plane's owned level-0 columns; ``frame`` =
+    (x0, frame_w): the plane's first column in the frame and the frame's
+    width (None: the plane is the frame, (0, w)).  Level l's band column
+    j of the frame lies at level-0 column 2^(l+1) j; the owned ones, those
+    with lo <= 2^(l+1) j - x0 < hi, are [ceil((x0 + lo) / 2^(l+1)),
+    ceil((x0 + hi) / 2^(l+1))) in frame coordinates (with lo a multiple of
+    2^(l+1), (x0 + lo) / 2^(l+1)), intersected with the frame's centre
+    columns [left_l, cw_l - left_l) (``center_region`` on the frame's
+    ``band_sizes``) and made plane-local (minus x0 / 2^(l+1)), an empty
+    window (clo == chi) where they miss.  x0 must be a multiple of
+    2^NUM_LEVELS (a column strip of the frame), so that the plane's band
+    columns are the frame's at every level.  With neither argument, every
+    level's centre columns."""
+    x0, fw = (0, w) if frame is None else (int(frame[0]), int(frame[1]))
+    lo, hi = (0, w) if columns is None else (int(columns[0]), int(columns[1]))
+    a = 1 << NUM_LEVELS
+    if not (0 <= lo < hi <= w and x0 >= 0 and x0 % a == 0 and x0 + w <= fw):
+        raise ValueError(
+            f"columns {columns} of a {w}-column plane at column {x0} of a {fw}-column frame: need 0 <= lo "
+            f"< hi <= {w}, the plane inside the frame and its first column a multiple of {a}"
+        )
+    out = []
+    for level, (_, cw) in enumerate(band_sizes(1, fw)):
+        m = 1 << (level + 1)
+        _, _, left, right = center_region(1, cw)
+        clo = max(-(-(x0 + lo) // m), left) - x0 // m
+        chi = min(-(-(x0 + hi) // m), right) - x0 // m
+        out.append((clo, max(chi, clo)))
+    return out
+
+
 def symmetric_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     """Half-sample symmetric extension (x[-1] = x[0], x[n] = x[n-1]),
     period 2n, as ``jnp.pad(mode="symmetric")`` extends."""
@@ -169,15 +203,21 @@ def decouple_csf(o_bands, t_bands, angle_ok: torch.Tensor, level: int):
     return csf_r, csf_a, csf_o
 
 
-def level_sums(csf_r, csf_a, csf_o) -> torch.Tensor:
+def level_sums(csf_r, csf_a, csf_o, columns=None) -> torch.Tensor:
     """Masking and the centre-region cube sums of one level -> (B, 3, 2)
-    (the maps in f32, their sums in f64)."""
+    (the maps in f32, their sums in f64): the region's rows [top, h-top)
+    and its columns [left, w-left), or the band columns ``columns`` =
+    (clo, chi) (``level_windows``) in their place."""
     thr = None
     for a_b in csf_a:
         m = mask_filter(a_b.abs())
         thr = m if thr is None else thr + m
     hh, ww = csf_r[0].shape[-2], csf_r[0].shape[-1]
     top, bottom, left, right = center_region(hh, ww)
+    if columns is not None:
+        left, right = (int(c) for c in columns)
+        if not 0 <= left <= right <= ww:
+            raise ValueError(f"columns must satisfy 0 <= clo <= chi <= {ww}, got {tuple(columns)}")
     bands = []
     for r_b, o_b in zip(csf_r, csf_o):
         rm = torch.clamp_min(r_b.abs() - thr, 0.0)[..., top:bottom, left:right]
@@ -191,11 +231,13 @@ def level_sums(csf_r, csf_a, csf_o) -> torch.Tensor:
     return torch.stack(bands, dim=-2).float()
 
 
-def adm_stats(y_ref: torch.Tensor, y_dis: torch.Tensor) -> torch.Tensor:
+def adm_stats(y_ref: torch.Tensor, y_dis: torch.Tensor, windows=None) -> torch.Tensor:
     """Per-scale, per-band centre-region cube sums for (B, H, W) f32 luma.
 
     Returns (B, NUM_LEVELS, 3, 2): [..., b, 0] = sum |masked csf*r_b|^3,
-    [..., b, 1] = sum |csf*o_b|^3 over the centre region, bands b = (H, V, D).
+    [..., b, 1] = sum |csf*o_b|^3 over the centre region, bands b = (H, V, D);
+    ``windows``: each level's band columns in place of the region's
+    (``level_windows``), None for the region's.
     """
     o = y_ref.to(torch.float32)
     t = y_dis.to(torch.float32)
@@ -204,7 +246,7 @@ def adm_stats(y_ref: torch.Tensor, y_dis: torch.Tensor) -> torch.Tensor:
         o_a, *o_bands = dwt_level(o)
         t_a, *t_bands = dwt_level(t)
         _, csf_r, csf_a, csf_o = decouple(o_bands, t_bands, level)
-        out.append(level_sums(csf_r, csf_a, csf_o))
+        out.append(level_sums(csf_r, csf_a, csf_o, None if windows is None else windows[level]))
         o, t = o_a, t_a
     return torch.stack(out, dim=-3)
 

@@ -11,6 +11,29 @@ the blur alone for the first frame of a stream.
 Frame b's previous blurred frame is the blur of frame b - 1 of the same
 batch; frame 0's is ``prev0``, the plane carried over from the previous
 batch (the JAX engine concatenates the same planes).
+
+``columns=(lo, hi)`` (``motion_stats``): the owned columns whose SADs are
+summed (None: all of them); the blurred planes are written whole.
+
+Width sharding (``motion_width_sharded``; parallel/mesh.py
+``shard_over_width`` calls it, for ``motion_stats`` and ``integer_blur``):
+each strip of the frame's columns, and of ``prev0``, is cut once, at upload,
+with owned edges on multiples of A = 16 and a halo of H = 16 columns on each
+side (clipped at the frame's edges).  Why these:
+  * H: the 5-tap blur reaches 2 columns on each side, so every owned
+    column's blur reads the frame's own samples, and a strip's edge at the
+    frame's edge mirrors as the frame does; H is that rounded up to A;
+  * A: 16 keeps every interior strip's rows whole 16-byte chunks at u8
+    (its width and its first column multiples of 16), the lane unit of
+    ``motion_kernel`` (csrc/motion.cu); u16 and int32 rows are then whole
+    chunks too;
+  * the strips' owned columns of the blurred planes are joined on the first
+    device, bit for bit the frame's, and their row SADs (each the uint32
+    sum of its owned columns) add in int64.  That is the frame row's uint32
+    sum exactly while no row sum wraps: w * (2^16 - 1) < 2^32, every width
+    below 65537.
+The halo costs (w + 2 H (n - 1)) / w of the columns: 1.00417, 1.0125 and
+1.02917 over 2, 4 and 8 strips at 7680 columns.
 """
 
 from __future__ import annotations
@@ -21,6 +44,19 @@ from turbo_metrics_tpu_torch.ops import vmaf_motion
 from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 # The luma types of csrc/motion.cu are those of csrc/xpsnr.cu.
 from turbo_metrics_tpu_torch.ops.kernels.xpsnr import DTYPE_CODES
+from turbo_metrics_tpu_torch.parallel.mesh import (
+    check_inputs,
+    launch_shards,
+    partial_keywords,
+    spatial_sharding,
+    strip_input,
+    to_dest,
+    upload,
+)
+
+# The strips of a width-sharded call (module docstring).
+STRIP_ALIGNMENT = 16
+STRIP_HALO = 16
 
 
 def _check(y, depth, prev0=None):
@@ -76,23 +112,25 @@ def integer_blur(y: torch.Tensor, *, depth: int = 8) -> torch.Tensor:
 integer_blur.launches = 0
 
 
-def motion_stats_ref(y, prev0, *, depth=8):
+def motion_stats_ref(y, prev0, *, depth=8, columns=None):
     """Plain twin of ``motion_stats`` (same arguments and results)."""
     _check(y, depth, prev0)
     blurred = vmaf_motion.integer_blur(y, depth=depth)
     # In int64: torch's uint16 tensors take few operations on CUDA.
     prev = torch.cat([prev0[None].to(torch.int64), blurred[:-1].to(torch.int64)])
-    return {"blurred": blurred, "sad_rows": vmaf_motion.sad_rows(blurred, prev)}
+    return {"blurred": blurred, "sad_rows": vmaf_motion.sad_rows(blurred, prev, columns)}
 
 
-def motion_stats(y: torch.Tensor, prev0: torch.Tensor, *, depth: int = 8) -> dict:
+def motion_stats(y: torch.Tensor, prev0: torch.Tensor, *, depth: int = 8, columns=None) -> dict:
     """Blur each frame of (B, h, w) luma and SAD it against the previous
     blurred frame (frame b - 1's; ``prev0``, a (h, w) uint16 plane, for
     frame 0).  Returns {'blurred': (B, h, w) uint16, 'sad_rows': (B, h)
-    int64 holding the uint32 row sums}."""
+    int64 holding the uint32 row sums of the columns ``columns`` = (lo,
+    hi) (None: the whole rows)}."""
     _check(y, depth, prev0)
+    clo, chi = vmaf_motion.sad_window(columns, y.shape[-1])
     if y.device.type == "cpu":
-        return motion_stats_ref(y, prev0, depth=depth)
+        return motion_stats_ref(y, prev0, depth=depth, columns=columns)
     _device(y, "motion_stats")
     lib = LIBRARY.get()
     bsz, h, w = y.shape
@@ -100,8 +138,8 @@ def motion_stats(y: torch.Tensor, prev0: torch.Tensor, *, depth: int = 8) -> dic
     sad_rows = torch.empty((bsz, h), dtype=torch.int64, device=y.device)
     with launch_stream(y.device) as stream:
         check(
-            lib.tm_motion_stats(y.data_ptr(), DTYPE_CODES[y.dtype], prev0.data_ptr(), bsz, h, w, depth,
-                                blurred.data_ptr(), sad_rows.data_ptr(), stream),
+            lib.tm_motion_stats(y.data_ptr(), DTYPE_CODES[y.dtype], prev0.data_ptr(), bsz, h, w, depth, clo,
+                                chi, blurred.data_ptr(), sad_rows.data_ptr(), stream),
             "tm_motion_stats",
         )
     motion_stats.launches += 1
@@ -109,3 +147,55 @@ def motion_stats(y: torch.Tensor, prev0: torch.Tensor, *, depth: int = 8) -> dic
 
 
 motion_stats.launches = 0
+
+
+def motion_width_sharded(fn, mesh, *, in_ndims):
+    """``motion_stats`` or ``integer_blur`` with one frame's columns split
+    over ``mesh`` (module docstring; ``shard_over_width`` calls this).
+    ``fn``: either, bare or through functools.partial with ``depth``; its
+    inputs the (B, h, w) luma and, for ``motion_stats``, the (h, w) uint16
+    ``prev0``: ``in_ndims`` (3, 2), or (3,).  Each call plans the strips
+    (``spatial_sharding``: owned edges on multiples of 16, a halo of 16
+    columns), and each strip, under its device and its stream
+    (``launch_shards``), cuts its columns of every input (``strip_input``)
+    and runs the kernel, the SADs over its owned columns; the owned columns
+    of the blurred planes are joined and the row SADs added in int64 on
+    ``mesh.devices[0]``, the unsharded call's results bit for bit.
+    ``ValueError`` where a strip would own fewer than 16 columns.  A mesh
+    of one runs ``fn`` unchanged on its device."""
+    base, kw = partial_keywords(fn)
+    want = {motion_stats: (3, 2), integer_blur: (3,)}
+    if not any(base is e for e in want):
+        raise TypeError(f"motion_width_sharded takes ops.kernels.motion.motion_stats or integer_blur, not {fn!r}")
+    base = motion_stats if base is motion_stats else integer_blur
+    if tuple(in_ndims) != want[base]:
+        raise ValueError(f"{fn!r} takes inputs of {want[base]} dims, got in_ndims={tuple(in_ndims)}")
+    unknown = set(kw) - {"depth"}
+    if unknown:
+        raise TypeError(f"{base.__name__} takes no keywords {sorted(unknown)} under width sharding")
+    dest = mesh.devices[0]
+
+    def sharded(*args):
+        check_inputs(args, in_ndims)
+        if mesh.size == 1:
+            return fn(*(upload(a, dest) for a in args))
+        plan = spatial_sharding(mesh, args[0].shape[-1], alignment=STRIP_ALIGNMENT, halo=STRIP_HALO)
+
+        def strip(k, dev):
+            s = plan[k]
+            cut = [strip_input(a, s, dev) for a in args]
+            if base is integer_blur:
+                return integer_blur(*cut, **kw)[..., s.own_lo:s.own_hi]
+            out = motion_stats(*cut, **kw, columns=s.columns)
+            return out["blurred"][..., s.own_lo:s.own_hi], out["sad_rows"]
+
+        outs = launch_shards(strip, mesh)
+        if base is integer_blur:
+            return torch.cat([to_dest(o, dest) for o in outs], dim=-1)
+        sad = None
+        for _, rows in outs:
+            rows = to_dest(rows, dest)
+            sad = rows if sad is None else sad + rows
+        return {"blurred": torch.cat([to_dest(b, dest) for b, _ in outs], dim=-1), "sad_rows": sad}
+
+    return sharded

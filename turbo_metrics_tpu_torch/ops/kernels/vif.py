@@ -8,6 +8,35 @@
 (l.664) runs it at scale 0, and ``vif_tail_pallas`` (ops/pallas/vif_tail.py:
 331).  Scale k's input is decimate2(blur(x, window k)) of scale k - 1
 (ops/vif.py), so the launch at scale k - 1 emits it with the next window.
+
+``columns=(lo, hi)``: the owned level-0 columns whose maps are summed (None:
+all of them).  Scale k sums its columns j with lo <= j * 2^k < hi,
+``vif.scale_columns``: [ceil(lo / 2^k), ceil(hi / 2^k)).  Every plane is
+still blurred and emitted whole.
+
+Width sharding (``vif_width_sharded``; parallel/mesh.py ``shard_over_width``
+calls it): each strip of the frame's columns is cut once, at upload, with
+owned edges on multiples of A = 8 = 2^3 and a halo of H = 24 columns on
+each side (clipped at the frame's edges), and sums its owned window.  Why
+these:
+  * A: a strip starting at a multiple of 2^3 decimates in the frame's
+    phase at every scale, so its scale-k column j is the frame's column
+    lo / 2^k + j, and a strip's edge at the frame's right edge is the
+    frame's edge at every scale (the same reflections there);
+  * H: scale k's input is decimate2(blur(x, window k)) of scale k - 1
+    and its map reads window k again, radii 8, 4, 2, 1.  An owned pixel of
+    scale k (at level-0 column 2^k j >= own_lo) reads scale-k columns j - r_k
+    .. j + r_k, which read scale k - 1 columns 2(j - r_k) - r_k .., and so
+    on down: in level-0 columns 8 (scale 0), 2 * 4 + 4 = 12 (scale 1), 4 *
+    2 + 2 * 2 + 4 = 16 (scale 2) and 8 + 4 + 4 + 4 = 20 (scale 3) to the
+    left; to the right the same reaches from the last owned pixel, 2^k j
+    <= own_hi - 2^k (own_hi a multiple of 8 inside the frame), end at
+    column own_hi + 12 at most.  Samples the cut reflects at a strip's
+    inner edge reach no owned pixel: H = 20 rounded up to a multiple of A;
+  * the strips' f32 (B, 4, 2) sums add in f64 on the first device and round
+    once to f32: only the grouping of the sums changes.
+The halo costs (w + 2 H (n - 1)) / w of the columns: 1.00625, 1.01875 and
+1.04375 over 2, 4 and 8 strips at 7680 columns.
 """
 
 from __future__ import annotations
@@ -18,6 +47,20 @@ import torch
 from turbo_metrics_tpu_torch.ops import vif
 from turbo_metrics_tpu_torch.ops.kernels._build import LIBRARY, check, launch_stream
 from turbo_metrics_tpu_torch.ops.kernels.scale_stats import PART_H, PART_W
+from turbo_metrics_tpu_torch.parallel.mesh import (
+    add_strips,
+    check_inputs,
+    launch_shards,
+    partial_keywords,
+    spatial_sharding,
+    strip_input,
+    upload,
+)
+
+# The strips of a width-sharded call: owned edges on multiples of 2^3 and a
+# halo of 24 columns (module docstring).
+STRIP_ALIGNMENT = 1 << (vif.NUM_SCALES - 1)
+STRIP_HALO = 24
 
 _WINDOWS: dict = {}
 
@@ -43,18 +86,18 @@ def _emit(x, scale):
     return vif.decimate2(vif.blur_same(x, vif.vif_window(scale))).contiguous()
 
 
-def vif_scale0_ref(pair):
-    """Plain twin of ``vif_scale0`` (same argument and results)."""
+def vif_scale0_ref(pair, *, columns=None):
+    """Plain twin of ``vif_scale0`` (same arguments and results)."""
     check_pair(pair)
-    return vif.scale_sums(pair[0], pair[1], vif.vif_window(0)), _emit(pair, 1)
+    return vif.scale_sums(pair[0], pair[1], vif.vif_window(0), columns), _emit(pair, 1)
 
 
-def vif_tail_ref(level1):
-    """Plain twin of ``vif_tail`` (same argument and result)."""
+def vif_tail_ref(level1, *, columns=None):
+    """Plain twin of ``vif_tail`` (same arguments and result)."""
     check_pair(level1)
     out, x = [], level1
     for k in range(1, vif.NUM_SCALES):
-        out.append(vif.scale_sums(x[0], x[1], vif.vif_window(k)))
+        out.append(vif.scale_sums(x[0], x[1], vif.vif_window(k), vif.scale_columns(columns, k - 1)))
         if k + 1 < vif.NUM_SCALES:
             x = _emit(x, k + 1)
     return torch.stack(out, dim=1)
@@ -73,17 +116,19 @@ def level_scratch(bsz: int, h: int, w: int, dev) -> torch.Tensor:
     return torch.empty(bsz * vif_blocks(h, w) * 2, dtype=torch.float32, device=dev)
 
 
-def _launch(lib, x, scale, sums, sums_pstride, nxt):
-    """One ``tm_vif_level`` call on the current stream."""
+def _launch(lib, x, scale, sums, sums_pstride, nxt, columns):
+    """One ``tm_vif_level`` call on the current stream, the maps of the
+    scale's columns ``columns`` (None: all) summed."""
     _, bsz, h, w = x.shape
     dev = x.device
+    clo, chi = vif.window_columns(columns, w)
     parts = level_scratch(bsz, h, w, dev)
     win_e = None if nxt is None else _window(scale + 1, dev).data_ptr()
     with launch_stream(dev) as stream:
         check(
             lib.tm_vif_level(
-                x.data_ptr(), bsz, h, w, scale, _window(scale, dev).data_ptr(), win_e, parts.data_ptr(),
-                sums.data_ptr(), sums_pstride, None if nxt is None else nxt.data_ptr(),
+                x.data_ptr(), bsz, h, w, scale, _window(scale, dev).data_ptr(), win_e, clo, chi,
+                parts.data_ptr(), sums.data_ptr(), sums_pstride, None if nxt is None else nxt.data_ptr(),
                 stream,
             ),
             "tm_vif_level",
@@ -95,19 +140,20 @@ def _next_level(x):
     return torch.empty((2, bsz, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=x.device)
 
 
-def vif_scale0(pair: torch.Tensor):
+def vif_scale0(pair: torch.Tensor, *, columns=None):
     """VIF scale 0 of a (2, B, h, w) f32 (reference, distorted) luma pair in
-    8-bit units -> ((B, 2) f32 (num, den) sums, the (2, B, ceil(h/2),
-    ceil(w/2)) f32 input of scale 1)."""
+    8-bit units -> ((B, 2) f32 (num, den) sums over the columns ``columns``
+    = (lo, hi) (None: all), the whole (2, B, ceil(h/2), ceil(w/2)) f32
+    input of scale 1)."""
     check_pair(pair)
     if pair.device.type == "cpu":
-        return vif_scale0_ref(pair)
+        return vif_scale0_ref(pair, columns=columns)
     if pair.device.type != "cuda":
         raise ValueError(f"vif_scale0 runs on cuda or cpu, not {pair.device}")
     lib = LIBRARY.get()
     sums = torch.empty((pair.shape[1], 2), dtype=torch.float32, device=pair.device)
     level1 = _next_level(pair)
-    _launch(lib, pair, 0, sums, 2, level1)
+    _launch(lib, pair, 0, sums, 2, level1, columns)
     vif_scale0.launches += 1
     return sums, level1
 
@@ -115,12 +161,14 @@ def vif_scale0(pair: torch.Tensor):
 vif_scale0.launches = 0
 
 
-def vif_tail(level1: torch.Tensor) -> torch.Tensor:
+def vif_tail(level1: torch.Tensor, *, columns=None) -> torch.Tensor:
     """VIF scales 1-3 from scale 1's (2, B, h, w) f32 input (``vif_scale0``'s
-    second result) -> (B, 3, 2) f32 (num, den) sums."""
+    second result) -> (B, 3, 2) f32 (num, den) sums; ``columns``: scale 1's
+    window (None: all columns), scale k's ``vif.scale_columns(columns, k -
+    1)``."""
     check_pair(level1)
     if level1.device.type == "cpu":
-        return vif_tail_ref(level1)
+        return vif_tail_ref(level1, columns=columns)
     if level1.device.type != "cuda":
         raise ValueError(f"vif_tail runs on cuda or cpu, not {level1.device}")
     lib = LIBRARY.get()
@@ -129,7 +177,7 @@ def vif_tail(level1: torch.Tensor) -> torch.Tensor:
     x = level1
     for k in range(1, vif.NUM_SCALES):
         nxt = _next_level(x) if k + 1 < vif.NUM_SCALES else None
-        _launch(lib, x, k, sums[:, k - 1], nscales * 2, nxt)
+        _launch(lib, x, k, sums[:, k - 1], nscales * 2, nxt, vif.scale_columns(columns, k - 1))
         x = nxt
     vif_tail.launches += 1
     return sums
@@ -138,8 +186,42 @@ def vif_tail(level1: torch.Tensor) -> torch.Tensor:
 vif_tail.launches = 0
 
 
-def vif_scale_stats(pair: torch.Tensor) -> torch.Tensor:
+def vif_scale_stats(pair: torch.Tensor, *, columns=None) -> torch.Tensor:
     """All four scales' (num, den) sums of a (2, B, h, w) f32 pair -> (B, 4,
-    2) f32, through #14 and #15 (their twins on the CPU)."""
-    sums0, level1 = vif_scale0(pair)
-    return torch.cat([sums0[:, None], vif_tail(level1)], dim=1)
+    2) f32, through #14 and #15 (their twins on the CPU); ``columns``: the
+    owned level-0 columns (module docstring; None: all)."""
+    sums0, level1 = vif_scale0(pair, columns=columns)
+    return torch.cat([sums0[:, None], vif_tail(level1, columns=vif.scale_columns(columns, 1))], dim=1)
+
+
+def vif_width_sharded(fn, mesh, *, in_ndims):
+    """``vif_scale_stats`` with one frame's columns split over ``mesh``
+    (module docstring; ``shard_over_width`` calls this).  ``fn``:
+    ``vif_scale_stats``, bare or through functools.partial with no
+    keywords; its input the (2, B, h, w) f32 pair, ``in_ndims`` (4,).
+    Each call plans the strips (``spatial_sharding``: owned edges on
+    multiples of 8, a halo of 24 columns), and each strip, under its device
+    and its stream (``launch_shards``), cuts its columns of the pair
+    (``strip_input``) and sums its owned window; the strips' (B, 4, 2) sums
+    add in f64 on ``mesh.devices[0]`` and round once to f32.  ``ValueError``
+    where a strip would own fewer than 8 columns.  A mesh of one runs ``fn``
+    unchanged on its device."""
+    base, kw = partial_keywords(fn)
+    if base is not vif_scale_stats:
+        raise TypeError(f"vif_width_sharded takes ops.kernels.vif.vif_scale_stats, not {fn!r}")
+    if tuple(in_ndims) != (4,):
+        raise ValueError(f"{fn!r} takes inputs of (4,) dims, got in_ndims={tuple(in_ndims)}")
+    if kw:
+        raise TypeError(f"vif_scale_stats takes no keywords {sorted(kw)} under width sharding")
+    dest = mesh.devices[0]
+
+    def sharded(*args):
+        check_inputs(args, in_ndims)
+        if mesh.size == 1:
+            return fn(upload(args[0], dest))
+        plan = spatial_sharding(mesh, args[0].shape[-1], alignment=STRIP_ALIGNMENT, halo=STRIP_HALO)
+        outs = launch_shards(
+            lambda k, dev: vif_scale_stats(strip_input(args[0], plan[k], dev), columns=plan[k].columns), mesh)
+        return add_strips(outs, dest).float()
+
+    return sharded

@@ -81,9 +81,34 @@ def decimate2(x: torch.Tensor) -> torch.Tensor:
     return x[..., ::2, ::2]
 
 
-def scale_sums(ref: torch.Tensor, dis: torch.Tensor, win: np.ndarray) -> torch.Tensor:
+def window_columns(columns, w: int) -> tuple[int, int]:
+    """The window [lo, hi) of a w wide scale's columns whose maps are summed:
+    ``columns``, or (0, w) for None.  ``ValueError`` unless 0 <= lo <= hi
+    <= w (lo == hi: an empty window, zero sums)."""
+    if columns is None:
+        return 0, w
+    lo, hi = (int(c) for c in columns)
+    if not 0 <= lo <= hi <= w:
+        raise ValueError(f"columns must satisfy 0 <= lo <= hi <= {w}, got {tuple(columns)}")
+    return lo, hi
+
+
+def scale_columns(columns, scale: int):
+    """Scale ``scale``'s window of the level-0 columns ``columns`` = (lo,
+    hi): the scale's columns j with lo <= j * 2^scale < hi, (ceil(lo /
+    2^scale), ceil(hi / 2^scale)); None for None."""
+    if columns is None:
+        return None
+    m = 1 << scale
+    return -(-int(columns[0]) // m), -(-int(columns[1]) // m)
+
+
+def scale_sums(ref: torch.Tensor, dis: torch.Tensor, win: np.ndarray, columns=None) -> torch.Tensor:
     """One scale's (num, den) sums for (B, H, W) f32 inputs -> (B, 2) f32
-    (the maps in f32, their sums in f64)."""
+    (the maps in f32, their sums in f64), over the columns [lo, hi) of
+    ``columns`` (None: all of them; the maps are those of the whole
+    plane either way)."""
+    lo, hi = window_columns(columns, ref.shape[-1])
     mu1 = blur_same(ref, win)
     mu2 = blur_same(dis, win)
     s11 = torch.clamp_min(blur_same(ref * ref, win) - mu1 * mu1, 0.0)
@@ -107,15 +132,18 @@ def scale_sums(ref: torch.Tensor, dis: torch.Tensor, win: np.ndarray) -> torch.T
     nsq = torch.tensor(SIGMA_NSQ, device=ref.device)
     num = torch.log2(1.0 + g * g * s11c / (sv_sq + nsq))
     den = torch.log2(1.0 + s11c / nsq)
+    if (lo, hi) != (0, ref.shape[-1]):
+        num, den = num[..., lo:hi], den[..., lo:hi]
     return torch.stack(
         [num.double().sum(dim=(-2, -1)), den.double().sum(dim=(-2, -1))], dim=-1
     ).float()
 
 
-def vif_scale_stats(ref: torch.Tensor, dis: torch.Tensor) -> torch.Tensor:
+def vif_scale_stats(ref: torch.Tensor, dis: torch.Tensor, columns=None) -> torch.Tensor:
     """Per-scale (num, den) sums for (B, H, W) f32 luma in 8-bit units.
 
-    Returns (B, 4, 2): [..., k, 0] = num_k, [..., k, 1] = den_k.
+    Returns (B, 4, 2): [..., k, 0] = num_k, [..., k, 1] = den_k, scale k
+    summed over ``scale_columns(columns, k)`` (None: every column).
     """
     out = []
     for k in range(NUM_SCALES):
@@ -123,7 +151,7 @@ def vif_scale_stats(ref: torch.Tensor, dis: torch.Tensor) -> torch.Tensor:
         if k > 0:
             ref = decimate2(blur_same(ref, win))
             dis = decimate2(blur_same(dis, win))
-        out.append(scale_sums(ref, dis, win))
+        out.append(scale_sums(ref, dis, win, scale_columns(columns, k)))
     return torch.stack(out, dim=-2)
 
 

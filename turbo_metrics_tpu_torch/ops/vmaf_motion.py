@@ -59,9 +59,23 @@ def motion_stats(y: torch.Tensor, prev_blurred: torch.Tensor, *, depth: int = 8)
     return {"blurred": blurred, "sad_rows": sad_rows(blurred, prev_blurred)}
 
 
-def sad_rows(blurred: torch.Tensor, prev_blurred: torch.Tensor) -> torch.Tensor:
-    """Per-row sums of |blurred - prev_blurred| (uint32 values in int64)."""
+def sad_window(columns, w: int) -> tuple[int, int]:
+    """The columns [lo, hi) of a w wide row whose SADs are summed:
+    ``columns``, or (0, w) for None.  ``ValueError`` unless 0 <= lo <= hi
+    <= w."""
+    lo, hi = (0, w) if columns is None else (int(c) for c in columns)
+    if not 0 <= lo <= hi <= w:
+        raise ValueError(f"columns must satisfy 0 <= lo <= hi <= {w}, got {tuple(columns)}")
+    return lo, hi
+
+
+def sad_rows(blurred: torch.Tensor, prev_blurred: torch.Tensor, columns=None) -> torch.Tensor:
+    """Per-row sums of |blurred - prev_blurred| (uint32 values in int64),
+    over the columns ``sad_window(columns, w)``."""
     diff = (blurred.to(torch.int64) - prev_blurred.to(torch.int64)).abs()
+    if columns is not None:
+        lo, hi = sad_window(columns, diff.shape[-1])
+        diff = diff[..., lo:hi]
     return diff.sum(dim=-1) & U32
 
 

@@ -21,8 +21,12 @@ partitioner to insert the halo exchanges into any function.  This module
 plans and cuts the strips; ``shard_over_width`` hands an entry to its
 metric's own strip loop: models/ssimulacra2.py ``subscores_width_sharded``
 (SSIMULACRA2), ops/quality.py ``quality_width_sharded`` (PSNR, SSIM and
-MS-SSIM from a linear-RGB pair) and ops/kernels/xpsnr.py
-``xpsnr_width_sharded`` (XPSNR's block grids).  Each strip is cut once, at
+MS-SSIM from a linear-RGB pair), ops/kernels/xpsnr.py
+``xpsnr_width_sharded`` (XPSNR's block grids), and VMAF's float features:
+ops/kernels/vif.py ``vif_width_sharded``, ops/kernels/adm.py
+``adm_width_sharded`` and ops/kernels/motion.py ``motion_width_sharded``
+(the motion SADs and the blur; each module's docstring derives its plan).
+Each strip is cut once, at
 upload, with a halo wide enough for every level, and nothing passes between
 devices until the strips' results are joined on ``mesh.devices[0]``:
   * the strips' owned edges sit on multiples of an alignment A, and a halo
@@ -39,7 +43,11 @@ devices until the strips' results are joined on ``mesh.devices[0]``:
     strips add to the frame's sum bit for bit;
   * XPSNR takes A = H = 16, its block: each strip's block grid is the
     frame's, its owned blocks' 3x3 highpass reads real neighbours, and the
-    owned block columns are joined.
+    owned block columns are joined;
+  * VIF takes A = 8 (four scales) and H = 24, ADM A = 16 (four DWT levels)
+    and H = 32, their f32 sums adding in f64; motion and its blur A = 16,
+    H = 16, the owned columns of the blurred planes joined and the row
+    SADs added in int64.
 The halo costs (w + 2 H (n - 1)) / w of the columns: 1.042 over 2 strips
 and 1.125 over 4 at 7680 columns with six levels.  A per-level exchange of
 5-column halos between devices would break kernel 2 and #4, which run
@@ -424,11 +432,15 @@ def shard_over_width(fn: Callable, mesh: Mesh, *, in_ndims: Sequence[int]):
       * models/ssimulacra2.py ``ssimulacra2_subscores`` and
         ``ssimulacra2_subscores_from_yuv`` (``subscores_width_sharded``);
       * ops/quality.py ``quality_from_rgb`` (``quality_width_sharded``);
-      * ops/kernels/xpsnr.py ``xpsnr_block_stats`` (``xpsnr_width_sharded``).
+      * ops/kernels/xpsnr.py ``xpsnr_block_stats`` (``xpsnr_width_sharded``);
+      * ops/kernels/vif.py ``vif_scale_stats`` (``vif_width_sharded``);
+      * ops/kernels/adm.py ``adm_stats`` (``adm_width_sharded``);
+      * ops/kernels/motion.py ``motion_stats`` and ``integer_blur``
+        (``motion_width_sharded``).
     Any other function raises ``TypeError``."""
     from turbo_metrics_tpu_torch.models import ssimulacra2
     from turbo_metrics_tpu_torch.ops import quality
-    from turbo_metrics_tpu_torch.ops.kernels import xpsnr
+    from turbo_metrics_tpu_torch.ops.kernels import adm, motion, vif, xpsnr
 
     base, _ = partial_keywords(fn)
     for entries, sharded in (
@@ -436,13 +448,18 @@ def shard_over_width(fn: Callable, mesh: Mesh, *, in_ndims: Sequence[int]):
          ssimulacra2.subscores_width_sharded),
         ((quality.quality_from_rgb,), quality.quality_width_sharded),
         ((xpsnr.xpsnr_block_stats,), xpsnr.xpsnr_width_sharded),
+        ((vif.vif_scale_stats,), vif.vif_width_sharded),
+        ((adm.adm_stats,), adm.adm_width_sharded),
+        ((motion.motion_stats, motion.integer_blur), motion.motion_width_sharded),
     ):
         if any(base is e for e in entries):
             return sharded(fn, mesh, in_ndims=in_ndims)
     raise TypeError(
         "width sharding supports models.ssimulacra2.ssimulacra2_subscores and "
-        "ssimulacra2_subscores_from_yuv, ops.quality.quality_from_rgb and ops.kernels.xpsnr."
-        f"xpsnr_block_stats (bare or through functools.partial), not {fn!r}: the port has no SPMD "
+        "ssimulacra2_subscores_from_yuv, ops.quality.quality_from_rgb, ops.kernels.xpsnr."
+        "xpsnr_block_stats, ops.kernels.vif.vif_scale_stats, ops.kernels.adm.adm_stats and "
+        "ops.kernels.motion.motion_stats and integer_blur "
+        f"(bare or through functools.partial), not {fn!r}: the port has no SPMD "
         "partitioner to split any function's columns, so width sharding is written into those entries' "
         "kernels (an owned-column window and a halo cut at upload)"
     )

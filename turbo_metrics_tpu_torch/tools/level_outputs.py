@@ -58,8 +58,9 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     10-bit luma at an odd size, and the fixed-point K-int-VIF and K-int-ADM
     on u8 and 10-bit u16 luma pairs at the given shape, on 12-bit u16 and
     10-bit int32 pairs at 67x99 and on u8 and int32 pairs read at 10 bits
-    at 96x128 (int_calls), and SSIM's #11 and #12 with windows of owned
-    columns that cut 32-column tiles mid-way (ssim_window_calls)."""
+    at 96x128 (int_calls), SSIM's #11 and #12 with windows of owned
+    columns that cut 32-column tiles mid-way (ssim_window_calls), and
+    VMAF's #14, #15, #16 and #18 likewise (vmaf_window_calls)."""
     from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
     from turbo_metrics_tpu_torch.ops.kernels import adm, convert, fused_tail, motion, scale_stats, scale_tail, xpsnr
 
@@ -136,7 +137,8 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
          xpsnr_call(luma((3, 35, 131), 10, np.uint16), luma((3, 35, 131), 10, np.uint16), 10)),
     ]
     # Last: a checkout without them draws the same inputs for every call above.
-    return calls + ssim_window_calls(rng, batch, height, width, dev)
+    calls += ssim_window_calls(rng, batch, height, width, dev)
+    return calls + vmaf_window_calls(rng, batch, height, width, dev)
 
 
 def ssim_window_calls(rng, batch: int, height: int, width: int, dev) -> list:
@@ -175,6 +177,56 @@ def ssim_window_calls(rng, batch: int, height: int, width: int, dev) -> list:
         (f"#12 window {cut2} {lv2} levels from {w2}x{h2}", "msssim_tail",
          lambda: windowed_tail.msssim_tail(qhalf, lv2, win, columns=cut2)),
     ]
+
+
+def vmaf_window_calls(rng, batch: int, height: int, width: int, dev) -> list:
+    """(entry, wrapper, call) of VMAF's windowed kernels on seeded inputs,
+    each window cutting the unwindowed call's 32-column tiles (ADM's 32x32
+    band tiles) mid-way: #14 and #15 (scale 1's input emitted by #14) on
+    67x99 and given-shape luma pairs, #16 on u8 luma at both sizes (blurred
+    planes and row SADs), #18 on the 67x99 pair and on the given shape, once
+    whole with owned columns and once as the second of four column strips
+    of it (``columns`` and ``frame``; at 1080p columns 448-991 owning
+    480-959).  None where the checkout's wrappers take no window (before the
+    window, the parent of an A/B)."""
+    from turbo_metrics_tpu_torch.ops.kernels import adm, motion, vif
+    from turbo_metrics_tpu_torch.parallel.mesh import make_mesh, spatial_sharding
+
+    if "columns" not in inspect.signature(vif.vif_scale0).parameters:
+        return []
+
+    def luma_pair(b, h, w):
+        ref = rng.integers(0, 256, (b, h, w))
+        dis = np.clip(ref + rng.integers(-12, 13, ref.shape), 0, 255)
+        return torch.from_numpy(np.stack([ref, dis]).astype(np.float32)).to(dev)
+
+    def luma(b, h, w):
+        return (torch.from_numpy(rng.integers(0, 256, (b, h, w)).astype(np.uint8)).to(dev),
+                torch.from_numpy(rng.integers(0, 1 << 16, (h, w)).astype(np.uint16)).to(dev))
+
+    p67, pfull = luma_pair(2, 67, 99), luma_pair(batch, height, width)
+    y67, yfull = luma(3, 67, 99), luma(batch, height, width)
+    # At 1080p (40, 1301): tiles [32, 64) and [1280, 1312) cut.
+    cut = (40, width * 2 // 3 + 21)
+    s = spatial_sharding(make_mesh(4, device="cpu"), width, alignment=adm.STRIP_ALIGNMENT,
+                         halo=adm.STRIP_HALO)[1]
+    s_lo, s_hi, s_cols = s.lo, s.hi, s.columns
+    strip = pfull[..., s_lo:s_hi].contiguous()
+    calls = []
+    for what, p, cols in (("99x67", p67, (24, 77)), (f"{width}x{height}", pfull, cut)):
+        cols1 = (-(-cols[0] // 2), -(-cols[1] // 2))
+        calls += [
+            (f"#14 window {cols} {what}", "vif_scale0", lambda p=p, c=cols: vif.vif_scale0(p, columns=c)),
+            (f"#15 window {cols1} from {what} level 1", "vif_tail",
+             lambda p=p, c=cols1: vif.vif_tail(vif.vif_scale0(p)[1], columns=c)),
+            (f"#18 window {cols} {what}", "adm_stats", lambda p=p, c=cols: adm.adm_stats(p, columns=c)),
+        ]
+    calls.append((f"#18 strip [{s_lo}, {s_hi}) owning {s_cols} of {width}x{height}", "adm_stats",
+                  lambda: adm.adm_stats(strip, columns=s_cols, frame=(s_lo, width))))
+    for what, (y, p0), cols in (("u8 99x67", y67, (13, 77)), (f"u8 {width}x{height}", yfull, cut)):
+        calls.append((f"#16 window {cols} {what}", "motion_stats",
+                      lambda y=y, p0=p0, c=cols: tuple(motion.motion_stats(y, p0, columns=c).values())))
+    return calls
 
 
 # The integer surfaces saved per scale and per level, in this order (ADM's
