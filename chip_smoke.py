@@ -174,7 +174,8 @@ Phases, each fatal on failure (exit code 1):
   6. score the frozen golden pair through the kernel route: 80.486135 +- 0.05;
   7. time each kernel and its twin (#7 also against avg_pool2d, #19 against
      five F.conv2d blurs with TF32 off, separable and as one 11x11 kernel,
-     and with passes=1 against passes=5),
+     and with passes=1 against passes=5: the probe kernel's device time
+     at passes=5 at least twice that at passes=1),
      the whole kernel and plain steps of both 1080p routes, of VMAF and of
      the 4K route, with CUDA events after warm-up; the 4K step beside the
      route it replaced (kernel 1, then kernel 2 on levels 1-5) on the same
@@ -285,7 +286,40 @@ Phases, each fatal on failure (exit code 1):
      2, 4, 8, 8, 4, 2, unsharded) with each call's peak device memory; (e)
      the kernels line's entries of #14, #15 and #18 carry (b)'s largest
      difference ("windowed_max_abs_err"), #16's and #17's whether the
-     sharded planes and row sums were equal ("sharded_planes_equal").
+     sharded planes and row sums were equal ("sharded_planes_equal");
+  13. width sharding of VMAF's fixed-point features (shard_over_width of
+     ops/kernels/integer_vif.integer_vif_stats and
+     integer_adm.integer_adm_stats, VIF's and ADM's plans) and the plain
+     entries on their kernels: (a) a seeded 7680x4320 B=2 pair of u8 codes
+     and of 10-bit u16 codes, each entry unsharded, then over 2, 4 and 8
+     strips of card 0, each on its own stream: sums within rtol 1e-6,
+     vif_scores / adm_score (the frame's size) within 1e-6, each wrapper's
+     four launches once per strip; (b) K-int-VIF and K-int-ADM with phase
+     12's windows (67x99, 75x101, 1080p, an interior and an odd-width edge
+     8K strip; K-int-ADM as a column strip of its frame), u8 and 10-bit
+     codes, against their twins at phase 5j's bars (sums rtol 1e-6 and
+     1e-5; chunk loads and tensor copies, and the per-sample loads, both
+     taken), the full window bit-equal to no window; (c) ops/quality.py
+     ssim, msssim (5 levels, clamped to 3 at 67x99, and 3) and ssim_msssim
+     with backend "auto" against "jnp" on the same CUDA tensors at 1080p
+     B=8 and 67x99 (within 1e-5; #11 and #12 launched by "auto", none by
+     "jnp"), ops/xpsnr_ops.py xpsnr_block_stats with a seeded per-frame
+     y_prev (#13) bit-equal to "jnp" and, with y_prev[b] = y_ref[b-1], to
+     the kernel wrapper's prev0 convention, JAX's gates (one channel, a dim
+     under 11, block 8, a y_prev of another type, 4-D planes) taking the
+     plain route without a launch; then ssim, msssim, ssim_msssim and the
+     plain XPSNR statistics on an 8K B=1 pair over 2, 4 and 8 strips
+     (SSIM and MS-SSIM within 1e-6, XPSNR grids and dB bit-equal, one
+     launch of each wrapper per strip); (d) (a) and (c)'s sharded calls from
+     host copies: one strip per card with several cards, else two strips
+     of the one card and a line saying that the cross-device path went
+     unexercised; (e) one call of each entry unsharded and over 2, 4 and 8
+     strips by CUDA events with its peak device memory, each plain entry's
+     kernel route against its "jnp" route at 1080p B=8, and the pair copy
+     of the kernel route; (f) the kernels line's entries of K-int-VIF and
+     K-int-ADM carry (b)'s largest difference ("windowed_max_abs_err"),
+     #13's whether the per-frame previous planes gave the plain route's
+     grids ("per_frame_prev_equal").
 Prints the card, the dissect tool's JSON line, then one JSON line of
 per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -312,6 +346,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1059,7 +1094,7 @@ def multi_step_plain(y2, uv2, model) -> dict:
     p12 = convert.yuv420_to_linear_rgb_pair_ref(y2, uv2)
     q = f32_to_uint8(p12, torch.float32)
     out = {"psnr": quality.psnr(q[0], q[1])}
-    out["ssim"], out["msssim"] = quality.ssim_msssim(q[0], q[1], levels=MS_LEVELS)
+    out["ssim"], out["msssim"] = quality.ssim_msssim(q[0], q[1], levels=MS_LEVELS, backend="jnp")
     s0, l1 = scale_stats.fused_scale_rgb_ref(p12, model.taps, model.opsin)
     tail = scale_tail.fused_pyramid_tail_ref(l1, model.num_scales - 1, model.taps, model.opsin)
     out["ssimulacra2"] = model.score(subscores_from_sums([s0] + list(tail.unbind(1)), model.dims))
@@ -2420,6 +2455,10 @@ def run_dissect_path(card: str):
     launches)."""
     from turbo_metrics_tpu_torch.tools import kernel_dissect
 
+    # Work that other threads of this process launch lands in the profiler's
+    # readings too: name any that an earlier phase left running.
+    others = [t.name for t in threading.enumerate() if t is not threading.current_thread()]
+    log(f"dissect path: {len(others)} other threads alive {others} [{card}]")
     reset_counts()
     out = io.StringIO()
     t0 = time.monotonic()
@@ -3083,8 +3122,11 @@ def check_metric_outputs(what: str, entry: str, got: dict, want: dict, depth: in
 
 
 def output_tensors(out) -> list:
-    """The tensors of an entry's result: a tensor, or a dict's values."""
-    return list(out.values()) if isinstance(out, dict) else [out]
+    """The tensors of an entry's result: a tensor, a tuple's, or a dict's
+    values."""
+    if isinstance(out, dict):
+        return list(out.values())
+    return list(out) if isinstance(out, tuple) else [out]
 
 
 def run_strip_entries(entries, plan_of, check, describe, mesh_of, card: str, label: str, strips, host: bool,
@@ -3476,6 +3518,359 @@ def run_vmaf_width_phase(dev, card: str) -> dict:
     return {"runs": runs, "window_err": errs, "times": times}
 
 
+# Phase 13: width sharding of VMAF's fixed-point features (K-int-VIF,
+# K-int-ADM), and the plain SSIM / MS-SSIM / XPSNR entries on their kernels
+# (#11, #12, #13).  The integer sums at rtol 1e-6 and their features within
+# 1e-6 over the strips (phase 12's bars), the plain entries' kernel routes
+# at phase 5a's score bar against their "jnp" routes, XPSNR bit for bit.
+INT_WIDE_BATCH = 2
+# Plain entries, kernel route vs "jnp" route (phase 5a's score bar; TOL).
+PLAIN_TOL = 1e-5
+# (what, h, w, batch) of phase 13 (c)'s kernel-route checks: 1080p, and an
+# edge size at which MS-SSIM's five levels clamp to three.
+PLAIN_CASES = (("1080p", HEIGHT, WIDTH, BATCH), ("67x99", 67, 99, 2))
+
+
+def wide_int_inputs(dev, seed: int = 41):
+    """Phase 13 (a)'s seeded 7680x4320 B=2 pairs of luma codes, made on the
+    card: (what, (2, B, h, w) pair, depth) for u8 codes (noise on a smooth
+    base, the distorted copy within +-6) and 10-bit uint16 codes (the u8
+    codes times 4 plus noise, the distorted copy within +-24)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w, b = WIDE_HEIGHT, WIDE_WIDTH, INT_WIDE_BATCH
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    base = 128 + 70 * torch.sin(xx / 9.0) * torch.cos(yy / 7.0)
+    y8 = (base + 3 * torch.randn((b, h, w), device=dev, generator=g)).round().clamp(0, 255)
+    d8 = (y8 + torch.randint(-6, 7, y8.shape, device=dev, generator=g)).clamp(0, 255)
+    y10 = y8 * 4 + torch.randint(0, 4, y8.shape, device=dev, generator=g)
+    d10 = (y10 + torch.randint(-24, 25, y10.shape, device=dev, generator=g)).clamp(0, 1023)
+    pair8 = torch.stack([y8, d8]).to(torch.uint8).contiguous()
+    pair10 = torch.stack([y10, d10]).to(torch.int32).to(torch.uint16).contiguous()
+    return (("u8", pair8, 8), ("10-bit u16", pair10, 10))
+
+
+def int_entries(int_cases):
+    """(entry, function, inputs, in_ndims, launches per strip) of phase 13
+    (a): integer_vif_stats and integer_adm_stats per pair, each counting one
+    launch per scale or level."""
+    import functools
+
+    from turbo_metrics_tpu_torch.ops.kernels import integer_adm, integer_vif
+
+    out = []
+    for what, pair, depth in int_cases:
+        out.append((f"K-int-VIF {what}", functools.partial(integer_vif.integer_vif_stats, depth=depth), (pair,),
+                    (4,), {"integer_vif_stats": 4}))
+        out.append((f"K-int-ADM {what}", functools.partial(integer_adm.integer_adm_stats, depth=depth), (pair,),
+                    (4,), {"integer_adm_stats": 4}))
+    return out
+
+
+def int_plan(fn, mesh):
+    """The strips shard_over_width cuts for ``fn`` (phase 13 (a)'s entries:
+    VIF's plan or ADM's)."""
+    from turbo_metrics_tpu_torch.ops.kernels import adm, integer_vif, vif
+    from turbo_metrics_tpu_torch.parallel.mesh import spatial_sharding
+
+    mod = vif if fn.func is integer_vif.integer_vif_stats else adm
+    return spatial_sharding(mesh, WIDE_WIDTH, alignment=mod.STRIP_ALIGNMENT, halo=mod.STRIP_HALO)
+
+
+def run_int_configs(int_cases, mesh_of, card: str, label: str, strips=WIDTH_STRIPS, host: bool = False,
+                    tag: str = "(13a)") -> dict:
+    """Phase 13 (a) (and (d)): run_strip_entries of the fixed-point
+    entries, at phase 12's bars (check_vmaf_outputs)."""
+    def feature(entry):
+        return "VIF" if entry.startswith("K-int-VIF") else "ADM"
+
+    return run_strip_entries(int_entries(int_cases), int_plan,
+                             lambda what, entry, got, want: check_vmaf_outputs(what, feature(entry), got, want),
+                             lambda entry, want: describe_vmaf(feature(entry), want), mesh_of, card, label, strips,
+                             host, tag)
+
+
+def check_int_windows(dev, card: str) -> dict:
+    """Phase 13 (b): K-int-VIF and K-int-ADM with windows of owned columns
+    that cut tiles mid-way (VMAF_WINDOW_CASES; K-int-ADM as a column strip
+    of its frame where the case has one), u8 and 10-bit u16 codes, against
+    their twins on the same inputs at phase 5j's bars (sums rtol 1e-6 and
+    1e-5), and each with the full window bit-equal to no window.  Rows of
+    whole 16-byte chunks take K-int-VIF's chunk loads and K-int-ADM's tensor
+    copies, the odd widths their per-sample loads.  Returns each wrapper's
+    largest difference."""
+    from turbo_metrics_tpu_torch.ops.adm import level_windows
+    from turbo_metrics_tpu_torch.ops.kernels import integer_adm, integer_vif
+
+    g = torch.Generator(device=dev).manual_seed(43)
+    errs = {"integer_vif_stats": 0.0, "integer_adm_stats": 0.0}
+    paths = set()
+    for what, h, w, frame_w, x0, cols, b in VMAF_WINDOW_CASES:
+        for depth, dt in ((8, torch.uint8), (10, torch.uint16)):
+            top = 1 << depth
+            ref = torch.randint(0, top, (b, h, w), device=dev, generator=g)
+            dis = (ref + torch.randint(-(top >> 4), (top >> 4) + 1, ref.shape, device=dev, generator=g))
+            pair = torch.stack([ref, dis.clamp(0, top - 1)]).to(torch.int32).to(dt).contiguous()
+            del ref, dis
+            chunks = (w * pair.element_size()) % 16 == 0
+            paths.add(chunks)
+            v_k = integer_vif.integer_vif_stats(pair, depth=depth, columns=cols)
+            v_p = integer_vif.integer_vif_stats_ref(pair, depth=depth, columns=cols)
+            e_v = check_close(f"(13b) K-int-VIF {what} {depth}-bit window {cols}", v_k, v_p, 1e-6, 0.0)
+            frame = (x0, frame_w)
+            a_k = integer_adm.integer_adm_stats(pair, depth=depth, columns=cols, frame=frame)
+            a_p = integer_adm.integer_adm_stats_ref(pair, depth=depth, columns=cols, frame=frame)
+            e_a = check_close(f"(13b) K-int-ADM {what} {depth}-bit window {cols} at column {x0} of {frame_w}",
+                              a_k, a_p, 1e-5, 0.0)
+            need(torch.equal(integer_vif.integer_vif_stats(pair, depth=depth, columns=(0, w)),
+                             integer_vif.integer_vif_stats(pair, depth=depth))
+                 and torch.equal(integer_adm.integer_adm_stats(pair, depth=depth, columns=(0, w)),
+                                 integer_adm.integer_adm_stats(pair, depth=depth)),
+                 f"(13b) K-int {what} {depth}-bit: the full window differs from no window")
+            errs["integer_vif_stats"] = max(errs["integer_vif_stats"], e_v)
+            errs["integer_adm_stats"] = max(errs["integer_adm_stats"], e_a)
+            rel_v = float(((v_k - v_p).abs() / v_p.abs().clamp_min(1e-30)).max())
+            rel_a = float(((a_k - a_p).abs() / a_p.abs().clamp_min(1e-30)).max())
+            log(f"(13b) windowed K-int vs twins, {what} {w}x{h} B={b} {depth}-bit {str(pair.dtype)[6:]} (window "
+                f"{cols}; K-int-ADM at column {x0} of {frame_w}, its windows {level_windows(w, cols, frame)}; "
+                + ("chunk loads / tensor copies" if chunks else "per-sample loads")
+                + f"): K-int-VIF max abs {e_v:.3g} (rel {rel_v:.3g}), K-int-ADM {e_a:.3g} (rel {rel_a:.3g}); full "
+                f"windows bit-equal to none [{card}]")
+            del pair
+    need(paths == {True, False}, f"(13b) the cases took only {'the chunk' if True in paths else 'the sample'} loads")
+    return errs
+
+
+def plain_launches(fn, *args, **kw) -> tuple:
+    """(fn's result, the wrappers it launched), counters reset just before
+    and read just after."""
+    reset_counts()
+    out = fn(*args, **kw)
+    return out, {k: v for k, v in read_counts().items() if v}
+
+
+def plain_outputs(entry: str, out) -> dict:
+    """An entry's result as {output name: tensor}."""
+    if isinstance(out, dict):
+        return out
+    if isinstance(out, tuple):
+        return {"ssim": out[0], "msssim": out[1]}
+    return {"msssim" if "MS-SSIM" in entry else "ssim": out}
+
+
+def check_plain_entries(dev, card: str) -> dict:
+    """Phase 13 (c), unsharded: ssim, msssim (5 levels, clamped to 3 at
+    67x99, and 3) and ssim_msssim with backend "auto" on CUDA tensors
+    against "jnp" on the same tensors (PLAIN_CASES: PLAIN_TOL; #11 and #12
+    launched by "auto", none by "jnp"); xpsnr_ops.xpsnr_block_stats with a
+    seeded per-frame y_prev, "auto" (#13) bit-equal to "jnp", and with
+    y_prev[b] = y_ref[b-1] bit-equal to the kernel wrapper's prev0
+    convention; and each of JAX's gates sending the call to the plain route
+    (no launch): one channel, a dim under 11, block 8, a y_prev of another
+    type, 4-D planes.  Returns the largest differences."""
+    import functools
+
+    from turbo_metrics_tpu_torch.ops import quality, xpsnr_ops
+    from turbo_metrics_tpu_torch.ops.kernels import xpsnr
+
+    g = torch.Generator(device=dev).manual_seed(47)
+    errs = {"ssim": 0.0, "msssim": 0.0}
+    entries = (("SSIM", quality.ssim, 1), ("MS-SSIM", quality.msssim, 5),
+               ("MS-SSIM levels=3", functools.partial(quality.msssim, levels=3), 3),
+               ("SSIM/MS-SSIM", quality.ssim_msssim, 5))
+    for what, h, w, b in PLAIN_CASES:
+        a = torch.randint(0, 256, (b, 3, h, w), device=dev, generator=g).float()
+        c = (a + torch.randint(-15, 16, a.shape, device=dev, generator=g)).clamp(0, 255)
+        line = []
+        for name, fn, levels in entries:
+            lv = quality._clamp_levels(h, w, levels)[0]
+            got, k_launch = plain_launches(fn, a, c, backend="auto")
+            want, p_launch = plain_launches(fn, a, c, backend="jnp")
+            expect = {"ssim_sums": 1, **({"msssim_tail": 1} if lv > 1 else {})}
+            need(k_launch == expect, f"(13c) {name} {what} auto: launches {k_launch}, want {expect}")
+            need(not p_launch, f"(13c) {name} {what} jnp: launched {p_launch}")
+            got, want = plain_outputs(name, got), plain_outputs(name, want)
+            for k in want:
+                d = float((got[k] - want[k]).abs().max())
+                need(bool(torch.isfinite(got[k]).all()) and d <= PLAIN_TOL,
+                     f"(13c) {name} {what} {k}: kernels {got[k].tolist()} vs plain {want[k].tolist()}")
+                errs[k] = max(errs[k], d)
+                line.append(f"{name} {k} {d:.3g}")
+            line[-1] += f" ({lv} levels, launches {k_launch})"
+        log(f"(13c) plain entries {w}x{h} B={b}, backend auto (#11/#12) vs jnp on the same CUDA tensors, max |diff|: "
+            + "; ".join(line) + f" [{card}]")
+    # JAX's gates: the plain route, no launch (a dim under 11 leaves no valid
+    # output: NaN means on both routes).
+    one = torch.randint(0, 256, (2, 2, 40, 48), device=dev, generator=g).float()
+    thin = torch.randint(0, 256, (2, 6, 40, 10), device=dev, generator=g).float()
+    for what, x, y in (("one channel", one[:, :1].contiguous(), one[:, 1:].contiguous()),
+                       ("a dim under 11", thin[:, :3].contiguous(), thin[:, 3:].contiguous())):
+        for name, fn, _ in entries:
+            got, launched = plain_launches(fn, x, y, backend="auto")
+            want = fn(x, y, backend="jnp")
+            need(not launched, f"(13c) gate {what}: {name} launched {launched}")
+            got, want = plain_outputs(name, got), plain_outputs(name, want)
+            need(all(torch.allclose(got[k], want[k], rtol=0, atol=0, equal_nan=True) for k in want),
+                 f"(13c) gate {what}: {name} differs from jnp")
+    xp = {}
+    for what, h, w, b, dt, depth in (("1080p u8", HEIGHT, WIDTH, BATCH, torch.uint8, 8),
+                                     ("1080p 10-bit u16", HEIGHT, WIDTH, BATCH, torch.uint16, 10),
+                                     ("17x33 u8", 17, 33, 3, torch.uint8, 8)):
+        y, d, p = (torch.randint(0, 1 << depth, (b, h, w), device=dev, generator=g).to(torch.int32).to(dt)
+                   for _ in range(3))
+        got, k_launch = plain_launches(xpsnr_ops.xpsnr_block_stats, y, d, p, depth=depth)
+        want, p_launch = plain_launches(xpsnr_ops.xpsnr_block_stats, y, d, p, depth=depth, backend="jnp")
+        need(k_launch == {"xpsnr_block_stats": 1} and not p_launch,
+             f"(13c) XPSNR {what}: launches {k_launch} (auto), {p_launch} (jnp)")
+        need(all(torch.equal(got[q], want[q]) for q in want), f"(13c) XPSNR {what}: per-frame y_prev differs from jnp")
+        # In int32: torch's uint16 tensors take few operations on CUDA.
+        prev = torch.cat([p[:1].to(torch.int32), y[:-1].to(torch.int32)]).to(dt)
+        conv = xpsnr.xpsnr_block_stats(y, d, p[0].contiguous())
+        got2 = xpsnr_ops.xpsnr_block_stats(y, d, prev, depth=depth)
+        need(all(torch.equal(got2[q], conv[q]) for q in conv),
+             f"(13c) XPSNR {what}: y_prev[b] = y_ref[b-1] differs from the prev0 convention")
+        xp[what] = True
+        log(f"(13c) XPSNR {what} B={b}: per-frame y_prev through #13 (launches {k_launch}) bit-equal to jnp, and "
+            f"with y_prev[b] = y_ref[b-1] to xpsnr_block_stats(prev0=...) [{card}]")
+    y, d, p = (torch.randint(0, 256, (2, 40, 64), device=dev, generator=g).to(torch.uint8) for _ in range(3))
+    for what, args, kw in (("block 8", (y, d, p), {"block": 8}),
+                           ("y_prev of another type", (y, d, p.to(torch.int32)), {}),
+                           ("4-D planes", (y[None], d[None], p[None]), {})):
+        got, launched = plain_launches(xpsnr_ops.xpsnr_block_stats, *args, **kw)
+        want = xpsnr_ops.xpsnr_block_stats(*args, **kw, backend="jnp")
+        need(not launched and all(torch.equal(got[q], want[q]) for q in want),
+             f"(13c) XPSNR gate {what}: launched {launched} or differs from jnp")
+    log(f"(13c) JAX's gates (one channel, a dim under 11; XPSNR block 8, a y_prev of another type, 4-D planes) "
+        f"take the plain route: no launch, equal to jnp [{card}]")
+    return {**errs, "xpsnr_prev_equal": all(xp.values())}
+
+
+def wide_plain_inputs(dev, seed: int = 53):
+    """Phase 13 (c)'s seeded 7680x4320 B=1 inputs, made on the card: a pair
+    of (1, 3, h, w) f32 code values (noise on a smooth base, the distorted
+    copy within +-9), and u8 luma y_ref, y_dis and a per-frame y_prev."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = WIDE_HEIGHT, WIDE_WIDTH
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    base = 128 + 70 * torch.sin(xx / 9.0) * torch.cos(yy / 7.0)
+    a = (base + 4 * torch.randn((1, 3, h, w), device=dev, generator=g)).round().clamp(0, 255)
+    b = (a + torch.randint(-9, 10, a.shape, device=dev, generator=g)).clamp(0, 255)
+    y = a[:, 1].to(torch.uint8).contiguous()
+    d = b[:, 1].to(torch.uint8).contiguous()
+    p = torch.roll(y, 3, dims=-1).contiguous()
+    return (a, b), (y, d, p)
+
+
+def plain_entries(codes, luma):
+    """(entry, function, inputs, in_ndims, launches per strip) of phase 13
+    (c)'s sharded calls: ssim, msssim, ssim_msssim and the plain XPSNR
+    statistics with a per-frame y_prev."""
+    from turbo_metrics_tpu_torch.ops import quality, xpsnr_ops
+
+    both = {"ssim_sums": 1, "msssim_tail": 1}
+    return [("SSIM", quality.ssim, codes, (4, 4), {"ssim_sums": 1}),
+            ("MS-SSIM", quality.msssim, codes, (4, 4), both),
+            ("SSIM/MS-SSIM", quality.ssim_msssim, codes, (4, 4), both),
+            ("XPSNR per-frame y_prev u8", xpsnr_ops.xpsnr_block_stats, luma, (3, 3, 3), {"xpsnr_block_stats": 1})]
+
+
+def plain_plan(fn, mesh):
+    """The strips shard_over_width cuts for ``fn`` (phase 13 (c)'s sharded
+    entries)."""
+    from turbo_metrics_tpu_torch.ops import quality
+    from turbo_metrics_tpu_torch.parallel.mesh import spatial_sharding
+
+    if fn is quality.ssim:
+        return spatial_sharding(mesh, WIDE_WIDTH, num_scales=1)
+    if fn in (quality.msssim, quality.ssim_msssim):
+        return spatial_sharding(mesh, WIDE_WIDTH, num_scales=quality._clamp_levels(WIDE_HEIGHT, WIDE_WIDTH, 5)[0])
+    return spatial_sharding(mesh, WIDE_WIDTH, alignment=16, halo=16)
+
+
+def run_plain_configs(codes, luma, mesh_of, card: str, label: str, strips=WIDTH_STRIPS, host: bool = False,
+                      tag: str = "(13c)") -> dict:
+    """Phase 13 (c) (and (d)), sharded: run_strip_entries of the plain
+    entries at 8K B=1, SSIM and MS-SSIM within METRIC_TOL of unsharded,
+    XPSNR grids and dB bit-equal (check_metric_outputs)."""
+    def describe(entry, want):
+        out = plain_outputs(entry, want)
+        if entry.startswith("XPSNR"):
+            return f"{WIDE_WIDTH}x{WIDE_HEIGHT} B=1 XPSNR {xpsnr_db_of(out, 8)[0]!r} dB"
+        return f"{WIDE_WIDTH}x{WIDE_HEIGHT} B=1 " + ", ".join(f"{k} {v.tolist()}" for k, v in out.items())
+
+    def check(what, entry, got, want):
+        diffs = check_metric_outputs(what, entry, plain_outputs(entry, got), plain_outputs(entry, want), 8)
+        return diffs, "grids and dB bit-equal" if entry.startswith("XPSNR") else f"within {METRIC_TOL}"
+
+    return run_strip_entries(plain_entries(codes, luma), plain_plan, check, describe, mesh_of, card, label, strips,
+                             host, tag)
+
+
+def time_plain_routes(dev, card: str) -> dict:
+    """Phase 13 (e): each plain entry's kernel route against its "jnp" route
+    at 1080p B=8 (CUDA events, auto / jnp / jnp / auto), its peak memory
+    above the inputs, and the copy that stacks a and b into #11's pair."""
+    import functools
+
+    from turbo_metrics_tpu_torch.ops import quality, xpsnr_ops
+    from turbo_metrics_tpu_torch.utils.profiling import time_ms
+
+    g = torch.Generator(device=dev).manual_seed(59)
+    a = torch.randint(0, 256, (BATCH, 3, HEIGHT, WIDTH), device=dev, generator=g).float()
+    c = (a + torch.randint(-15, 16, a.shape, device=dev, generator=g)).clamp(0, 255)
+    y, d, p = (torch.randint(0, 256, (BATCH, HEIGHT, WIDTH), device=dev, generator=g).to(torch.uint8)
+               for _ in range(3))
+    out = {}
+    for name, fn, args in (("ssim", quality.ssim, (a, c)), ("msssim", quality.msssim, (a, c)),
+                           ("ssim_msssim", quality.ssim_msssim, (a, c)),
+                           ("xpsnr_ops.xpsnr_block_stats", xpsnr_ops.xpsnr_block_stats, (y, d, p))):
+        runs = {"auto": [], "jnp": []}
+        for backend in ("auto", "jnp", "jnp", "auto"):
+            runs[backend].append(time_ms(functools.partial(fn, *args, backend=backend), 5 if backend == "auto" else 2,
+                                         dev))
+        peak = {k: step_peak_mib(functools.partial(fn, *args, backend=k), dev) for k in runs}
+        out[name] = {"ms": runs, "peak_mib": peak}
+        log(f"(13e) {name} {WIDTH}x{HEIGHT} B={BATCH}: kernel route " + " / ".join(f"{t:.4f}" for t in runs["auto"])
+            + " ms, jnp route " + " / ".join(f"{t:.3f}" for t in runs["jnp"]) + " ms (CUDA events, one call); peak "
+            f"above the inputs {peak['auto']:.1f} / {peak['jnp']:.1f} MiB [{card}]")
+    stack_ms = time_ms(lambda: torch.stack([a, c]), 5, dev)
+    out["pair copy"] = stack_ms
+    log(f"(13e) the pair copy of the kernel route (torch.stack of a and c, {2 * a.numel() * 4 / 1e6:.0f} MB "
+        f"written): {stack_ms:.4f} ms [{card}]")
+    return out
+
+
+def run_int_plain_phase(dev, card: str) -> dict:
+    """Phase 13: (a) the fixed-point entries over 2, 4 and 8 strips of card
+    0, (b) the windowed K-int-VIF and K-int-ADM against their twins, (c)
+    the plain entries on their kernels, unsharded and over the strips, (d)
+    host inputs (every card where there are several), (e) the times and
+    the peak memory."""
+    from turbo_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    card0 = f"cuda:{dev.index or 0}"
+    strips_of = lambda n: make_mesh(n, device=card0)  # noqa: E731
+    errs = check_int_windows(dev, card)
+    plain = check_plain_entries(dev, card)
+    int_cases = wide_int_inputs(dev)
+    runs = run_int_configs(int_cases, strips_of, card, f"strips of {card0}")
+    runs.update(run_strip_cards(lambda mesh_of, label, strips: run_int_configs(
+        int_cases, mesh_of, card, label, strips=strips, host=True, tag="(13d)"), "(13d)"))
+    times = time_strip_entries(int_entries(int_cases), strips_of, card, "(13e)",
+                               f"{WIDE_WIDTH}x{WIDE_HEIGHT} B={INT_WIDE_BATCH}")
+    del int_cases
+    codes, luma = wide_plain_inputs(dev)
+    runs.update(run_plain_configs(codes, luma, strips_of, card, f"strips of {card0}"))
+    runs.update(run_strip_cards(lambda mesh_of, label, strips: run_plain_configs(
+        codes, luma, mesh_of, card, label, strips=strips, host=True, tag="(13d)"), "(13d)"))
+    times.update(time_strip_entries(plain_entries(codes, luma), strips_of, card, "(13e)",
+                                    f"{WIDE_WIDTH}x{WIDE_HEIGHT} B=1"))
+    del codes, luma
+    times["routes"] = time_plain_routes(dev, card)
+    return {"runs": runs, "window_err": errs, "plain": plain, "times": times}
+
+
 def main() -> int:
     try:
         from turbo_metrics_tpu_torch.models.ssimulacra2 import (
@@ -3742,14 +4137,20 @@ def main() -> int:
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
         probe_sums = blur_probe.blur_only(lin1, taps)[:, 0, 0]
-        need(k19_ms >= 2 * k19_one_ms, f"#19 passes=5 {k19_ms:.4f} ms vs passes=1 {k19_one_ms:.4f} ms: "
-             "the repetitions were not all run")
+        # Whether the repetitions all ran, by the probe kernel's device time:
+        # a call of passes=1 is short enough for the host's launch gaps to
+        # set its CUDA-event time (0.112 against 0.065 ms once).
+        k19_dev = [device_ms(lambda p=p: blur_probe.blur_only(lin1, taps, passes=p), ("blur_probe_kernel",))
+                   for p in (5, 1)]
+        need(k19_dev[0] >= 2 * k19_dev[1], f"#19 passes=5 {k19_dev[0]:.4f} ms vs passes=1 {k19_dev[1]:.4f} ms "
+             "of device time: the repetitions were not all run")
         del xp
         dissect, dissect_launches = run_dissect_path(card)
         run_mesh_phase(dev, card)
         width = run_width_phase(dev, Ssimulacra2(WIDE_WIDTH, WIDE_HEIGHT, device=dev), card)
         metric_width = run_metric_width_phase(dev, qmod, card)
         vmaf_width = run_vmaf_width_phase(dev, card)
+        int_plain = run_int_plain_phase(dev, card)
 
     mpx = WIDTH * HEIGHT / 1e6
     for name, runs in (
@@ -3780,7 +4181,8 @@ def main() -> int:
     log(f"kernel 2 on the same 4K level-3 plane as #4: {k2_lvl3_ms:.3f} ms (#4 {k4_ms:.3f} ms) [{card}]")
     log(f"avg_pool2d(2, ceil_mode=True) on #7's input: {k7_lib_ms:.3f} ms (#7 {k7_ms:.3f} ms) [{card}]")
     rel = [float(((c - probe_sums) / probe_sums).abs().max()) for c in conv_sums]
-    log(f"#19 passes=1 {k19_one_ms:.4f} ms, passes=5 {k19_ms:.4f} ms (ratio {k19_ms / k19_one_ms:.2f}); "
+    log(f"#19 passes=1 {k19_one_ms:.4f} ms, passes=5 {k19_ms:.4f} ms (ratio {k19_ms / k19_one_ms:.2f}; its "
+        f"kernel's device time {k19_dev[1]:.4f} / {k19_dev[0]:.4f} ms, ratio {k19_dev[0] / k19_dev[1]:.2f}); "
         f"five F.conv2d blurs (TF32 off): separable {k19_lib_ms:.3f} ms, one 11x11 kernel "
         f"{k19_dense_ms:.3f} ms, their sums vs #19's max rel diff {rel[0]:.3g} / {rel[1]:.3g} [{card}]")
     log(f"PSNR (plain torch expression on the pair buffer) {psnr_ms:.3f} ms [{card}]")
@@ -3933,8 +4335,11 @@ def main() -> int:
             # #14, #15 and #18 likewise (phase 12b).
             kernels[-1]["windowed_max_abs_err"] = vmaf_width["window_err"][name]
         if name == "xpsnr_block_stats":
-            # Phase 11 (b) and (d) stop the run where a strip's grids differ.
+            # Phase 11 (b) and (d) stop the run where a strip's grids differ;
+            # phase 13 (c) where the per-frame previous planes give other
+            # grids than the plain route's.
             kernels[-1]["sharded_grids_equal"] = True
+            kernels[-1]["per_frame_prev_equal"] = int_plain["plain"]["xpsnr_prev_equal"]
         if name in ("motion_stats", "integer_blur"):
             # Phase 12 (a) and (c) stop the run where a strip's blurred
             # planes or row SADs differ from the unsharded call's.
@@ -3953,6 +4358,9 @@ def main() -> int:
             "replaces": ports, "launches": int_launches[name], "max_abs_err": err[name], "ms": ms,
             "plain_ms": pms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "redesigned": REDESIGNED.get(name), "tpu_kernel": False, "device_ms": dms,
+            # With a window of owned columns that cuts tiles mid-way, against
+            # the twin (phase 13b).
+            "windowed_max_abs_err": int_plain["window_err"][name],
         })
     peak = max(RUN_PEAK[0], torch.cuda.max_memory_allocated(dev))
     log(f"peak device memory {peak / 2**30:.2f} GiB [{card}]")

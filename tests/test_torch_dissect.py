@@ -377,6 +377,28 @@ def test_kernel_device_ms_counts_memsets_where_asked(monkeypatch):
                                                                         ("a<6>", 0.5)]
 
 
+def test_marks_and_a_failed_reading_are_named(monkeypatch):
+    """A reading opens with a pad of marks (records the profiler loses at
+    the head of a reading fall on it, and its empty spans are no calls),
+    then a mark before each call; the marks are known by the mark kernel's
+    name among the reading's own records.  A reading that keeps too few
+    calls raises naming its marks, the records between them and the first
+    call of another length."""
+    pad = [(MARK, 0.001)] * (kernel_dissect.PAD_MARKS + 1)
+    reading = pad[3:] + _reading(4)[0]
+    monkeypatch.setattr(kernel_dissect, "cuda_kernel_records", lambda run: reading)
+    monkeypatch.setattr(kernel_dissect.torch.cuda, "synchronize", lambda: None)
+    records, marks = kernel_dissect._profile_calls(lambda: None, 4)
+    assert marks == {MARK} and records == reading
+    assert kernel_dissect.split_calls(records, marks, 2) == [[("a<6>", 0.5), ("b", 0.25)]] * 4
+    assert kernel_dissect.is_mark(MARK) and not kernel_dissect.is_mark("spin_kernel_probe")
+    broken = [(MARK, 0.001), ("a<6>", 0.5), ("b", 0.25), ("c", 0.1)] * 4
+    monkeypatch.setattr(kernel_dissect, "_profile_calls", lambda fn, iters: (broken, {MARK}))
+    with pytest.raises(kernel_dissect.ProfileMismatch,
+                       match=r"0 of 4 calls.*between marks \[0, 3, 3, 3, 3\].*first odd call \['a<6>', 'b', 'c'\]"):
+        kernel_dissect.kernel_device_ms(None, 4, 2)
+
+
 def test_split_calls_leaves_out_calls_around_a_lost_mark():
     """A lost mark joins two calls into one of twice the records: both are
     left out, as is a call that lost a record; the rest are kept whole, in
@@ -452,7 +474,9 @@ def test_level_outputs_own_calls_run_on_cpu():
     strip of its frame), and
     the fixed-point VIF and ADM: sums, and per scale and per level the
     integer surfaces, on u8 and 10-bit u16 pairs at the given shape and
-    12-bit u16 and 10-bit int32 pairs at 67x99) build their inputs from a
+    12-bit u16 and 10-bit int32 pairs at 67x99, and their sums with windows
+    of owned columns and as a column strip; #13 with every frame's previous
+    plane) build their inputs from a
     seed and run through the wrappers, here their twins: each entry names
     its wrapper and returns the wrapper's shapes."""
     from turbo_metrics_tpu_torch.tools import level_outputs
@@ -479,6 +503,13 @@ def test_level_outputs_own_calls_run_on_cpu():
             int_shapes[f"K-int-VIF scale {k} {what}"] = ((b, h, w),) * 7
             int_shapes[f"K-int-ADM level {k} {what}"] = ((b, ch, cw),) * 9
             h, w = ch, cw
+    for what, b, cols in (("u8 99x67", 2, (24, 77)), ("10-bit u16 99x67", 2, (24, 77)),
+                          ("u8 64x48", 1, (40, 63)), ("10-bit u16 64x48", 1, (40, 63))):
+        int_shapes[f"K-int-VIF window {cols} {what}"] = (b, 4, 2)
+        int_shapes[f"K-int-ADM window {cols} {what}"] = (b, 4, 3, 2)
+        if what.endswith("64x48"):
+            int_shapes[f"K-int-VIF strip [0, 64) owning (16, 32) {what}"] = (b, 4, 2)
+            int_shapes[f"K-int-ADM strip [0, 64) owning (16, 32) {what}"] = (b, 4, 3, 2)
     assert {k: v for k, v in shapes.items() if k.startswith("K-int")} == int_shapes
     assert {k: v for k, v in shapes.items() if not k.startswith("K-int")} == {
         "#16 motion u8 64x48": ((1, 48, 64), (1, 48)),
@@ -513,6 +544,8 @@ def test_level_outputs_own_calls_run_on_cpu():
         "#18 strip [0, 64) owning (16, 32) of 64x48": (1, 4, 3, 2),
         "#16 window (13, 77) u8 99x67": ((3, 67, 99), (3, 67)),
         "#16 window (40, 63) u8 64x48": ((1, 48, 64), (1, 48)),
+        "#13 XPSNR per-frame prev u8 64x48": ((1, 3, 4),) * 3,
+        "#13 XPSNR per-frame prev 10-bit 131x35": ((3, 3, 9),) * 3,
     }
 
 

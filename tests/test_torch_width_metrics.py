@@ -276,15 +276,17 @@ def test_mesh_of_one_bit_equal(entry):
 
 
 def test_width_metrics_errors():
-    """TypeError for the entries without an owned-column window (VMAF's, the
-    plain SSIM family, the plain XPSNR statistics) and a missing window;
-    ValueError for a width that leaves a strip fewer than A owned columns,
-    naming the smallest width, and for the wrong dims."""
+    """TypeError for what has no strip loop (a scale wrapper of VIF, any
+    other function, the plain block sums under the XPSNR statistics) and a
+    missing window; ValueError for XPSNR blocks other than the strips' 16,
+    for a width that leaves a strip fewer than A owned columns, naming the
+    smallest width, and for the wrong dims."""
     m = mesh.make_mesh(4, device="cpu")
-    for fn, nd in ((vif.vif_scale0, (5,)), (tq.ssim, (4, 4)), (tq.msssim, (4, 4)), (tq.ssim_msssim, (4, 4)),
-                   (functools.partial(xpsnr_ops.xpsnr_block_stats, block=16), (3, 3, 3))):
+    for fn, nd in ((vif.vif_scale0, (5,)), (lambda a, b: a, (4, 4)), (xpsnr_ops.block_sums, (3,))):
         with pytest.raises(TypeError, match="partitioner"):
             mesh.shard_over_width(fn, m, in_ndims=nd)
+    with pytest.raises(ValueError, match="block=16"):
+        mesh.shard_over_width(functools.partial(xpsnr_ops.xpsnr_block_stats, block=8), m, in_ndims=(3, 3, 3))
     with pytest.raises(TypeError, match="keywords only"):
         mesh.shard_over_width(functools.partial(tq.quality_from_rgb, _lin_pair(1, 1, 16, 64)), m, in_ndims=(5,))
     with pytest.raises(TypeError, match="window"):

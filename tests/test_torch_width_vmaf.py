@@ -330,9 +330,10 @@ def test_mesh_of_one_bit_equal(entry):
 
 def test_vmaf_width_errors():
     """ValueError for a width that leaves a strip fewer than A owned columns,
-    naming the smallest width, and for the wrong dims; TypeError for VMAF's
-    entries without a strip loop (the scale wrappers, the fixed-point
-    features) and for keywords the strip loops do not take."""
+    naming the smallest width, and for the wrong dims; TypeError for what
+    has no strip loop (VIF's scale wrappers, any other function) and for
+    keywords the strip loops do not take; the fixed-point features take
+    VIF's and ADM's strip loops."""
     m4 = CPU(4)
     with pytest.raises(ValueError, match="at least 32"):
         mesh.shard_over_width(vif.vif_scale_stats, m4, in_ndims=(4,))(_pair(1, 1, 16, 31))
@@ -348,10 +349,11 @@ def test_vmaf_width_errors():
             mesh.shard_over_width(fn, m4, in_ndims=nd)
     with pytest.raises(ValueError, match="dims"):
         mesh.shard_over_width(vif.vif_scale_stats, m4, in_ndims=(4,))(_pair(1, 1, 16, 64)[0])
-    for fn, nd in ((vif.vif_scale0, (4,)), (vif.vif_tail, (4,)), (integer_vif.integer_vif_stats, (4,)),
-                   (integer_adm.integer_adm_stats, (4,))):
+    for fn, nd in ((vif.vif_scale0, (4,)), (vif.vif_tail, (4,)), (lambda pair: pair, (4,))):
         with pytest.raises(TypeError, match="partitioner"):
             mesh.shard_over_width(fn, m4, in_ndims=nd)
+    for fn in (integer_vif.integer_vif_stats, integer_adm.integer_adm_stats):
+        assert callable(mesh.shard_over_width(functools.partial(fn, depth=10), m4, in_ndims=(4,)))
     with pytest.raises(TypeError, match="no keywords"):
         mesh.shard_over_width(functools.partial(vif.vif_scale_stats, columns=(0, 8)), m4, in_ndims=(4,))
     with pytest.raises(TypeError, match="no keywords"):

@@ -18,8 +18,8 @@
 //     each 32x8 sub-tile's six partials.
 // The summed window is the centre region's rows [top, ch-top) and a range
 // of band columns [clo, chi): the centre's [left, cw-left) for a whole
-// frame (the fixed-point kernel always), or a column strip's owned part of
-// the frame's centre (ops/kernels/adm.py level_windows).  The tile grid is
+// frame, or a column strip's owned part of the frame's centre
+// (ops/adm.py level_windows).  The tile grid is
 // anchored at (top, clo).
 #pragma once
 

@@ -52,11 +52,16 @@
 // With kCheck the kernel also writes the integer surface: the six detail
 // bands and the gate (0/1), int32.
 //
+// Only a window of band columns [clo, chi) adds to the sums: the centre
+// region's [left, cw-left) for a whole frame, or a column strip's owned part
+// of the frame's centre (ops/adm.py level_windows), as in #18.  Every tile
+// still writes its A bands.
+//
 // Layouts (all contiguous; ch = ceil(h/2), cw = ceil(w/2)):
 //   in     (2, B, h, w)      luma codes uint8 / uint16 / int32 (level 0), or
 //                            the previous level's int32 A bands
 //   approx (2, B, ch, cw)    int32 the A bands of ref and dis (the next level's input)
-//   parts  (B, nblk, 6)      f32 per-32x8-block partial cube sums of the centre region
+//   parts  (B, nblk, 6)      f32 per-32x8-block partial cube sums of the summed window
 //   sums   (B, ...)          f32 at sums[b * sums_pstride + band * 2 + {0 num, 1 den}]
 //   check  (7, B, ch, cw)    int32 o_h, o_v, o_d, t_h, t_v, t_d, angle_ok (kCheck)
 
@@ -190,13 +195,14 @@ __device__ __forceinline__ BandPixel gate_csf_q(const int (&dwt)[2][4], const In
 // ---------------------------------------------------------------------------
 // A persistent block of 8 warps walks the 32x32 tiles of band pixels t =
 // blockIdx.x, blockIdx.x + gridDim.x, ... of adm_tile.cuh's grid (anchored
-// at the centre region's origin; t = (b ny + ty) nx + tx).  Per tile: the
+// at the summed window's origin (top, clo); t = (b ny + ty) nx + tx).  Per
+// tile: the
 // raw rows (tensor copies when use_tma, tmap the input's map, else loads),
 // the integer row pass into shared memory, the copy of the next tile's raw
 // rows started, the integer column pass, gate, decoupling and CSF at the
 // halo ring and at the tile (there also the A bands into approx, and with
 // kCheck the bands and the gate into check), the masks and the cubes at the
-// centre-region pixels, and each 32x8 sub-tile's six partials into
+// pixels of the summed window [top, ch-top) x [clo, chi), and each 32x8 sub-tile's six partials into
 // parts[(b * nblk + blk) * 6 + k] (reduce_frames_kernel<6> then sums them
 // in f64).  Warps 2s and 2s + 1 hold rows 0-3 and 4-7 of sub-tile s, one
 // column per lane.
@@ -206,7 +212,7 @@ __device__ __forceinline__ BandPixel gate_csf_q(const int (&dwt)[2][4], const In
 template <typename T, bool kCodes, bool kCheck>
 __global__ void __launch_bounds__(kThreadsAdm, IntTile<T>::kMinBlocks)
 integer_adm_kernel(const T* __restrict__ in, const __grid_constant__ CUtensorMap tmap, int use_tma, int bsz, int h,
-                   int w, int shift, int top, int left, const __grid_constant__ IntAdmConsts c,
+                   int w, int shift, int top, int clo, int chi, const __grid_constant__ IntAdmConsts c,
                    int* __restrict__ approx, float* __restrict__ parts, int* __restrict__ check) {
   using RT = RawTile<T>;
   extern __shared__ __align__(128) unsigned char smem_b[];
@@ -216,10 +222,9 @@ integer_adm_kernel(const T* __restrict__ in, const __grid_constant__ CUtensorMap
   float* xch = reinterpret_cast<float*>(rows);  // rows 4-7 of each sub-tile's cubes, once rows is dead
   const unsigned bar = static_cast<unsigned>(__cvta_generic_to_shared(ca + 3 * kBandFloats));
   const int ch = (h + 1) / 2, cw = (w + 1) / 2;
-  const AdmGrid g = adm_grid(h, w, top, left);
+  const AdmGrid g = adm_grid(h, w, top, clo);
   const int ntiles = g.nx * g.ny * bsz;
-  // The centre region's columns [left, cw-left): the whole frame's window.
-  const int nbx = (cw - 2 * left + kBx - 1) / kBx, nby = (ch - 2 * top + kBy - 1) / kBy;
+  const int nbx = (chi - clo + kBx - 1) / kBx, nby = (ch - 2 * top + kBy - 1) / kBy;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int sub = warp / 2, half = warp % 2;  // sub-tile, rows 0-3 or 4-7 of it
   auto origin = [&](int t, int& b, int& by0, int& bx0) {
@@ -329,8 +334,8 @@ integer_adm_kernel(const T* __restrict__ in, const __grid_constant__ CUtensorMap
     }
     __syncthreads();
 
-    // The masks and the cubes at the centre region, then the partials.
-    mask_cubes_partials(ca, xch, cr, co, b, by0, bx0, row0, ch, cw, top, left, cw - left, nbx, nby, c.f, parts);
+    // The masks and the cubes at the summed window, then the partials.
+    mask_cubes_partials(ca, xch, cr, co, b, by0, bx0, row0, ch, cw, top, clo, chi, nbx, nby, c.f, parts);
   }
 }
 
@@ -360,7 +365,7 @@ TileSetup tile_setup() {
 
 struct Args {
   const void* in;
-  int bsz, h, w, shift, top, left;
+  int bsz, h, w, shift, top, clo, chi;
   IntAdmConsts c;
   int* approx;
   float *parts, *sums;
@@ -373,19 +378,19 @@ template <typename T, bool kCodes, bool kCheck>
 int launch(const Args& a) {
   const TileSetup setup = tile_setup<T, kCodes, kCheck>();
   if (setup.err != cudaSuccess) return (int)setup.err;
-  const AdmGrid g = adm_grid(a.h, a.w, a.top, a.left);
+  const AdmGrid g = adm_grid(a.h, a.w, a.top, a.clo);
   const int tiles = g.nx * g.ny * a.bsz;
   const int grid = tiles < setup.per_sm * setup.sms ? tiles : setup.per_sm * setup.sms;
   const T* in = static_cast<const T*>(a.in);
   CUtensorMap tmap = {};
   const int use_tma = raw_tensor_map(&tmap, in, a.bsz, a.h, a.w);
   integer_adm_kernel<T, kCodes, kCheck><<<grid, kThreadsAdm, IntTile<T>::kSmemBytes, a.s>>>(
-      in, tmap, use_tma, a.bsz, a.h, a.w, a.shift, a.top, a.left, a.c, a.approx, a.parts, a.check);
+      in, tmap, use_tma, a.bsz, a.h, a.w, a.shift, a.top, a.clo, a.chi, a.c, a.approx, a.parts, a.check);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int ch = (a.h + 1) / 2, cw = (a.w + 1) / 2;
-  reduce_frames_kernel<6><<<a.bsz, kReduceThreads, 0, a.s>>>(a.parts, adm_blocks(ch, a.top, a.left, cw - a.left),
-                                                             a.sums, a.sums_pstride);
+  const int ch = (a.h + 1) / 2;
+  reduce_frames_kernel<6><<<a.bsz, kReduceThreads, 0, a.s>>>(a.parts, adm_blocks(ch, a.top, a.clo, a.chi), a.sums,
+                                                             a.sums_pstride);
   return (int)cudaGetLastError();
 }
 
@@ -453,17 +458,21 @@ int tm_integer_adm_attrs(int codes, int type, int check, int* out) {
 // != 0) luma codes of `type` pre-rounded by `shift` (depth - 8 above 8 bits,
 // else 0), a later level (codes == 0) the int32 A bands the one before
 // wrote.  sums[b * sums_pstride + band * 2 + {0, 1}] = (sum |masked
-// csf*r|^3, sum |csf*o|^3) over the bands' centre region (top, left: its
-// crop per side); with approx non-null also the int32 A bands (2, B, ch,
-// cw); with check non-null the bands o_h .. t_d and the gate (7, B, ch, cw)
+// csf*r|^3, sum |csf*o|^3) over the summed window: the rows [top, ch-top) of
+// the bands' centre region (top: its crop per side) and the band columns
+// [clo, chi) (0 <= clo <= chi <= cw; the centre's [left, cw-left) for a
+// whole frame; clo == chi: zeros); with approx non-null also the int32 A
+// bands (2, B, ch, cw), whole; with check non-null the bands o_h .. t_d and the gate (7, B, ch, cw)
 // int32.  taps: Q13 lo[4] then hi[4]; cos1: cos^2(1 deg); scale:
 // 2^(level+1) / 2^8; rf_hv, rf_d: the CSF factors; eps: the decoupling
 // epsilon; m_centre, m_edge: the mask weights.  parts holds
 // B*tm_integer_adm_blocks(...)*6 floats, the only scratch.
 int tm_integer_adm_level(const void* in, int codes, int type, int shift, int bsz, int h, int w, const int* taps,
                          float cos1, float scale, float rf_hv, float rf_d, float eps, float m_centre,
-                         float m_edge, int top, int left, int* approx, float* parts, float* sums,
+                         float m_edge, int top, int clo, int chi, int* approx, float* parts, float* sums,
                          int sums_pstride, int* check, void* stream) {
+  const int ch = (h + 1) / 2, cw = (w + 1) / 2;
+  if (clo < 0 || clo > chi || chi > cw || top < 0 || 2 * top > ch) return (int)cudaErrorInvalidValue;
   IntAdmConsts c;
   for (int k = 0; k < kAdmTaps; ++k) {
     c.lo[k] = taps[k];
@@ -472,7 +481,7 @@ int tm_integer_adm_level(const void* in, int codes, int type, int shift, int bsz
   c.cos1 = cos1;
   c.scale = scale;
   c.f = {rf_hv, rf_d, eps, m_centre, m_edge};
-  const Args a{in, bsz, h, w, shift, top, left, c, approx, parts, sums, sums_pstride, check,
+  const Args a{in, bsz, h, w, shift, top, clo, chi, c, approx, parts, sums, sums_pstride, check,
                static_cast<cudaStream_t>(stream)};
   const Launch f{a};
   return check != nullptr ? dispatch<true>(codes, type, f) : dispatch<false>(codes, type, f);

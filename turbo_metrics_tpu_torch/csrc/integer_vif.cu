@@ -80,6 +80,15 @@
 // R = 8, four blocks per SM.  Both widths pre-round the input as it is
 // stored.
 //
+// Only a window [clo, chi) of the scale's columns adds to the sums (0 and w:
+// all of them).  A column strip of a frame cut with a halo (parallel/mesh.py
+// spatial_sharding; ops/kernels/integer_vif.py) blurs and emits every
+// column it holds but sums only the maps of the columns it owns.  A tile
+// wholly outside the window skips its five-quantity passes, its moments and
+// its map and writes zero partials, the bits its pass would write; it still
+// emits its 16x16 pixels of the next scale.  The check instances compute
+// every tile whole.
+//
 // Layouts (all contiguous):
 //   in     (2, B, h, w)          luma codes, uint8 / uint16 / int32 (type)
 //   parts  (B, nblk, 2)          f32 per-32x8-tile partial sums
@@ -238,7 +247,8 @@ __device__ __forceinline__ void ivif_map(int s11i, int s22i, int s12i, float (&v
 // quantities into shared memory, the horizontal pass, moments and map, and
 // each 32x8 sub-tile's two partials into parts[(b * nblk + blk) * 2 + k],
 // blk = its index in the frame's (ceil(h/8), ceil(w/32)) grid of 32x8 tiles
-// (reduce_frames_kernel<2> then sums them in f64).  With RE > 0 also the
+// (reduce_frames_kernel<2> then sums them in f64), only the maps of the
+// columns [clo, chi) adding.  With RE > 0 also the
 // tile's 16x16 pixels of the next scale's input into next; with kCheck the
 // moments into check.  taps: the folded C1, C2 of this scale and of the
 // next.  shift: the pre-rounding shift (0: none; scale 0 only).
@@ -248,7 +258,7 @@ __device__ __forceinline__ void ivif_map(int s11i, int s22i, int s12i, float (&v
 // ---------------------------------------------------------------------------
 template <typename T, int R, int RE, bool kNarrow, bool kCheck>
 __global__ void __launch_bounds__(kTileThreads, (ITile<T, R, RE, kNarrow>::kMinBlocks))
-integer_vif_kernel(const T* __restrict__ src, int bsz, int h, int w, int shift, int aligned,
+integer_vif_kernel(const T* __restrict__ src, int bsz, int h, int w, int shift, int aligned, int clo, int chi,
                    const __grid_constant__ FoldedTaps<R, RE> taps, float* __restrict__ parts, uint16_t* __restrict__ next,
                    int* __restrict__ check) {
   using Q = ITile<T, R, RE, kNarrow>;
@@ -262,6 +272,17 @@ integer_vif_kernel(const T* __restrict__ src, int bsz, int h, int w, int shift, 
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
   const int b = blockIdx.z;
   const size_t npx = (size_t)h * w;
+  const int nbx = (w + kBx - 1) / kBx, nby = (h + kBy - 1) / kBy, by = blockIdx.y * kSubTiles + warp;
+  // The whole block: the tile's 32 columns all lie outside the window.
+  const bool outside = !kCheck && (x0 + kTileW <= clo || x0 >= chi);
+  if (outside && RE == 0) {
+    if (lane == 0 && by < nby) {
+      float* out = parts + ((size_t)b * nby + by) * nbx * 2 + (size_t)blockIdx.x * 2;
+      out[0] = 0.0f;
+      out[1] = 0.0f;
+    }
+    return;
+  }
 
   const bool chunks = aligned && y0 - R >= 0 && y0 + kTileH + R <= h && x0 - Q::kPad >= 0 &&
                       x0 + kTileW + Q::kPad <= w;
@@ -276,12 +297,12 @@ integer_vif_kernel(const T* __restrict__ src, int bsz, int h, int w, int shift, 
 
   // Vertical pass: column c (input column x0 - R + c) of output rows g*4 ..
   // g*4+3, from input rows g*4 .. g*4+3+2R of the tile (row o + k for tap
-  // k), one quantity at a time.
+  // k), one quantity at a time (none outside the window).
   constexpr int kVJobs = Q::kInW * (kTileH / kVRows);
 #pragma unroll
   for (int n = 0; n < (kVJobs + kTileThreads - 1) / kTileThreads; ++n) {
     const int job = threadIdx.x + n * kTileThreads;
-    if (job >= kVJobs) break;
+    if (job >= kVJobs || outside) break;
     const int c = job % Q::kInW, g = job / Q::kInW;
     constexpr int kWin = kVRows + 2 * R;
     uint32_t xa[kWin], xd[kWin];
@@ -328,46 +349,49 @@ integer_vif_kernel(const T* __restrict__ src, int bsz, int h, int w, int shift, 
   // tap k: vertical column c0 + o + k).
   const int row = warp * kBy + lane / 4, c0 = kHRun * (lane % 4);
   const int gr = y0 + row;
-  uint32_t mu[2][kHRun];
-  int s[3][kHRun];
+  float v[2] = {0.0f, 0.0f};
+  if (!outside) {
+    uint32_t mu[2][kHRun];
+    int s[3][kHRun];
 #pragma unroll
-  for (int q = 0; q < 5; ++q) {
-    uint32_t x[kHRun + 2 * R];
+    for (int q = 0; q < 5; ++q) {
+      uint32_t x[kHRun + 2 * R];
 #pragma unroll
-    for (int j = 0; j < kHRun + 2 * R; ++j) x[j] = vert[(q * kTileH + row) * Q::kVS + c0 + j];
+      for (int j = 0; j < kHRun + 2 * R; ++j) x[j] = vert[(q * kTileH + row) * Q::kVS + c0 + j];
+#pragma unroll
+      for (int o = 0; o < kHRun; ++o) {
+        const uint32_t sum = folded_sum<R>(taps.c2, [&x, o](int k) { return x[o + k]; });
+        if (q < 2) {
+          mu[q][o] = (sum + (1u << 15)) >> 16;
+        } else {
+          const uint32_t pb = (sum + 8u) >> 4;
+          const uint32_t m = q == 2 ? mu[0][o] * mu[0][o] : q == 3 ? mu[1][o] * mu[1][o] : mu[0][o] * mu[1][o];
+          const int d = static_cast<int>(pb - m);
+          s[q - 2][o] = q < 4 ? max(d, 0) : d;
+        }
+      }
+    }
+    // The thread's num and den over its eight owned pixels, in column order
+    // (chi <= w: an owned column lies in the plane).
 #pragma unroll
     for (int o = 0; o < kHRun; ++o) {
-      const uint32_t sum = folded_sum<R>(taps.c2, [&x, o](int k) { return x[o + k]; });
-      if (q < 2) {
-        mu[q][o] = (sum + (1u << 15)) >> 16;
-      } else {
-        const uint32_t pb = (sum + 8u) >> 4;
-        const uint32_t m = q == 2 ? mu[0][o] * mu[0][o] : q == 3 ? mu[1][o] * mu[1][o] : mu[0][o] * mu[1][o];
-        const int v = static_cast<int>(pb - m);
-        s[q - 2][o] = q < 4 ? max(v, 0) : v;
+      const int gc = x0 + c0 + o;
+      const bool in_plane = gr < h && gc < w;
+      if constexpr (kCheck) {
+        if (in_plane) {
+          const size_t at = (size_t)b * npx + (size_t)gr * w + gc, plane = (size_t)bsz * npx;
+          check[at] = s[0][o];
+          check[plane + at] = s[1][o];
+          check[2 * plane + at] = s[2][o];
+          check[3 * plane + at] = static_cast<int>(mu[0][o]);
+          check[4 * plane + at] = static_cast<int>(mu[1][o]);
+        }
       }
-    }
-  }
-  // The thread's num and den over its eight pixels, in column order.
-  float v[2] = {0.0f, 0.0f};
+      float nd[2] = {0.0f, 0.0f};
+      if (gr < h && gc >= clo && gc < chi) ivif_map(s[0][o], s[1][o], s[2][o], nd);
 #pragma unroll
-  for (int o = 0; o < kHRun; ++o) {
-    const int gc = x0 + c0 + o;
-    const bool in_plane = gr < h && gc < w;
-    if constexpr (kCheck) {
-      if (in_plane) {
-        const size_t at = (size_t)b * npx + (size_t)gr * w + gc, plane = (size_t)bsz * npx;
-        check[at] = s[0][o];
-        check[plane + at] = s[1][o];
-        check[2 * plane + at] = s[2][o];
-        check[3 * plane + at] = static_cast<int>(mu[0][o]);
-        check[4 * plane + at] = static_cast<int>(mu[1][o]);
-      }
+      for (int k = 0; k < 2; ++k) v[k] = o == 0 ? nd[k] : __fadd_rn(v[k], nd[k]);
     }
-    float nd[2] = {0.0f, 0.0f};
-    if (in_plane) ivif_map(s[0][o], s[1][o], s[2][o], nd);
-#pragma unroll
-    for (int k = 0; k < 2; ++k) v[k] = o == 0 ? nd[k] : __fadd_rn(v[k], nd[k]);
   }
   // The sub-tile's two sums: the lanes' added in a fixed tree of shuffles,
   // written by lane 0 to parts[(b * nby + by) * nbx + bx] (the frame's
@@ -379,7 +403,6 @@ integer_vif_kernel(const T* __restrict__ src, int bsz, int h, int w, int shift, 
       v[k] = __fadd_rn(v[k], __shfl_down_sync(0xffffffffu, v[k], stride));
     }
   }
-  const int nbx = (w + kBx - 1) / kBx, nby = (h + kBy - 1) / kBy, by = blockIdx.y * kSubTiles + warp;
   if (lane == 0 && by < nby) {
     float* out = parts + ((size_t)b * nby + by) * nbx * 2 + (size_t)blockIdx.x * 2;
     out[0] = v[0];
@@ -425,7 +448,7 @@ cudaError_t tile_setup() {
 
 struct Args {
   const void* in;
-  int bsz, h, w, shift;
+  int bsz, h, w, shift, clo, chi;
   const int* coeffs;  // host: C1, C2 of this scale (2R+1 each), then C1, C2 of the next (2RE+1 each)
   float *parts, *sums;
   int sums_pstride;
@@ -464,7 +487,7 @@ int launch(const Args& a) {
   const int aligned = reinterpret_cast<uintptr_t>(a.in) % 16 == 0 && ((size_t)a.w * sizeof(T)) % 16 == 0;
   const dim3 grid((a.w + kTileW - 1) / kTileW, (a.h + kTileH - 1) / kTileH, a.bsz);
   integer_vif_kernel<T, R, RE, kNarrow, kCheck><<<grid, kTileThreads, ITile<T, R, RE, kNarrow>::kSmemBytes, a.s>>>(
-      static_cast<const T*>(a.in), a.bsz, a.h, a.w, a.shift, aligned, taps, a.parts, a.next, a.check);
+      static_cast<const T*>(a.in), a.bsz, a.h, a.w, a.shift, aligned, a.clo, a.chi, taps, a.parts, a.next, a.check);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_frames_kernel<2><<<a.bsz, kReduceThreads, 0, a.s>>>(a.parts, vif_blocks(a.h, a.w), a.sums,
@@ -551,7 +574,9 @@ int tm_integer_vif_attrs(int scale, int type, int narrow, int check, int* out) {
 }
 
 // Fixed-point VIF scale `scale` (0-3) of the pair `in` (2, B, h, w) of luma
-// codes of `type` -> sums[b * sums_pstride + {0, 1}] = (num, den).  shift:
+// codes of `type` -> sums[b * sums_pstride + {0, 1}] = (num, den) over the
+// columns [clo, chi) (0 <= clo <= chi <= w; 0 and w: the whole scale; clo
+// == chi: zeros; with check non-null only the whole scale).  shift:
 // the pre-rounding shift (depth - 8 at scale 0 above 8 bits, else 0).
 // narrow: the luma were uint8 codes (every scale's samples < 2^8; the
 // caller passes the same at every scale).  coeffs (host int32):
@@ -561,9 +586,12 @@ int tm_integer_vif_attrs(int scale, int type, int narrow, int check, int* out) {
 // the moments (5, B, h, w) int32 s11, s22, s12, mu1, mu2.  parts holds
 // B*tm_integer_vif_blocks(h, w)*2 floats, the only scratch.
 int tm_integer_vif_level(const void* in, int type, int narrow, int bsz, int h, int w, int scale, int shift,
-                         const int* coeffs, float* parts, float* sums, int sums_pstride, uint16_t* next,
-                         int* check, void* stream) {
-  const Args a{in, bsz, h, w, shift, coeffs, parts, sums, sums_pstride, next, check,
+                         int clo, int chi, const int* coeffs, float* parts, float* sums, int sums_pstride,
+                         uint16_t* next, int* check, void* stream) {
+  if (clo < 0 || clo > chi || chi > w || (check != nullptr && (clo != 0 || chi != w))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Args a{in, bsz, h, w, shift, clo, chi, coeffs, parts, sums, sums_pstride, next, check,
                static_cast<cudaStream_t>(stream)};
   const Launch f{a};
   return check != nullptr ? dispatch<true>(scale, type, narrow, shift, f)

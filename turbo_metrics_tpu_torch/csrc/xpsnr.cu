@@ -55,7 +55,9 @@
 // for the u8/u8 SSE 0.033 ms, against 0.026 ms.
 // The previous frame of frame b is reference frame b-1 of the same batch
 // (frame 0 reads the plane carried over from the previous batch), so no
-// third batch of planes is uploaded.
+// third batch of planes is uploaded; or, where the caller gives one, frame
+// b's own previous plane (the JAX package's y_prev, a (B, h, w) batch of
+// planes read at a batch stride), in the same one launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -330,7 +332,8 @@ __device__ __forceinline__ void sums_wide(const TR* __restrict__ r_img, const TD
 template <typename TR, typename TD, bool kBytes>
 __global__ void __launch_bounds__(kWarps * 32)
 xpsnr_kernel(const TR* __restrict__ ref, const TD* __restrict__ dis, const TR* __restrict__ prev0,
-             int h, int w, int dis_shift, int64_t* __restrict__ out) {
+             const TR* __restrict__ prev, int prev_bstride, int h, int w, int dis_shift,
+             int64_t* __restrict__ out) {
   using G = Geometry<TR>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int by = blockIdx.y * kWarps + warp;
@@ -342,7 +345,7 @@ xpsnr_kernel(const TR* __restrict__ ref, const TD* __restrict__ dis, const TR* _
   const size_t npx = (size_t)h * w;
   const TR* r_img = ref + b * npx;
   const TD* d_img = dis + b * npx;
-  const TR* p_img = b == 0 ? prev0 : ref + (b - 1) * npx;
+  const TR* p_img = prev != nullptr ? prev + (size_t)b * prev_bstride : b == 0 ? prev0 : ref + (b - 1) * npx;
   const int ls = max(dis_shift, 0), rs = max(-dis_shift, 0);
   uint32_t acc[3] = {0u, 0u, 0u};
   if constexpr (sizeof(TR) == 1) {
@@ -404,18 +407,22 @@ Pick pick(int ref_type, int dis_type, int dis_shift) {
 extern "C" {
 
 // ref (images, h, w) and prev0 (h, w) of one type, dis (images, h, w) of
-// another; types: 0 u8, 1 u16, 2 int32.  The distorted samples are shifted
-// left by dis_shift bits (right when negative) before the comparison.  out:
+// another; types: 0 u8, 1 u16, 2 int32.  The previous plane of image b is
+// prev + b * prev_bstride (h x w, ref's type) where prev is non-null, else
+// image b - 1 of ref, prev0 for image 0 (prev0 then unused where prev is
+// given).  The distorted samples are shifted left by dis_shift bits (right
+// when negative) before the comparison.  out:
 // (3, images, ceil(h/16), ceil(w/16)) int64, the SSE, spatial and temporal
 // activity grids (uint32 values, as torch holds them).
 int tm_xpsnr_block_stats(const void* ref, int ref_type, const void* dis, int dis_type,
-                         const void* prev0, int images, int h, int w, int dis_shift,
-                         int64_t* out, void* stream) {
+                         const void* prev0, const void* prev, int prev_bstride, int images, int h,
+                         int w, int dis_shift, int64_t* out, void* stream) {
   const Pick k = pick(ref_type, dis_type, dis_shift);
   if (k.fn == nullptr || images < 1 || h < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  if (prev == nullptr ? prev0 == nullptr : (long long)prev_bstride < (long long)h * w) return (int)cudaErrorInvalidValue;
   const int chunks = (w + k.v - 1) / k.v, hb = (h + kBlock - 1) / kBlock;
   const dim3 grid((chunks + k.seg - 1) / k.seg, (hb + kWarps - 1) / kWarps, images);
-  void* args[] = {&ref, &dis, &prev0, &h, &w, &dis_shift, &out};
+  void* args[] = {&ref, &dis, &prev0, &prev, &prev_bstride, &h, &w, &dis_shift, &out};
   const cudaError_t err = cudaLaunchKernel(k.fn, grid, dim3(kWarps * 32), args, 0,
                                            static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

@@ -24,6 +24,10 @@ Int32 arithmetic is int64 here, reduced to int32 by two's-complement
 wraparound where the JAX code computes in int32, so the bands and the gate
 are the JAX package's bit for bit.  The CUDA kernel
 (ops/kernels/integer_adm.py) computes the same bands, gate and sums.
+
+``windows``: each level's band columns [clo, chi) summed in place of the
+centre region's (ops/adm.py ``level_windows``), as in the float path; the
+bands are those of the whole input either way.
 """
 
 from __future__ import annotations
@@ -115,19 +119,24 @@ def integer_adm_levels(ref: torch.Tensor, dis: torch.Tensor, *, depth: int = 8) 
     return out
 
 
-def level_stats(lv: dict, level: int) -> torch.Tensor:
+def level_stats(lv: dict, level: int, columns=None) -> torch.Tensor:
     """One level's centre-region cube sums (B, 3, 2) from its integer bands
-    and gate: the bands dequantised, then the float path's finish."""
+    and gate: the bands dequantised, then the float path's finish, over the
+    band columns ``columns`` = (clo, chi) in place of the region's where
+    given."""
     scale = np.float32((1 << (level + 1)) / (1 << Q_BAND))
     deq = {k: lv[k].to(torch.float32) * torch.tensor(scale, device=lv[k].device) for k in BANDS}
     csf = decouple_csf([deq["o_h"], deq["o_v"], deq["o_d"]], [deq["t_h"], deq["t_v"], deq["t_d"]],
                        lv["angle_ok"], level)
-    return level_sums(*csf)
+    return level_sums(*csf, columns=columns)
 
 
-def integer_adm_stats(ref: torch.Tensor, dis: torch.Tensor, *, depth: int = 8) -> torch.Tensor:
+def integer_adm_stats(ref: torch.Tensor, dis: torch.Tensor, *, depth: int = 8, windows=None) -> torch.Tensor:
     """Per-scale, per-band centre-region cube sums under the integer
     conventions: (B, H, W) integer luma -> (B, 4, 3, 2), the shape and
-    meaning of the float ``adm_stats``, so ``adm_score`` applies unchanged."""
+    meaning of the float ``adm_stats``, so ``adm_score`` applies unchanged;
+    ``windows``: each level's band columns in place of the region's
+    (``adm.level_windows``), None for the region's."""
     levels = integer_adm_levels(ref, dis, depth=depth)
-    return torch.stack([level_stats(lv, li) for li, lv in enumerate(levels)], dim=-3)
+    return torch.stack([level_stats(lv, li, None if windows is None else windows[li])
+                        for li, lv in enumerate(levels)], dim=-3)

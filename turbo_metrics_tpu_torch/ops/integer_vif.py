@@ -23,6 +23,11 @@ masked to 32 bits (``& 0xFFFFFFFF``) wherever the JAX code wraps, and the
 int32 moments wrap as int32 does, so the planes are the JAX package's bit
 for bit.  The per-pixel log2 terms are f32, in the JAX expression order.
 The CUDA kernel (ops/kernels/integer_vif.py) computes the same planes.
+
+``columns=(lo, hi)``: the owned level-0 columns whose log2 terms are summed
+(None: all of them), as in the float path (ops/vif.py): scale k sums its
+columns j with lo <= j * 2^k < hi, ``vif.scale_columns``.  The planes are
+those of the whole input either way.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from turbo_metrics_tpu_torch.ops.vif import NUM_SCALES, reflect101_index, vif_window
+from turbo_metrics_tpu_torch.ops.vif import NUM_SCALES, reflect101_index, scale_columns, vif_window, window_columns
 
 SIGMA_NSQ_Q8 = np.float32(512.0)  # 2.0 in Q8, the float path's sigma_nsq
 _M32 = 0xFFFFFFFF
@@ -99,10 +104,12 @@ def integer_vif_scale_planes(ref: torch.Tensor, dis: torch.Tensor, *, depth: int
     return out
 
 
-def scale_log_sums(s11i: torch.Tensor, s22i: torch.Tensor, s12i: torch.Tensor) -> torch.Tensor:
+def scale_log_sums(s11i: torch.Tensor, s22i: torch.Tensor, s12i: torch.Tensor, columns=None) -> torch.Tensor:
     """One scale's (num, den) sums from its int32 moments (B, H, W) -> (B,
     2) f32: the integer guards (s11 == 0, s22 == 0, g < 0) and the f32 log2
-    terms in the JAX expression order, summed in f64."""
+    terms in the JAX expression order, summed in f64 over the columns [lo,
+    hi) of ``columns`` (None: all of them)."""
+    lo, hi = window_columns(columns, s11i.shape[-1])
     s11 = s11i.to(torch.float32)
     s22 = s22i.to(torch.float32)
     s12 = s12i.to(torch.float32)
@@ -121,14 +128,18 @@ def scale_log_sums(s11i: torch.Tensor, s22i: torch.Tensor, s12i: torch.Tensor) -
     nsq = torch.tensor(SIGMA_NSQ_Q8, device=s11.device)
     num = torch.log2(1.0 + g * g * s11c / (sv + nsq))
     den = torch.log2(1.0 + s11c / nsq)
+    if (lo, hi) != (0, s11i.shape[-1]):
+        num, den = num[..., lo:hi], den[..., lo:hi]
     return torch.stack(
         [num.double().sum(dim=(-2, -1)), den.double().sum(dim=(-2, -1))], dim=-1
     ).float()
 
 
-def integer_vif_stats(ref: torch.Tensor, dis: torch.Tensor, *, depth: int = 8) -> torch.Tensor:
+def integer_vif_stats(ref: torch.Tensor, dis: torch.Tensor, *, depth: int = 8, columns=None) -> torch.Tensor:
     """Per-scale (num, den) sums under the integer conventions: (B, H, W)
     integer luma -> (B, 4, 2) f32, the shape and meaning of the float
-    ``vif_scale_stats``, so ``vif_scores`` applies unchanged."""
+    ``vif_scale_stats``, so ``vif_scores`` applies unchanged; scale k summed
+    over ``scale_columns(columns, k)`` (None: every column)."""
     planes = integer_vif_scale_planes(ref, dis, depth=depth)
-    return torch.stack([scale_log_sums(p["s11"], p["s22"], p["s12"]) for p in planes], dim=-2)
+    return torch.stack([scale_log_sums(p["s11"], p["s22"], p["s12"], scale_columns(columns, k))
+                        for k, p in enumerate(planes)], dim=-2)

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "tm_ssim_blocks": [_I, _I],
     "tm_ssim_tile_attrs": [_I, _PI],
     "tm_ssim_level": [_P, _I, _I, _I, _I, _P, _F, _F, _I, _I, _P, _P, _I, _P, _P],
-    "tm_xpsnr_block_stats": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
+    "tm_xpsnr_block_stats": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "tm_xpsnr_attributes": [_I, _I, _I, _PI],
     "tm_motion_stats": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "tm_integer_blur": [_P, _I, _I, _I, _I, _I, _P, _P],
@@ -72,10 +72,10 @@ _SIGNATURES = {
     "tm_adm_level": [_P, _I, _I, _I, _PF, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _I, _P],
     "tm_integer_vif_blocks": [_I, _I],
     "tm_integer_vif_attrs": [_I, _I, _I, _I, _PI],
-    "tm_integer_vif_level": [_P, _I, _I, _I, _I, _I, _I, _I, _PI, _P, _P, _I, _P, _P, _P],
+    "tm_integer_vif_level": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _PI, _P, _P, _I, _P, _P, _P],
     "tm_integer_adm_blocks": [_I, _I, _I, _I],
     "tm_integer_adm_attrs": [_I, _I, _I, _PI],
-    "tm_integer_adm_level": [_P, _I, _I, _I, _I, _I, _I, _PI, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _I,
+    "tm_integer_adm_level": [_P, _I, _I, _I, _I, _I, _I, _PI, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _I,
                              _P, _P],
     "tm_blur_probe_blocks": [_I, _I],
     "tm_blur_probe_attrs": [_PI],

@@ -148,10 +148,14 @@ adm_stats.launches = 0
 
 
 def adm_width_sharded(fn, mesh, *, in_ndims):
-    """``adm_stats`` with one frame's columns split over ``mesh`` (module
-    docstring; ``shard_over_width`` calls this).  ``fn``: ``adm_stats``,
-    bare or through functools.partial with no keywords; its input the (2,
-    B, h, w) f32 pair, ``in_ndims`` (4,).  Each call plans the strips
+    """``adm_stats`` or the fixed-point ``integer_adm_stats``
+    (ops/kernels/integer_adm.py, whose docstring derives the same plan) with
+    one frame's columns split over ``mesh`` (module docstring;
+    ``shard_over_width`` calls this).  ``fn``: either, bare or through
+    functools.partial (``integer_adm_stats`` with its keyword ``depth``,
+    ``adm_stats`` with none); its input the (2, B, h, w) pair (f32, or the
+    luma codes, whose dtype each strip keeps), ``in_ndims`` (4,).  Each
+    call plans the strips
     (``spatial_sharding``: owned edges on multiples of 16, a halo of 32
     columns), and each strip, under its device and its stream
     (``launch_shards``), cuts its columns of the pair (``strip_input``) and
@@ -160,13 +164,19 @@ def adm_width_sharded(fn, mesh, *, in_ndims):
     ``mesh.devices[0]`` and round once to f32.  ``ValueError`` where a strip
     would own fewer than 16 columns.  A mesh of one runs ``fn`` unchanged
     on its device."""
+    # Imported here: that module imports this one.
+    from turbo_metrics_tpu_torch.ops.kernels.integer_adm import integer_adm_stats
+
     base, kw = partial_keywords(fn)
-    if base is not adm_stats:
-        raise TypeError(f"adm_width_sharded takes ops.kernels.adm.adm_stats, not {fn!r}")
+    keywords = {adm_stats: set(), integer_adm_stats: {"depth"}}
+    if base not in keywords:
+        raise TypeError("adm_width_sharded takes ops.kernels.adm.adm_stats or "
+                        f"ops.kernels.integer_adm.integer_adm_stats, not {fn!r}")
     if tuple(in_ndims) != (4,):
         raise ValueError(f"{fn!r} takes inputs of (4,) dims, got in_ndims={tuple(in_ndims)}")
-    if kw:
-        raise TypeError(f"adm_stats takes no keywords {sorted(kw)} under width sharding")
+    unknown = set(kw) - keywords[base]
+    if unknown:
+        raise TypeError(f"{base.__name__} takes no keywords {sorted(unknown)} under width sharding")
     dest = mesh.devices[0]
 
     def sharded(*args):
@@ -178,7 +188,7 @@ def adm_width_sharded(fn, mesh, *, in_ndims):
 
         def strip_sums(k, dev):
             s = plan[k]
-            return adm_stats(strip_input(args[0], s, dev), columns=s.columns, frame=(s.lo, w))
+            return base(strip_input(args[0], s, dev), columns=s.columns, frame=(s.lo, w), **kw)
 
         return add_strips(launch_shards(strip_sums, mesh), dest).float()
 

@@ -195,10 +195,13 @@ def vif_scale_stats(pair: torch.Tensor, *, columns=None) -> torch.Tensor:
 
 
 def vif_width_sharded(fn, mesh, *, in_ndims):
-    """``vif_scale_stats`` with one frame's columns split over ``mesh``
-    (module docstring; ``shard_over_width`` calls this).  ``fn``:
-    ``vif_scale_stats``, bare or through functools.partial with no
-    keywords; its input the (2, B, h, w) f32 pair, ``in_ndims`` (4,).
+    """``vif_scale_stats`` or the fixed-point ``integer_vif_stats``
+    (ops/kernels/integer_vif.py, whose docstring derives the same plan) with
+    one frame's columns split over ``mesh`` (module docstring;
+    ``shard_over_width`` calls this).  ``fn``: either, bare or through
+    functools.partial (``integer_vif_stats`` with its keyword ``depth``,
+    ``vif_scale_stats`` with none); its input the (2, B, h, w) pair (f32,
+    or the luma codes, whose dtype each strip keeps), ``in_ndims`` (4,).
     Each call plans the strips (``spatial_sharding``: owned edges on
     multiples of 8, a halo of 24 columns), and each strip, under its device
     and its stream (``launch_shards``), cuts its columns of the pair
@@ -206,13 +209,19 @@ def vif_width_sharded(fn, mesh, *, in_ndims):
     add in f64 on ``mesh.devices[0]`` and round once to f32.  ``ValueError``
     where a strip would own fewer than 8 columns.  A mesh of one runs ``fn``
     unchanged on its device."""
+    # Imported here: that module imports this one.
+    from turbo_metrics_tpu_torch.ops.kernels.integer_vif import integer_vif_stats
+
     base, kw = partial_keywords(fn)
-    if base is not vif_scale_stats:
-        raise TypeError(f"vif_width_sharded takes ops.kernels.vif.vif_scale_stats, not {fn!r}")
+    keywords = {vif_scale_stats: set(), integer_vif_stats: {"depth"}}
+    if base not in keywords:
+        raise TypeError("vif_width_sharded takes ops.kernels.vif.vif_scale_stats or "
+                        f"ops.kernels.integer_vif.integer_vif_stats, not {fn!r}")
     if tuple(in_ndims) != (4,):
         raise ValueError(f"{fn!r} takes inputs of (4,) dims, got in_ndims={tuple(in_ndims)}")
-    if kw:
-        raise TypeError(f"vif_scale_stats takes no keywords {sorted(kw)} under width sharding")
+    unknown = set(kw) - keywords[base]
+    if unknown:
+        raise TypeError(f"{base.__name__} takes no keywords {sorted(unknown)} under width sharding")
     dest = mesh.devices[0]
 
     def sharded(*args):
@@ -221,7 +230,7 @@ def vif_width_sharded(fn, mesh, *, in_ndims):
             return fn(upload(args[0], dest))
         plan = spatial_sharding(mesh, args[0].shape[-1], alignment=STRIP_ALIGNMENT, halo=STRIP_HALO)
         outs = launch_shards(
-            lambda k, dev: vif_scale_stats(strip_input(args[0], plan[k], dev), columns=plan[k].columns), mesh)
+            lambda k, dev: base(strip_input(args[0], plan[k], dev), columns=plan[k].columns, **kw), mesh)
         return add_strips(outs, dest).float()
 
     return sharded

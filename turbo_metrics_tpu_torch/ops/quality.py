@@ -12,17 +12,23 @@ Two routes, as for SSIMULACRA2:
   * the plain functions here (``_ssim_parts`` and what builds on it), the
     counterpart of the JAX jnp path and the twins the kernels are held
     against;
-  * ``quality_from_rgb``: the multi-metric path on the converted linear-RGB
-    pair buffer, through ops/kernels/windowed.py (level 0, quantized at
-    load) and ops/kernels/windowed_tail.py (MS-SSIM levels 1-4), which run
-    their CUDA kernels on CUDA tensors and these plain functions on CPU
-    tensors.  PSNR stays a plain torch expression, as in the JAX package.
+  * the kernels of ops/kernels/windowed.py (#11: level 0, quantized at load
+    in the multi-metric path) and ops/kernels/windowed_tail.py (#12: the
+    MS-SSIM levels after it), which run their CUDA kernels on CUDA tensors
+    and the plain functions on CPU tensors.  ``quality_from_rgb``, the
+    multi-metric path on the converted linear-RGB pair buffer, takes them
+    always; ``ssim``, ``msssim`` and ``ssim_msssim`` on code values take
+    them as their JAX namesakes take the Pallas kernels, by ``backend``
+    (``resolve_backend``; JAX's gate ``kernel_ok``: three channels and both
+    dims at least 11, else the plain chain).
+PSNR stays a plain torch expression, as in the JAX package.
 ``quality_from_rgb`` is per-frame sums first (``quality_sums``: PSNR's
 exact squared-difference sum and each SSIM level's per-channel sums, over a
 window of owned columns where one is given), scores second
 (``quality_from_sums``), so that the column strips of one frame
 (``quality_width_sharded``, parallel/mesh.py ``shard_over_width``) add
-their sums before the frame is scored.
+their sums before the frame is scored.  ``plain_width_sharded`` does the
+same for ``ssim``, ``msssim`` and ``ssim_msssim`` on code values.
 """
 
 from __future__ import annotations
@@ -49,6 +55,14 @@ C1 = float(np.float32((0.01 * 255.0) ** 2))
 C2 = float(np.float32((0.03 * 255.0) ** 2))
 
 MSSSIM_WEIGHTS = np.array([0.0448, 0.2856, 0.3001, 0.2363, 0.1333], dtype=np.float64)
+
+# The ``backend`` names of the JAX package's ssim / msssim / ssim_msssim
+# that the port honours: "auto" (the kernels on a CUDA tensor, the plain
+# chain on a CPU tensor, as JAX takes Pallas on the TPU and jnp elsewhere),
+# "jnp" (the plain chain anywhere) and "pallas" (the kernels, which run
+# their plain twins on a CPU tensor).  JAX's "interpret" runs the Pallas
+# interpreter, which the port has no counterpart of.
+BACKENDS = ("auto", "jnp", "pallas")
 
 
 # Squared differences of 8-bit codes summed per run of PSNR_RUN in f32: each
@@ -132,8 +146,71 @@ def _level_means(a, b):
     )
 
 
-def ssim(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Mean SSIM index; (..., C, H, W) -> (...,)."""
+def resolve_backend(backend: str, device) -> str:
+    """``backend`` as the route it names: "jnp" (the plain chain) or
+    "pallas" (the kernels); "auto" is "pallas" on cuda and "jnp" elsewhere.
+    ``ValueError`` for any other name, listing those the port takes."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if backend == "auto":
+        return "pallas" if torch.device(device).type == "cuda" else "jnp"
+    return backend
+
+
+def kernel_ok(a: torch.Tensor, backend: str) -> bool:
+    """Whether ``a`` (..., C, H, W) takes the kernels: JAX's gate
+    (ops/quality.py ``_pallas_ok``), three channels and both dims at least
+    the window's 11, under the resolved ``backend``."""
+    return (resolve_backend(backend, a.device) == "pallas" and a.shape[-3] == 3
+            and min(a.shape[-2], a.shape[-1]) >= 2 * RADIUS + 1)
+
+
+_WINDOWS: dict = {}
+
+
+def _window(device) -> torch.Tensor:
+    """The 11 f32 taps of the SSIM window on ``device`` (made once)."""
+    key = str(device)
+    if key not in _WINDOWS:
+        _WINDOWS[key] = torch.tensor(_window_list(None), dtype=torch.float32, device=device)
+    return _WINDOWS[key]
+
+
+def level_sums(p12: torch.Tensor, window: torch.Tensor, num_levels: int, *, quantize: bool, c1: float = C1,
+               c2: float = C2, columns=None, plain: bool = False) -> list:
+    """Per level its (B, 3, 2) f32 per-channel sums (``ssim_sums``), of a
+    (2, B, 3, h, w) pair: level 0 by #11 (quantized at load with
+    ``quantize``), levels 1 .. num_levels - 1 by #12 from the level #11
+    emits; ``columns``: the owned columns of a column strip (None: the whole
+    width); ``plain``: the kernels' plain twins in their place."""
+    # Imported here: the kernel modules import this one for their twins.
+    from turbo_metrics_tpu_torch.ops.kernels import windowed, windowed_tail
+
+    sums_fn = windowed.ssim_sums_ref if plain else windowed.ssim_sums
+    tail_fn = windowed_tail.msssim_tail_ref if plain else windowed_tail.msssim_tail
+    sums0, ds = sums_fn(p12, window, quantize=quantize, emit_ds=num_levels > 1, c1=c1, c2=c2, columns=columns)
+    out = [sums0]
+    if num_levels > 1:
+        cols1 = None if columns is None else (columns[0] // 2, columns[1] // 2)  # level 1's
+        out += list(tail_fn(ds, num_levels - 1, window, c1=c1, c2=c2, columns=cols1).unbind(1))
+    return out
+
+
+def _kernel_level_means(a, b, num_levels: int) -> list:
+    """Per level (mean(luminance*cs), mean(cs)) of (..., 3, h, w) code
+    values by the kernels: the leading dims flattened to B, a and b stacked
+    once into the (2, B, 3, h, w) pair #11 reads."""
+    lead, (h, w) = a.shape[:-3], a.shape[-2:]
+    p12 = torch.stack([a.reshape(-1, 3, h, w), b.reshape(-1, 3, h, w)]).to(torch.float32)
+    sums = level_sums(p12, _window(p12.device), num_levels, quantize=False)
+    return [tuple(m.reshape(lead) for m in means_from_sums(s, h >> li, w >> li)) for li, s in enumerate(sums)]
+
+
+def ssim(a: torch.Tensor, b: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
+    """Mean SSIM index; (..., C, H, W) -> (...,); ``backend``: the route
+    (``resolve_backend``; the kernels where ``kernel_ok``)."""
+    if kernel_ok(a, backend):
+        return _kernel_level_means(a, b, 1)[0][0]
     return _level_means(a, b)[0]
 
 
@@ -157,10 +234,14 @@ def _clamp_levels(h: int, w: int, levels: int, weights=MSSSIM_WEIGHTS):
     return levels, w_
 
 
-def _msssim_levels(a, b, levels: int):
-    """Per-level (mean(luminance*cs), mean(cs)) plus the clamped weights.
+def _msssim_levels(a, b, levels: int, backend: str):
+    """Per-level (mean(luminance*cs), mean(cs)) plus the clamped weights, by
+    the kernels where ``kernel_ok`` (one #11 launch and, past one level, one
+    #12 launch, which takes any level count), else the plain chain.
     Level 0's first mean IS the single-scale SSIM index."""
     levels, weights = _clamp_levels(a.shape[-2], a.shape[-1], levels)
+    if kernel_ok(a, backend):
+        return _kernel_level_means(a, b, levels), weights
     per_level = []
     for lvl in range(levels):
         per_level.append(_level_means(a, b))
@@ -180,15 +261,16 @@ def _msssim_combine(per_level, weights) -> torch.Tensor:
     return result
 
 
-def msssim(a: torch.Tensor, b: torch.Tensor, *, levels: int = 5) -> torch.Tensor:
-    """Multi-scale SSIM (Wang 2003); (..., C, H, W) -> (...,)."""
-    return _msssim_combine(*_msssim_levels(a, b, levels))
+def msssim(a: torch.Tensor, b: torch.Tensor, *, levels: int = 5, backend: str = "auto") -> torch.Tensor:
+    """Multi-scale SSIM (Wang 2003); (..., C, H, W) -> (...,); ``backend``
+    as for ``ssim``."""
+    return _msssim_combine(*_msssim_levels(a, b, levels, backend))
 
 
-def ssim_msssim(a, b, *, levels: int = 5):
+def ssim_msssim(a, b, *, levels: int = 5, backend: str = "auto"):
     """(SSIM, MS-SSIM) sharing one level-0 pass: MS-SSIM's level 0 computes
-    exactly the statistics SSIM needs."""
-    per_level, weights = _msssim_levels(a, b, levels)
+    exactly the statistics SSIM needs; ``backend`` as for ``ssim``."""
+    per_level, weights = _msssim_levels(a, b, levels, backend)
     return per_level[0][0], _msssim_combine(per_level, weights)
 
 
@@ -231,25 +313,13 @@ def quality_sums(
     strip of a frame (None: the whole width), whose samples PSNR sums and on
     which the SSIM levels' valid outputs are centred; ``num_levels`` is the
     whole frame's clamped MS-SSIM level count."""
-    # Imported here: the kernel modules import this one for their twins.
-    from turbo_metrics_tpu_torch.ops.kernels.windowed import ssim_sums
-    from turbo_metrics_tpu_torch.ops.kernels.windowed_tail import msssim_tail
-
     out = {}
     if want_psnr:
         q = f32_to_uint8(p12 if columns is None else p12[..., columns[0]:columns[1]], torch.float32)
         out["sse"] = psnr_sse(q[0], q[1])
-    if want_msssim:
-        lv = num_levels
-        sums0, ds = ssim_sums(p12, window, quantize=True, emit_ds=lv > 1, c1=c1, c2=c2, columns=columns)
-        out["levels"] = [sums0]
-        if lv > 1:
-            cols1 = None if columns is None else (columns[0] // 2, columns[1] // 2)  # level 1's
-            tail = msssim_tail(ds, lv - 1, window, c1=c1, c2=c2, columns=cols1)
-            out["levels"] += list(tail.unbind(1))
-    elif want_ssim:
-        sums0, _ = ssim_sums(p12, window, quantize=True, emit_ds=False, c1=c1, c2=c2, columns=columns)
-        out["levels"] = [sums0]
+    if want_msssim or want_ssim:
+        out["levels"] = level_sums(p12, window, num_levels if want_msssim else 1, quantize=True, c1=c1, c2=c2,
+                                   columns=columns)
     return out
 
 
@@ -360,6 +430,63 @@ def quality_width_sharded(fn, mesh, *, in_ndims):
         if "levels" in total:
             total["levels"] = [s.to(torch.float32) for s in total["levels"]]
         return quality_from_sums(total, h, w, **flags, weights=wts)
+
+    return sharded
+
+
+def plain_width_sharded(fn, mesh, *, in_ndims):
+    """``ssim``, ``msssim`` or ``ssim_msssim`` with one frame's columns split
+    over ``mesh`` (``shard_over_width`` calls this): ``quality_width_sharded``'s
+    plan on code values.  ``fn``: one of them, bare or through
+    functools.partial with its keywords (``backend``; ``levels`` but for
+    ``ssim``); its inputs (B, 3, h, w) ``a`` and ``b``, ``in_ndims`` (4, 4).
+    Each call plans the strips (``spatial_sharding`` of the frame's clamped
+    MS-SSIM level count L, 1 for ``ssim``: owned edges on multiples of 2^(L-1),
+    a halo of 5 * 2^(L-1)), and each strip, under its device and its stream
+    (``launch_shards``), stacks its columns of a and b into one pair and
+    takes ``level_sums`` over its owned columns (#11 and #12, or with
+    backend "jnp" their plain twins); the strips' per-level sums add in f64
+    on ``mesh.devices[0]``, round once to f32 and are scored there with the
+    whole frame's level sizes and weights.  ``ValueError`` for a frame off
+    JAX's kernel gate (three channels, both dims at least 11) and where a
+    strip would own fewer than A columns.  A mesh of one runs ``fn``
+    unchanged on its device."""
+    base, kw = partial_keywords(fn)
+    entries = {ssim: {"backend"}, msssim: {"backend", "levels"}, ssim_msssim: {"backend", "levels"}}
+    if base not in entries:
+        raise TypeError(f"plain_width_sharded takes ops.quality.ssim, msssim or ssim_msssim, not {fn!r}")
+    if tuple(in_ndims) != (4, 4):
+        raise ValueError(f"{fn!r} takes inputs of (4, 4) dims, got in_ndims={tuple(in_ndims)}")
+    unknown = set(kw) - entries[base]
+    if unknown:
+        raise TypeError(f"{base.__name__} takes no keywords {sorted(unknown)}")
+    dest = mesh.devices[0]
+    plain = resolve_backend(kw.get("backend", "auto"), dest) == "jnp"
+
+    def sharded(*args):
+        check_inputs(args, in_ndims)
+        if mesh.size == 1:
+            return fn(*(upload(t, dest) for t in args))
+        a, b = args
+        h, w = a.shape[-2], a.shape[-1]
+        if a.shape[-3] != 3 or min(h, w) < 2 * RADIUS + 1 or b.shape != a.shape:
+            raise ValueError(f"width sharding of {base.__name__} takes two (B, 3, h, w) inputs with h and w at "
+                             f"least {2 * RADIUS + 1}, got {tuple(a.shape)} and {tuple(b.shape)}")
+        lv, wts = _clamp_levels(h, w, 1 if base is ssim else kw.get("levels", 5))
+        plan = spatial_sharding(mesh, w, num_scales=lv)
+
+        def strip_sums(k, dev):
+            s = plan[k]
+            p12 = torch.stack([strip_input(t, s, dev, view=True) for t in (a, b)]).to(torch.float32)
+            return level_sums(p12, _window(dev), lv, quantize=False, columns=s.columns, plain=plain)
+
+        total = add_strips(launch_shards(strip_sums, mesh), dest)
+        per_level = [means_from_sums(t.to(torch.float32), h >> li, w >> li) for li, t in enumerate(total)]
+        if base is ssim:
+            return per_level[0][0]
+        if base is msssim:
+            return _msssim_combine(per_level, wts)
+        return per_level[0][0], _msssim_combine(per_level, wts)
 
     return sharded
 

@@ -3,8 +3,9 @@
 The port's copy of the JAX package's ops/xpsnr_ops.py (itself the
 equivalent of xpsnr_support_8/xpsnr_postprocess, xpsnr-cuda-kernel/src/
 lib.rs:38-120, and the NPP highpass set-up, xpsnr-cuda/src/lib.rs:92-115).
-``xpsnr_block_stats`` here is the plain torch version; the CUDA kernel
-(ops/kernels/xpsnr.py) computes the same grids.
+``xpsnr_block_stats`` here runs the plain torch version or, by
+``backend`` as its JAX namesake runs the Pallas kernel, the CUDA kernel #13
+(ops/kernels/xpsnr.py), which computes the same grids.
 
 The grids are uint32 in the reference and wrap mod 2^32 (the SSE of a 16x16
 block can pass 2^32 at 16 bits).  torch has little uint32 arithmetic, so
@@ -28,6 +29,14 @@ BLOCK = 16
 HIGHPASS = np.array([[-1, -2, -1], [-2, 12, -2], [-1, -2, -1]], dtype=np.int32)
 
 U32 = 0xFFFFFFFF
+
+# The ``backend`` names of the JAX package's xpsnr_block_stats that the port
+# honours: None or "auto" (#13 on a CUDA tensor, the plain version on a CPU
+# tensor, as JAX takes Pallas on the TPU and jnp elsewhere), "jnp" (the
+# plain version anywhere) and "pallas" (#13, whose plain twin runs on a CPU
+# tensor).  JAX's "interpret" runs the Pallas interpreter, which the port
+# has no counterpart of.
+BACKENDS = (None, "auto", "jnp", "pallas")
 
 
 def align_luma_depth(y: torch.Tensor, from_depth: int, to_depth: int) -> torch.Tensor:
@@ -75,19 +84,47 @@ def block_sums(x: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
     return x.sum(dim=(-3, -1)) & U32
 
 
+def kernel_ok(y_ref, y_dis, y_prev, block: int, backend) -> bool:
+    """Whether the inputs take #13 under ``backend``: the resolved route is
+    the kernel's, the blocks are its 16x16, the planes are (B, h, w) of its
+    types (y_ref and y_prev of one).  JAX's further gates, min(h, w) >= 32
+    and depth <= 12 (ops/xpsnr_ops.py), keep its Pallas kernel's f32 block
+    sums exact and its tiles whole; #13 sums in uint32 at any size and depth
+    (its edge cases from 1 row and 15 columns up), so it keeps neither."""
+    from turbo_metrics_tpu_torch.ops.kernels.xpsnr import DTYPE_CODES
+
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if backend == "jnp" or (backend in (None, "auto") and y_ref.device.type != "cuda"):
+        return False
+    return (block == BLOCK and y_ref.ndim == 3 and y_dis.shape == y_prev.shape == y_ref.shape
+            and y_ref.dtype in DTYPE_CODES and y_dis.dtype in DTYPE_CODES and y_prev.dtype == y_ref.dtype)
+
+
 def xpsnr_block_stats(
     y_ref: torch.Tensor,
     y_dis: torch.Tensor,
     y_prev: torch.Tensor,
     *,
     block: int = BLOCK,
+    depth: int = 8,
+    backend: str | None = None,
 ) -> dict[str, torch.Tensor]:
     """Per-block SSE / spatial activity / temporal activity.
 
     Inputs: integer luma planes (..., H, W); ``y_prev`` is the previous
     *reference* frame (for the first frame, the frame itself -> tact 0).
     Returns the uint32 block grids (kernel lib.rs:69-91) as int64 tensors.
+    ``backend`` (``BACKENDS``): #13 with a per-frame ``prev`` where
+    ``kernel_ok``, else the plain version; the grids are the same bit for
+    bit.  ``depth`` is the JAX signature's; neither route reads it.
     """
+    if not 1 <= depth <= 16:
+        raise ValueError(f"depth must be 1-16 bits, got {depth}")
+    if kernel_ok(y_ref, y_dis, y_prev, block, backend):
+        from turbo_metrics_tpu_torch.ops.kernels import xpsnr
+
+        return xpsnr.xpsnr_block_stats(y_ref.contiguous(), y_dis.contiguous(), prev=y_prev.contiguous())
     r = y_ref.to(torch.int64)
     d = y_dis.to(torch.int64)
     p = y_prev.to(torch.int64)

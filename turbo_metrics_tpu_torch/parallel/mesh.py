@@ -21,11 +21,13 @@ partitioner to insert the halo exchanges into any function.  This module
 plans and cuts the strips; ``shard_over_width`` hands an entry to its
 metric's own strip loop: models/ssimulacra2.py ``subscores_width_sharded``
 (SSIMULACRA2), ops/quality.py ``quality_width_sharded`` (PSNR, SSIM and
-MS-SSIM from a linear-RGB pair), ops/kernels/xpsnr.py
-``xpsnr_width_sharded`` (XPSNR's block grids), and VMAF's float features:
-ops/kernels/vif.py ``vif_width_sharded``, ops/kernels/adm.py
-``adm_width_sharded`` and ops/kernels/motion.py ``motion_width_sharded``
-(the motion SADs and the blur; each module's docstring derives its plan).
+MS-SSIM from a linear-RGB pair) and ``plain_width_sharded`` (SSIM and
+MS-SSIM on code values), ops/kernels/xpsnr.py ``xpsnr_width_sharded``
+(XPSNR's block grids), and VMAF's features: ops/kernels/vif.py
+``vif_width_sharded`` and ops/kernels/adm.py ``adm_width_sharded`` (the
+float features and the fixed-point ones of ops/kernels/integer_vif.py and
+integer_adm.py) and ops/kernels/motion.py ``motion_width_sharded`` (the
+motion SADs and the blur; each module's docstring derives its plan).
 Each strip is cut once, at
 upload, with a halo wide enough for every level, and nothing passes between
 devices until the strips' results are joined on ``mesh.devices[0]``:
@@ -45,7 +47,8 @@ devices until the strips' results are joined on ``mesh.devices[0]``:
     frame's, its owned blocks' 3x3 highpass reads real neighbours, and the
     owned block columns are joined;
   * VIF takes A = 8 (four scales) and H = 24, ADM A = 16 (four DWT levels)
-    and H = 32, their f32 sums adding in f64; motion and its blur A = 16,
+    and H = 32, their f32 sums adding in f64, at float and at fixed-point
+    conventions alike; motion and its blur A = 16,
     H = 16, the owned columns of the blurred planes joined and the row
     SADs added in int64.
 The halo costs (w + 2 H (n - 1)) / w of the columns: 1.042 over 2 strips
@@ -431,35 +434,47 @@ def shard_over_width(fn: Callable, mesh: Mesh, *, in_ndims: Sequence[int]):
     run by its metric's own strip loop:
       * models/ssimulacra2.py ``ssimulacra2_subscores`` and
         ``ssimulacra2_subscores_from_yuv`` (``subscores_width_sharded``);
-      * ops/quality.py ``quality_from_rgb`` (``quality_width_sharded``);
-      * ops/kernels/xpsnr.py ``xpsnr_block_stats`` (``xpsnr_width_sharded``);
-      * ops/kernels/vif.py ``vif_scale_stats`` (``vif_width_sharded``);
-      * ops/kernels/adm.py ``adm_stats`` (``adm_width_sharded``);
+      * ops/quality.py ``quality_from_rgb`` (``quality_width_sharded``) and
+        ``ssim``, ``msssim`` and ``ssim_msssim`` (``plain_width_sharded``);
+      * ops/kernels/xpsnr.py ``xpsnr_block_stats`` and ops/xpsnr_ops.py
+        ``xpsnr_block_stats`` (``xpsnr_width_sharded``);
+      * ops/kernels/vif.py ``vif_scale_stats`` and ops/kernels/integer_vif.py
+        ``integer_vif_stats`` (``vif_width_sharded``);
+      * ops/kernels/adm.py ``adm_stats`` and ops/kernels/integer_adm.py
+        ``integer_adm_stats`` (``adm_width_sharded``);
       * ops/kernels/motion.py ``motion_stats`` and ``integer_blur``
         (``motion_width_sharded``).
-    Any other function raises ``TypeError``."""
+    Any other function raises ``TypeError``: the port has no partitioner,
+    and the functions under these entries (VIF's scale wrappers
+    ``vif_scale0`` and ``vif_tail``, whose windows a caller would have to
+    chain by hand, the plain ``block_sums`` and the like) have no strip loop
+    of their own."""
     from turbo_metrics_tpu_torch.models import ssimulacra2
-    from turbo_metrics_tpu_torch.ops import quality
-    from turbo_metrics_tpu_torch.ops.kernels import adm, motion, vif, xpsnr
+    from turbo_metrics_tpu_torch.ops import quality, xpsnr_ops
+    from turbo_metrics_tpu_torch.ops.kernels import adm, integer_adm, integer_vif, motion, vif, xpsnr
 
     base, _ = partial_keywords(fn)
     for entries, sharded in (
         ((ssimulacra2.ssimulacra2_subscores, ssimulacra2.ssimulacra2_subscores_from_yuv),
          ssimulacra2.subscores_width_sharded),
         ((quality.quality_from_rgb,), quality.quality_width_sharded),
-        ((xpsnr.xpsnr_block_stats,), xpsnr.xpsnr_width_sharded),
-        ((vif.vif_scale_stats,), vif.vif_width_sharded),
-        ((adm.adm_stats,), adm.adm_width_sharded),
+        ((quality.ssim, quality.msssim, quality.ssim_msssim), quality.plain_width_sharded),
+        ((xpsnr.xpsnr_block_stats, xpsnr_ops.xpsnr_block_stats), xpsnr.xpsnr_width_sharded),
+        ((vif.vif_scale_stats, integer_vif.integer_vif_stats), vif.vif_width_sharded),
+        ((adm.adm_stats, integer_adm.integer_adm_stats), adm.adm_width_sharded),
         ((motion.motion_stats, motion.integer_blur), motion.motion_width_sharded),
     ):
         if any(base is e for e in entries):
             return sharded(fn, mesh, in_ndims=in_ndims)
     raise TypeError(
         "width sharding supports models.ssimulacra2.ssimulacra2_subscores and "
-        "ssimulacra2_subscores_from_yuv, ops.quality.quality_from_rgb, ops.kernels.xpsnr."
-        "xpsnr_block_stats, ops.kernels.vif.vif_scale_stats, ops.kernels.adm.adm_stats and "
+        "ssimulacra2_subscores_from_yuv, ops.quality.quality_from_rgb, ssim, msssim and ssim_msssim, "
+        "ops.kernels.xpsnr.xpsnr_block_stats and ops.xpsnr_ops.xpsnr_block_stats, "
+        "ops.kernels.vif.vif_scale_stats, ops.kernels.integer_vif.integer_vif_stats, "
+        "ops.kernels.adm.adm_stats, ops.kernels.integer_adm.integer_adm_stats and "
         "ops.kernels.motion.motion_stats and integer_blur "
         f"(bare or through functools.partial), not {fn!r}: the port has no SPMD "
         "partitioner to split any function's columns, so width sharding is written into those entries' "
-        "kernels (an owned-column window and a halo cut at upload)"
+        "kernels (an owned-column window and a halo cut at upload); the functions under them, such as "
+        "VIF's scale wrappers vif_scale0 and vif_tail, have no strip loop of their own"
     )

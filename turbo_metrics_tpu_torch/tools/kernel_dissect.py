@@ -51,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
+import sys
 from collections import Counter
 from dataclasses import dataclass
 from typing import Callable
@@ -86,6 +87,15 @@ REPEATS = 5
 # Profiler readings of one entry that keep fewer than half their calls whole
 # before that is an error.
 PROFILE_ATTEMPTS = 3
+# The mark before each profiled call: the kernel of torch.cuda._sleep
+# (ATen's spin_kernel), named so that a reading finds its marks among its own
+# records.
+MARK_KERNEL = "spin_kernel"
+# What opens a reading before its first call: marks of a few cycles, then one
+# mark of this many cycles (~5 ms on an H100).  The profiler has lost the
+# head of a reading, up to the records of eight calls; what it loses there
+# falls on these instead.
+PAD_MARKS, PAD_CYCLES = 16, 10_000_000
 
 @dataclass(frozen=True)
 class Probe:
@@ -147,11 +157,15 @@ def kernel_device_ms(fn, iters: int, expect: int | None = None, memsets: bool = 
     it raises, as where the calls launch different kernels."""
     for _ in range(PROFILE_ATTEMPTS):
         records, marks = _profile_calls(fn, iters)
-        calls = split_calls([r for r in records if memsets or r[0] != MEMSET], marks, expect)
+        kept = [r for r in records if memsets or r[0] != MEMSET]
+        calls = split_calls(kept, marks, expect)
         if 2 * len(calls) >= iters:
             break
+        print(f"profiler reading taken again: {len(calls)} of {iters} calls kept all their kernel records: "
+              + describe_reading(kept, marks, expect), file=sys.stderr, flush=True)
     else:
-        raise ProfileMismatch(f"{len(calls)} of {iters} calls kept all their kernel records")
+        raise ProfileMismatch(f"{len(calls)} of {iters} calls kept all their kernel records: "
+                              + describe_reading(kept, marks, expect))
     first = [n for n, _ in calls[0]]
     for call in calls[1:]:
         if [n for n, _ in call] != first:
@@ -160,22 +174,47 @@ def kernel_device_ms(fn, iters: int, expect: int | None = None, memsets: bool = 
     return [(n, sum(call[i][1] for call in calls) / len(calls)) for i, n in enumerate(first)]
 
 
+def describe_reading(records: list, marks: set, expect) -> str:
+    """What a reading that kept too few calls held: the marks, how many
+    records each span between marks held, the names of the records, and
+    the first span of another length than ``expect`` (where given)."""
+    spans, span = [], []
+    for rec in records:
+        if rec[0] in marks:
+            spans.append(span)
+            span = []
+        else:
+            span.append(rec[0])
+    spans.append(span)
+    odd = next((s for s in spans[1:] if expect is not None and len(s) != expect), None)
+    return (f"marks {sorted(marks)}, {len(records)} records, want {expect} per call; records between marks "
+            f"{[len(s) for s in spans]}; names {dict(Counter(n for n, _ in records))}; first odd call {odd}")
+
+
+def is_mark(name: str) -> bool:
+    """Whether a profiler record's kernel name is the mark's."""
+    return base_name(name).rsplit("::", 1)[-1] == MARK_KERNEL
+
+
 def _profile_calls(fn, iters: int) -> tuple:
     """(the records of ``iters`` fn() calls, each after a mark: a spin
-    kernel of a few cycles; the marks' kernel names, read alone first)."""
-    def mark():
-        torch.cuda._sleep(1)
-
+    kernel of a few cycles, the reading opened by the pad of marks
+    ``PAD_MARKS`` and ``PAD_CYCLES``; the marks' names among the records,
+    known by name: a reading of the marks alone, short as it is, can lose
+    every record)."""
     fn()
     torch.cuda.synchronize()
-    marks = {n for n, _ in cuda_kernel_records(lambda: [mark() for _ in range(4)])}
 
     def calls():
+        for _ in range(PAD_MARKS):
+            torch.cuda._sleep(1)
+        torch.cuda._sleep(PAD_CYCLES)
         for _ in range(iters):
-            mark()
+            torch.cuda._sleep(1)
             fn()
 
-    return cuda_kernel_records(calls), marks
+    records = cuda_kernel_records(calls)
+    return records, {n for n, _ in records if is_mark(n)}
 
 
 def probes(batch: int, height: int, width: int, dev: torch.device) -> list:
@@ -293,8 +332,11 @@ def dissect(probe: Probe, iters: int, dev: torch.device) -> list:
     call_ms = statistics.median(time_ms(probe.fn, iters, dev) for _ in range(REPEATS))
     seq = None
     if dev.type == "cuda":
-        seq = kernel_device_ms(probe.fn, iters, probe.parts * sum(c for _, c in probe.kernels),
-                               memsets=any(n == MEMSET for n, _ in probe.kernels))
+        try:
+            seq = kernel_device_ms(probe.fn, iters, probe.parts * sum(c for _, c in probe.kernels),
+                                   memsets=any(n == MEMSET for n, _ in probe.kernels))
+        except ProfileMismatch as e:
+            raise ProfileMismatch(f"{probe.entry}: {e}") from e
     if seq is not None and len(seq) % probe.parts:
         raise RuntimeError(f"{probe.entry}: {len(seq)} kernels in {probe.parts} equal parts")
     rows = []

@@ -59,8 +59,10 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     on u8 and 10-bit u16 luma pairs at the given shape, on 12-bit u16 and
     10-bit int32 pairs at 67x99 and on u8 and int32 pairs read at 10 bits
     at 96x128 (int_calls), SSIM's #11 and #12 with windows of owned
-    columns that cut 32-column tiles mid-way (ssim_window_calls), and
-    VMAF's #14, #15, #16 and #18 likewise (vmaf_window_calls)."""
+    columns that cut 32-column tiles mid-way (ssim_window_calls),
+    VMAF's #14, #15, #16 and #18 likewise (vmaf_window_calls), and K-int-VIF
+    and K-int-ADM likewise and #13 with every frame's previous plane
+    (int_window_calls)."""
     from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
     from turbo_metrics_tpu_torch.ops.kernels import adm, convert, fused_tail, motion, scale_stats, scale_tail, xpsnr
 
@@ -138,7 +140,8 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     ]
     # Last: a checkout without them draws the same inputs for every call above.
     calls += ssim_window_calls(rng, batch, height, width, dev)
-    return calls + vmaf_window_calls(rng, batch, height, width, dev)
+    calls += vmaf_window_calls(rng, batch, height, width, dev)
+    return calls + int_window_calls(rng, batch, height, width, dev)
 
 
 def ssim_window_calls(rng, batch: int, height: int, width: int, dev) -> list:
@@ -270,6 +273,63 @@ def int_calls(rng, batch: int, height: int, width: int, dev) -> list:
             calls.append((f"K-int-ADM level {k} {what}", "integer_adm_stats",
                           lambda p=p, d=depth, k=k: tuple(integer_adm.integer_adm_levels(p, depth=d)[k].get(key)
                                                           for key in IADM_KEYS)))
+    return calls
+
+
+def int_window_calls(rng, batch: int, height: int, width: int, dev) -> list:
+    """(entry, wrapper, call) of K-int-VIF and K-int-ADM with owned-column
+    windows that cut 32-column tiles (K-int-ADM's 32x32 band tiles)
+    mid-way, on u8 and 10-bit u16 luma-code pairs at 67x99 (B=2) and at the
+    given shape, each also as the second of four column strips of the given
+    shape (``columns``, and K-int-ADM's ``frame``); then #13 with every
+    frame's previous plane (``prev``) on u8 luma at the given shape and on
+    10-bit luma at an odd size.  Each part is left out where the checkout's
+    wrappers do not take its argument (the parent of an A/B)."""
+    from turbo_metrics_tpu_torch.ops.kernels import adm, integer_adm, integer_vif, xpsnr
+    from turbo_metrics_tpu_torch.parallel.mesh import make_mesh, spatial_sharding
+
+    calls = []
+    if "columns" in inspect.signature(integer_vif.integer_vif_stats).parameters:
+        def pair(b, h, w, depth, dtype):
+            ref = rng.integers(0, 1 << depth, (b, h, w))
+            dis = np.clip(ref + rng.integers(-(1 << (depth - 4)), 1 << (depth - 4), ref.shape), 0,
+                          (1 << depth) - 1)
+            return torch.from_numpy(np.stack([ref, dis]).astype(dtype)).to(dev)
+
+        # At 1080p (40, 1301): tiles [32, 64) and [1280, 1312) cut.
+        cut = (40, width * 2 // 3 + 21)
+        s = spatial_sharding(make_mesh(4, device="cpu"), width, alignment=adm.STRIP_ALIGNMENT,
+                             halo=adm.STRIP_HALO)[1]
+        for what, p, depth, cols in (("u8 99x67", pair(2, 67, 99, 8, np.uint8), 8, (24, 77)),
+                                     ("10-bit u16 99x67", pair(2, 67, 99, 10, np.uint16), 10, (24, 77)),
+                                     (f"u8 {width}x{height}", pair(batch, height, width, 8, np.uint8), 8, cut),
+                                     (f"10-bit u16 {width}x{height}",
+                                      pair(batch, height, width, 10, np.uint16), 10, cut)):
+            calls += [
+                (f"K-int-VIF window {cols} {what}", "integer_vif_stats",
+                 lambda p=p, d=depth, c=cols: integer_vif.integer_vif_stats(p, depth=d, columns=c)),
+                (f"K-int-ADM window {cols} {what}", "integer_adm_stats",
+                 lambda p=p, d=depth, c=cols: integer_adm.integer_adm_stats(p, depth=d, columns=c)),
+            ]
+            if p.shape[-1] == width:
+                strip = p[..., s.lo:s.hi].contiguous()
+                calls += [
+                    (f"K-int-VIF strip [{s.lo}, {s.hi}) owning {s.columns} {what}", "integer_vif_stats",
+                     lambda t=strip, d=depth: integer_vif.integer_vif_stats(t, depth=d, columns=s.columns)),
+                    (f"K-int-ADM strip [{s.lo}, {s.hi}) owning {s.columns} {what}", "integer_adm_stats",
+                     lambda t=strip, d=depth: integer_adm.integer_adm_stats(t, depth=d, columns=s.columns,
+                                                                            frame=(s.lo, width))),
+                ]
+    if "prev" in inspect.signature(xpsnr.xpsnr_block_stats).parameters:
+        def luma(shape, depth):
+            dt = np.uint8 if depth == 8 else np.uint16
+            return torch.from_numpy(rng.integers(0, 1 << depth, shape).astype(dt)).to(dev)
+
+        for what, shape, depth in ((f"u8 {width}x{height}", (batch, height, width), 8),
+                                   ("10-bit 131x35", (3, 35, 131), 10)):
+            ref, dis, prev = (luma(shape, depth) for _ in range(3))
+            calls.append((f"#13 XPSNR per-frame prev {what}", "xpsnr_block_stats",
+                          lambda r=ref, d=dis, p=prev: tuple(xpsnr.xpsnr_block_stats(r, d, prev=p).values())))
     return calls
 
 
