@@ -319,7 +319,35 @@ Phases, each fatal on failure (exit code 1):
      of the kernel route; (f) the kernels line's entries of K-int-VIF and
      K-int-ADM carry (b)'s largest difference ("windowed_max_abs_err"),
      #13's whether the per-frame previous planes gave the plain route's
-     grids ("per_frame_prev_equal").
+     grids ("per_frame_prev_equal");
+  14. the plain VMAF-feature and conversion entries on their kernels: (a)
+     ops/vif.py vif_scale_stats and ops/adm.py adm_stats (float, and
+     integer=True on u8 and 10-bit codes), ops/vmaf_motion.py integer_blur
+     and motion_stats (per-frame previous planes, and one plane for every
+     frame) and ops/colorspace.py yuv420_to_linear_rgb (8-bit 4:2:0, 10-bit
+     4:2:2 PQ) with backend None (the kernels on a CUDA tensor) against
+     "jnp" on the same tensors at 1080p B=8 and 67x99, counters reset just
+     before and read just after each call: #14 + #15, K-int-VIF (four),
+     #18, K-int-ADM (four), #17, #16 and #5 launched by None, none by
+     "jnp"; VIF's sums within rtol 1e-4 and its features 1e-5, ADM's 1e-4,
+     the fixed-point sums within rtol 1e-6 (VIF) and 1e-5 (ADM), motion and
+     the blur bit for bit, the conversion within 1e-6 (PQ 1e-4); JAX's
+     gates and the kernels' types (a side of 31, 2-D planes, ADM's windows,
+     int64 luma, int32 previous planes, a conversion pair, uint16 at 8
+     bits) taking the plain route without a launch; (b) #16 with every
+     frame's own previous plane (seeded, none the blur of the frame
+     before; and one plane for every frame) bit-equal to its twin and the
+     plain route at 1080p B=8 u8 and 10-bit, 67x99 10-bit u16 and int32,
+     the previous planes [prev0, blur of frames 0 .. B-2] bit-equal to the
+     prev0 convention, and its time beside the prev0 convention's (prev0,
+     per frame, per frame, prev0); (c) the plain VIF, ADM, motion_stats
+     (per-frame previous planes cut like the luma) and integer_blur on
+     phase 12's 8K B=2 u8 luma over 2, 4 and 8 strips of card 0 at phase
+     12's bars, each wrapper launched once per strip; (d) each entry's
+     kernel route against its "jnp" route at 1080p B=8 by CUDA events, and
+     the f32 pair copy of VIF's and ADM's kernel route; (e) the kernels
+     line's entry of #16 carries (b)'s times ("per_frame_prev_ms",
+     "prev0_ms").
 Prints the card, the dissect tool's JSON line, then one JSON line of
 per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -1011,7 +1039,7 @@ def check_parity(y2, uv2, model, cli_scores):
     check_close("kernel path sub-scores", sub_k, sub_p, 1e-4, 1e-5)
     need(torch.equal(sub_k, ssimulacra2_subscores_from_yuv(y2, uv2, taps, opsin, num_scales=ns)),
          "kernel path sub-scores differ between two runs on the same input")
-    lin = colorspace.yuv420_to_linear_rgb(y2, uv2)
+    lin = colorspace.yuv420_to_linear_rgb(y2, uv2, backend="jnp")
     sub_chain = ssimulacra2_subscores(lin[0], lin[1], num_scales=ns)
     sc_k, sc_p, sc_c = (model.score(s) for s in (sub_k, sub_p, sub_chain))
     d_plain = float(np.abs(sc_k - sc_p).max())
@@ -2273,7 +2301,7 @@ def check_uhd(y2, uv2, model, cli_scores, dev):
 
     taps, opsin, dims = model.taps, model.opsin, model.dims
     norms = scale_stats.norms_from_sums
-    lin = colorspace.yuv420_to_linear_rgb(y2, uv2)
+    lin = colorspace.yuv420_to_linear_rgb(y2, uv2, backend="jnp")
     lvl3 = plain_level(lin, 3)
     k4 = fused_tail.fused_tail(lvl3, 3, taps, opsin)
     p4 = fused_tail.fused_tail_ref(lvl3, 3, taps, opsin)
@@ -2349,7 +2377,7 @@ def check_backends(y2, uv2, model, dev):
     from turbo_metrics_tpu_torch.ops.xyb import linear_rgb_to_xyb
 
     taps, opsin, dims, ns = model.taps, model.opsin, model.dims, model.num_scales
-    lin = colorspace.yuv420_to_linear_rgb(y2, uv2).contiguous()
+    lin = colorspace.yuv420_to_linear_rgb(y2, uv2, backend="jnp").contiguous()
     sums_p = scale_tail.fused_pyramid_tail_ref(lin, ns, taps, opsin)
     sub_p = subscores_from_sums(list(sums_p.unbind(1)), dims)
     sc_p = model.score(sub_p)
@@ -3871,6 +3899,294 @@ def run_int_plain_phase(dev, card: str) -> dict:
     return {"runs": runs, "window_err": errs, "plain": plain, "times": times}
 
 
+# Phase 14: the plain VMAF-feature and conversion entries on their kernels
+# (ops/vif.py vif_scale_stats and ops/adm.py adm_stats with backend,
+# integer and depth; ops/vmaf_motion.py integer_blur and motion_stats; ops/
+# colorspace.py yuv420_to_linear_rgb), #16 with every frame's own previous
+# plane, and the plain VIF, ADM and motion entries over strips.  Each route
+# against its "jnp" route on the same CUDA tensors at phase 5c's bars (VIF
+# features 1e-5, ADM's 1e-4, the sums rtol 1e-4), the fixed-point sums at
+# phase 13 (b)'s (rtol 1e-6 VIF, 1e-5 ADM), motion and the blur bit for bit,
+# the conversion at phase 5b's (atol 1e-6; PQ 1e-4); the strips at phase
+# 12's.
+PLAIN_VMAF_CASES = (("1080p", HEIGHT, WIDTH, BATCH), ("67x99", 67, 99, 2))
+
+
+def plain_vmaf_inputs(dev, h: int, w: int, b: int, seed: int) -> dict:
+    """Seeded inputs of phase 14 at h x w, B frames, made on the card: u8
+    luma codes (noise on a smooth base) and a distorted copy within +-6, the
+    same as 10-bit u16 codes (times 4 plus noise, +-24), their f32 values,
+    per-frame previous blurred planes (seeded uint16, none the blur of the
+    frame before), 8-bit 4:2:0 and 10-bit 4:2:2 chroma."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    base = 128 + 70 * torch.sin(xx / 9.0) * torch.cos(yy / 7.0)
+    y8 = (base + 3 * torch.randn((b, h, w), device=dev, generator=g)).round().clamp(0, 255)
+    d8 = (y8 + torch.randint(-6, 7, y8.shape, device=dev, generator=g)).clamp(0, 255)
+    y10 = y8 * 4 + torch.randint(0, 4, y8.shape, device=dev, generator=g)
+    d10 = (y10 + torch.randint(-24, 25, y10.shape, device=dev, generator=g)).clamp(0, 1023)
+
+    def u16(t):
+        return t.to(torch.int32).to(torch.uint16).contiguous()
+
+    def rand(shape, top):
+        return torch.randint(0, top, shape, device=dev, generator=g, dtype=torch.int32)
+
+    return {"r8": y8.to(torch.uint8).contiguous(), "d8": d8.to(torch.uint8).contiguous(),
+            "r10": u16(y10), "d10": u16(d10), "rf": y8.contiguous(), "df": d8.contiguous(),
+            "prev": u16(rand((b, h, w), 1 << 16)),
+            "uv420": rand((b, (h + 1) // 2, (w + 1) // 2, 2), 256).to(torch.uint8).contiguous(),
+            "uv422": u16(rand((b, h, (w + 1) // 2, 2), 1024))}
+
+
+def plain_vmaf_routes(x: dict) -> list:
+    """(entry, call of a backend, the launches of its kernel route, its
+    kind: the bar check_plain_route holds it to) of phase 14 (a)."""
+    from turbo_metrics_tpu_torch.ops import adm, colorspace, vif, vmaf_motion
+
+    ivif, iadm = {"integer_vif_stats": 4}, {"integer_adm_stats": 4}
+    return [
+        ("VIF", lambda b: vif.vif_scale_stats(x["rf"], x["df"], backend=b), {"vif_scale0": 1, "vif_tail": 1}, "VIF"),
+        ("VIF integer u8", lambda b: vif.vif_scale_stats(x["r8"], x["d8"], integer=True, backend=b), ivif,
+         "VIF integer"),
+        ("VIF integer 10-bit", lambda b: vif.vif_scale_stats(x["r10"], x["d10"], integer=True, depth=10,
+                                                             backend=b), ivif, "VIF integer"),
+        ("ADM", lambda b: adm.adm_stats(x["rf"], x["df"], backend=b), {"adm_stats": 1}, "ADM"),
+        ("ADM integer u8", lambda b: adm.adm_stats(x["r8"], x["d8"], integer=True, backend=b), iadm, "ADM integer"),
+        ("ADM integer 10-bit", lambda b: adm.adm_stats(x["r10"], x["d10"], integer=True, depth=10, backend=b), iadm,
+         "ADM integer"),
+        ("integer_blur 10-bit", lambda b: vmaf_motion.integer_blur(x["r10"], depth=10, backend=b),
+         {"integer_blur": 1}, "exact"),
+        ("motion_stats u8, per-frame prev", lambda b: vmaf_motion.motion_stats(x["r8"], x["prev"], backend=b),
+         {"motion_stats": 1}, "exact"),
+        ("motion_stats 10-bit, one prev", lambda b: vmaf_motion.motion_stats(x["r10"], x["prev"][0], depth=10,
+                                                                             backend=b), {"motion_stats": 1},
+         "exact"),
+        ("conversion 8-bit 4:2:0", lambda b: colorspace.yuv420_to_linear_rgb(x["r8"], x["uv420"], backend=b),
+         {"yuv_to_linear_rgb": 1}, "conversion"),
+        ("conversion 10-bit 4:2:2 PQ", lambda b: colorspace.yuv420_to_linear_rgb(
+            x["r10"], x["uv422"], depth=10, matrix="bt2020", transfer="pq", chroma=422, backend=b),
+         {"yuv_to_linear_rgb": 1}, "conversion PQ"),
+    ]
+
+
+def check_plain_route(what: str, kind: str, got, want, h: int, w: int) -> float:
+    """Phase 14 (a): the kernel route's result against the "jnp" route's at
+    the bar of its kind.  Returns the largest difference (0 where bit for
+    bit is asked)."""
+    from turbo_metrics_tpu_torch.ops import adm as adm_ops
+    from turbo_metrics_tpu_torch.ops import vif as vif_ops
+
+    for g, v in zip(output_tensors(got), output_tensors(want)):
+        need(g.shape == v.shape and g.dtype == v.dtype and bool(torch.isfinite(g.float()).all()),
+             f"{what}: {tuple(g.shape)} {g.dtype} vs the jnp route's {tuple(v.shape)} {v.dtype}")
+    if kind == "exact":
+        need(all(torch.equal(g, v) for g, v in zip(output_tensors(got), output_tensors(want))),
+             f"{what}: differs from the jnp route")
+        return 0.0
+    if kind.startswith("conversion"):
+        return check_close(what, got, want, 0.0, 1e-4 if kind.endswith("PQ") else 1e-6)
+    if kind.endswith("integer"):
+        return check_close(f"{what}: sums", got, want, 1e-6 if kind.startswith("VIF") else 1e-5, 0.0)
+    err = check_close(f"{what}: sums", got, want, 1e-4, 1e-5 if kind == "VIF" else 0.0)
+    if kind == "VIF":
+        f_got, f_want, bar = vif_ops.vif_scores(got.cpu().numpy()), vif_ops.vif_scores(want.cpu().numpy()), 1e-5
+    else:
+        f_got, f_want = (adm_ops.adm_score(t.cpu().numpy(), h, w) for t in (got, want))
+        bar = 1e-4
+    for k, v in f_want.items():
+        d = float(np.abs(f_got[k] - v).max())
+        need(d <= bar, f"{what}: {k} {f_got[k]} vs the jnp route's {v} (bar {bar})")
+    return err
+
+
+def check_plain_vmaf(dev, card: str) -> dict:
+    """Phase 14 (a): every plain entry with backend None (the kernels on a
+    CUDA tensor) against "jnp" on the same tensors (PLAIN_VMAF_CASES), the
+    launches of each ("jnp" none); JAX's gates and the kernels' types
+    sending a call to the plain route without a launch.  Returns each
+    entry's largest difference."""
+    from turbo_metrics_tpu_torch.ops import adm, colorspace, vif, vmaf_motion
+
+    errs = {}
+    for i, (case, h, w, b) in enumerate(PLAIN_VMAF_CASES):
+        x = plain_vmaf_inputs(dev, h, w, b, 61 + i)
+        line = []
+        for entry, call, launches, kind in plain_vmaf_routes(x):
+            got, k_launch = plain_launches(call, None)
+            want, p_launch = plain_launches(call, "jnp")
+            need(k_launch == launches, f"(14a) {entry} {case}: launches {k_launch}, want {launches}")
+            need(not p_launch, f"(14a) {entry} {case} jnp: launched {p_launch}")
+            d = check_plain_route(f"(14a) {entry} {case}", kind, got, want, h, w)
+            errs[entry] = max(errs.get(entry, 0.0), d)
+            line.append(f"{entry} {d:.3g} {k_launch}")
+        log(f"(14a) plain entries {w}x{h} B={b}, backend None (the kernels) vs jnp on the same CUDA tensors, max "
+            "|diff| and launches: " + "; ".join(line) + f" [{card}]")
+    x = plain_vmaf_inputs(dev, 31, 64, 2, 67)
+    wide = plain_vmaf_inputs(dev, 40, 64, 2, 71)
+    gates = [
+        ("VIF, a side of 31", lambda b: vif.vif_scale_stats(x["rf"], x["df"], backend=b)),
+        ("ADM, a side of 31", lambda b: adm.adm_stats(x["rf"], x["df"], backend=b)),
+        ("#17, a side of 31", lambda b: vmaf_motion.integer_blur(x["r8"], backend=b)),
+        ("#16, a side of 31", lambda b: vmaf_motion.motion_stats(x["r8"], x["prev"], backend=b)),
+        ("VIF integer, 2-D planes", lambda b: vif.vif_scale_stats(wide["r8"][0], wide["d8"][0], integer=True,
+                                                                 backend=b)),
+        ("ADM, windows", lambda b: adm.adm_stats(wide["rf"], wide["df"], windows=adm.level_windows(64),
+                                                  backend=b)),
+        ("#17, int64 luma", lambda b: vmaf_motion.integer_blur(wide["r8"].to(torch.int64), backend=b)),
+        ("#16, int32 previous planes", lambda b: vmaf_motion.motion_stats(wide["r8"], wide["prev"].to(torch.int32),
+                                                                          backend=b)),
+        ("#5, a (2, B, h, w) pair", lambda b: colorspace.yuv420_to_linear_rgb(
+            torch.stack([wide["r8"], wide["d8"]]), torch.stack([wide["uv420"], wide["uv420"]]), backend=b)),
+        ("#5, uint16 at 8 bits", lambda b: colorspace.yuv420_to_linear_rgb(
+            wide["r8"].to(torch.int32).to(torch.uint16), wide["uv420"].to(torch.int32).to(torch.uint16),
+            backend=b)),
+    ]
+    for what, call in gates:
+        got, launched = plain_launches(call, None)
+        want = call("jnp")
+        need(not launched, f"(14a) gate {what}: launched {launched}")
+        need(all(torch.equal(g, v) for g, v in zip(output_tensors(got), output_tensors(want))),
+             f"(14a) gate {what}: differs from jnp")
+    log("(14a) JAX's gates and the kernels' types (a side of 31, 2-D planes, ADM's windows, int64 luma, int32 "
+        f"previous planes, a (2, B, h, w) conversion pair, uint16 at 8 bits) take the plain route: no launch, "
+        f"equal to jnp [{card}]")
+    return errs
+
+
+def check_motion_prev(dev, card: str) -> dict:
+    """Phase 14 (b): #16 with every frame's own previous plane (``prev``,
+    seeded planes, none the blur of the frame before; and one plane for
+    every frame, a batch stride of 0) bit-equal to its twin and to the
+    plain route, at 1080p B=8 u8 and 10-bit u16, 67x99 10-bit and int32
+    codes; ``prev`` = [prev0, blur of frames 0 .. B-2] bit-equal to the
+    prev0 convention (the engine's chained calls); the per-frame call's
+    time beside the chained call's at 1080p u8 B=8.  Returns the times."""
+    from turbo_metrics_tpu_torch.ops import vmaf_motion
+    from turbo_metrics_tpu_torch.ops.kernels import motion
+    from turbo_metrics_tpu_torch.utils.profiling import time_ms
+
+    g = torch.Generator(device=dev).manual_seed(73)
+    out = {}
+    for what, (b, h, w), depth, dt in (("1080p u8", (BATCH, HEIGHT, WIDTH), 8, torch.uint8),
+                                       ("1080p 10-bit u16", (BATCH, HEIGHT, WIDTH), 10, torch.uint16),
+                                       ("67x99 10-bit u16", (3, 67, 99), 10, torch.uint16),
+                                       ("67x99 10-bit int32 codes", (3, 67, 99), 10, torch.int32)):
+        y = torch.randint(0, 1 << depth, (b, h, w), device=dev, generator=g, dtype=torch.int32).to(dt)
+        prev = torch.randint(0, 1 << 16, (b, h, w), device=dev, generator=g, dtype=torch.int32).to(torch.uint16)
+        reset_counts()
+        got = motion.motion_stats(y, prev=prev, depth=depth)
+        n = read_counts()["motion_stats"]
+        need(n == 1, f"(14b) #16 per-frame prev {what}: {n} launches")
+        for name, want in (("its twin", motion.motion_stats_ref(y, prev=prev, depth=depth)),
+                           ("the plain route", vmaf_motion.motion_stats(y, prev, depth=depth, backend="jnp"))):
+            need(all(torch.equal(got[q], want[q]) for q in want), f"(14b) #16 per-frame prev {what}: differs from "
+                 f"{name}")
+        one = motion.motion_stats(y, prev=prev[1].expand(y.shape), depth=depth)
+        want = vmaf_motion.motion_stats(y, prev[1], depth=depth, backend="jnp")
+        need(all(torch.equal(one[q], want[q]) for q in want), f"(14b) #16 one prev for every frame {what}")
+        chained = motion.motion_stats(y, prev[0].contiguous(), depth=depth)
+        # In int32: torch's uint16 tensors take few operations on CUDA.
+        carried = torch.cat([prev[:1].to(torch.int32), got["blurred"][:-1].to(torch.int32)]).to(torch.uint16)
+        same = motion.motion_stats(y, prev=carried, depth=depth)
+        need(all(torch.equal(chained[q], same[q]) for q in same),
+             f"(14b) #16 {what}: prev = [prev0, blur of frames 0 .. B-2] differs from the prev0 convention")
+        log(f"(14b) #16 per-frame prev {what} B={b}: bit-equal to its twin and to the plain route, one plane for "
+            f"every frame too; [prev0, blur of frames 0 .. B-2] bit-equal to prev0 [{card}]")
+        if what == "1080p u8":
+            runs = {"per-frame prev": [], "prev0": []}
+            for k in ("prev0", "per-frame prev", "per-frame prev", "prev0"):
+                runs[k].append(time_ms(lambda: motion.motion_stats(y, prev=prev) if k == "per-frame prev"
+                                       else motion.motion_stats(y, prev[0].contiguous()), 20, dev))
+            out = runs
+            log(f"(14b) #16 1080p u8 B={BATCH}: per-frame prev " + " / ".join(f"{t:.4f}" for t in runs["per-frame prev"])
+                + " ms, prev0 " + " / ".join(f"{t:.4f}" for t in runs["prev0"]) + f" ms (CUDA events) [{card}]")
+    return out
+
+
+def plain_vmaf_strip_entries(pair, motion_cases):
+    """(entry, function, inputs, in_ndims, launches per strip) of phase 14
+    (c): the plain VIF and ADM entries on phase 12's 8K pair (its f32
+    planes), the plain motion_stats with per-frame previous planes (the
+    luma rolled by 3 columns and blurred) and integer_blur on its luma."""
+    import functools
+
+    from turbo_metrics_tpu_torch.ops import adm, vif, vmaf_motion
+    from turbo_metrics_tpu_torch.ops.kernels import motion
+
+    out = [("VIF", vif.vif_scale_stats, (pair[0], pair[1]), (3, 3), {"vif_scale0": 1, "vif_tail": 1}),
+           ("ADM", adm.adm_stats, (pair[0], pair[1]), (3, 3), {"adm_stats": 1})]
+    for what, y, _, depth in motion_cases:
+        prev = motion.integer_blur(torch.roll(y, 3, dims=-1).contiguous(), depth=depth)
+        out.append((f"motion {what}, per-frame prev", functools.partial(vmaf_motion.motion_stats, depth=depth),
+                    (y, prev), (3, 3), {"motion_stats": 1}))
+        out.append((f"#17 {what}", functools.partial(vmaf_motion.integer_blur, depth=depth), (y,), (3,),
+                    {"integer_blur": 1}))
+    return out
+
+
+def plain_vmaf_plan(fn, mesh):
+    """The strips shard_over_width cuts for ``fn`` (phase 14 (c)'s entries)."""
+    from turbo_metrics_tpu_torch.ops import adm, vif
+    from turbo_metrics_tpu_torch.ops.kernels import adm as k_adm
+    from turbo_metrics_tpu_torch.ops.kernels import motion as k_motion
+    from turbo_metrics_tpu_torch.ops.kernels import vif as k_vif
+    from turbo_metrics_tpu_torch.parallel.mesh import spatial_sharding
+
+    base = getattr(fn, "func", fn)
+    mod = k_vif if base is vif.vif_scale_stats else k_adm if base is adm.adm_stats else k_motion
+    return spatial_sharding(mesh, WIDE_WIDTH, alignment=mod.STRIP_ALIGNMENT, halo=mod.STRIP_HALO)
+
+
+def time_plain_vmaf(dev, card: str) -> dict:
+    """Phase 14 (d): each plain entry's kernel route (None) against its
+    "jnp" route at 1080p B=8 by CUDA events (None / jnp / jnp / None), with
+    the stacked pair copy of VIF's and ADM's kernel route."""
+    import functools
+
+    from turbo_metrics_tpu_torch.ops import routes
+    from turbo_metrics_tpu_torch.utils.profiling import time_ms
+
+    x = plain_vmaf_inputs(dev, HEIGHT, WIDTH, BATCH, 79)
+    out = {}
+    for entry, call, _, _ in plain_vmaf_routes(x):
+        runs = {"kernels": [], "jnp": []}
+        for backend in (None, "jnp", "jnp", None):
+            runs["kernels" if backend is None else "jnp"].append(
+                time_ms(functools.partial(call, backend), 5 if backend is None else 2, dev))
+        out[entry] = runs
+        log(f"(14d) {entry} {WIDTH}x{HEIGHT} B={BATCH}: kernel route " + " / ".join(f"{t:.4f}" for t in runs["kernels"])
+            + " ms, jnp route " + " / ".join(f"{t:.3f}" for t in runs["jnp"]) + f" ms (CUDA events, one call) [{card}]")
+    out["pair copy"] = time_ms(lambda: routes.f32_pair(x["rf"], x["df"]), 5, dev)
+    log(f"(14d) the f32 pair copy of VIF's and ADM's kernel route ({2 * x['rf'].numel() * 4 / 1e6:.0f} MB "
+        f"written): {out['pair copy']:.4f} ms [{card}]")
+    return out
+
+
+def run_plain_vmaf_phase(dev, card: str) -> dict:
+    """Phase 14: (a) the plain VMAF-feature and conversion entries on their
+    kernels against their "jnp" routes, and JAX's gates; (b) #16 with
+    every frame's own previous plane; (c) the plain VIF, ADM and motion
+    entries over 2, 4 and 8 strips of card 0 of the 8K B=2 luma against
+    unsharded (phase 12's bars); (d) the times."""
+    from turbo_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.monotonic()
+    card0 = f"cuda:{dev.index or 0}"
+    errs = check_plain_vmaf(dev, card)
+    prev_ms = check_motion_prev(dev, card)
+    pair, motion_cases = wide_vmaf_inputs(dev)
+    runs = run_strip_entries(plain_vmaf_strip_entries(pair, motion_cases[:1]), plain_vmaf_plan,
+                             lambda what, entry, got, want: check_vmaf_outputs(what, entry.split(",")[0], got, want),
+                             describe_vmaf, lambda n: make_mesh(n, device=card0), card, f"strips of {card0}",
+                             WIDTH_STRIPS, False, "(14c)")
+    del pair, motion_cases
+    times = time_plain_vmaf(dev, card)
+    log(f"phase 14: {time.monotonic() - t0:.1f} s [{card}]")
+    return {"errs": errs, "prev_ms": prev_ms, "runs": runs, "times": times}
+
+
 def main() -> int:
     try:
         from turbo_metrics_tpu_torch.models.ssimulacra2 import (
@@ -4151,6 +4467,7 @@ def main() -> int:
         metric_width = run_metric_width_phase(dev, qmod, card)
         vmaf_width = run_vmaf_width_phase(dev, card)
         int_plain = run_int_plain_phase(dev, card)
+        plain_vmaf = run_plain_vmaf_phase(dev, card)
 
     mpx = WIDTH * HEIGHT / 1e6
     for name, runs in (
@@ -4344,6 +4661,12 @@ def main() -> int:
             # Phase 12 (a) and (c) stop the run where a strip's blurred
             # planes or row SADs differ from the unsharded call's.
             kernels[-1]["sharded_planes_equal"] = True
+        if name == "motion_stats":
+            # Phase 14 (b) stops the run where #16 with every frame's own
+            # previous plane differs from its twin or the plain route; its
+            # time at 1080p u8 B=8 in turns with the prev0 convention's.
+            kernels[-1]["per_frame_prev_ms"] = plain_vmaf["prev_ms"]["per-frame prev"]
+            kernels[-1]["prev0_ms"] = plain_vmaf["prev_ms"]["prev0"]
     for name, src_file, ports, err, ms, pms, nb, (i_ops, f_ops), dms in int_rows:
         bound_ms, bound_by = bound(nb, 0.0, issue=mixed_ops_ms(i_ops, f_ops))
         unfolded = ""

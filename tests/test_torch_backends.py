@@ -119,17 +119,19 @@ def test_subscores_backend_matches_jax(rng, jax_modules, backend, hw):
 @pytest.mark.parametrize("hw", SHAPES)
 @pytest.mark.parametrize("backend", list(AGAINST))
 def test_module_backend_matches_jax(rng, jax_modules, backend, hw):
-    """Ssimulacra2(w, h, backend=name): sub-scores against the JAX module of
-    that backend (B=2); auto resolves as the function's does; score_batch
+    """Ssimulacra2(w, h, batch=2, backend=name): sub-scores by
+    subscores_device (the JAX name, equal to forward) against the JAX module
+    of that backend (B=2); auto resolves as the function's does; score_batch
     scores what forward returns."""
     h, w = hw
     jb, rtol, atol = AGAINST[backend]
     a, b = _independent(rng, h, w)
     jm = jax_modules[jb, hw]
-    m = s2.Ssimulacra2(w, h, backend=backend, device="cpu")
+    m = s2.Ssimulacra2(w, h, batch=2, backend=backend, device="cpu")
     resolved = s2.default_backend("cpu") if backend == "auto" else backend
-    assert (m.backend, m.num_scales) == (resolved, jm.num_scales)
-    got = m(torch.from_numpy(a), torch.from_numpy(b))
+    assert (m.backend, m.num_scales, m.batch) == (resolved, jm.num_scales, jm.batch)
+    got = m.subscores_device(torch.from_numpy(a), torch.from_numpy(b))
+    assert torch.equal(got, m(torch.from_numpy(a), torch.from_numpy(b)))
     np.testing.assert_allclose(got.numpy(), np.asarray(jm.subscores_device(a, b)), rtol=rtol, atol=atol)
     np.testing.assert_array_equal(m.score_batch(a, b), m.score(got))
 

@@ -475,8 +475,9 @@ def test_level_outputs_own_calls_run_on_cpu():
     the fixed-point VIF and ADM: sums, and per scale and per level the
     integer surfaces, on u8 and 10-bit u16 pairs at the given shape and
     12-bit u16 and 10-bit int32 pairs at 67x99, and their sums with windows
-    of owned columns and as a column strip; #13 with every frame's previous
-    plane) build their inputs from a
+    of owned columns and as a column strip; #13 and #16 with every frame's
+    previous plane, #16 also with one plane for every frame) build their
+    inputs from a
     seed and run through the wrappers, here their twins: each entry names
     its wrapper and returns the wrapper's shapes."""
     from turbo_metrics_tpu_torch.tools import level_outputs
@@ -546,6 +547,10 @@ def test_level_outputs_own_calls_run_on_cpu():
         "#16 window (40, 63) u8 64x48": ((1, 48, 64), (1, 48)),
         "#13 XPSNR per-frame prev u8 64x48": ((1, 3, 4),) * 3,
         "#13 XPSNR per-frame prev 10-bit 131x35": ((3, 3, 9),) * 3,
+        "#16 motion per-frame prev u8 64x48": ((1, 48, 64), (1, 48)),
+        "#16 motion one prev for every frame u8 64x48": ((1, 48, 64), (1, 48)),
+        "#16 motion per-frame prev 10-bit 131x35": ((3, 35, 131), (3, 35)),
+        "#16 motion one prev for every frame 10-bit 131x35": ((3, 35, 131), (3, 35)),
     }
 
 

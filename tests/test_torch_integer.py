@@ -312,6 +312,12 @@ def test_integer_stats_match_jax_and_oracle(jax_stats, name):
     ref, dis, depth, vif_j, adm_j = jax_stats[name]
     vif = tiv.integer_vif_stats(_t(ref), _t(dis), depth=depth).numpy()
     adm = tia.integer_adm_stats(_t(ref), _t(dis), depth=depth).numpy()
+    # The plain entries with integer=True by every route (the kernel route:
+    # K-int-VIF's and K-int-ADM's twins).
+    for backend in (None, "jnp", "pallas"):
+        kw = dict(integer=True, depth=depth, backend=backend)
+        np.testing.assert_array_equal(tvif.vif_scale_stats(_t(ref), _t(dis), **kw).numpy(), vif, err_msg=backend)
+        np.testing.assert_array_equal(tadm.adm_stats(_t(ref), _t(dis), **kw).numpy(), adm, err_msg=backend)
     assert vif.shape == vif_j.shape and adm.shape == adm_j.shape
     np.testing.assert_allclose(vif, vif_j, rtol=2e-5, atol=0)
     np.testing.assert_allclose(adm, adm_j, rtol=5e-4, atol=0)

@@ -127,10 +127,18 @@ def test_motion_matches_jax(rng, h, w, depth, dt):
     prev = np.stack([prev0, blur[0].numpy()])
     plain = tmot.motion_stats(*_t(y, prev), depth=depth)
     np.testing.assert_array_equal(plain["blurred"].numpy(), blur.numpy())
+    # The plain entries' kernel route (#16 with the per-frame prev, #17;
+    # behind JAX's gate, the plain version on the smaller frames) and #16's
+    # per-frame prev itself.
+    routed = [tmot.motion_stats(*_t(y, prev), depth=depth, backend="pallas"),
+              kmot.motion_stats(*_t(y), prev=_t(prev)[0], depth=depth)]
+    np.testing.assert_array_equal(tmot.integer_blur(*_t(y), depth=depth, backend="pallas").numpy(), blur.numpy())
     for backend in backends:
         want = jmot.motion_stats(y, prev, depth=depth, backend=backend)
-        np.testing.assert_array_equal(got["sad_rows"].numpy(), np.asarray(want["sad_rows"]), err_msg=backend)
-        np.testing.assert_array_equal(plain["sad_rows"].numpy(), np.asarray(want["sad_rows"]), err_msg=backend)
+        for out in [got, plain] + routed:
+            np.testing.assert_array_equal(out["sad_rows"].numpy(), np.asarray(want["sad_rows"]), err_msg=backend)
+    for out in routed:
+        np.testing.assert_array_equal(out["blurred"].numpy(), blur.numpy())
     assert got["sad_rows"].dtype == torch.int64
 
 
@@ -163,7 +171,9 @@ def test_vif_sums_match_jax(hw):
     got = kvif.vif_scale_stats(pair)
     assert got.shape == (1, 4, 2) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(_jnp_vif(ref[None], dis[None])), rtol=2e-5, atol=2e-6)
-    np.testing.assert_array_equal(got.numpy(), tvif.vif_scale_stats(*pair.unbind(0)).numpy())
+    # The plain entry by every route (the kernel route: #14 + #15's twins).
+    for backend in (None, "jnp", "pallas"):
+        np.testing.assert_array_equal(got.numpy(), tvif.vif_scale_stats(*pair.unbind(0), backend=backend).numpy())
 
 
 def test_vif_scores_match_oracle_and_pallas():
@@ -235,6 +245,9 @@ def test_adm_sums_match_jax(hw):
     ref, dis = _sinusoid_pair(np.random.default_rng(1234), *hw)
     got = kadm.adm_stats(torch.from_numpy(np.stack([ref, dis])[:, None]))
     assert got.shape == (1, 4, 3, 2) and got.dtype == torch.float32
+    # The plain entry by every route (the kernel route: #18's twin).
+    for backend in (None, "jnp", "pallas"):
+        assert torch.equal(tadm.adm_stats(*_t(ref[None], dis[None]), backend=backend), got), backend
     want = np.asarray(_jnp_adm(ref[None], dis[None]))
     if not np.allclose(got.numpy(), want, rtol=1e-4, atol=0):
         # The jitted jnp path contracts multiply-adds into FMAs, which can

@@ -29,7 +29,12 @@
 // frame b-1 of the same batch, and frame 0's is the plane the caller carries
 // over from the previous batch.  A warp walks its rows through the frames
 // in order and keeps its own blurred output of frame b-1 in registers (two
-// rows of one chunk, packed), so each frame is blurred once.
+// rows of one chunk, packed), so each frame is blurred once.  In place of
+// that plane the caller may give every frame its own previous blurred plane
+// (`prev`, frame b's at prev + b * prev_bstride: the JAX package's
+// per-frame `prev_blurred`, which ops/vmaf_motion.py motion_stats takes):
+// each frame then loads its own rows, as frame 0 loads the carried plane's,
+// and what the warp keeps of frame b-1 goes unread.
 //
 // What bounds it on this card: device-memory traffic and integer issue about
 // evenly.  Per pixel it reads one luma sample (u8, u16, or int32 luma codes
@@ -265,12 +270,15 @@ __device__ __forceinline__ void store_u16(uint16_t* __restrict__ row, int c, int
 
 // grid: (nseg, ceil(h / (kWarps * kRows))), nseg = ceil(w / (kSegChunks *
 // V)) row segments; block: kWarps * 32 threads.  sad_rows == nullptr: blur
-// only (prev0, clo and chi unused); else sad_rows is zeroed and sums the
-// columns [clo, chi).
+// only (prev0, prev, clo and chi unused); else sad_rows is zeroed and sums
+// the columns [clo, chi), against frame b-1's blur (prev0 for frame 0) or,
+// where prev is not null, against frame b's own plane at prev + b *
+// prev_bstride.
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-motion_kernel(const T* __restrict__ y, const uint16_t* __restrict__ prev0, int images, int h,
-              int w, int depth, int clo, int chi, uint16_t* __restrict__ blurred,
+motion_kernel(const T* __restrict__ y, const uint16_t* __restrict__ prev0,
+              const uint16_t* __restrict__ prev, int prev_bstride, int images, int h, int w,
+              int depth, int clo, int chi, uint16_t* __restrict__ blurred,
               int64_t* __restrict__ sad_rows) {
   constexpr int V = Chunk<T>::V;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -285,18 +293,21 @@ motion_kernel(const T* __restrict__ y, const uint16_t* __restrict__ prev0, int i
 #pragma unroll
   for (int k = 0; k < kWin; ++k) off[k] = (size_t)mirror(r0 - 2 + k, h) * w;
 
-  // This lane's blurred samples of the previous frame, packed.
-  uint32_t prev[kRows][V / 2];
-  if (with_sad && writes) {
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-      for (int k = 0; k < V / 2; ++k) prev[i][k] = 0u;
-      if (r0 + i < h) load_u16<V>(prev0 + (size_t)(r0 + i) * w, c, w, prev[i]);
-    }
-  }
+  // This lane's blurred samples of the previous frame, packed: loaded for
+  // frame 0 (from prev0) or, with per-frame planes, for every frame;
+  // otherwise carried from this warp's blur of frame b-1.
+  uint32_t last[kRows][V / 2];
 #pragma unroll 1
   for (int b = 0; b < images; ++b) {
+    if (with_sad && writes && (b == 0 || prev != nullptr)) {
+      const uint16_t* plane = prev != nullptr ? prev + (size_t)b * prev_bstride : prev0;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+        for (int k = 0; k < V / 2; ++k) last[i][k] = 0u;
+        if (r0 + i < h) load_u16<V>(plane + (size_t)(r0 + i) * w, c, w, last[i]);
+      }
+    }
     uint4 win[kWin];
     const T* f = y + (size_t)b * npx;
 #pragma unroll
@@ -312,9 +323,9 @@ motion_kernel(const T* __restrict__ y, const uint16_t* __restrict__ prev0, int i
       if (!with_sad) continue;
       uint32_t s = 0;
       if (writes) {
-        s = sad_packed<V>(out, prev[i], c, clo, chi);
+        s = sad_packed<V>(out, last[i], c, clo, chi);
 #pragma unroll
-        for (int k = 0; k < V / 2; ++k) prev[i][k] = out[k];
+        for (int k = 0; k < V / 2; ++k) last[i][k] = out[k];
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -325,14 +336,16 @@ motion_kernel(const T* __restrict__ y, const uint16_t* __restrict__ prev0, int i
 }
 
 template <typename T>
-void launch_type(const void* y, const uint16_t* prev0, int images, int h, int w, int depth, int clo,
-                 int chi, uint16_t* blurred, int64_t* sad_rows, dim3 grid, cudaStream_t s) {
-  motion_kernel<T><<<grid, kWarps * 32, 0, s>>>(static_cast<const T*>(y), prev0, images, h, w,
-                                                depth, clo, chi, blurred, sad_rows);
+void launch_type(const void* y, const uint16_t* prev0, const uint16_t* prev, int prev_bstride,
+                 int images, int h, int w, int depth, int clo, int chi, uint16_t* blurred,
+                 int64_t* sad_rows, dim3 grid, cudaStream_t s) {
+  motion_kernel<T><<<grid, kWarps * 32, 0, s>>>(static_cast<const T*>(y), prev0, prev, prev_bstride,
+                                                images, h, w, depth, clo, chi, blurred, sad_rows);
 }
 
-int launch(const void* y, int type, const uint16_t* prev0, int images, int h, int w, int depth,
-           int clo, int chi, uint16_t* blurred, int64_t* sad_rows, void* stream) {
+int launch(const void* y, int type, const uint16_t* prev0, const uint16_t* prev, int prev_bstride,
+           int images, int h, int w, int depth, int clo, int chi, uint16_t* blurred, int64_t* sad_rows,
+           void* stream) {
   if (h < 3 || w < 3 || depth < 1 || depth > 16 || images < 1 || type < 0 || type > 2 || clo < 0 ||
       clo > chi || chi > w) {
     return (int)cudaErrorInvalidValue;
@@ -347,13 +360,16 @@ int launch(const void* y, int type, const uint16_t* prev0, int images, int h, in
   const dim3 grid((w + per_seg - 1) / per_seg, (h + kWarps * kRows - 1) / (kWarps * kRows));
   switch (type) {
     case 0:
-      launch_type<uint8_t>(y, prev0, images, h, w, depth, clo, chi, blurred, sad_rows, grid, s);
+      launch_type<uint8_t>(y, prev0, prev, prev_bstride, images, h, w, depth, clo, chi, blurred, sad_rows,
+                           grid, s);
       break;
     case 1:
-      launch_type<uint16_t>(y, prev0, images, h, w, depth, clo, chi, blurred, sad_rows, grid, s);
+      launch_type<uint16_t>(y, prev0, prev, prev_bstride, images, h, w, depth, clo, chi, blurred, sad_rows,
+                            grid, s);
       break;
     default:
-      launch_type<int32_t>(y, prev0, images, h, w, depth, clo, chi, blurred, sad_rows, grid, s);
+      launch_type<int32_t>(y, prev0, prev, prev_bstride, images, h, w, depth, clo, chi, blurred, sad_rows,
+                           grid, s);
       break;
   }
   return (int)cudaGetLastError();
@@ -380,20 +396,26 @@ cudaError_t attrs(int* out) {
 extern "C" {
 
 // y (images, h, w) luma of type 0 u8, 1 u16, 2 int32, at `depth` bits;
-// prev0 (h, w) uint16: the blurred frame before frame 0.  Writes blurred
-// (images, h, w) uint16 and sad_rows (images, h) int64 (uint32 row sums of
-// |blurred - previous blurred| over the columns [clo, chi), 0 <= clo <= chi
-// <= w; 0 and w: the whole row).
-int tm_motion_stats(const void* y, int type, const uint16_t* prev0, int images, int h, int w,
-                    int depth, int clo, int chi, uint16_t* blurred, int64_t* sad_rows, void* stream) {
-  if (prev0 == nullptr || sad_rows == nullptr) return (int)cudaErrorInvalidValue;
-  return launch(y, type, prev0, images, h, w, depth, clo, chi, blurred, sad_rows, stream);
+// the previous blurred frames, exactly one of: prev0 (h, w) uint16, the
+// blurred frame before frame 0 (frame b's is frame b-1's blur), or prev,
+// frame b's own (h, w) uint16 plane at prev + b * prev_bstride (in samples,
+// prev_bstride >= 0).  Writes blurred (images, h, w) uint16 and sad_rows
+// (images, h) int64 (uint32 row sums of |blurred - previous blurred| over the
+// columns [clo, chi), 0 <= clo <= chi <= w; 0 and w: the whole row).
+int tm_motion_stats(const void* y, int type, const uint16_t* prev0, const uint16_t* prev,
+                    int prev_bstride, int images, int h, int w, int depth, int clo, int chi,
+                    uint16_t* blurred, int64_t* sad_rows, void* stream) {
+  if ((prev0 == nullptr) == (prev == nullptr) || prev_bstride < 0 || sad_rows == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch(y, type, prev0, prev, prev_bstride, images, h, w, depth, clo, chi, blurred, sad_rows,
+                stream);
 }
 
 // The blur alone: y (images, h, w) -> blurred (images, h, w) uint16.
 int tm_integer_blur(const void* y, int type, int images, int h, int w, int depth,
                     uint16_t* blurred, void* stream) {
-  return launch(y, type, nullptr, images, h, w, depth, 0, w, blurred, nullptr, stream);
+  return launch(y, type, nullptr, nullptr, 0, images, h, w, depth, 0, w, blurred, nullptr, stream);
 }
 
 // What motion_kernel<T> takes on this card (type 0 u8, 1 u16, 2 int32):

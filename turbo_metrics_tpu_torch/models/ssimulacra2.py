@@ -172,7 +172,11 @@ def default_backend(device) -> str:
 def _apply_needs_mask(out: torch.Tensor, needs) -> torch.Tensor:
     """Zero the (..., 3, S, 2, 3) sub-scores whose weight is zero, so every
     route emits the same zero pattern as the JAX package
-    (``weight_needs``: 56 of the 108 weights are zero)."""
+    (``weight_needs``: 56 of the 108 weights are zero); ``needs``: per
+    scale, per channel, the six flags of ``weight_needs``, or None for no
+    mask."""
+    if needs is None:
+        return out
     m = np.zeros((3, len(needs), 2, 3), np.float32)
     for s, per_ch in enumerate(needs):
         for c in range(3):
@@ -316,12 +320,20 @@ def ssimulacra2_subscores(
     return subscores_from_sums(sums, scale_dims(lin_ref.shape[-2], lin_ref.shape[-1], num_scales))
 
 
-def subscores_from_sums(sums_per_level: list, dims) -> torch.Tensor:
+def resolve_needs(needs, num_scales: int):
+    """The JAX package's ``needs`` argument as masks: "auto" the zero
+    weights of a ``num_scales`` pyramid (``weight_needs``), None no mask,
+    else the per-scale masks given."""
+    return weight_needs(num_scales) if isinstance(needs, str) and needs == "auto" else needs
+
+
+def subscores_from_sums(sums_per_level: list, dims, needs="auto") -> torch.Tensor:
     """Per-level (B, 3, 6) sums at pyramid ``dims`` -> masked (B, 3, S, 2, 3)
-    f32 sub-scores (norms taken at the sums' precision).  The sums of a
-    frame's column strips, added, take the whole frame's ``scale_dims``."""
+    f32 sub-scores (norms taken at the sums' precision; ``needs`` as
+    ``resolve_needs`` takes it).  The sums of a frame's column strips,
+    added, take the whole frame's ``scale_dims``."""
     per = [norms_from_sums(s, lh * lw) for s, (lh, lw) in zip(sums_per_level, dims)]
-    return _apply_needs_mask(torch.stack(per, dim=2), weight_needs(len(dims))).float()
+    return _apply_needs_mask(torch.stack(per, dim=2), resolve_needs(needs, len(dims))).float()
 
 
 def ssimulacra2_level_sums_from_yuv(
@@ -363,6 +375,7 @@ def ssimulacra2_subscores_from_yuv(
     transfer: str = "bt709",
     full_range: bool = False,
     kr_kb=None,
+    needs="auto",
 ) -> torch.Tensor:
     """Sub-scores straight from (2, B, h, w) luma + (2, B, ch, cw, 2) chroma.
 
@@ -370,28 +383,33 @@ def ssimulacra2_subscores_from_yuv(
     stored); the remaining ``num_scales - 1`` levels run from its emitted
     level 1 through the level chain (kernel 2 at 1080p and 720p; #3 twice,
     then #4, at 3840x2160).  Returns (B, 3, num_scales, 2, 3) f32.
+    ``needs``: the JAX package's zero-weight masks ("auto", None or per
+    scale, ``resolve_needs``).  JAX's kernels skip the masked work; the
+    port computes every sub-score and zeroes the masked ones, so None only
+    keeps them.
     """
     levels = ssimulacra2_level_sums_from_yuv(
         y2, uv2, taps, opsin, num_scales=num_scales, depth=depth, matrix=matrix, transfer=transfer,
         full_range=full_range, kr_kb=kr_kb,
     )
-    return subscores_from_sums(levels, scale_dims(y2.shape[-2], y2.shape[-1], num_scales))
+    return subscores_from_sums(levels, scale_dims(y2.shape[-2], y2.shape[-1], num_scales), needs)
 
 
 def ssimulacra2_subscores_from_rgb(
-    p12: torch.Tensor, taps: torch.Tensor, opsin: torch.Tensor, *, num_scales: int
+    p12: torch.Tensor, taps: torch.Tensor, opsin: torch.Tensor, *, num_scales: int, needs="auto"
 ) -> torch.Tensor:
     """Sub-scores from a contiguous (2, B, 3, h, w) f32 linear-RGB pair
     buffer (the counterpart of the JAX package's
     ``ssimulacra2_subscores_from_padded``): scale 0 through kernel #3 with
     level 1 emitted, the remaining ``num_scales - 1`` levels through the
-    level chain.  Returns (B, 3, num_scales, 2, 3) f32."""
+    level chain.  Returns (B, 3, num_scales, 2, 3) f32; ``needs`` as for
+    ``ssimulacra2_subscores_from_yuv``."""
     h, w = p12.shape[-2], p12.shape[-1]
     sums0, level1 = fused_scale_rgb(p12, taps, opsin, emit_ds=num_scales > 1)
     levels = [sums0]
     if num_scales > 1:
         levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales)
-    return subscores_from_sums(levels, scale_dims(h, w, num_scales))
+    return subscores_from_sums(levels, scale_dims(h, w, num_scales), needs)
 
 
 def _width_entry(fn):
@@ -426,7 +444,8 @@ def subscores_width_sharded(fn, mesh, *, in_ndims):
     ``jnp_iir``, whose recursive blur reaches the whole row) or
     ``ssimulacra2_subscores_from_yuv`` (inputs (2, B, h, w) luma and (2, B,
     ch, cw, 2) 4:2:0 chroma, ``in_ndims`` (4, 5); ``taps`` and ``opsin``
-    among its keywords), bare or through functools.partial.  Each call plans
+    among its keywords, ``needs`` applied to the joined sums), bare or
+    through functools.partial.  Each call plans
     the strips (``spatial_sharding``), and each strip, under its device and
     its stream (``launch_shards``), takes its columns of the inputs
     (``strip_input``: a view of an RGB input already on its device, else a
@@ -450,6 +469,7 @@ def subscores_width_sharded(fn, mesh, *, in_ndims):
     if yuv and ("taps" not in kw or "opsin" not in kw):
         raise TypeError("width sharding of ssimulacra2_subscores_from_yuv needs its taps and opsin as keywords")
     num_scales = int(kw["num_scales"])
+    needs = kw.pop("needs", "auto") if yuv else "auto"
     dest = mesh.devices[0]
     plain = not yuv and _resolve_backend(kw.get("backend", "jnp"), dest) == "jnp"
 
@@ -469,7 +489,7 @@ def subscores_width_sharded(fn, mesh, *, in_ndims):
 
         total = add_strips(launch_shards(strip_sums, mesh), dest)
         dims = _pyramid(h, w, num_scales) if plain else scale_dims(h, w, num_scales)
-        return subscores_from_sums(list(total.unbind(1)), dims)
+        return subscores_from_sums(list(total.unbind(1)), dims, needs)
 
     return sharded
 
@@ -524,7 +544,7 @@ class Ssimulacra2(nn.Module):
     routes it through ``ssimulacra2_subscores``.
     """
 
-    def __init__(self, width: int, height: int, *, backend: str = "auto", device="cuda"):
+    def __init__(self, width: int, height: int, *, batch: int = 1, backend: str = "auto", device="cuda"):
         super().__init__()
         if backend != "auto" and backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {('auto',) + BACKENDS}")
@@ -532,6 +552,9 @@ class Ssimulacra2(nn.Module):
         self.backend = default_backend(dev) if backend == "auto" else backend
         self.width = int(width)
         self.height = int(height)
+        # The JAX class's batch, the B its jitted program is compiled for;
+        # the port runs eagerly, at any B.
+        self.batch = int(batch)
         self.dims = scale_dims(self.height, self.width, NUM_SCALES)
         self.num_scales = len(self.dims)
         if self.num_scales == 0:
@@ -567,6 +590,11 @@ class Ssimulacra2(nn.Module):
             lin_ref.to(self.device, torch.float32), lin_dis.to(self.device, torch.float32),
             num_scales=self.num_scales, backend=self.backend, taps=self.taps, opsin=self.opsin,
         )
+
+    def subscores_device(self, lin_ref: torch.Tensor, lin_dis: torch.Tensor) -> torch.Tensor:
+        """The JAX class's name for ``forward``: sub-scores of (B, 3, H, W)
+        f32 linear-RGB pairs, on the module's device."""
+        return self(lin_ref, lin_dis)
 
     @torch.no_grad()
     def subscores_from_rgb(self, p12: torch.Tensor) -> torch.Tensor:

@@ -25,14 +25,22 @@ Inputs are luma in 8-bit code-value units.  ``adm_stats`` (the plain torch
 version of the device half, in the JAX jnp path's f32 expression order)
 returns the per-scale, per-band centre-region cube sums; ``adm_score`` runs
 on the host in f64.  The CUDA kernel (ops/kernels/adm.py) computes the same
-sums.
+sums.  ``adm_stats`` takes its JAX namesake's keywords and routes as
+ops/routes.py sets out: #18 on a CUDA tensor behind JAX's gate, and with
+``integer=True`` the fixed-point sums, K-int-ADM on a CUDA tensor
+(ops/kernels/integer_adm.py) and ops/integer_adm.py elsewhere.  JAX runs
+jnp by default on every platform, a choice measured on the TPU; on the
+card #18 is the default (ops/routes.py).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from turbo_metrics_tpu_torch.ops import routes
 from turbo_metrics_tpu_torch.ops.vif import reflect101_index
 
 NUM_LEVELS = 4
@@ -231,14 +239,51 @@ def level_sums(csf_r, csf_a, csf_o, columns=None) -> torch.Tensor:
     return torch.stack(bands, dim=-2).float()
 
 
-def adm_stats(y_ref: torch.Tensor, y_dis: torch.Tensor, windows=None) -> torch.Tensor:
+def kernel_pair(y_ref: torch.Tensor, y_dis: torch.Tensor, *, integer: bool = False, depth: int = 8):
+    """(the kernel wrapper that the kernel route of ``adm_stats`` runs, the
+    pair it reads), or None where a gate sends the call to the plain
+    version: #18 on one stacked f32 pair for (B, h, w) planes whose smaller
+    side is at least 32 (JAX's gate); with ``integer``, K-int-ADM on the
+    codes of ``routes.code_pair`` for (B, h, w) planes of one shape.  Both
+    wrappers also take ``columns`` and ``frame`` (ops/kernels/adm.py)."""
+    # Imported here: the kernel modules import this one.
+    from turbo_metrics_tpu_torch.ops.kernels import adm as k_adm
+    from turbo_metrics_tpu_torch.ops.kernels import integer_adm as k_integer_adm
+
+    if integer:
+        if routes.batched_planes(y_ref, y_dis):
+            pair = routes.code_pair(y_ref, y_dis, depth)
+            return functools.partial(k_integer_adm.integer_adm_stats, depth=depth), pair
+        return None
+    if routes.wide_planes(y_ref, y_dis):
+        return k_adm.adm_stats, routes.f32_pair(y_ref, y_dis)
+    return None
+
+
+def adm_stats(y_ref: torch.Tensor, y_dis: torch.Tensor, *, backend: str | None = None, integer: bool = False,
+              depth: int = 8, windows=None) -> torch.Tensor:
     """Per-scale, per-band centre-region cube sums for (B, H, W) f32 luma.
 
     Returns (B, NUM_LEVELS, 3, 2): [..., b, 0] = sum |masked csf*r_b|^3,
     [..., b, 1] = sum |csf*o_b|^3 over the centre region, bands b = (H, V, D);
     ``windows``: each level's band columns in place of the region's
-    (``level_windows``), None for the region's.
+    (``level_windows``), None for the region's: a keyword of the plain
+    version, which a call with windows runs.
+
+    ``backend`` (ops/routes.py) and ``integer`` / ``depth`` (the
+    fixed-point conventions, the inputs then integer luma codes at
+    ``depth`` bits): the kernel route where ``kernel_pair`` finds a kernel,
+    else the plain version below or ops/integer_adm.py's.
     """
+    kernels = routes.kernel_route(backend, y_ref.device) and windows is None
+    route = kernel_pair(y_ref, y_dis, integer=integer, depth=depth) if kernels else None
+    if route is not None:
+        fn, pair = route
+        return fn(pair)
+    if integer:
+        from turbo_metrics_tpu_torch.ops.integer_adm import integer_adm_stats
+
+        return integer_adm_stats(y_ref, y_dis, depth=depth, windows=windows)
     o = y_ref.to(torch.float32)
     t = y_dis.to(torch.float32)
     out = []

@@ -20,6 +20,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from turbo_metrics_tpu_torch.ops import routes
+
 
 def _xy_to_xyz(x: float, y: float) -> np.ndarray:
     return np.array([x / y, 1.0, (1.0 - x - y) / y], dtype=np.float64)
@@ -77,8 +79,10 @@ def srgb_eotf(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v < _f32(_f32(12.92) * beta), lo, hi)
 
 
-def pq_eotf(v: torch.Tensor) -> torch.Tensor:
-    """SMPTE ST 2084 (PQ) EOTF, normalised so 10000 nits -> 1.0."""
+def pq_eotf(v: torch.Tensor, *, peak_nits: float = 10000.0, norm_nits: float = 10000.0) -> torch.Tensor:
+    """SMPTE ST 2084 (PQ) EOTF, normalised so ``norm_nits`` -> 1.0 (the
+    curve's peak is ``peak_nits``).  The conversions (``TRANSFERS`` and
+    kernels #5, #6 and kernel 1) take the defaults, 10000 and 10000."""
     m1 = _f32(2610.0 / 16384.0)
     m2 = _f32(2523.0 / 4096.0 * 128.0)
     c1 = _f32(3424.0 / 4096.0)
@@ -90,7 +94,7 @@ def pq_eotf(v: torch.Tensor) -> torch.Tensor:
     p = torch.pow(v, _f32(1.0 / m2))
     num = torch.clamp_min(p - c1, 0.0)
     den = torch.clamp_min(c2 - c3 * p, _f32(1e-6))
-    return torch.pow(num / den, _f32(1.0 / m1))
+    return torch.pow(num / den, _f32(1.0 / m1)) * _f32(peak_nits / norm_nits)
 
 
 def hlg_eotf(v: torch.Tensor) -> torch.Tensor:
@@ -179,6 +183,15 @@ def chroma_dims(chroma: int, h: int, w: int) -> tuple[int, int]:
     raise ValueError(f"chroma must be 420, 422 or 444, got {chroma!r}")
 
 
+def _kernel_ok(y, uv, depth: int, transfer: str, chroma: int, backend) -> bool:
+    """Whether ``yuv420_to_linear_rgb`` takes kernel #5 (its docstring)."""
+    if not routes.kernel_route(backend, y.device) or y.ndim != 3 or transfer not in TRANSFERS:
+        return False
+    want_dt = torch.uint8 if depth == 8 else torch.uint16
+    return (8 <= depth <= 16 and y.dtype == uv.dtype == want_dt
+            and tuple(uv.shape) == (y.shape[0], *chroma_dims(chroma, *y.shape[-2:]), 2))
+
+
 def yuv420_to_linear_rgb(
     y: torch.Tensor,
     uv: torch.Tensor,
@@ -189,6 +202,7 @@ def yuv420_to_linear_rgb(
     full_range: bool = False,
     kr_kb=None,
     chroma: int = 420,
+    backend: str | None = "auto",
 ) -> torch.Tensor:
     """Planar YCbCr -> linear RGB f32 in [0, 1].
 
@@ -197,7 +211,22 @@ def yuv420_to_linear_rgb(
     422 (H, ceil(W/2)), 444 (H, W).  Output: (..., 3, H, W) f32.  The
     reference decimates every input to NVDEC's 4:2:0 surfaces; 4:2:2 and
     4:4:4 keep their real chroma grid here, as in the JAX package.
+
+    ``backend`` (ops/routes.py; JAX's default "auto"): on the kernel route,
+    batched (B, H, W) luma with chroma on its grid, both uint8 at 8 bits or
+    uint16 at 9-16, go to kernel #5 (ops/kernels/convert.py
+    ``yuv_to_linear_rgb``), ``kr_kb`` and ``chroma`` passed through.  JAX's
+    gate also asks for 4:2:0, the one layout of its Pallas kernel; #5
+    converts 4:2:2 and 4:4:4 as well, so this route takes all three.  Any
+    other input runs the plain version below, as does "jnp".
     """
+    if _kernel_ok(y, uv, depth, transfer, chroma, backend):
+        from turbo_metrics_tpu_torch.ops.kernels import convert
+
+        return convert.yuv_to_linear_rgb(
+            y.contiguous(), uv.contiguous(), depth=depth, matrix=matrix, transfer=transfer, full_range=full_range,
+            chroma=chroma, kr_kb=kr_kb,
+        )
     y_c, r_c, b_c, g1_c, g2_c = conversion_coeffs(depth, matrix, full_range, kr_kb)
     rng = sample_range(depth, full_range)
     h, w = y.shape[-2], y.shape[-1]

@@ -61,7 +61,7 @@ _SIGNATURES = {
     "tm_ssim_level": [_P, _I, _I, _I, _I, _P, _F, _F, _I, _I, _P, _P, _I, _P, _P],
     "tm_xpsnr_block_stats": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "tm_xpsnr_attributes": [_I, _I, _I, _PI],
-    "tm_motion_stats": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "tm_motion_stats": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "tm_integer_blur": [_P, _I, _I, _I, _I, _I, _P, _P],
     "tm_motion_attrs": [_I, _PI],
     "tm_vif_blocks": [_I, _I],

@@ -51,6 +51,7 @@ The halo costs (w + 2 H (n - 1)) / w of the columns: 1.00833, 1.025 and
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -81,7 +82,7 @@ def adm_stats_ref(pair, *, columns=None, frame=None):
     """Plain twin of ``adm_stats`` (same arguments and result)."""
     check_pair(pair)
     windows = None if columns is None and frame is None else adm.level_windows(pair.shape[-1], columns, frame)
-    return adm.adm_stats(pair[0], pair[1], windows)
+    return adm.adm_stats(pair[0], pair[1], backend="jnp", windows=windows)
 
 
 def adm_blocks(ch: int, cw: int, top: int, left: int, columns=None) -> int:
@@ -148,48 +149,78 @@ adm_stats.launches = 0
 
 
 def adm_width_sharded(fn, mesh, *, in_ndims):
-    """``adm_stats`` or the fixed-point ``integer_adm_stats``
-    (ops/kernels/integer_adm.py, whose docstring derives the same plan) with
-    one frame's columns split over ``mesh`` (module docstring;
-    ``shard_over_width`` calls this).  ``fn``: either, bare or through
-    functools.partial (``integer_adm_stats`` with its keyword ``depth``,
-    ``adm_stats`` with none); its input the (2, B, h, w) pair (f32, or the
-    luma codes, whose dtype each strip keeps), ``in_ndims`` (4,).  Each
-    call plans the strips
+    """``adm_stats``, the fixed-point ``integer_adm_stats``
+    (ops/kernels/integer_adm.py, whose docstring derives the same plan) or
+    the plain entry ops/adm.py ``adm_stats`` with one frame's columns split
+    over ``mesh`` (module docstring; ``shard_over_width`` calls this).
+    ``fn``: one of them, bare or through functools.partial
+    (``integer_adm_stats`` with its keyword ``depth``, the plain entry with
+    ``backend``, ``integer`` and ``depth``, this module's ``adm_stats`` with
+    none); its input the (2, B, h, w) pair (f32, or the luma codes, whose
+    dtype each strip keeps), ``in_ndims`` (4,), or for the plain entry (B,
+    h, w) ``y_ref`` and ``y_dis``, ``in_ndims`` (3, 3), each strip stacked
+    into the pair of the wrapper that the entry's route runs
+    (``plain_strip_route``).  Each call plans the strips
     (``spatial_sharding``: owned edges on multiples of 16, a halo of 32
     columns), and each strip, under its device and its stream
-    (``launch_shards``), cuts its columns of the pair (``strip_input``) and
-    sums its owned part of every level's centre region (``columns`` and
+    (``launch_shards``), cuts its columns of the inputs (``strip_input``)
+    and sums its owned part of every level's centre region (``columns`` and
     ``frame``); the strips' (B, 4, 3, 2) sums add in f64 on
     ``mesh.devices[0]`` and round once to f32.  ``ValueError`` where a strip
     would own fewer than 16 columns.  A mesh of one runs ``fn`` unchanged
     on its device."""
     # Imported here: that module imports this one.
+    from turbo_metrics_tpu_torch.ops import routes
     from turbo_metrics_tpu_torch.ops.kernels.integer_adm import integer_adm_stats
 
     base, kw = partial_keywords(fn)
-    keywords = {adm_stats: set(), integer_adm_stats: {"depth"}}
-    if base not in keywords:
-        raise TypeError("adm_width_sharded takes ops.kernels.adm.adm_stats or "
-                        f"ops.kernels.integer_adm.integer_adm_stats, not {fn!r}")
-    if tuple(in_ndims) != (4,):
-        raise ValueError(f"{fn!r} takes inputs of (4,) dims, got in_ndims={tuple(in_ndims)}")
-    unknown = set(kw) - keywords[base]
+    entries = {adm_stats: ((4,), set()), integer_adm_stats: ((4,), {"depth"}),
+               adm.adm_stats: ((3, 3), {"backend", "integer", "depth"})}
+    if base not in entries:
+        raise TypeError("adm_width_sharded takes ops.kernels.adm.adm_stats, "
+                        f"ops.kernels.integer_adm.integer_adm_stats or ops.adm.adm_stats, not {fn!r}")
+    ndims, keywords = entries[base]
+    if tuple(in_ndims) != ndims:
+        raise ValueError(f"{fn!r} takes inputs of {ndims} dims, got in_ndims={tuple(in_ndims)}")
+    unknown = set(kw) - keywords
     if unknown:
         raise TypeError(f"{base.__name__} takes no keywords {sorted(unknown)} under width sharding")
     dest = mesh.devices[0]
+    routes.kernel_route(kw.get("backend"), dest)  # an unknown backend name raises here
 
     def sharded(*args):
         check_inputs(args, in_ndims)
         if mesh.size == 1:
-            return fn(upload(args[0], dest))
+            return fn(*(upload(a, dest) for a in args))
         w = args[0].shape[-1]
         plan = spatial_sharding(mesh, w, alignment=STRIP_ALIGNMENT, halo=STRIP_HALO)
 
         def strip_sums(k, dev):
             s = plan[k]
-            return base(strip_input(args[0], s, dev), columns=s.columns, frame=(s.lo, w), **kw)
+            parts = [strip_input(a, s, dev) for a in args]
+            if base is adm.adm_stats:
+                run, pair = plain_strip_route(*parts, **kw)
+            else:
+                run, pair = functools.partial(base, **kw), parts[0]
+            return run(pair, columns=s.columns, frame=(s.lo, w))
 
         return add_strips(launch_shards(strip_sums, mesh), dest).float()
 
     return sharded
+
+
+def plain_strip_route(y_ref, y_dis, *, backend=None, integer=False, depth=8):
+    """(the wrapper that ops/adm.py ``adm_stats`` runs on these planes, the
+    pair it reads): its kernel route's (``adm.kernel_pair``), or in its
+    plain route's place the plain twin of the same kernel, which takes the
+    same window (``columns``, ``frame``)."""
+    from turbo_metrics_tpu_torch.ops import routes
+    from turbo_metrics_tpu_torch.ops.kernels.integer_adm import integer_adm_stats_ref
+
+    route = adm.kernel_pair(y_ref, y_dis, integer=integer, depth=depth) \
+        if routes.kernel_route(backend, y_ref.device) else None
+    if route is not None:
+        return route
+    if integer:
+        return functools.partial(integer_adm_stats_ref, depth=depth), routes.code_pair(y_ref, y_dis, depth)
+    return adm_stats_ref, routes.f32_pair(y_ref, y_dis)

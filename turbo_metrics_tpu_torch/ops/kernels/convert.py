@@ -48,7 +48,7 @@ def yuv420_to_linear_rgb_pair_ref(
     bsz, h, w = _check(y, uv, out, slot, depth, transfer)
     lin = colorspace.yuv420_to_linear_rgb(
         y, uv, depth=depth, matrix=matrix, transfer=transfer,
-        full_range=full_range, kr_kb=kr_kb,
+        full_range=full_range, kr_kb=kr_kb, backend="jnp",
     )
     if slot is None:
         if out is None:
@@ -131,7 +131,7 @@ def yuv_to_linear_rgb_ref(
     _check_any(y, uv, out, depth, transfer, chroma)
     lin = colorspace.yuv420_to_linear_rgb(
         y, uv, depth=depth, matrix=matrix, transfer=transfer, full_range=full_range,
-        kr_kb=kr_kb, chroma=chroma,
+        kr_kb=kr_kb, chroma=chroma, backend="jnp",
     )
     if out is None:
         return lin

@@ -174,7 +174,7 @@ def fused_scale0_yuv_ref(
     """Plain twin of ``fused_scale0_yuv`` (same arguments and results)."""
     lin = colorspace.yuv420_to_linear_rgb(
         y2, uv2, depth=depth, matrix=matrix, transfer=transfer,
-        full_range=full_range, kr_kb=kr_kb,
+        full_range=full_range, kr_kb=kr_kb, backend="jnp",
     )  # (2, B, 3, h, w)
     xyb = linear_rgb_to_xyb(lin, opsin=opsin)
     sums = level_sums_ref(xyb[0], xyb[1], taps, columns)

@@ -195,42 +195,50 @@ def vif_scale_stats(pair: torch.Tensor, *, columns=None) -> torch.Tensor:
 
 
 def vif_width_sharded(fn, mesh, *, in_ndims):
-    """``vif_scale_stats`` or the fixed-point ``integer_vif_stats``
-    (ops/kernels/integer_vif.py, whose docstring derives the same plan) with
-    one frame's columns split over ``mesh`` (module docstring;
-    ``shard_over_width`` calls this).  ``fn``: either, bare or through
-    functools.partial (``integer_vif_stats`` with its keyword ``depth``,
+    """``vif_scale_stats``, the fixed-point ``integer_vif_stats``
+    (ops/kernels/integer_vif.py, whose docstring derives the same plan) or
+    the plain entry ops/vif.py ``vif_scale_stats`` with one frame's columns
+    split over ``mesh`` (module docstring; ``shard_over_width`` calls this).
+    ``fn``: one of them, bare or through functools.partial
+    (``integer_vif_stats`` with its keyword ``depth``, the plain entry with
+    ``backend``, ``integer`` and ``depth``, this module's
     ``vif_scale_stats`` with none); its input the (2, B, h, w) pair (f32,
-    or the luma codes, whose dtype each strip keeps), ``in_ndims`` (4,).
-    Each call plans the strips (``spatial_sharding``: owned edges on
-    multiples of 8, a halo of 24 columns), and each strip, under its device
-    and its stream (``launch_shards``), cuts its columns of the pair
-    (``strip_input``) and sums its owned window; the strips' (B, 4, 2) sums
-    add in f64 on ``mesh.devices[0]`` and round once to f32.  ``ValueError``
-    where a strip would own fewer than 8 columns.  A mesh of one runs ``fn``
-    unchanged on its device."""
+    or the luma codes, whose dtype each strip keeps), ``in_ndims`` (4,), or
+    for the plain entry (B, h, w) ``ref`` and ``dis``, ``in_ndims`` (3, 3),
+    each strip routed by the entry itself (#14 / #15, K-int-VIF or the
+    plain versions).  Each call plans the strips (``spatial_sharding``:
+    owned edges on multiples of 8, a halo of 24 columns), and each strip,
+    under its device and its stream (``launch_shards``), cuts its columns
+    of the inputs (``strip_input``) and sums its owned window; the strips'
+    (B, 4, 2) sums add in f64 on ``mesh.devices[0]`` and round once to f32.
+    ``ValueError`` where a strip would own fewer than 8 columns.  A mesh of
+    one runs ``fn`` unchanged on its device."""
     # Imported here: that module imports this one.
+    from turbo_metrics_tpu_torch.ops import routes
     from turbo_metrics_tpu_torch.ops.kernels.integer_vif import integer_vif_stats
 
     base, kw = partial_keywords(fn)
-    keywords = {vif_scale_stats: set(), integer_vif_stats: {"depth"}}
-    if base not in keywords:
-        raise TypeError("vif_width_sharded takes ops.kernels.vif.vif_scale_stats or "
-                        f"ops.kernels.integer_vif.integer_vif_stats, not {fn!r}")
-    if tuple(in_ndims) != (4,):
-        raise ValueError(f"{fn!r} takes inputs of (4,) dims, got in_ndims={tuple(in_ndims)}")
-    unknown = set(kw) - keywords[base]
+    entries = {vif_scale_stats: ((4,), set()), integer_vif_stats: ((4,), {"depth"}),
+               vif.vif_scale_stats: ((3, 3), {"backend", "integer", "depth"})}
+    if base not in entries:
+        raise TypeError("vif_width_sharded takes ops.kernels.vif.vif_scale_stats, "
+                        f"ops.kernels.integer_vif.integer_vif_stats or ops.vif.vif_scale_stats, not {fn!r}")
+    ndims, keywords = entries[base]
+    if tuple(in_ndims) != ndims:
+        raise ValueError(f"{fn!r} takes inputs of {ndims} dims, got in_ndims={tuple(in_ndims)}")
+    unknown = set(kw) - keywords
     if unknown:
         raise TypeError(f"{base.__name__} takes no keywords {sorted(unknown)} under width sharding")
     dest = mesh.devices[0]
+    routes.kernel_route(kw.get("backend"), dest)  # an unknown backend name raises here
 
     def sharded(*args):
         check_inputs(args, in_ndims)
         if mesh.size == 1:
-            return fn(upload(args[0], dest))
+            return fn(*(upload(a, dest) for a in args))
         plan = spatial_sharding(mesh, args[0].shape[-1], alignment=STRIP_ALIGNMENT, halo=STRIP_HALO)
         outs = launch_shards(
-            lambda k, dev: base(strip_input(args[0], plan[k], dev), columns=plan[k].columns, **kw), mesh)
+            lambda k, dev: base(*(strip_input(a, plan[k], dev) for a in args), columns=plan[k].columns, **kw), mesh)
         return add_strips(outs, dest).float()
 
     return sharded

@@ -24,12 +24,18 @@ does).  Inputs are luma code values normalised to the 8-bit range.
 
 These are the plain torch versions, in the JAX package's f32 expression
 order; the CUDA kernels (ops/kernels/vif.py) compute the same sums.
+``vif_scale_stats`` takes its JAX namesake's keywords and routes as it does
+(ops/routes.py): #14 and #15 on a CUDA tensor behind JAX's gate, and with
+``integer=True`` the fixed-point sums, K-int-VIF on a CUDA tensor
+(ops/kernels/integer_vif.py) and ops/integer_vif.py elsewhere.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from turbo_metrics_tpu_torch.ops import routes
 
 SIGMA_NSQ = np.float32(2.0)
 EPS = np.float32(1e-10)
@@ -139,12 +145,34 @@ def scale_sums(ref: torch.Tensor, dis: torch.Tensor, win: np.ndarray, columns=No
     ).float()
 
 
-def vif_scale_stats(ref: torch.Tensor, dis: torch.Tensor, columns=None) -> torch.Tensor:
+def vif_scale_stats(ref: torch.Tensor, dis: torch.Tensor, *, backend: str | None = None, integer: bool = False,
+                    depth: int = 8, columns=None) -> torch.Tensor:
     """Per-scale (num, den) sums for (B, H, W) f32 luma in 8-bit units.
 
     Returns (B, 4, 2): [..., k, 0] = num_k, [..., k, 1] = den_k, scale k
     summed over ``scale_columns(columns, k)`` (None: every column).
+
+    ``backend`` (ops/routes.py): on the kernel route, (B, h, w) planes whose
+    smaller side is at least 32 (JAX's gate) go to #14 and #15 as one
+    stacked f32 pair (ops/kernels/vif.py ``vif_scale_stats``); anything else
+    runs the plain version below.  ``integer=True`` takes the fixed-point
+    conventions, the inputs then integer luma codes at ``depth`` bits:
+    K-int-VIF on the kernel route for (B, h, w) planes of one shape (the
+    codes as ``routes.code_pair`` makes them), else ops/integer_vif.py.
     """
+    # Imported here: the kernel modules import this one.
+    from turbo_metrics_tpu_torch.ops.kernels import integer_vif as k_integer_vif
+    from turbo_metrics_tpu_torch.ops.kernels import vif as k_vif
+
+    kernels = routes.kernel_route(backend, ref.device)
+    if integer:
+        if kernels and routes.batched_planes(ref, dis):
+            return k_integer_vif.integer_vif_stats(routes.code_pair(ref, dis, depth), depth=depth, columns=columns)
+        from turbo_metrics_tpu_torch.ops.integer_vif import integer_vif_stats
+
+        return integer_vif_stats(ref, dis, depth=depth, columns=columns)
+    if kernels and routes.wide_planes(ref, dis):
+        return k_vif.vif_scale_stats(routes.f32_pair(ref, dis), columns=columns)
     out = []
     for k in range(NUM_SCALES):
         win = vif_window(k)

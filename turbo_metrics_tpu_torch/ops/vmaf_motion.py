@@ -13,13 +13,20 @@ with the reference's asymmetric mirror (reflect on the low edge, symmetric
 on the high edge).  These are the plain torch versions: every step runs in
 int64 and is masked to 32 bits where the JAX package's uint32 arithmetic
 would wrap, so the results are its bit for bit.  The CUDA kernels
-(ops/kernels/motion.py) compute the same planes and row sums.
+(ops/kernels/motion.py) compute the same planes and row sums, and
+``integer_blur`` and ``motion_stats`` take them as their JAX namesakes take
+the Pallas kernels, by ``backend`` (ops/routes.py: #17 and #16 on a CUDA
+tensor, behind JAX's gate and for the kernels' luma types).  JAX runs jnp
+by default on every platform, a choice measured on the TPU; on the card
+the kernels are the default.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from turbo_metrics_tpu_torch.ops import routes
 
 FILTER = np.array([3571, 16004, 26386, 16004, 3571], dtype=np.uint32)
 RADIUS = 2
@@ -33,8 +40,22 @@ def mirror_index(n: int, device=None) -> torch.Tensor:
     return torch.where(idx >= n, 2 * n - 1 - idx, idx)
 
 
-def integer_blur(y: torch.Tensor, *, depth: int = 8) -> torch.Tensor:
-    """Exact-integer separable 5-tap blur of (..., H, W) luma -> uint16."""
+def kernel_ok(y: torch.Tensor, backend) -> bool:
+    """Whether ``y`` takes #16 / #17 under ``backend``: the kernel route,
+    (B, h, w) planes whose smaller side is at least 32 (JAX's gate), in a
+    luma type of the kernels (uint8, uint16, int32)."""
+    from turbo_metrics_tpu_torch.ops.kernels.xpsnr import DTYPE_CODES
+
+    return routes.kernel_route(backend, y.device) and routes.wide_planes(y) and y.dtype in DTYPE_CODES
+
+
+def integer_blur(y: torch.Tensor, *, depth: int = 8, backend: str | None = None) -> torch.Tensor:
+    """Exact-integer separable 5-tap blur of (..., H, W) luma -> uint16;
+    ``backend``: #17 where ``kernel_ok``, else the plain version below."""
+    if kernel_ok(y, backend):
+        from turbo_metrics_tpu_torch.ops.kernels import motion
+
+        return motion.integer_blur(y.contiguous(), depth=depth)
     h, w = y.shape[-2], y.shape[-1]
     x = y.to(torch.int64)
     xp = x.index_select(-2, mirror_index(h, x.device))
@@ -49,14 +70,24 @@ def integer_blur(y: torch.Tensor, *, depth: int = 8) -> torch.Tensor:
     return (((acc2 + 32768) & U32) >> 16).to(torch.uint16)
 
 
-def motion_stats(y: torch.Tensor, prev_blurred: torch.Tensor, *, depth: int = 8) -> dict:
+def motion_stats(y: torch.Tensor, prev_blurred: torch.Tensor, *, depth: int = 8, backend: str | None = None,
+                 columns=None) -> dict:
     """Blur the current luma and SAD it against the previous blurred frame.
 
     Returns {'blurred': (..., H, W) uint16, 'sad_rows': (..., H) int64
-    holding the uint32 row sums} (the host finishes the sums in int64).
+    holding the uint32 row sums} (the host finishes the sums in int64),
+    over the columns ``columns`` = (lo, hi) (None: the whole rows).
+    ``backend``: where ``kernel_ok``, #16 with every frame's own previous
+    plane (``prev_blurred`` uint16, shaped like ``y`` or one (H, W) plane
+    for every frame), else the plain version below.
     """
-    blurred = integer_blur(y, depth=depth)
-    return {"blurred": blurred, "sad_rows": sad_rows(blurred, prev_blurred)}
+    if kernel_ok(y, backend) and prev_blurred.dtype == torch.uint16 and prev_blurred.shape in (y.shape, y.shape[1:]):
+        from turbo_metrics_tpu_torch.ops.kernels import motion
+
+        prev = prev_blurred.contiguous().expand(y.shape)
+        return motion.motion_stats(y.contiguous(), prev=prev, depth=depth, columns=columns)
+    blurred = integer_blur(y, depth=depth, backend="jnp")
+    return {"blurred": blurred, "sad_rows": sad_rows(blurred, prev_blurred, columns)}
 
 
 def sad_window(columns, w: int) -> tuple[int, int]:

@@ -23,21 +23,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from turbo_metrics_tpu_torch.ops import routes
+
 BLOCK = 16
 
 # 3x3 highpass, xpsnr-cuda/src/lib.rs:67.
 HIGHPASS = np.array([[-1, -2, -1], [-2, 12, -2], [-1, -2, -1]], dtype=np.int32)
 
 U32 = 0xFFFFFFFF
-
-# The ``backend`` names of the JAX package's xpsnr_block_stats that the port
-# honours: None or "auto" (#13 on a CUDA tensor, the plain version on a CPU
-# tensor, as JAX takes Pallas on the TPU and jnp elsewhere), "jnp" (the
-# plain version anywhere) and "pallas" (#13, whose plain twin runs on a CPU
-# tensor).  JAX's "interpret" runs the Pallas interpreter, which the port
-# has no counterpart of.
-BACKENDS = (None, "auto", "jnp", "pallas")
-
 
 def align_luma_depth(y: torch.Tensor, from_depth: int, to_depth: int) -> torch.Tensor:
     """Rescale integer luma code values between bit depths (left or right
@@ -93,9 +86,7 @@ def kernel_ok(y_ref, y_dis, y_prev, block: int, backend) -> bool:
     (its edge cases from 1 row and 15 columns up), so it keeps neither."""
     from turbo_metrics_tpu_torch.ops.kernels.xpsnr import DTYPE_CODES
 
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-    if backend == "jnp" or (backend in (None, "auto") and y_ref.device.type != "cuda"):
+    if not routes.kernel_route(backend, y_ref.device):
         return False
     return (block == BLOCK and y_ref.ndim == 3 and y_dis.shape == y_prev.shape == y_ref.shape
             and y_ref.dtype in DTYPE_CODES and y_dis.dtype in DTYPE_CODES and y_prev.dtype == y_ref.dtype)
@@ -115,7 +106,7 @@ def xpsnr_block_stats(
     Inputs: integer luma planes (..., H, W); ``y_prev`` is the previous
     *reference* frame (for the first frame, the frame itself -> tact 0).
     Returns the uint32 block grids (kernel lib.rs:69-91) as int64 tensors.
-    ``backend`` (``BACKENDS``): #13 with a per-frame ``prev`` where
+    ``backend`` (ops/routes.py): #13 with a per-frame ``prev`` where
     ``kernel_ok``, else the plain version; the grids are the same bit for
     bit.  ``depth`` is the JAX signature's; neither route reads it.
     """

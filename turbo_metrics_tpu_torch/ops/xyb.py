@@ -63,9 +63,11 @@ def _cbrt(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v > 0.0, refined, torch.zeros_like(refined))
 
 
-def linear_rgb_to_xyb(rgb: torch.Tensor, *, opsin=None) -> torch.Tensor:
-    """Convert linear RGB (..., 3, H, W) to positive-shifted XYB, same layout.
+def linear_rgb_to_xyb(rgb: torch.Tensor, *, opsin=None, channel_axis: int = -3) -> torch.Tensor:
+    """Convert linear RGB to positive-shifted XYB, same layout.
 
+    ``rgb``: f32 with a 3-channel axis ``channel_axis`` (default layout
+    (..., 3, H, W)); the result has channels (X', Y', B') there.
     ``opsin``: optional (11,) matrix/bias/root vector (``opsin_vector()``
     layout); defaults to the built-in constants.
     """
@@ -76,7 +78,7 @@ def linear_rgb_to_xyb(rgb: torch.Tensor, *, opsin=None) -> torch.Tensor:
     o = [float(v) for v in np.asarray(opsin, dtype=np.float32)]
     m = [o[0:3], o[3:6], o[6:9]]
     bias, root = o[9], o[10]
-    r, g, b = rgb.unbind(dim=-3)
+    r, g, b = rgb.unbind(dim=channel_axis)
     rmix = m[0][0] * r + m[0][1] * g + m[0][2] * b + bias
     gmix = m[1][0] * r + m[1][1] * g + m[1][2] * b + bias
     bmix = m[2][0] * r + m[2][1] * g + m[2][2] * b + bias
@@ -90,4 +92,4 @@ def linear_rgb_to_xyb(rgb: torch.Tensor, *, opsin=None) -> torch.Tensor:
     # Positive shift folded in, exactly as cpu.rs:468 (B' uses unshifted Y).
     out = [x * 14.0 + float(np.float32(0.42)), y + float(np.float32(0.01)),
            bb - y + float(np.float32(0.55))]
-    return torch.stack(out, dim=-3)
+    return torch.stack(out, dim=channel_axis)

@@ -438,19 +438,23 @@ def shard_over_width(fn: Callable, mesh: Mesh, *, in_ndims: Sequence[int]):
         ``ssim``, ``msssim`` and ``ssim_msssim`` (``plain_width_sharded``);
       * ops/kernels/xpsnr.py ``xpsnr_block_stats`` and ops/xpsnr_ops.py
         ``xpsnr_block_stats`` (``xpsnr_width_sharded``);
-      * ops/kernels/vif.py ``vif_scale_stats`` and ops/kernels/integer_vif.py
-        ``integer_vif_stats`` (``vif_width_sharded``);
-      * ops/kernels/adm.py ``adm_stats`` and ops/kernels/integer_adm.py
-        ``integer_adm_stats`` (``adm_width_sharded``);
-      * ops/kernels/motion.py ``motion_stats`` and ``integer_blur``
-        (``motion_width_sharded``).
+      * ops/kernels/vif.py ``vif_scale_stats``, ops/kernels/integer_vif.py
+        ``integer_vif_stats`` and ops/vif.py ``vif_scale_stats``
+        (``vif_width_sharded``);
+      * ops/kernels/adm.py ``adm_stats``, ops/kernels/integer_adm.py
+        ``integer_adm_stats`` and ops/adm.py ``adm_stats``
+        (``adm_width_sharded``);
+      * ``motion_stats`` and ``integer_blur`` of ops/kernels/motion.py and
+        of ops/vmaf_motion.py (``motion_width_sharded``).
     Any other function raises ``TypeError``: the port has no partitioner,
     and the functions under these entries (VIF's scale wrappers
     ``vif_scale0`` and ``vif_tail``, whose windows a caller would have to
     chain by hand, the plain ``block_sums`` and the like) have no strip loop
     of their own."""
     from turbo_metrics_tpu_torch.models import ssimulacra2
-    from turbo_metrics_tpu_torch.ops import quality, xpsnr_ops
+    from turbo_metrics_tpu_torch.ops import adm as adm_ops
+    from turbo_metrics_tpu_torch.ops import quality, vmaf_motion, xpsnr_ops
+    from turbo_metrics_tpu_torch.ops import vif as vif_ops
     from turbo_metrics_tpu_torch.ops.kernels import adm, integer_adm, integer_vif, motion, vif, xpsnr
 
     base, _ = partial_keywords(fn)
@@ -460,21 +464,23 @@ def shard_over_width(fn: Callable, mesh: Mesh, *, in_ndims: Sequence[int]):
         ((quality.quality_from_rgb,), quality.quality_width_sharded),
         ((quality.ssim, quality.msssim, quality.ssim_msssim), quality.plain_width_sharded),
         ((xpsnr.xpsnr_block_stats, xpsnr_ops.xpsnr_block_stats), xpsnr.xpsnr_width_sharded),
-        ((vif.vif_scale_stats, integer_vif.integer_vif_stats), vif.vif_width_sharded),
-        ((adm.adm_stats, integer_adm.integer_adm_stats), adm.adm_width_sharded),
-        ((motion.motion_stats, motion.integer_blur), motion.motion_width_sharded),
+        ((vif.vif_scale_stats, integer_vif.integer_vif_stats, vif_ops.vif_scale_stats), vif.vif_width_sharded),
+        ((adm.adm_stats, integer_adm.integer_adm_stats, adm_ops.adm_stats), adm.adm_width_sharded),
+        ((motion.motion_stats, motion.integer_blur, vmaf_motion.motion_stats, vmaf_motion.integer_blur),
+         motion.motion_width_sharded),
     ):
         if any(base is e for e in entries):
             return sharded(fn, mesh, in_ndims=in_ndims)
     raise TypeError(
         "width sharding supports models.ssimulacra2.ssimulacra2_subscores and "
         "ssimulacra2_subscores_from_yuv, ops.quality.quality_from_rgb, ssim, msssim and ssim_msssim, "
-        "ops.kernels.xpsnr.xpsnr_block_stats and ops.xpsnr_ops.xpsnr_block_stats, "
-        "ops.kernels.vif.vif_scale_stats, ops.kernels.integer_vif.integer_vif_stats, "
-        "ops.kernels.adm.adm_stats, ops.kernels.integer_adm.integer_adm_stats and "
-        "ops.kernels.motion.motion_stats and integer_blur "
-        f"(bare or through functools.partial), not {fn!r}: the port has no SPMD "
+        "xpsnr_block_stats of ops.kernels.xpsnr and ops.xpsnr_ops, vif_scale_stats of ops.kernels.vif and "
+        "ops.vif, ops.kernels.integer_vif.integer_vif_stats, adm_stats of ops.kernels.adm and ops.adm, "
+        "ops.kernels.integer_adm.integer_adm_stats, and motion_stats and integer_blur of ops.kernels.motion "
+        f"and ops.vmaf_motion (bare or through functools.partial), not {fn!r}: the port has no SPMD "
         "partitioner to split any function's columns, so width sharding is written into those entries' "
-        "kernels (an owned-column window and a halo cut at upload); the functions under them, such as "
-        "VIF's scale wrappers vif_scale0 and vif_tail, have no strip loop of their own"
+        "kernels (an owned-column window and a halo cut at upload); every other function has no strip loop "
+        "of its own: the functions under those entries (VIF's scale wrappers vif_scale0 and vif_tail, "
+        "whose windows a caller would chain by hand, plain building blocks such as block_sums or "
+        "integer_vif_scale_planes), PSNR and the plain conversions"
     )

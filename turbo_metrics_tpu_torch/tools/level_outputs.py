@@ -62,7 +62,8 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     columns that cut 32-column tiles mid-way (ssim_window_calls),
     VMAF's #14, #15, #16 and #18 likewise (vmaf_window_calls), and K-int-VIF
     and K-int-ADM likewise and #13 with every frame's previous plane
-    (int_window_calls)."""
+    (int_window_calls), and #16 with every frame's previous plane
+    (motion_prev_calls)."""
     from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2
     from turbo_metrics_tpu_torch.ops.kernels import adm, convert, fused_tail, motion, scale_stats, scale_tail, xpsnr
 
@@ -141,7 +142,8 @@ def own_calls(batch: int, height: int, width: int, dev) -> list:
     # Last: a checkout without them draws the same inputs for every call above.
     calls += ssim_window_calls(rng, batch, height, width, dev)
     calls += vmaf_window_calls(rng, batch, height, width, dev)
-    return calls + int_window_calls(rng, batch, height, width, dev)
+    calls += int_window_calls(rng, batch, height, width, dev)
+    return calls + motion_prev_calls(rng, batch, height, width, dev)
 
 
 def ssim_window_calls(rng, batch: int, height: int, width: int, dev) -> list:
@@ -330,6 +332,32 @@ def int_window_calls(rng, batch: int, height: int, width: int, dev) -> list:
             ref, dis, prev = (luma(shape, depth) for _ in range(3))
             calls.append((f"#13 XPSNR per-frame prev {what}", "xpsnr_block_stats",
                           lambda r=ref, d=dis, p=prev: tuple(xpsnr.xpsnr_block_stats(r, d, prev=p).values())))
+    return calls
+
+
+def motion_prev_calls(rng, batch: int, height: int, width: int, dev) -> list:
+    """(entry, wrapper, call) of #16 with every frame's own previous blurred
+    plane (``prev``, seeded planes, none the blur of the frame before) on u8
+    luma at the given shape and on 10-bit luma at an odd size, and with one
+    plane for every frame (a batch stride of 0); none where the checkout's
+    ``motion_stats`` does not take ``prev`` (the parent of an A/B)."""
+    from turbo_metrics_tpu_torch.ops.kernels import motion
+
+    if "prev" not in inspect.signature(motion.motion_stats).parameters:
+        return []
+
+    def planes(shape, depth, dtype):
+        return torch.from_numpy(rng.integers(0, 1 << depth, shape).astype(dtype)).to(dev)
+
+    calls = []
+    for what, shape, depth, dt in ((f"u8 {width}x{height}", (batch, height, width), 8, np.uint8),
+                                   ("10-bit 131x35", (3, 35, 131), 10, np.uint16)):
+        y, prev = planes(shape, depth, dt), planes(shape, 16, np.uint16)
+        calls.append((f"#16 motion per-frame prev {what}", "motion_stats",
+                      lambda y=y, p=prev, d=depth: tuple(motion.motion_stats(y, prev=p, depth=d).values())))
+        calls.append((f"#16 motion one prev for every frame {what}", "motion_stats",
+                      lambda y=y, p=prev[0], d=depth: tuple(motion.motion_stats(y, prev=p.expand(y.shape),
+                                                                                depth=d).values())))
     return calls
 
 
