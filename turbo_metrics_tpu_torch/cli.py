@@ -17,6 +17,7 @@ seekable constant-frame-rate file with N seek-partitioned decoders.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -119,7 +120,31 @@ def build_parser() -> argparse.ArgumentParser:
         default="cuda",
         help="torch device: 'cuda' (default; an error without CUDA) or 'cpu'.",
     )
+    p.add_argument(
+        "--trace",
+        metavar="DIR",
+        help=(
+            "Score under torch.profiler, writing a Chrome/Perfetto trace that "
+            "holds the program's spans into DIR, then print each span's count "
+            "and host ms a batch, and the counters, to stderr."
+        ),
+    )
     return p
+
+
+def print_records(records) -> None:
+    """Print the recorded spans to stderr, most self time first, and the
+    counters: each span's count, its self and total host ms per batch
+    (``tm.batch`` spans), and each counter's total and per-batch value."""
+    batches = records.per()
+    lines = [f"spans over {batches} batch(es): count, self ms / batch, total ms / batch"]
+    for name, st in sorted(records.spans.items(), key=lambda kv: -kv[1].self_s):
+        lines.append(f"  {name:<28} {st.count:>8} {st.self_s * 1e3 / batches:>12.4f} "
+                     f"{st.total_s * 1e3 / batches:>12.4f}")
+    lines.append("counters: total, per batch")
+    for name, n in sorted(records.counters.items()):
+        lines.append(f"  {name:<28} {n:>12} {n / batches:>12.2f}")
+    print("\n".join(lines), file=sys.stderr)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -271,33 +296,42 @@ def main(argv: list[str] | None = None) -> int:
     start = time.monotonic()
     segments = []
     seg_opts = opts
+    traced = contextlib.nullcontext()
+    if args.trace:
+        from turbo_metrics_tpu_torch.utils import profiling
+
+        traced = profiling.device_trace(args.trace)
     try:
-        while True:
-            results = turbo.compute_all(source_ref, source_dis, seg_opts, on_frame=on_frame)
-            segments.append(results)
-            if results.resolution_changed is None:
-                break
-            w2, h2 = source_ref.width, source_ref.height
-            if (source_dis.width, source_dis.height) != (w2, h2):
-                log.error(
-                    "reference reconfigured to %dx%d but distorted is %dx%d; "
-                    "cannot continue scoring",
-                    w2, h2, source_dis.width, source_dis.height,
+        with traced:
+            while True:
+                results = turbo.compute_all(source_ref, source_dis, seg_opts, on_frame=on_frame)
+                segments.append(results)
+                if results.resolution_changed is None:
+                    break
+                w2, h2 = source_ref.width, source_ref.height
+                if (source_dis.width, source_dis.height) != (w2, h2):
+                    log.error(
+                        "reference reconfigured to %dx%d but distorted is %dx%d; "
+                        "cannot continue scoring",
+                        w2, h2, source_dis.width, source_dis.height,
+                    )
+                    return 1
+                log.info("rebuilding engine for new segment %dx%d", w2, h2)
+                remaining = (
+                    max(0, seg_opts.frames - results.frame_count) if seg_opts.frames else 0
                 )
-                return 1
-            log.info("rebuilding engine for new segment %dx%d", w2, h2)
-            remaining = (
-                max(0, seg_opts.frames - results.frame_count) if seg_opts.frames else 0
-            )
-            if seg_opts.frames and not remaining:
-                break
-            seg_opts = Options(every=seg_opts.every, frames=remaining)
-            turbo = make_engine()
+                if seg_opts.frames and not remaining:
+                    break
+                seg_opts = Options(every=seg_opts.every, frames=remaining)
+                turbo = make_engine()
     except NotImplementedError as e:
         log.error("%s", e)
         return 1
     results = merge_results(segments)
     elapsed = time.monotonic() - start
+    if args.trace:
+        log.info("trace written to %s", args.trace)
+        print_records(profiling.take())
     if pbar is not None:
         pbar.close()
 

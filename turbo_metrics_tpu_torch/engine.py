@@ -63,6 +63,8 @@ from turbo_metrics_tpu_torch.ops.vif import vif_scores
 from turbo_metrics_tpu_torch.ops.vmaf_motion import motion_score
 from turbo_metrics_tpu_torch.ops.xpsnr_ops import align_luma_depth, frames_db
 from turbo_metrics_tpu_torch.parallel.mesh import frames_per_shard, gather_frames, launch_shards
+from turbo_metrics_tpu_torch.utils import profiling
+from turbo_metrics_tpu_torch.utils.profiling import span, to_host
 from turbo_metrics_tpu_torch.utils.stats import Stats
 
 
@@ -384,34 +386,35 @@ class TurboMetrics:
         """Compute all selected metrics for a batch of frame pairs."""
         if len(ref_frames) != len(dis_frames) or not ref_frames:
             raise ValueError("need equal, non-zero numbers of ref and dis frames")
-        n = len(ref_frames)
-        # Pad a partial batch to the full batch by repeating its last frame,
-        # so every step sees one shape; padded scores are dropped below.  The
-        # XPSNR state stays right because the padding is the last real frame.
-        # Over a mesh, a longer call pads to a multiple of the mesh's size.
-        size = 1 if self.mesh is None else self.mesh.size
-        target = -(-max(n, self.batch) // size) * size
-        if n < target:
-            pad = target - n
-            ref_frames = ref_frames + [ref_frames[-1]] * pad
-            dis_frames = dis_frames + [dis_frames[-1]] * pad
-        spec = ConvertSpec.for_frame(ref_frames[0], *cc_ref)
-        spec_dis = ConvertSpec.for_frame(dis_frames[0], *cc_dis)
-        first = self.metrics.vmaf and self._vmaf_prev_blur is None
-        if self.mesh is None:
-            out, state = self._step(
-                self.device, spec, ref_frames, spec_dis, dis_frames, self._prev_ref, self._vmaf_prev_blur
-            )
-        else:
-            out, state = self._mesh_step(spec, ref_frames, spec_dis, dis_frames)
-        scores = self._scores(out, n, spec, first)
-        # Replaced once the scores are read: the shards may read the old
-        # state until then.
-        if self.metrics.xpsnr:
-            self._prev_ref = state[0]
-        if self.metrics.vmaf:
-            self._vmaf_prev_blur = state[1]
-        return scores
+        with span("tm.batch"):
+            n = len(ref_frames)
+            # Pad a partial batch to the full batch by repeating its last frame,
+            # so every step sees one shape; padded scores are dropped below.  The
+            # XPSNR state stays right because the padding is the last real frame.
+            # Over a mesh, a longer call pads to a multiple of the mesh's size.
+            size = 1 if self.mesh is None else self.mesh.size
+            target = -(-max(n, self.batch) // size) * size
+            if n < target:
+                pad = target - n
+                ref_frames = ref_frames + [ref_frames[-1]] * pad
+                dis_frames = dis_frames + [dis_frames[-1]] * pad
+            spec = ConvertSpec.for_frame(ref_frames[0], *cc_ref)
+            spec_dis = ConvertSpec.for_frame(dis_frames[0], *cc_dis)
+            first = self.metrics.vmaf and self._vmaf_prev_blur is None
+            if self.mesh is None:
+                out, state = self._step(
+                    self.device, spec, ref_frames, spec_dis, dis_frames, self._prev_ref, self._vmaf_prev_blur
+                )
+            else:
+                out, state = self._mesh_step(spec, ref_frames, spec_dis, dis_frames)
+            scores = self._scores(out, n, spec, first)
+            # Replaced once the scores are read: the shards may read the old
+            # state until then.
+            if self.metrics.xpsnr:
+                self._prev_ref = state[0]
+            if self.metrics.vmaf:
+                self._vmaf_prev_blur = state[1]
+            return scores
 
     def _mesh_step(self, spec: ConvertSpec, ref_frames: list, spec_dis: ConvertSpec, dis_frames: list):
         """``_step`` on every shard of the mesh; returns the gathered
@@ -453,77 +456,96 @@ class TurboMetrics:
         per-frame results as device tensors (nothing is read back) and the
         state after the last frame, (last reference luma, its blurred
         plane)."""
-        m = self.metrics
-        model, quality = self._models[dev]
-        out: dict = {}
-        last_ref = last_blur = None
-        # Planar YUV of one spec for both inputs is uploaded as one (2, B, ...)
-        # stack, so that one conversion launch covers the pair.
-        pair = None
-        if spec == spec_dis and spec.kind == "yuv420":
-            pair = self._planes(dev, ref_frames, dis_frames)
-            arr_ref, arr_dis = tuple(a[0] for a in pair), tuple(a[1] for a in pair)
-        else:
-            arr_ref, arr_dis = self._planes(dev, ref_frames), self._planes(dev, dis_frames)
-        s2_from_yuv = pair is not None and spec.chroma == 420 and quality is None
-        if s2_from_yuv and model is not None:
-            # SSIMULACRA2 the only RGB family: scale 0 conversion-fused, no
-            # RGB pair buffer.
-            out["ssimulacra2"] = model.subscores_from_yuv(
-                *pair,
-                depth=spec.depth,
-                matrix=spec.matrix,
-                transfer=spec.transfer,
-                full_range=spec.full_range,
-            )
-        elif model is not None or quality is not None:
-            p12 = self._linear_rgb_pair(dev, spec, arr_ref, spec_dis, arr_dis, pair)
-            if quality is not None:
-                out.update(quality.from_rgb(p12, psnr=m.psnr, ssim=m.ssim, msssim=m.msssim))
-            if model is not None:
-                out["ssimulacra2"] = model.subscores_from_rgb(p12)
-        if m.xpsnr:
-            out["xpsnr"], last_ref = self._xpsnr(spec, arr_ref, spec_dis, arr_dis, prev_ref)
-        if m.vmaf:
-            vmaf, last_blur = self._vmaf(spec, arr_ref, spec_dis, arr_dis, prev_blur)
-            out.update(vmaf)
-        return out, (last_ref, last_blur)
+        with span("tm.step"):
+            m = self.metrics
+            model, quality = self._models[dev]
+            out: dict = {}
+            last_ref = last_blur = None
+            # Planar YUV of one spec for both inputs is uploaded as one (2, B, ...)
+            # stack, so that one conversion launch covers the pair.
+            pair = None
+            with span("tm.planes"):
+                if spec == spec_dis and spec.kind == "yuv420":
+                    pair = self._planes(dev, ref_frames, dis_frames)
+                    arr_ref, arr_dis = tuple(a[0] for a in pair), tuple(a[1] for a in pair)
+                else:
+                    arr_ref, arr_dis = self._planes(dev, ref_frames), self._planes(dev, dis_frames)
+            s2_from_yuv = pair is not None and spec.chroma == 420 and quality is None
+            if s2_from_yuv and model is not None:
+                # SSIMULACRA2 the only RGB family: scale 0 conversion-fused, no
+                # RGB pair buffer.
+                with span("tm.step.ssimulacra2"):
+                    out["ssimulacra2"] = model.subscores_from_yuv(
+                        *pair,
+                        depth=spec.depth,
+                        matrix=spec.matrix,
+                        transfer=spec.transfer,
+                        full_range=spec.full_range,
+                    )
+            elif model is not None or quality is not None:
+                with span("tm.step.convert"):
+                    p12 = self._linear_rgb_pair(dev, spec, arr_ref, spec_dis, arr_dis, pair)
+                if quality is not None:
+                    with span("tm.step.quality"):
+                        out.update(quality.from_rgb(p12, psnr=m.psnr, ssim=m.ssim, msssim=m.msssim))
+                if model is not None:
+                    with span("tm.step.ssimulacra2"):
+                        out["ssimulacra2"] = model.subscores_from_rgb(p12)
+            if m.xpsnr:
+                with span("tm.step.xpsnr"):
+                    out["xpsnr"], last_ref = self._xpsnr(spec, arr_ref, spec_dis, arr_dis, prev_ref)
+            if m.vmaf:
+                with span("tm.step.vmaf"):
+                    vmaf, last_blur = self._vmaf(spec, arr_ref, spec_dis, arr_dis, prev_blur)
+                out.update(vmaf)
+            return out, (last_ref, last_blur)
 
     def _scores(self, out: dict, n: int, spec_ref: ConvertSpec, first: bool) -> list[FrameScores]:
         """The host's part: the first ``n`` frames' scores from a step's
         device results (the SSIMULACRA2 score, the XPSNR weighting and
-        VMAF's feature scores in f64)."""
-        scores = [FrameScores() for _ in range(n)]
-        for name in ("psnr", "ssim", "msssim"):
-            if name in out:
-                vals = out[name].cpu().numpy().astype(np.float64)
-                for i in range(n):
-                    setattr(scores[i], name, float(vals[i]))
-        if "ssimulacra2" in out:
-            s2 = self.model.score(out["ssimulacra2"])
-            for i in range(n):
-                scores[i].ssimulacra2 = float(s2[i])
-        if "xpsnr" in out:
-            # As in the JAX engine: an RGB reference is weighted at 8 bits,
-            # whatever its depth.
-            depth = spec_ref.depth if spec_ref.kind == "yuv420" else 8
-            db = frames_db(out["xpsnr"], width=self.width, height=self.height, depth=depth)
-            for s, v in zip(scores, db):
-                s.xpsnr = v
-        if "vif" in out:
-            vs = vif_scores(out["vif"].cpu().numpy())
-            adm = adm_score(out["adm"].cpu().numpy(), self.height, self.width)
-            sads = out["sad"].cpu().numpy()
-            for i, s in enumerate(scores):
-                s.vmaf_vif = float(vs["vif"][i])
-                s.vmaf_adm = float(adm["adm2"][i])
-                for k in range(4):
-                    setattr(s, f"vmaf_vif_scale{k}", float(vs[f"vif_scale{k}"][i]))
-                    setattr(s, f"vmaf_adm_scale{k}", float(adm[f"adm_scale{k}"][i]))
-                s.vmaf_motion = motion_score(int(sads[i]), self.width, self.height, depth=spec_ref.depth)
-            if first:
-                scores[0].vmaf_motion = 0.0
-        return scores
+        VMAF's feature scores in f64).  While the recording is on, the wait
+        for the batch's device work, which the first readback makes anyway,
+        is a span of its own (``tm.wait``)."""
+        with span("tm.score"):
+            if profiling.recording():
+                with span("tm.wait"):
+                    profiling.synchronize(out)
+            scores = [FrameScores() for _ in range(n)]
+            if self.quality is not None:
+                with span("tm.score.quality"):
+                    for name in ("psnr", "ssim", "msssim"):
+                        if name in out:
+                            vals = to_host(out[name]).astype(np.float64)
+                            for i in range(n):
+                                setattr(scores[i], name, float(vals[i]))
+            if "ssimulacra2" in out:
+                with span("tm.score.ssimulacra2"):
+                    s2 = self.model.score(out["ssimulacra2"])
+                    for i in range(n):
+                        scores[i].ssimulacra2 = float(s2[i])
+            if "xpsnr" in out:
+                with span("tm.score.xpsnr"):
+                    # As in the JAX engine: an RGB reference is weighted at 8
+                    # bits, whatever its depth.
+                    depth = spec_ref.depth if spec_ref.kind == "yuv420" else 8
+                    db = frames_db(out["xpsnr"], width=self.width, height=self.height, depth=depth)
+                    for s, v in zip(scores, db):
+                        s.xpsnr = v
+            if "vif" in out:
+                with span("tm.score.vmaf"):
+                    vs = vif_scores(to_host(out["vif"]))
+                    adm = adm_score(to_host(out["adm"]), self.height, self.width)
+                    sads = to_host(out["sad"])
+                    for i, s in enumerate(scores):
+                        s.vmaf_vif = float(vs["vif"][i])
+                        s.vmaf_adm = float(adm["adm2"][i])
+                        for k in range(4):
+                            setattr(s, f"vmaf_vif_scale{k}", float(vs[f"vif_scale{k}"][i]))
+                            setattr(s, f"vmaf_adm_scale{k}", float(adm[f"adm_scale{k}"][i]))
+                        s.vmaf_motion = motion_score(int(sads[i]), self.width, self.height, depth=spec_ref.depth)
+                    if first:
+                        scores[0].vmaf_motion = 0.0
+            return scores
 
     def _planes(self, dev: torch.device, *inputs: list[RawFrame]) -> tuple[torch.Tensor, ...]:
         """One input's frames on ``dev``, or two inputs' stacked on a
@@ -532,8 +554,11 @@ class TurboMetrics:
         fields = ("rgb",) if inputs[0][0].kind == "rgb" else ("y", "uv")
         out = []
         for field in fields:
-            a = np.stack([np.stack([getattr(f, field) for f in frames]) for frames in inputs])
-            out.append(torch.from_numpy(a[0] if len(inputs) == 1 else a).to(dev))
+            with span("tm.planes.stack"):
+                a = np.stack([np.stack([getattr(f, field) for f in frames]) for frames in inputs])
+            with span("tm.planes.upload"):
+                out.append(torch.from_numpy(a[0] if len(inputs) == 1 else a).to(dev))
+            profiling.count("upload_bytes", a.nbytes)
         return tuple(out)
 
     def _linear_rgb_pair(

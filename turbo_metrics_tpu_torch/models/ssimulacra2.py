@@ -77,6 +77,7 @@ from turbo_metrics_tpu_torch.parallel.mesh import (
     strip_input,
     upload,
 )
+from turbo_metrics_tpu_torch.utils.profiling import span, to_host
 
 NUM_SCALES = 6
 MATRIX_NAMES = ("bt709", "bt601_525", "bt601_625", "bt2020")
@@ -388,11 +389,13 @@ def ssimulacra2_subscores_from_yuv(
     port computes every sub-score and zeroes the masked ones, so None only
     keeps them.
     """
-    levels = ssimulacra2_level_sums_from_yuv(
-        y2, uv2, taps, opsin, num_scales=num_scales, depth=depth, matrix=matrix, transfer=transfer,
-        full_range=full_range, kr_kb=kr_kb,
-    )
-    return subscores_from_sums(levels, scale_dims(y2.shape[-2], y2.shape[-1], num_scales), needs)
+    with span("tm.step.ssimulacra2.levels"):
+        levels = ssimulacra2_level_sums_from_yuv(
+            y2, uv2, taps, opsin, num_scales=num_scales, depth=depth, matrix=matrix, transfer=transfer,
+            full_range=full_range, kr_kb=kr_kb,
+        )
+    with span("tm.step.ssimulacra2.norms"):
+        return subscores_from_sums(levels, scale_dims(y2.shape[-2], y2.shape[-1], num_scales), needs)
 
 
 def ssimulacra2_subscores_from_rgb(
@@ -405,11 +408,13 @@ def ssimulacra2_subscores_from_rgb(
     level chain.  Returns (B, 3, num_scales, 2, 3) f32; ``needs`` as for
     ``ssimulacra2_subscores_from_yuv``."""
     h, w = p12.shape[-2], p12.shape[-1]
-    sums0, level1 = fused_scale_rgb(p12, taps, opsin, emit_ds=num_scales > 1)
-    levels = [sums0]
-    if num_scales > 1:
-        levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales)
-    return subscores_from_sums(levels, scale_dims(h, w, num_scales), needs)
+    with span("tm.step.ssimulacra2.levels"):
+        sums0, level1 = fused_scale_rgb(p12, taps, opsin, emit_ds=num_scales > 1)
+        levels = [sums0]
+        if num_scales > 1:
+            levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales)
+    with span("tm.step.ssimulacra2.norms"):
+        return subscores_from_sums(levels, scale_dims(h, w, num_scales), needs)
 
 
 def _width_entry(fn):
@@ -614,8 +619,7 @@ class Ssimulacra2(nn.Module):
 
     def score(self, subscores: torch.Tensor) -> np.ndarray:
         """(B, 3, S, 2, 3) sub-scores -> (B,) f64 scores on the host."""
-        vals = subscores.detach().cpu().numpy().astype(np.float64)
-        return postprocess_score(vals, self.weights)
+        return postprocess_score(to_host(subscores).astype(np.float64), self.weights)
 
     def score_batch(self, lin_ref, lin_dis) -> np.ndarray:
         """Scores for a batch of (B, 3, H, W) frame pairs -> (B,) f64."""

@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from turbo_metrics_tpu_torch.utils import profiling
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -120,7 +122,8 @@ class KernelLibrary:
     def get(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                self._lib = self._load()
+                with profiling.span("tm.library.load"):
+                    self._lib = self._load()
             return self._lib
 
     def path(self) -> Path:
@@ -148,6 +151,7 @@ class KernelLibrary:
 
     def _build(self, path: Path) -> None:
         """One nvcc per source, all started together, then one link."""
+        profiling.count("library_builds")
         nvcc = _nvcc()
         tag = f"{path.stem}.{os.getpid()}"
         objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
@@ -185,7 +189,10 @@ LIBRARY = KernelLibrary()
 
 
 def check(status: int, what: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+    """Raise if a C entry point ``what`` reported a CUDA error; while the
+    recording is on, count the call as ``launches.<what>``."""
+    if profiling.recording():
+        profiling.count(f"launches.{what}")
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
 

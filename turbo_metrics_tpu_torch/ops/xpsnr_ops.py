@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from turbo_metrics_tpu_torch.ops import routes
+from turbo_metrics_tpu_torch.utils.profiling import to_host
 
 BLOCK = 16
 
@@ -191,7 +192,7 @@ def xpsnr_db(wsse_final: float, *, width: int, height: int, depth: int = 8) -> f
 def frames_db(stats: dict, *, width: int, height: int, depth: int = 8) -> list[float]:
     """XPSNR in dB of each frame of a batch's block grids ({"sse", "sact",
     "tact"}: (B, hb, wb) tensors or arrays), on the host."""
-    g = {k: np.asarray(v.cpu() if torch.is_tensor(v) else v) for k, v in stats.items()}
+    g = {k: to_host(v) if torch.is_tensor(v) else np.asarray(v) for k, v in stats.items()}
     kw = dict(width=width, height=height, depth=depth)
     return [
         xpsnr_db(xpsnr_weights(g["sse"][i], g["sact"][i], g["tact"][i], **kw)[0], **kw)

@@ -12,8 +12,8 @@ import queue
 import threading
 from typing import Iterator, Optional
 
-
 from turbo_metrics_tpu_torch.io.frame_source import FrameSource, RawFrame
+from turbo_metrics_tpu_torch.utils.profiling import span
 
 
 class FramePrefetcher:
@@ -41,57 +41,68 @@ class FramePrefetcher:
         )
         self._thread.start()
 
-    def _worker(self, src_r, src_d, batch, every, frames):
+    @staticmethod
+    def _pairs(src_r, src_d, every, frames) -> Iterator[tuple[RawFrame, RawFrame]]:
+        """The frame pairs to score, in order."""
         from turbo_metrics_tpu_torch.io.frame_source import ResolutionChanged
 
+        # Decode the two streams concurrently (the reference runs ref and
+        # dis decode on separate CUDA streams, lib.rs:276-293; here each
+        # stream gets its own host thread — libavcodec releases the GIL).
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(max_workers=2)
+        decode_count = 0
+        while True:
+            fut_r = pool.submit(src_r.get_frame)
+            fut_d = pool.submit(src_d.get_frame)
+            exc = None
+            fr = fd = None
+            try:
+                fr = fut_r.result()
+            except ResolutionChanged as e:
+                exc = e
+            try:
+                fd = fut_d.result()
+            except ResolutionChanged as e:
+                exc = exc or e
+            if exc is not None:
+                # Keep the pair lockstep across the segment boundary: an
+                # already-fetched mate goes back to its source so the new
+                # segment starts with matched frames.
+                if fr is not None:
+                    src_r.push_back(fr)
+                if fd is not None:
+                    src_d.push_back(fd)
+                raise exc
+            if fr is None or fd is None:
+                return
+            if every > 1 and decode_count != 0 and decode_count % every != 0:
+                decode_count += 1
+                continue
+            if frames > 0 and decode_count >= frames:
+                return
+            decode_count += 1
+            yield fr, fd
+
+    def _worker(self, src_r, src_d, batch, every, frames):
         pend_r: list[RawFrame] = []
         pend_d: list[RawFrame] = []
         try:
-            # Decode the two streams concurrently (the reference runs ref and
-            # dis decode on separate CUDA streams, lib.rs:276-293; here each
-            # stream gets its own host thread — libavcodec releases the GIL).
-            from concurrent.futures import ThreadPoolExecutor
-
-            pool = ThreadPoolExecutor(max_workers=2)
-            decode_count = 0
-            while True:
-                fut_r = pool.submit(src_r.get_frame)
-                fut_d = pool.submit(src_d.get_frame)
-                exc = None
-                fr = fd = None
-                try:
-                    fr = fut_r.result()
-                except ResolutionChanged as e:
-                    exc = e
-                try:
-                    fd = fut_d.result()
-                except ResolutionChanged as e:
-                    exc = exc or e
-                if exc is not None:
-                    # Keep the pair lockstep across the segment boundary: an
-                    # already-fetched mate goes back to its source so the new
-                    # segment starts with matched frames.
-                    if fr is not None:
-                        src_r.push_back(fr)
-                    if fd is not None:
-                        src_d.push_back(fd)
-                    raise exc
-                if fr is None or fd is None:
-                    break
-                if every > 1 and decode_count != 0 and decode_count % every != 0:
-                    decode_count += 1
-                    continue
-                if frames > 0 and decode_count >= frames:
-                    break
-                decode_count += 1
-                pend_r.append(fr)
-                pend_d.append(fd)
-                if len(pend_r) >= batch:
+            pairs = self._pairs(src_r, src_d, every, frames)
+            more = True
+            while more:
+                more = False
+                with span("tm.decode"):
+                    for fr, fd in pairs:
+                        pend_r.append(fr)
+                        pend_d.append(fd)
+                        if len(pend_r) >= batch:
+                            more = True
+                            break
+                if pend_r:
                     self._q.put((pend_r, pend_d))
                     pend_r, pend_d = [], []
-            if pend_r:
-                self._q.put((pend_r, pend_d))
-                pend_r, pend_d = [], []
         except BaseException as e:  # propagate to consumer
             # Flush the partial batch first: those frames were scored-worthy
             # decodes from before the fault/reconfiguration point.
@@ -103,7 +114,8 @@ class FramePrefetcher:
 
     def __iter__(self) -> Iterator[tuple[list[RawFrame], list[RawFrame]]]:
         while True:
-            item = self._q.get()
+            with span("tm.prefetch.wait"):
+                item = self._q.get()
             if item is None:
                 if self._error is not None:
                     raise self._error
