@@ -74,7 +74,8 @@ Phases, each fatal on failure (exit code 1):
      pkg-config's libav, the libav shared objects, the native shim's build
      or load (io/native.py), Pillow and cv2.  With Pillow, the golden pair
      of phase 6 as 8-bit PNG files through the CLI: the golden score within
-     0.05, #3 launched.  Where the shim builds or
+     0.05, the sRGB conversion pass (fused_scale_srgb) launched and #3 not.
+     Where the shim builds or
      loads: the decoded planes of both clips equal the record's sha256;
      -m ssimulacra2 on (MKV, TS), counters reset just before and read just
      after: 16 finite scores, kernels 1 and 2 launched, within 0.01 per
@@ -84,7 +85,8 @@ Phases, each fatal on failure (exit code 1):
      libraries, a line says that compressed decoding through the shim was
      not checked; then, with cv2, create_source takes the JAX package's
      fallback (OpenCvVideoSource, 8-bit RGB): the CLI on (MKV, TS): 16
-     finite scores, #3 and kernel 2 launched, --decode-workers 2 (ignored)
+     finite scores, the sRGB conversion pass and kernel 2 launched, #3 not,
+     --decode-workers 2 (ignored)
      and compute_frames on the decoded frames bit-equal, within 0.01 of the
      plain five-blur chain on the card and, where the card's cv2 decodes the
      record's RGB frames, of the record's JAX scores of those frames;
@@ -348,6 +350,23 @@ Phases, each fatal on failure (exit code 1):
      the f32 pair copy of VIF's and ADM's kernel route; (e) the kernels
      line's entry of #16 carries (b)'s times ("per_frame_prev_ms",
      "prev0_ms").
+  15. scale 0 straight from packed integer RGB (fused_scale_srgb,
+     csrc/ssimulacra2_scale.cu srgb_to_xyb_kernel, no TPU counterpart): (a)
+     at 1080p B=8 u8 and 16-bit, 1081x1919 B=8 u8, 1080p B=1 and 67x99 B=3
+     10-bit in uint16, the model entry's sub-scores and the wrapper's sums
+     and level 1 bit-equal to the plain route on the same codes
+     (colorspace.srgb_pair_to_linear, then #3 and the level chain), one
+     launch of fused_scale_srgb per call and none of #3; (b) the engine on 8-bit RGB frames (67x99,
+     two batches): SSIMULACRA2 alone launches fused_scale_srgb once a batch
+     and no #3, and scores bit-equal to the engine with PSNR beside it (the
+     pair-buffer route); (c) at 1080p B=8 (u8, 16-bit): the wrapper's and
+     the plain route's (cast, srgb_to_linear, slot copies, #3) CUDA-event
+     ms, their device ms, the conversion pass's device ms against the plain
+     conversion's (every kernel but #3's level pass), the whole SSIMULACRA2
+     step both ways in turns and its peak memory; (d) the kernels line's
+     row "fused_scale_srgb" ("tpu_kernel": false; (a) and (b)'s launches
+     and largest difference; the whole wrapper's bound, and the conversion
+     pass's under "conversion_bound_ms").
 Prints the card, the dissect tool's JSON line, then one JSON line of
 per-kernel results (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -746,6 +765,7 @@ def counted_kernels() -> dict:
         "fused_scale0_yuv": scale_stats.fused_scale0_yuv,
         "fused_pyramid_tail": scale_tail.fused_pyramid_tail,
         "fused_scale_rgb": scale_stats.fused_scale_rgb,
+        "fused_scale_srgb": scale_stats.fused_scale_srgb,
         "yuv420_to_linear_rgb_pair": convert.yuv420_to_linear_rgb_pair,
         "ssim_sums": windowed.ssim_sums,
         "msssim_tail": windowed_tail.msssim_tail,
@@ -2131,7 +2151,8 @@ def run_image_pair(dev, card: str, tmp: str) -> None:
     log(f"CLI (g) PNG golden pair: {score:.6f} (frozen {GOLDEN}, budget 0.05), launches "
         f"{ {k: v for k, v in launches.items() if v} } [{card}]")
     need(abs(score - GOLDEN) <= 0.05, f"(g) PNG golden pair {score} vs {GOLDEN}")
-    need(launches["fused_scale_rgb"] > 0, f"(g) the PNG pair did not launch #3: {launches}")
+    need(launches["fused_scale_srgb"] > 0 and launches["fused_scale_rgb"] == 0,
+         f"(g) the PNG pair did not take the sRGB conversion pass alone: {launches}")
 
 
 def run_native_clips(dev, card: str, tmp: str, record: dict, ref: str, dis: str):
@@ -2177,8 +2198,8 @@ def run_native_clips(dev, card: str, tmp: str, record: dict, ref: str, dis: str)
 
 def run_opencv_clips(dev, card: str, record: dict, ref: str, dis: str, y4m_pair):
     """Phase 4g where the shim is unavailable and cv2 present: the JAX
-    package's fallback, OpenCV (8-bit RGB frames, the engine's RGB route:
-    sRGB conversion, #3, the level chain)."""
+    package's fallback, OpenCV (8-bit RGB frames, the engine's sRGB route:
+    the sRGB conversion pass, the level chain)."""
     from turbo_metrics_tpu_torch.engine import Metrics, TurboMetrics
     from turbo_metrics_tpu_torch.io import opencv_source, probe
     from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2, ssimulacra2_subscores
@@ -2205,8 +2226,9 @@ def run_opencv_clips(dev, card: str, record: dict, ref: str, dis: str, y4m_pair)
     s2 = scores["ssimulacra2"]
     log(f"CLI (g) VP9 MKV vs MPEG-2 TS through OpenCV, -m ssimulacra2: {FRAMES} frames in {seconds:.2f} s, "
         f"launches {launches} [{card}]")
-    need(launches["fused_scale_rgb"] > 0 and launches["fused_pyramid_tail"] > 0,
-         f"(g): a kernel of the RGB route (#3, kernel 2) was not launched: {launches}")
+    need(launches["fused_scale_srgb"] > 0 and launches["fused_pyramid_tail"] > 0
+         and launches["fused_scale_rgb"] == 0,
+         f"(g): the sRGB route (its conversion pass, kernel 2; no #3) was not taken: {launches}")
     pooled, _, _ = run_cli(ref, dis, dev, ["ssimulacra2"], extra=("--decode-workers", "2"))
     need(np.array_equal(pooled["ssimulacra2"], s2), "(g) --decode-workers 2 changed the scores")
     # The same decoded frames through the engine directly, and through the
@@ -4187,6 +4209,153 @@ def run_plain_vmaf_phase(dev, card: str) -> dict:
     return {"errs": errs, "prev_ms": prev_ms, "runs": runs, "times": times}
 
 
+# Phase 15: scale 0 straight from packed integer sRGB.  (h, w, B, depth);
+# 16-bit and 10-bit codes are uint16.
+SRGB_CASES = ((HEIGHT, WIDTH, BATCH, 8), (HEIGHT, WIDTH, BATCH, 16), (HEIGHT + 1, WIDTH - 1, BATCH, 8),
+              (HEIGHT, WIDTH, 1, 8), (67, 99, 3, 10))
+
+
+def srgb_codes(dev, bsz: int, h: int, w: int, depth: int, seed: int):
+    """Seeded (reference, distorted) (B, h, w, 3) codes on the card: uniform
+    reference codes, the distorted ones up to 9 steps of 8-bit size off."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    hi = (1 << depth) - 1
+    ref = torch.randint(0, hi + 1, (bsz, h, w, 3), generator=gen, device=dev, dtype=torch.int32)
+    step = max(hi // 255, 1)
+    dis = (ref + step * torch.randint(-9, 10, ref.shape, generator=gen, device=dev, dtype=torch.int32)).clamp(0, hi)
+    dt = torch.uint8 if depth == 8 else torch.uint16
+    return ref.to(dt), dis.to(dt)
+
+
+def check_srgb_route(dev, card: str) -> dict:
+    """Phase 15 (a), (b): the sRGB conversion pass against the plain route,
+    bit for bit, and the engine's choice of it.  Returns fused_scale_srgb's
+    launches over (a) and (b) and the largest difference measured."""
+    from turbo_metrics_tpu_torch.engine import Metrics, TurboMetrics
+    from turbo_metrics_tpu_torch.io.frame_source import RawFrame
+    from turbo_metrics_tpu_torch.io.opencv_source import SRGB_CHARACTERISTICS
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2, ssimulacra2_subscores_from_rgb
+    from turbo_metrics_tpu_torch.ops import colorspace
+    from turbo_metrics_tpu_torch.ops.kernels import scale_stats
+
+    total, err = 0, 0.0
+    for k, (h, w, bsz, depth) in enumerate(SRGB_CASES):
+        what = f"(15a) {w}x{h} B={bsz} {depth}-bit"
+        ref, dis = srgb_codes(dev, bsz, h, w, depth, 1500 + k)
+        model = Ssimulacra2(w, h, device=dev)
+        reset_counts()
+        got = model.subscores_from_srgb(ref, dis, depth=depth)
+        table = model.code_table(ref.dtype, depth)
+        sums, lvl1 = scale_stats.fused_scale_srgb(ref, dis, model.taps, model.opsin, table, depth=depth)
+        launches = read_counts()
+        need(launches["fused_scale_srgb"] == 2 and launches["fused_scale_rgb"] == 0,
+             f"{what}: want two launches of fused_scale_srgb and none of #3, got {launches}")
+        total += launches["fused_scale_srgb"]
+        p12 = colorspace.srgb_pair_to_linear(ref, dis, depth=depth)
+        want = ssimulacra2_subscores_from_rgb(p12, model.taps, model.opsin, num_scales=model.num_scales)
+        sums_p, lvl1_p = scale_stats.fused_scale_rgb(p12, model.taps, model.opsin)
+        for name, a, b in (("sub-scores", got, want), ("level-0 sums", sums, sums_p), ("level 1", lvl1, lvl1_p)):
+            diff = float((a - b).abs().max())
+            err = max(err, diff)
+            if not torch.equal(a, b):
+                need(False, f"{what}: {name} differ from the plain route's in {int((a != b).sum())} of "
+                            f"{a.numel()}, by at most {diff:.3g}")
+        log(f"{what}: sub-scores, sums and level 1 bit-equal to the plain route; launches "
+            f"{ {n: v for n, v in launches.items() if v} } [{card}]")
+        del ref, dis, p12, lvl1, lvl1_p
+    # (b) the engine on host frames: the fused route against the pair buffer.
+    h, w, n = 67, 99, 4
+    ref, dis = (t.cpu().numpy() for t in srgb_codes(dev, n, h, w, 8, 1599))
+    cc = SRGB_CHARACTERISTICS, "full"
+    frames = [[RawFrame(rgb=f, depth=8) for f in x] for x in (ref, dis)]
+    runs = {}
+    for label, metrics in (("alone", Metrics(ssimulacra2=True)), ("with psnr", Metrics(ssimulacra2=True, psnr=True))):
+        engine = TurboMetrics(w, h, metrics, batch=2, device=dev)
+        reset_counts()
+        runs[label] = [s.ssimulacra2 for b in (0, 2) for s in engine.compute_frames(
+            frames[0][b:b + 2], cc, frames[1][b:b + 2], cc)]
+        runs[label + " launches"] = read_counts()
+    la, lp = runs["alone launches"], runs["with psnr launches"]
+    need(la["fused_scale_srgb"] == 2 and la["fused_scale_rgb"] == 0 and lp["fused_scale_srgb"] == 0
+         and lp["fused_scale_rgb"] == 2, f"(15b) engine routes: alone {la}, with psnr {lp}")
+    need(runs["alone"] == runs["with psnr"], f"(15b) engine scores differ: {runs['alone']} vs {runs['with psnr']}")
+    log(f"(15b) engine {w}x{h}, 8-bit RGB, two batches of 2: SSIMULACRA2 alone on fused_scale_srgb, with PSNR "
+        f"on #3, scores bit-equal {runs['alone']} [{card}]")
+    total += la["fused_scale_srgb"]
+    err = max([err] + [abs(a - b) for a, b in zip(runs["alone"], runs["with psnr"])])
+    return {"launches": total, "max_abs_err": err}
+
+
+def time_srgb_route(dev, card: str) -> dict:
+    """Phase 15 (c): times at 1080p B=8, u8 and 16-bit."""
+    from turbo_metrics_tpu_torch.models.ssimulacra2 import Ssimulacra2, ssimulacra2_subscores_from_rgb
+    from turbo_metrics_tpu_torch.ops import colorspace
+    from turbo_metrics_tpu_torch.ops.kernels import scale_stats
+    from turbo_metrics_tpu_torch.tools.kernel_dissect import time_ms
+
+    model = Ssimulacra2(WIDTH, HEIGHT, device=dev)
+    taps, opsin = model.taps, model.opsin
+    level = ("level_tile_kernel", "reduce_parts_kernel")
+    level1_bytes = 2 * BATCH * 3 * ((HEIGHT + 1) // 2) * ((WIDTH + 1) // 2) * 4
+    out = {}
+    for depth in (8, 16):
+        ref, dis = srgb_codes(dev, BATCH, HEIGHT, WIDTH, depth, 1700 + depth)
+        table = model.code_table(ref.dtype, depth)
+
+        def fused(ref=ref, dis=dis, table=table, depth=depth):
+            return scale_stats.fused_scale_srgb(ref, dis, taps, opsin, table, depth=depth)
+
+        def plain(ref=ref, dis=dis, depth=depth):
+            return scale_stats.fused_scale_rgb(colorspace.srgb_pair_to_linear(ref, dis, depth=depth), taps, opsin)
+
+        def step_fused(ref=ref, dis=dis, depth=depth):
+            return model.subscores_from_srgb(ref, dis, depth=depth)
+
+        def step_plain(ref=ref, dis=dis, depth=depth):
+            return ssimulacra2_subscores_from_rgb(colorspace.srgb_pair_to_linear(ref, dis, depth=depth), taps,
+                                                  opsin, num_scales=model.num_scales)
+
+        # In turns: fused, plain, plain, fused.
+        ms = {"fused": [time_ms(fused, 20)], "plain": [time_ms(plain, 20), time_ms(plain, 20)]}
+        ms["fused"].append(time_ms(fused, 20))
+        step = {"fused": [time_ms(step_fused, 20)], "plain": [time_ms(step_plain, 20), time_ms(step_plain, 20)]}
+        step["fused"].append(time_ms(step_fused, 20))
+        r = {
+            "ms": float(np.median(ms["fused"])), "plain_ms": float(np.median(ms["plain"])),
+            "device_ms": device_ms(fused), "conversion_device_ms": device_ms(fused, ("srgb_to_xyb_kernel",)),
+            "plain_device_ms": device_ms(plain),
+            "plain_conversion_device_ms": device_ms(plain) - device_ms(plain, level),
+            "step_ms": step["fused"], "step_plain_ms": step["plain"],
+            "step_mib": step_peak_mib(step_fused, dev), "step_plain_mib": step_peak_mib(step_plain, dev),
+            # The wrapper: codes in, level 1 and the sums out (as kernel 1's
+            # row); its conversion pass: codes in, XYB and level 1 out.
+            "nbytes": nbytes(ref, dis) + level1_bytes + BATCH * 3 * 6 * 4,
+            "conversion_nbytes": nbytes(ref, dis) + 2 * BATCH * 3 * HEIGHT * WIDTH * 4 + level1_bytes,
+        }
+        log(f"(15c) 1080p B={BATCH} {depth}-bit: fused_scale_srgb {' / '.join(f'{t:.3f}' for t in ms['fused'])} ms "
+            f"(device {r['device_ms']:.4f}, its conversion pass {r['conversion_device_ms']:.4f}) against the plain "
+            f"route {' / '.join(f'{t:.3f}' for t in ms['plain'])} ms (device {r['plain_device_ms']:.4f}, its "
+            f"conversion {r['plain_conversion_device_ms']:.4f}); the SSIMULACRA2 step "
+            f"{' / '.join(f'{t:.3f}' for t in step['fused'])} ms against "
+            f"{' / '.join(f'{t:.3f}' for t in step['plain'])} ms, peak above its inputs {r['step_mib']:.1f} MiB "
+            f"against {r['step_plain_mib']:.1f} MiB [{card}]")
+        out[depth] = r
+        del ref, dis
+    return out
+
+
+def run_srgb_phase(dev, card: str) -> dict:
+    """Phase 15: (a), (b) the sRGB conversion pass against the plain route
+    and the engine's route; (c) the times.  Returns (c)'s figures by depth,
+    and (a) and (b)'s launches and largest difference."""
+    t0 = time.monotonic()
+    checks = check_srgb_route(dev, card)
+    times = time_srgb_route(dev, card)
+    log(f"phase 15: {time.monotonic() - t0:.1f} s [{card}]")
+    return {**times, **checks}
+
+
 def main() -> int:
     try:
         from turbo_metrics_tpu_torch.models.ssimulacra2 import (
@@ -4468,6 +4637,7 @@ def main() -> int:
         vmaf_width = run_vmaf_width_phase(dev, card)
         int_plain = run_int_plain_phase(dev, card)
         plain_vmaf = run_plain_vmaf_phase(dev, card)
+        srgb = run_srgb_phase(dev, card)
 
     mpx = WIDTH * HEIGHT / 1e6
     for name, runs in (
@@ -4685,6 +4855,30 @@ def main() -> int:
             # the twin (phase 13b).
             "windowed_max_abs_err": int_plain["window_err"][name],
         })
+    # The sRGB conversion pass, which replaces no TPU kernel (the JAX
+    # package converts packed sRGB with jnp).  The row's bound is the whole
+    # wrapper's, as kernel 1's: bytes (codes in, level 1 and sums out)
+    # against the level's f32 work (the table lookups add none); the pass
+    # alone (codes in, XYB and level 1 out, its XYB work) under its own keys.
+    r = srgb[8]
+    wrap_ms, wrap_by = bound(r["nbytes"], s2_level_flops(BATCH, HEIGHT, WIDTH))
+    conv_ms, conv_by = bound(r["conversion_nbytes"], 2 * BATCH * HEIGHT * WIDTH * F_XYB)
+    log(f"fused_scale_srgb: {r['ms']:.3f} ms (device {r['device_ms']:.4f}) vs plain {r['plain_ms']:.3f} ms, bound "
+        f"{wrap_ms:.4f} ms by {wrap_by} ({r['nbytes'] / 1e6:.1f} MB); its conversion pass device "
+        f"{r['conversion_device_ms']:.4f} ms (the plain conversion's {r['plain_conversion_device_ms']:.4f}), bound "
+        f"{conv_ms:.4f} ms by {conv_by} ({r['conversion_nbytes'] / 1e6:.1f} MB); launches {srgb['launches']}, "
+        f"max abs err {srgb['max_abs_err']:.3g} [{card}]")
+    kernels.append({
+        "name": "fused_scale_srgb", "route": "cuda", "source": CSRC + "ssimulacra2_scale.cu",
+        # No TPU kernel: the JAX package converts packed sRGB with jnp.
+        "replaces": "turbo_metrics_tpu/ops/colorspace.py srgb_to_linear (jnp)", "launches": srgb["launches"],
+        "max_abs_err": srgb["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": wrap_ms,
+        "bound_by": wrap_by, "library_ms": None, "redesigned": None, "tpu_kernel": False,
+        "device_ms": r["device_ms"], "conversion_device_ms": r["conversion_device_ms"],
+        "conversion_bound_ms": conv_ms, "conversion_bound_by": conv_by,
+        "plain_conversion_device_ms": r["plain_conversion_device_ms"],
+        "ms_16bit": srgb[16]["ms"], "plain_ms_16bit": srgb[16]["plain_ms"],
+    })
     peak = max(RUN_PEAK[0], torch.cuda.max_memory_allocated(dev))
     log(f"peak device memory {peak / 2**30:.2f} GiB [{card}]")
 

@@ -21,6 +21,9 @@
 //     (one level's sums from two linear-RGB tensors, no emission; also the
 //     function of fused_scale_pallas, v2) = tm_rgb_pair_to_xyb +
 //     tm_level_sums.
+// And one pass with no TPU counterpart (the JAX package converts packed sRGB
+// with jnp): scale 0's conversion pass straight from packed integer RGB
+// codes, tm_srgb_pair_to_xyb (+ tm_level_sums), kernel 1's sibling for sRGB.
 // The per-pixel arithmetic and the fused level pass of one tile (level_tile)
 // live in ssimulacra2_level.cuh, shared with the persistent tail kernel of
 // ssimulacra2_tail.cu (#4), which runs the same tiles in one launch.
@@ -70,6 +73,8 @@
 // Layouts (all contiguous):
 //   luma   (2, B, h, w)            u8 or u16, image 0 = reference, 1 = distorted
 //   chroma (2, B, ch, cw, 2)        same type, (Cb, Cr) pairs, ch = ceil(h/2)
+//   codes  (B, h, w, 3) x 2         u8 or u16 packed RGB, reference and distorted
+//   table  (2^16 or 2^8)            f32 linear light of every code of the type
 //   level  (2, B, 3, h, w)          f32 linear RGB
 //   xyb    (2, B, 3, h, w)          f32 positive-shifted XYB (scratch)
 //   parts  (B*3, nblk, 6)           f32 per-32x8-tile partial sums
@@ -167,6 +172,85 @@ rgb_to_xyb_kernel(const float* __restrict__ ref, const float* __restrict__ dis, 
 }
 
 // ---------------------------------------------------------------------------
+// Conversion pass of scale 0 from packed integer RGB: one thread per 2x2
+// quad, as yuv420_to_xyb_kernel.  The reference's B images of interleaved
+// codes at ref, the distorted one's at dis; each code maps through table,
+// the linear light of every code of T that the plain route computes
+// (ops/kernels/scale_stats.py code_table: colorspace.srgb_to_linear of
+// torch.arange on the device), so every linear value, and then every XYB
+// value and mean, equals rgb_quad's on the plain route's pair buffer bit
+// for bit.  The EOTF of colorspace.cuh (lg2/ex2.approx) would not.  The
+// quad's pixels are summed ((a+b)+c)+d in rgb_quad's order.
+//   * u8: the 256-entry table (1 KB) copied into shared memory by each
+//     block (one entry per thread), looked up there;
+//   * u16: the 65536-entry table (256 KB) read from device memory, where it
+//     stays resident in L2.
+// What bounds it on this card: its bytes, ~0.10 GB of u8 codes in and ~0.50
+// GB of XYB and level 1 out per 1080p B=8 pair batch (~0.18 ms at 3.35
+// TB/s), and its cube roots, the same three per pixel as kernel 1's
+// conversion pass: 0.290 ms of device time on an H100, as kernel 1's pass
+// (0.65 ms at u16, its table read from L2).  Each thread
+// reads its quad's two rows of 6 (u8) or 12 (u16) bytes one code at a time:
+// a warp's codes are 192 (384) consecutive bytes a row, so the loads
+// coalesce whatever the row's alignment.
+// grid: (ceil(wq/kBx), ceil(hq/kBy), 2*B), block: (kBx, kBy).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+srgb_to_xyb_kernel(const T* __restrict__ ref, const T* __restrict__ dis, int batch, int h, int w,
+                   const float* __restrict__ table, const float* __restrict__ opsin,
+                   float* __restrict__ xyb, float* __restrict__ next) {
+  constexpr bool kShared = sizeof(T) == 1;
+  static_assert(!kShared || kThreads == 256, "one table entry per thread");
+  __shared__ float lut[kShared ? 256 : 1];
+  if (kShared) {
+    const int t = threadIdx.y * kBx + threadIdx.x;
+    lut[t] = __ldg(table + t);
+    __syncthreads();
+  }
+  const int hq = (h + 1) / 2, wq = (w + 1) / 2;
+  const int qj = blockIdx.x * kBx + threadIdx.x;
+  const int qi = blockIdx.y * kBy + threadIdx.y;
+  if (qi >= hq || qj >= wq) return;
+  const int img = blockIdx.z;  // image * B + batch
+  const size_t npx = (size_t)h * w;
+  const size_t nq = (size_t)hq * wq;
+  float o[11];
+#pragma unroll
+  for (int k = 0; k < 11; ++k) o[k] = __ldg(opsin + k);
+  const T* src = img < batch ? ref + (size_t)img * 3 * npx : dis + (size_t)(img - batch) * 3 * npx;
+  float* xp = xyb + (size_t)img * 3 * npx;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int dy = 0; dy < 2; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < 2; ++dx) {
+      const int r = min(2 * qi + dy, h - 1);
+      const int c = min(2 * qj + dx, w - 1);
+      const size_t at = (size_t)r * w + c;
+      const T* px = src + 3 * at;
+      float v[3];
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const unsigned code = __ldg(px + ch);
+        v[ch] = kShared ? lut[code] : __ldg(table + code);
+      }
+      acc[0] += v[0];
+      acc[1] += v[1];
+      acc[2] += v[2];
+      if (2 * qi + dy < h && 2 * qj + dx < w) {
+        to_xyb(v[0], v[1], v[2], o, xp + at, xp + npx + at, xp + 2 * npx + at);
+      }
+    }
+  }
+  if (next != nullptr) {
+    float* np_ = next + (size_t)img * 3 * nq + (size_t)qi * wq + qj;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) np_[ch * nq] = acc[ch] * 0.25f;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The fused level pass (level_tile in ssimulacra2_level.cuh): one block per
 // 32x32 output tile of plane blockIdx.z (b*3 + ch), the columns [clo, chi)
 // summed.
@@ -251,6 +335,29 @@ int tm_yuv420_to_xyb(const void* luma, const void* chroma, int is16, int batch, 
     }
   });
   if (!known) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Scale-0 conversion pass from packed integer RGB: with tm_level_sums, kernel
+// 1's sibling for sRGB sources; it replaces no TPU kernel (the JAX package
+// converts sRGB with jnp).  ref, dis (B,h,w,3) codes, u16 when is16 else u8;
+// table the f32 linear light of every code of that type (65536 or 256
+// entries); xyb (2,B,3,h,w); next (2,B,3,ceil(h/2),ceil(w/2)) or null.
+int tm_srgb_pair_to_xyb(const void* ref, const void* dis, int is16, int batch, int h, int w,
+                        const float* table, const float* opsin, float* xyb, float* next,
+                        void* stream) {
+  const dim3 grid = quad_grid(h, w, 2 * batch);
+  const dim3 block(kBx, kBy);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is16) {
+    srgb_to_xyb_kernel<uint16_t><<<grid, block, 0, s>>>(
+        static_cast<const uint16_t*>(ref), static_cast<const uint16_t*>(dis), batch, h, w, table,
+        opsin, xyb, next);
+  } else {
+    srgb_to_xyb_kernel<uint8_t><<<grid, block, 0, s>>>(
+        static_cast<const uint8_t*>(ref), static_cast<const uint8_t*>(dis), batch, h, w, table,
+        opsin, xyb, next);
+  }
   return (int)cudaGetLastError();
 }
 

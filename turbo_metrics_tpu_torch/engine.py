@@ -7,9 +7,12 @@ XPSNR and VMAF's float features on planar YUV (4:2:0, 4:2:2, 4:4:4) and
 packed RGB input.  The host
 stacks each batch of decoded frames and uploads them; the device runs (the
 JAX engine's ``_get_step``):
-  * for the RGB families, one of two routes.  SSIMULACRA2 as the only one,
-    both inputs of one 4:2:0 conversion spec: scale 0 straight from YUV
-    (models/ssimulacra2.ssimulacra2_subscores_from_yuv).  Otherwise the
+  * for the RGB families, one of three routes.  SSIMULACRA2 as the only
+    one, both inputs of one 4:2:0 conversion spec: scale 0 straight from YUV
+    (models/ssimulacra2.ssimulacra2_subscores_from_yuv).  SSIMULACRA2 as the
+    only one, both inputs packed integer sRGB (uint8 or uint16) of one spec:
+    scale 0 straight from the codes through a code table
+    (models/ssimulacra2.ssimulacra2_subscores_from_srgb).  Otherwise the
     multi-metric route: a (2, B, 3, h, w) linear-RGB pair buffer, filled by
     one conversion launch for a shared YUV spec or one per image when the
     specs differ (ops/kernels/convert.py: #6 for 4:2:0, #5 for 4:2:2 and
@@ -470,8 +473,13 @@ class TurboMetrics:
                     arr_ref, arr_dis = tuple(a[0] for a in pair), tuple(a[1] for a in pair)
                 else:
                     arr_ref, arr_dis = self._planes(dev, ref_frames), self._planes(dev, dis_frames)
-            s2_from_yuv = pair is not None and spec.chroma == 420 and quality is None
-            if s2_from_yuv and model is not None:
+            s2_alone = model is not None and quality is None
+            s2_from_yuv = s2_alone and pair is not None and spec.chroma == 420
+            s2_from_rgb = (
+                s2_alone and spec.kind == "rgb" and spec.transfer == "srgb" and spec == spec_dis
+                and arr_ref[0].dtype == arr_dis[0].dtype and model.takes_codes(arr_ref[0].dtype)
+            )
+            if s2_from_yuv:
                 # SSIMULACRA2 the only RGB family: scale 0 conversion-fused, no
                 # RGB pair buffer.
                 with span("tm.step.ssimulacra2"):
@@ -482,6 +490,11 @@ class TurboMetrics:
                         transfer=spec.transfer,
                         full_range=spec.full_range,
                     )
+            elif s2_from_rgb:
+                # The same for packed integer RGB: scale 0 straight from the
+                # codes, no RGB pair buffer.
+                with span("tm.step.ssimulacra2"):
+                    out["ssimulacra2"] = model.subscores_from_srgb(arr_ref[0], arr_dis[0], depth=spec.depth)
             elif model is not None or quality is not None:
                 with span("tm.step.convert"):
                     p12 = self._linear_rgb_pair(dev, spec, arr_ref, spec_dis, arr_dis, pair)
@@ -583,13 +596,10 @@ class TurboMetrics:
         """Linear RGB of one input's ``arrays`` into ``p12[slot]`` (then
         ``p12`` is returned), or of a stacked pair into a new buffer."""
         if spec.kind == "rgb":
-            # Plain torch, as in the JAX package (no TPU kernel either).
-            rgb = arrays[0].permute(0, 3, 1, 2)
-            lin = (
-                rgb.to(torch.float32) if spec.transfer == "linear"
-                else colorspace.srgb_to_linear(rgb, depth=spec.depth)
-            )
-            p12[slot].copy_(lin)
+            # Plain torch, left only to RGB beside PSNR, SSIM or MS-SSIM and
+            # to float RGB: SSIMULACRA2 alone on integer sRGB codes converts
+            # inside its first level pass (``_step``).
+            colorspace.packed_rgb_to_linear(arrays[0], p12[slot], depth=spec.depth, transfer=spec.transfer)
             return p12
         kw = dict(
             depth=spec.depth, matrix=spec.matrix, transfer=spec.transfer,

@@ -12,9 +12,15 @@ Routes to the (B, 3, S, 2, 3) sub-scores (channel, scale, norm, map):
     SSIMULACRA2-only route, scale 0 from YUV 4:2:0 (kernel 1,
     ops/kernels/scale_stats.py), then the level chain from its emitted
     level 1;
+  * ``ssimulacra2_subscores_from_srgb``: the kernel path of the
+    SSIMULACRA2-only route for packed integer RGB (sRGB images), scale 0
+    straight from the two inputs' codes (``fused_scale_srgb``, kernel 1's
+    sibling, through the code table ``Ssimulacra2.code_table`` keeps), then
+    the level chain from its emitted level 1; no linear-RGB pair buffer;
   * ``ssimulacra2_subscores_from_rgb``: the kernel path from a linear-RGB
-    pair buffer (the multi-metric route, and ``Ssimulacra2.forward``), scale
-    0 through kernel #3 (``fused_scale_rgb``), then the level chain.
+    pair buffer (the multi-metric route, float RGB, and
+    ``Ssimulacra2.forward``), scale 0 through kernel #3
+    (``fused_scale_rgb``), then the level chain.
 The level chain (``level_sums_chain``, the JAX package's
 ``ssimulacra2_subscores_from_padded`` loop) picks per level, by
 ``level_route``: kernel 2 for five levels that fit its geometry, kernel #4
@@ -51,9 +57,12 @@ from turbo_metrics_tpu_torch.ops.gaussian import blur_2d, blur_2d_iir, gaussian_
 from turbo_metrics_tpu_torch.ops.kernels import downscale as downscale_kernel
 from turbo_metrics_tpu_torch.ops.kernels.fused_tail import fused_tail
 from turbo_metrics_tpu_torch.ops.kernels.scale_stats import (
+    CODE_TABLE_SIZES,
+    code_table,
     fused_scale0_yuv,
     fused_scale_pair,
     fused_scale_rgb,
+    fused_scale_srgb,
     next_window,
     norms_from_sums,
     scale_sums,
@@ -417,6 +426,37 @@ def ssimulacra2_subscores_from_rgb(
         return subscores_from_sums(levels, scale_dims(h, w, num_scales), needs)
 
 
+def ssimulacra2_subscores_from_srgb(
+    ref: torch.Tensor,
+    dis: torch.Tensor,
+    taps: torch.Tensor,
+    opsin: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    num_scales: int,
+    depth: int = 8,
+    needs="auto",
+) -> torch.Tensor:
+    """Sub-scores straight from the reference's and the distorted input's
+    (B, h, w, 3) packed integer sRGB codes (uint8 or uint16 both).
+
+    Scale 0 runs conversion-fused (``fused_scale_srgb`` through ``table``,
+    ``Ssimulacra2.code_table``; full-resolution linear RGB never stored);
+    the remaining ``num_scales - 1`` levels run from its emitted level 1
+    through the level chain.  Returns (B, 3, num_scales, 2, 3) f32, equal
+    bit for bit to ``ssimulacra2_subscores_from_rgb`` on the pair buffer of
+    ``colorspace.srgb_pair_to_linear``; ``needs`` as for
+    ``ssimulacra2_subscores_from_yuv``."""
+    h, w = ref.shape[1], ref.shape[2]
+    with span("tm.step.ssimulacra2.levels"):
+        sums0, level1 = fused_scale_srgb(ref, dis, taps, opsin, table, depth=depth, emit_ds=num_scales > 1)
+        levels = [sums0]
+        if num_scales > 1:
+            levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales)
+    with span("tm.step.ssimulacra2.norms"):
+        return subscores_from_sums(levels, scale_dims(h, w, num_scales), needs)
+
+
 def _width_entry(fn):
     """(the per-strip sums function of the entry ``fn`` calls, whether it
     is the YUV entry, its keywords): ``fn`` is ``ssimulacra2_subscores`` or
@@ -567,6 +607,7 @@ class Ssimulacra2(nn.Module):
         self.register_buffer("taps", torch.empty(11, dtype=torch.float32, device=dev))
         self.register_buffer("opsin", torch.empty(11, dtype=torch.float32, device=dev))
         self.constants_from_numpy(builtin_constants())
+        self._code_tables: dict = {}
 
     @property
     def device(self) -> torch.device:
@@ -605,6 +646,32 @@ class Ssimulacra2(nn.Module):
     def subscores_from_rgb(self, p12: torch.Tensor) -> torch.Tensor:
         return ssimulacra2_subscores_from_rgb(
             p12, self.taps, self.opsin, num_scales=self.num_scales
+        )
+
+    @staticmethod
+    def takes_codes(dtype: torch.dtype) -> bool:
+        """Whether ``subscores_from_srgb`` takes packed codes of ``dtype``."""
+        return dtype in CODE_TABLE_SIZES
+
+    def code_table(self, dtype: torch.dtype, depth: int) -> torch.Tensor:
+        """``scale_stats.code_table`` on the module's device, built at the
+        first call for its (type, depth) and kept.  On a card the build is
+        waited for once, so that a shard stream of the same card may read
+        the table at once."""
+        key = (dtype, int(depth))
+        table = self._code_tables.get(key)
+        if table is None:
+            table = code_table(dtype, depth, self.device)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            self._code_tables[key] = table
+        return table
+
+    @torch.no_grad()
+    def subscores_from_srgb(self, ref, dis, *, depth=8) -> torch.Tensor:
+        return ssimulacra2_subscores_from_srgb(
+            ref, dis, self.taps, self.opsin, self.code_table(ref.dtype, depth), num_scales=self.num_scales,
+            depth=depth,
         )
 
     @torch.no_grad()

@@ -265,6 +265,27 @@ def srgb_to_linear(x: torch.Tensor, *, depth: int | None = None) -> torch.Tensor
     return srgb_eotf(x)
 
 
+def packed_rgb_to_linear(
+    x: torch.Tensor, out: torch.Tensor, *, depth: int | None = None, transfer: str = "srgb"
+) -> torch.Tensor:
+    """(B, h, w, 3) packed-RGB samples -> linear f32 in ``out`` (B, 3, h, w),
+    which is returned: "linear" takes the samples as they are, any other
+    ``transfer`` is ``srgb_to_linear`` at ``depth``."""
+    rgb = x.permute(0, 3, 1, 2)
+    out.copy_(rgb.to(torch.float32) if transfer == "linear" else srgb_to_linear(rgb, depth=depth))
+    return out
+
+
+def srgb_pair_to_linear(ref: torch.Tensor, dis: torch.Tensor, *, depth: int | None = None) -> torch.Tensor:
+    """Two inputs' (B, h, w, 3) sRGB samples -> the (2, B, 3, h, w) f32
+    linear-RGB pair buffer of the multi-metric route, reference in slot 0."""
+    bsz, h, w, _ = ref.shape
+    p12 = torch.empty((2, bsz, 3, h, w), dtype=torch.float32, device=ref.device)
+    for slot, x in enumerate((ref, dis)):
+        packed_rgb_to_linear(x, p12[slot], depth=depth)
+    return p12
+
+
 def f32_to_uint8(x: torch.Tensor, dtype: torch.dtype = torch.uint8) -> torch.Tensor:
     """Quantize [0, 1] f32 to 8-bit code values, clip(round(x * 255), 0, 255).
 

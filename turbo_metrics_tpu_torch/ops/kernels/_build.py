@@ -50,6 +50,7 @@ _SIGNATURES = {
     "tm_yuv420_to_xyb": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P],
     "tm_rgb_to_xyb": [_P, _I, _I, _I, _P, _P, _P, _P],
     "tm_rgb_pair_to_xyb": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "tm_srgb_pair_to_xyb": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "tm_level_sums": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "tm_level_sums_pair": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "tm_fused_tail": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],

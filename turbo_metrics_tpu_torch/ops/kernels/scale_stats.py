@@ -1,4 +1,5 @@
-"""Kernels 1 and #3: one SSIMULACRA2 pyramid level, from YUV or linear RGB.
+"""Kernels 1 and #3: one SSIMULACRA2 pyramid level, from YUV, packed sRGB
+codes or linear RGB.
 
 ``fused_scale0_yuv`` (kernel 1) launches the CUDA kernels of
 csrc/ssimulacra2_scale.cu (``tm_yuv420_to_xyb`` + ``tm_level_sums``) on a
@@ -10,6 +11,16 @@ tensor.  It replaces the JAX package's ``fused_scale0_yuv_pallas``
 with the next level emitted (``tm_rgb_to_xyb`` + ``tm_level_sums``, twin
 ``fused_scale_rgb_ref``): scale 0 of the multi-metric path, replacing
 ``fused_scale_pallas_v4`` (turbo_metrics_tpu/ops/pallas/scale_stats.py:2552).
+
+``fused_scale_srgb`` is scale 0 straight from two inputs' packed integer
+sRGB codes (``tm_srgb_pair_to_xyb`` + ``tm_level_sums``, twin
+``fused_scale_srgb_ref``), kernel 1's sibling for sRGB sources, with the
+next level emitted and no linear-RGB pair buffer.  It replaces no TPU
+kernel: the JAX package converts packed sRGB with jnp.  The kernel maps
+each code through ``code_table``, the plain conversion of every code of the
+type computed on the device, so its results equal the plain route's
+(``colorspace.srgb_pair_to_linear``, then ``fused_scale_rgb``)
+bit for bit.
 
 ``scale_sums`` (kernel #8) is one level's sums from two XYB tensors
 (``tm_level_sums_pair``, twin ``level_sums_ref``), replacing
@@ -314,6 +325,96 @@ def fused_scale_rgb(
 
 
 fused_scale_rgb.launches = 0
+
+
+# The packed integer RGB types the sRGB conversion pass takes, and the
+# entries of their code tables.
+CODE_TABLE_SIZES = {torch.uint8: 1 << 8, torch.uint16: 1 << 16}
+
+
+def code_table(dtype: torch.dtype, depth: int, device) -> torch.Tensor:
+    """The (2^8 or 2^16,) f32 linear light of every sRGB code of ``dtype``:
+    ``colorspace.srgb_to_linear`` of ``torch.arange`` on ``device``, the same
+    torch operations the plain route runs on a frame's codes, so each entry
+    is the value that route gives its code, bit for bit."""
+    if dtype not in CODE_TABLE_SIZES:
+        raise ValueError(f"code tables are for uint8 or uint16 codes, not {dtype}")
+    codes = torch.arange(CODE_TABLE_SIZES[dtype], dtype=torch.int32, device=device)
+    return colorspace.srgb_to_linear(codes, depth=depth).contiguous()
+
+
+def check_codes(ref: torch.Tensor, dis: torch.Tensor, depth: int) -> None:
+    """Two contiguous (B, h, w, 3) packed-RGB code tensors of one shape and
+    one integer type (uint8 or uint16) on one device, at 1-16 bits."""
+    if ref.ndim != 4 or ref.shape[-1] != 3 or ref.shape != dis.shape:
+        raise ValueError(f"want two (B, h, w, 3) tensors, got {tuple(ref.shape)} and {tuple(dis.shape)}")
+    if ref.dtype not in CODE_TABLE_SIZES or dis.dtype != ref.dtype:
+        raise ValueError(f"want uint8 or uint16 codes of one type, got {ref.dtype} and {dis.dtype}")
+    if not (ref.is_contiguous() and dis.is_contiguous()) or ref.device != dis.device:
+        raise ValueError("the two tensors must be contiguous and on one device")
+    if not 1 <= depth <= 16:
+        raise ValueError(f"depth must be 1-16 bits, got {depth}")
+
+
+def fused_scale_srgb_ref(ref, dis, taps, opsin, *, depth=8, emit_ds=True):
+    """Plain twin of ``fused_scale_srgb`` (same results; no table): the plain
+    route itself, ``colorspace.srgb_pair_to_linear`` then
+    ``fused_scale_rgb_ref``."""
+    return fused_scale_rgb_ref(colorspace.srgb_pair_to_linear(ref, dis, depth=depth), taps, opsin, emit_ds=emit_ds)
+
+
+def fused_scale_srgb(
+    ref: torch.Tensor, dis: torch.Tensor, taps: torch.Tensor, opsin: torch.Tensor, table: torch.Tensor, *,
+    depth: int = 8, emit_ds: bool = True,
+):
+    """Scale 0 of the pyramid from packed integer sRGB — conversion fused.
+
+    ``ref``, ``dis``: the reference's and the distorted input's contiguous
+    (B, h, w, 3) codes, both uint8 or both uint16, at ``depth`` bits.
+    ``taps`` and ``opsin`` as for ``fused_scale0_yuv``; ``table``:
+    ``code_table(ref.dtype, depth, ref.device)``, which the caller keeps
+    across calls (``Ssimulacra2.code_table``; not read on the CPU).  Returns
+    (sums (B, 3, 6) f32, level 1 as contiguous (2, B, 3, ceil(h/2),
+    ceil(w/2)) f32 linear RGB, or None without ``emit_ds``).
+    Full-resolution linear RGB is never stored.
+    """
+    check_codes(ref, dis, depth)
+    check_level_consts(taps, opsin, ref.device)
+    if ref.device.type == "cpu":
+        return fused_scale_srgb_ref(ref, dis, taps, opsin, depth=depth, emit_ds=emit_ds)
+    if ref.device.type != "cuda":
+        raise ValueError(f"fused_scale_srgb runs on cuda or cpu, not {ref.device}")
+    n = CODE_TABLE_SIZES[ref.dtype]
+    if table.shape != (n,) or table.dtype != torch.float32 or table.device != ref.device or not table.is_contiguous():
+        raise ValueError(f"table must be a contiguous ({n},) float32 tensor on {ref.device}")
+    lib = LIBRARY.get()
+    bsz, h, w, _ = ref.shape
+    dev = ref.device
+    xyb, parts = s2_level_scratch(bsz, h, w, dev)
+    ds = (
+        torch.empty((2, bsz, 3, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=dev)
+        if emit_ds else None
+    )
+    sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
+    with launch_stream(dev) as stream:
+        check(
+            lib.tm_srgb_pair_to_xyb(
+                ref.data_ptr(), dis.data_ptr(), int(ref.dtype == torch.uint16), bsz, h, w, table.data_ptr(),
+                opsin.data_ptr(), xyb.data_ptr(), ds.data_ptr() if emit_ds else None, stream,
+            ),
+            "tm_srgb_pair_to_xyb",
+        )
+        check(
+            lib.tm_level_sums(
+                xyb.data_ptr(), bsz, h, w, 0, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(), 18, stream,
+            ),
+            "tm_level_sums",
+        )
+    fused_scale_srgb.launches += 1
+    return sums, ds
+
+
+fused_scale_srgb.launches = 0
 
 
 def check_image_pair(a: torch.Tensor, b: torch.Tensor) -> None:
