@@ -367,6 +367,8 @@ class TurboMetrics:
         self._prev_ref: Optional[torch.Tensor] = None
         # VMAF motion state: the previous batch's last blurred reference luma.
         self._vmaf_prev_blur: Optional[torch.Tensor] = None
+        # XPSNR's block grids on the host, reused from batch to batch (_host_grids).
+        self._grids_host: Optional[torch.Tensor] = None
         self.vmaf_model = vmaf_model
         self.vmaf_integer = vmaf_integer
         if vmaf_model is not None:
@@ -541,7 +543,7 @@ class TurboMetrics:
                     # As in the JAX engine: an RGB reference is weighted at 8
                     # bits, whatever its depth.
                     depth = spec_ref.depth if spec_ref.kind == "yuv420" else 8
-                    db = frames_db(out["xpsnr"], width=self.width, height=self.height, depth=depth)
+                    db = frames_db(self._host_grids(out["xpsnr"]), width=self.width, height=self.height, depth=depth)
                     for s, v in zip(scores, db):
                         s.xpsnr = v
             if "vif" in out:
@@ -559,6 +561,20 @@ class TurboMetrics:
                     if first:
                         scores[0].vmaf_motion = 0.0
             return scores
+
+    def _host_grids(self, stats: dict) -> dict:
+        """XPSNR's block grids read back into one host buffer that the engine
+        keeps (pinned where the grids come from a card) and reuses in every
+        batch: NumPy views, valid until the next batch's readback.  Each
+        grid of a 4K batch of 4 is ~1 MB; filling fresh host memory with
+        them took 6-10 ms a batch in some processes on the H100's host,
+        against ~0.4 ms into a reused buffer (PERF.md section 5)."""
+        first = next(iter(stats.values()))
+        shape = (len(stats), *first.shape)
+        buf = self._grids_host
+        if buf is None or buf.shape != shape or buf.dtype != first.dtype:
+            buf = self._grids_host = torch.empty(shape, dtype=first.dtype, pin_memory=first.is_cuda)
+        return {k: to_host(v, out=buf[i]) for i, (k, v) in enumerate(stats.items())}
 
     def _planes(self, dev: torch.device, *inputs: list[RawFrame]) -> tuple[torch.Tensor, ...]:
         """One input's frames on ``dev``, or two inputs' stacked on a

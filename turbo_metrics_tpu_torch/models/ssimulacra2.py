@@ -86,7 +86,7 @@ from turbo_metrics_tpu_torch.parallel.mesh import (
     strip_input,
     upload,
 )
-from turbo_metrics_tpu_torch.utils.profiling import span, to_host
+from turbo_metrics_tpu_torch.utils.profiling import count, span, to_host
 
 NUM_SCALES = 6
 MATRIX_NAMES = ("bt709", "bt601_525", "bt601_625", "bt2020")
@@ -100,6 +100,16 @@ BACKENDS = ("jnp", "jnp_iir", "pallas", "pallas2", "pallas3")
 # bytes.  A routing choice, not math; a rule tuned for the H100 is
 # ROADMAP work.
 TAIL_MAX_BYTES = 8 * 1024 * 1024
+
+
+# Per kernel of the level route: the span around each of its calls and the
+# counter that adds the levels it took (read by the CLI's ``--trace`` and
+# portbench/span_account.py).
+ROUTE_RECORDS = {
+    "fused_scale_rgb": ("tm.step.ssimulacra2.levels.scale", "levels.scale"),
+    "fused_tail": ("tm.step.ssimulacra2.levels.tail", "levels.tail"),
+    "fused_pyramid_tail": ("tm.step.ssimulacra2.levels.pyramid", "levels.pyramid"),
+}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -159,17 +169,22 @@ def level_sums_chain(p12, first_level: int, taps, opsin, *, num_scales: int, col
     layout), each level's sums over the owned columns ``columns`` of this
     first level (None: the whole width) and their ``next_window`` on each
     next one.  The route is the plane's own: a column strip may take
-    another than its frame, and every route computes the same pixels."""
+    another than its frame, and every route computes the same pixels.
+    Each kernel's call is a span of its own, and its levels are counted
+    (``ROUTE_RECORDS``)."""
     win = _whole(columns, p12.shape[-1])
     out = []
     for kernel, levels in level_route(p12.shape[-2], p12.shape[-1], num_scales, first_level):
-        if kernel == "fused_scale_rgb":
-            sums, p12 = fused_scale_rgb(p12, taps, opsin, emit_ds=levels[0] + 1 < num_scales, columns=win)
-            out.append(sums)
-            win = _next(win)
-        else:
-            run = fused_pyramid_tail if kernel == "fused_pyramid_tail" else fused_tail
-            out += list(run(p12, len(levels), taps, opsin, columns=win).unbind(1))
+        name, counter = ROUTE_RECORDS[kernel]
+        with span(name):
+            if kernel == "fused_scale_rgb":
+                sums, p12 = fused_scale_rgb(p12, taps, opsin, emit_ds=levels[0] + 1 < num_scales, columns=win)
+                out.append(sums)
+                win = _next(win)
+            else:
+                run = fused_pyramid_tail if kernel == "fused_pyramid_tail" else fused_tail
+                out += list(run(p12, len(levels), taps, opsin, columns=win).unbind(1))
+        count(counter, len(levels))
     return out
 
 
@@ -413,12 +428,16 @@ def ssimulacra2_subscores_from_rgb(
     """Sub-scores from a contiguous (2, B, 3, h, w) f32 linear-RGB pair
     buffer (the counterpart of the JAX package's
     ``ssimulacra2_subscores_from_padded``): scale 0 through kernel #3 with
-    level 1 emitted, the remaining ``num_scales - 1`` levels through the
-    level chain.  Returns (B, 3, num_scales, 2, 3) f32; ``needs`` as for
+    level 1 emitted (recorded as the chain records its #3 calls), the
+    remaining ``num_scales - 1`` levels through the level chain.  Returns
+    (B, 3, num_scales, 2, 3) f32; ``needs`` as for
     ``ssimulacra2_subscores_from_yuv``."""
     h, w = p12.shape[-2], p12.shape[-1]
     with span("tm.step.ssimulacra2.levels"):
-        sums0, level1 = fused_scale_rgb(p12, taps, opsin, emit_ds=num_scales > 1)
+        name, counter = ROUTE_RECORDS["fused_scale_rgb"]
+        with span(name):
+            sums0, level1 = fused_scale_rgb(p12, taps, opsin, emit_ds=num_scales > 1)
+        count(counter)
         levels = [sums0]
         if num_scales > 1:
             levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales)

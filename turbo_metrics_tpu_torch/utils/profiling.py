@@ -181,11 +181,14 @@ def take() -> Records:
     return _RECORDER.take()
 
 
-def to_host(t: torch.Tensor) -> np.ndarray:
+def to_host(t: torch.Tensor, out: torch.Tensor | None = None) -> np.ndarray:
     """A result's values on the host as a NumPy array: the copy is a
-    ``tm.readback`` span and its bytes count as ``readback_bytes``."""
+    ``tm.readback`` span and its bytes count as ``readback_bytes``.  With
+    ``out``, a host tensor of ``t``'s shape and type that the caller keeps
+    and reuses, the values are copied into it and its NumPy view is
+    returned, valid until the caller's next copy into ``out``."""
     with span("tm.readback"):
-        a = t.detach().cpu().numpy()
+        a = t.detach().cpu().numpy() if out is None else out.copy_(t.detach()).numpy()
     count("readback_bytes", a.nbytes)
     return a
 
