@@ -37,13 +37,14 @@ from turbo_metrics_tpu_torch.color.characteristics import (
     TransferCharacteristic,
     height_fallback,
 )
-from turbo_metrics_tpu_torch.engine import Metrics, TurboMetrics
+from turbo_metrics_tpu_torch.engine import ConvertSpec, Metrics, TurboMetrics
 from turbo_metrics_tpu_torch.io.frame_source import RawFrame
 from turbo_metrics_tpu_torch.models import ssimulacra2 as s2
 from turbo_metrics_tpu_torch.models.ssimulacra2 import (
     Ssimulacra2,
     ssimulacra2_subscores_from_rgb,
     ssimulacra2_subscores_from_srgb,
+    ssimulacra2_subscores_from_yuv,
     subscores_from_sums,
 )
 from turbo_metrics_tpu_torch.ops import colorspace
@@ -180,8 +181,7 @@ def test_subscores_from_srgb_match_jax(codes, bsz, hw):
 
 def test_module_keeps_one_table_per_type_and_depth():
     """``Ssimulacra2.code_table`` builds each table once and hands the same
-    tensor back; another type or depth is another table.  The module takes
-    uint8 and uint16 codes."""
+    tensor back; another type or depth is another table."""
     model = Ssimulacra2(64, 48, device="cpu")
     t8 = model.code_table(torch.uint8, 8)
     assert model.code_table(torch.uint8, 8) is t8
@@ -189,8 +189,6 @@ def test_module_keeps_one_table_per_type_and_depth():
     assert all(t is not t8 for t in others)
     assert model.code_table(torch.uint16, 10) is others[1]
     assert torch.equal(t8, scale_stats.code_table(torch.uint8, 8, "cpu"))
-    assert [Ssimulacra2.takes_codes(t) for t in (torch.uint8, torch.uint16, torch.int32, torch.float32)] == [
-        True, True, False, False]
 
 
 @pytest.mark.parametrize("bad", ["float", "mixed", "channels", "shapes", "layout", "device", "depth"])
@@ -293,6 +291,74 @@ def test_engine_picks_scale0_route(monkeypatch, case, metrics, want):
     scores = engine.compute_frames(ref[:2], cc, dis[:2], cc) + engine.compute_frames(ref[2:], cc, dis[2:], cc)
     assert calls == [want, want]
     assert all(np.isfinite(s.ssimulacra2) for s in scores)
+
+
+def _yuv_spec(depth, chroma=420):
+    return ConvertSpec("yuv420", depth, "bt709", "bt709", False, chroma)
+
+
+def _rgb_spec(depth):
+    return ConvertSpec("rgb", depth, "identity", "srgb", True)
+
+
+def _direct_planes(seed, bsz, h, w, spec, dtype):
+    """One input's planes as the engine uploads them for ``spec``: (luma,
+    chroma) codes, or (packed rgb,) codes of ``dtype`` (float: scaled to
+    [0, 1])."""
+    gen = torch.Generator().manual_seed(seed)
+    hi = (1 << spec.depth) - 1
+
+    def codes(*shape):
+        x = torch.randint(0, hi + 1, shape, generator=gen, dtype=torch.int32)
+        return x.float() / hi if dtype == torch.float32 else x.to(dtype)
+
+    if spec.kind == "rgb":
+        return (codes(bsz, h, w, 3),)
+    return codes(bsz, h, w), codes(bsz, *colorspace.chroma_dims(spec.chroma, h, w), 2)
+
+
+@pytest.mark.parametrize("fmt_ref, fmt_dis, want", [
+    ((_yuv_spec(8), torch.uint8), (_yuv_spec(8), torch.uint8), "fused_scale0_yuv"),
+    ((_yuv_spec(10), torch.uint16), (_yuv_spec(10), torch.uint16), "fused_scale0_yuv"),
+    ((_yuv_spec(10), torch.uint16), (_yuv_spec(8), torch.uint8), None),
+    ((_yuv_spec(8, 422), torch.uint8), (_yuv_spec(8, 422), torch.uint8), None),
+    ((_rgb_spec(8), torch.uint8), (_rgb_spec(8), torch.uint8), "fused_scale_srgb"),
+    ((_rgb_spec(16), torch.uint16), (_rgb_spec(16), torch.uint16), "fused_scale_srgb"),
+    ((_rgb_spec(8), torch.uint8), (_rgb_spec(16), torch.uint16), None),
+    ((_rgb_spec(8), torch.uint8), (_rgb_spec(8), torch.uint16), None),
+    ((_rgb_spec(8), torch.int32), (_rgb_spec(8), torch.int32), None),
+    ((_rgb_spec(8), torch.float32), (_rgb_spec(8), torch.float32), None),
+], ids=["yuv420", "yuv420 10-bit", "yuv420 10 vs 8 bits", "yuv422", "srgb u8", "srgb u16", "srgb u8 vs u16",
+        "srgb u8 vs u16 codes at 8 bits", "srgb int32", "float rgb"])
+def test_model_picks_first_level_pass(monkeypatch, fmt_ref, fmt_dis, want):
+    """``Ssimulacra2.subscores_direct`` on the planes the engine's step
+    uploads (the stacked pair only for two inputs of one planar YUV spec):
+    kernel 1 for YUV 4:2:0 of one spec, the sRGB pass for packed uint8 or
+    uint16 sRGB codes of one spec and type, each called once and its
+    sub-scores the entry's own, bit for bit; None, with no pass called,
+    for specs that differ, 4:2:2, codes of two types, int32 codes and
+    float RGB."""
+    h, w, bsz = 19, 27, 2
+    (spec_ref, dt_ref), (spec_dis, dt_dis) = fmt_ref, fmt_dis
+    arr_ref = _direct_planes(1, bsz, h, w, spec_ref, dt_ref)
+    arr_dis = _direct_planes(2, bsz, h, w, spec_dis, dt_dis)
+    pair = None
+    if spec_ref == spec_dis and spec_ref.kind == "yuv420":
+        pair = tuple(torch.stack([a, b]) for a, b in zip(arr_ref, arr_dis))
+    model = Ssimulacra2(w, h, device="cpu")
+    calls = _spy(monkeypatch)
+    got = model.subscores_direct(spec_ref, spec_dis, arr_ref, arr_dis, pair)
+    assert calls == ([] if want is None else [want])
+    if want is None:
+        assert got is None
+    elif want == "fused_scale0_yuv":
+        assert torch.equal(got, ssimulacra2_subscores_from_yuv(
+            *pair, model.taps, model.opsin, num_scales=model.num_scales, depth=spec_ref.depth,
+            kr_kb=model.kr_kb["bt709"]))
+    else:
+        table = model.code_table(dt_ref, spec_ref.depth)
+        assert torch.equal(got, ssimulacra2_subscores_from_srgb(
+            *arr_ref, *arr_dis, model.taps, model.opsin, table, num_scales=model.num_scales, depth=spec_ref.depth))
 
 
 @pytest.mark.parametrize("codes", CODES[:2], ids=CODE_IDS[:2])

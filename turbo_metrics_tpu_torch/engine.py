@@ -7,12 +7,12 @@ XPSNR and VMAF's float features on planar YUV (4:2:0, 4:2:2, 4:4:4) and
 packed RGB input.  The host
 stacks each batch of decoded frames and uploads them; the device runs (the
 JAX engine's ``_get_step``):
-  * for the RGB families, one of three routes.  SSIMULACRA2 as the only
-    one, both inputs of one 4:2:0 conversion spec: scale 0 straight from YUV
-    (models/ssimulacra2.ssimulacra2_subscores_from_yuv).  SSIMULACRA2 as the
-    only one, both inputs packed integer sRGB (uint8 or uint16) of one spec:
-    scale 0 straight from the codes through a code table
-    (models/ssimulacra2.ssimulacra2_subscores_from_srgb).  Otherwise the
+  * for the RGB families, one of three routes.  With SSIMULACRA2 as the
+    only one, the model picks its first-level pass once a batch
+    (``Ssimulacra2.subscores_direct``): straight from the YUV planes of
+    two inputs of one 4:2:0 spec (kernel 1), or from the codes of two
+    packed integer sRGB inputs of one spec and type (the sRGB pass).
+    Where it has none (None), and beside PSNR, SSIM or MS-SSIM, the
     multi-metric route: a (2, B, 3, h, w) linear-RGB pair buffer, filled by
     one conversion launch for a shared YUV spec or one per image when the
     specs differ (ops/kernels/convert.py: #6 for 4:2:0, #5 for 4:2:2 and
@@ -477,28 +477,13 @@ class TurboMetrics:
                     arr_ref, arr_dis = tuple(a[0] for a in pair), tuple(a[1] for a in pair)
                 else:
                     arr_ref, arr_dis = self._planes(dev, ref_frames), self._planes(dev, dis_frames)
-            s2_alone = model is not None and quality is None
-            s2_from_yuv = s2_alone and pair is not None and spec.chroma == 420
-            s2_from_rgb = (
-                s2_alone and spec.kind == "rgb" and spec.transfer == "srgb" and spec == spec_dis
-                and arr_ref[0].dtype == arr_dis[0].dtype and model.takes_codes(arr_ref[0].dtype)
-            )
-            if s2_from_yuv:
-                # SSIMULACRA2 the only RGB family: scale 0 conversion-fused, no
-                # RGB pair buffer.
-                with span("tm.step.ssimulacra2"):
-                    out["ssimulacra2"] = model.subscores_from_yuv(
-                        *pair,
-                        depth=spec.depth,
-                        matrix=spec.matrix,
-                        transfer=spec.transfer,
-                        full_range=spec.full_range,
-                    )
-            elif s2_from_rgb:
-                # The same for packed integer RGB: scale 0 straight from the
-                # codes, no RGB pair buffer.
-                with span("tm.step.ssimulacra2"):
-                    out["ssimulacra2"] = model.subscores_from_srgb(arr_ref[0], arr_dis[0], depth=spec.depth)
+            # SSIMULACRA2 the only RGB family: the model runs its first level
+            # straight from the planes where a pass takes them.
+            s2 = None
+            if model is not None and quality is None:
+                s2 = model.subscores_direct(spec, spec_dis, arr_ref, arr_dis, pair)
+            if s2 is not None:
+                out["ssimulacra2"] = s2
             elif model is not None or quality is not None:
                 with span("tm.step.convert"):
                     p12 = self._linear_rgb_pair(dev, spec, arr_ref, spec_dis, arr_dis, pair)

@@ -21,6 +21,11 @@ Routes to the (B, 3, S, 2, 3) sub-scores (channel, scale, norm, map):
     pair buffer (the multi-metric route, float RGB, and
     ``Ssimulacra2.forward``), scale 0 through kernel #3
     (``fused_scale_rgb``), then the level chain.
+The three kernel entries share one body (``_subscores``): the first-level
+pass, the level chain from its level 1, the norms.  The model picks the
+first-level pass for the engine's SSIMULACRA2-only step from the inputs'
+specs (``Ssimulacra2.subscores_direct``): kernel 1, the sRGB pass, or None,
+and the engine builds the pair buffer for #3.
 The level chain (``level_sums_chain``, the JAX package's
 ``ssimulacra2_subscores_from_padded`` loop) picks per level, by
 ``level_route``: kernel 2 for five levels that fit its geometry, kernel #4
@@ -411,6 +416,20 @@ def subscores_from_sums(sums_per_level: list, dims, needs="auto") -> torch.Tenso
     return _apply_needs_mask(torch.stack([n1, n4], dim=-2), resolve_needs(needs, len(dims))).float()
 
 
+def _subscores(first, h: int, w: int, taps, opsin, num_scales: int, needs) -> torch.Tensor:
+    """The kernel entries' one body: in the span ``.levels`` the first-level
+    pass ``first(emit_ds=...)`` -> (level 0's sums, level 1), then the level
+    chain from level 1; in the span ``.norms`` the h x w frame's masked
+    sub-scores."""
+    with span("tm.step.ssimulacra2.levels"):
+        sums0, level1 = first(emit_ds=num_scales > 1)
+        levels = [sums0]
+        if num_scales > 1:
+            levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales)
+    with span("tm.step.ssimulacra2.norms"):
+        return subscores_from_sums(levels, scale_dims(h, w, num_scales), needs)
+
+
 def ssimulacra2_level_sums_from_yuv(
     y2: torch.Tensor,
     uv2: torch.Tensor,
@@ -463,13 +482,20 @@ def ssimulacra2_subscores_from_yuv(
     port computes every sub-score and zeroes the masked ones, so None only
     keeps them.
     """
-    with span("tm.step.ssimulacra2.levels"):
-        levels = ssimulacra2_level_sums_from_yuv(
-            y2, uv2, taps, opsin, num_scales=num_scales, depth=depth, matrix=matrix, transfer=transfer,
-            full_range=full_range, kr_kb=kr_kb,
-        )
-    with span("tm.step.ssimulacra2.norms"):
-        return subscores_from_sums(levels, scale_dims(y2.shape[-2], y2.shape[-1], num_scales), needs)
+    first = functools.partial(
+        fused_scale0_yuv, y2, uv2, taps, opsin, depth=depth, matrix=matrix, transfer=transfer,
+        full_range=full_range, kr_kb=kr_kb,
+    )
+    return _subscores(first, y2.shape[-2], y2.shape[-1], taps, opsin, num_scales, needs)
+
+
+def _scale_rgb_recorded(p12, taps, opsin, *, emit_ds: bool):
+    """Kernel #3, recorded as the level chain records its #3 calls."""
+    name, counter = ROUTE_RECORDS["fused_scale_rgb"]
+    with span(name):
+        out = fused_scale_rgb(p12, taps, opsin, emit_ds=emit_ds)
+    count(counter)
+    return out
 
 
 def ssimulacra2_subscores_from_rgb(
@@ -482,17 +508,8 @@ def ssimulacra2_subscores_from_rgb(
     remaining ``num_scales - 1`` levels through the level chain.  Returns
     (B, 3, num_scales, 2, 3) f32; ``needs`` as for
     ``ssimulacra2_subscores_from_yuv``."""
-    h, w = p12.shape[-2], p12.shape[-1]
-    with span("tm.step.ssimulacra2.levels"):
-        name, counter = ROUTE_RECORDS["fused_scale_rgb"]
-        with span(name):
-            sums0, level1 = fused_scale_rgb(p12, taps, opsin, emit_ds=num_scales > 1)
-        count(counter)
-        levels = [sums0]
-        if num_scales > 1:
-            levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales)
-    with span("tm.step.ssimulacra2.norms"):
-        return subscores_from_sums(levels, scale_dims(h, w, num_scales), needs)
+    first = functools.partial(_scale_rgb_recorded, p12, taps, opsin)
+    return _subscores(first, p12.shape[-2], p12.shape[-1], taps, opsin, num_scales, needs)
 
 
 def ssimulacra2_subscores_from_srgb(
@@ -516,14 +533,8 @@ def ssimulacra2_subscores_from_srgb(
     bit for bit to ``ssimulacra2_subscores_from_rgb`` on the pair buffer of
     ``colorspace.srgb_pair_to_linear``; ``needs`` as for
     ``ssimulacra2_subscores_from_yuv``."""
-    h, w = ref.shape[1], ref.shape[2]
-    with span("tm.step.ssimulacra2.levels"):
-        sums0, level1 = fused_scale_srgb(ref, dis, taps, opsin, table, depth=depth, emit_ds=num_scales > 1)
-        levels = [sums0]
-        if num_scales > 1:
-            levels += level_sums_chain(level1, 1, taps, opsin, num_scales=num_scales)
-    with span("tm.step.ssimulacra2.norms"):
-        return subscores_from_sums(levels, scale_dims(h, w, num_scales), needs)
+    first = functools.partial(fused_scale_srgb, ref, dis, taps, opsin, table, depth=depth)
+    return _subscores(first, ref.shape[1], ref.shape[2], taps, opsin, num_scales, needs)
 
 
 def _width_entry(fn):
@@ -717,11 +728,6 @@ class Ssimulacra2(nn.Module):
             p12, self.taps, self.opsin, num_scales=self.num_scales
         )
 
-    @staticmethod
-    def takes_codes(dtype: torch.dtype) -> bool:
-        """Whether ``subscores_from_srgb`` takes packed codes of ``dtype``."""
-        return dtype in CODE_TABLE_SIZES
-
     def code_table(self, dtype: torch.dtype, depth: int) -> torch.Tensor:
         """``scale_stats.code_table`` on the module's device, built at the
         first call for its (type, depth) and kept.  On a card the build is
@@ -753,6 +759,30 @@ class Ssimulacra2(nn.Module):
             depth=depth, matrix=matrix, transfer=transfer, full_range=full_range,
             kr_kb=self.kr_kb[matrix],
         )
+
+    def subscores_direct(self, spec_ref, spec_dis, arr_ref: tuple, arr_dis: tuple, pair):
+        """Sub-scores straight from the inputs' planes where a first-level
+        pass takes them (the span ``tm.step.ssimulacra2``), else None, and
+        the caller builds the pair buffer for ``subscores_from_rgb``: kernel
+        1 from ``pair``, both inputs' planes stacked as uploaded for two
+        inputs of one planar YUV spec (else None), at 4:2:0; the sRGB pass
+        from the packed codes ``arr_*[0]`` of one sRGB spec and one type of
+        ``CODE_TABLE_SIZES``.  ``spec_*``: the inputs' conversion specs (the
+        engine's ``ConvertSpec``)."""
+        if pair is not None and spec_ref.chroma == 420:
+            with span("tm.step.ssimulacra2"):
+                return self.subscores_from_yuv(
+                    *pair, depth=spec_ref.depth, matrix=spec_ref.matrix, transfer=spec_ref.transfer,
+                    full_range=spec_ref.full_range,
+                )
+        ref, dis = arr_ref[0], arr_dis[0]
+        if (
+            spec_ref.kind == "rgb" and spec_ref.transfer == "srgb" and spec_ref == spec_dis
+            and ref.dtype == dis.dtype and ref.dtype in CODE_TABLE_SIZES
+        ):
+            with span("tm.step.ssimulacra2"):
+                return self.subscores_from_srgb(ref, dis, depth=spec_ref.depth)
+        return None
 
     def score(self, subscores: torch.Tensor) -> np.ndarray:
         """(B, 3, S, 2, 3) sub-scores -> (B,) f64 scores on the host."""

@@ -33,7 +33,10 @@ tensors (``tm_rgb_pair_to_xyb`` + ``tm_level_sums``, twin
 legacy backends of models/ssimulacra2.ssimulacra2_subscores.
 
 The level helpers (``level_sums_ref``, ``norms_from_sums``, ``window``) are
-shared with kernels 2 and #4.
+shared with kernels 2 and #4.  Kernels 1, #3, #10, the sRGB pass and kernel 2
+issue each level through one body, ``launch_level`` (the conversion pass,
+then ``tm_level_sums``, on one stream); the four one-level wrappers allocate
+through ``launch_first_level``.
 
 Every level wrapper takes ``columns=(clo, chi)``, the window of owned
 columns whose pixels its sums add (None: the whole width).  A column strip
@@ -178,6 +181,45 @@ def s2_level_scratch(bsz: int, h: int, w: int, dev):
     )
 
 
+def launch_level(lib, dev, taps, scratch, sums, sums_bstride, nxt, bsz, h, w, clo, chi, convert, head) -> None:
+    """One level on ``dev``'s stream: the conversion pass, the library's
+    entry point ``convert`` called with the arguments ``head`` (a tuple),
+    then the XYB pair's and the next level's pointers (the next level into
+    ``nxt`` unless it is None) and the stream; then ``tm_level_sums`` on
+    the B x h x w XYB pair, its sums over the columns [clo, chi) into
+    ``sums[b * sums_bstride + ch * 6 + k]``.  ``scratch``:
+    ``s2_level_scratch`` of a level at least this large."""
+    xyb, parts = scratch
+    with launch_stream(dev) as stream:
+        check(getattr(lib, convert)(*head, xyb.data_ptr(), None if nxt is None else nxt.data_ptr(), stream), convert)
+        check(
+            lib.tm_level_sums(
+                xyb.data_ptr(), bsz, h, w, clo, chi, taps.data_ptr(), parts.data_ptr(),
+                sums.data_ptr(), sums_bstride, stream,
+            ),
+            "tm_level_sums",
+        )
+
+
+def launch_first_level(name, dev, taps, bsz, h, w, clo, chi, emit_ds, convert, head):
+    """The card's part of the first-level wrapper ``name``, once its checks
+    passed and its CPU twin was not taken: on any device but CUDA it
+    raises; else it allocates the level's scratch, the next level (None
+    without ``emit_ds``) and the (B, 3, 6) sums, and runs ``launch_level``
+    with ``convert`` and ``head``.  Returns (sums, next level)."""
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    lib = LIBRARY.get()
+    scratch = s2_level_scratch(bsz, h, w, dev)
+    ds = (
+        torch.empty((2, bsz, 3, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=dev)
+        if emit_ds else None
+    )
+    sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
+    launch_level(lib, dev, taps, scratch, sums, 18, ds, bsz, h, w, clo, chi, convert, head)
+    return sums, ds
+
+
 def fused_scale0_yuv_ref(
     y2, uv2, taps, opsin, *, depth=8, matrix="bt709", transfer="bt709",
     full_range=False, emit_ds=True, kr_kb=None, columns=None,
@@ -224,38 +266,16 @@ def fused_scale0_yuv(
             y2, uv2, taps, opsin, depth=depth, matrix=matrix, transfer=transfer,
             full_range=full_range, emit_ds=emit_ds, kr_kb=kr_kb, columns=columns,
         )
-    if y2.device.type != "cuda":
-        raise ValueError(f"fused_scale0_yuv runs on cuda or cpu, not {y2.device}")
-    lib = LIBRARY.get()
     _, bsz, h, w = y2.shape
-    dev = y2.device
     rng = colorspace.sample_range(depth, full_range)
     coeffs = colorspace.conversion_coeffs(depth, matrix, full_range, kr_kb)
-    xyb, parts = s2_level_scratch(bsz, h, w, dev)
-    ds = (
-        torch.empty((2, bsz, 3, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=dev)
-        if emit_ds else None
+    out = launch_first_level(
+        "fused_scale0_yuv", y2.device, taps, bsz, h, w, clo, chi, emit_ds, "tm_yuv420_to_xyb",
+        (y2.data_ptr(), uv2.data_ptr(), int(depth > 8), bsz, h, w, *coeffs, float(rng.minimum),
+         float(rng.neutral), TRANSFER_CODES[transfer], opsin.data_ptr()),
     )
-    sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
-    with launch_stream(dev) as stream:
-        check(
-            lib.tm_yuv420_to_xyb(
-                y2.data_ptr(), uv2.data_ptr(), int(depth > 8), bsz, h, w, *coeffs,
-                float(rng.minimum), float(rng.neutral), TRANSFER_CODES[transfer],
-                opsin.data_ptr(), xyb.data_ptr(), ds.data_ptr() if emit_ds else None,
-                stream,
-            ),
-            "tm_yuv420_to_xyb",
-        )
-        check(
-            lib.tm_level_sums(
-                xyb.data_ptr(), bsz, h, w, clo, chi, taps.data_ptr(), parts.data_ptr(),
-                sums.data_ptr(), 18, stream,
-            ),
-            "tm_level_sums",
-        )
     fused_scale0_yuv.launches += 1
-    return sums, ds
+    return out
 
 
 fused_scale0_yuv.launches = 0
@@ -266,30 +286,6 @@ def fused_scale_rgb_ref(p12, taps, opsin, *, emit_ds=True, columns=None):
     xyb = linear_rgb_to_xyb(p12, opsin=opsin)
     sums = level_sums_ref(xyb[0], xyb[1], taps, columns)
     return sums, (downscale_by_2(p12) if emit_ds else None)
-
-
-def launch_rgb_level(lib, p12, taps, opsin, scratch, sums, sums_bstride, nxt, clo, chi) -> None:
-    """``tm_rgb_to_xyb`` + ``tm_level_sums`` on one level ``p12`` (2, B, 3,
-    h, w): sums over the columns [clo, chi) into ``sums[b * sums_bstride +
-    ch * 6 + k]``, the next level into ``nxt`` unless it is None.
-    ``scratch``: ``s2_level_scratch`` of a level at least this large."""
-    _, bsz, _, h, w = p12.shape
-    xyb, parts = scratch
-    with launch_stream(p12.device) as stream:
-        check(
-            lib.tm_rgb_to_xyb(
-                p12.data_ptr(), bsz, h, w, opsin.data_ptr(), xyb.data_ptr(),
-                nxt.data_ptr() if nxt is not None else None, stream,
-            ),
-            "tm_rgb_to_xyb",
-        )
-        check(
-            lib.tm_level_sums(
-                xyb.data_ptr(), bsz, h, w, clo, chi, taps.data_ptr(), parts.data_ptr(),
-                sums.data_ptr(), sums_bstride, stream,
-            ),
-            "tm_level_sums",
-        )
 
 
 def fused_scale_rgb(
@@ -309,19 +305,13 @@ def fused_scale_rgb(
     clo, chi = window(columns, p12.shape[-1])
     if p12.device.type == "cpu":
         return fused_scale_rgb_ref(p12, taps, opsin, emit_ds=emit_ds, columns=columns)
-    if p12.device.type != "cuda":
-        raise ValueError(f"fused_scale_rgb runs on cuda or cpu, not {p12.device}")
-    lib = LIBRARY.get()
     _, bsz, _, h, w = p12.shape
-    dev = p12.device
-    ds = (
-        torch.empty((2, bsz, 3, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=dev)
-        if emit_ds else None
+    out = launch_first_level(
+        "fused_scale_rgb", p12.device, taps, bsz, h, w, clo, chi, emit_ds, "tm_rgb_to_xyb",
+        (p12.data_ptr(), bsz, h, w, opsin.data_ptr()),
     )
-    sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
-    launch_rgb_level(lib, p12, taps, opsin, s2_level_scratch(bsz, h, w, dev), sums, 18, ds, clo, chi)
     fused_scale_rgb.launches += 1
-    return sums, ds
+    return out
 
 
 fused_scale_rgb.launches = 0
@@ -382,36 +372,19 @@ def fused_scale_srgb(
     check_level_consts(taps, opsin, ref.device)
     if ref.device.type == "cpu":
         return fused_scale_srgb_ref(ref, dis, taps, opsin, depth=depth, emit_ds=emit_ds)
-    if ref.device.type != "cuda":
-        raise ValueError(f"fused_scale_srgb runs on cuda or cpu, not {ref.device}")
     n = CODE_TABLE_SIZES[ref.dtype]
-    if table.shape != (n,) or table.dtype != torch.float32 or table.device != ref.device or not table.is_contiguous():
+    if not (
+        isinstance(table, torch.Tensor) and table.shape == (n,) and table.dtype == torch.float32
+        and table.device == ref.device and table.is_contiguous()
+    ):
         raise ValueError(f"table must be a contiguous ({n},) float32 tensor on {ref.device}")
-    lib = LIBRARY.get()
     bsz, h, w, _ = ref.shape
-    dev = ref.device
-    xyb, parts = s2_level_scratch(bsz, h, w, dev)
-    ds = (
-        torch.empty((2, bsz, 3, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=dev)
-        if emit_ds else None
+    out = launch_first_level(
+        "fused_scale_srgb", ref.device, taps, bsz, h, w, 0, w, emit_ds, "tm_srgb_pair_to_xyb",
+        (ref.data_ptr(), dis.data_ptr(), int(ref.dtype == torch.uint16), bsz, h, w, table.data_ptr(), opsin.data_ptr()),
     )
-    sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
-    with launch_stream(dev) as stream:
-        check(
-            lib.tm_srgb_pair_to_xyb(
-                ref.data_ptr(), dis.data_ptr(), int(ref.dtype == torch.uint16), bsz, h, w, table.data_ptr(),
-                opsin.data_ptr(), xyb.data_ptr(), ds.data_ptr() if emit_ds else None, stream,
-            ),
-            "tm_srgb_pair_to_xyb",
-        )
-        check(
-            lib.tm_level_sums(
-                xyb.data_ptr(), bsz, h, w, 0, w, taps.data_ptr(), parts.data_ptr(), sums.data_ptr(), 18, stream,
-            ),
-            "tm_level_sums",
-        )
     fused_scale_srgb.launches += 1
-    return sums, ds
+    return out
 
 
 fused_scale_srgb.launches = 0
@@ -482,28 +455,11 @@ def fused_scale_pair(
     clo, chi = window(columns, lin_ref.shape[-1])
     if lin_ref.device.type == "cpu":
         return fused_scale_pair_ref(lin_ref, lin_dis, taps, opsin, columns=columns)
-    if lin_ref.device.type != "cuda":
-        raise ValueError(f"fused_scale_pair runs on cuda or cpu, not {lin_ref.device}")
-    lib = LIBRARY.get()
     bsz, _, h, w = lin_ref.shape
-    dev = lin_ref.device
-    xyb, parts = s2_level_scratch(bsz, h, w, dev)
-    sums = torch.empty((bsz, 3, 6), dtype=torch.float32, device=dev)
-    with launch_stream(dev) as stream:
-        check(
-            lib.tm_rgb_pair_to_xyb(
-                lin_ref.data_ptr(), lin_dis.data_ptr(), bsz, h, w, opsin.data_ptr(), xyb.data_ptr(),
-                None, stream,
-            ),
-            "tm_rgb_pair_to_xyb",
-        )
-        check(
-            lib.tm_level_sums(
-                xyb.data_ptr(), bsz, h, w, clo, chi, taps.data_ptr(), parts.data_ptr(),
-                sums.data_ptr(), 18, stream,
-            ),
-            "tm_level_sums",
-        )
+    sums, _ = launch_first_level(
+        "fused_scale_pair", lin_ref.device, taps, bsz, h, w, clo, chi, False, "tm_rgb_pair_to_xyb",
+        (lin_ref.data_ptr(), lin_dis.data_ptr(), bsz, h, w, opsin.data_ptr()),
+    )
     fused_scale_pair.launches += 1
     return sums
 

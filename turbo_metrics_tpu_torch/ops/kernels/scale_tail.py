@@ -18,7 +18,7 @@ from turbo_metrics_tpu_torch.ops.kernels.scale_stats import (
     check_level,
     check_level_consts,
     fused_scale_rgb_ref,
-    launch_rgb_level,
+    launch_level,
     next_window,
     s2_level_scratch,
     window,
@@ -74,7 +74,10 @@ def fused_pyramid_tail(
             nxt = torch.empty(
                 (2, bsz, 3, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=dev
             )
-        launch_rgb_level(lib, cur, taps, opsin, scratch, sums[:, li], num_levels * 18, nxt, clo, chi)
+        launch_level(
+            lib, dev, taps, scratch, sums[:, li], num_levels * 18, nxt, bsz, h, w, clo, chi, "tm_rgb_to_xyb",
+            (cur.data_ptr(), bsz, h, w, opsin.data_ptr()),
+        )
         if nxt is not None:
             cur, h, w = nxt, (h + 1) // 2, (w + 1) // 2
             clo, chi = next_window(clo, chi)
