@@ -1195,7 +1195,7 @@ def check_xpsnr_kernel(y16, cli_xpsnr) -> float:
 
     ref, dis = y16[0], y16[1]
     _, n, h, w = y16.shape
-    twin_db, err = [], 0
+    twin_db, err, rel = [], 0, 0.0
     for b0 in range(0, n, BATCH):
         prev0 = ref[max(b0 - 1, 0)]
         args = (ref[b0 : b0 + BATCH], dis[b0 : b0 + BATCH], prev0)
@@ -1204,10 +1204,15 @@ def check_xpsnr_kernel(y16, cli_xpsnr) -> float:
             need(torch.equal(got[k], want[k]), f"#13 {k} grid differs from the twin's (frames {b0}+)")
             err = max(err, int((got[k] - want[k]).abs().max()))
         twin_db += frames_db(want, width=w, height=h)
+        # The weighted SSE the engine takes on the card above 640x480.
+        wsse, twin = xpsnr.xpsnr_wsse(got, depth=8), xpsnr.xpsnr_wsse_ref(want, depth=8).to(got["sse"].device)
+        need(torch.equal(wsse, xpsnr.xpsnr_wsse(got, depth=8)), f"xpsnr_wsse: two calls differ (frames {b0}+)")
+        rel = max(rel, float(((wsse - twin) / twin).abs().max()))
     d = float(np.abs(np.asarray(twin_db) - cli_xpsnr).max())
     log(f"#13 vs twin at {w}x{h}, frames 0-{n - 1}: all grids equal; XPSNR of the twin route vs "
-        f"the CLI's: max |diff| {d:.3g} dB")
+        f"the CLI's: max |diff| {d:.3g} dB; xpsnr_wsse vs its twin: max relative {rel:.3g}")
     need(d <= TOL["xpsnr"], f"XPSNR of the twin route vs the CLI's: {d}")
+    need(rel <= 1e-13, f"xpsnr_wsse vs its twin: relative {rel}")
     rng = np.random.default_rng(13)
     hs, ws = 67, 99
     for ref_depth, dis_depth, ref_dtype in (

@@ -117,10 +117,13 @@ def test_engine_all6_10bit_matches_reference(monkeypatch):
         for k in range(ring.blocks):
             ref, dis = _host_frames(ring, k)
             answers += [(k * BATCH + j, s.to_dict()) for j, s in enumerate(engine.compute_frames(ref, cc, dis, cc))]
-            buffers.append(engine._grids_host.data_ptr())
+            buffers.append(engine._results_host.data_ptr())
     records = profiling.take()
-    # XPSNR's three grids are read into one host buffer, kept from batch to batch.
-    assert buffers[0] == buffers[1] and engine._grids_host.shape[:2] == (3, BATCH)
+    # Each batch's results, XPSNR's three grids among them at this size, are
+    # read in one copy into one host buffer, kept from batch to batch.
+    assert buffers[0] == buffers[1] and records.spans["tm.readback"].count == ring.blocks
+    assert records.counters["readback_bytes"] == ring.blocks * engine._results_host.numel()
+    assert records.counters["xpsnr.host_frames"] == ring.blocks * BATCH and "xpsnr.card_frames" not in records.counters
     ns = engine.model.num_scales
     assert records.counters["levels.scale"] == 3 * ring.blocks
     assert records.counters["levels.tail"] == (ns - 3) * ring.blocks

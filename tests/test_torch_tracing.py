@@ -171,15 +171,24 @@ def _leaf_bytes(tree) -> int:
 
 def test_all_six_engine_records_each_family_once_a_batch(monkeypatch):
     """An all-six engine on small frames: per batch one ``tm.batch``, one
-    ``tm.step`` and one ``tm.score``, each family's step and scoring span
-    once, the planes stacked and uploaded per field; ``upload_bytes`` the
-    planes' bytes and ``readback_bytes`` the step's results' bytes."""
+    ``tm.step``, one ``tm.pack`` and one ``tm.score``, each family's step and
+    scoring span once, the planes stacked and uploaded per field;
+    ``upload_bytes`` the planes' bytes; one ``tm.readback`` a batch, under
+    ``tm.score``, of the packed buffer, whose bytes are the step's results'
+    (``readback_bytes``); XPSNR's frames, at most 640x480 here, weighted on
+    the host."""
     w, h, b, batches = 48, 32, 2, 2
     metrics = Metrics(psnr=True, ssim=True, msssim=True, ssimulacra2=True, xpsnr=True, vmaf=True)
     engine = TurboMetrics(w, h, metrics, batch=b, device="cpu")
-    results = []
-    scores = engine._scores
-    monkeypatch.setattr(engine, "_scores", lambda out, *a: (results.append(out), scores(out, *a))[1])
+    results, packed = [], []
+    pack = engine._pack
+
+    def recorded(out):
+        results.append(out)
+        packed.append(pack(out))
+        return packed[-1]
+
+    monkeypatch.setattr(engine, "_pack", recorded)
     rng = np.random.default_rng(3)
     uploaded = 0
     with profiling.tracing():
@@ -189,7 +198,7 @@ def test_all_six_engine_records_each_family_once_a_batch(monkeypatch):
             engine.compute_frames(ref, CC, dis, CC)
     records = profiling.take()
     once = ["tm.batch", "tm.step", "tm.planes", "tm.step.convert", "tm.step.quality", "tm.step.ssimulacra2",
-            "tm.step.ssimulacra2.levels", "tm.step.ssimulacra2.norms", "tm.step.xpsnr", "tm.step.vmaf",
+            "tm.step.ssimulacra2.levels", "tm.step.ssimulacra2.norms", "tm.step.xpsnr", "tm.step.vmaf", "tm.pack",
             "tm.score", "tm.wait", "tm.score.quality", "tm.score.ssimulacra2", "tm.score.xpsnr", "tm.score.vmaf"]
     assert {name: records.spans[name].count for name in once} == dict.fromkeys(once, batches)
     assert records.per() == batches
@@ -197,12 +206,15 @@ def test_all_six_engine_records_each_family_once_a_batch(monkeypatch):
     assert records.spans["tm.planes.stack"].count == records.spans["tm.planes.upload"].count == 2 * batches
     assert records.spans["tm.planes.upload"].parents == {"tm.planes": 2 * batches}
     assert records.spans["tm.step"].parents == {"tm.batch": batches}
+    assert records.spans["tm.pack"].parents == {"tm.batch": batches}
     assert records.spans["tm.step.ssimulacra2.levels"].parents == {"tm.step.ssimulacra2": batches}
     assert records.counters["upload_bytes"] == uploaded
+    assert [set(out) for out in results] == [{"psnr", "ssim", "msssim", "ssimulacra2", "xpsnr", "vif", "adm", "sad"}] * 2
+    assert [p.buffer.numel() * p.buffer.element_size() for p in packed] == [_leaf_bytes(out) for out in results]
     assert records.counters["readback_bytes"] == sum(_leaf_bytes(out) for out in results)
-    assert records.spans["tm.readback"].count == sum(len(list(_leaves(out))) for out in results)
-    assert set(records.spans["tm.readback"].parents) == {
-        "tm.score.quality", "tm.score.ssimulacra2", "tm.score.xpsnr", "tm.score.vmaf"}
+    assert records.spans["tm.readback"].count == batches
+    assert records.spans["tm.readback"].parents == {"tm.score": batches}
+    assert records.counters["xpsnr.host_frames"] == b * batches and "xpsnr.card_frames" not in records.counters
     # The plain routes on the CPU launch nothing of the kernel library.
     assert not any(name.startswith("launches.") for name in records.counters)
 

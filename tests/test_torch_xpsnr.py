@@ -269,3 +269,88 @@ def test_kernel_wrapper_on_cpu_counts_nothing_and_checks_inputs(rng):
     for args in bad:
         with pytest.raises(ValueError):
             kx.xpsnr_block_stats(*args)
+
+
+def _case_grids(rng, case: str) -> tuple:
+    """(grids, width, height, depth) of a case of ``test_wsse_twin_matches_host_weighting``."""
+    if case == "4K 10-bit":
+        # Seeded grids of a 3840x2160 frame pair at 10 bits.
+        shape, hi = (2, 135, 240), {"sse": 1 << 24, "sact": 1 << 22, "tact": 1 << 20}
+        return {q: torch.from_numpy(rng.integers(0, hi[q], shape)) for q in kx.QUANTITIES}, 3840, 2160, 10
+    h, w, ref_depth, dis_depth, b = {
+        "1080p u8": (1080, 1920, 8, 8, 1),
+        "10-bit over 8-bit": (496, 720, 10, 8, 2),
+        "wrapped mod 2^32": (480, 656, 16, 16, 1),
+        "zero SSE": (480, 656, 8, 8, 2),
+    }[case]
+    ref, dis, _ = _planes(rng, (b, h, w), ref_depth, wrap=case == "wrapped mod 2^32")
+    if dis_depth != ref_depth:
+        dis = rng.integers(0, 1 << dis_depth, dis.shape).astype(np.uint8)
+    if case == "zero SSE":
+        dis = ref
+    ref, dis = torch.from_numpy(ref), torch.from_numpy(dis)
+    return kx.xpsnr_block_stats(ref, dis, ref[0], dis_shift=ref_depth - dis_depth), w, h, ref_depth
+
+
+@pytest.mark.parametrize("case", ["1080p u8", "4K 10-bit", "10-bit over 8-bit", "wrapped mod 2^32", "zero SSE"])
+def test_wsse_twin_matches_host_weighting(rng, case):
+    """Above 640x480 the twin of the card's weighted SSE, turned into dB on
+    the host (``wsse_db``), gives ``xpsnr_weights`` + ``xpsnr_db`` within
+    1e-9 dB: the sum itself within reordered f64 of the host's; the grids of
+    #13's twin (a 10-bit reference over 8-bit distorted luma through
+    ``dis_shift``, 16-bit SSEs past 2^32) or seeded ones (4K); a frame with
+    no error is inf both ways."""
+    grids, w, h, depth = _case_grids(rng, case)
+    assert not tx.smoothed(w, h)
+    kw = dict(width=w, height=h, depth=depth)
+    wsse = kx.xpsnr_wsse(grids, depth=depth)
+    assert wsse.dtype == torch.float64 and wsse.shape == grids["sse"].shape[:1]
+    host = [float((tx.xpsnr_weights(*(grids[q][i].numpy() for q in kx.QUANTITIES), **kw)[1]
+                   * grids["sse"][i].numpy().reshape(-1)).sum()) for i in range(wsse.shape[0])]
+    np.testing.assert_allclose(wsse.numpy(), host, rtol=1e-13, atol=0)
+    got, want = tx.wsse_db(wsse.numpy(), **kw), tx.frames_db(grids, **kw)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    assert all(np.isinf(got)) == (case == "zero SSE")
+
+
+def test_wsse_wrapper_checks_its_grids():
+    """The weighted SSE's wrapper takes three int64 (B, hb, wb) grids of one
+    shape and device and a depth of 2-16 bits."""
+    g = {q: torch.zeros((2, 3, 4), dtype=torch.int64) for q in kx.QUANTITIES}
+    kx.xpsnr_wsse.launches = 0
+    assert torch.equal(kx.xpsnr_wsse(g, depth=8), torch.zeros(2, dtype=torch.float64))
+    assert kx.xpsnr_wsse.launches == 0
+    bad = [
+        ({**g, "sse": g["sse"].int()}, 8),  # type
+        ({**g, "tact": g["tact"][:, :2]}, 8),  # shape
+        ({k: v for k, v in g.items() if k != "sact"}, 8),  # a grid missing
+        ({**g, "sact": g["sact"].to("meta")}, 8),  # device
+        (g, 1),  # depth
+        (g, 17),
+    ]
+    for grids, depth in bad:
+        with pytest.raises(ValueError):
+            kx.xpsnr_wsse(grids, depth=depth)
+
+
+@pytest.mark.parametrize("w,h,path", [(640, 480, "host"), (641, 480, "card"), (64, 48, "host")])
+def test_weighting_route_follows_frame_area(rng, w, h, path):
+    """The engine weighs frames of at most 640x480 on the host from their
+    grids and larger frames on the device, by area alone: the counters
+    ``xpsnr.host_frames`` / ``xpsnr.card_frames`` count each batch's frames,
+    and XPSNR is ``frames_db`` of the grids within 1e-9 dB."""
+    b = 2
+    eng = port_engine.TurboMetrics(w, h, port_engine.Metrics(xpsnr=True), batch=b, device="cpu")
+    uv = np.full(((h + 1) // 2, (w + 1) // 2, 2), 128, np.uint8)
+    ref = rng.integers(0, 256, (b, h, w), dtype=np.uint8)
+    dis = np.clip(ref.astype(np.int16) + rng.integers(-6, 7, ref.shape), 0, 255).astype(np.uint8)
+    cc = (height_fallback(h), "limited")
+    with port_engine.profiling.tracing():
+        got = [s.xpsnr for s in eng.compute_frames([RawFrame(y=y, uv=uv) for y in ref], cc,
+                                                   [RawFrame(y=y, uv=uv) for y in dis], cc)]
+    counters = port_engine.profiling.take().counters
+    assert counters[f"xpsnr.{path}_frames"] == b
+    assert f"xpsnr.{'card' if path == 'host' else 'host'}_frames" not in counters
+    r = torch.from_numpy(ref)
+    want = tx.frames_db(kx.xpsnr_block_stats(r, torch.from_numpy(dis), r[0]), width=w, height=h)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)

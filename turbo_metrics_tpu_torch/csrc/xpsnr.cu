@@ -371,6 +371,64 @@ xpsnr_kernel(const TR* __restrict__ ref, const TD* __restrict__ dis, const TR* _
   }
 }
 
+// XPSNR's weighted SSE of each frame, from the three grids above: per block
+// msact = max(1 + sact / 256 + 2 tact / 256, 2^(depth - 2)) and the term
+// (1 / msact) * sse, summed over the frame in f64.  The arithmetic of
+// ops/xpsnr_ops.py xpsnr_weights for frames above 640x480 (those at most
+// that size smooth the weights over their neighbours, a walk in block order
+// that stays on the host), each operation rounded on its own (no FMA
+// contraction), so every term holds the host's bits and only the order of
+// the sum differs: the reference's limit of 1e-9 dB allows that order.
+//
+// Replaces no TPU kernel: the JAX package weighs the grids on the host.  What
+// bounds it on this card: bytes, 24 per block (1.37 MB at 1080p B=7, 3.1 MB at
+// 4K B=4, ~1 us at 3.35 TB/s), against a launch's latency of a few us.  One
+// thread block per frame sums in a fixed order (each thread its strided
+// blocks in turn, four loads in flight, then a tree over the threads), so
+// two calls give the same bits and a frame's sum does not depend on the
+// batch it is in.
+constexpr int kWsseThreads = 1024;
+constexpr int kWsseUnroll = 4;
+
+__device__ __forceinline__ double wsse_term(int64_t sse, int64_t sact, int64_t tact, double floor) {
+  const double m = fmax(__dadd_rn(__dadd_rn(1.0, __ddiv_rn((double)sact, 256.0)),
+                                  __ddiv_rn(__dmul_rn(2.0, (double)tact), 256.0)),
+                        floor);
+  return __dmul_rn(__ddiv_rn(1.0, m), (double)sse);
+}
+
+// grid: (B), block: kWsseThreads; frame b's grids are blocks int64 values at
+// b * blocks of each.
+__global__ void __launch_bounds__(kWsseThreads)
+xpsnr_wsse_kernel(const int64_t* __restrict__ sse, const int64_t* __restrict__ sact,
+                  const int64_t* __restrict__ tact, int blocks, double floor, double* __restrict__ out) {
+  __shared__ double red[kWsseThreads];
+  const size_t base = (size_t)blockIdx.x * blocks;
+  const int tid = threadIdx.x;
+  double acc = 0.0;
+  int i = tid;
+  for (; i + (kWsseUnroll - 1) * kWsseThreads < blocks; i += kWsseUnroll * kWsseThreads) {
+    int64_t s[kWsseUnroll], a[kWsseUnroll], t[kWsseUnroll];
+#pragma unroll
+    for (int u = 0; u < kWsseUnroll; ++u) {
+      const size_t at = base + i + u * kWsseThreads;
+      s[u] = sse[at];
+      a[u] = sact[at];
+      t[u] = tact[at];
+    }
+#pragma unroll
+    for (int u = 0; u < kWsseUnroll; ++u) acc = __dadd_rn(acc, wsse_term(s[u], a[u], t[u], floor));
+  }
+  for (; i < blocks; i += kWsseThreads) acc = __dadd_rn(acc, wsse_term(sse[base + i], sact[base + i], tact[base + i], floor));
+  red[tid] = acc;
+  __syncthreads();
+  for (int stride = kWsseThreads / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) red[tid] = __dadd_rn(red[tid], red[tid + stride]);
+    __syncthreads();
+  }
+  if (tid == 0) out[blockIdx.x] = red[0];
+}
+
 // The instance for the reference and distorted types (0 u8, 1 u16, 2 int32)
 // and the shift, with its geometry; null for an unknown type.
 template <typename TR>
@@ -426,6 +484,18 @@ int tm_xpsnr_block_stats(const void* ref, int ref_type, const void* dis, int dis
   const cudaError_t err = cudaLaunchKernel(k.fn, grid, dim3(kWarps * 32), args, 0,
                                            static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// sse, sact, tact: (images, blocks) int64 grids (tm_xpsnr_block_stats' three,
+// or any such), depth 2..16 bits of the reference.  out: (images) f64, each
+// frame's weighted SSE (xpsnr_wsse_kernel).
+int tm_xpsnr_wsse(const int64_t* sse, const int64_t* sact, const int64_t* tact, int images, int blocks,
+                  int depth, double* out, void* stream) {
+  if (images < 1 || blocks < 1 || depth < 2 || depth > 16) return (int)cudaErrorInvalidValue;
+  const double floor = (double)(1 << (depth - 2));
+  xpsnr_wsse_kernel<<<images, kWsseThreads, 0, static_cast<cudaStream_t>(stream)>>>(sse, sact, tact, blocks,
+                                                                                     floor, out);
   return (int)cudaGetLastError();
 }
 

@@ -28,16 +28,20 @@ JAX engine's ``_get_step``):
     (ops/kernels/vif.py, ops/kernels/adm.py) on the pair in 8-bit units, or
     with ``vmaf_integer`` their fixed-point conventions on the luma codes
     themselves (ops/kernels/integer_vif.py, ops/kernels/integer_adm.py).
-Only per-frame values, the (B, 3, S, 2, 3) sub-scores, the XPSNR block
-grids and VMAF's sums come back, read once every launch of the batch is
-queued; the SSIMULACRA2 score, the XPSNR weighting, VMAF's feature scores
-and its fusion model run on the host in f64.
+Only per-frame values come back: the (B, 3, S, 2, 3) sub-scores, XPSNR's
+weighted SSE of each frame (ops/kernels/xpsnr.py ``xpsnr_wsse``; the block
+grids of frames of at most 640x480, whose weighting smooths over neighbours
+on the host) and VMAF's sums, packed into one device buffer once every
+launch of the batch is queued and read in one copy into a host buffer that
+the engine keeps (``_pack``, ``_read``).  The SSIMULACRA2 score, the rest of
+XPSNR's scoring, VMAF's feature scores and its fusion model run on the host
+in f64.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -60,11 +64,11 @@ from turbo_metrics_tpu_torch.ops.kernels.integer_adm import integer_adm_stats
 from turbo_metrics_tpu_torch.ops.kernels.integer_vif import integer_vif_stats
 from turbo_metrics_tpu_torch.ops.kernels.motion import integer_blur, motion_stats
 from turbo_metrics_tpu_torch.ops.kernels.vif import vif_scale_stats
-from turbo_metrics_tpu_torch.ops.kernels.xpsnr import xpsnr_block_stats
+from turbo_metrics_tpu_torch.ops.kernels.xpsnr import xpsnr_block_stats, xpsnr_wsse
 from turbo_metrics_tpu_torch.ops.quality import Quality
 from turbo_metrics_tpu_torch.ops.vif import vif_scores
 from turbo_metrics_tpu_torch.ops.vmaf_motion import motion_score
-from turbo_metrics_tpu_torch.ops.xpsnr_ops import align_luma_depth, frames_db
+from turbo_metrics_tpu_torch.ops.xpsnr_ops import align_luma_depth, frames_db, smoothed, wsse_db
 from turbo_metrics_tpu_torch.parallel.mesh import frames_per_shard, gather_frames, launch_shards
 from turbo_metrics_tpu_torch.utils import profiling
 from turbo_metrics_tpu_torch.utils.profiling import span, to_host
@@ -249,6 +253,26 @@ def _luma_code(spec: ConvertSpec, arrays: tuple[torch.Tensor, ...]) -> torch.Ten
     return torch.round(y).to(torch.int32).contiguous()
 
 
+def _xpsnr_depth(spec_ref: ConvertSpec) -> int:
+    """The depth XPSNR is weighted at: the reference's, or, as in the JAX
+    engine, 8 bits for an RGB reference, whatever its depth."""
+    return spec_ref.depth if spec_ref.kind == "yuv420" else 8
+
+
+# The NumPy type of each type a step's results come in.
+_NUMPY_TYPES = {torch.float32: np.dtype(np.float32), torch.float64: np.dtype(np.float64),
+                torch.int32: np.dtype(np.int32), torch.int64: np.dtype(np.int64)}
+
+
+class Packed(NamedTuple):
+    """A step's results laid out for one readback (``TurboMetrics._pack``):
+    ``buffer``, their bytes on their device, and per result (name, key of
+    XPSNR's dict or None), byte offset, bytes, NumPy type and shape."""
+
+    buffer: torch.Tensor
+    fields: list
+
+
 def vmaf_pair(y_ref: torch.Tensor, y_dis: torch.Tensor, depth_ref: int, depth_dis: int) -> torch.Tensor:
     """VIF's and ADM's input: the (2, B, H, W) f32 luma pair in 8-bit units,
     the distorted luma aligned to the reference's depth first.  The scale
@@ -369,8 +393,8 @@ class TurboMetrics:
         self._prev_ref: Optional[torch.Tensor] = None
         # VMAF motion state: the previous batch's last blurred reference luma.
         self._vmaf_prev_blur: Optional[torch.Tensor] = None
-        # XPSNR's block grids on the host, reused from batch to batch (_host_grids).
-        self._grids_host: Optional[torch.Tensor] = None
+        # A batch's results on the host, one buffer reused from batch to batch (_read).
+        self._results_host: Optional[torch.Tensor] = None
         self.vmaf_model = vmaf_model
         self.vmaf_integer = vmaf_integer
         if vmaf_model is not None:
@@ -414,7 +438,7 @@ class TurboMetrics:
                 )
             else:
                 out, state = self._mesh_step(spec, ref_frames, spec_dis, dis_frames)
-            scores = self._scores(out, n, spec, first)
+            scores = self._scores(self._pack(out), n, spec, first)
             # Replaced once the scores are read: the shards may read the old
             # state until then.
             if self.metrics.xpsnr:
@@ -502,22 +526,64 @@ class TurboMetrics:
                 out.update(vmaf)
             return out, (last_ref, last_blur)
 
-    def _scores(self, out: dict, n: int, spec_ref: ConvertSpec, first: bool) -> list[FrameScores]:
+    def _pack(self, out: dict) -> Packed:
+        """A step's results (a dict of per-frame tensors, XPSNR's a dict of
+        its own) laid out for one readback: their bytes joined in one launch
+        into one buffer on their device, the 8-byte types first so that
+        every field sits at a multiple of its item size.  A single result
+        is the buffer, with no launch."""
+        leaves = [((name, key), t) for name, v in out.items()
+                  for key, t in (v.items() if isinstance(v, dict) else [(None, v)])]
+        leaves.sort(key=lambda leaf: -leaf[1].element_size())
+        fields, at = [], 0
+        for path, t in leaves:
+            fields.append((path, at, t.nbytes, _NUMPY_TYPES[t.dtype], t.shape))
+            at += t.nbytes
+        if len(leaves) == 1:
+            return Packed(leaves[0][1], fields)
+        with span("tm.pack"):
+            return Packed(torch.cat([t.reshape(-1).view(torch.uint8) for _, t in leaves]), fields)
+
+    def _read(self, packed: Packed) -> dict:
+        """The packed results read back in one copy (one ``tm.readback``)
+        into one host buffer that the engine keeps (pinned where they come
+        from a card) and reuses in every batch: the step's dict of NumPy
+        views, valid until the next batch's readback.  Fresh host memory
+        for a readback of ~3 MB (a 4K batch's XPSNR grids) took 6-10 ms a
+        batch in some processes on the H100's host, against ~0.4 ms into a
+        reused buffer (PERF.md section 6)."""
+        buf = packed.buffer
+        host = self._results_host
+        if host is None or host.shape != buf.shape or host.dtype != buf.dtype:
+            host = self._results_host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=buf.is_cuda)
+        raw = to_host(buf, out=host).reshape(-1).view(np.uint8)
+        out: dict = {}
+        for (name, key), at, nbytes, dtype, shape in packed.fields:
+            a = raw[at:at + nbytes].view(dtype).reshape(shape)
+            if key is None:
+                out[name] = a
+            else:
+                out.setdefault(name, {})[key] = a
+        return out
+
+    def _scores(self, packed: Packed, n: int, spec_ref: ConvertSpec, first: bool) -> list[FrameScores]:
         """The host's part: the first ``n`` frames' scores from a step's
-        device results (the SSIMULACRA2 score, the XPSNR weighting and
-        VMAF's feature scores in f64).  While the recording is on, the wait
-        for the batch's device work, which the first readback makes anyway,
-        is a span of its own (``tm.wait``)."""
+        packed results (``_pack``), read back in one copy (the SSIMULACRA2
+        score, the rest of XPSNR's scoring and VMAF's feature scores in
+        f64).  While the recording is on, the wait for the batch's device
+        work, which the readback makes anyway, is a span of its own
+        (``tm.wait``)."""
         with span("tm.score"):
             if profiling.recording():
                 with span("tm.wait"):
-                    profiling.synchronize(out)
+                    profiling.synchronize(packed.buffer)
+            out = self._read(packed)
             scores = [FrameScores() for _ in range(n)]
             if self.quality is not None:
                 with span("tm.score.quality"):
                     for name in ("psnr", "ssim", "msssim"):
                         if name in out:
-                            vals = to_host(out[name]).astype(np.float64)
+                            vals = out[name].astype(np.float64)
                             for i in range(n):
                                 setattr(scores[i], name, float(vals[i]))
             if "ssimulacra2" in out:
@@ -527,17 +593,16 @@ class TurboMetrics:
                         scores[i].ssimulacra2 = float(s2[i])
             if "xpsnr" in out:
                 with span("tm.score.xpsnr"):
-                    # As in the JAX engine: an RGB reference is weighted at 8
-                    # bits, whatever its depth.
-                    depth = spec_ref.depth if spec_ref.kind == "yuv420" else 8
-                    db = frames_db(self._host_grids(out["xpsnr"]), width=self.width, height=self.height, depth=depth)
+                    kw = dict(width=self.width, height=self.height, depth=_xpsnr_depth(spec_ref))
+                    x = out["xpsnr"]
+                    db = wsse_db(x["wsse"], **kw) if "wsse" in x else frames_db(x, **kw)
                     for s, v in zip(scores, db):
                         s.xpsnr = v
             if "vif" in out:
                 with span("tm.score.vmaf"):
-                    vs = vif_scores(to_host(out["vif"]))
-                    adm = adm_score(to_host(out["adm"]), self.height, self.width)
-                    sads = to_host(out["sad"])
+                    vs = vif_scores(out["vif"])
+                    adm = adm_score(out["adm"], self.height, self.width)
+                    sads = out["sad"]
                     for i, s in enumerate(scores):
                         s.vmaf_vif = float(vs["vif"][i])
                         s.vmaf_adm = float(adm["adm2"][i])
@@ -548,20 +613,6 @@ class TurboMetrics:
                     if first:
                         scores[0].vmaf_motion = 0.0
             return scores
-
-    def _host_grids(self, stats: dict) -> dict:
-        """XPSNR's block grids read back into one host buffer that the engine
-        keeps (pinned where the grids come from a card) and reuses in every
-        batch: NumPy views, valid until the next batch's readback.  Each
-        grid of a 4K batch of 4 is ~1 MB; filling fresh host memory with
-        them took 6-10 ms a batch in some processes on the H100's host,
-        against ~0.4 ms into a reused buffer (PERF.md section 5)."""
-        first = next(iter(stats.values()))
-        shape = (len(stats), *first.shape)
-        buf = self._grids_host
-        if buf is None or buf.shape != shape or buf.dtype != first.dtype:
-            buf = self._grids_host = torch.empty(shape, dtype=first.dtype, pin_memory=first.is_cuda)
-        return {k: to_host(v, out=buf[i]) for i, (k, v) in enumerate(stats.items())}
 
     def _planes(self, dev: torch.device, *inputs: list[RawFrame]) -> tuple[torch.Tensor, ...]:
         """One input's frames on ``dev``, or two inputs' stacked on a
@@ -620,9 +671,10 @@ class TurboMetrics:
         self, spec_ref: ConvertSpec, arr_ref: tuple, spec_dis: ConvertSpec, arr_dis: tuple,
         prev_ref: Optional[torch.Tensor],
     ) -> tuple[dict, torch.Tensor]:
-        """XPSNR's block grids of the batch's frames (engine.py:302-314,
-        :913-919 and :980-992 of the JAX package) and the last reference
-        luma."""
+        """XPSNR of the batch's frames as far as the device takes it: the
+        block grids (engine.py:302-314, :913-919 and :980-992 of the JAX
+        package), or above 640x480 each frame's weighted SSE
+        ({"wsse"}); and the last reference luma."""
         y_ref = _luma_code(spec_ref, arr_ref)
         y_dis = _luma_code(spec_dis, arr_dis)
         # The stream's first frame is its own previous frame (tact 0).
@@ -631,6 +683,13 @@ class TurboMetrics:
         # while it reads: XPSNR compares raw code values, so a pair whose
         # inputs differ in depth is compared at the reference's depth.
         stats = xpsnr_block_stats(y_ref, y_dis, prev0, dis_shift=spec_ref.depth - spec_dis.depth)
+        # Above 640x480 the weighting is a plain sum, taken on the device:
+        # B doubles come back in place of the grids.
+        if smoothed(self.width, self.height):
+            profiling.count("xpsnr.host_frames", y_ref.shape[0])
+        else:
+            profiling.count("xpsnr.card_frames", y_ref.shape[0])
+            stats = {"wsse": xpsnr_wsse(stats, depth=_xpsnr_depth(spec_ref))}
         return stats, y_ref[-1].clone()
 
     def _vmaf(

@@ -784,9 +784,12 @@ class Ssimulacra2(nn.Module):
                 return self.subscores_from_srgb(ref, dis, depth=spec_ref.depth)
         return None
 
-    def score(self, subscores: torch.Tensor) -> np.ndarray:
-        """(B, 3, S, 2, 3) sub-scores -> (B,) f64 scores on the host."""
-        return postprocess_score(to_host(subscores).astype(np.float64), self.weights)
+    def score(self, subscores) -> np.ndarray:
+        """(B, 3, S, 2, 3) sub-scores, a tensor or its values on the host ->
+        (B,) f64 scores on the host."""
+        if torch.is_tensor(subscores):
+            subscores = to_host(subscores)
+        return postprocess_score(subscores.astype(np.float64), self.weights)
 
     def score_batch(self, lin_ref, lin_dis) -> np.ndarray:
         """Scores for a batch of (B, 3, H, W) frame pairs -> (B,) f64."""

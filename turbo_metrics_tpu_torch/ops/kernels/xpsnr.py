@@ -16,6 +16,12 @@ read by the same one launch.  The
 distorted luma is brought to the reference's depth by ``dis_shift`` bits
 (``xpsnr_ops.align_luma_depth``) inside the kernel.
 
+``xpsnr_wsse`` launches ``tm_xpsnr_wsse`` (csrc/xpsnr.cu) on the three grids:
+each frame's weighted SSE, ``xpsnr_ops.xpsnr_weights``' sum for frames above
+640x480, in f64 on the card, so that B doubles come back in place of the
+grids; its plain twin ``xpsnr_wsse_ref`` runs on a CPU tensor.  It replaces no
+TPU kernel (the JAX package weighs the grids on the host).
+
 ``xpsnr_width_sharded`` (parallel/mesh.py ``shard_over_width``) splits a
 frame's columns into strips whose owned edges sit on multiples of the
 16-column block, each cut with one whole block of halo on either side:
@@ -122,6 +128,64 @@ def xpsnr_block_stats(
 
 
 xpsnr_block_stats.launches = 0
+
+
+def _check_grids(grids: dict, depth: int) -> tuple:
+    if set(grids) != set(QUANTITIES):
+        raise ValueError(f"the grids must be {QUANTITIES}, got {sorted(grids)}")
+    sse, sact, tact = (grids[q] for q in QUANTITIES)
+    if sse.ndim != 3 or not sse.shape == sact.shape == tact.shape:
+        raise ValueError(f"the grids must be one (B, hb, wb) shape, got {[tuple(g.shape) for g in (sse, sact, tact)]}")
+    if not sse.dtype == sact.dtype == tact.dtype == torch.int64:
+        raise ValueError(f"the grids must be int64, got {[g.dtype for g in (sse, sact, tact)]}")
+    if not sse.device == sact.device == tact.device:
+        raise ValueError("the grids must be on one device")
+    if not 2 <= depth <= 16:
+        raise ValueError(f"depth must be 2-16 bits, got {depth}")
+    return sse, sact, tact
+
+
+def xpsnr_wsse_ref(grids: dict, *, depth: int) -> torch.Tensor:
+    """Plain twin of ``xpsnr_wsse`` (same arguments and result): the terms
+    of ``xpsnr_ops.xpsnr_weights``, bit for bit, summed by torch."""
+    sse, sact, tact = (g.flatten(1).to(torch.float64) for g in _check_grids(grids, depth))
+    n = float(xpsnr_ops.BLOCK * xpsnr_ops.BLOCK)
+    msact = torch.clamp(1.0 + sact / n + 2.0 * tact / n, min=float(1 << (depth - 2)))
+    return ((1.0 / msact) * sse).sum(dim=1)
+
+
+def xpsnr_wsse(grids: dict, *, depth: int) -> torch.Tensor:
+    """Each frame's weighted SSE: sum over its blocks of sse / max(1 +
+    sact / 256 + 2 tact / 256, 2^(depth - 2)), each term rounded as
+    ``xpsnr_ops.xpsnr_weights`` rounds it, for frames above 640x480 (smaller
+    ones smooth their weights on the host).
+
+    ``grids``: {"sse", "sact", "tact"}, (B, hb, wb) int64 tensors holding
+    the uint32 grids (``xpsnr_block_stats``'s); ``depth``: the reference's
+    bits, 2-16.  Returns (B,) float64; on the card one thread block a frame
+    sums in a fixed order, so two calls give the same bits.
+    """
+    sse, sact, tact = _check_grids(grids, depth)
+    if sse.device.type == "cpu":
+        return xpsnr_wsse_ref(grids, depth=depth)
+    if sse.device.type != "cuda":
+        raise ValueError(f"xpsnr_wsse runs on cuda or cpu, not {sse.device}")
+    sse, sact, tact = (g.contiguous() for g in (sse, sact, tact))
+    bsz = sse.shape[0]
+    out = torch.empty(bsz, dtype=torch.float64, device=sse.device)
+    with launch_stream(sse.device) as stream:
+        check(
+            LIBRARY.get().tm_xpsnr_wsse(
+                sse.data_ptr(), sact.data_ptr(), tact.data_ptr(), bsz, sse[0].numel(), int(depth),
+                out.data_ptr(), stream,
+            ),
+            "tm_xpsnr_wsse",
+        )
+    xpsnr_wsse.launches += 1
+    return out
+
+
+xpsnr_wsse.launches = 0
 
 
 def xpsnr_width_sharded(fn, mesh, *, in_ndims):

@@ -15,7 +15,10 @@ the uint32 grids' bit for bit, held in int64 tensors.
 Border note: the highpass uses edge-replicated padding (the reference's NPP
 call reads out of bounds at the borders; edge replication is FFmpeg's XPSNR
 behaviour).  ``xpsnr_weights`` and ``xpsnr_db`` run on the host in f64, as
-they are in the JAX package.
+they are in the JAX package.  Frames larger than 640x480 weigh their blocks
+without the neighbour smoothing, a plain sum that the engine leaves to the
+card (ops/kernels/xpsnr.py ``xpsnr_wsse``): the host then turns each frame's
+weighted SSE into dB (``wsse_db``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,17 @@ BLOCK = 16
 HIGHPASS = np.array([[-1, -2, -1], [-2, 12, -2], [-1, -2, -1]], dtype=np.int32)
 
 U32 = 0xFFFFFFFF
+
+# Frames of at most this many samples smooth their block weights over their
+# neighbours (the reference's CPU path, xpsnr-cuda/src/lib.rs:135-166).
+SMOOTHED_AREA = 640 * 480
+
+
+def smoothed(width: int, height: int) -> bool:
+    """Whether a frame's weights take the neighbour smoothing, a walk in
+    block order on the host; larger frames' weighting is a plain sum."""
+    return width * height <= SMOOTHED_AREA
+
 
 def align_luma_depth(y: torch.Tensor, from_depth: int, to_depth: int) -> torch.Tensor:
     """Rescale integer luma code values between bit depths (left or right
@@ -154,7 +168,7 @@ def xpsnr_weights(
 
     num_blocks = sse.size
     blocks_w = (width + block - 1) // block
-    if width * height <= 640 * 480:
+    if smoothed(width, height):
         w = weights
         for blk in range(num_blocks):
             if blk % blocks_w == 0:  # first column
@@ -173,12 +187,17 @@ def xpsnr_weights(
                 w[blk] = min(w[blk], msact_prev)
         weights = w
 
-    wsse = float((weights * sse).sum())
+    return _wsse_final(float((weights * sse).sum()), width, height, depth), weights
+
+
+def _wsse_final(wsse: float, width: int, height: int, depth: int) -> float:
+    """A frame's weighted SSE scaled by the mean activity of a 3840x2160
+    frame and rounded (lib.rs:185-196)."""
     if wsse < 0.0:
-        return 0.0, weights
+        return 0.0
     r = width * height / (3840.0 * 2160.0)
     avgact = np.sqrt(16.0 * float(1 << (2 * depth - 9)) / np.sqrt(max(r, 0.00001)))
-    return float(np.uint64(wsse * avgact + 0.5)), weights
+    return float(np.uint64(wsse * avgact + 0.5))
 
 
 def xpsnr_db(wsse_final: float, *, width: int, height: int, depth: int = 8) -> float:
@@ -187,6 +206,14 @@ def xpsnr_db(wsse_final: float, *, width: int, height: int, depth: int = 8) -> f
         return float("inf")
     maxval = (1 << depth) - 1
     return 10.0 * np.log10((maxval * maxval) * float(width * height) / wsse_final)
+
+
+def wsse_db(wsse, *, width: int, height: int, depth: int = 8) -> list[float]:
+    """XPSNR in dB of each frame of a batch from its weighted SSE (B,)
+    (ops/kernels/xpsnr.py ``xpsnr_wsse``: ``xpsnr_weights``' sum for frames
+    above 640x480), on the host: the rounding and the dB of B scalars."""
+    kw = dict(width=width, height=height, depth=depth)
+    return [xpsnr_db(_wsse_final(float(w), **kw), **kw) for w in wsse]
 
 
 def frames_db(stats: dict, *, width: int, height: int, depth: int = 8) -> list[float]:
