@@ -12,14 +12,18 @@ One run: set-up (the program's import, the device, the engine and its
 models, the ring made on the device from the seed, two warm batches, which
 load the kernel library, or build it on a checkout's first run, and start
 the stream), then the window: batches from the ring through the engine's
-``compute_frames`` (program.py), one after another on one stream, each
-handed over once the last one's per-frame scores are Python floats on the
-host, until ``seconds`` have passed.  The harness's spans (trace.py) time
-each batch and its phases on the host clock.  With ``trace`` a second
-window of at most ``TRACE_SECONDS`` follows under the profiler.  After the
-windows: the peak of device memory, the program's state freed, the check
-against the reference, and the guard that neither JAX nor the JAX package
-was loaded.
+``compute_frames``, one after another on one stream, each handed over once
+the last one's per-frame scores are Python floats on the host, until
+``seconds`` have passed.  The workload's ``feed`` picks the program
+(``FEEDS``): the ring's planes handed to the engine's step on the card
+(program.py, the default), or host frames through the engine's own
+``compute_all``, stack, upload and prefetcher (program_host.py), whose
+traced runs also record the engine's own spans over the untraced window
+(``Run.records``).  The harness's spans (trace.py) time each batch and its
+phases on the host clock.  With ``trace`` a second window of at most
+``TRACE_SECONDS`` follows under the profiler.  After the windows: the peak
+of device memory, the program's state freed, the check against the
+reference, and the guard that neither JAX nor the JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -36,8 +40,10 @@ import torch
 
 from portbench import check, roofline
 from portbench.program import ResidentEngine
+from portbench.program_host import HostEngine
 from portbench.trace import Spans, recording
 from portbench.traffic import make_ring
+from turbo_metrics_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent
 # Top-level module names that no run may load (compared whole: the port's
@@ -47,6 +53,10 @@ WARM_BATCHES = 2
 # A traced run's second window lasts at most this long: the trace's
 # reduction grows with the events recorded, and a run ends within 360 s.
 TRACE_SECONDS = 3.0
+# A workload's "feed" ("resident" where it names none): its program, and
+# whether a ``--trace 1`` run records the engine's own spans and counters
+# (utils/profiling.py) across its untraced window.
+FEEDS = {"resident": (ResidentEngine, False), "host": (HostEngine, True)}
 
 
 def load_json(path: Path) -> dict:
@@ -94,7 +104,9 @@ def loaded_forbidden() -> list[str]:
 class Run:
     """What the metric readers read: the host clock's readings of the
     window (``spans_s``: each span's seconds, trace.SPANS), the least work
-    of a batch, and with ``--trace 1`` the trace of the second window."""
+    of a batch, with ``--trace 1`` the trace of the second window, and in a
+    feed that records them the engine's spans and counters of the untraced
+    window (``records``, utils/profiling.Records)."""
 
     setup_s: float
     window_s: float
@@ -103,6 +115,7 @@ class Run:
     spans_s: dict
     work: roofline.Work
     trace: object = None
+    records: object = None
 
 
 class Cell:
@@ -114,8 +127,10 @@ class Cell:
         self.device = torch.device(device)
         self.width, self.height = size or (self.config["width"], self.config["height"])
         b = self.workload["batch"]
-        self.program = ResidentEngine(self.config, self.width, self.height,
-                                      batch=None if b == "default" else int(b), device=self.device)
+        self.feed = self.workload.get("feed", "resident")
+        program, self.records_spans = FEEDS[self.feed]
+        self.program = program(self.config, self.width, self.height,
+                               batch=None if b == "default" else int(b), device=self.device)
         self.batch = self.program.batch
         self.ring = make_ring(self.workload, self.width, self.height, self.batch, self.seed, self.device)
         self.program.attach(self.ring, self.workload)
@@ -127,6 +142,8 @@ class Cell:
     def batch_scores(self) -> list:
         """Run the next batch of the ring through the program: its frames'
         scores (``FrameScores``)."""
+        if self.feed == "host":
+            return [s for _, s in self._host_blocks(1, float("inf"))]
         with self.spans("pb.batch"):
             scores = self.program.run_block(self.next_block % self.ring.blocks)
         self.next_block += 1
@@ -135,6 +152,12 @@ class Cell:
     def window(self, seconds: float, max_batches: int | None = None):
         """Batches until ``seconds`` have passed (or ``max_batches`` ran):
         (window seconds, per-batch latencies, answers)."""
+        if self.feed == "host":
+            t0 = time.perf_counter()
+            done = len(self.spans.seconds["pb.batch"])
+            scored = self._host_blocks(max_batches, t0 + seconds)
+            return (time.perf_counter() - t0, self.spans.seconds["pb.batch"][done:],
+                    [(t, s.to_dict()) for t, s in scored])
         answers, lat = [], []
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < seconds and (max_batches is None or len(lat) < max_batches):
@@ -144,6 +167,12 @@ class Cell:
             lat.append(time.perf_counter() - tb)
             answers += [(first + j, s.to_dict()) for j, s in enumerate(scores)]
         return time.perf_counter() - t0, lat, answers
+
+    def _host_blocks(self, blocks: int | None, deadline: float) -> list:
+        """The host feed's stream from the next block on (``HostEngine.stream``)."""
+        scored = self.program.stream(self.next_block, blocks, deadline)
+        self.next_block += len(scored) // self.batch
+        return scored
 
     def traced_window(self, seconds: float):
         """``window`` under the profiler: (answers, trace)."""
@@ -215,7 +244,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
     setup_s = time.perf_counter() - t_start
     split = [(n, t - p) for (n, t), (_, p) in zip(marks, [("start", t_start)] + marks[:-1])]
     print("set-up: " + ", ".join(f"{n} {s:.3f} s" for n, s in split), file=sys.stderr)
-    window_s, lat, answers = cell.window(seconds)
+    records = None
+    if trace and cell.records_spans:
+        profiling.take()
+        with profiling.tracing():
+            window_s, lat, answers = cell.window(seconds)
+        records = profiling.take()
+    else:
+        window_s, lat, answers = cell.window(seconds)
     spans_s = cell.spans.take()
     tr = None
     if trace:
@@ -225,7 +261,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
         answers += traced
     dev = device_info(cell.device, entry["chips"])
     cell.free_program()
-    run = Run(setup_s, window_s, len(lat) * cell.batch, lat, spans_s, cell.work, tr)
+    run = Run(setup_s, window_s, len(lat) * cell.batch, lat, spans_s, cell.work, tr, records)
     correct, checks = check.judge(cell.gaps(answers)["program"], cell.workload["limits"])
     failed = sum(1 for _, s in answers if not s or not all(v == v for v in s.values()))
     metrics = {}

@@ -27,8 +27,8 @@ def test_a_run_loads_no_jax():
     loaded = _loaded_after(f"""
         import time
         from portbench import harness
-        harness.run_cell("all6_1080p8.yuv420", 5, 0.2, True, t_start=time.perf_counter(), device="cpu",
-                         size={CPU_SIZE!r})
+        for cell in ("all6_1080p8.yuv420", "all6_1080p8.host"):
+            harness.run_cell(cell, 5, 0.2, True, t_start=time.perf_counter(), device="cpu", size={CPU_SIZE!r})
     """)
     assert "turbo_metrics_tpu_torch" in loaded
     assert not loaded & set(harness.FORBIDDEN)

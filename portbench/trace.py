@@ -19,8 +19,10 @@ import time
 from dataclasses import dataclass, field
 
 # A batch, and inside it the engine's step (every launch), the wait for the
-# device, and the host's scoring (the readbacks and float64 scores).
-SPANS = ("pb.batch", "pb.launch", "pb.wait", "pb.score")
+# device, and the host's scoring (the readbacks and float64 scores); in a
+# host-fed cell also the engine's stack and upload of a batch's frames,
+# inside the step.
+SPANS = ("pb.batch", "pb.launch", "pb.wait", "pb.score", "pb.planes")
 
 
 class Spans:
@@ -185,7 +187,7 @@ class Trace:
             t = max(t, b)
         if hi > t:
             gaps.append((t, hi))
-        inner = [(name, self.spans[name]) for name in ("pb.launch", "pb.wait", "pb.score", "pb.batch")]
+        inner = [(name, self.spans[name]) for name in ("pb.planes", "pb.launch", "pb.wait", "pb.score", "pb.batch")]
         totals: dict = {}
         for a, b in gaps:
             mid = (a + b) // 2
